@@ -7,17 +7,34 @@ Phases, in order (any failed check raises and the script exits non-zero):
 2. build: compiles the CUDA kernels from ``mquant_tpu_torch/kernels/csrc``.
 3. kernels: each kernel against its plain PyTorch version at the shapes of
    the main path: int32 accumulators bit-equal, bf16 outputs within 1 ulp;
-   device time per call of kernel and plain version (CUDA-graph replay,
-   L2-cold weights; median of replays).
+   the attention kernels' written cache rows bit-equal and outputs within
+   1e-2 of the plain version's largest magnitude, with cache columns
+   outside [start, pos) poisoned; device time per call of kernel, plain
+   version and, where one exists, the one PyTorch call that computes the
+   same function (``torch._int_mm``, SDPA), by CUDA-graph replay with
+   L2-cold weights / caches (median of replays), beside the least time the
+   card could take (bytes over 3.35 TB/s or operations over the dense peak).
 4. slice: Qwen2-VL-7B at full width and depth 28 with seeded random W4A8
    weights (W8A8 vision tower) serves one full-VLM request (448² image →
    ViT → merger → splice → 1024-token prompt → 128 greedy tokens) and two
-   text requests through ``serve.generate.Generator``; every kernel must have
-   launched; the prefill logits are held against the same forward run
-   through the kernels' plain versions on the card.
+   text requests through ``serve.generate.Generator``; then (a) a document
+   request (896² image → 4096 ViT rows → 1024 image tokens in a 4096-token
+   prompt with M-RoPE positions → 128 greedy tokens: the flash prefill and
+   decode attention over a 4096-row cache) and (b) a ragged batch
+   (``Generator.generate_batch``: 4 text prompts of 300, 77, 1000 and 513
+   tokens, left-padded to 1024, 64 tokens each), each row held against
+   itself served alone through the first CMP_LAYERS layers (prefill
+   logits within the bound, the first 8 tokens equal). Each of the three
+   paths runs with the launch counts set to 0 just before it and must
+   launch every kernel it reaches.
+   Each path's prefill and first 7 decode steps are held against the same
+   forward with the integer products through their plain versions (logits
+   within the bound, greedy tokens equal), and every attention kernel call
+   against its plain version on the call's own inputs.
 5. profile: wall time (best of 3) and, under ``torch.profiler``, device
    busy time, idle share and the largest device items of the vision tower,
-   the prefill and a decode step.
+   the 1024-token prefill and a decode step, then of the 4096-token prefill
+   and a decode step at position ~4100.
 
 Last line of stdout: {"ok": true, "device": {...}}. Usage:
 ``python3 chip_smoke.py [--seed 0]``.
@@ -27,7 +44,10 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
+import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -114,24 +134,56 @@ EDGE_SHAPES = [
 ]
 REPLACES = {
     "w4a8_gemv": "mquant_tpu/kernels/qmm.py:869",
-    "int8_gemv": "mquant_tpu/kernels/qmm.py:613",
+    "int8_gemv": "mquant_tpu/kernels/qmm.py:637",
     "int8_gemm": "mquant_tpu/kernels/qmm.py:840",
+    "attn_decode": "mquant_tpu/kernels/attn_decode.py:206",
+    "flash_attn_causal": "mquant_tpu/models/layers.py:385",
 }
-SOURCE = "mquant_tpu_torch/kernels/csrc/qmm.cu"
+SOURCES = {"w4a8_gemv": "mquant_tpu_torch/kernels/csrc/qmm.cu",
+           "int8_gemv": "mquant_tpu_torch/kernels/csrc/qmm.cu",
+           "int8_gemm": "mquant_tpu_torch/kernels/csrc/qmm.cu",
+           "attn_decode": "mquant_tpu_torch/kernels/csrc/attn.cu",
+           "flash_attn_causal": "mquant_tpu_torch/kernels/csrc/attn.cu"}
 L2_COLD_BYTES = 128 * 2**20
+# published H100 SXM peaks (dense): HBM bytes/s, int8 op/s, bf16 FLOP/s
+HBM_BPS, INT8_OPS, BF16_FLOPS = 3.35e12, 1979e12, 989e12
+
+
+def bound(nbytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
+    """Least time in ms for the work: the larger of bytes over the HBM rate
+    and operations over the dense peak, and which of the two it is."""
+    tb, to = nbytes / HBM_BPS * 1e3, ops / peak_ops * 1e3
+    return (to, "operations") if to >= tb else (tb, "bytes")
+
+
+def new_summary() -> dict:
+    return {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+            "op_bound_ms": 0.0, "library_ms": 0.0, "has_library": True}
+
+
+def add_main(s: dict, ms, pms, bms, bound_by, lms):
+    """Sum one main-path shape into a kernel's summary; the library time
+    stays only if every main-path shape has one."""
+    s["ms"] += ms
+    s["plain_ms"] += pms
+    s["bound_ms"] += bms
+    s["op_bound_ms"] += bms if bound_by == "operations" else 0.0
+    if lms is None:
+        s["has_library"] = False
+    else:
+        s["library_ms"] += lms
 
 
 def check_kernels(seed: int) -> dict:
-    """Phase 3. Returns per-kernel summaries (max error, summed times over
-    the main-path shapes)."""
+    """Phase 3, integer kernels. Returns per-kernel summaries (max error,
+    times and bounds summed over the main-path shapes)."""
     import torch
 
     from mquant_tpu_torch.kernels import qmm
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev = torch.device("cuda")
-    summary = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
-               for k in REPLACES}
+    summary = {k: new_summary() for k in qmm.KERNELS}
     for name, label, M, K, N, packed in KERNEL_SHAPES + EDGE_SHAPES:
         main = (name, label, M, K, N, packed) in KERNEL_SHAPES
         rows = K // 2 if packed else K
@@ -168,55 +220,392 @@ def check_kernels(seed: int) -> dict:
                                     torch.bfloat16, **extra), 20)
         pms = cuda_ms(lambda i: plain(x, xs, ws_cold[i % len(ws_cold)], ws,
                                       torch.bfloat16, **extra), 4, reps=3)
+        # one library call on the same int8 operands: torch._int_mm (W8
+        # only; it needs more than 16 rows, so a GEMV's rows are padded to
+        # 32); no single call computes the packed-W4 product
+        lms = None
+        if not packed and main:
+            xl = x if M > 16 else torch.nn.functional.pad(x, (0, 0, 0, 32 - M))
+            lms = cuda_ms(lambda i: torch._int_mm(
+                xl, ws_cold[i % len(ws_cold)]), 20)
+        nbytes = wbytes + M * K + 2 * M * N + 4 * (M + N)
+        bms, by = bound(nbytes, 2 * M * K * N, INT8_OPS)
+        lib_txt = "none" if lms is None else f"{lms:.4f} ms"
         log(f"kernel {name:10s} {label:18s} M={M:5d} K={K:6d} N={N:6d}: "
             f"acc exact, bf16 max |d| {err:.3g} ({ulps:.2f} ulp); "
-            f"{ms:.4f} ms vs plain {pms:.4f} ms; weight stream "
+            f"{ms:.4f} ms vs plain {pms:.4f} ms, library {lib_txt}, bound "
+            f"{bms:.4f} ms ({by}); weight stream "
             f"{wbytes / ms / 1e6:.1f} GB/s, {2 * M * K * N / ms / 1e9:.2f} "
             f"TOP/s")
         s = summary[name]
         s["max_abs_err"] = max(s["max_abs_err"], err)
         if main:
-            s["ms"] += ms
-            s["plain_ms"] += pms
+            add_main(s, ms, pms, bms, by, lms)
         del x, w, ws_cold, acc_k, acc_p, y_k, y_p
     torch.cuda.empty_cache()
     return summary
 
 
-@contextlib.contextmanager
-def plain_kernels():
-    """Route the integer products through the kernels' plain versions."""
-    from mquant_tpu_torch.kernels import qmm
+ATTN_RTOL = 1e-2  # attention outputs: max |Δ| ≤ ATTN_RTOL · max |plain|
+KVH, HD, HEADS = 4, 128, 28  # Qwen2-VL-7B's attention widths
+# decode attention (label, B, S, pos, start, main path): the 1024-token
+# request's first and last decode steps and the document request's last, on
+# the bucketed 8192-row cache; the ragged batch's per-row start; per-row pos;
+# a short context where every column weighs ~1/36 of the output (a dropped
+# column or new-token term fails the bound), with host ints by value
+DECODE_SHAPES = [
+    ("decode pos 40, start 5", 1, 8192, 40, 5, False),
+    ("decode pos 1024", 1, 8192, 1024, None, True),
+    ("decode pos 1151", 1, 8192, 1151, None, True),
+    ("doc decode pos 4223", 1, 8192, 4223, None, True),
+    ("batch 4, per-row start", 4, 8192, 1030, [0, 37, 500, 724], True),
+    ("batch 4, per-row pos", 4, 8192, [1030, 700, 4223, 1],
+     [0, 37, 500, 0], False),
+]
+# causal flash prefill (label, T, main path)
+FLASH_SHAPES = [("prefill T 2048", 2048, False),
+                ("doc prefill T 4096", 4096, True)]
 
-    saved = dict(qmm.KERNELS)
-    qmm.KERNELS.update(qmm.PLAIN)
+
+def _attn_err(out, ref, label):
+    """(max |d|, the same in bf16 ulps at max |ref|, max |ref|); fails
+    outside the bound or on a non-finite output."""
+    import torch
+
+    err = float((out.float() - ref.float()).abs().max())
+    mag = float(ref.float().abs().max())
+    if not bool(torch.isfinite(out.float()).all()) or err > ATTN_RTOL * mag:
+        raise AssertionError(f"{label}: max |d| {err} against max |ref| {mag}")
+    return err, err / 2.0 ** (math.floor(math.log2(mag)) - 7), mag
+
+
+def check_attention(seed: int) -> dict:
+    """Phase 3, attention kernels, with the cache columns outside
+    [start, pos) poisoned. Returns summaries as :func:`check_kernels`."""
+    import torch
+    import torch.nn.functional as F
+
+    from mquant_tpu_torch.kernels import attn_decode as TA
+    from mquant_tpu_torch.kernels import flash_attn as TF
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+
+    def r(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    summary = {"attn_decode": new_summary(), "flash_attn_causal": new_summary()}
+    scale = HD**-0.5
+    for label, B, S, pos, start, main in DECODE_SHAPES:
+        q, kn, vn = r(B, 1, HEADS, HD), r(B, 1, KVH, HD), r(B, 1, KVH, HD)
+        kc, vc = r(B, S, KVH, HD), r(B, S, KVH, HD)
+        p = torch.as_tensor(pos, device=dev).reshape(-1).expand(B)
+        st = torch.as_tensor(0 if start is None else start,
+                             device=dev).reshape(-1).expand(B)
+        cols = torch.arange(S, device=dev)[None]
+        bad = ((cols < st[:, None]) | (cols >= p[:, None]))[..., None, None]
+        kc.masked_fill_(bad, 50.0)  # a read of either swamps the output
+        vc.masked_fill_(bad, 3e4)
+        kc_p, vc_p = kc.clone(), vc.clone()
+        pos_a = pos if isinstance(pos, int) else p.to(torch.int32)
+        st_a = start if start is None or isinstance(start, int) else \
+            st.to(torch.int32)
+        out, _, _ = TA.attn_decode(q, kn, vn, kc, vc, pos_a, scale, start=st_a)
+        ref, _, _ = TA.attn_decode_ref(q, kn, vn, kc_p, vc_p, pos_a, scale,
+                                       start=st_a)
+        torch.cuda.synchronize()
+        if not (torch.equal(kc, kc_p) and torch.equal(vc, vc_p)):
+            raise AssertionError(f"attn_decode [{label}]: cache rows differ")
+        err, ulps, mag = _attn_err(out, ref, f"attn_decode [{label}]")
+        # timed calls cycle over cache copies beyond the 50 MB L2, as the 28
+        # layers' caches are at decode
+        cbytes = 2 * kc.numel() * 2
+        n_copy = max(1, min(8, -(-L2_COLD_BYTES // cbytes)))
+        caches = [(kc, vc)] + [(kc.clone(), vc.clone())
+                               for _ in range(n_copy - 1)]
+        ms = cuda_ms(lambda i: TA.attn_decode(
+            q, kn, vn, *caches[i % n_copy], pos_a, scale, start=st_a), 20)
+        pms = cuda_ms(lambda i: TA.attn_decode_ref(
+            q, kn, vn, *caches[i % n_copy], pos_a, scale, start=st_a), 4,
+            reps=3)
+        # SDPA over the attended columns start ≤ col ≤ pos, without the
+        # cache write (the same number of K/V rows as the kernel reads)
+        amask = ((cols >= st[:, None]) & (cols <= p[:, None]))[:, None, None]
+        qt = q.transpose(1, 2)
+        lms = cuda_ms(lambda i: F.scaled_dot_product_attention(
+            qt, caches[i % n_copy][0].transpose(1, 2),
+            caches[i % n_copy][1].transpose(1, 2), attn_mask=amask,
+            scale=scale, enable_gqa=True), 20)
+        cols_read = int((p - st).clamp(min=0).sum())
+        nbytes = (2 * cols_read * KVH * HD * 2 + 2 * B * HEADS * HD * 2
+                  + 4 * B * KVH * HD * 2)
+        bms, by = bound(nbytes, 4 * HEADS * HD * (cols_read + B), BF16_FLOPS)
+        log(f"kernel attn_decode {label:24s} B={B} S={S}: cache rows equal, "
+            f"max |d| {err:.3g} ({ulps:.2f} bf16 ulp at max |ref| {mag:.3g}); "
+            f"{ms:.4f} ms vs plain {pms:.4f} ms, SDPA {lms:.4f} ms, bound "
+            f"{bms:.3g} ms ({by}); {nbytes / ms / 1e6:.1f} GB/s")
+        s = summary["attn_decode"]
+        s["max_abs_err"] = max(s["max_abs_err"], err)
+        if main:
+            add_main(s, ms, pms, bms, by, lms)
+        del q, kn, vn, kc, vc, kc_p, vc_p, caches, out, ref
+    for label, T, main in FLASH_SHAPES:
+        q, k, v = r(1, T, HEADS, HD), r(1, T, KVH, HD), r(1, T, KVH, HD)
+        out = TF.flash_attention_causal(q, k, v, scale)
+        ref = TF.flash_attention_causal_ref(q, k, v, scale)
+        torch.cuda.synchronize()
+        err, ulps, mag = _attn_err(out, ref, f"flash_attn_causal [{label}]")
+        del ref
+        ms = cuda_ms(lambda i: TF.flash_attention_causal(q, k, v, scale), 10)
+        pms = cuda_ms(lambda i: TF.flash_attention_causal_ref(q, k, v, scale),
+                      2, reps=3)
+        torch.cuda.empty_cache()
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lms = cuda_ms(lambda i: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, scale=scale, enable_gqa=True), 10)
+        flops = 4 * HEADS * HD * T * T / 2
+        nbytes = (2 * q.numel() + 2 * 2 * k.numel()) * 2
+        bms, by = bound(nbytes, flops, BF16_FLOPS)
+        log(f"kernel flash_attn_causal {label:20s} H={HEADS} KVH={KVH}: "
+            f"max |d| {err:.3g} ({ulps:.2f} bf16 ulp at max |ref| {mag:.3g}); "
+            f"{ms:.4f} ms vs plain {pms:.4f} ms, SDPA {lms:.4f} ms, bound "
+            f"{bms:.4f} ms ({by}); {flops / ms / 1e9:.1f} TFLOP/s")
+        s = summary["flash_attn_causal"]
+        s["max_abs_err"] = max(s["max_abs_err"], err)
+        if main:
+            add_main(s, ms, pms, bms, by, lms)
+        del q, k, v, out
+    torch.cuda.empty_cache()
+    return summary
+
+
+def kernel_modules():
+    from mquant_tpu_torch.kernels import attn_decode, flash_attn, qmm
+
+    return (qmm, attn_decode, flash_attn)
+
+
+@contextlib.contextmanager
+def plain_kernels(only=None):
+    """Route the integer products and the attention (or only the kernels
+    of the modules named in ``only``) through the kernels' plain
+    versions."""
+    mods = [m for m in kernel_modules()
+            if only is None or m.__name__.rsplit(".", 1)[1] in only]
+    saved = [dict(m.KERNELS) for m in mods]
+    for m in mods:
+        m.KERNELS.update(m.PLAIN)
     try:
         yield
     finally:
-        qmm.KERNELS.update(saved)
+        for m, sv in zip(mods, saved):
+            m.KERNELS.update(sv)
+
+
+def reset_launches():
+    for m in kernel_modules():
+        for k in m.LAUNCHES:
+            m.LAUNCHES[k] = 0
+
+
+def read_launches(path: str, needed) -> dict:
+    """The launch counts since :func:`reset_launches`; fails if a kernel of
+    ``needed`` never launched on this path."""
+    counts = {k: n for m in kernel_modules() for k, n in m.LAUNCHES.items()}
+    log(f"{path}: launches {counts}")
+    missing = [k for k in needed if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"{path}: kernels never launched: {missing}")
+    return counts
 
 
 PREFILL = 1024  # the full-VLM request of bench.py: 1024-token prompt
 GEN_TOKENS = 128  # + 128 greedy tokens
 TEXT_PROMPTS = (300, 77)  # two text-only requests of different lengths
 TEXT_TOKENS = 64
-# logits held against the plain-kernel run: max |Δ| ≤ LOGIT_RTOL · max |ref|.
-# Both runs compute bit-equal int32 accumulators and the same f32 epilogue,
-# so the expected difference is 0; the bound leaves room only for bf16
-# rounding in the float ops around the kernels.
+DOC_SIDE, DOC_PROMPT, DOC_TOKENS = 896, 4096, 128  # the document request
+BATCH_PROMPTS, BATCH_TOKENS = (300, 77, 1000, 513), 64  # the ragged batch
+N_CMP = 8  # greedy steps compared with the plain-kernel run
+# logits held where two runs should agree: max |Δ| ≤ LOGIT_RTOL · max |ref|
 LOGIT_RTOL = 1e-2
+# The integer kernels' int32 accumulators are bit-equal to their plain
+# versions'; the attention kernels round the probabilities to bf16 at other
+# points. These random weights meet coarse static int8 activation scales (0.05
+# for attention outputs of magnitude ~0.2), so a rounding difference flips
+# int8 codes and grows through the layers: the depth-28 logits of two runs
+# that round differently are far outside any useful bound. So
+# each path is held against a run with the integer products through their
+# plain versions and the (deterministic) attention kernels on both sides:
+# prefill and decode logits equal (max |d| 0 expected), greedy tokens equal;
+# and every attention kernel call against its plain version on the call's
+# own inputs (shadow_attention). A ragged batch row against the row alone
+# (the einsum's masked pad columns, other reduction lengths) is held through
+# the first CMP_LAYERS layers: last-token prefill logits within the bound
+# (max |d| 0) and all N_CMP greedy tokens equal. One layer is the deepest
+# cut that can agree exactly: its output hidden states already differ at
+# some positions (an int8 activation code that rounded otherwise; printed),
+# which the next layer spreads to the last token's logits.
+CMP_LAYERS = 1
+# kernels each path must launch
+SLICE_KERNELS = ("w4a8_gemv", "int8_gemv", "int8_gemm", "attn_decode")
+DOC_KERNELS = SLICE_KERNELS + ("flash_attn_causal",)
+BATCH_KERNELS = SLICE_KERNELS
 
 
-def run_slice(seed: int, card: str) -> dict:
-    """Phase 4. Serves one full-VLM and two text requests at Qwen2-VL-7B
-    widths; returns the kernel launch counts of that main-path run."""
+def check_close(what: str, out, ref, quiet: bool = False) -> float:
+    """max |out − ref| ≤ LOGIT_RTOL · max |ref|, finite, same shape; returns
+    max |out − ref|."""
+    import torch
+
+    out, ref = out.float(), ref.float()
+    if out.shape != ref.shape or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{what}: shape {tuple(out.shape)} vs "
+                             f"{tuple(ref.shape)} or non-finite values")
+    err = float((out - ref).abs().max())
+    mag = float(ref.abs().max())
+    if not quiet or err > LOGIT_RTOL * mag:
+        log(f"{what}: max |d| {err:.3g} (max |ref| {mag:.3g}, bound "
+            f"{LOGIT_RTOL} x max |ref|)")
+    if err > LOGIT_RTOL * mag:
+        raise AssertionError(f"{what}: outside the bound")
+    return err
+
+
+@contextlib.contextmanager
+def shadow_attention(path: str):
+    """Every attention kernel call also runs the kernel's plain version on
+    copies of the same inputs and is held against it: output within
+    ATTN_RTOL of the plain version's largest magnitude, written cache rows
+    bit-equal. Only plain versions run beside, so launch counts are
+    untouched."""
+    import torch
+
+    from mquant_tpu_torch.kernels import attn_decode as TA
+    from mquant_tpu_torch.kernels import flash_attn as TF
+
+    kd, kf = TA.KERNELS["attn_decode"], TF.KERNELS["flash_attn_causal"]
+    worst = {"attn_decode": [0, 0.0], "flash_attn_causal": [0, 0.0]}
+
+    def held(name, out, ref):
+        w = worst[name]
+        w[0] += 1
+        err, _, mag = _attn_err(out, ref, f"{path}: {name} call {w[0]}")
+        w[1] = max(w[1], err / mag)
+
+    def decode(q, kn, vn, kc, vc, pos, scale, start=None):
+        kc_p, vc_p = kc.clone(), vc.clone()
+        ref, _, _ = TA.PLAIN["attn_decode"](q, kn, vn, kc_p, vc_p, pos, scale,
+                                            start=start)
+        out = kd(q, kn, vn, kc, vc, pos, scale, start=start)
+        if not (torch.equal(kc, kc_p) and torch.equal(vc, vc_p)):
+            raise AssertionError(f"{path}: attn_decode cache rows differ")
+        held("attn_decode", out[0], ref)
+        return out
+
+    def flash(q, k, v, scale):
+        out = kf(q, k, v, scale)
+        held("flash_attn_causal", out, TF.PLAIN["flash_attn_causal"](
+            q, k, v, scale))
+        return out
+
+    TA.KERNELS["attn_decode"], TF.KERNELS["flash_attn_causal"] = decode, flash
+    try:
+        yield
+    finally:
+        TA.KERNELS["attn_decode"], TF.KERNELS["flash_attn_causal"] = kd, kf
+    log(f"{path}: every attention kernel call held against its plain "
+        "version on its own inputs: "
+        + ", ".join(f"{k} {n} calls, max |d| {r:.3g} of max |plain|"
+                    for k, (n, r) in worst.items() if n))
+
+
+def against_plain(path: str, gen, prefill, attn_start=None):
+    """The kernel run's prefill (``prefill()`` → (logits (B, V), cache)) and
+    N_CMP − 1 greedy steps under :func:`shadow_attention`, each held against
+    the same prefill or step (from a copy of the kernel run's cache) with the
+    integer products through their plain versions: logits within the bound
+    and the same greedy tokens."""
+    import torch
+
+    with shadow_attention(path):
+        logits_k, cache = prefill()
+        with plain_kernels(("qmm",)):
+            check_close(f"{path}: prefill logits vs plain qmm", logits_k,
+                        prefill()[0])
+        worst = 0.0
+        for step in range(1, N_CMP):
+            tok = logits_k.argmax(dim=-1).to(torch.int32)[:, None]
+            copy_p = {**cache, "k": cache["k"].clone(),
+                      "v": cache["v"].clone()}
+            with plain_kernels(("qmm",)):
+                logits_p = gen._forward(tok, copy_p, attn_start=attn_start)[
+                    0][:, -1]
+            lk, cache = gen._forward(tok, cache, attn_start=attn_start)
+            logits_k = lk[:, -1]
+            what = f"{path}: decode step {step} logits vs plain qmm"
+            worst = max(worst, check_close(what, logits_k, logits_p, True))
+            if not torch.equal(logits_k.argmax(-1), logits_p.argmax(-1)):
+                raise AssertionError(f"{what}: greedy tokens differ")
+    log(f"{path}: {N_CMP - 1} decode steps vs plain qmm: logits max |d| "
+        f"{worst:.3g}, greedy tokens equal")
+
+
+@contextlib.contextmanager
+def layer_outputs(store: list):
+    """Appends every decoder layer's output hidden states to ``store``."""
+    from mquant_tpu_torch.models import llm
+
+    step = llm._layer_step
+
+    def recorded(*a, **kw):
+        h = step(*a, **kw)
+        store.append(h)
+        return h
+
+    llm._layer_step = recorded
+    try:
+        yield
+    finally:
+        llm._layer_step = step
+
+
+def depth_cut(gen, n: int):
+    """``gen`` with only its first ``n`` decoder layers: the weights and the
+    quant state are views of the same tensors."""
+    import torch
+
+    from mquant_tpu_torch.models.llm import LLM_SITES
+
+    def cut(t):
+        if isinstance(t, dict):
+            return {k: cut(v) for k, v in t.items()}
+        if isinstance(t, tuple) and hasattr(t, "_fields"):
+            return type(t)(*(None if v is None else cut(v) for v in t))
+        return t[:n] if isinstance(t, torch.Tensor) else t
+
+    sites = {"llm." + s for s in LLM_SITES}
+    g = copy.copy(gen)
+    g.cfg = dataclasses.replace(gen.cfg, n_layers=n)
+    g.params = {**gen.params, "layers": cut(gen.params["layers"])}
+    g.state = {k: cut(v) if k in sites else v for k, v in gen.state.items()}
+    return g
+
+
+def check_tokens(path: str, out, n: int, vocab: int):
+    import torch
+
+    out = torch.as_tensor(out)
+    if out.shape[-1] != n or int(out.min()) < 0 or int(out.max()) >= vocab:
+        raise AssertionError(f"{path}: bad generated tokens "
+                             f"{tuple(out.shape)}")
+
+
+def build_model(seed: int) -> dict:
+    """Qwen2-VL-7B widths, depth 28, seeded W4A8 LLM + W8A8 vision tower."""
     import torch
 
     from mquant_tpu_torch import random_init as R
-    from mquant_tpu_torch.kernels import qmm
-    from mquant_tpu_torch.models.qwen2vl import (Qwen2VLConfig,
-                                                 splice_image_embeds)
-    from mquant_tpu_torch.models.vision import merger_forward, vit_forward
+    from mquant_tpu_torch.models.qwen2vl import Qwen2VLConfig
     from mquant_tpu_torch.serve.generate import Generator
 
     dev = torch.device("cuda")
@@ -226,99 +615,105 @@ def run_slice(seed: int, card: str) -> dict:
     t0 = time.perf_counter()
     params, state = R.init_w4a8(cfg, g, dev)
     vp, mp, vstate = R.init_vision_w8a8(vcfg.vit, vcfg.merger, g, dev)
-    specs, vspecs = R.llm_specs(), R.vision_specs()
-    gen = Generator(cfg, params, specs=specs, state=state, mode="real",
-                    max_len=PREFILL + GEN_TOKENS)
+    gen = Generator(cfg, params, specs=R.llm_specs(), state=state,
+                    mode="real", max_len=PREFILL + GEN_TOKENS)
     del params
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     log(f"slice: Qwen2-VL-7B widths, depth {cfg.n_layers}, W4A8 LLM + W8A8 vision "
         f"built in {time.perf_counter() - t0:.1f} s; "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    return dict(gen=gen, vcfg=vcfg, vp=vp, mp=mp, vstate=vstate,
+                vspecs=R.vision_specs(), g=g, dev=dev)
 
+
+def image_request(m: dict, side: int, prefill: int):
+    """(embeds() → (spliced prompt embeddings, merger output), tokens) of a
+    request with one side × side image in a ``prefill``-token prompt."""
+    from mquant_tpu_torch import random_init as R
+    from mquant_tpu_torch.models.qwen2vl import splice_image_embeds
+    from mquant_tpu_torch.models.vision import merger_forward, vit_forward
+
+    vcfg, gen = m["vcfg"], m["gen"]
     patches, grid, toks = R.vlm_inputs(vcfg.image_token_id,
-                                       vcfg.vit.patch_dim, PREFILL, g, dev)
-    texts = [torch.randint(0, cfg.vocab, (1, n), generator=g, device=dev)
-             for n in TEXT_PROMPTS]
+                                       vcfg.vit.patch_dim, prefill, m["g"],
+                                       m["dev"], side=side)
 
     def embeds():
-        feats, _ = vit_forward(vcfg.vit, vp, patches, vspecs, vstate, "real",
-                               grid_hw=grid)
-        merged, _ = merger_forward(vcfg.merger, mp, feats, vspecs, vstate,
-                                   "real")
+        feats, _ = vit_forward(vcfg.vit, m["vp"], patches, m["vspecs"],
+                               m["vstate"], "real", grid_hw=grid)
+        merged, _ = merger_forward(vcfg.merger, m["mp"], feats, m["vspecs"],
+                                   m["vstate"], "real")
         emb = gen.params["embed"]["w"][toks]
         return splice_image_embeds(emb, toks, merged,
                                    vcfg.image_token_id), merged
 
-    first_token_at = []
+    return embeds, toks
 
-    def mark_first_token(_tok):
+
+def timed_request(gen, x, n: int, **kw):
+    """One request through ``generate_on_device``: (tokens, request s, TTFT
+    s), the clock stamped at the first token after a synchronize."""
+    import torch
+
+    first = []
+
+    def mark(_tok):
         torch.cuda.synchronize()
-        first_token_at.append(time.perf_counter())
+        first.append(time.perf_counter())
 
+    t0 = time.perf_counter()
+    x = x() if callable(x) else x
+    out = gen.generate_on_device(x, max_new_tokens=n, on_first_token=mark,
+                                 **kw)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, first[0] - t0
+
+
+def run_slice(m: dict, card: str) -> dict:
+    """Phase 4. Serves one full-VLM and two text requests at Qwen2-VL-7B
+    widths; returns the kernel launch counts of that main-path run."""
+    import torch
+
+    gen = m["gen"]
+    cfg = gen.cfg
+    embeds, _ = image_request(m, 448, PREFILL)
+    texts = [torch.randint(0, cfg.vocab, (1, n), generator=m["g"],
+                           device=m["dev"]) for n in TEXT_PROMPTS]
     with torch.no_grad():
         # warm-up request (allocator, cuBLAS handles); not counted
         gen.generate_on_device(embeds()[0], max_new_tokens=4)
         torch.cuda.synchronize()
 
         # the main path, counted: one full-VLM request + two text requests
-        for k in qmm.LAUNCHES:
-            qmm.LAUNCHES[k] = 0
+        reset_launches()
         torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        emb, merged = embeds()
-        out_vlm = gen.generate_on_device(emb, max_new_tokens=GEN_TOKENS,
-                                         on_first_token=mark_first_token)
-        torch.cuda.synchronize()
-        t_req = time.perf_counter() - t0
-        # time to first token and decode rate of this same request
-        ttft = first_token_at[0] - t0
+        held = {}
+
+        def vlm():
+            held["emb"], held["merged"] = embeds()
+            return held["emb"]
+
+        out_vlm, t_req, ttft = timed_request(gen, vlm, GEN_TOKENS)
         decode_tps = (GEN_TOKENS - 1) / (t_req - ttft)
         outs_txt, t_txt = [], []
         for t in texts:
-            t0 = time.perf_counter()
-            outs_txt.append(gen.generate_on_device(t, TEXT_TOKENS))
-            torch.cuda.synchronize()
-            t_txt.append(time.perf_counter() - t0)
-        launches = dict(qmm.LAUNCHES)
+            o, s, _ = timed_request(gen, t, TEXT_TOKENS)
+            outs_txt.append(o)
+            t_txt.append(s)
+        launches = read_launches("slice", SLICE_KERNELS)
         peak = torch.cuda.max_memory_allocated() / 2**30
-        log(f"slice: launches in the main-path run {launches}")
-        missing = [k for k, n in launches.items() if n <= 0]
-        if missing:
-            raise AssertionError(f"kernels never launched on the main path: "
-                                 f"{missing}")
-        for o, n in [(out_vlm, GEN_TOKENS)] + [(o, TEXT_TOKENS)
-                                               for o in outs_txt]:
-            if o.shape != (1, n) or int(o.min()) < 0 or \
-                    int(o.max()) >= cfg.vocab:
-                raise AssertionError(f"bad generated tokens {tuple(o.shape)}")
+        check_tokens("slice", out_vlm, GEN_TOKENS, cfg.vocab)
+        for o in outs_txt:
+            check_tokens("slice", o, TEXT_TOKENS, cfg.vocab)
 
         # the same forward with the kernels' plain versions on the card
-        logits_k, _ = gen.prefill(emb)
-        n_cmp = min(8, GEN_TOKENS)
+        emb = held["emb"]
         with plain_kernels():
-            emb_p, merged_p = embeds()
-            logits_p, _ = gen.prefill(emb_p)
-            out_p = gen.generate_on_device(emb_p, max_new_tokens=n_cmp)
-        torch.cuda.synchronize()
-    v_err = float((merged.float() - merged_p.float()).abs().max())
-    v_ref = float(merged_p.float().abs().max())
-    if not torch.isfinite(logits_k).all():
-        raise AssertionError("non-finite prefill logits")
-    if logits_k.shape != (1, cfg.vocab):
-        raise AssertionError(f"logits shape {tuple(logits_k.shape)}")
-    l_err = float((logits_k.float() - logits_p.float()).abs().max())
-    l_ref = float(logits_p.float().abs().max())
-    log(f"slice: vs plain kernels on the card: merger out max |d| {v_err:.3g} "
-        f"(max |ref| {v_ref:.3g}); prefill logits max |d| {l_err:.3g} "
-        f"(max |ref| {l_ref:.3g}, bound {LOGIT_RTOL} x max |ref|)")
-    if v_err > LOGIT_RTOL * v_ref or l_err > LOGIT_RTOL * l_ref:
-        raise AssertionError("kernel forward disagrees with the plain forward")
-    if not torch.equal(out_vlm[:, :n_cmp], out_p):
-        raise AssertionError(f"greedy tokens differ: {out_vlm[0, :n_cmp].tolist()}"
-                             f" vs plain {out_p[0].tolist()}")
-    log(f"slice: first {n_cmp} tokens {out_vlm[0, :n_cmp].tolist()} equal the "
-        "plain run")
+            merged_p = embeds()[1]
+        check_close("slice: merger out vs plain kernels", held["merged"],
+                    merged_p)
+        against_plain("slice", gen, lambda: gen.prefill(emb))
     log(f"slice: full-VLM request (448² image, {PREFILL}-token prompt, "
         f"{GEN_TOKENS} tokens) {t_req:.3f} s; TTFT {ttft * 1e3:.1f} ms; "
         f"decode {decode_tps:.1f} tok/s; text requests "
@@ -326,7 +721,125 @@ def run_slice(seed: int, card: str) -> dict:
         f"peak {peak:.2f} GiB; card {card}")
 
     with torch.no_grad():
-        profile_slice(embeds, gen, emb, card)
+        profile_phases([("vision", embeds, 1),
+                        ("prefill", lambda: gen.prefill(emb), 1),
+                        ("decode step", decode_steps(gen, gen.prefill(emb)[1]),
+                         PROFILE_STEPS)], card)
+    return launches
+
+
+def run_document(m: dict, card: str) -> dict:
+    """Phase 4 (a). The document request: an 896² page (64×64 patches, 4096
+    ViT rows, 1024 image tokens at positions 2..1025) in a 4096-token prompt
+    with M-RoPE positions, then 128 greedy tokens. Returns its launch
+    counts; profiles its prefill and a decode step at position ~4100."""
+    import torch
+
+    from mquant_tpu_torch.models.qwen2vl import mrope_positions
+
+    gen = m["gen"]
+    embeds, toks = image_request(m, DOC_SIDE, DOC_PROMPT)
+    g = DOC_SIDE // 14
+    pos = torch.from_numpy(mrope_positions(
+        toks.cpu().numpy(), m["vcfg"].image_token_id,
+        grid_thw=(1, g, g))).to(m["dev"])
+    with torch.no_grad():
+        gen.generate_on_device(embeds()[0], max_new_tokens=2, positions=pos)
+        torch.cuda.synchronize()  # warm-up at the new shapes; not counted
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        held = {}
+
+        def doc():
+            held["emb"], held["merged"] = embeds()
+            return held["emb"]
+
+        out, t_req, ttft = timed_request(gen, doc, DOC_TOKENS, positions=pos)
+        launches = read_launches("document", DOC_KERNELS)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check_tokens("document", out, DOC_TOKENS, gen.cfg.vocab)
+        emb = held["emb"]
+        rows = gen.prefill(emb, positions=pos)[1]["k"].shape[2]
+        if rows != 8192:
+            raise AssertionError(f"document: cache of {rows} rows, not 8192")
+        with plain_kernels():
+            merged_p = embeds()[1]
+        check_close("document: merger out vs plain kernels", held["merged"],
+                    merged_p)
+        against_plain("document", gen,
+                      lambda: gen.prefill(emb, positions=pos))
+        del merged_p
+        torch.cuda.empty_cache()
+    log(f"document: request (896² image, {DOC_PROMPT}-token prompt, "
+        f"{DOC_TOKENS} tokens, M-RoPE) {t_req:.3f} s; TTFT "
+        f"{ttft * 1e3:.1f} ms; decode {(DOC_TOKENS - 1) / (t_req - ttft):.1f}"
+        f" tok/s; peak {peak:.2f} GiB; card {card}")
+    with torch.no_grad():
+        profile_phases(
+            [("prefill 4096 (document)",
+              lambda: gen.prefill(emb, positions=pos), 1),
+             ("decode step at pos ~4100",
+              decode_steps(gen, gen.prefill(emb, positions=pos)[1]),
+              PROFILE_STEPS)], card)
+    return launches
+
+
+def run_batch(m: dict, card: str) -> dict:
+    """Phase 4 (b). ``Generator.generate_batch`` on 4 ragged text prompts,
+    each row held against itself served alone through
+    ``generate_on_device``. Returns its launch counts."""
+    import torch
+
+    gen = m["gen"]
+    V = gen.cfg.vocab
+    texts = [torch.randint(0, V, (n,), generator=m["g"], device=m["dev"])
+             for n in BATCH_PROMPTS]
+    with torch.no_grad():
+        gen.generate_batch(texts, max_new_tokens=2)  # warm-up; not counted
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        outs = gen.generate_batch(texts, max_new_tokens=BATCH_TOKENS)
+        torch.cuda.synchronize()
+        t_b = time.perf_counter() - t0
+        launches = read_launches("batch", BATCH_KERNELS)
+        check_tokens("batch", outs, BATCH_TOKENS, V)
+        cut = depth_cut(gen, CMP_LAYERS)
+        outs_c = cut.generate_batch(texts, max_new_tokens=N_CMP)
+        hb = []  # the cut's layer outputs, to show why it goes no deeper
+        with layer_outputs(hb):
+            logits_c, _, starts = cut.prefill_batch(texts)
+        for i, t in enumerate(texts):
+            n, st = len(t), int(starts[i])
+            # the row alone at the batch row's positions (start + arange):
+            # the same RoPE angles, so only the masked pad columns and the
+            # batch shape tell the two apart (at positions from 0 the bf16
+            # RoPE products round otherwise)
+            at_pos = (torch.arange(n, device=m["dev"]) + st)[None]
+            ha = []
+            with layer_outputs(ha):
+                logits_1 = cut.prefill(t[None], positions=at_pos)[0]
+            h_b, h_1 = hb[-1][i, st:].float(), ha[-1][0, :n].float()
+            what = f"batch, depth {CMP_LAYERS}: row {i} ({n} tokens)"
+            check_close(f"{what} prefill logits vs alone (layer "
+                        f"{CMP_LAYERS} out, all {n} positions: max |d| "
+                        f"{float((h_b - h_1).abs().max()):.3g} of max |h| "
+                        f"{float(h_1.abs().max()):.3g})", logits_c[i],
+                        logits_1[0])
+            alone = cut.generate_on_device(t[None], max_new_tokens=N_CMP,
+                                           positions=at_pos)[0].tolist()
+            if outs_c[i] != alone:
+                raise AssertionError(f"{what}: tokens {outs_c[i]} vs alone "
+                                     f"{alone}")
+        log(f"batch, depth {CMP_LAYERS}: every row's first {N_CMP} tokens "
+            "equal to the row served alone")
+        del hb, ha
+        against_plain("batch", gen, lambda: gen.prefill_batch(texts)[:2],
+                      attn_start=starts)
+    log(f"batch: generate_batch {len(texts)} prompts {BATCH_PROMPTS} "
+        f"(left-padded to 1024, starts {starts.tolist()}), {BATCH_TOKENS} "
+        f"tokens each: {t_b:.3f} s, {len(texts) * BATCH_TOKENS / t_b:.1f} "
+        f"tok/s; card {card}")
     return launches
 
 
@@ -334,31 +847,31 @@ PROFILE_STEPS = 16  # decode steps per profiled run
 TOP_ITEMS = 6  # device items printed per phase
 
 
-def profile_slice(embeds, gen, emb, card: str):
-    """Phase 5. For the vision tower (ViT + merger + splice), the 1024-token
-    prefill and a decode step: wall time with a synchronize at each end (best
-    of 3), device busy time (sum of the CUDA kernels' self time under
-    ``torch.profiler``), idle share 1 − busy / wall, and the largest device
-    items."""
+def decode_steps(gen, cache0):
+    """PROFILE_STEPS greedy decode steps from a prefilled batch-1 cache (the
+    same rows are rewritten on every call)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    from mquant_tpu_torch.models.llm import decoder_forward
-
-    _, cache0 = gen.prefill(emb)
-    tok0 = torch.zeros((1, 1), dtype=torch.int32, device=emb.device)
+    tok0 = torch.zeros((1, 1), dtype=torch.int32, device=cache0["k"].device)
 
     def decode():
         tok, cache = tok0, cache0
         for _ in range(PROFILE_STEPS):
-            logits, cache = decoder_forward(
-                gen.cfg, gen.params, tok, specs=gen.specs, state=gen.state,
-                mode=gen.mode, cache=cache)
+            logits, cache = gen._forward(tok, cache)
             tok = logits[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
 
-    phases = [("vision", embeds, 1), ("prefill", lambda: gen.prefill(emb), 1),
-              ("decode step", decode, PROFILE_STEPS)]
+    return decode
+
+
+def profile_phases(phases, card: str):
+    """Phase 5. For each (name, fn, calls per run): wall time with a
+    synchronize at each end (best of 3), device busy time (sum of the CUDA
+    kernels' self time under ``torch.profiler``), idle share 1 − busy / wall,
+    and the largest device items."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     for name, fn, per in phases:
         walls = []
         for _ in range(3):
@@ -414,13 +927,24 @@ def main(argv=None) -> int:
 
     # phase 3: kernels vs plain
     summary = check_kernels(args.seed)
+    summary.update(check_attention(args.seed))
 
-    # phases 4 and 5: the main path, then its profile
-    launches = run_slice(seed=args.seed, card=card)
+    # phases 4 and 5: each path of the main path, then its profile
+    model = build_model(args.seed)
+    counts = [run_slice(model, card), run_document(model, card),
+              run_batch(model, card)]
 
-    kernels = [{"name": k, "route": "cuda", "source": SOURCE,
-                "replaces": REPLACES[k], "launches": launches[k],
-                **summary[k]} for k in REPLACES]
+    kernels = []
+    for k in REPLACES:
+        s = summary[k]
+        kernels.append({
+            "name": k, "route": "cuda", "source": SOURCES[k],
+            "replaces": REPLACES[k], "launches": sum(c[k] for c in counts),
+            "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+            "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+            "bound_by": ("operations" if s["op_bound_ms"] * 2 >= s["bound_ms"]
+                         else "bytes"),
+            "library_ms": s["library_ms"] if s["has_library"] else None})
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

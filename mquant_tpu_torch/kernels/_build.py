@@ -2,7 +2,8 @@
 C interface and loads it with ctypes.
 
 The build runs at first use, with ``nvcc -gencode arch=compute_90a,code=sm_90a``
-for Hopper, into ``kernels/build/`` (git-ignored). The library's file name
+for Hopper, into ``kernels/build/`` (git-ignored): one ``nvcc -c`` per source,
+all started together, then one link. The library's file name
 carries a hash of the sources, so an edited source is rebuilt and a stale
 library is never loaded. Nothing here runs at import time: this module is
 imported on machines without a CUDA toolkit.
@@ -25,13 +26,18 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 # C entry points: name -> argument types (every pointer and the stream as
 # c_void_p, so ctypes passes them as 64-bit values)
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # x, w, xs, ws, acc, out, M, K, N, splits, out_kind, stream
     "mq_w4a8_gemv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "mq_int8_gemv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, w, xs, ws, out, M, K, N, w4, out_kind, stream
     "mq_int8_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # q, k_new, v_new, k_cache, v_cache, pos, start, out, part, pos_all,
+    # start_all, B, S, H, KVH, splits, scale, stream
+    "mq_attn_decode": [_P] * 9 + [_I] * 7 + [_F, _P],
+    # q, k, v, out, B, T, H, KVH, scale, stream
+    "mq_flash_attn_causal": [_P] * 4 + [_I] * 4 + [_F, _P],
 }
 
 
@@ -58,6 +64,17 @@ def library_path() -> Path:
     return BUILD_DIR / f"libmquant_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> list[str]:
+    """Run the commands in parallel; their stderr, or raise on a failure."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for c in cmds]
+    errs = [p.communicate()[1] for p in procs]  # waits for every one
+    for p, err in zip(procs, errs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n{err}")
+    return errs
+
+
 def build(verbose: bool = False) -> tuple[Path, float]:
     """Compile the sources if their library is missing. Returns (path,
     seconds spent compiling; 0.0 when the library was already there)."""
@@ -65,19 +82,25 @@ def build(verbose: bool = False) -> tuple[Path, float]:
     if out.exists():
         return out, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-o", str(tmp),
-           *(str(s) for s in _sources())]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
+    nvcc = _nvcc()
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
+    compile_cmds = [[nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler",
+                     "-fPIC", *(["-Xptxas=-v"] if verbose else []), "-c",
+                     "-o", str(obj), str(src)]
+                    for src, obj in zip(_sources(), objs)]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        errs = _run_all(compile_cmds)
+        errs += _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                           *(str(o) for o in objs)]])
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     dt = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    if verbose and res.stderr:
-        print(res.stderr, flush=True)
+    if verbose and any(errs):
+        print("".join(errs), flush=True)
     os.replace(tmp, out)
     return out, dt
 

@@ -1,0 +1,176 @@
+"""Fused one-token GQA decode attention (counterpart of
+``mquant_tpu/kernels/attn_decode.py``).
+
+One call per layer and step: the new token's K/V row is written into the
+cache at row ``pos`` and q attends to the cache columns ``start ≤ col < pos``
+plus the new token, carried as a separate softmax term (the JAX kernel's
+algebra: m = max(max scores, s_new), denom = Σ exp + exp(s_new − m),
+out = P·V + p_new·v_new). :func:`attn_decode` launches the hand-written CUDA
+kernel ``mq_attn_decode`` (``csrc/attn.cu``: split-S partials, then a merge
+that adds the new token and writes the row) for a CUDA tensor, or raises;
+:func:`attn_decode_ref` is its plain version, taken only for a CPU tensor.
+``LAUNCHES`` counts the kernel launches.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Dict
+
+import torch
+
+# kernel launches (read and reset by chip_smoke.py)
+LAUNCHES: Dict[str, int] = {"attn_decode": 0}
+
+HEAD_DIM = 128  # the kernel's head width
+MAX_GROUP = 8  # query heads per KV head the kernel holds in registers
+_COLS_PER_SPLIT = 32  # at least this many cache columns per block
+_MAX_SPLITS = 256  # the merge kernel's shared-memory table
+
+
+def _rows(x, B: int, device) -> torch.Tensor:
+    """A scalar or (B,) index as a contiguous (B,) int32 tensor on
+    ``device`` (a host int becomes a fill, never a host-to-device copy)."""
+    if not isinstance(x, torch.Tensor):
+        return torch.full((B,), int(x), dtype=torch.int32, device=device)
+    t = x.to(device=device, dtype=torch.int32).reshape(-1)
+    if t.numel() not in (1, B):
+        raise ValueError(f"attn_decode: an index of {t.numel()} rows for a "
+                         f"batch of {B}")
+    return (t.expand(B) if t.numel() == 1 else t).contiguous()
+
+
+def _per_row(x, B: int, device):
+    """For the kernel: (None, x) for a host int, which goes by value (no
+    fill kernel per layer), or ((B,) int32 tensor, 0), a no-op for a
+    decode step's int32 (B,) tensor on ``device``."""
+    if isinstance(x, torch.Tensor):
+        return _rows(x, B, device), 0
+    return None, int(x)
+
+
+def _check_shapes(q, k_new, v_new, k_cache, v_cache):
+    if q.ndim != 4 or q.shape[1] != 1:
+        raise ValueError(f"attn_decode: q must be (B, 1, H, hd), got "
+                         f"{tuple(q.shape)}")
+    B, _, H, hd = q.shape
+    if k_cache.ndim != 4 or k_cache.shape[0] != B or k_cache.shape[3] != hd \
+            or v_cache.shape != k_cache.shape:
+        raise ValueError("attn_decode: caches must be (B, S, KVH, hd) and "
+                         "match q")
+    KVH = k_cache.shape[2]
+    if H % KVH or k_new.shape != (B, 1, KVH, hd) or \
+            v_new.shape != (B, 1, KVH, hd):
+        raise ValueError("attn_decode: k_new / v_new must be (B, 1, KVH, hd) "
+                         "with H % KVH == 0")
+    return B, H, hd, k_cache.shape[1], KVH
+
+
+def attn_decode_ref(q, k_new, v_new, k_cache, v_cache, pos, scale: float,
+                    start=None):
+    """Plain version of :func:`attn_decode`, with the JAX kernel's math: f32
+    scores over columns start ≤ col < pos, the new token as a separate
+    softmax term, probabilities rounded to the cache dtype before P·V, f32
+    accumulation. Returns (attn (B, 1, H, hd), k_cache, v_cache) with the
+    caches written in place at row ``pos`` of each batch row."""
+    B, H, hd, S, KVH = _check_shapes(q, k_new, v_new, k_cache, v_cache)
+    G = H // KVH
+    dev = q.device
+    p = _rows(pos, B, dev).long()
+    st = _rows(0 if start is None else start, B, dev).long()
+    kn = k_new.to(k_cache.dtype).reshape(B, KVH, 1, hd)
+    vn = v_new.to(v_cache.dtype).reshape(B, KVH, 1, hd)
+    qg = q.reshape(B, KVH, G, hd).float()
+    scores = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.float()) * scale
+    cols = torch.arange(S, device=dev)[None]
+    valid = (cols >= st[:, None]) & (cols < p[:, None])  # (B, S)
+    scores = scores.masked_fill(~valid[:, None, None], -1e30)
+    snew = (qg * kn.float()).sum(-1, keepdim=True) * scale  # (B, KVH, G, 1)
+    m = torch.maximum(scores.amax(-1, keepdim=True), snew)
+    e = torch.exp(scores - m)
+    en = torch.exp(snew - m)
+    denom = e.sum(-1, keepdim=True) + en
+    probs = (e / denom).to(v_cache.dtype).float()
+    pnew = (en / denom).to(v_cache.dtype).float()
+    out = torch.einsum("bkgs,bskd->bkgd", probs, v_cache.float())
+    out = out + pnew * vn.float()
+    rows = torch.arange(B, device=dev)
+    k_cache[rows, p] = kn[:, :, 0]
+    v_cache[rows, p] = vn[:, :, 0]
+    return out.to(q.dtype).reshape(B, 1, H, hd), k_cache, v_cache
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _splits(device, B: int, KVH: int, n_cols: int) -> int:
+    """Column splits so that the grid gives every SM about two blocks, with
+    at least ``_COLS_PER_SPLIT`` columns per block."""
+    want = -(-2 * _sm_count(device.index) // (B * KVH))
+    return max(1, min(want, -(-n_cols // _COLS_PER_SPLIT), _MAX_SPLITS))
+
+
+def attn_decode(q, k_new, v_new, k_cache, v_cache, pos, scale: float,
+                start=None):
+    """One-token GQA decode attention with the cache write, in one launch
+    pair (CUDA kernel ``mq_attn_decode``).
+
+    ``q`` (B, 1, H, hd) post-rope; ``k_new`` / ``v_new`` (B, 1, KVH, hd);
+    ``k_cache`` / ``v_cache`` the layer's (B, S, KVH, hd) cache views;
+    ``pos`` and ``start`` a host int, a 0-d tensor or a (B,) int tensor (per
+    row: the slot engine's ``pos``, a left-padded batch's ``start``).
+    Returns (attn (B, 1, H, hd), k_cache, v_cache) as the JAX function does,
+    but the caches are updated IN PLACE (row ``pos`` of each batch row) and
+    the returned caches are the same tensors. Attention covers
+    start ≤ col < pos of the cache and the new token; no other column is
+    read. On CUDA: bf16, hd == 128, H / KVH ≤ 8, contiguous operands."""
+    name = "attn_decode"
+    B, H, hd, S, KVH = _check_shapes(q, k_new, v_new, k_cache, v_cache)
+    if q.device.type == "cpu":
+        return attn_decode_ref(q, k_new, v_new, k_cache, v_cache, pos, scale,
+                               start)
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    ts = (q, k_new, v_new, k_cache, v_cache)
+    if any(t.dtype != torch.bfloat16 for t in ts):
+        raise ValueError(f"{name}: the kernel takes bf16 q, k/v and caches")
+    if hd != HEAD_DIM or H // KVH > MAX_GROUP:
+        raise ValueError(f"{name}: needs head_dim == {HEAD_DIM} and "
+                         f"H / KVH <= {MAX_GROUP}, got {hd}, {H // KVH}")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError(f"{name}: operands must be contiguous")
+    if len({t.device for t in ts}) != 1:
+        raise ValueError(f"{name}: tensors on several devices")
+    if isinstance(pos, int) and not 0 <= pos < S:
+        raise ValueError(f"{name}: pos {pos} outside the cache of {S} rows")
+    pos_t, pos_v = _per_row(pos, B, q.device)
+    start_t, start_v = _per_row(0 if start is None else start, B, q.device)
+    # host ints bound the columns read; device indices may reach row S
+    n_cols = S if pos_t is not None or start_t is not None else pos_v - start_v
+    splits = _splits(q.device, B, KVH, n_cols)
+    G = H // KVH
+    out = torch.empty((B, 1, H, hd), dtype=q.dtype, device=q.device)
+    part = torch.empty((B * KVH * splits * G * (2 + hd),),
+                       dtype=torch.float32, device=q.device)
+    from ._build import load
+
+    lib = load()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    status = lib.mq_attn_decode(
+        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
+        v_cache.data_ptr(), ptr(pos_t), ptr(start_t), out.data_ptr(),
+        part.data_ptr(), pos_v, start_v, B, S, H, KVH, splits, float(scale),
+        stream)
+    LAUNCHES[name] += 1
+    if status != 0:
+        raise RuntimeError(f"{name}: CUDA error {status}")
+    return out, k_cache, v_cache
+
+
+# the kernel or its plain version, looked up at call time by the decoder
+# (chip_smoke.py swaps PLAIN in for its on-card reference forward)
+KERNELS = {"attn_decode": attn_decode}
+PLAIN = {"attn_decode": attn_decode_ref}

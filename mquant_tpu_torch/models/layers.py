@@ -201,28 +201,51 @@ def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+# causal prefills at least this long take the flash kernel (the JAX
+# package's MQUANT_FLASH_MIN_T default; the port has no knob for it)
+FLASH_MIN_T = 2048
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               mask: Optional[torch.Tensor] = None,
               scale: Optional[float] = None, causal: bool = False
               ) -> torch.Tensor:
     """Grouped-query attention: q (B, T, H, hd), k/v (B, S, KVH, hd), bool
-    mask (B, 1, T, S) (True = attend) or ``causal``. Logits and softmax in
-    f32 (the JAX einsum's preferred_element_type); probabilities cast back to
-    q's dtype for the P·V product."""
+    mask (B, 1, T, S) (True = attend) or ``causal``. A long causal prefill
+    (no mask, T == S ≥ ``FLASH_MIN_T``, hd % 128 == 0, T % 128 == 0) goes to
+    ``kernels.flash_attn`` (the CUDA kernel on a CUDA tensor, its plain
+    version on a CPU tensor), as the JAX function routes to Pallas flash
+    attention; everything else is :func:`einsum_attention`."""
+    B, T, H, hd = q.shape
+    S = k.shape[1]
+    scale = scale if scale is not None else hd**-0.5
+    if (causal and mask is None and T == S and T >= FLASH_MIN_T
+            and hd % 128 == 0 and T % 128 == 0):
+        from ..kernels import flash_attn
+
+        return flash_attn.KERNELS["flash_attn_causal"](
+            q.contiguous(), k.contiguous(), v.contiguous(), scale)
+    return einsum_attention(q, k, v, mask, scale, causal)
+
+
+def einsum_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     mask: Optional[torch.Tensor], scale: float,
+                     causal: bool = False) -> torch.Tensor:
+    """The GQA einsum: logits and softmax in f32 (the JAX einsum's
+    preferred_element_type); probabilities cast back to q's dtype for the
+    P·V product. Masked logits are −1e30."""
     B, T, H, hd = q.shape
     KVH, S = k.shape[2], k.shape[1]
-    scale = scale if scale is not None else hd**-0.5
     G = H // KVH
     qg = q.reshape(B, T, KVH, G, hd)
     logits = torch.einsum("btkgd,bskd->bkgts", qg.float(), k.float()) * scale
-    neg = torch.tensor(-1e30, dtype=torch.float32, device=q.device)
     if mask is not None:
         m = mask[:, :, None] if mask.ndim == 4 else mask  # (B, 1, 1, T, S)
-        logits = torch.where(m, logits, neg)
+        logits = logits.masked_fill(~m, -1e30)
     if causal and mask is None:
         rows = torch.arange(T, device=q.device)[:, None]
         cols = torch.arange(S, device=q.device)[None, :]
-        logits = torch.where(cols <= rows, logits, neg)
+        logits = logits.masked_fill(cols > rows, -1e30)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("bkgts,bskd->btkgd", probs, v.to(q.dtype))
     return out.reshape(B, T, H, hd)

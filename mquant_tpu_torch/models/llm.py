@@ -110,10 +110,14 @@ def _mlp_tail(dspec, mode, g, u, dp, lstate):
 def _layer_step(cfg: DecoderConfig, specs: Dict[str, SiteSpec], mode: str,
                 h: torch.Tensor, lp: Dict, lstate: Optional[Dict],
                 cache_kv: Optional[Tuple[torch.Tensor, torch.Tensor]],
-                cache_pos: int, cos, sin,
-                prefill_fresh: bool) -> torch.Tensor:
+                cache_pos: int, cos, sin, prefill_fresh: bool,
+                attn_mask: Optional[torch.Tensor] = None,
+                attn_start: Optional[torch.Tensor] = None,
+                fused_decode: bool = False) -> torch.Tensor:
     """One decoder layer. ``cache_kv`` = this layer's (k, v) cache views
-    (B, S, KVH, hd), written in place at rows [cache_pos, cache_pos + T)."""
+    (B, S, KVH, hd), written in place at rows [cache_pos, cache_pos + T).
+    ``fused_decode``: the T == 1 cache write and attention are one
+    ``kernels.attn_decode`` call (mask start ≤ col ≤ pos)."""
     B, T, _ = h.shape
     hd, H, KV = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
 
@@ -126,27 +130,41 @@ def _layer_step(cfg: DecoderConfig, specs: Dict[str, SiteSpec], mode: str,
     v = v.reshape(B, T, KV, hd)
     q, k = L.apply_rope(q, k, cos, sin)
 
-    mask = None
-    causal = cache_kv is None
-    if cache_kv is not None:
-        ck, cv = cache_kv
-        ck[:, cache_pos:cache_pos + T] = k.to(ck.dtype)
-        cv[:, cache_pos:cache_pos + T] = v.to(cv.dtype)
-        if prefill_fresh:
-            k_all, v_all, causal = k, v, True  # attend to the local T rows
-        else:
-            # rows ≥ pos + T hold stale or unwritten KV: attend only to the
-            # written prefix (what the JAX mask col ≤ pos + t keeps)
-            S = cache_pos + T
-            k_all, v_all = ck[:, :S], cv[:, :S]
-            rows = cache_pos + torch.arange(T, device=h.device)[:, None]
-            cols = torch.arange(S, device=h.device)[None, :]
-            mask = (cols <= rows)[None, None]
-    else:
-        k_all, v_all = k, v
+    mask = attn_mask
+    causal = cache_kv is None and attn_mask is None
+    if fused_decode:
+        from ..kernels import attn_decode
 
-    attn = L.attention(q, k_all.to(q.dtype), v_all.to(q.dtype), mask,
-                       causal=causal and mask is None)
+        ck, cv = cache_kv
+        attn, _, _ = attn_decode.KERNELS["attn_decode"](
+            q, k, v.contiguous(), ck, cv, cache_pos, hd**-0.5,
+            start=attn_start)
+    else:
+        if cache_kv is None:
+            k_all, v_all = k, v
+        else:
+            ck, cv = cache_kv
+            ck[:, cache_pos:cache_pos + T] = k.to(ck.dtype)
+            cv[:, cache_pos:cache_pos + T] = v.to(cv.dtype)
+            if prefill_fresh:
+                # attend to the local T rows: causally, or by the caller's
+                # (B, 1, T, T) mask (a left-padded ragged batch)
+                k_all, v_all, causal = k, v, attn_mask is None
+            elif attn_mask is not None:
+                k_all, v_all = ck, cv
+            else:
+                # rows ≥ pos + T hold stale or unwritten KV: attend only to
+                # the written prefix (what the JAX mask col ≤ pos + t keeps)
+                S = cache_pos + T
+                k_all, v_all = ck[:, :S], cv[:, :S]
+                rows = cache_pos + torch.arange(T, device=h.device)[:, None]
+                cols = torch.arange(S, device=h.device)[None, :]
+                mask = (cols <= rows)[None, None]
+                if attn_start is not None:  # exclude left-pad columns
+                    mask = mask & (cols[None, None] >=
+                                   attn_start.reshape(-1, 1, 1, 1))
+        attn = L.attention(q, k_all.to(q.dtype), v_all.to(q.dtype), mask,
+                           causal=causal)
     attn = attn.reshape(B, T, H * hd)
     h = h + qlinear(attn, lp["o"], "llm.o", specs.get("llm.o"), lstate, mode)
     x = L.rms_norm(h, lp["ln2"]["w"], cfg.norm_eps)
@@ -156,23 +174,50 @@ def _layer_step(cfg: DecoderConfig, specs: Dict[str, SiteSpec], mode: str,
                          lstate)
 
 
+def _use_fused_decode_attn(cfg: DecoderConfig, cache: Optional[Dict], T: int,
+                           prefill_fresh: bool, attn_mask) -> bool:
+    """Eligibility of ``kernels.attn_decode`` (the JAX function of the same
+    name): only where its built-in mask (attn_start ≤ col ≤ pos) is exactly
+    what the einsum path would derive — T == 1, a live cache that is not
+    being filled fresh, no caller mask — on an fp cache of the model's dtype
+    with hd % 128 == 0 and H % KVH == 0. JAX's two further gates, the 12 MB
+    VMEM budget and S % 8 (its 8-row write-back window), are TPU scratch
+    limits, not semantics, and are not carried over. JAX's ``MQUANT_ATTN``
+    default leaves decode attention to its XLA einsum after a TPU A/B; the
+    port takes its kernel wherever it is eligible."""
+    if attn_mask is not None or cache is None or prefill_fresh or T != 1:
+        return False
+    if cache["k"].dtype != cfg.dtype:
+        return False
+    return cfg.head_dim % 128 == 0 and cfg.n_heads % cfg.n_kv_heads == 0
+
+
 def decoder_forward(cfg: DecoderConfig, params: Dict,
                     tokens_or_embeds: torch.Tensor,
                     specs: Optional[Dict[str, SiteSpec]] = None,
                     state: Optional[Dict] = None, mode: str = "fp",
                     cache: Optional[Dict] = None,
                     positions: Optional[torch.Tensor] = None,
-                    last_index=None, prefill_fresh: bool = False):
+                    attn_mask: Optional[torch.Tensor] = None,
+                    last_index=None, prefill_fresh: bool = False,
+                    attn_start: Optional[torch.Tensor] = None):
     """Full decoder forward. Returns (logits, cache).
 
     ``tokens_or_embeds``: (B, T) token ids or (B, T, hidden) embeddings.
     ``positions``: (B, T), or (3, B, T) for M-RoPE; default: the cache
     offset + arange(T), plus the cache's ``rope_delta`` when present (M-RoPE
     decode continues at max(prefill positions) + 1).
+    ``attn_mask``: optional (B, 1, T, S) bool (True = attend); with
+    ``prefill_fresh`` S == T and it replaces the plain causal mask (a
+    left-padded ragged batch: causal and col ≥ the row's start).
     ``last_index``: compute logits only at this position — an int / 0-d
     tensor shared by all rows, or a (B,) tensor with one position per row.
     ``prefill_fresh``: the cache is empty; write it and attend to the local
-    T rows causally.
+    T rows causally (or by ``attn_mask``).
+    ``attn_start``: optional (B,) int first attendable cache column per row
+    (left-padded ragged batches: pad columns hold garbage K/V); composes with
+    the derived causal mask, and goes to the fused decode kernel as its
+    ``start``.
     The cache (if given) is updated in place and returned with ``pos``
     advanced by T."""
     specs = specs or {}
@@ -194,12 +239,16 @@ def decoder_forward(cfg: DecoderConfig, params: Dict,
     if state:
         lstate_all = {k: v for k, v in state.items() if k in layer_names} or None
 
+    fused = _use_fused_decode_attn(cfg, cache, T, prefill_fresh, attn_mask)
+    if attn_start is not None:  # once per step: the kernel takes it as is
+        attn_start = torch.as_tensor(attn_start, device=h.device).to(
+            torch.int32).reshape(-1).contiguous()
     for li in range(cfg.n_layers):
         lp = layer_views(params["layers"], li)
         lst = None if lstate_all is None else layer_views(lstate_all, li)
         ckv = None if cache is None else (cache["k"][li], cache["v"][li])
         h = _layer_step(cfg, specs, mode, h, lp, lst, ckv, pos0, cos, sin,
-                        prefill_fresh)
+                        prefill_fresh, attn_mask, attn_start, fused)
 
     if last_index is not None:
         li = torch.as_tensor(last_index, device=h.device)

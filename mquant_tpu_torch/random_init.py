@@ -18,7 +18,7 @@ from .models.layers import SiteSpec
 from .models.llm import LLM_SITES, DecoderConfig
 from .models.vision import VIT_SITES, MergerConfig, ViTConfig
 
-N_IMG_TOK = 256  # 448² image → 32×32 patches → 1024 ViT tokens → 256 merged
+PATCH, MERGE = 14, 2  # Qwen2-VL's patch side and spatial merge
 
 
 def llm_specs() -> Dict[str, SiteSpec]:
@@ -143,15 +143,19 @@ def init_vision_w8a8(vcfg: ViTConfig, mcfg: MergerConfig,
 
 
 def vlm_inputs(image_token_id: int, patch_dim: int, prefill: int,
-               gen: torch.Generator, device):
-    """(patches, grid, tokens) of bench.py's request: a 448² image's 1024
-    patch rows, their 32×32 grid, and a ``prefill``-token prompt with the 256
-    image tokens at positions 2..257 (the rest token 11)."""
-    patches = torch.randn((1, 4 * N_IMG_TOK, patch_dim), generator=gen,
+               gen: torch.Generator, device, side: int = 448):
+    """(patches, grid, tokens) of a request with one side × side image: its
+    (side/14)² patch rows, their grid, and a ``prefill``-token prompt with the
+    image's (side/28)² merged tokens at positions 2.. (the rest token 11).
+    side 448 is bench.py's request (32×32 patches, 256 image tokens); 896 is
+    a document page (64×64 patches, 4096 ViT rows, 1024 image tokens)."""
+    g = side // PATCH
+    n_img = (g // MERGE) ** 2
+    patches = torch.randn((1, g * g, patch_dim), generator=gen,
                           device=device).to(torch.bfloat16)
-    rows = torch.arange(32, device=device)[:, None].expand(32, 32)
-    cols = torch.arange(32, device=device)[None, :].expand(32, 32)
+    rows = torch.arange(g, device=device)[:, None].expand(g, g)
+    cols = torch.arange(g, device=device)[None, :].expand(g, g)
     grid = torch.stack([rows, cols], -1).reshape(1, -1, 2).to(torch.int32)
     toks = torch.full((1, prefill), 11, dtype=torch.long, device=device)
-    toks[:, 2:2 + N_IMG_TOK] = image_token_id
+    toks[:, 2:2 + n_img] = image_token_id
     return patches, grid, toks

@@ -3,11 +3,16 @@
 Marked ``gpu``: they skip where no CUDA device is present (CUDA kernels have
 no CPU mode). On the card: ``python -m pytest tests/test_torch_cuda.py``.
 Tolerances: int32 accumulators bit-equal; bf16 outputs within 1 bf16 ulp.
+Attention: written cache rows bit-equal; outputs within 1e-2 of their
+largest magnitude (the kernels round the probabilities to bf16 at other
+points than the plain versions and sum in other orders).
 """
 
 import pytest
 import torch
 
+from mquant_tpu_torch.kernels import attn_decode as TA
+from mquant_tpu_torch.kernels import flash_attn as TF
 from mquant_tpu_torch.kernels import qmm
 
 pytestmark = pytest.mark.gpu
@@ -71,3 +76,85 @@ def test_wrapper_raises_on_unsupported_shape(cuda):
     x, xs, w, ws = _operands(cuda, 40, 96, 64, False)  # K % 64 != 0
     with pytest.raises(ValueError):
         qmm.int8_gemm(x, xs, w, ws)
+
+
+ATTN_RTOL = 1e-2
+
+
+def _close(out, ref):
+    out, ref = out.float(), ref.float()
+    assert bool(torch.isfinite(out).all())
+    assert float((out - ref).abs().max()) <= ATTN_RTOL * float(ref.abs().max())
+
+
+def _decode_operands(dev, B, S, H, KVH, pos, start, seed=0):
+    """bf16 operands; cache columns outside [start, pos) poisoned."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *sh: torch.randn(sh, generator=g, device=dev).to(  # noqa: E731
+        torch.bfloat16)
+    q, kn, vn = r(B, 1, H, 128), r(B, 1, KVH, 128), r(B, 1, KVH, 128)
+    kc, vc = r(B, S, KVH, 128), r(B, S, KVH, 128)
+    cols = torch.arange(S, device=dev)[None]
+    p = torch.as_tensor(pos, device=dev).reshape(-1, 1)
+    st = torch.as_tensor(0 if start is None else start, device=dev).reshape(-1, 1)
+    bad = ((cols < st) | (cols >= p))[..., None, None]
+    kc.masked_fill_(bad, 50.0)
+    vc.masked_fill_(bad, 3e4)
+    return q, kn, vn, kc, vc
+
+
+@pytest.mark.parametrize("B,S,H,KVH,pos,start", [
+    (1, 8192, 28, 4, 4223, None),
+    (1, 8192, 28, 4, 1024, None),
+    (4, 1088, 28, 4, 1030, [0, 37, 500, 724]),
+    (4, 1088, 28, 4, [3, 700, 1087, 1], [0, 37, 500, 0]),
+    (2, 64, 4, 2, 40, [0, 5]),
+    (3, 96, 8, 8, [5, 37, 95], [0, 10, 33]),
+    (1, 8192, 28, 4, 40, 5),  # host ints: by value, every column weighs
+])
+def test_attn_decode(cuda, B, S, H, KVH, pos, start):
+    q, kn, vn, kc, vc = _decode_operands(cuda, B, S, H, KVH, pos, start)
+    kc_p, vc_p = kc.clone(), vc.clone()
+    pos_a = pos if isinstance(pos, int) else torch.tensor(pos, device=cuda)
+    st_a = torch.tensor(start, device=cuda) if isinstance(start, list) \
+        else start
+    before = TA.LAUNCHES["attn_decode"]
+    out, kc2, vc2 = TA.attn_decode(q, kn, vn, kc, vc, pos_a, 128**-0.5,
+                                   start=st_a)
+    assert TA.LAUNCHES["attn_decode"] == before + 1 and kc2 is kc
+    ref, _, _ = TA.attn_decode_ref(q, kn, vn, kc_p, vc_p, pos_a, 128**-0.5,
+                                   start=st_a)
+    torch.cuda.synchronize()
+    assert torch.equal(kc, kc_p) and torch.equal(vc, vc_p)
+    _close(out, ref)
+
+
+@pytest.mark.parametrize("B,T,H,KVH", [(1, 2048, 28, 4), (1, 4096, 28, 4),
+                                       (2, 128, 4, 2), (1, 192, 8, 8)])
+def test_flash_attn_causal(cuda, B, T, H, KVH):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    r = lambda *sh: torch.randn(sh, generator=g, device=cuda).to(  # noqa: E731
+        torch.bfloat16)
+    q, k, v = r(B, T, H, 128), r(B, T, KVH, 128), r(B, T, KVH, 128)
+    before = TF.LAUNCHES["flash_attn_causal"]
+    out = TF.flash_attention_causal(q, k, v, 128**-0.5)
+    assert TF.LAUNCHES["flash_attn_causal"] == before + 1
+    ref = TF.flash_attention_causal_ref(q, k, v, 128**-0.5)
+    torch.cuda.synchronize()
+    _close(out, ref)
+
+
+def test_attention_wrappers_raise_on_unsupported(cuda):
+    q, kn, vn, kc, vc = _decode_operands(cuda, 1, 64, 4, 2, 10, None)
+    with pytest.raises(ValueError):  # non-bf16 cache
+        TA.attn_decode(q, kn, vn, kc.float(), vc.float(), 10, 0.1)
+    with pytest.raises(ValueError):  # head_dim != 128
+        TA.attn_decode(q[..., :64].contiguous(), kn[..., :64].contiguous(),
+                       vn[..., :64].contiguous(), kc[..., :64].contiguous(),
+                       vc[..., :64].contiguous(), 10, 0.1)
+    x = torch.zeros((1, 128, 2, 64), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):  # head_dim != 128
+        TF.flash_attention_causal(x, x, x, 0.1)
+    with pytest.raises(ValueError):  # non-bf16
+        TF.flash_attention_causal(*(torch.zeros((1, 128, 2, 128),
+                                                device=cuda),) * 3, 0.1)

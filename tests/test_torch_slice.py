@@ -312,3 +312,57 @@ def test_port_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+def _ragged_prompts(shared, mrope):
+    """Three prompts of 20, 13 and 9 tokens; with ``mrope`` they are image
+    prompts (4 image tokens at 3..6) given as embeddings, with their M-RoPE
+    positions."""
+    rng = np.random.default_rng(6)
+    cfg = shared["cfg_j"]
+    img, toks = _image_inputs(rng, cfg)
+    lens = (20, 13, 9)
+    if not mrope:
+        seqs = [rng.integers(0, cfg.llm.vocab, size=(n,)) for n in lens]
+        return seqs, seqs, None, None
+    ej, _, _ = _embeds_j(shared, img, toks)
+    et, _, _ = _embeds_t(shared, img, toks)
+    pos = [JQ2.mrope_positions(toks[:, :n], cfg.image_token_id,
+                               grid_thw=(1, 4, 4)) for n in lens]
+    return ([ej[:, :n] for n in lens], [et[:, :n] for n in lens], pos,
+            [torch.from_numpy(p) for p in pos])
+
+
+@pytest.mark.parametrize("mrope", [False, True])
+def test_generate_batch_matches_jax(shared, mrope):
+    """Ragged left-padded batch (3 prompts, 8 new tokens) through each
+    package's ``Generator.generate_batch``: token ids equal."""
+    seqs_j, seqs_t, pos_j, pos_t = _ragged_prompts(shared, mrope)
+    gj = JGenerator(shared["cfg_j"].llm, shared["params_j"]["llm"],
+                    specs=shared["specs_j"], state=shared["state_j"],
+                    mode="real", max_len=64)
+    gt = TGenerator(shared["cfg_t"].llm, shared["params_t"]["llm"],
+                    specs=shared["specs_t"], state=shared["state_t"],
+                    mode="real", max_len=64)
+    oj = gj.generate_batch(seqs_j, max_new_tokens=8, positions=pos_j)
+    ot = gt.generate_batch(seqs_t, max_new_tokens=8, positions=pos_t)
+    assert [len(o) for o in ot] == [8, 8, 8]
+    assert ot == oj
+    # and each row decodes as it would alone
+    for i, s in enumerate(seqs_t):
+        x = s if mrope else torch.from_numpy(s)[None]
+        alone = gt.generate_on_device(
+            x, 8, positions=None if pos_t is None else pos_t[i])
+        assert alone[0].tolist() == ot[i]
+
+
+def test_generate_batch_trims_at_eos(shared):
+    seqs, _, _, _ = _ragged_prompts(shared, False)
+    gt = TGenerator(shared["cfg_t"].llm, shared["params_t"]["llm"],
+                    specs=shared["specs_t"], state=shared["state_t"],
+                    mode="real", max_len=64)
+    free = gt.generate_batch(seqs, max_new_tokens=6)
+    eos = free[0][2]
+    out = gt.generate_batch(seqs, max_new_tokens=6, eos_id=eos)
+    for f, o in zip(free, out):
+        assert o == (f[:f.index(eos)] if eos in f else f)
