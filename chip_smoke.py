@@ -6,14 +6,17 @@ Phases, in order (any failed check raises and the script exits non-zero):
 1. device: needs CUDA; prints the card's name and power limit.
 2. build: compiles the CUDA kernels from ``mquant_tpu_torch/kernels/csrc``.
 3. kernels: each kernel against its plain PyTorch version at the shapes of
-   the main path: int32 accumulators bit-equal, bf16 outputs within 1 ulp;
-   the attention kernels' written cache rows bit-equal and outputs within
-   1e-2 of the plain version's largest magnitude, with cache columns
-   outside [start, pos) poisoned; device time per call of kernel, plain
-   version and, where one exists, the one PyTorch call that computes the
-   same function (``torch._int_mm``, SDPA), by CUDA-graph replay with
-   L2-cold weights / caches (median of replays), beside the least time the
-   card could take (bytes over 3.35 TB/s or operations over the dense peak).
+   the main path: int32 accumulators bit-equal, bf16 outputs within 1 ulp
+   (K = 18943 included: the RMS split's rows of ``down``); the attention
+   kernels' written cache rows bit-equal and outputs within 1e-2 of the
+   plain version's largest magnitude, with cache columns outside [start,
+   pos) poisoned; the fused swiglu → Hadamard → int8 tail's codes within ±1
+   with at most 1% of them differing (the fraction printed); device time per
+   call of kernel, plain version and, where one exists, the one PyTorch call
+   that computes the same function (``torch._int_mm``, SDPA), by CUDA-graph
+   replay with L2-cold weights / caches (median of replays), beside the
+   least time the card could take (bytes over 3.35 TB/s or operations over
+   the dense peak); the unfused torch chain of the tail is timed beside it.
 4. slice: Qwen2-VL-7B at full width and depth 28 with seeded random W4A8
    weights (W8A8 vision tower) serves one full-VLM request (448² image →
    ViT → merger → splice → 1024-token prompt → 128 greedy tokens) and two
@@ -27,14 +30,23 @@ Phases, in order (any failed check raises and the script exits non-zero):
    logits within the bound, the first 8 tokens equal). Each of the three
    paths runs with the launch counts set to 0 just before it and must
    launch every kernel it reaches.
+   Then, on the same weights, the full online Hadamard before ``down``
+   (hadK ⊗ H₁₂₈ over 18944): path F serves the full-VLM request (its
+   1024-token prefill through the fused tail kernel, 28 launches; none in
+   decode) and a 77-token text request of two tokens (bucket 128: the
+   unfused chain, no tail launch);
+   path S adds the RMS first-column split (``down`` as 18943 int8 rows +
+   an f32 ``w_col0``: ``int8_gemm`` / ``int8_gemv`` at K = 18943) and
+   serves the full-VLM request.
    Each path's prefill and first 7 decode steps are held against the same
    forward with the integer products through their plain versions (logits
-   within the bound, greedy tokens equal), and every attention kernel call
-   against its plain version on the call's own inputs.
+   within the bound, greedy tokens equal), and every attention and tail
+   kernel call against its plain version on the call's own inputs.
 5. profile: wall time (best of 3) and, under ``torch.profiler``, device
    busy time, idle share and the largest device items of the vision tower,
-   the 1024-token prefill and a decode step, then of the 4096-token prefill
-   and a decode step at position ~4100.
+   the 1024-token prefill and a decode step (block Hadamard, then path F's,
+   then path S's decode step), then of the 4096-token prefill and a decode
+   step at position ~4100.
 
 Last line of stdout: {"ok": true, "device": {...}}. Usage:
 ``python3 chip_smoke.py [--seed 0]``.
@@ -123,14 +135,17 @@ KERNEL_SHAPES = [
     ("int8_gemm", "vit fc2", 1024, 5120, 1280, False),
     ("int8_gemm", "merger mlp0", 256, 5120, 5120, False),
     ("int8_gemm", "merger mlp2", 256, 5120, 3584, False),
+    ("int8_gemv", "S decode down", 1, 18943, 3584, False),
+    ("int8_gemm", "S prefill down", 1024, 18943, 3584, False),
 ]
 # off the 1-token decode path but inside the kernels' contract: several rows
-# in the GEMV, ragged M and N edges in the GEMM
+# in the GEMV, ragged M, N and K edges in the GEMM
 EDGE_SHAPES = [
     ("w4a8_gemv", "q|k|v, 5 rows", 5, 3584, 4608, True),
     ("int8_gemv", "lm_head, 3 rows", 3, 3584, 152064, False),
     ("int8_gemm", "ragged W8", 333, 1280, 1000, False),
     ("int8_gemm", "ragged W4", 77, 3584, 4100, True),
+    ("int8_gemm", "ragged K W8", 77, 1001, 1000, False),
 ]
 REPLACES = {
     "w4a8_gemv": "mquant_tpu/kernels/qmm.py:869",
@@ -138,12 +153,14 @@ REPLACES = {
     "int8_gemm": "mquant_tpu/kernels/qmm.py:840",
     "attn_decode": "mquant_tpu/kernels/attn_decode.py:206",
     "flash_attn_causal": "mquant_tpu/models/layers.py:385",
+    "fused_swiglu_had_quant": "mquant_tpu/kernels/fwht.py:320",
 }
 SOURCES = {"w4a8_gemv": "mquant_tpu_torch/kernels/csrc/qmm.cu",
            "int8_gemv": "mquant_tpu_torch/kernels/csrc/qmm.cu",
            "int8_gemm": "mquant_tpu_torch/kernels/csrc/qmm.cu",
            "attn_decode": "mquant_tpu_torch/kernels/csrc/attn.cu",
-           "flash_attn_causal": "mquant_tpu_torch/kernels/csrc/attn.cu"}
+           "flash_attn_causal": "mquant_tpu_torch/kernels/csrc/attn.cu",
+           "fused_swiglu_had_quant": "mquant_tpu_torch/kernels/csrc/fwht.cu"}
 L2_COLD_BYTES = 128 * 2**20
 # published H100 SXM peaks (dense): HBM bytes/s, int8 op/s, bf16 FLOP/s
 HBM_BPS, INT8_OPS, BF16_FLOPS = 3.35e12, 1979e12, 989e12
@@ -222,12 +239,20 @@ def check_kernels(seed: int) -> dict:
                                       torch.bfloat16, **extra), 4, reps=3)
         # one library call on the same int8 operands: torch._int_mm (W8
         # only; it needs more than 16 rows, so a GEMV's rows are padded to
-        # 32); no single call computes the packed-W4 product
+        # 32, and K % 8 == 0, so K is zero-padded, which leaves the int32
+        # sums as they are); no single call computes the packed-W4 product
         lms = None
         if not packed and main:
-            xl = x if M > 16 else torch.nn.functional.pad(x, (0, 0, 0, 32 - M))
-            lms = cuda_ms(lambda i: torch._int_mm(
-                xl, ws_cold[i % len(ws_cold)]), 20)
+            kp = -K % 8
+            xl = torch.nn.functional.pad(
+                x, (0, kp, 0, 32 - M if M <= 16 else 0))
+            wl = ws_cold if kp == 0 else [
+                torch.nn.functional.pad(c, (0, 0, 0, kp)) for c in ws_cold]
+            if not torch.equal(torch._int_mm(xl, wl[0])[:M], acc_k):
+                raise AssertionError(f"{name} [{label}]: torch._int_mm on the "
+                                     "padded operands differs")
+            lms = cuda_ms(lambda i: torch._int_mm(xl, wl[i % len(wl)]), 20)
+            del wl
         nbytes = wbytes + M * K + 2 * M * N + 4 * (M + N)
         bms, by = bound(nbytes, 2 * M * K * N, INT8_OPS)
         lib_txt = "none" if lms is None else f"{lms:.4f} ms"
@@ -379,10 +404,77 @@ def check_attention(seed: int) -> dict:
     return summary
 
 
-def kernel_modules():
-    from mquant_tpu_torch.kernels import attn_decode, flash_attn, qmm
+TAIL_N, TAIL_SCALE = 18944, 0.05  # Qwen2-VL-7B's intermediate = 148 · 128
+# the fused tail (label, T, main path): path F's 1024-token prefill, the
+# shortest prefill that takes it, and a few rows
+TAIL_SHAPES = [("F prefill T 1024", 1024, True), ("T 256", 256, False),
+               ("T 5", 5, False)]
+TAIL_MAX_FRAC = 0.01  # at most 1% of the codes one step off the plain's
 
-    return (qmm, attn_decode, flash_attn)
+
+def tail_diff(q, ref, label) -> tuple[int, float]:
+    """(max |code difference|, fraction of codes that differ); fails beyond
+    ±1 or TAIL_MAX_FRAC."""
+    d = (q.int() - ref.int()).abs()
+    worst, frac = int(d.max()), float((d > 0).float().mean())
+    if q.shape != ref.shape or worst > 1 or frac > TAIL_MAX_FRAC:
+        raise AssertionError(f"{label}: codes differ by up to {worst} in a "
+                             f"fraction {frac} of {ref.numel()}")
+    return worst, frac
+
+
+def check_tail(seed: int) -> dict:
+    """Phase 3, the fused tail kernel. Returns its summary as
+    :func:`check_kernels`; prints the unfused torch chain's time."""
+    import torch
+
+    from mquant_tpu_torch.core.formats import INT8
+    from mquant_tpu_torch.core.quant import QuantParams, quantize
+    from mquant_tpu_torch.kernels import fwht
+    from mquant_tpu_torch.models.layers import swiglu
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+    s = torch.tensor(TAIL_SCALE, device=dev)
+    K = fwht._factors(TAIL_N)[2]
+    summary = new_summary()
+    for label, T, main in TAIL_SHAPES:
+        # two input copies: 155 MB at T = 1024, beyond the 50 MB L2
+        ins = [[torch.randn((T, TAIL_N), generator=g, device=dev).to(
+            torch.bfloat16) for _ in range(2)] for _ in range(2)]
+        q = fwht.fused_swiglu_had_quant(*ins[0], s)
+        ref = fwht.fused_swiglu_had_quant_ref(*ins[0], s)
+        torch.cuda.synchronize()
+        worst, frac = tail_diff(q, ref, f"fused_swiglu_had_quant [{label}]")
+        ms = cuda_ms(lambda i: fwht.fused_swiglu_had_quant(*ins[i % 2], s),
+                     20)
+        pms = cuda_ms(lambda i: fwht.fused_swiglu_had_quant_ref(
+            *ins[i % 2], s), 4, reps=3)
+        nbytes = 2 * 2 * T * TAIL_N + T * TAIL_N
+        bms, by = bound(nbytes, 2 * T * TAIL_N * (K + TAIL_N // K),
+                        BF16_FLOPS)
+        log(f"kernel fused_swiglu_had_quant {label:17s} n={TAIL_N}: codes "
+            f"within {worst}, {frac:.6f} of them differ; {ms:.4f} ms vs "
+            f"plain {pms:.4f} ms, library none, bound {bms:.4f} ms ({by}); "
+            f"{nbytes / ms / 1e6:.1f} GB/s")
+        if main:
+            chain_ms = cuda_ms(lambda i: quantize(
+                fwht.online_hadamard(swiglu(*ins[i % 2])), QuantParams(s),
+                INT8), 4, reps=3)
+            log(f"kernel fused_swiglu_had_quant {label}: the unfused torch "
+                f"chain (swiglu → online_hadamard → quantize) {chain_ms:.4f} "
+                "ms")
+            add_main(summary, ms, pms, bms, by, None)
+        summary["max_abs_err"] = max(summary["max_abs_err"], float(worst))
+        del ins, q, ref
+    torch.cuda.empty_cache()
+    return {"fused_swiglu_had_quant": summary}
+
+
+def kernel_modules():
+    from mquant_tpu_torch.kernels import attn_decode, flash_attn, fwht, qmm
+
+    return (qmm, attn_decode, flash_attn, fwht)
 
 
 @contextlib.contextmanager
@@ -450,6 +542,11 @@ CMP_LAYERS = 1
 SLICE_KERNELS = ("w4a8_gemv", "int8_gemv", "int8_gemm", "attn_decode")
 DOC_KERNELS = SLICE_KERNELS + ("flash_attn_causal",)
 BATCH_KERNELS = SLICE_KERNELS
+FULL_KERNELS = SLICE_KERNELS + ("fused_swiglu_had_quant",)
+SPLIT_KERNELS = SLICE_KERNELS
+# path F's text request (bucket 128, below the tail's 256): it only shows
+# that the tail does not launch there, so two tokens do
+FULL_TEXT, FULL_TEXT_TOKENS = 77, 2
 
 
 def check_close(what: str, out, ref, quiet: bool = False) -> float:
@@ -517,6 +614,56 @@ def shadow_attention(path: str):
         "version on its own inputs: "
         + ", ".join(f"{k} {n} calls, max |d| {r:.3g} of max |plain|"
                     for k, (n, r) in worst.items() if n))
+
+
+@contextlib.contextmanager
+def shadow_tail(path: str):
+    """Every fused tail kernel call also runs the kernel's plain version on
+    the same inputs and is held against it (:func:`tail_diff`). Only the
+    plain version runs beside, so launch counts are untouched."""
+    from mquant_tpu_torch.kernels import fwht
+
+    name = "fused_swiglu_had_quant"
+    kern = fwht.KERNELS[name]
+    seen = [0, 0, 0.0]  # calls, worst |difference|, worst fraction
+
+    def held(g, u, scale):
+        q = kern(g, u, scale)
+        seen[0] += 1
+        worst, frac = tail_diff(q, fwht.PLAIN[name](g, u, scale),
+                                f"{path}: {name} call {seen[0]}")
+        seen[1], seen[2] = max(seen[1], worst), max(seen[2], frac)
+        return q
+
+    fwht.KERNELS[name] = held
+    try:
+        yield
+    finally:
+        fwht.KERNELS[name] = kern
+    log(f"{path}: every {name} call held against its plain version on its "
+        f"own inputs: {seen[0]} calls, codes within {seen[1]}, at most "
+        f"{seen[2]:.6f} of them differ")
+
+
+@contextlib.contextmanager
+def gemm_depths(store: list):
+    """Appends (kernel, K) of every int8_gemv / int8_gemm call to ``store``
+    (the wrappers still count their launches)."""
+    from mquant_tpu_torch.kernels import qmm
+
+    saved = {k: qmm.KERNELS[k] for k in ("int8_gemv", "int8_gemm")}
+
+    def recorder(name):
+        def call(xq, *a, **kw):
+            store.append((name, xq.shape[-1]))
+            return saved[name](xq, *a, **kw)
+        return call
+
+    qmm.KERNELS.update({k: recorder(k) for k in saved})
+    try:
+        yield
+    finally:
+        qmm.KERNELS.update(saved)
 
 
 def against_plain(path: str, gen, prefill, attn_start=None):
@@ -651,9 +798,10 @@ def image_request(m: dict, side: int, prefill: int):
     return embeds, toks
 
 
-def timed_request(gen, x, n: int, **kw):
+def timed_request(gen, x, n: int, at_first=None, **kw):
     """One request through ``generate_on_device``: (tokens, request s, TTFT
-    s), the clock stamped at the first token after a synchronize."""
+    s), the clock stamped at the first token after a synchronize (then
+    ``at_first()`` is called, if given)."""
     import torch
 
     first = []
@@ -661,6 +809,8 @@ def timed_request(gen, x, n: int, **kw):
     def mark(_tok):
         torch.cuda.synchronize()
         first.append(time.perf_counter())
+        if at_first is not None:
+            at_first()
 
     t0 = time.perf_counter()
     x = x() if callable(x) else x
@@ -725,6 +875,135 @@ def run_slice(m: dict, card: str) -> dict:
                         ("prefill", lambda: gen.prefill(emb), 1),
                         ("decode step", decode_steps(gen, gen.prefill(emb)[1]),
                          PROFILE_STEPS)], card)
+    return launches
+
+
+def run_full(m: dict, card: str) -> dict:
+    """Phase 4, path F: the full online Hadamard before ``down`` on the same
+    weights. The full-VLM request (its prefill through the fused tail: one
+    launch per layer, none in decode) and a 77-token text request (the
+    unfused chain). Returns the launch counts; profiles the prefill and a
+    decode step."""
+    import torch
+
+    from mquant_tpu_torch import random_init as R
+    from mquant_tpu_torch.kernels import fwht
+    from mquant_tpu_torch.serve.generate import Generator
+
+    base = m["gen"]
+    cfg = base.cfg
+    gen = Generator(cfg, base.params, specs=R.llm_specs("full"),
+                    state=base.state, mode="real",
+                    max_len=PREFILL + GEN_TOKENS)
+    embeds, _ = image_request(m, 448, PREFILL)
+    text = torch.randint(0, cfg.vocab, (1, FULL_TEXT), generator=m["g"],
+                         device=m["dev"])
+    tail = fwht.LAUNCHES
+    name = "fused_swiglu_had_quant"
+    with torch.no_grad():
+        # warm-up at both prefill shapes; not counted
+        gen.generate_on_device(embeds()[0], max_new_tokens=4)
+        gen.generate_on_device(text, max_new_tokens=2)
+        torch.cuda.synchronize()
+
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        held, at_first = {}, []
+
+        def vlm():
+            held["emb"], held["merged"] = embeds()
+            return held["emb"]
+
+        out_vlm, t_req, ttft = timed_request(
+            gen, vlm, GEN_TOKENS, at_first=lambda: at_first.append(tail[name]))
+        after_vlm = tail[name]
+        out_txt, t_txt, _ = timed_request(gen, text, FULL_TEXT_TOKENS)
+        launches = read_launches("full", FULL_KERNELS)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if (at_first[0], after_vlm, launches[name]) != (cfg.n_layers,) * 3:
+            raise AssertionError(
+                f"full: tail launches {at_first[0]} in the {PREFILL}-token "
+                f"prefill, {after_vlm - at_first[0]} in decode, "
+                f"{launches[name] - after_vlm} in the {FULL_TEXT}-token "
+                f"request; expected {cfg.n_layers}, 0, 0")
+        check_tokens("full", out_vlm, GEN_TOKENS, cfg.vocab)
+        check_tokens("full", out_txt, FULL_TEXT_TOKENS, cfg.vocab)
+        emb = held["emb"]
+        with shadow_tail("full"):
+            against_plain("full", gen, lambda: gen.prefill(emb))
+    log(f"full: full-VLM request ({PREFILL}-token prompt, {GEN_TOKENS} "
+        f"tokens) {t_req:.3f} s; TTFT {ttft * 1e3:.1f} ms; decode "
+        f"{(GEN_TOKENS - 1) / (t_req - ttft):.1f} tok/s; text request "
+        f"{FULL_TEXT} tok + {FULL_TEXT_TOKENS}: {t_txt:.3f} s; tail launches "
+        f"{at_first[0]} per {PREFILL}-token prefill, 0 in decode and at T "
+        f"= 128; peak {peak:.2f} GiB; card {card}")
+    with torch.no_grad():
+        profile_phases([("prefill 1024 (full Hadamard)",
+                         lambda: gen.prefill(emb), 1),
+                        ("decode step (full Hadamard)",
+                         decode_steps(gen, gen.prefill(emb)[1]),
+                         PROFILE_STEPS)], card)
+    return launches
+
+
+def run_split(m: dict, card: str) -> dict:
+    """Phase 4, path S: path F plus the RMS first-column split (``down`` as
+    18943 int8 rows and an f32 ``w_col0``; the pipeline's default artifact).
+    The full-VLM request; ``down`` runs through ``int8_gemm`` at prefill and
+    ``int8_gemv`` in decode at K = 18943. Returns the launch counts;
+    profiles a decode step."""
+    import torch
+
+    from mquant_tpu_torch import random_init as R
+    from mquant_tpu_torch.serve.generate import Generator
+
+    base = m["gen"]
+    cfg = base.cfg
+    params = {**base.params, "layers": {
+        **base.params["layers"],
+        "down": R.init_split_down(cfg, m["g"], m["dev"])}}
+    gen = Generator(cfg, params, specs=R.llm_specs("full", split=True),
+                    state=base.state, mode="real",
+                    max_len=PREFILL + GEN_TOKENS)
+    del params
+    K = cfg.inter_eff - 1
+    embeds, _ = image_request(m, 448, PREFILL)
+    with torch.no_grad():
+        gen.generate_on_device(embeds()[0], max_new_tokens=4)  # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        held, depths = {}, []
+
+        def vlm():
+            held["emb"], held["merged"] = embeds()
+            return held["emb"]
+
+        with gemm_depths(depths):
+            out, t_req, ttft = timed_request(gen, vlm, GEN_TOKENS)
+        launches = read_launches("split", SPLIT_KERNELS)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        down = {k: sum(1 for n, d in depths if n == k and d == K)
+                for k in ("int8_gemm", "int8_gemv")}
+        want = {"int8_gemm": cfg.n_layers,
+                "int8_gemv": cfg.n_layers * (GEN_TOKENS - 1)}
+        if down != want or launches["fused_swiglu_had_quant"]:
+            raise AssertionError(f"split: down calls at K = {K} {down}, "
+                                 f"expected {want}; tail launches "
+                                 f"{launches['fused_swiglu_had_quant']}")
+        check_tokens("split", out, GEN_TOKENS, cfg.vocab)
+        emb = held["emb"]
+        against_plain("split", gen, lambda: gen.prefill(emb))
+    log(f"split: full-VLM request ({PREFILL}-token prompt, {GEN_TOKENS} "
+        f"tokens) {t_req:.3f} s; TTFT {ttft * 1e3:.1f} ms; decode "
+        f"{(GEN_TOKENS - 1) / (t_req - ttft):.1f} tok/s; down at K = {K}: "
+        f"{down}; peak {peak:.2f} GiB; card {card}")
+    with torch.no_grad():
+        profile_phases([("decode step (full Hadamard + RMS split)",
+                         decode_steps(gen, gen.prefill(emb)[1]),
+                         PROFILE_STEPS)], card)
+    del gen
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -928,10 +1207,12 @@ def main(argv=None) -> int:
     # phase 3: kernels vs plain
     summary = check_kernels(args.seed)
     summary.update(check_attention(args.seed))
+    summary.update(check_tail(args.seed))
 
     # phases 4 and 5: each path of the main path, then its profile
     model = build_model(args.seed)
-    counts = [run_slice(model, card), run_document(model, card),
+    counts = [run_slice(model, card), run_full(model, card),
+              run_split(model, card), run_document(model, card),
               run_batch(model, card)]
 
     kernels = []

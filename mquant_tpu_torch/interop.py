@@ -3,7 +3,8 @@
 Input: a nested dict of numpy arrays, as ``jax.tree.map(np.asarray, tree)``
 gives it, with the JAX ``QuantParams`` as any (scale, zero_point) named tuple
 or plain 2-tuple. Output: the same structure with torch tensors on ``device``
-and the port's :class:`~mquant_tpu_torch.core.quant.QuantParams`. Every
+(the card unless the caller asks for another) and the port's
+:class:`~mquant_tpu_torch.core.quant.QuantParams`. Every
 array converts exactly, int8 bytes included; bfloat16 arrays (numpy's
 ``ml_dtypes`` bfloat16, which torch cannot read directly) go through their
 16-bit patterns. This module imports no JAX.
@@ -19,7 +20,7 @@ import torch
 from .core.quant import QuantParams
 
 
-def array_to_torch(a, device=None, dtype: Optional[torch.dtype] = None
+def array_to_torch(a, device="cuda", dtype: Optional[torch.dtype] = None
                    ) -> torch.Tensor:
     """One array → tensor, exactly (then cast to ``dtype`` if given)."""
     a = np.asarray(a)
@@ -38,7 +39,7 @@ def _is_quant_params(obj) -> bool:
                                        or (fields is None and len(obj) == 2))
 
 
-def to_torch(tree: Any, device=None, dtype: Optional[torch.dtype] = None
+def to_torch(tree: Any, device="cuda", dtype: Optional[torch.dtype] = None
              ) -> Any:
     """Convert a params / state tree. ``dtype`` (optional) casts the float
     weights and biases (dict keys "w" and "b"); integer storage and every

@@ -38,6 +38,8 @@ _SIGNATURES = {
     "mq_attn_decode": [_P] * 9 + [_I] * 7 + [_F, _P],
     # q, k, v, out, B, T, H, KVH, scale, stream
     "mq_flash_attn_causal": [_P] * 4 + [_I] * 4 + [_F, _P],
+    # g, u, ldg, ldu, A, Bt, scale, out, T, K, stream
+    "mq_fused_swiglu_had_quant": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _P],
 }
 
 

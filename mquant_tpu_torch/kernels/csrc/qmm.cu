@@ -32,6 +32,14 @@
 //
 // Epilogue (all kernels): y = (float(acc) * x_scale[m]) * w_scale[n], then
 // rounded to the output type, the order of qmm.py:549/:577.
+//
+// Any K (K2 and K3 on int8 weights; K3 on packed W4 with K even): the RMS
+// split stores 18943 int8 rows of `down`, as the JAX package writes them. The
+// TAIL instantiations predicate and zero-fill the last row group and k step,
+// and read activation rows that are not 4- (16-) byte aligned as aligned
+// words shifted into place, so the int32 sums stay exact and no byte outside
+// a tensor is read. The host picks them only for such shapes: aligned shapes
+// run the plain vector loads (the predicates cost the GEMM ~15% on the card).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -78,6 +86,36 @@ __device__ __forceinline__ void unpack_signed(uint32_t w, uint32_t& lo,
   hi = (((u >> 4) & 0x0F0F0F0Fu) + 0x78787878u) ^ 0x80808080u;
 }
 
+// Bytes base[c .. c+3] as one word, those at or past `limit` as 0. Reads only
+// aligned words that hold a byte of [base + c, base + min(c + 4, limit)), so
+// it never leaves the pages of valid bytes.
+__device__ __forceinline__ uint32_t load4_tail(const int8_t* base, int c,
+                                               int limit) {
+  const int n = limit - c;
+  if (n <= 0) return 0u;
+  const uintptr_t p = reinterpret_cast<uintptr_t>(base + c);
+  const uintptr_t a = p & ~uintptr_t(3);
+  uint32_t v = *reinterpret_cast<const uint32_t*>(a);
+  if (p != a) {
+    const uint32_t hi = a + 4 < p + (uintptr_t)min(n, 4)
+                            ? *reinterpret_cast<const uint32_t*>(a + 4)
+                            : 0u;
+    v = __funnelshift_r(v, hi, (uint32_t)(p - a) * 8u);
+  }
+  return n >= 4 ? v : v & ((1u << (8 * n)) - 1u);
+}
+
+// 16 bytes base[c .. c+15], those at or past `limit` as 0 (see load4_tail).
+__device__ __forceinline__ uint4 load16_tail(const int8_t* base, int c,
+                                             int limit) {
+  const uintptr_t p = reinterpret_cast<uintptr_t>(base + c);
+  if (c + 16 <= limit && (p & 15) == 0)
+    return *reinterpret_cast<const uint4*>(p);
+  return make_uint4(load4_tail(base, c, limit), load4_tail(base, c + 4, limit),
+                    load4_tail(base, c + 8, limit),
+                    load4_tail(base, c + 12, limit));
+}
+
 // ---------------------------------------------------------------------------
 // K1 / K2: GEMV, M <= 32
 // ---------------------------------------------------------------------------
@@ -91,7 +129,7 @@ constexpr int GV_BN = GV_TX * 16;
 // u = w + 8 (two masks per word), and 8 * sum(x) is taken off at the end:
 // x.w = x.u - 8 * sum(x), exactly.
 // W8: w is (R = K, N) int8.
-template <bool W4, int MC>
+template <bool W4, int MC, bool TAIL>
 __global__ void __launch_bounds__(GV_TX* GV_TY)
     gemv_kernel(const int8_t* __restrict__ x, int M, int K,
                 const int8_t* __restrict__ w, int R, int N, int rows_per_split,
@@ -114,17 +152,28 @@ __global__ void __launch_bounds__(GV_TX* GV_TY)
     }
     if (col0 < N) {
       for (int r = r_begin + ty * 4; r < r_end; r += GV_TY * 4) {
+        // TAIL: rows past r_end (the last group of a K that is no multiple
+        // of 4) read as zero weights and zero activations
         uint4 v[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i)
-          v[i] = *reinterpret_cast<const uint4*>(w + (long)(r + i) * N + col0);
+          v[i] = !TAIL || r + i < r_end
+                     ? *reinterpret_cast<const uint4*>(w + (long)(r + i) * N +
+                                                       col0)
+                     : make_uint4(0, 0, 0, 0);
         int xlo[MC], xhi[MC];
 #pragma unroll
         for (int mi = 0; mi < MC; ++mi) {
           const bool live = m0 + mi < M;
           const int8_t* xr = x + (long)(m0 + mi) * K;
-          xlo[mi] = live ? *reinterpret_cast<const int*>(xr + r) : 0;
-          xhi[mi] = (W4 && live) ? *reinterpret_cast<const int*>(xr + R + r) : 0;
+          if (TAIL) {
+            xlo[mi] = live ? (int)load4_tail(xr, r, r_end) : 0;
+            xhi[mi] = (W4 && live) ? (int)load4_tail(xr + R, r, r_end) : 0;
+          } else {
+            xlo[mi] = live ? *reinterpret_cast<const int*>(xr + r) : 0;
+            xhi[mi] =
+                (W4 && live) ? *reinterpret_cast<const int*>(xr + R + r) : 0;
+          }
           if (W4) {
             xsum[mi] = __dp4a(xlo[mi], 0x01010101, xsum[mi]);
             xsum[mi] = __dp4a(xhi[mi], 0x01010101, xsum[mi]);
@@ -227,7 +276,7 @@ __device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4],
 // [r0, r0+32); for W8 columns [k0, k0+64).
 // Shared tiles: As[m][k] row-major, Bs[n][k] (transposed, so one 32-bit load
 // gives a B fragment register: four consecutive k of one column).
-template <bool W4>
+template <bool W4, bool TAIL>
 __global__ void __launch_bounds__(256)
     gemm_kernel(const int8_t* __restrict__ x, int M, int K,
                 const int8_t* __restrict__ w, int N,
@@ -241,7 +290,10 @@ __global__ void __launch_bounds__(256)
   const int wm = warp >> 2, wn = warp & 3;  // 2 x 4 warps, 64 x 32 each
   const int bm = blockIdx.y * GM_BM, bn = blockIdx.x * GM_BN;
   const int K2 = K / 2;
-  const int steps = W4 ? K2 / (GM_BK / 2) : K / GM_BK;
+  // the last step of a K that is no multiple of 64 (W4: of 64 packed rows)
+  // is zero-filled past K (K2 in each nibble plane)
+  const int steps = W4 ? (K2 + GM_BK / 2 - 1) / (GM_BK / 2)
+                       : (K + GM_BK - 1) / GM_BK;
 
   int acc[4][4][4];
 #pragma unroll
@@ -257,16 +309,23 @@ __global__ void __launch_bounds__(256)
     for (int p = 0; p < 2; ++p) {
       const int piece = tid + p * 256;
       const int row = piece >> 2, q = piece & 3;
-      int col;
-      if (W4) {
-        const int r0 = s * (GM_BK / 2);
-        col = q < 2 ? r0 + 16 * q : K2 + r0 + 16 * (q - 2);
-      } else {
-        col = s * GM_BK + 16 * q;
-      }
       uint4 v = make_uint4(0, 0, 0, 0);
-      if (bm + row < M)
-        v = *reinterpret_cast<const uint4*>(x + (long)(bm + row) * K + col);
+      if (bm + row < M) {
+        const int8_t* xr = x + (long)(bm + row) * K;
+        // W4: low plane columns [r0, r0+32), high plane K2 + the same
+        const int r0 = s * (GM_BK / 2);
+        if (TAIL) {
+          if (W4)
+            v = q < 2 ? load16_tail(xr, r0 + 16 * q, K2)
+                      : load16_tail(xr + K2, r0 + 16 * (q - 2), K2);
+          else
+            v = load16_tail(xr, s * GM_BK + 16 * q, K);
+        } else {
+          const int col = W4 ? (q < 2 ? r0 + 16 * q : K2 + r0 + 16 * (q - 2))
+                             : s * GM_BK + 16 * q;
+          v = *reinterpret_cast<const uint4*>(xr + col);
+        }
+      }
       *reinterpret_cast<uint4*>(&As[row][16 * q]) = v;
     }
     // B tile, 4x4 byte blocks: a thread reads four 32-bit words (four k rows,
@@ -277,9 +336,11 @@ __global__ void __launch_bounds__(256)
       uint32_t rows[4] = {0, 0, 0, 0};
       if (n < N) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          rows[i] = *reinterpret_cast<const uint32_t*>(
-              w + (long)(s * (GM_BK / 2) + 4 * rq + i) * N + n);
+        for (int i = 0; i < 4; ++i) {
+          const int kr = s * (GM_BK / 2) + 4 * rq + i;
+          if (!TAIL || kr < K2)
+            rows[i] = *reinterpret_cast<const uint32_t*>(w + (long)kr * N + n);
+        }
       }
       uint32_t lo[4], hi[4], loc[4], hic[4];
 #pragma unroll
@@ -300,9 +361,12 @@ __global__ void __launch_bounds__(256)
         uint32_t rows[4] = {0, 0, 0, 0};
         if (n < N) {
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
-            rows[i] = *reinterpret_cast<const uint32_t*>(
-                w + (long)(s * GM_BK + 4 * rq + i) * N + n);
+          for (int i = 0; i < 4; ++i) {
+            const int kr = s * GM_BK + 4 * rq + i;
+            if (!TAIL || kr < K)
+              rows[i] =
+                  *reinterpret_cast<const uint32_t*>(w + (long)kr * N + n);
+          }
         }
         uint32_t cols[4];
         transpose4x4(rows, cols);
@@ -354,23 +418,34 @@ __global__ void __launch_bounds__(256)
       }
 }
 
+template <bool W4, int MC, bool TAIL>
+void gemv(dim3 grid, dim3 block, cudaStream_t stream, const void* x, int M,
+          int K, const void* w, int R, int N, int rps, void* acc) {
+  gemv_kernel<W4, MC, TAIL><<<grid, block, 0, stream>>>(
+      (const int8_t*)x, M, K, (const int8_t*)w, R, N, rps, (int*)acc);
+}
+
 template <bool W4>
 int launch_gemv(const void* x, const void* w, const void* xs, const void* wsc,
                 void* acc, void* out, int M, int K, int N, int splits,
                 int out_kind, cudaStream_t stream) {
   const int R = W4 ? K / 2 : K;
+  // the predicated K tail only where rows or x words are not 4-aligned
+  const bool tail = R % 4 || K % 4 || reinterpret_cast<uintptr_t>(x) % 4;
   // rows per split: a multiple of 4 that covers R in `splits` pieces
   int rps = (R + splits - 1) / splits;
   rps = (rps + 3) / 4 * 4;
   const int grid_y = (R + rps - 1) / rps;
   cudaMemsetAsync(acc, 0, sizeof(int) * (size_t)M * N, stream);
   dim3 grid((N + GV_BN - 1) / GV_BN, grid_y), block(GV_TX, GV_TY);
-  if (M == 1)
-    gemv_kernel<W4, 1><<<grid, block, 0, stream>>>(
-        (const int8_t*)x, M, K, (const int8_t*)w, R, N, rps, (int*)acc);
+  if (M == 1 && tail)
+    gemv<W4, 1, true>(grid, block, stream, x, M, K, w, R, N, rps, acc);
+  else if (M == 1)
+    gemv<W4, 1, false>(grid, block, stream, x, M, K, w, R, N, rps, acc);
+  else if (tail)
+    gemv<W4, 4, true>(grid, block, stream, x, M, K, w, R, N, rps, acc);
   else
-    gemv_kernel<W4, 4><<<grid, block, 0, stream>>>(
-        (const int8_t*)x, M, K, (const int8_t*)w, R, N, rps, (int*)acc);
+    gemv<W4, 4, false>(grid, block, stream, x, M, K, w, R, N, rps, acc);
   if (out_kind != 2) {
     const long total = (long)M * N;
     epilogue_kernel<<<(total + 255) / 256, 256, 0, stream>>>(
@@ -406,14 +481,25 @@ int mq_int8_gemm(const void* x, const void* w, const void* xs, const void* wsc,
                  void* stream) {
   dim3 grid((N + GM_BN - 1) / GM_BN, (M + GM_BM - 1) / GM_BM), block(256);
   cudaStream_t st = (cudaStream_t)stream;
-  if (w4)
-    gemm_kernel<true><<<grid, block, 0, st>>>(
-        (const int8_t*)x, M, K, (const int8_t*)w, N, (const float*)xs,
-        (const float*)wsc, out, out_kind);
+  // the predicated K tail only where a k step is partial or an x row is not
+  // 16-byte aligned
+  const bool tail = (w4 ? (K / 2) % (GM_BK / 2) : K % GM_BK) ||
+                    reinterpret_cast<uintptr_t>(x) % 16;
+  const int8_t* xp = (const int8_t*)x;
+  const int8_t* wp = (const int8_t*)w;
+  const float *xsp = (const float*)xs, *wsp = (const float*)wsc;
+  if (w4 && tail)
+    gemm_kernel<true, true><<<grid, block, 0, st>>>(xp, M, K, wp, N, xsp, wsp,
+                                                    out, out_kind);
+  else if (w4)
+    gemm_kernel<true, false><<<grid, block, 0, st>>>(xp, M, K, wp, N, xsp,
+                                                     wsp, out, out_kind);
+  else if (tail)
+    gemm_kernel<false, true><<<grid, block, 0, st>>>(xp, M, K, wp, N, xsp,
+                                                     wsp, out, out_kind);
   else
-    gemm_kernel<false><<<grid, block, 0, st>>>(
-        (const int8_t*)x, M, K, (const int8_t*)w, N, (const float*)xs,
-        (const float*)wsc, out, out_kind);
+    gemm_kernel<false, false><<<grid, block, 0, st>>>(xp, M, K, wp, N, xsp,
+                                                      wsp, out, out_kind);
   return (int)cudaGetLastError();
 }
 

@@ -301,9 +301,9 @@ def _launch_gemv(name, entry, xq, x_scale, w, w_scale, out_dtype, packed):
     if xq.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {xq.device}")
     R = K // 2 if packed else K
-    if N % 16 or R % 4:
-        raise ValueError(f"{name}: needs N % 16 == 0 and K rows % 4 == 0, "
-                         f"got N={N}, rows={R}")
+    if N % 16 or (packed and R % 4):
+        raise ValueError(f"{name}: needs N % 16 == 0 (and packed rows % 4 == "
+                         f"0), got N={N}, rows={R}")
     from ._build import load
 
     lib = load()
@@ -329,24 +329,25 @@ def w4a8_gemv(xq, x_scale, w_packed, w_scale, out_dtype=torch.bfloat16):
 
 
 def int8_gemv(xq, x_scale, w, w_scale, out_dtype=torch.bfloat16):
-    """The same GEMV on int8 weights (K, N); CUDA kernel ``mq_int8_gemv``."""
+    """The same GEMV on int8 weights (K, N), any K (the RMS split's 18943
+    rows of ``down``); CUDA kernel ``mq_int8_gemv``."""
     return _launch_gemv("int8_gemv", "mq_int8_gemv", xq, x_scale, w, w_scale,
                         out_dtype, packed=False)
 
 
 def int8_gemm(xq, x_scale, w, w_scale, out_dtype=torch.bfloat16,
               packed: bool = False):
-    """int8 GEMM for M > 32 on W4 packed (K/2, N) or W8 (K, N) weights with the
-    fused per-token × per-channel epilogue; CUDA kernel ``mq_int8_gemm``."""
+    """int8 GEMM for M > 32 on W4 packed (K/2, N) or W8 (K, N) weights, any
+    K, with the fused per-token × per-channel epilogue; CUDA kernel
+    ``mq_int8_gemm``."""
     name = "int8_gemm"
     M, K, N = _check_args(name, xq, x_scale, w, w_scale, out_dtype, packed)
     if xq.device.type == "cpu":
         return int8_gemm_ref(xq, x_scale, w, w_scale, out_dtype, packed)
     if xq.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {xq.device}")
-    if K % 64 or N % 4:
-        raise ValueError(f"{name}: needs K % 64 == 0 and N % 4 == 0, "
-                         f"got K={K}, N={N}")
+    if N % 4:
+        raise ValueError(f"{name}: needs N % 4 == 0, got N={N}")
     from ._build import load
 
     lib = load()

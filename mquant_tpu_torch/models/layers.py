@@ -4,11 +4,11 @@
 Each linear *site* is a plain function of (x, params dict, SiteSpec, state,
 mode). Ported modes: "fp" (float weights ``w``) and "real" (integer storage
 ``w_q``/``w_scale``, int8 activations, hand-written int GEMM kernels). The
-calibration and fake-quant modes, the RMS first-column split and output
-quantizers are not on the serving path and raise.
+calibration and fake-quant modes and output quantizers are not on the
+serving path and raise.
 
-Forward order inside a site: online Hadamard → activation quantize → GEMM
-→ bias.
+Forward order inside a site: online Hadamard → RMS split (channel 0 stays
+fp, ``w_col0``) → activation quantize → GEMM → f32 col0 correction → bias.
 """
 
 from __future__ import annotations
@@ -59,27 +59,42 @@ def _check_servable(p: Dict[str, Any], spec: SiteSpec, mode: str):
     if mode != "real":
         raise NotImplementedError(f"mode {mode!r} is not ported (fp and real "
                                   "are)")
-    if "w_col0" in p or spec.split:
-        raise NotImplementedError("RMS first-column split is not ported yet")
     if spec.out_bits is not None:
         raise NotImplementedError("output quantizers are not ported yet")
+    if "w_col0" in p and not spec.split:
+        # the JAX function rejoins w_col0 to a float ``w``, which integer
+        # storage no longer has (it fails there on the missing key)
+        raise NotImplementedError("split integer storage needs spec.split: "
+                                  "the fp column cannot rejoin int codes")
 
 
 def qlinear(x: torch.Tensor, p: Dict[str, Any], name: str,
             spec: Optional[SiteSpec] = None,
             state: Optional[Dict[str, Any]] = None,
             mode: str = "fp") -> torch.Tensor:
-    """y = x @ w + b through the site's transform / quant pipeline."""
+    """y = x @ w + b through the site's transform / quant pipeline. Split
+    storage (``w_col0`` (…, 1, out) and ``w`` / ``w_q`` over input rows
+    1..n−1): with ``spec.split`` channel 0 of the (rotated) input skips the
+    quantizer and adds (x0 · w_col0) in f32 after the GEMM; in fp mode the
+    column rejoins ``w``."""
     from ..kernels.qmm import quantized_matmul
 
     if spec is None or mode == "fp":
-        y = x @ p["w"].to(x.dtype)
+        w = p["w"]
+        if "w_col0" in p:  # split storage in fp mode: recombine
+            w = torch.cat([p["w_col0"], w], dim=-2)
+        y = x @ w.to(x.dtype)
         return y + p["b"].to(x.dtype) if p.get("b") is not None else y
     _check_servable(p, spec, mode)
     if spec.online_had is not None:
         x = _online_hadamard(x, spec)
+    x0 = None
+    if "w_col0" in p:  # RMS split: channel 0 stays fp
+        x0, x = x[..., :1], x[..., 1:]
     site_state = None if state is None else state.get(name)
     y = quantized_matmul(x, p, spec, site_state)
+    if x0 is not None:
+        y = y + (x0.float() @ p["w_col0"].float()).to(y.dtype)
     if p.get("b") is not None:
         y = y + p["b"].to(y.dtype)
     return y

@@ -101,9 +101,37 @@ def layer_views(tree: Any, l: int) -> Any:
     return tree
 
 
+def _use_fused_tail(dspec, mode: str, T: int, dp: Dict, act) -> bool:
+    """Eligibility of ``kernels.fwht.fused_swiglu_had_quant`` (the JAX
+    function's, without its two TPU-only gates, the backend and the
+    ``MQUANT_FUSED_TAIL`` flag): real mode, full online Hadamard, static
+    symmetric per-tensor int8 activations, no output quantizer, integer
+    storage without the RMS split, and a prefill of T ≥ 256 with
+    T % 256 == 0."""
+    return (mode == "real" and dspec is not None
+            and dspec.online_had == "full" and dspec.a_bits == 8
+            and dspec.a_static and dspec.a_symmetric
+            and dspec.out_bits is None and "w_col0" not in dp
+            and "w_q" in dp and act is not None and act.zero_point is None
+            and torch.as_tensor(act.scale).ndim == 0
+            and T >= 256 and T % 256 == 0)
+
+
 def _mlp_tail(dspec, mode, g, u, dp, lstate):
-    """swiglu → down-projection (the unfused branch of the JAX function;
-    its fused swiglu → Hadamard → int8 kernel is not ported yet)."""
+    """swiglu → down-projection. Where :func:`_use_fused_tail` holds, swiglu
+    → Hadamard → int8 is one fused kernel and its codes go straight to the
+    integer GEMM; otherwise the unfused chain of ``qlinear``."""
+    dstate = None if lstate is None else lstate.get("llm.down")
+    act = None if dstate is None else dstate.get("act")
+    if _use_fused_tail(dspec, mode, g.shape[-2], dp, act):
+        from ..kernels import fwht
+        from ..kernels.qmm import quantized_matmul_pre
+
+        q8 = fwht.KERNELS["fused_swiglu_had_quant"](g, u, act.scale)
+        y = quantized_matmul_pre(q8, act.scale, dp, g.dtype)
+        if dp.get("b") is not None:
+            y = y + dp["b"].to(y.dtype)
+        return y
     return qlinear(L.swiglu(g, u), dp, "llm.down", dspec, lstate, mode)
 
 
@@ -266,8 +294,9 @@ def decoder_forward(cfg: DecoderConfig, params: Dict,
 
 
 def init_cache(cfg: DecoderConfig, batch: int, max_len: int, dtype=None,
-               device=None) -> Dict:
-    """bf16 (or ``dtype``) KV cache; int8 / int4 KV are not ported yet."""
+               device="cuda") -> Dict:
+    """bf16 (or ``dtype``) KV cache on the card unless ``device`` says
+    otherwise; int8 / int4 KV are not ported yet."""
     dtype = dtype or cfg.dtype
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),

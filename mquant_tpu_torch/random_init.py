@@ -21,14 +21,20 @@ from .models.vision import VIT_SITES, MergerConfig, ViTConfig
 PATCH, MERGE = 14, 2  # Qwen2-VL's patch side and spatial merge
 
 
-def llm_specs() -> Dict[str, SiteSpec]:
-    """The serving specs of bench.py: W4 per-channel sym, static per-tensor
-    int8 activations, block I⊗H₁₂₈ online Hadamard before ``down``, int8
-    lm_head."""
+def llm_specs(had_mode: str = "block", split: bool = False
+              ) -> Dict[str, SiteSpec]:
+    """The serving specs of bench.py's ``llm_specs``: W4 per-channel sym,
+    static per-tensor int8 activations, int8 lm_head, and an online
+    Hadamard before ``down``: block I⊗H₁₂₈ or, with ``had_mode="full"``, the
+    exact transform over the whole width (hadK ⊗ H₁₂₈). ``split`` adds the
+    RMS first-column split on ``down`` (the pipeline's default artifact)."""
+    if had_mode not in ("block", "full"):
+        raise ValueError(f"had_mode {had_mode!r}: block or full")
     s = {f"llm.{n}": SiteSpec(w_bits=4, a_bits=8, a_static=True)
          for n in LLM_SITES}
-    s["llm.down"] = dataclasses.replace(s["llm.down"], online_had="block",
-                                        head_dim=128)
+    s["llm.down"] = dataclasses.replace(
+        s["llm.down"], online_had=had_mode,
+        head_dim=128 if had_mode == "block" else 0, split=split)
     s["llm.lm_head"] = SiteSpec(w_bits=8, a_bits=8, a_static=True)
     return s
 
@@ -86,6 +92,20 @@ def init_w4a8(cfg: DecoderConfig, gen: torch.Generator, device
     state["llm.lm_head"] = {"act": QuantParams(
         torch.tensor(0.05, device=device))}
     return params, state
+
+
+def init_split_down(cfg: DecoderConfig, gen: torch.Generator, device
+                    ) -> Dict[str, torch.Tensor]:
+    """``down`` in RMS-split storage, as the JAX package realizes it: W4
+    codes of input rows 1..I−1 in int8 storage (I − 1 rows, odd, so they
+    stay unpacked), the per-channel scale 0.01 of :func:`init_w4a8`, and an
+    f32 ``w_col0`` (L, 1, hidden) drawn as one more dequantized W4 row."""
+    L, Hd, I = cfg.n_layers, cfg.hidden, cfg.inter_eff
+    col0 = torch.randint(-7, 8, (L, 1, Hd), generator=gen, device=device)
+    return {"w_q": torch.randint(-7, 8, (L, I - 1, Hd), generator=gen,
+                                 device=device, dtype=torch.int8),
+            "w_scale": torch.full((L, Hd), 0.01, device=device),
+            "w_col0": col0.float() * 0.01, "b": None}
 
 
 def _normal_w(gen, device, *shape):

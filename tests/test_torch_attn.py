@@ -37,7 +37,7 @@ POISON_K, POISON_V = 50.0, 3e4  # a read of either would swamp the output
 
 
 def _t(a):
-    return interop.array_to_torch(a)
+    return interop.array_to_torch(a, device="cpu")
 
 
 def _decode_inputs(rng, dtype, B=2, H=4, KVH=2, hd=128, S=64):
@@ -197,33 +197,33 @@ def tiny128():
 
 def test_fused_decode_eligibility(tiny128):
     _, cfg, _ = tiny128
-    cache = TM.init_cache(cfg, 2, 32)
+    cache = TM.init_cache(cfg, 2, 32, device="cpu")
     assert TM._use_fused_decode_attn(cfg, cache, 1, False, None)
     assert not TM._use_fused_decode_attn(cfg, cache, 2, False, None)
     assert not TM._use_fused_decode_attn(cfg, cache, 1, True, None)
     assert not TM._use_fused_decode_attn(cfg, None, 1, False, None)
     assert not TM._use_fused_decode_attn(
         cfg, cache, 1, False, torch.ones((2, 1, 1, 32), dtype=torch.bool))
-    bf = TM.init_cache(cfg, 2, 32, dtype=torch.bfloat16)
+    bf = TM.init_cache(cfg, 2, 32, dtype=torch.bfloat16, device="cpu")
     assert not TM._use_fused_decode_attn(cfg, bf, 1, False, None)
     narrow = TM.DecoderConfig(vocab=8, hidden=64, n_layers=1, n_heads=4,
                               n_kv_heads=2, intermediate=8,
                               dtype=torch.float32)
     assert not TM._use_fused_decode_attn(
-        narrow, TM.init_cache(narrow, 1, 8), 1, False, None)
+        narrow, TM.init_cache(narrow, 1, 8, device="cpu"), 1, False, None)
 
 
 def test_fused_decode_step_matches_jax(tiny128, monkeypatch):
     cfg_j, cfg_t, params_np = tiny128
     params_j = jax.tree.map(jnp.asarray, params_np)
-    params_t = interop.to_torch(params_np)
+    params_t = interop.to_torch(params_np, device="cpu")
     B, T, S = 2, 7, 32
     toks = np.random.default_rng(5).integers(0, cfg_j.vocab, size=(B, T))
     lj, cj, _ = JM.decoder_forward(cfg_j, params_j, jnp.asarray(toks),
                                    cache=JM.init_cache(cfg_j, B, S),
                                    prefill_fresh=True)
     lt, ct = TM.decoder_forward(cfg_t, params_t, torch.from_numpy(toks),
-                                cache=TM.init_cache(cfg_t, B, S),
+                                cache=TM.init_cache(cfg_t, B, S, device="cpu"),
                                 prefill_fresh=True)
     np.testing.assert_allclose(lt.numpy(), np.asarray(lj), rtol=0, atol=2e-5)
     tok = np.asarray(jnp.argmax(lj[:, -1:], -1)).astype(np.int32)

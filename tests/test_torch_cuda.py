@@ -5,7 +5,9 @@ no CPU mode). On the card: ``python -m pytest tests/test_torch_cuda.py``.
 Tolerances: int32 accumulators bit-equal; bf16 outputs within 1 bf16 ulp.
 Attention: written cache rows bit-equal; outputs within 1e-2 of their
 largest magnitude (the kernels round the probabilities to bf16 at other
-points than the plain versions and sum in other orders).
+points than the plain versions and sum in other orders). Fused tail: int8
+codes within ±1 and at most 1% of them differing (f32 sums in other orders
+and another exp may move a code on a rounding tie by one step).
 """
 
 import pytest
@@ -13,6 +15,7 @@ import torch
 
 from mquant_tpu_torch.kernels import attn_decode as TA
 from mquant_tpu_torch.kernels import flash_attn as TF
+from mquant_tpu_torch.kernels import fwht
 from mquant_tpu_torch.kernels import qmm
 
 pytestmark = pytest.mark.gpu
@@ -59,7 +62,10 @@ def test_w4a8_gemv(cuda, M, K, N):
     _check("w4a8_gemv", cuda, M, K, N, True)
 
 
-@pytest.mark.parametrize("M,K,N", [(1, 3584, 152064), (7, 384, 2048)])
+# K = 18943: the RMS split's int8 rows of ``down``; other ragged K tails
+@pytest.mark.parametrize("M,K,N", [(1, 3584, 152064), (7, 384, 2048),
+                                   (1, 18943, 3584), (3, 18943, 3584),
+                                   (5, 1001, 2048), (2, 6, 16)])
 def test_int8_gemv(cuda, M, K, N):
     _check("int8_gemv", cuda, M, K, N, False)
 
@@ -67,15 +73,69 @@ def test_int8_gemv(cuda, M, K, N):
 @pytest.mark.parametrize("M,K,N,packed", [(1024, 3584, 4608, True),
                                           (77, 3584, 4100, True),
                                           (1024, 1280, 5120, False),
-                                          (333, 1280, 1000, False)])
+                                          (333, 1280, 1000, False),
+                                          (1024, 18943, 3584, False),
+                                          (77, 1001, 1000, False),
+                                          (40, 3, 64, False),
+                                          (100, 3586, 4100, True)])
 def test_int8_gemm(cuda, M, K, N, packed):
     _check("int8_gemm", cuda, M, K, N, packed)
 
 
 def test_wrapper_raises_on_unsupported_shape(cuda):
-    x, xs, w, ws = _operands(cuda, 40, 96, 64, False)  # K % 64 != 0
+    x, xs, w, ws = _operands(cuda, 40, 96, 66, False)  # N % 4 != 0
     with pytest.raises(ValueError):
         qmm.int8_gemm(x, xs, w, ws)
+
+
+def _tail_inputs(dev, T, n, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn((T, n), generator=g, device=dev).to(torch.bfloat16)
+            for _ in range(2)]
+
+
+def _check_codes(q, ref):
+    d = (q.int() - ref.int()).abs()
+    assert int(d.max()) <= 1
+    assert float((d > 0).float().mean()) <= 0.01
+
+
+@pytest.mark.parametrize("T,n", [(1024, 18944), (256, 18944), (5, 18944),
+                                 (3, 512), (2, 16384)])
+def test_fused_swiglu_had_quant(cuda, T, n):
+    g, u = _tail_inputs(cuda, T, n)
+    s = torch.tensor(0.05, device=cuda)
+    before = fwht.LAUNCHES["fused_swiglu_had_quant"]
+    q = fwht.fused_swiglu_had_quant(g, u, s)
+    assert fwht.LAUNCHES["fused_swiglu_had_quant"] == before + 1
+    ref = fwht.fused_swiglu_had_quant_ref(g, u, s)
+    torch.cuda.synchronize()
+    assert q.dtype == torch.int8 and q.shape == (T, n)
+    _check_codes(q, ref)
+
+
+def test_fused_tail_takes_fused_gate_up_halves(cuda):
+    """g and u as the two halves of one (T, 2n) gate|up output, as
+    qlinear_group hands them over: the codes of contiguous copies."""
+    g, u = _tail_inputs(cuda, 256, 18944, seed=1)
+    gu = torch.cat([g, u], dim=-1)[None]
+    s = torch.tensor(0.05, device=cuda)
+    q = fwht.fused_swiglu_had_quant(gu[..., :18944], gu[..., 18944:], s)
+    assert torch.equal(q[0], fwht.fused_swiglu_had_quant(g, u, s))
+
+
+def test_fused_tail_raises_on_unsupported(cuda):
+    g, u = _tail_inputs(cuda, 4, 2368)  # 148 · 16: m != 128
+    with pytest.raises(ValueError):
+        fwht.fused_swiglu_had_quant(g, u, 0.05)
+    g, u = _tail_inputs(cuda, 4, 18944)
+    with pytest.raises(ValueError):  # f32
+        fwht.fused_swiglu_had_quant(g.float(), u.float(), 0.05)
+    with pytest.raises(ValueError):  # per-token scale
+        fwht.fused_swiglu_had_quant(g, u, torch.ones(4, device=cuda))
+    wide = torch.cat([g, g[:, :8]], dim=-1)
+    with pytest.raises(ValueError):  # rows 2 bytes off 16-byte alignment
+        fwht.fused_swiglu_had_quant(wide[:, 1:18945], wide[:, 1:18945], 0.05)
 
 
 ATTN_RTOL = 1e-2

@@ -1,0 +1,226 @@
+"""The port's fused MLP tail and online Hadamard against the JAX package (CPU;
+numpy inputs from fixed seeds for both packages).
+
+* ``fused_swiglu_had_quant_ref`` (the plain version of the CUDA tail kernel)
+  against JAX ``fused_swiglu_had_quant(interpret=True)``: int8 codes within
+  ±1 and under 1% of them differing (the two sum the same f32 products in
+  other orders and take sigmoid from other libraries, so a code on a
+  rounding tie may land one step apart); and against JAX's unfused chain
+  within ``TestFusedTail``'s own bound (±1, under 8%: the chain rounds
+  swiglu to bf16 twice).
+* ``_mlp_tail``'s fused branch at T = 256 against JAX's fused composition
+  ``quantized_matmul_pre(fused_swiglu_had_quant(…), …)``: equal to the
+  integer GEMM of its own codes, and within the bound that the differing
+  codes allow.
+* The routing of ``_mlp_tail``: which sites and prefill lengths take the
+  fused kernel, recorded through a monkeypatched ``KERNELS`` entry.
+* ``online_hadamard`` on bf16 inputs against JAX within one bf16 ulp.
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mquant_tpu.core.formats import INT8
+from mquant_tpu.core.quant import QuantParams as JQP
+from mquant_tpu.core.quant import quantize as jquantize
+from mquant_tpu.kernels import fwht as JF
+from mquant_tpu.kernels import qmm as JK
+from mquant_tpu.models import layers as JL
+from mquant_tpu_torch import interop
+from mquant_tpu_torch.core.quant import QuantParams as TQP
+from mquant_tpu_torch.kernels import fwht as TF
+from mquant_tpu_torch.models import layers as TL
+from mquant_tpu_torch.models import llm as TLLM
+
+SCALE = 0.05
+
+
+def _t(a):
+    return interop.array_to_torch(a, device="cpu")
+
+
+def _bf16_pair(seed, T, n):
+    """g, u (1, T, n) as bf16 numpy arrays (the same bits for both)."""
+    rng = np.random.default_rng(seed)
+    return [np.asarray(jnp.asarray(rng.normal(size=(1, T, n)), jnp.bfloat16))
+            for _ in range(2)]
+
+
+def _code_diff(a, b):
+    d = np.abs(np.asarray(a, np.int32) - np.asarray(b, np.int32))
+    return d.max(), (d > 0).mean()
+
+
+# (18944, 256): the main path's n (hadK 148 ⊗ H₁₂₈) in two 128-token tiles
+@pytest.mark.parametrize("n,T", [(96, 256), (512, 256), (2368, 512),
+                                 (18944, 256)])
+def test_tail_plain_matches_jax_kernel(n, T):
+    g, u = _bf16_pair(n + T, T, n)
+    ref = JF.fused_swiglu_had_quant(jnp.asarray(g), jnp.asarray(u),
+                                    jnp.float32(SCALE), interpret=True)
+    got = TF.fused_swiglu_had_quant_ref(_t(g), _t(u), torch.tensor(SCALE))
+    assert got.dtype == torch.int8 and got.shape == (1, T, n)
+    worst, frac = _code_diff(got.numpy(), ref)
+    assert worst <= 1 and frac < 0.01, (worst, frac)
+    # CPU tensors: the wrapper is the plain version, and launches nothing
+    before = TF.LAUNCHES["fused_swiglu_had_quant"]
+    np.testing.assert_array_equal(
+        TF.fused_swiglu_had_quant(_t(g), _t(u), SCALE).numpy(), got.numpy())
+    assert TF.LAUNCHES["fused_swiglu_had_quant"] == before
+
+
+@pytest.mark.parametrize("n,T", [(512, 256), (2368, 512)])
+def test_tail_plain_matches_jax_chain(n, T):
+    """Against quantize(online_hadamard(swiglu(g, u))) of the JAX package,
+    the bound of tests/test_kernels.py::TestFusedTail."""
+    g, u = _bf16_pair(n * T, T, n)
+    ref = jquantize(JF.online_hadamard(JL.swiglu(jnp.asarray(g),
+                                                 jnp.asarray(u))),
+                    JQP(scale=jnp.float32(SCALE)), INT8)
+    got = TF.fused_swiglu_had_quant_ref(_t(g), _t(u), SCALE)
+    worst, frac = _code_diff(got.numpy(), ref)
+    assert worst <= 1 and frac < 0.08, (worst, frac)
+
+
+def test_tail_plain_takes_strided_halves():
+    """g and u as the two halves of one fused gate|up output (the layout
+    qlinear_group hands the tail): the same codes as contiguous copies."""
+    g, u = _bf16_pair(7, 4, 512)
+    gu = torch.cat([_t(g), _t(u)], dim=-1)
+    half = TF.fused_swiglu_had_quant(gu[..., :512], gu[..., 512:], SCALE)
+    np.testing.assert_array_equal(
+        half.numpy(), TF.fused_swiglu_had_quant(_t(g), _t(u), SCALE).numpy())
+
+
+def _down_site(rng, n, hidden, split=False):
+    d = {"w_q": rng.integers(-7, 8, size=(n - split, hidden)).astype(np.int8),
+         "w_scale": rng.uniform(0.5, 1.5, size=(hidden,)).astype(np.float32)
+         * 0.03,
+         "b": (rng.normal(size=(hidden,)) * 0.1).astype(np.float32)}
+    if split:
+        d["w_col0"] = (rng.integers(-7, 8, size=(1, hidden)) * 0.03
+                       ).astype(np.float32)
+    return d
+
+
+def _spec(Spec, mode="full", split=False):
+    return Spec(w_bits=4, a_bits=8, a_static=True, online_had=mode,
+                head_dim=0 if mode == "full" else 32, split=split)
+
+
+def test_mlp_tail_fused_matches_jax_composition():
+    """T = 256 (f32 activations): the port's fused branch against JAX's
+    quantized_matmul_pre(fused_swiglu_had_quant(interpret=True), …) + b."""
+    rng = np.random.default_rng(11)
+    n, hidden, T = 512, 64, 256
+    g = rng.normal(size=(1, T, n)).astype(np.float32)
+    u = rng.normal(size=(1, T, n)).astype(np.float32)
+    dp = _down_site(rng, n, hidden)
+    sc = jnp.float32(SCALE)
+    q_j = JF.fused_swiglu_had_quant(jnp.asarray(g), jnp.asarray(u), sc,
+                                    interpret=True)
+    dpj = {k: jnp.asarray(v) for k, v in dp.items()}
+    y_j = JK.quantized_matmul_pre(q_j, sc, dpj, jnp.float32) + dpj["b"]
+    dpt = {k: _t(v) for k, v in dp.items()}
+    lstate = {"llm.down": {"act": TQP(torch.tensor(SCALE))}}
+    y_t = TLLM._mlp_tail(_spec(TL.SiteSpec), "real", _t(g), _t(u), dpt,
+                         lstate)
+    # the GEMM of the port's own codes is JAX's, bit for bit
+    q_t = TF.fused_swiglu_had_quant_ref(_t(g), _t(u), SCALE)
+    y_jt = JK.quantized_matmul_pre(jnp.asarray(q_t.numpy()), sc, dpj,
+                                   jnp.float32) + dpj["b"]
+    np.testing.assert_array_equal(y_t.numpy(), np.asarray(y_jt))
+    # codes within one step, and the outputs within what the differing
+    # codes move: xs · ws · Σ |w| over the differing positions (+ f32 slack)
+    dq = q_t.numpy().astype(np.int32) - np.asarray(q_j, np.int32)
+    assert np.abs(dq).max() <= 1 and (dq != 0).mean() < 0.01
+    room = (SCALE * np.abs(dq[0]).astype(np.float64)
+            @ (np.abs(dp["w_q"]) * dp["w_scale"]))
+    err = np.abs(y_t.numpy()[0].astype(np.float64) - np.asarray(y_j)[0])
+    assert (err <= room + 1e-5 * np.abs(np.asarray(y_j)).max()).all()
+
+
+@pytest.mark.parametrize("mode,T,split,fused", [
+    ("full", 256, False, True),
+    ("full", 512, False, True),
+    ("full", 1, False, False),
+    ("full", 128, False, False),
+    ("full", 300, False, False),
+    ("full", 256, True, False),  # w_col0: the RMS split takes the chain
+    ("block", 256, False, False),
+])
+def test_mlp_tail_routing(mode, T, split, fused, monkeypatch):
+    rng = np.random.default_rng(T)
+    n, hidden = 512, 64
+    g = torch.from_numpy(rng.normal(size=(1, T, n)).astype(np.float32))
+    u = torch.from_numpy(rng.normal(size=(1, T, n)).astype(np.float32))
+    dp = {k: _t(v) for k, v in _down_site(rng, n, hidden, split).items()}
+    spec = _spec(TL.SiteSpec, mode, split)
+    lstate = {"llm.down": {"act": TQP(torch.tensor(SCALE))}}
+    calls = []
+    kern = TF.KERNELS["fused_swiglu_had_quant"]
+    monkeypatch.setitem(TF.KERNELS, "fused_swiglu_had_quant",
+                        lambda *a: calls.append(a[0].shape) or kern(*a))
+    y = TLLM._mlp_tail(spec, "real", g, u, dp, lstate)
+    assert len(calls) == int(fused)
+    assert y.shape == (1, T, hidden)
+    if not fused:  # the unfused chain of qlinear
+        np.testing.assert_array_equal(
+            y.numpy(), TL.qlinear(TL.swiglu(g, u), dp, "llm.down", spec,
+                                  lstate, "real").numpy())
+
+
+def test_mlp_tail_needs_static_per_tensor_scale(monkeypatch):
+    """Per-layer (L,) scales seen unsliced, zero points and dynamic scales
+    keep the chain."""
+    calls = []
+    monkeypatch.setitem(TF.KERNELS, "fused_swiglu_had_quant",
+                        lambda *a: calls.append(1))
+    spec = _spec(TL.SiteSpec)
+    dp = {"w_q": torch.zeros((512, 64), dtype=torch.int8)}
+    for act in (TQP(torch.full((2,), SCALE)),
+                TQP(torch.tensor(SCALE), torch.tensor(3.0)), None):
+        assert not TLLM._use_fused_tail(spec, "real", 256, dp, act)
+    assert not TLLM._use_fused_tail(
+        dataclasses.replace(spec, a_static=False), "real", 256, dp,
+        TQP(torch.tensor(SCALE)))
+    assert TLLM._use_fused_tail(spec, "real", 256, dp,
+                                TQP(torch.tensor(SCALE)))
+    assert not TLLM._use_fused_tail(spec, "fp", 256, dp,
+                                    TQP(torch.tensor(SCALE)))
+    assert not calls
+
+
+@pytest.mark.parametrize("n", [96, 18944 // 64, 512])
+def test_online_hadamard_bf16_matches_jax(n):
+    """bf16 operands, f32 sums, bf16 between the products: within one bf16
+    ulp of JAX's (the sums run in other orders)."""
+    rng = np.random.default_rng(n)
+    x = np.asarray(jnp.asarray(rng.normal(size=(3, 5, n)), jnp.bfloat16))
+    ref = np.asarray(JF.online_hadamard(jnp.asarray(x))).astype(np.float32)
+    got = TF.online_hadamard(_t(x))
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    mag = np.maximum(np.abs(ref), np.abs(got)).clip(min=2.0**-126)
+    ulp = np.exp2(np.floor(np.log2(mag)) - 7)
+    assert (np.abs(got - ref) <= ulp).all()
+
+
+def test_port_sums_bf16_products_in_f32(monkeypatch):
+    """The online Hadamard's bf16 matmuls run with cuBLAS's reduced-precision
+    reduction off, so they sum in f32 as the JAX dots do, whatever the flag
+    was; the caller's flag is restored after."""
+    flags = torch.backends.cuda.matmul
+    monkeypatch.setattr(flags, "allow_bf16_reduced_precision_reduction", True)
+    seen = []
+    matmul = torch.matmul
+    monkeypatch.setattr(torch, "matmul", lambda *a: seen.append(
+        flags.allow_bf16_reduced_precision_reduction) or matmul(*a))
+    x = torch.ones((2, 2368), dtype=torch.bfloat16)
+    TF.online_hadamard(x)
+    assert seen == [False, False]
+    assert flags.allow_bf16_reduced_precision_reduction

@@ -227,10 +227,10 @@ def test_attention_causal_matches_jax(rng):
 
 
 def test_unported_site_configs_raise(rng):
-    st = TL.SiteSpec(w_bits=4, a_bits=8, split=True)
+    st = TL.SiteSpec(w_bits=4, a_bits=8, out_bits=8)
     p = TK.quantize_weights_real(torch.randn(8, 4), 4)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError):  # output quantizer
         TL.qlinear(torch.randn(2, 8), p, "s", st, None, "real")
     with pytest.raises(NotImplementedError):
         TL.qlinear(torch.randn(2, 8), p, "s",
-                   dataclasses.replace(st, split=False), None, "fake")
+                   dataclasses.replace(st, out_bits=None), None, "fake")

@@ -129,8 +129,8 @@ def _weights(seed=0):
 def shared():
     cfg_j, params_np, state_j = _weights()
     params_j = jax.tree.map(jnp.asarray, params_np)
-    params_t = interop.to_torch(params_np)
-    state_t = interop.to_torch(jax.tree.map(np.asarray, state_j))
+    params_t = interop.to_torch(params_np, device="cpu")
+    state_t = interop.to_torch(jax.tree.map(np.asarray, state_j), device="cpu")
     return dict(cfg_j=cfg_j, cfg_t=TQ2.Qwen2VLConfig.tiny(),
                 params_j=params_j, params_t=params_t, state_j=state_j,
                 state_t=state_t, specs_j=_specs(JSpec), specs_t=_specs(TSpec))
@@ -288,7 +288,7 @@ def test_interop_converts_exactly(rng):
                   "b": None},
             "st": JQP(np.float32(0.5), np.float32(3.0)),
             "st2": JQP(np.ones((2,), np.float32))}
-    out = interop.to_torch(tree)
+    out = interop.to_torch(tree, device="cpu")
     np.testing.assert_array_equal(out["a"]["w_q"].numpy(), tree["a"]["w_q"])
     assert out["a"]["w"].dtype == torch.bfloat16
     np.testing.assert_array_equal(out["a"]["w"].float().numpy(),
@@ -296,7 +296,7 @@ def test_interop_converts_exactly(rng):
     assert out["a"]["b"] is None
     assert float(out["st"].scale) == 0.5 and float(out["st"].zero_point) == 3
     assert out["st2"].zero_point is None
-    cast = interop.to_torch(tree, dtype=torch.float32)
+    cast = interop.to_torch(tree, device="cpu", dtype=torch.float32)
     assert cast["a"]["w"].dtype == torch.float32
     assert cast["a"]["w_q"].dtype == torch.int8
 
