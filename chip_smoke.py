@@ -6,8 +6,9 @@ Phases, in order (any failed check raises and the script exits non-zero):
 1. device: needs CUDA; prints the card's name and power limit.
 2. build: compiles the CUDA kernels from ``mquant_tpu_torch/kernels/csrc``.
 3. kernels: each kernel against its plain PyTorch version at the shapes of
-   the main path: int32 accumulators bit-equal, bf16 outputs within 1 ulp
-   (K = 18943 included: the RMS split's rows of ``down``); the attention
+   the main path: int32 accumulators and bf16 outputs bit-equal (K = 18943
+   included: the RMS split's rows of ``down``; and the prefill probe's W8
+   products); the attention
    kernels' written cache rows bit-equal and outputs within 1e-2 of the
    plain version's largest magnitude, with cache columns outside [start,
    pos) poisoned; the fused swiglu → Hadamard → int8 tail's codes within ±1
@@ -17,7 +18,18 @@ Phases, in order (any failed check raises and the script exits non-zero):
    replay with L2-cold weights / caches (median of replays), beside the
    least time the card could take (bytes over 3.35 TB/s or operations over
    the dense peak); the unfused torch chain of the tail is timed beside it.
-4. slice: Qwen2-VL-7B at full width and depth 28 with seeded random W4A8
+   The prefill probe's kernels likewise (rms_norm_quant: codes within ±1,
+   at most 1e-3 differing; had_quant: the tail's rule; fwht_two_matmul:
+   f32 within 1e-5 of the plain version's largest magnitude, bf16 within
+   one ulp plus that), each beside its unfused torch chain.
+4. probes: the T = 1024 prefill probe at 7B widths
+   (``mquant_tpu_torch.scripts.prefill_probe``: every segment, device ms per
+   step of a chain of 16 in one CUDA graph; each fused segment against its
+   unfused twin) and the int8 rate probe (``scripts.mxu_rate``: int32
+   output bit-equal to ``torch._int_mm``'s), counted as one path that must
+   launch rms_norm_quant, had_quant, fwht_two_matmul, the fused tail,
+   int8_gemm and flash attention.
+   slice: Qwen2-VL-7B at full width and depth 28 with seeded random W4A8
    weights (W8A8 vision tower) serves one full-VLM request (448² image →
    ViT → merger → splice → 1024-token prompt → 128 greedy tokens) and two
    text requests through ``serve.generate.Generator``; then (a) a document
@@ -46,7 +58,8 @@ Phases, in order (any failed check raises and the script exits non-zero):
    busy time, idle share and the largest device items of the vision tower,
    the 1024-token prefill and a decode step (block Hadamard, then path F's,
    then path S's decode step), then of the 4096-token prefill and a decode
-   step at position ~4100.
+   step at position ~4100; and the stream time between CUDA events around
+   every ``layers.attention`` call.
 
 Last line of stdout: {"ok": true, "device": {...}}. Usage:
 ``python3 chip_smoke.py [--seed 0]``.
@@ -60,51 +73,15 @@ import copy
 import dataclasses
 import json
 import math
-import statistics
-import subprocess
 import sys
 import time
 
 
+from mquant_tpu_torch.scripts.timing import card_line, cuda_ms
+
+
 def log(*a):
     print(*a, flush=True)
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, calls: int, reps: int = 5) -> float:
-    """Device ms per call: ``fn(0) .. fn(calls - 1)`` captured in one CUDA
-    graph and replayed between two CUDA events, so host launch cost is not
-    counted; the median over ``reps`` replays."""
-    import torch
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):  # warm-up: allocator, library handles
-        for i in range(2):
-            fn(i)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for i in range(calls):
-            fn(i)
-    graph.replay()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        graph.replay()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / calls)
-    del graph
-    return statistics.median(times)
 
 
 def bf16_ulp_err(a, b) -> tuple[float, float]:
@@ -137,6 +114,14 @@ KERNEL_SHAPES = [
     ("int8_gemm", "merger mlp2", 256, 5120, 3584, False),
     ("int8_gemv", "S decode down", 1, 18943, 3584, False),
     ("int8_gemm", "S prefill down", 1024, 18943, 3584, False),
+    # the prefill probe's W8 products (s8mm): q, k / v, fused q|k|v, g / u,
+    # fused gate|up, down
+    ("int8_gemm", "probe q W8", 1024, 3584, 3584, False),
+    ("int8_gemm", "probe k / v W8", 1024, 3584, 512, False),
+    ("int8_gemm", "probe q|k|v W8", 1024, 3584, 4608, False),
+    ("int8_gemm", "probe g / u W8", 1024, 3584, 18944, False),
+    ("int8_gemm", "probe gate|up W8", 1024, 3584, 37888, False),
+    ("int8_gemm", "probe down W8", 1024, 18944, 3584, False),
 ]
 # off the 1-token decode path but inside the kernels' contract: several rows
 # in the GEMV, ragged M, N and K edges in the GEMM
@@ -150,17 +135,23 @@ EDGE_SHAPES = [
 REPLACES = {
     "w4a8_gemv": "mquant_tpu/kernels/qmm.py:869",
     "int8_gemv": "mquant_tpu/kernels/qmm.py:637",
-    "int8_gemm": "mquant_tpu/kernels/qmm.py:840",
+    "int8_gemm": "mquant_tpu/kernels/qmm.py:840, scripts/mxu_rate.py:90",
     "attn_decode": "mquant_tpu/kernels/attn_decode.py:206",
     "flash_attn_causal": "mquant_tpu/models/layers.py:385",
     "fused_swiglu_had_quant": "mquant_tpu/kernels/fwht.py:320",
+    "rms_norm_quant": "mquant_tpu/kernels/fwht.py:246",
+    "had_quant": "mquant_tpu/kernels/fwht.py:187",
+    "fwht_two_matmul": "mquant_tpu/kernels/fwht.py:122",
 }
 SOURCES = {"w4a8_gemv": "mquant_tpu_torch/kernels/csrc/qmm.cu",
            "int8_gemv": "mquant_tpu_torch/kernels/csrc/qmm.cu",
            "int8_gemm": "mquant_tpu_torch/kernels/csrc/qmm.cu",
            "attn_decode": "mquant_tpu_torch/kernels/csrc/attn.cu",
            "flash_attn_causal": "mquant_tpu_torch/kernels/csrc/attn.cu",
-           "fused_swiglu_had_quant": "mquant_tpu_torch/kernels/csrc/fwht.cu"}
+           "fused_swiglu_had_quant": "mquant_tpu_torch/kernels/csrc/fwht.cu",
+           "rms_norm_quant": "mquant_tpu_torch/kernels/csrc/fwht.cu",
+           "had_quant": "mquant_tpu_torch/kernels/csrc/fwht.cu",
+           "fwht_two_matmul": "mquant_tpu_torch/kernels/csrc/fwht.cu"}
 L2_COLD_BYTES = 128 * 2**20
 # published H100 SXM peaks (dense): HBM bytes/s, int8 op/s, bf16 FLOP/s
 HBM_BPS, INT8_OPS, BF16_FLOPS = 3.35e12, 1979e12, 989e12
@@ -225,9 +216,10 @@ def check_kernels(seed: int) -> dict:
         y_k = kern(x, xs, w, ws, torch.bfloat16, **extra)
         y_p = plain(x, xs, w, ws, torch.bfloat16, **extra)
         err, ulps = bf16_ulp_err(y_k, y_p)
-        if ulps > 1.0:
-            raise AssertionError(f"{name} [{label}]: bf16 output off by "
-                                 f"{ulps} ulp (max abs {err})")
+        if not torch.equal(y_k, y_p):
+            raise AssertionError(f"{name} [{label}]: bf16 output differs from "
+                                 f"the plain version's by up to {ulps} ulp "
+                                 f"(max abs {err})")
         # timed calls cycle over weight copies that together exceed the
         # 50 MB L2, so each call streams its weight from HBM as decode does
         wbytes = rows * N
@@ -257,7 +249,7 @@ def check_kernels(seed: int) -> dict:
         bms, by = bound(nbytes, 2 * M * K * N, INT8_OPS)
         lib_txt = "none" if lms is None else f"{lms:.4f} ms"
         log(f"kernel {name:10s} {label:18s} M={M:5d} K={K:6d} N={N:6d}: "
-            f"acc exact, bf16 max |d| {err:.3g} ({ulps:.2f} ulp); "
+            "acc exact, bf16 bit-equal; "
             f"{ms:.4f} ms vs plain {pms:.4f} ms, library {lib_txt}, bound "
             f"{bms:.4f} ms ({by}); weight stream "
             f"{wbytes / ms / 1e6:.1f} GB/s, {2 * M * K * N / ms / 1e9:.2f} "
@@ -471,6 +463,128 @@ def check_tail(seed: int) -> dict:
     return {"fused_swiglu_had_quant": summary}
 
 
+F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
+RMS_MAX_FRAC = 1e-3  # rms_norm_quant: at most 1e-3 of the codes one step off
+FWHT_RTOL = 1e-5  # fwht: max |Δ| ≤ FWHT_RTOL · max |plain|
+# the prefill probe's kernels (kernel, label, T, n, f32 input, main path):
+# the probe's shapes, then edges (one row, a ragged T, K = 28, f32 in and
+# out, a power-of-two n)
+PROBE_SHAPES = [
+    ("rms_norm_quant", "probe", 1024, 3584, False, True),
+    ("rms_norm_quant", "T 1", 1, 3584, False, False),
+    ("rms_norm_quant", "T 333", 333, 3584, False, False),
+    ("had_quant", "probe", 1024, 18944, False, True),
+    ("had_quant", "K 28", 256, 3584, False, False),
+    ("fwht_two_matmul", "probe, bf16", 1024, 18944, False, True),
+    ("fwht_two_matmul", "f32", 1024, 18944, True, False),
+    ("fwht_two_matmul", "pow2, f32", 64, 4096, True, False),
+]
+
+
+def _probe_kernel_check(name, x, w, s, out, ref) -> tuple[float, str]:
+    """(max error, text) of one probe kernel against its plain version;
+    fails outside its bound. Codes: within ±1 (rms_norm_quant: at most
+    RMS_MAX_FRAC differing, and the fraction a correctly rounded 1/sqrt
+    would move; had_quant: TAIL_MAX_FRAC). fwht: f32 within FWHT_RTOL of
+    max |plain|; bf16 within one ulp plus that bound."""
+    import torch
+
+    if name == "fwht_two_matmul":
+        o, r = out.float(), ref.float()
+        err, mag = float((o - r).abs().max()), float(r.abs().max())
+        m = torch.maximum(o.abs(), r.abs()).clamp(min=2.0**-126)
+        ulp = torch.exp2(torch.floor(torch.log2(m)) - 7)
+        beyond = float(((o - r).abs() > ulp).float().mean())
+        ok = (err <= FWHT_RTOL * mag if out.dtype == torch.float32 else
+              bool(((o - r).abs() <= ulp + FWHT_RTOL * mag).all()))
+        if out.shape != ref.shape or not ok:
+            raise AssertionError(f"{name}: max |d| {err} of max |plain| {mag}")
+        return err, (f"max |d| {err:.3g} ({err / mag:.2e} of max |plain|), "
+                     f"{beyond:.2e} of outputs beyond one bf16 ulp")
+    if name == "had_quant":
+        worst, frac = tail_diff(out, ref, name)
+        return float(worst), f"codes within {worst}, {frac:.6f} of them differ"
+    d = (out.int() - ref.int()).abs()
+    worst, frac = int(d.max()), float((d > 0).float().mean())
+    if worst > 1 or frac > RMS_MAX_FRAC:
+        raise AssertionError(f"{name}: codes differ by up to {worst} in a "
+                             f"fraction {frac}")
+    xf = x.float()
+    y = xf * (1.0 / torch.sqrt((xf * xf).mean(-1, keepdim=True) + 1e-6))
+    alt = torch.clamp(torch.round(y * w.float() * (1.0 / s)), -128, 127)
+    moved = float((alt != out.float()).float().mean())
+    return float(worst), (f"codes within {worst}, {frac:.2e} of them differ "
+                          f"(rsqrtf; 1/sqrt correctly rounded would move "
+                          f"{moved:.2e})")
+
+
+def check_probe_kernels(seed: int) -> dict:
+    """Phase 3, the prefill probe's kernels: rms_norm_quant, had_quant and
+    fwht_two_matmul against their plain versions, their device times beside
+    the plain version's and the unfused torch chain's (none of the three has
+    one PyTorch call), and their bounds. Returns summaries as
+    :func:`check_kernels`."""
+    import torch
+
+    from mquant_tpu_torch.core.formats import INT8
+    from mquant_tpu_torch.core.quant import QuantParams, quantize
+    from mquant_tpu_torch.kernels import fwht
+    from mquant_tpu_torch.models.layers import rms_norm
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 3)
+    s = torch.tensor(TAIL_SCALE, device=dev)
+    qp = QuantParams(s)
+    summary = {k: new_summary() for k in ("rms_norm_quant", "had_quant",
+                                          "fwht_two_matmul")}
+    chains = {
+        "rms_norm_quant": lambda x, w: quantize(rms_norm(x, w), qp, INT8),
+        "had_quant": lambda x, w: quantize(fwht.online_hadamard(x), qp, INT8),
+        "fwht_two_matmul": lambda x, w: fwht.online_hadamard(x)}
+    for name, label, T, n, f32, main in PROBE_SHAPES:
+        dt = torch.float32 if f32 else torch.bfloat16
+        in_bytes = T * n * (4 if f32 else 2)
+        # input copies beyond the 50 MB L2, so each call reads from HBM
+        xs = [(torch.randn((T, n), generator=g, device=dev) * 3).to(dt)
+              for _ in range(min(16, max(2, -(-L2_COLD_BYTES // in_bytes))))]
+        w = (torch.randn((n,), generator=g, device=dev) * 0.5).to(
+            torch.bfloat16)
+        args = {"rms_norm_quant": lambda x: (x, w, s),
+                "had_quant": lambda x: (x, s),
+                "fwht_two_matmul": lambda x: (x,)}[name]
+        kern, plain = fwht.KERNELS[name], fwht.PLAIN[name]
+        out, ref = kern(*args(xs[0])), plain(*args(xs[0]))
+        torch.cuda.synchronize()
+        err, text = _probe_kernel_check(name, xs[0], w, s, out, ref)
+        ms = cuda_ms(lambda i: kern(*args(xs[i % len(xs)])), 20)
+        pms = cuda_ms(lambda i: plain(*args(xs[i % len(xs)])), 4, reps=3)
+        K = fwht._factors(n)[2] if name != "rms_norm_quant" else 0
+        if name == "rms_norm_quant":
+            nbytes, ops, peak = 3 * T * n + 2 * n + 4, 5 * T * n, F32_FLOPS
+        elif name == "had_quant":
+            nbytes = 3 * T * n + 2 * (160 * 160 + 128 * 128) + 4
+            ops, peak = 2 * T * n * (K + 128), BF16_FLOPS
+        else:  # the butterfly form: 2 K n FMA flops + 8 n per row
+            nbytes = 2 * in_bytes + 4 * K * 160
+            ops, peak = T * (2 * K * n + 8 * n), F32_FLOPS
+        bms, by = bound(nbytes, ops, peak)
+        log(f"kernel {name} {label:11s} T={T:5d} n={n:5d}: {text}; {ms:.4f} "
+            f"ms vs plain {pms:.4f} ms, library none, bound {bms:.4f} ms "
+            f"({by}); {nbytes / ms / 1e6:.1f} GB/s, {ops / ms / 1e9:.2f} "
+            "TFLOP/s")
+        s_ = summary[name]
+        s_["max_abs_err"] = max(s_["max_abs_err"], err)
+        if main:
+            chain_ms = cuda_ms(lambda i: chains[name](xs[i % len(xs)], w), 4,
+                               reps=3)
+            log(f"kernel {name} {label}: the unfused torch chain "
+                f"{chain_ms:.4f} ms")
+            add_main(s_, ms, pms, bms, by, None)
+        del xs, out, ref
+    torch.cuda.empty_cache()
+    return summary
+
+
 def kernel_modules():
     from mquant_tpu_torch.kernels import attn_decode, flash_attn, fwht, qmm
 
@@ -509,6 +623,41 @@ def read_launches(path: str, needed) -> dict:
     if missing:
         raise AssertionError(f"{path}: kernels never launched: {missing}")
     return counts
+
+
+PROBE_CHAIN = 16  # chained steps per timed probe segment
+# kernels the probes must launch
+PROBE_KERNELS = ("rms_norm_quant", "had_quant", "fwht_two_matmul",
+                 "fused_swiglu_had_quant", "int8_gemm", "flash_attn_causal")
+
+
+def run_probe(seed: int, card: str) -> dict:
+    """Phase 4, the probes (``mquant_tpu_torch.scripts``): every segment of
+    the T = 1024 prefill probe at Qwen2-VL-7B widths (PROBE_CHAIN chained
+    steps in one CUDA graph, device ms per step), then the int8 rate probe
+    at (1024, 3584, 19968) with its int32 output bit-equal to
+    ``torch._int_mm``'s. Launch counts cover the two (wrapper calls:
+    warm-up, capture and the eager checks; graph replays launch without
+    them). Then each fused segment against its unfused twin. Returns the
+    launch counts."""
+    import torch
+
+    from mquant_tpu_torch.scripts import mxu_rate
+    from mquant_tpu_torch.scripts import prefill_probe as PP
+
+    with torch.no_grad():
+        probe = PP.Probe(PP.ProbeConfig(), "cuda", seed)
+        reset_launches()
+        times = PP.run(probe, PROBE_CHAIN, timed=True,
+                       log=lambda s: log(f"probe: {s}"))
+        mxu_rate.run(seed=seed, log=lambda s: log(f"mxu_rate: {s}"))
+        launches = read_launches("probe", PROBE_KERNELS)
+        PP.check_twins(probe, log=lambda s: log(f"probe: {s}"))
+    log(f"probe: T={probe.cfg.T}, chain {PROBE_CHAIN}: the segments sum to "
+        f"{sum(times.values()):.4f} ms per step; card {card}")
+    del probe
+    torch.cuda.empty_cache()
+    return launches
 
 
 PREFILL = 1024  # the full-VLM request of bench.py: 1024-token prompt
@@ -1142,21 +1291,52 @@ def decode_steps(gen, cache0):
     return decode
 
 
+@contextlib.contextmanager
+def attention_events(store: list):
+    """Records a CUDA event pair around every ``layers.attention`` call (the
+    einsum or the flash route, with its mask, softmax and casts) into
+    ``store``."""
+    import torch
+
+    from mquant_tpu_torch.models import layers as L
+
+    attention = L.attention
+
+    def timed(*a, **kw):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = attention(*a, **kw)
+        ev[1].record()
+        store.append(ev)
+        return out
+
+    L.attention = timed
+    try:
+        yield
+    finally:
+        L.attention = attention
+
+
 def profile_phases(phases, card: str):
     """Phase 5. For each (name, fn, calls per run): wall time with a
     synchronize at each end (best of 3), device busy time (sum of the CUDA
     kernels' self time under ``torch.profiler``), idle share 1 − busy / wall,
-    and the largest device items."""
+    the largest device items, and, in the first timed run, the stream time
+    between CUDA events around each ``layers.attention`` call (device time
+    where the card is busy throughout, as in a prefill)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for name, fn, per in phases:
-        walls = []
-        for _ in range(3):
+        walls, events = [], []
+        for r in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            fn()
+            with (attention_events(events) if r == 0
+                  else contextlib.nullcontext()):
+                fn()
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3 / per)
         wall = min(walls)
@@ -1177,6 +1357,12 @@ def profile_phases(phases, card: str):
             f"{busy:.2f} ms, idle share {1 - busy / wall:.3f}; card {card}")
         for ms, n, key in items[:TOP_ITEMS]:
             log(f"profile:   {ms:8.3f} ms {n:7.1f}x  {key[:90]}")
+        if events:
+            att = sum(a.elapsed_time(b) for a, b in events) / per
+            log(f"profile:   {att:8.3f} ms {len(events) / per:7.1f}x  "
+                f"layers.attention (stream time between CUDA events around "
+                f"each call in the first timed run, idle gaps inside "
+                f"included; {att / busy:.3f} x device busy)")
 
 
 def main(argv=None) -> int:
@@ -1208,12 +1394,16 @@ def main(argv=None) -> int:
     summary = check_kernels(args.seed)
     summary.update(check_attention(args.seed))
     summary.update(check_tail(args.seed))
+    summary.update(check_probe_kernels(args.seed))
+
+    # the prefill probe and the int8 rate probe, counted as one path
+    counts = [run_probe(args.seed, card)]
 
     # phases 4 and 5: each path of the main path, then its profile
     model = build_model(args.seed)
-    counts = [run_slice(model, card), run_full(model, card),
-              run_split(model, card), run_document(model, card),
-              run_batch(model, card)]
+    counts += [run_slice(model, card), run_full(model, card),
+               run_split(model, card), run_document(model, card),
+               run_batch(model, card)]
 
     kernels = []
     for k in REPLACES:

@@ -2,6 +2,7 @@
 
 The JAX package ``mquant_tpu`` is the reference; this package mirrors its
 layout (core/, transform/, kernels/, models/, serve/) and imports no JAX.
-The int8 products and the fused MLP tail run in hand-written CUDA kernels
-(kernels/csrc/), built at first use with nvcc for sm_90a.
+The int8 products, the attention and the Hadamard / norm → int8 passes run
+in hand-written CUDA kernels (kernels/csrc/), built at first use with nvcc
+for sm_90a. scripts/ holds the probes (prefill segments, int8 rate).
 """

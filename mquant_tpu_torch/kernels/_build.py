@@ -40,6 +40,12 @@ _SIGNATURES = {
     "mq_flash_attn_causal": [_P] * 4 + [_I] * 4 + [_F, _P],
     # g, u, ldg, ldu, A, Bt, scale, out, T, K, stream
     "mq_fused_swiglu_had_quant": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _P],
+    # x, ldx, A, Bt, scale, out, T, K, stream
+    "mq_had_quant": [_P, _I, _P, _P, _P, _P, _I, _I, _P],
+    # x, ldx, w, scale, out, T, n, eps, stream
+    "mq_rms_norm_quant": [_P, _I, _P, _P, _P, _I, _I, _F, _P],
+    # x, ldx, At, hm, out, T, K, is_f32, stream
+    "mq_fwht": [_P, _I, _P, _F, _P, _I, _I, _I, _P],
 }
 
 

@@ -1,6 +1,5 @@
-// Fused MLP tail before the full-Hadamard down projection, on Hopper
-// (sm_90a). Plain C interface, loaded with ctypes by
-// mquant_tpu_torch/kernels/_build.py.
+// Hadamard and norm kernels of the prefill path, on Hopper (sm_90a). Plain
+// C interface, loaded with ctypes by mquant_tpu_torch/kernels/_build.py.
 //
 // K6  fused_swiglu_had_quant  replaces
 //     mquant_tpu/kernels/fwht.py::fused_swiglu_had_quant (_tail_kernel, its
@@ -12,8 +11,15 @@
 //       q  = clip(round(Y * (1 / scale)), -128, 127)  at position k*128 + j
 //     Both products take bf16 operands with f32 sums, as the TPU kernel's
 //     dots (preferred_element_type=f32); rounding is half to even.
+// K7  had_quant  replaces fwht.py::had_quant (_had_quant_kernel, :187): the
+//     same pipeline on one bf16 input x instead of silu(g) * u (the tail
+//     kernel instantiated with kSwiglu = false).
+// K8  rms_norm_quant  replaces fwht.py::rms_norm_quant (_rms_quant_kernel,
+//     :246): q = clip(round(x * rsqrt(mean(x^2) + eps) * w * (1 / scale))).
+// K9  fwht  replaces fwht.py::fwht_pallas (_fwht_kernel, :122): y = (A (x)
+//     H_128) x in f32 throughout, bf16 or f32 in and out.
 //
-// What bounds it on an H100. Per token it reads g and u (4 bytes per
+// What bounds the tail on an H100. Per token it reads g and u (4 bytes per
 // element) and writes one int8 code per element: 97 MB at T = 1024, 29 us at
 // 3.35 TB/s. The two products are 2 * n * (K + 128) = 10.5 MFLOP per token,
 // 10.7 GFLOP at T = 1024 (11 us at the dense bf16 peak): the kernel is bound
@@ -29,6 +35,22 @@
 // columns over all 160 rows (80 f32 accumulators). The codes are staged in
 // shared memory and written out with 16-byte stores. A TMA / wgmma pipeline
 // and several tokens per block (to share the A fragments) are later work.
+// had_quant reads 2 bytes per element instead of 4 (58 MB, 17 us).
+//
+// rms_norm_quant moves 3 bytes per element (11 MB at (1024, 3584), 3.3 us)
+// and does a few flops per byte: bound by bytes. One block per row: 16-byte
+// loads, the f32 sum of squares by warp shuffles and one shared-memory pass,
+// then the row again (from L1) into 16-byte int8 stores.
+//
+// fwht must hold f32 to ~1e-6, so no tensor cores (TF32 keeps 10 mantissa
+// bits). As a butterfly the 128-wide factor costs 8 n flops and the dense
+// hadK product 2 K n (5.9 GFLOP at (1024, 18944): 88 us at the 67 TFLOP/s f32
+// rate, above the 23 us of its bf16 bytes): bound by operations. One block
+// per row: each warp transforms whole 128-wide sub-rows in registers (4
+// values a lane; two stages inside the lane, five by shuffles) into shared
+// memory (f32, 74 KB at K = 148, dynamic), then each warp computes 20 rows of
+// A . Y1 for the 4 columns of each lane (80 f32 FMA accumulators), with A^T
+// zero-padded to 160 columns and read as broadcast 16-byte loads through L1.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -71,6 +93,10 @@ __device__ __forceinline__ uint32_t ldg32(const __nv_bfloat16* p) {
   return __ldg(reinterpret_cast<const unsigned int*>(p));
 }
 
+__device__ __forceinline__ int quant8(float y, float inv) {
+  return max(-128, min(127, __float2int_rn(y * inv)));
+}
+
 // silu(g) * u of two bf16 pairs, in f32 as (g * sigmoid(g)) * u, rounded to
 // bf16 (the plain version's torch.sigmoid is 1 / (1 + exp(-g)) in f32)
 __device__ __forceinline__ uint32_t swiglu2(uint32_t gw, uint32_t uw) {
@@ -80,6 +106,8 @@ __device__ __forceinline__ uint32_t swiglu2(uint32_t gw, uint32_t uw) {
   return pack_bf16((gf.x * s0) * uf.x, (gf.y * s1) * uf.y);
 }
 
+// kSwiglu: x = bf16(silu(g) * u) (the tail); otherwise x = g, u unused
+template <bool kSwiglu>
 __global__ void __launch_bounds__(TL_THREADS, 2)
     tail_kernel(const __nv_bfloat16* __restrict__ g,
                 const __nv_bfloat16* __restrict__ u, int ldg_, int ldu_, int K,
@@ -93,14 +121,17 @@ __global__ void __launch_bounds__(TL_THREADS, 2)
   const int gq = lane >> 2, t = lane & 3;
   const int n0 = warp * 16;  // this warp's output columns n0 .. n0 + 15
 
-  // 1. x = bf16(silu(g) * u) into rows 0..K-1, zeros into the pad rows
+  // 1. x into rows 0..K-1, zeros into the pad rows
   const __nv_bfloat16* gr = g + row * ldg_;
   const __nv_bfloat16* ur = u + row * ldu_;
   for (int v = tid; v < n / 8; v += TL_THREADS) {
     const uint4 gv = __ldg(reinterpret_cast<const uint4*>(gr) + v);
-    const uint4 uv = __ldg(reinterpret_cast<const uint4*>(ur) + v);
-    const uint4 o = make_uint4(swiglu2(gv.x, uv.x), swiglu2(gv.y, uv.y),
-                               swiglu2(gv.z, uv.z), swiglu2(gv.w, uv.w));
+    uint4 o = gv;
+    if constexpr (kSwiglu) {
+      const uint4 uv = __ldg(reinterpret_cast<const uint4*>(ur) + v);
+      o = make_uint4(swiglu2(gv.x, uv.x), swiglu2(gv.y, uv.y),
+                     swiglu2(gv.z, uv.z), swiglu2(gv.w, uv.w));
+    }
     const int e = v * 8;
     *reinterpret_cast<uint4*>(&Xs[e / TL_M][e % TL_M]) = o;
   }
@@ -190,10 +221,8 @@ __global__ void __launch_bounds__(TL_THREADS, 2)
       for (int h = 0; h < 2; ++h) {
         const int r = mt * 16 + gq + 8 * h, c = n0 + nt * 8 + 2 * t;
         if (r < K) {
-          const int q0 = max(-128, min(127, __float2int_rn(
-                                                acc[mt][nt][2 * h] * inv)));
-          const int q1 = max(-128, min(127, __float2int_rn(
-                                                acc[mt][nt][2 * h + 1] * inv)));
+          const int q0 = quant8(acc[mt][nt][2 * h], inv);
+          const int q1 = quant8(acc[mt][nt][2 * h + 1], inv);
           *reinterpret_cast<uint16_t*>(Qs + r * TL_M + c) =
               (uint16_t)((q0 & 0xFF) | ((q1 & 0xFF) << 8));
         }
@@ -202,6 +231,191 @@ __global__ void __launch_bounds__(TL_THREADS, 2)
   int8_t* orow = out + row * n;
   for (int v = tid; v < n / 16; v += TL_THREADS)
     reinterpret_cast<uint4*>(orow)[v] = reinterpret_cast<const uint4*>(Qs)[v];
+}
+
+// ---------------------------------------------------------------------------
+// rms_norm_quant
+// ---------------------------------------------------------------------------
+
+constexpr int RQ_THREADS = 256;  // 16 elements a thread per pass
+
+__device__ __forceinline__ float2 bf2(uint32_t w) {
+  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&w));
+}
+
+__global__ void __launch_bounds__(RQ_THREADS)
+    rms_quant_kernel(const __nv_bfloat16* __restrict__ x, int ldx,
+                     const __nv_bfloat16* __restrict__ w,
+                     const float* __restrict__ scale, int8_t* __restrict__ out,
+                     int n, float eps) {
+  __shared__ float warp_ss[RQ_THREADS / 32];
+  const long row = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const uint4* xr = reinterpret_cast<const uint4*>(x + row * ldx);
+  const uint4* wr = reinterpret_cast<const uint4*>(w);
+  const int chunks = n / 16;  // two 16-byte bf16 loads, one 16-byte store
+
+  // 1. f32 sum of squares: each thread's chunks, then the warp, then the
+  //    warps in a fixed order (every thread gets the same sum)
+  float ss = 0.f;
+  for (int c = tid; c < chunks; c += RQ_THREADS) {
+    const uint4 a = __ldg(xr + 2 * c), b = __ldg(xr + 2 * c + 1);
+    const uint32_t v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float2 f = bf2(v[i]);
+      ss = fmaf(f.x, f.x, ss);
+      ss = fmaf(f.y, f.y, ss);
+    }
+  }
+#pragma unroll
+  for (int o = 16; o; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+  if (lane == 0) warp_ss[warp] = ss;
+  __syncthreads();
+  float tot = 0.f;
+#pragma unroll
+  for (int i = 0; i < RQ_THREADS / 32; ++i) tot += warp_ss[i];
+  // mean as sum / n (jnp.mean divides); rsqrtf is what torch.rsqrt runs on
+  // the card, so the plain version there takes the same root
+  const float r = rsqrtf(tot / (float)n + eps);
+  const float inv = 1.f / __ldg(scale);
+
+  // 2. (x * r) * w, quantized; the row comes again from L1
+  int8_t* orow = out + row * n;
+  for (int c = tid; c < chunks; c += RQ_THREADS) {
+    const uint4 a = __ldg(xr + 2 * c), b = __ldg(xr + 2 * c + 1);
+    const uint4 wa = __ldg(wr + 2 * c), wb = __ldg(wr + 2 * c + 1);
+    const uint32_t v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+    const uint32_t wv[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
+    uint32_t q[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f0 = bf2(v[2 * i]), f1 = bf2(v[2 * i + 1]);
+      const float2 w0 = bf2(wv[2 * i]), w1 = bf2(wv[2 * i + 1]);
+      const int q0 = quant8((f0.x * r) * w0.x, inv);
+      const int q1 = quant8((f0.y * r) * w0.y, inv);
+      const int q2 = quant8((f1.x * r) * w1.x, inv);
+      const int q3 = quant8((f1.y * r) * w1.y, inv);
+      q[i] = (uint32_t)(q0 & 0xFF) | ((uint32_t)(q1 & 0xFF) << 8) |
+             ((uint32_t)(q2 & 0xFF) << 16) | ((uint32_t)(q3 & 0xFF) << 24);
+    }
+    reinterpret_cast<uint4*>(orow)[c] = make_uint4(q[0], q[1], q[2], q[3]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// fwht: f32 two-factor Hadamard
+// ---------------------------------------------------------------------------
+
+constexpr int FW_THREADS = 256;               // 8 warps
+constexpr int FW_ROWS = TL_KP / (FW_THREADS / 32);  // 20 hadK rows a warp
+
+__device__ __forceinline__ float4 load4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+  const float2 a = bf2(v.x), b = bf2(v.y);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16(v.x, v.y),
+                                            pack_bf16(v.z, v.w));
+}
+
+// one butterfly stage across lanes: element i meets i ^ (4 * mask); the
+// lower one keeps the sum, the upper one the difference
+__device__ __forceinline__ float bfly(float v, int mask, bool upper) {
+  const float p = __shfl_xor_sync(0xffffffffu, v, mask);
+  return upper ? p - v : v + p;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(FW_THREADS, 2)
+    fwht_kernel(const T* __restrict__ x, int ldx, int K,
+                const float* __restrict__ At,  // (K, TL_KP): A^T, zero-padded
+                float hm, T* __restrict__ out) {
+  extern __shared__ float4 Ys4[];  // Y1 (K, 128) f32
+  const long row = blockIdx.x;
+  const int n = K * TL_M;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const T* xr = x + row * ldx;
+
+  // 1. Y1 = X . H_128 / sqrt(128), one 128-wide sub-row per warp at a time;
+  //    lane holds elements 4 lane .. 4 lane + 3 (index bits 0-1 in the lane,
+  //    bits 2-6 across lanes); Sylvester order, as hadamard_matrix(128)
+  for (int l = warp; l < K; l += FW_THREADS / 32) {
+    const float4 v = load4(xr + l * TL_M + 4 * lane);
+    const float a0 = v.x + v.y, a1 = v.x - v.y;  // h = 1
+    const float a2 = v.z + v.w, a3 = v.z - v.w;
+    float e0 = a0 + a2, e1 = a1 + a3, e2 = a0 - a2, e3 = a1 - a3;  // h = 2
+#pragma unroll
+    for (int s = 1; s < 32; s <<= 1) {  // h = 4 .. 64
+      const bool up = lane & s;
+      e0 = bfly(e0, s, up);
+      e1 = bfly(e1, s, up);
+      e2 = bfly(e2, s, up);
+      e3 = bfly(e3, s, up);
+    }
+    Ys4[l * (TL_M / 4) + lane] = make_float4(e0 * hm, e1 * hm, e2 * hm, e3 * hm);
+  }
+  __syncthreads();
+
+  // 2. Y = A . Y1: warp w owns rows 20 w .. 20 w + 19, each lane the columns
+  //    4 lane .. 4 lane + 3; A^T's row l holds the warp's 20 coefficients
+  //    side by side (one broadcast 16-byte load per 4 rows)
+  const int k0 = warp * FW_ROWS;
+  if (k0 >= K) return;  // warp-uniform; no barrier follows
+  float acc[FW_ROWS][4];
+#pragma unroll
+  for (int i = 0; i < FW_ROWS; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+  const float4* ap = reinterpret_cast<const float4*>(At + k0);
+#pragma unroll 2
+  for (int l = 0; l < K; ++l) {
+    const float4 y = Ys4[l * (TL_M / 4) + lane];
+#pragma unroll
+    for (int q = 0; q < FW_ROWS / 4; ++q) {
+      const float4 a = __ldg(ap + l * (TL_KP / 4) + q);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float* o = acc[4 * q + i];
+        o[0] = fmaf(av[i], y.x, o[0]);
+        o[1] = fmaf(av[i], y.y, o[1]);
+        o[2] = fmaf(av[i], y.z, o[2]);
+        o[3] = fmaf(av[i], y.w, o[3]);
+      }
+    }
+  }
+
+  // 3. out[k * 128 + 4 lane ..]: 512 contiguous bytes (f32) a row per warp
+  T* orow = out + row * n;
+#pragma unroll
+  for (int i = 0; i < FW_ROWS; ++i)
+    if (k0 + i < K)
+      store4(orow + (k0 + i) * TL_M + 4 * lane,
+             make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
+}
+
+template <typename T>
+int launch_fwht(const void* x, int ldx, const void* At, float hm, void* out,
+                int T_, int K, cudaStream_t stream) {
+  static bool sized = false;  // above 48 KB only after the attribute is set
+  const int smem = TL_KP * TL_M * (int)sizeof(float);
+  if (!sized) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fwht_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    sized = true;
+  }
+  fwht_kernel<T><<<T_, FW_THREADS, K * TL_M * (int)sizeof(float), stream>>>(
+      (const T*)x, ldx, K, (const float*)At, hm, (T*)out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -216,11 +430,47 @@ int mq_fused_swiglu_had_quant(const void* g, const void* u, int ldg, int ldu,
                               const void* A, const void* Bt, const void* scale,
                               void* out, int T, int K, void* stream) {
   if (K < 1 || K > TL_KP || T < 1) return (int)cudaErrorInvalidValue;
-  tail_kernel<<<T, TL_THREADS, 0, (cudaStream_t)stream>>>(
+  tail_kernel<true><<<T, TL_THREADS, 0, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)g, (const __nv_bfloat16*)u, ldg, ldu, K,
       (const __nv_bfloat16*)A, (const __nv_bfloat16*)Bt, (const float*)scale,
       (int8_t*)out);
   return (int)cudaGetLastError();
+}
+
+// out (T, K * 128) int8 = clip(round((A (x) H_128) . x / scale)); x: (T,
+// K * 128) bf16 rows at stride ldx; A, Bt, scale as above. K <= 160.
+int mq_had_quant(const void* x, int ldx, const void* A, const void* Bt,
+                 const void* scale, void* out, int T, int K, void* stream) {
+  if (K < 1 || K > TL_KP || T < 1) return (int)cudaErrorInvalidValue;
+  tail_kernel<false><<<T, TL_THREADS, 0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)x, (const __nv_bfloat16*)x, ldx, ldx, K,
+      (const __nv_bfloat16*)A, (const __nv_bfloat16*)Bt, (const float*)scale,
+      (int8_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// out (T, n) int8 = clip(round(x * rsqrt(mean(x^2) + eps) * w / scale)); x:
+// (T, n) bf16 rows at stride ldx (16-byte aligned), w: (n,) bf16, scale: one
+// f32 on the device; n % 16 == 0.
+int mq_rms_norm_quant(const void* x, int ldx, const void* w, const void* scale,
+                      void* out, int T, int n, float eps, void* stream) {
+  if (T < 1 || n < 16 || n % 16 || ldx % 8) return (int)cudaErrorInvalidValue;
+  rms_quant_kernel<<<T, RQ_THREADS, 0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)x, ldx, (const __nv_bfloat16*)w,
+      (const float*)scale, (int8_t*)out, n, eps);
+  return (int)cudaGetLastError();
+}
+
+// out (T, K * 128) = (A (x) H_128) . x in f32, stored as x's type (is_f32:
+// f32, else bf16); x rows at stride ldx (16-byte aligned); At: (K, 160) f32,
+// A^T zero-padded; hm: the f32 entry 1 / sqrt(128) of H_128 / sqrt(128).
+int mq_fwht(const void* x, int ldx, const void* At, float hm, void* out,
+            int T, int K, int is_f32, void* stream) {
+  if (K < 1 || K > TL_KP || T < 1) return (int)cudaErrorInvalidValue;
+  return is_f32 ? launch_fwht<float>(x, ldx, At, hm, out, T, K,
+                                     (cudaStream_t)stream)
+                : launch_fwht<__nv_bfloat16>(x, ldx, At, hm, out, T, K,
+                                             (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -1,21 +1,31 @@
-"""Online Hadamard transform and the fused MLP tail (counterpart of
-``mquant_tpu/kernels/fwht.py``).
+"""Online Hadamard transform, the fused MLP tail and the norm → int8 pass
+(counterpart of ``mquant_tpu/kernels/fwht.py``).
 
 The Kronecker two-matmul form: with n = K·m, y = (hadK ⊗ H_m) x is
 hadK @ (X · H_m) for X = x viewed (K, m). JAX runs :func:`online_hadamard`
 on XLA, outside Pallas, so here it is two ``torch.matmul`` calls. Block mode
 (I ⊗ H₁₂₈) is the m = 128, K = 1 case: one (…, 128) @ (128, 128) product.
 
-One hand-written CUDA kernel (``csrc/fwht.cu``):
+Four hand-written CUDA kernels (``csrc/fwht.cu``), each for rows of n = K·128
+with K ≤ 160 (18944 = 148·128; pow2 n up to 16384):
 
   * :func:`fused_swiglu_had_quant` — silu(g)·u → hadK ⊗ H₁₂₈ → static
     per-tensor int8 in one pass over the row (the prefill tail before the
     full-Hadamard ``down``); replaces ``_tail_kernel`` /
     ``fused_swiglu_had_quant``.
+  * :func:`had_quant` — the same pipeline on one bf16 input; replaces
+    ``_had_quant_kernel`` / ``had_quant``.
+  * :func:`fwht_two_matmul` — the transform in f32 throughout, bf16 or f32
+    in and out; replaces ``_fwht_kernel`` / ``fwht_pallas``.
+  * :func:`rms_norm_quant` — RMSNorm → static int8 in one pass (any n with
+    n % 16 == 0); replaces ``_rms_quant_kernel`` / ``rms_norm_quant``.
 
-The wrapper launches the kernel for a CUDA tensor (or raises) and takes its
-plain PyTorch version (``fused_swiglu_had_quant_ref``) only for a CPU tensor.
-``LAUNCHES`` counts its kernel launches.
+No served JAX path reaches the last three; ``scripts/prefill_probe.py`` does,
+and so does its port ``mquant_tpu_torch.scripts.prefill_probe``.
+
+Each wrapper launches its kernel for a CUDA tensor (or raises) and takes its
+plain PyTorch version (``*_ref``) only for a CPU tensor. ``LAUNCHES`` counts
+the kernel launches of each wrapper.
 """
 
 from __future__ import annotations
@@ -31,10 +41,11 @@ import torch
 from ..transform import hadamard as H
 
 # kernel launches per wrapper (read and reset by chip_smoke.py)
-LAUNCHES: Dict[str, int] = {"fused_swiglu_had_quant": 0}
+LAUNCHES: Dict[str, int] = {"fused_swiglu_had_quant": 0, "had_quant": 0,
+                            "fwht_two_matmul": 0, "rms_norm_quant": 0}
 
-# the tail kernel's row tile: (TAIL_MAX_K, TAIL_M), the hadK axis zero-padded
-# to a multiple of 16 (148 → 160 for n = 18944)
+# the Hadamard kernels' row tile: (TAIL_MAX_K, TAIL_M), the hadK axis
+# zero-padded to TAIL_MAX_K (148 → 160 for n = 18944)
 TAIL_M, TAIL_MAX_K = 128, 160
 
 
@@ -100,33 +111,81 @@ def online_hadamard(x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# fused MLP tail: swiglu → Hadamard → static int8
+# plain versions
 # ---------------------------------------------------------------------------
+
+
+def _quantize_static(y: torch.Tensor, scale) -> torch.Tensor:
+    """round(y · (1/scale)) half to even, clipped to [−128, 127], int8 (1/scale
+    in f32 once, as the TPU kernels do)."""
+    inv = 1.0 / torch.as_tensor(scale, dtype=torch.float32, device=y.device)
+    return torch.clamp(torch.round(y * inv), -128, 127).to(torch.int8)
+
+
+def _had_quant_bf16(x: torch.Tensor, scale) -> torch.Tensor:
+    """The TPU kernels' Hadamard → int8 on a bf16 x (…, n): the m-axis product
+    (bf16 operands, f32 sums) rounded to bf16, the K-axis product in f32."""
+    n = x.shape[-1]
+    A, B, K = _factor_tensors(n, torch.bfloat16, x.device)
+    # bf16 values held in f32: exact products and f32 sums, whatever
+    # cuBLAS's reduced-precision or TF32 flags say
+    t = torch.matmul(x.reshape(*x.shape[:-1], K, n // K).float(), B.float())
+    y = torch.matmul(A.float(), t.to(torch.bfloat16).float())
+    return _quantize_static(y, scale).reshape(x.shape)
 
 
 def fused_swiglu_had_quant_ref(g: torch.Tensor, u: torch.Tensor, scale
                                ) -> torch.Tensor:
     """Plain version of :func:`fused_swiglu_had_quant`, at the TPU kernel's
-    rounding points: silu(g)·u in f32, rounded to bf16; the m-axis product
-    (bf16 operands, f32 sums) rounded to bf16; the K-axis product in f32;
-    then round(y · (1/scale)) half to even, clipped to [−128, 127]."""
-    n = g.shape[-1]
-    A, B, K = _factor_tensors(n, torch.bfloat16, g.device)
+    rounding points: silu(g)·u in f32, rounded to bf16, then
+    :func:`had_quant_ref`'s pipeline."""
     gf, uf = g.float(), u.float()
-    x = ((gf * torch.sigmoid(gf)) * uf).to(torch.bfloat16)
-    # bf16 values held in f32: exact products and f32 sums, whatever
-    # cuBLAS's reduced-precision or TF32 flags say
-    t = torch.matmul(x.reshape(*g.shape[:-1], K, n // K).float(), B.float())
-    y = torch.matmul(A.float(), t.to(torch.bfloat16).float())
-    inv = 1.0 / torch.as_tensor(scale, dtype=torch.float32, device=g.device)
-    q = torch.clamp(torch.round(y * inv), -128, 127)
-    return q.to(torch.int8).reshape(g.shape)
+    return _had_quant_bf16(((gf * torch.sigmoid(gf)) * uf).to(torch.bfloat16),
+                           scale)
+
+
+def had_quant_ref(x: torch.Tensor, scale) -> torch.Tensor:
+    """Plain version of :func:`had_quant` (``_had_quant_kernel``): x rounded
+    to bf16; X·H_m with bf16 operands and f32 sums, rounded to bf16; the hadK
+    product in f32; then round(y · (1/scale)) half to even, clipped to
+    [−128, 127]."""
+    return _had_quant_bf16(x.to(torch.bfloat16), scale)
+
+
+def fwht_two_matmul_ref(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`fwht_two_matmul` (``_fwht_kernel``): the
+    two-factor form (pow2 n: ``_pow2_split``'s Ha ⊗ Hb) on x without an
+    intermediate rounding, cast to x's dtype once. Computed in float64 from
+    the f32 factors, so that no TF32 or reduced-precision flag of cuBLAS can
+    change it; the f32 kernel is held to it within 1e-5 of its largest
+    magnitude."""
+    n = x.shape[-1]
+    A, B, K = _factor_tensors(n, torch.float32, x.device)
+    t = torch.matmul(x.reshape(*x.shape[:-1], K, n // K).double(), B.double())
+    return torch.matmul(A.double(), t).reshape(x.shape).to(x.dtype)
+
+
+def rms_norm_quant_ref(x: torch.Tensor, w: torch.Tensor, scale,
+                       eps: float = 1e-6) -> torch.Tensor:
+    """Plain version of :func:`rms_norm_quant` (``_rms_quant_kernel``):
+    y = x · rsqrt(mean(x²) + eps) · w in f32, then round(y · (1/scale)) half
+    to even, clipped to [−128, 127]. Unlike quantize(rms_norm(x, w)), y is
+    never rounded to x's dtype (ROADMAP C-w7)."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return _quantize_static(xf * torch.rsqrt(var + eps) * w.float(), scale)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
 
 
 @functools.lru_cache(maxsize=None)
 def _tail_factors(n: int, device: torch.device):
-    """The kernel's operands: hadK zero-padded to (TAIL_MAX_K, TAIL_MAX_K)
-    and H_m transposed, both bf16 — the matrices the plain version uses."""
+    """The tail kernels' operands: hadK zero-padded to (TAIL_MAX_K,
+    TAIL_MAX_K) and H_m transposed, both bf16 — the matrices the plain
+    version uses."""
     A, B, K = _factor_tensors(n, torch.bfloat16, device)
     A_pad = torch.zeros((TAIL_MAX_K, TAIL_MAX_K), dtype=torch.bfloat16,
                         device=device)
@@ -134,15 +193,59 @@ def _tail_factors(n: int, device: torch.device):
     return A_pad, B.t().contiguous()
 
 
+@functools.lru_cache(maxsize=None)
+def _fwht_factors(n: int, device: torch.device):
+    """``mq_fwht``'s operands: Aᵀ (K, TAIL_MAX_K) f32 zero-padded, and the
+    f32 entry 1/√128 of the m-axis factor."""
+    A, B, K = _factor_tensors(n, torch.float32, device)
+    At = torch.zeros((K, TAIL_MAX_K), dtype=torch.float32, device=device)
+    At[:, :K] = A.t()
+    return At, float(_factors(n)[1][0, 0])
+
+
 def _rows(name: str, t: torch.Tensor, n: int) -> torch.Tensor:
     """(T, n) view of t with unit column stride and 16-byte aligned rows;
     raises otherwise."""
     t2 = t.reshape(-1, n)
-    if (t2.stride(-1) != 1 or t2.stride(0) % 8 or t2.data_ptr() % 16
-            or t2.stride(0) >= 2**31):
+    if (t2.stride(-1) != 1 or (t2.stride(0) * t2.element_size()) % 16
+            or t2.data_ptr() % 16 or t2.stride(0) >= 2**31):
         raise ValueError(f"{name}: rows must be 16-byte aligned with unit "
                          f"column stride, got strides {tuple(t2.stride())}")
     return t2
+
+
+def _on_card(name: str, x: torch.Tensor) -> bool:
+    """False for a CPU tensor (the plain version serves it), True for a
+    CUDA tensor; raises for any other device."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    return True
+
+
+def _hadamard_K(name: str, n: int) -> int:
+    """K of n = K·128 with K ≤ TAIL_MAX_K (the kernels' row tile); raises for
+    any other n (pow2 n above 16384 splits with m ≥ 256)."""
+    K = _factors(n)[2]
+    if n // K != TAIL_M or K > TAIL_MAX_K:
+        raise ValueError(f"{name}: needs n = K·{TAIL_M} with K ≤ "
+                         f"{TAIL_MAX_K}, got n = {n} = {K}·{n // K}")
+    return K
+
+
+def _scale(name: str, scale, device) -> torch.Tensor:
+    s = torch.as_tensor(scale, dtype=torch.float32, device=device)
+    if s.numel() != 1:
+        raise ValueError(f"{name}: scale must be per tensor, got "
+                         f"{tuple(s.shape)}")
+    return s
+
+
+def _finish(name: str, status: int):
+    LAUNCHES[name] += 1
+    if status != 0:
+        raise RuntimeError(f"{name}: CUDA error {status}")
 
 
 def fused_swiglu_had_quant(g: torch.Tensor, u: torch.Tensor, scale
@@ -156,19 +259,13 @@ def fused_swiglu_had_quant(g: torch.Tensor, u: torch.Tensor, scale
     if g.shape != u.shape or g.dtype != u.dtype or g.device != u.device:
         raise ValueError(f"{name}: g {tuple(g.shape)} {g.dtype} {g.device} "
                          f"and u {tuple(u.shape)} {u.dtype} {u.device} differ")
-    if g.device.type == "cpu":
+    if not _on_card(name, g):
         return fused_swiglu_had_quant_ref(g, u, scale)
-    if g.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {g.device}")
     n = g.shape[-1]
-    K = _factors(n)[2]
-    if g.dtype != torch.bfloat16 or n // K != TAIL_M or K > TAIL_MAX_K:
-        raise ValueError(f"{name}: needs bf16 and n = K·{TAIL_M} with K ≤ "
-                         f"{TAIL_MAX_K}, got {g.dtype}, n = {n} = {K}·{n // K}")
-    s = torch.as_tensor(scale, dtype=torch.float32, device=g.device)
-    if s.numel() != 1:
-        raise ValueError(f"{name}: scale must be per tensor, got "
-                         f"{tuple(s.shape)}")
+    K = _hadamard_K(name, n)
+    if g.dtype != torch.bfloat16:
+        raise ValueError(f"{name}: the kernel takes bf16, got {g.dtype}")
+    s = _scale(name, scale, g.device)
     g2, u2 = _rows(name, g, n), _rows(name, u, n)
     T = g2.shape[0]
     out = torch.empty((T, n), dtype=torch.int8, device=g.device)
@@ -176,21 +273,110 @@ def fused_swiglu_had_quant(g: torch.Tensor, u: torch.Tensor, scale
         return out.reshape(g.shape)
     from ._build import load
 
-    lib = load()
     A_pad, B_t = _tail_factors(n, g.device)
     stream = torch.cuda.current_stream(g.device).cuda_stream
-    status = lib.mq_fused_swiglu_had_quant(
+    _finish(name, load().mq_fused_swiglu_had_quant(
         g2.data_ptr(), u2.data_ptr(), g2.stride(0), u2.stride(0),
         A_pad.data_ptr(), B_t.data_ptr(), s.data_ptr(), out.data_ptr(), T, K,
-        stream)
-    LAUNCHES[name] += 1
-    if status != 0:
-        raise RuntimeError(f"{name}: CUDA error {status}")
+        stream))
     return out.reshape(g.shape)
 
 
-# the kernel or its plain version, looked up at call time by
-# models/llm.py::_mlp_tail (chip_smoke.py swaps PLAIN into KERNELS for a
-# reference run)
-KERNELS = {"fused_swiglu_had_quant": fused_swiglu_had_quant}
-PLAIN = {"fused_swiglu_had_quant": fused_swiglu_had_quant_ref}
+def had_quant(x: torch.Tensor, scale) -> torch.Tensor:
+    """int8 (…, n) = clip(round(((hadK ⊗ H₁₂₈) · x) / scale)) for bf16 x (…, n)
+    and a per-tensor ``scale``; CUDA kernel ``mq_had_quant`` (the tail
+    kernel reading x instead of silu(g)·u). n = K·128 with K ≤ 160, rows
+    with unit column stride."""
+    name = "had_quant"
+    if not _on_card(name, x):
+        return had_quant_ref(x, scale)
+    n = x.shape[-1]
+    K = _hadamard_K(name, n)
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"{name}: the kernel takes bf16, got {x.dtype}")
+    s = _scale(name, scale, x.device)
+    x2 = _rows(name, x, n)
+    T = x2.shape[0]
+    out = torch.empty((T, n), dtype=torch.int8, device=x.device)
+    if T == 0:
+        return out.reshape(x.shape)
+    from ._build import load
+
+    A_pad, B_t = _tail_factors(n, x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    _finish(name, load().mq_had_quant(
+        x2.data_ptr(), x2.stride(0), A_pad.data_ptr(), B_t.data_ptr(),
+        s.data_ptr(), out.data_ptr(), T, K, stream))
+    return out.reshape(x.shape)
+
+
+def fwht_two_matmul(x: torch.Tensor) -> torch.Tensor:
+    """(hadK ⊗ H₁₂₈) x along the last axis in f32 throughout, returned in x's
+    dtype (bf16 or f32); CUDA kernel ``mq_fwht`` (the H₁₂₈ factor as a
+    butterfly, the hadK factor by f32 FMA; no TF32). n = K·128 with K ≤ 160,
+    rows with unit column stride. Unlike :func:`online_hadamard` on bf16, no
+    rounding between the two factors."""
+    name = "fwht_two_matmul"
+    if not _on_card(name, x):
+        return fwht_two_matmul_ref(x)
+    n = x.shape[-1]
+    K = _hadamard_K(name, n)
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{name}: the kernel takes bf16 or f32, got "
+                         f"{x.dtype}")
+    x2 = _rows(name, x, n)
+    T = x2.shape[0]
+    out = torch.empty((T, n), dtype=x.dtype, device=x.device)
+    if T == 0:
+        return out.reshape(x.shape)
+    from ._build import load
+
+    At, hm = _fwht_factors(n, x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    _finish(name, load().mq_fwht(
+        x2.data_ptr(), x2.stride(0), At.data_ptr(), hm, out.data_ptr(), T, K,
+        int(x.dtype == torch.float32), stream))
+    return out.reshape(x.shape)
+
+
+def rms_norm_quant(x: torch.Tensor, w: torch.Tensor, scale,
+                   eps: float = 1e-6) -> torch.Tensor:
+    """int8 (…, n) = clip(round(x · rsqrt(mean(x²) + eps) · w / scale)) in f32
+    for bf16 x (…, n), bf16 w (n,) and a per-tensor ``scale``; CUDA kernel
+    ``mq_rms_norm_quant``. n % 16 == 0, rows with unit column stride."""
+    name = "rms_norm_quant"
+    if not _on_card(name, x):
+        return rms_norm_quant_ref(x, w, scale, eps)
+    n = x.shape[-1]
+    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+        raise ValueError(f"{name}: the kernel takes bf16 x and w, got "
+                         f"{x.dtype}, {w.dtype}")
+    if w.shape != (n,) or not w.is_contiguous() or w.device != x.device:
+        raise ValueError(f"{name}: w must be contiguous ({n},) on {x.device}, "
+                         f"got {tuple(w.shape)} on {w.device}")
+    if n % 16:
+        raise ValueError(f"{name}: needs n % 16 == 0, got n = {n}")
+    s = _scale(name, scale, x.device)
+    x2 = _rows(name, x, n)
+    T = x2.shape[0]
+    out = torch.empty((T, n), dtype=torch.int8, device=x.device)
+    if T == 0:
+        return out.reshape(x.shape)
+    from ._build import load
+
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    _finish(name, load().mq_rms_norm_quant(
+        x2.data_ptr(), x2.stride(0), w.data_ptr(), s.data_ptr(),
+        out.data_ptr(), T, n, float(eps), stream))
+    return out.reshape(x.shape)
+
+
+# the kernels or their plain versions, looked up at call time by
+# models/llm.py::_mlp_tail and the prefill probe (chip_smoke.py swaps PLAIN
+# into KERNELS for a reference run)
+KERNELS = {"fused_swiglu_had_quant": fused_swiglu_had_quant,
+           "had_quant": had_quant, "fwht_two_matmul": fwht_two_matmul,
+           "rms_norm_quant": rms_norm_quant}
+PLAIN = {"fused_swiglu_had_quant": fused_swiglu_had_quant_ref,
+         "had_quant": had_quant_ref, "fwht_two_matmul": fwht_two_matmul_ref,
+         "rms_norm_quant": rms_norm_quant_ref}

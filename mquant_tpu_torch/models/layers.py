@@ -243,6 +243,15 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return einsum_attention(q, k, v, mask, scale, causal)
 
 
+def causal_mask(T: int, S: int, offset: int = 0, device="cuda"
+                ) -> torch.Tensor:
+    """Boolean (1, 1, T, S) causal mask (True = attend); ``offset`` = number
+    of cached tokens. On the card unless ``device`` says otherwise."""
+    rows = torch.arange(T, device=device)[:, None] + offset
+    cols = torch.arange(S, device=device)[None, :]
+    return (cols <= rows)[None, None]
+
+
 def einsum_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      mask: Optional[torch.Tensor], scale: float,
                      causal: bool = False) -> torch.Tensor:

@@ -1,9 +1,13 @@
-"""Hadamard matrix generation, numpy only (counterpart of the numpy part of
-``mquant_tpu/transform/hadamard.py``, which the online transform needs).
+"""Hadamard matrices and the reference transform (counterpart of
+``mquant_tpu/transform/hadamard.py`` without its random rotations, which
+need JAX's RNG and wait for the offline pipeline).
 
 Orders: Sylvester doubling for powers of two, Paley I/II over prime and
 prime-power fields, Kronecker products; orders 156 and 172 fall back to a
-seeded random orthogonal block, exactly as in the JAX package.
+seeded random orthogonal block, exactly as in the JAX package. The
+transform: :func:`fwht` (the butterfly), :func:`hadamard_transform` (n =
+K·2^p) and its dense matrix :func:`transform_matrix`, the references that
+the two-matmul kernels are held against.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ import math
 from typing import Tuple
 
 import numpy as np
+import torch
 
 # largest supported non-pow2 factor first (148: Qwen2-VL-7B 18944 = 148·128)
 SUPPORTED_K = [924, 172, 156, 148, 140, 108, 60, 52, 40, 36, 28, 20, 12, 1]
@@ -204,3 +209,50 @@ def auto_pad_size(n: int) -> int:
         p2 = 2 ** math.ceil(math.log2(math.ceil(n / K)))
         best = min(best, K * p2)
     return int(best)
+
+
+# ---------------------------------------------------------------------------
+# the transform
+# ---------------------------------------------------------------------------
+
+
+def fwht(x: torch.Tensor) -> torch.Tensor:
+    """Unnormalized fast Walsh–Hadamard transform along the last axis (pow2
+    n): the iterative butterfly, one add/sub pass per doubling, in x's
+    dtype."""
+    n = x.shape[-1]
+    if not is_pow2(n):
+        raise ValueError(f"fwht needs a power-of-two dim, got {n}")
+    y = x.reshape(-1, n)
+    h = 1
+    while h < n:
+        y = y.reshape(-1, n // (2 * h), 2, h)
+        a, b = y[..., 0, :], y[..., 1, :]
+        y = torch.stack([a + b, a - b], dim=-2)
+        h *= 2
+    return y.reshape(x.shape)
+
+
+def hadamard_transform(x: torch.Tensor, hadK=None, K=None) -> torch.Tensor:
+    """Orthonormal Hadamard-style transform along the last axis of size
+    n = K·2^p: view (…, K, n/K) → butterfly over n/K → K-block product →
+    orthonormal scaling, in x's dtype (the JAX function's op order)."""
+    n = x.shape[-1]
+    if hadK is None or K is None:
+        hadK, K = get_hadK(n)
+    hadK = torch.as_tensor(hadK).to(device=x.device, dtype=x.dtype)
+    scale = torch.tensor(1.0 / math.sqrt(n // K), dtype=x.dtype,
+                         device=x.device)  # hadK is already orthonormal
+    if K == 1:
+        return fwht(x) * scale
+    xr = fwht(x.reshape(*x.shape[:-1], K, n // K)) * scale
+    return torch.einsum("kl,...lm->...km", hadK, xr).reshape(x.shape)
+
+
+def transform_matrix(n: int, dtype=np.float64) -> np.ndarray:
+    """Dense n×n matrix H of :func:`hadamard_transform` (orthogonal): the
+    online transform of x equals x @ H.T."""
+    hadK, K = get_hadK(n)
+    m = n // K
+    Hm = hadamard_matrix(m) / math.sqrt(m)
+    return np.kron(hadK, Hm).astype(dtype)

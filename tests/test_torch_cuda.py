@@ -7,7 +7,11 @@ Attention: written cache rows bit-equal; outputs within 1e-2 of their
 largest magnitude (the kernels round the probabilities to bf16 at other
 points than the plain versions and sum in other orders). Fused tail: int8
 codes within ±1 and at most 1% of them differing (f32 sums in other orders
-and another exp may move a code on a rounding tie by one step).
+and another exp may move a code on a rounding tie by one step); had_quant
+the same; rms_norm_quant within ±1 and at most 1e-3 differing (another sum
+order of the squares). fwht in f32: max |Δ| ≤ 1e-5 of the plain version's
+largest magnitude (f32 sums against its float64 ones); bf16 output within one
+bf16 ulp plus that bound (near zero, cancellation decides the f32 value).
 """
 
 import pytest
@@ -136,6 +140,91 @@ def test_fused_tail_raises_on_unsupported(cuda):
     wide = torch.cat([g, g[:, :8]], dim=-1)
     with pytest.raises(ValueError):  # rows 2 bytes off 16-byte alignment
         fwht.fused_swiglu_had_quant(wide[:, 1:18945], wide[:, 1:18945], 0.05)
+
+
+def _bf16(dev, *shape, sd=1.0, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn(shape, generator=g, device=dev) * sd).to(torch.bfloat16)
+
+
+# the probe's (1024, 3584) and the edges T = 1, T = 333; a narrow row
+@pytest.mark.parametrize("T,n", [(1024, 3584), (1, 3584), (333, 3584),
+                                 (7, 128)])
+def test_rms_norm_quant(cuda, T, n):
+    x, w = _bf16(cuda, T, n, sd=3.0), _bf16(cuda, n, sd=0.5, seed=1)
+    s = torch.tensor(0.05, device=cuda)
+    before = fwht.LAUNCHES["rms_norm_quant"]
+    q = fwht.rms_norm_quant(x, w, s)
+    assert fwht.LAUNCHES["rms_norm_quant"] == before + 1
+    ref = fwht.rms_norm_quant_ref(x, w, s)
+    torch.cuda.synchronize()
+    assert q.dtype == torch.int8 and q.shape == (T, n)
+    d = (q.int() - ref.int()).abs()
+    assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= 1e-3
+
+
+# the probe's (1024, 18944); K = 28, 4 (pow2 512) and 128 (pow2 16384)
+@pytest.mark.parametrize("T,n", [(1024, 18944), (256, 3584), (3, 512),
+                                 (2, 16384)])
+def test_had_quant(cuda, T, n):
+    x = _bf16(cuda, T, n)
+    s = torch.tensor(0.05, device=cuda)
+    before = fwht.LAUNCHES["had_quant"]
+    q = fwht.had_quant(x, s)
+    assert fwht.LAUNCHES["had_quant"] == before + 1
+    ref = fwht.had_quant_ref(x, s)
+    torch.cuda.synchronize()
+    assert q.dtype == torch.int8 and q.shape == (T, n)
+    _check_codes(q, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("T,n", [(1024, 18944), (64, 4096), (5, 128),
+                                 (3, 16384), (9, 3584)])
+def test_fwht_two_matmul(cuda, T, n, dtype):
+    x = _bf16(cuda, T, n).to(dtype)
+    before = fwht.LAUNCHES["fwht_two_matmul"]
+    y = fwht.fwht_two_matmul(x)
+    assert fwht.LAUNCHES["fwht_two_matmul"] == before + 1
+    ref = fwht.fwht_two_matmul_ref(x)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and y.shape == (T, n)
+    y, ref = y.float(), ref.float()
+    mag = float(ref.abs().max())
+    if dtype == torch.float32:
+        assert float((y - ref).abs().max()) <= 1e-5 * mag
+    else:  # one bf16 ulp, plus the f32 bound for outputs near zero
+        m = torch.maximum(y.abs(), ref.abs()).clamp(min=2.0**-126)
+        ulp = torch.exp2(torch.floor(torch.log2(m)) - 7)
+        assert bool(((y - ref).abs() <= ulp + 1e-5 * mag).all())
+
+
+def test_probe_kernels_raise_on_unsupported(cuda):
+    s = torch.tensor(0.05, device=cuda)
+    x = _bf16(cuda, 4, 2368)  # 148 · 16: m != 128
+    for fn in (fwht.had_quant, lambda t, _s: fwht.fwht_two_matmul(t)):
+        with pytest.raises(ValueError):
+            fn(x, s)
+        with pytest.raises(ValueError):  # pow2 n = 32768 splits m = 256
+            fn(_bf16(cuda, 2, 32768), s)
+    x = _bf16(cuda, 4, 3584)
+    with pytest.raises(ValueError):  # f32 into the int8 kernels
+        fwht.had_quant(x.float(), s)
+    with pytest.raises(ValueError):
+        fwht.rms_norm_quant(x.float(), x[0], s)
+    with pytest.raises(ValueError):  # fp16 into fwht
+        fwht.fwht_two_matmul(x.half())
+    with pytest.raises(ValueError):  # per-token scale
+        fwht.had_quant(x, torch.ones(4, device=cuda))
+    with pytest.raises(ValueError):  # w of another width
+        fwht.rms_norm_quant(x, x[0, :128], s)
+    with pytest.raises(ValueError):  # n % 16 != 0
+        fwht.rms_norm_quant(x[:, :3576].contiguous(), x[0, :3576], s)
+    with pytest.raises(ValueError):  # column stride 2
+        fwht.rms_norm_quant(x[:, ::2], x[0, ::2].contiguous(), s)
+    wide = torch.cat([x, x[:, :8]], dim=-1)
+    with pytest.raises(ValueError):  # rows 2 bytes off 16-byte alignment
+        fwht.fwht_two_matmul(wide[:, 1:3585])
 
 
 ATTN_RTOL = 1e-2
