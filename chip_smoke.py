@@ -21,14 +21,23 @@ Phases, in order (any failed check raises and the script exits non-zero):
    The prefill probe's kernels likewise (rms_norm_quant: codes within ±1,
    at most 1e-3 differing; had_quant: the tail's rule; fwht_two_matmul:
    f32 within 1e-5 of the plain version's largest magnitude, bf16 within
-   one ulp plus that), each beside its unfused torch chain.
+   one ulp plus that), each beside its unfused torch chain. The decode
+   probes' kernels likewise (w8_bf16_gemv: bf16 within one ulp plus 1e-5
+   of max |plain|, and deterministic; w4_unpack_gemv P0-P3: int32
+   bit-equal, P1-P3 also to w4a8_gemv's; dequant_swiglu_had_quant: the
+   tail's rule, codes in [−127, 127]).
 4. probes: the T = 1024 prefill probe at 7B widths
    (``mquant_tpu_torch.scripts.prefill_probe``: every segment, device ms per
    step of a chain of 16 in one CUDA graph; each fused segment against its
    unfused twin) and the int8 rate probe (``scripts.mxu_rate``: int32
    output bit-equal to ``torch._int_mm``'s), counted as one path that must
    launch rms_norm_quant, had_quant, fwht_two_matmul, the fused tail,
-   int8_gemm and flash attention.
+   int8_gemm and flash attention. Then the three decode-rate probes
+   (``scripts.gemv_bench``, ``scripts.w4_unpack_tune``,
+   ``scripts.mlp_variants`` at T = 1024 with the epilogue prototypes),
+   counted as one path that must launch w8_bf16_gemv, w4_unpack_gemv,
+   dequant_swiglu_had_quant, int8_gemm, int8_gemv and w4a8_gemv; each
+   probe's kernel line held against its torch twin.
    slice: Qwen2-VL-7B at full width and depth 28 with seeded random W4A8
    weights (W8A8 vision tower) serves one full-VLM request (448² image →
    ViT → merger → splice → 1024-token prompt → 128 greedy tokens) and two
@@ -73,6 +82,10 @@ import copy
 import dataclasses
 import json
 import math
+import os
+import re
+import shutil
+import subprocess
 import sys
 import time
 
@@ -142,6 +155,9 @@ REPLACES = {
     "rms_norm_quant": "mquant_tpu/kernels/fwht.py:246",
     "had_quant": "mquant_tpu/kernels/fwht.py:187",
     "fwht_two_matmul": "mquant_tpu/kernels/fwht.py:122",
+    "w8_bf16_gemv": "scripts/gemv_bench.py:70",
+    "w4_unpack_gemv": "scripts/w4_unpack_tune.py:115",
+    "dequant_swiglu_had_quant": "scripts/mlp_variants.py:180",
 }
 SOURCES = {"w4a8_gemv": "mquant_tpu_torch/kernels/csrc/qmm.cu",
            "int8_gemv": "mquant_tpu_torch/kernels/csrc/qmm.cu",
@@ -151,7 +167,11 @@ SOURCES = {"w4a8_gemv": "mquant_tpu_torch/kernels/csrc/qmm.cu",
            "fused_swiglu_had_quant": "mquant_tpu_torch/kernels/csrc/fwht.cu",
            "rms_norm_quant": "mquant_tpu_torch/kernels/csrc/fwht.cu",
            "had_quant": "mquant_tpu_torch/kernels/csrc/fwht.cu",
-           "fwht_two_matmul": "mquant_tpu_torch/kernels/csrc/fwht.cu"}
+           "fwht_two_matmul": "mquant_tpu_torch/kernels/csrc/fwht.cu",
+           "w8_bf16_gemv": "mquant_tpu_torch/kernels/csrc/qmm.cu",
+           "w4_unpack_gemv": "mquant_tpu_torch/kernels/csrc/qmm.cu",
+           "dequant_swiglu_had_quant":
+               "mquant_tpu_torch/kernels/csrc/fwht.cu"}
 L2_COLD_BYTES = 128 * 2**20
 # published H100 SXM peaks (dense): HBM bytes/s, int8 op/s, bf16 FLOP/s
 HBM_BPS, INT8_OPS, BF16_FLOPS = 3.35e12, 1979e12, 989e12
@@ -191,7 +211,8 @@ def check_kernels(seed: int) -> dict:
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev = torch.device("cuda")
-    summary = {k: new_summary() for k in qmm.KERNELS}
+    summary = {k: new_summary() for k in ("w4a8_gemv", "int8_gemv",
+                                          "int8_gemm")}
     for name, label, M, K, N, packed in KERNEL_SHAPES + EDGE_SHAPES:
         main = (name, label, M, K, N, packed) in KERNEL_SHAPES
         rows = K // 2 if packed else K
@@ -585,6 +606,215 @@ def check_probe_kernels(seed: int) -> dict:
     return summary
 
 
+W8_SLACK = 1e-5  # w8_bf16_gemv: one bf16 ulp + W8_SLACK · max |plain|
+# the decode probes' kernels (label, M, K, N, main path): gemv_bench's
+# shape, then edges (one and five rows, a partial 128-column block)
+W8_SHAPES = [("gemv_bench", 8, 3584, 19968, True),
+             ("M 1", 1, 3584, 19968, False), ("M 5", 5, 3584, 19968, False),
+             ("N 1040", 8, 3584, 1040, False)]
+# w4_unpack_tune's layer shape for each variant, and an edge with K/2 odd
+# (the predicated tail)
+W4U_SHAPES = [("w4_unpack_tune", 8, 18944, 3584, True),
+              ("K/2 odd", 3, 1002, 1040, False)]
+# mlp_variants' fused epilogue (label, T, n, main path): T = 1024 at 18944,
+# a few rows, K = 28
+DEQ_SHAPES = [("mlp_variants T 1024", 1024, 18944, True),
+              ("T 5", 5, 18944, False), ("K 28", 64, 3584, False)]
+
+
+def check_decode_probe_kernels(seed: int) -> dict:
+    """Phase 3, the kernels of the decode probes: ``w8_bf16_gemv`` (bf16
+    within one ulp plus W8_SLACK of max |plain|; f32 sums against float64
+    ones), ``w4_unpack_gemv`` P0-P3 (int32 bit-equal; P1-P3 also to
+    ``w4a8_gemv``'s) and ``dequant_swiglu_had_quant`` (codes: the tail's
+    rule), each beside its plain version, its unfused torch chain (none has
+    one PyTorch call) and its bound. The w4 summary sums P0-P3 at the
+    probe's shape. Returns summaries as :func:`check_kernels`."""
+    import torch
+    import torch.nn.functional as F
+
+    from mquant_tpu_torch.kernels import fwht, qmm
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 4)
+    summary = {k: new_summary() for k in ("w8_bf16_gemv", "w4_unpack_gemv",
+                                          "dequant_swiglu_had_quant")}
+    for label, M, K, N, main in W8_SHAPES:
+        x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+        ws = [torch.randint(-127, 127, (K, N), generator=g, device=dev,
+                            dtype=torch.int8) for _ in range(2)]
+        sc = torch.rand((N,), generator=g, device=dev) * 0.01 + 1e-3
+        y, ref = qmm.w8_bf16_gemv(x, ws[0], sc), qmm.w8_bf16_gemv_ref(
+            x, ws[0], sc)
+        torch.cuda.synchronize()
+        err, ulps = bf16_ulp_err(y, ref)
+        yf, rf = y.float(), ref.float()
+        m = torch.maximum(yf.abs(), rf.abs()).clamp(min=2.0**-126)
+        ulp = torch.exp2(torch.floor(torch.log2(m)) - 7)
+        beyond = float(((yf - rf).abs() > ulp).float().mean())
+        if y.shape != ref.shape or not bool(
+                ((yf - rf).abs() <= ulp + W8_SLACK * rf.abs().max()).all()):
+            raise AssertionError(f"w8_bf16_gemv [{label}]: up to {ulps} ulp "
+                                 f"(max abs {err})")
+        if not torch.equal(y, qmm.w8_bf16_gemv(x, ws[0], sc)):
+            raise AssertionError(f"w8_bf16_gemv [{label}]: not deterministic")
+        # two weight copies: 143 MB at N = 19968, beyond the 50 MB L2
+        ms = cuda_ms(lambda i: qmm.w8_bf16_gemv(x, ws[i % 2], sc), 20)
+        pms = cuda_ms(lambda i: qmm.w8_bf16_gemv_ref(x, ws[i % 2], sc), 4,
+                      reps=3)
+        nbytes = K * N + 2 * M * K + 4 * N + 2 * M * N
+        bms, by = bound(nbytes, 2 * M * K * N, BF16_FLOPS)
+        log(f"kernel w8_bf16_gemv {label:14s} M={M} K={K} N={N:5d}: max |d| "
+            f"{err:.3g} ({ulps:.2f} ulp, {beyond:.2e} of outputs beyond one "
+            f"ulp), deterministic; {ms:.4f} ms vs plain {pms:.4f} ms, "
+            f"library none, bound {bms:.4f} ms ({by}); "
+            f"{nbytes / ms / 1e6:.1f} GB/s")
+        s_ = summary["w8_bf16_gemv"]
+        s_["max_abs_err"] = max(s_["max_abs_err"], err)
+        if main:
+            chain_ms = cuda_ms(lambda i: (torch.matmul(
+                x, ws[i % 2].to(torch.bfloat16)).float() * sc).to(
+                torch.bfloat16), 4, reps=3)
+            log(f"kernel w8_bf16_gemv {label}: the unfused torch chain "
+                f"(convert, torch.matmul, scale) {chain_ms:.4f} ms")
+            add_main(s_, ms, pms, bms, by, None)
+        del x, ws, y, ref
+    for label, M, K, N, main in W4U_SHAPES:
+        x = torch.randint(-127, 128, (M, K), generator=g, device=dev,
+                          dtype=torch.int8)
+        wps = [torch.randint(-128, 128, (K // 2, N), generator=g, device=dev,
+                             dtype=torch.int8) for _ in range(4)]
+        ones_m, ones_n = torch.ones(M, device=dev), torch.ones(N, device=dev)
+        served = qmm.w4a8_gemv_ref(x, ones_m, wps[0], ones_n, torch.int32)
+        if (K // 2) % 4 == 0 and not torch.equal(served, qmm.w4a8_gemv(
+                x, ones_m, wps[0], ones_n, torch.int32)):
+            raise AssertionError(f"w4a8_gemv [{label}]: int32 differs")
+        nbytes = K // 2 * N + M * K + 4 * M * N
+        bms, by = bound(nbytes, 2 * M * K * N, INT8_OPS)
+        for v, name in qmm.W4_VARIANTS.items():
+            acc = qmm.w4_unpack_gemv(x, wps[0], v)
+            ref = qmm.w4_unpack_gemv_ref(x, wps[0], v)
+            torch.cuda.synchronize()
+            if not torch.equal(acc, ref) or (v and not torch.equal(acc,
+                                                                   served)):
+                raise AssertionError(f"w4_unpack_gemv {name} [{label}]: int32 "
+                                     "differs")
+            # four packed copies (136 MB at the probe's shape) beyond the L2
+            ms = cuda_ms(lambda i: qmm.w4_unpack_gemv(x, wps[i % 4], v), 20)
+            pms = cuda_ms(lambda i: qmm.w4_unpack_gemv_ref(x, wps[i % 4], v),
+                          4, reps=3)
+            log(f"kernel w4_unpack_gemv {name:20s} [{label}] M={M} K={K} "
+                f"N={N}: int32 bit-equal{' (and to w4a8_gemv)' if v else ''};"
+                f" {ms:.4f} ms vs plain {pms:.4f} ms, library none, bound "
+                f"{bms:.4f} ms ({by}); {K // 2 * N / ms / 1e6:.1f} GB/s of "
+                "packed weight")
+            if main:
+                add_main(summary["w4_unpack_gemv"], ms, pms, bms, by, None)
+        if main:
+            chain_ms = cuda_ms(lambda i: torch.matmul(
+                x.to(torch.bfloat16), qmm.unpack_int4_weights(
+                    {"w_q": wps[i % 4]}).to(torch.bfloat16)).to(torch.int32),
+                4, reps=3)
+            log(f"kernel w4_unpack_gemv [{label}]: the unfused torch chain "
+                f"(unpack, convert, bf16 torch.matmul) {chain_ms:.4f} ms")
+        del x, wps, served
+    s = torch.tensor(TAIL_SCALE, device=dev)
+    for label, T, n, main in DEQ_SHAPES:
+        K = fwht._factors(n)[2]
+        # int32 sums and scales that put silu(g)·u near 1: codes spread
+        # over the range, a few clip (at the probe's own scales nearly all
+        # clip); two copies, 155 MB at T = 1024
+        ins = [[torch.randint(-2**20, 2**20, (T, n), generator=g,
+                              device=dev, dtype=torch.int32)
+                for _ in range(2)] for _ in range(2)]
+        gs = torch.rand((n,), generator=g, device=dev) * 2e-6 + 1e-7
+        us = torch.rand((n,), generator=g, device=dev) * 2e-6 + 1e-7
+
+        def kern(i):
+            return fwht.dequant_swiglu_had_quant(*ins[i % 2], gs, us, s,
+                                                 -127, 127)
+
+        def plain(i):
+            return fwht.dequant_swiglu_had_quant_ref(*ins[i % 2], gs, us, s,
+                                                     -127, 127)
+
+        q, ref = kern(0), plain(0)
+        torch.cuda.synchronize()
+        worst, frac = tail_diff(q, ref, f"dequant_swiglu_had_quant [{label}]")
+        clipped = float((q.abs() == 127).float().mean())
+        ms = cuda_ms(kern, 20)
+        pms = cuda_ms(plain, 4, reps=3)
+        nbytes = 9 * T * n + 8 * n + 2 * (160 * 160 + 128 * 128) + 4
+        bms, by = bound(nbytes, 2 * T * n * (K + 128), BF16_FLOPS)
+        log(f"kernel dequant_swiglu_had_quant {label:19s} T={T:4d} n={n}: "
+            f"codes within {worst}, {frac:.6f} of them differ ({clipped:.4f} "
+            f"at ±127); {ms:.4f} ms vs plain {pms:.4f} ms, library none, "
+            f"bound {bms:.4f} ms ({by}); {nbytes / ms / 1e6:.1f} GB/s")
+        s_ = summary["dequant_swiglu_had_quant"]
+        s_["max_abs_err"] = max(s_["max_abs_err"], float(worst))
+        if main:
+            def chain(i):
+                gi, ui = ins[i % 2]
+                a = (F.silu(gi.float() * gs) * (ui.float() * us)).to(
+                    torch.bfloat16)
+                a = fwht.online_hadamard(a)
+                return torch.clamp(torch.round(a.float() / TAIL_SCALE), -127,
+                                   127).to(torch.int8)
+
+            chain_ms = cuda_ms(chain, 4, reps=3)
+            log(f"kernel dequant_swiglu_had_quant {label}: the unfused torch "
+                f"chain (dequant, silu·u, online_hadamard, quantize) "
+                f"{chain_ms:.4f} ms")
+            add_main(s_, ms, pms, bms, by, None)
+        del ins, q, ref
+    torch.cuda.empty_cache()
+    return summary
+
+
+def sass_unpack_variants(lib) -> None:
+    """Phase 2: the SASS of w4_unpack_gemv's instantiations (``cuobjdump
+    -sass`` of the built library): instructions per variant and whether P2
+    (int8 shifts) and P3 (int32 shifts) compiled to the same code, for each
+    rows-per-pass / tail instantiation. Prints only; the kernels' checks
+    are phase 3's."""
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(exe):
+        log("sass: cuobjdump not found; P2 / P3 code not compared")
+        return
+    dump = subprocess.run([exe, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    funcs, cur = {}, None
+    for line in dump.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
+        if m and cur is not None:
+            cur.append(m.group(1))
+
+    def code(wt, mc, tail):
+        key = f"gemv_kernelILi{wt}ELi{mc}ELb{tail}E"
+        hits = [v for k, v in funcs.items() if key in k]
+        return hits[0] if len(hits) == 1 else None
+
+    # the GemvW enum of qmm.cu: kW4 = 1, kP0 .. kP3 = 2 .. 5
+    for mc in (1, 4):
+        for tail in (0, 1):
+            c = {n: code(wt, mc, tail) for n, wt in
+                 (("W4", 1), ("P0", 2), ("P1", 3), ("P2", 4), ("P3", 5))}
+            if any(v is None for v in c.values()):
+                log(f"sass: rows {mc}, tail {tail}: instantiation not found")
+                continue
+            same = c["P2"] == c["P3"]
+            ndiff = sum(a != b for a, b in zip(c["P2"], c["P3"])) + abs(
+                len(c["P2"]) - len(c["P3"]))
+            log(f"sass: gemv rows {mc}, tail {tail}: instructions "
+                + ", ".join(f"{n} {len(v)}" for n, v in c.items())
+                + f"; P2 and P3 {'identical' if same else 'differ'}"
+                + ("" if same else f" ({ndiff} instructions)"))
+
+
 def kernel_modules():
     from mquant_tpu_torch.kernels import attn_decode, flash_attn, fwht, qmm
 
@@ -656,6 +886,49 @@ def run_probe(seed: int, card: str) -> dict:
     log(f"probe: T={probe.cfg.T}, chain {PROBE_CHAIN}: the segments sum to "
         f"{sum(times.values()):.4f} ms per step; card {card}")
     del probe
+    torch.cuda.empty_cache()
+    return launches
+
+
+MLP_CHAIN = 4  # chained MLP steps per timed mlp_variants line
+# kernels the decode probes must launch
+DECODE_PROBE_KERNELS = ("w8_bf16_gemv", "w4_unpack_gemv",
+                        "dequant_swiglu_had_quant", "int8_gemm", "int8_gemv",
+                        "w4a8_gemv")
+
+
+def run_decode_probes(seed: int, card: str) -> dict:
+    """Phase 4, the decode-rate probes (``mquant_tpu_torch.scripts``):
+    ``gemv_bench`` (M = 8 against (3584, 19968): five lines, 16 chained
+    steps in one CUDA graph, the kernel line held against the torch line),
+    ``w4_unpack_tune`` (8 stacked (9472, 3584) packed layers at M = 8: µs
+    per layer of the torch line, the served W4 GEMV and P0-P3, which are
+    then held bit-equal) and ``mlp_variants`` at T = 1024 (bf16, int8, fp8
+    and the two epilogue prototypes, MLP_CHAIN chained MLPs per line; the
+    fused epilogue's MLP held against the unfused one), counted as one path
+    that must launch DECODE_PROBE_KERNELS (wrapper calls: warm-up, capture
+    and the eager checks). Returns the launch counts."""
+    import torch
+
+    from mquant_tpu_torch.scripts import gemv_bench as GB
+    from mquant_tpu_torch.scripts import mlp_variants as MV
+    from mquant_tpu_torch.scripts import w4_unpack_tune as WU
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        gb, wu = GB.Bench(seed=seed), WU.Bench(seed=seed)
+        mw = MV.Weights(seed=seed)
+        reset_launches()
+        GB.run(gb, log=lambda s: log(f"gemv_bench: {s}"))
+        GB.check(gb, log=lambda s: log(f"gemv_bench: {s}"))
+        WU.run(wu, log=lambda s: log(f"w4_unpack_tune: {s}"))
+        WU.check(wu, log=lambda s: log(f"w4_unpack_tune: {s}"))
+        MV.run(mw, chain=MLP_CHAIN, proto=True,
+               log=lambda s: log(f"mlp_variants: {s}"))
+        MV.check_fused(mw, log=lambda s: log(f"mlp_variants: {s}"))
+        launches = read_launches("decode probes", DECODE_PROBE_KERNELS)
+    log(f"decode probes: {time.perf_counter() - t0:.1f} s; card {card}")
+    del gb, wu, mw
     torch.cuda.empty_cache()
     return launches
 
@@ -1389,15 +1662,18 @@ def main(argv=None) -> int:
     path, secs = _build.build(verbose=True)
     log(f"build: {path.name} in {secs:.1f} s")
     _build.load()
+    sass_unpack_variants(path)
 
     # phase 3: kernels vs plain
     summary = check_kernels(args.seed)
     summary.update(check_attention(args.seed))
     summary.update(check_tail(args.seed))
     summary.update(check_probe_kernels(args.seed))
+    summary.update(check_decode_probe_kernels(args.seed))
 
-    # the prefill probe and the int8 rate probe, counted as one path
-    counts = [run_probe(args.seed, card)]
+    # the prefill probe and the int8 rate probe, counted as one path; the
+    # three decode-rate probes, another
+    counts = [run_probe(args.seed, card), run_decode_probes(args.seed, card)]
 
     # phases 4 and 5: each path of the main path, then its profile
     model = build_model(args.seed)

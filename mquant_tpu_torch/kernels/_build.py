@@ -38,12 +38,20 @@ _SIGNATURES = {
     "mq_attn_decode": [_P] * 9 + [_I] * 7 + [_F, _P],
     # q, k, v, out, B, T, H, KVH, scale, stream
     "mq_flash_attn_causal": [_P] * 4 + [_I] * 4 + [_F, _P],
-    # g, u, ldg, ldu, A, Bt, scale, out, T, K, stream
-    "mq_fused_swiglu_had_quant": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _P],
-    # x, ldx, A, Bt, scale, out, T, K, stream
-    "mq_had_quant": [_P, _I, _P, _P, _P, _P, _I, _I, _P],
-    # x, ldx, w, scale, out, T, n, eps, stream
-    "mq_rms_norm_quant": [_P, _I, _P, _P, _P, _I, _I, _F, _P],
+    # x, w, ws, out, M, K, N, stream
+    "mq_w8_bf16_gemv": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # x, w, acc, M, K, N, splits, variant, stream
+    "mq_w4_unpack_gemv": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # g, u, ldg, ldu, A, Bt, scale, out, T, K, qmin, qmax, stream
+    "mq_fused_swiglu_had_quant": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _I,
+                                  _I, _I, _P],
+    # g, u, ldg, ldu, gs, us, A, Bt, scale, out, T, K, qmin, qmax, stream
+    "mq_dequant_swiglu_had_quant": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P,
+                                    _I, _I, _I, _I, _P],
+    # x, ldx, A, Bt, scale, out, T, K, qmin, qmax, stream
+    "mq_had_quant": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, ldx, w, scale, out, T, n, eps, qmin, qmax, stream
+    "mq_rms_norm_quant": [_P, _I, _P, _P, _P, _I, _I, _F, _I, _I, _P],
     # x, ldx, At, hm, out, T, K, is_f32, stream
     "mq_fwht": [_P, _I, _P, _F, _P, _I, _I, _I, _P],
 }

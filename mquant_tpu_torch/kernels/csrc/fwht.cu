@@ -8,14 +8,26 @@
 //       x  = bf16(silu(g) * u)                  in f32, then rounded
 //       Y1 = bf16(X . B)     X = x viewed (K, 128), B = H_128 / sqrt(128)
 //       Y  = A . Y1          A = hadK (K, K), orthonormal
-//       q  = clip(round(Y * (1 / scale)), -128, 127)  at position k*128 + j
+//       q  = clip(round(Y * (1 / scale)), qmin, qmax)  at position k*128 + j
 //     Both products take bf16 operands with f32 sums, as the TPU kernel's
-//     dots (preferred_element_type=f32); rounding is half to even.
+//     dots (preferred_element_type=f32); rounding is half to even. The
+//     code range [qmin, qmax] (default [-128, 127]) is a runtime argument of
+//     every quantizing kernel here, as in the TPU kernels.
 // K7  had_quant  replaces fwht.py::had_quant (_had_quant_kernel, :187): the
 //     same pipeline on one bf16 input x instead of silu(g) * u (the tail
-//     kernel instantiated with kSwiglu = false).
+//     kernel instantiated with kIn = kInX).
 // K8  rms_norm_quant  replaces fwht.py::rms_norm_quant (_rms_quant_kernel,
 //     :246): q = clip(round(x * rsqrt(mean(x^2) + eps) * w * (1 / scale))).
+// K14 dequant_swiglu_had_quant  replaces scripts/mlp_variants.py::
+//     mlp_int8_fused_epilogue (its kernel `kern`, pl.pallas_call at :180):
+//     the int8 MLP's epilogue on the int32 gate and up accumulators,
+//       x = bf16((gf * sigmoid(gf)) * uf),  gf = f32(g) * gs[j],
+//                                           uf = f32(u) * us[j]
+//     (gs, us: per-channel f32 scales already times the activation scale),
+//     then K6's two products and quantize (the probe clips to [-127, 127]).
+//     The tail kernel instantiated with kIn = kInDequant: only step 1
+//     differs. It reads 8 bytes of g, u per element and 8 bytes of the two
+//     scale vectors (the scales from L2: every block reads all of them).
 // K9  fwht  replaces fwht.py::fwht_pallas (_fwht_kernel, :122): y = (A (x)
 //     H_128) x in f32 throughout, bf16 or f32 in and out.
 //
@@ -35,7 +47,8 @@
 // columns over all 160 rows (80 f32 accumulators). The codes are staged in
 // shared memory and written out with 16-byte stores. A TMA / wgmma pipeline
 // and several tokens per block (to share the A fragments) are later work.
-// had_quant reads 2 bytes per element instead of 4 (58 MB, 17 us).
+// had_quant reads 2 bytes per element instead of 4 (58 MB, 17 us);
+// dequant_swiglu_had_quant 8 (int32 g and u: 175 MB with the codes, 52 us).
 //
 // rms_norm_quant moves 3 bytes per element (11 MB at (1024, 3584), 3.3 us)
 // and does a few flops per byte: bound by bytes. One block per row: 16-byte
@@ -93,8 +106,9 @@ __device__ __forceinline__ uint32_t ldg32(const __nv_bfloat16* p) {
   return __ldg(reinterpret_cast<const unsigned int*>(p));
 }
 
-__device__ __forceinline__ int quant8(float y, float inv) {
-  return max(-128, min(127, __float2int_rn(y * inv)));
+__device__ __forceinline__ int quant8(float y, float inv, int qmin,
+                                      int qmax) {
+  return max(qmin, min(qmax, __float2int_rn(y * inv)));
 }
 
 // silu(g) * u of two bf16 pairs, in f32 as (g * sigmoid(g)) * u, rounded to
@@ -106,14 +120,33 @@ __device__ __forceinline__ uint32_t swiglu2(uint32_t gw, uint32_t uw) {
   return pack_bf16((gf.x * s0) * uf.x, (gf.y * s1) * uf.y);
 }
 
-// kSwiglu: x = bf16(silu(g) * u) (the tail); otherwise x = g, u unused
-template <bool kSwiglu>
+// silu(gf) * uf of one int32 pair dequantized by its channel scales, in
+// f32 as swiglu2 computes it
+__device__ __forceinline__ float dswiglu(int g, int u, float gs, float us) {
+  const float gf = (float)g * gs, uf = (float)u * us;
+  return (gf * (1.f / (1.f + expf(-gf)))) * uf;
+}
+
+// four int32 pairs at channels 4 c .. 4 c + 3 into two bf16 words
+__device__ __forceinline__ uint2 dswiglu4(int4 g, int4 u, float4 gs, float4 us) {
+  return make_uint2(
+      pack_bf16(dswiglu(g.x, u.x, gs.x, us.x), dswiglu(g.y, u.y, gs.y, us.y)),
+      pack_bf16(dswiglu(g.z, u.z, gs.z, us.z), dswiglu(g.w, u.w, gs.w, us.w)));
+}
+
+// the tail kernel's input: x = g (bf16), x = bf16(silu(g) * u) (bf16 g, u:
+// the fused tail) or x = bf16(silu(g * gs) * (u * us)) (int32 g, u)
+enum TailIn { kInX = 0, kInSwiglu = 1, kInDequant = 2 };
+
+template <int kIn>
 __global__ void __launch_bounds__(TL_THREADS, 2)
-    tail_kernel(const __nv_bfloat16* __restrict__ g,
-                const __nv_bfloat16* __restrict__ u, int ldg_, int ldu_, int K,
+    tail_kernel(const void* __restrict__ g, const void* __restrict__ u,
+                int ldg_, int ldu_, const float* __restrict__ gs,
+                const float* __restrict__ us, int K,
                 const __nv_bfloat16* __restrict__ A,   // (TL_KP, TL_KP)
                 const __nv_bfloat16* __restrict__ Bt,  // (TL_M, TL_M), B^T
-                const float* __restrict__ scale, int8_t* __restrict__ out) {
+                const float* __restrict__ scale, int qmin, int qmax,
+                int8_t* __restrict__ out) {
   __shared__ __align__(16) __nv_bfloat16 Xs[TL_KP][TL_LD];
   const long row = blockIdx.x;
   const int n = K * TL_M;
@@ -121,16 +154,33 @@ __global__ void __launch_bounds__(TL_THREADS, 2)
   const int gq = lane >> 2, t = lane & 3;
   const int n0 = warp * 16;  // this warp's output columns n0 .. n0 + 15
 
-  // 1. x into rows 0..K-1, zeros into the pad rows
-  const __nv_bfloat16* gr = g + row * ldg_;
-  const __nv_bfloat16* ur = u + row * ldu_;
+  // 1. x into rows 0..K-1 (8 elements a step), zeros into the pad rows
   for (int v = tid; v < n / 8; v += TL_THREADS) {
-    const uint4 gv = __ldg(reinterpret_cast<const uint4*>(gr) + v);
-    uint4 o = gv;
-    if constexpr (kSwiglu) {
-      const uint4 uv = __ldg(reinterpret_cast<const uint4*>(ur) + v);
-      o = make_uint4(swiglu2(gv.x, uv.x), swiglu2(gv.y, uv.y),
-                     swiglu2(gv.z, uv.z), swiglu2(gv.w, uv.w));
+    uint4 o;
+    if constexpr (kIn == kInDequant) {
+      const int4* gr =
+          reinterpret_cast<const int4*>(static_cast<const int*>(g) +
+                                        row * ldg_) + 2 * v;
+      const int4* ur =
+          reinterpret_cast<const int4*>(static_cast<const int*>(u) +
+                                        row * ldu_) + 2 * v;
+      const float4* gsv = reinterpret_cast<const float4*>(gs) + 2 * v;
+      const float4* usv = reinterpret_cast<const float4*>(us) + 2 * v;
+      const uint2 a = dswiglu4(__ldg(gr), __ldg(ur), __ldg(gsv), __ldg(usv));
+      const uint2 b = dswiglu4(__ldg(gr + 1), __ldg(ur + 1), __ldg(gsv + 1),
+                               __ldg(usv + 1));
+      o = make_uint4(a.x, a.y, b.x, b.y);
+    } else {
+      const uint4* gr = reinterpret_cast<const uint4*>(
+          static_cast<const __nv_bfloat16*>(g) + row * ldg_);
+      o = __ldg(gr + v);
+      if constexpr (kIn == kInSwiglu) {
+        const uint4* ur = reinterpret_cast<const uint4*>(
+            static_cast<const __nv_bfloat16*>(u) + row * ldu_);
+        const uint4 uv = __ldg(ur + v);
+        o = make_uint4(swiglu2(o.x, uv.x), swiglu2(o.y, uv.y),
+                       swiglu2(o.z, uv.z), swiglu2(o.w, uv.w));
+      }
     }
     const int e = v * 8;
     *reinterpret_cast<uint4*>(&Xs[e / TL_M][e % TL_M]) = o;
@@ -221,8 +271,8 @@ __global__ void __launch_bounds__(TL_THREADS, 2)
       for (int h = 0; h < 2; ++h) {
         const int r = mt * 16 + gq + 8 * h, c = n0 + nt * 8 + 2 * t;
         if (r < K) {
-          const int q0 = quant8(acc[mt][nt][2 * h], inv);
-          const int q1 = quant8(acc[mt][nt][2 * h + 1], inv);
+          const int q0 = quant8(acc[mt][nt][2 * h], inv, qmin, qmax);
+          const int q1 = quant8(acc[mt][nt][2 * h + 1], inv, qmin, qmax);
           *reinterpret_cast<uint16_t*>(Qs + r * TL_M + c) =
               (uint16_t)((q0 & 0xFF) | ((q1 & 0xFF) << 8));
         }
@@ -247,7 +297,7 @@ __global__ void __launch_bounds__(RQ_THREADS)
     rms_quant_kernel(const __nv_bfloat16* __restrict__ x, int ldx,
                      const __nv_bfloat16* __restrict__ w,
                      const float* __restrict__ scale, int8_t* __restrict__ out,
-                     int n, float eps) {
+                     int n, float eps, int qmin, int qmax) {
   __shared__ float warp_ss[RQ_THREADS / 32];
   const long row = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -292,10 +342,10 @@ __global__ void __launch_bounds__(RQ_THREADS)
     for (int i = 0; i < 4; ++i) {
       const float2 f0 = bf2(v[2 * i]), f1 = bf2(v[2 * i + 1]);
       const float2 w0 = bf2(wv[2 * i]), w1 = bf2(wv[2 * i + 1]);
-      const int q0 = quant8((f0.x * r) * w0.x, inv);
-      const int q1 = quant8((f0.y * r) * w0.y, inv);
-      const int q2 = quant8((f1.x * r) * w1.x, inv);
-      const int q3 = quant8((f1.y * r) * w1.y, inv);
+      const int q0 = quant8((f0.x * r) * w0.x, inv, qmin, qmax);
+      const int q1 = quant8((f0.y * r) * w0.y, inv, qmin, qmax);
+      const int q2 = quant8((f1.x * r) * w1.x, inv, qmin, qmax);
+      const int q3 = quant8((f1.y * r) * w1.y, inv, qmin, qmax);
       q[i] = (uint32_t)(q0 & 0xFF) | ((uint32_t)(q1 & 0xFF) << 8) |
              ((uint32_t)(q2 & 0xFF) << 16) | ((uint32_t)(q3 & 0xFF) << 24);
     }
@@ -418,46 +468,75 @@ int launch_fwht(const void* x, int ldx, const void* At, float hm, void* out,
   return (int)cudaGetLastError();
 }
 
+bool bad_range(int qmin, int qmax) {
+  return qmin < -128 || qmin > qmax || qmax > 127;
+}
+
+template <int kIn>
+int launch_tail(const void* g, const void* u, int ldg, int ldu, const void* gs,
+                const void* us, const void* A, const void* Bt,
+                const void* scale, void* out, int T, int K, int qmin,
+                int qmax, void* stream) {
+  if (K < 1 || K > TL_KP || T < 1 || bad_range(qmin, qmax))
+    return (int)cudaErrorInvalidValue;
+  tail_kernel<kIn><<<T, TL_THREADS, 0, (cudaStream_t)stream>>>(
+      g, u, ldg, ldu, (const float*)gs, (const float*)us, K,
+      (const __nv_bfloat16*)A, (const __nv_bfloat16*)Bt, (const float*)scale,
+      qmin, qmax, (int8_t*)out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// out (T, K * 128) int8 = clip(round((A (x) H_128) . (silu(g) * u) / scale)).
-// g, u: (T, K * 128) bf16 rows at strides ldg / ldu (elements; rows 16-byte
-// aligned). A: (160, 160) bf16, hadK zero-padded; Bt: (128, 128) bf16, the
-// transposed H_128 / sqrt(128); scale: one f32 on the device. K <= 160.
+// out (T, K * 128) int8 = clip(round((A (x) H_128) . (silu(g) * u) / scale),
+// qmin, qmax). g, u: (T, K * 128) bf16 rows at strides ldg / ldu (elements;
+// rows 16-byte aligned). A: (160, 160) bf16, hadK zero-padded; Bt: (128, 128)
+// bf16, the transposed H_128 / sqrt(128); scale: one f32 on the device.
+// K <= 160; -128 <= qmin <= qmax <= 127.
 int mq_fused_swiglu_had_quant(const void* g, const void* u, int ldg, int ldu,
                               const void* A, const void* Bt, const void* scale,
-                              void* out, int T, int K, void* stream) {
-  if (K < 1 || K > TL_KP || T < 1) return (int)cudaErrorInvalidValue;
-  tail_kernel<true><<<T, TL_THREADS, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)g, (const __nv_bfloat16*)u, ldg, ldu, K,
-      (const __nv_bfloat16*)A, (const __nv_bfloat16*)Bt, (const float*)scale,
-      (int8_t*)out);
-  return (int)cudaGetLastError();
+                              void* out, int T, int K, int qmin, int qmax,
+                              void* stream) {
+  return launch_tail<kInSwiglu>(g, u, ldg, ldu, nullptr, nullptr, A, Bt, scale,
+                                out, T, K, qmin, qmax, stream);
 }
 
-// out (T, K * 128) int8 = clip(round((A (x) H_128) . x / scale)); x: (T,
-// K * 128) bf16 rows at stride ldx; A, Bt, scale as above. K <= 160.
+// out (T, K * 128) int8 = clip(round((A (x) H_128) . x / scale), qmin, qmax);
+// x: (T, K * 128) bf16 rows at stride ldx; A, Bt, scale, K, qmin, qmax as
+// above.
 int mq_had_quant(const void* x, int ldx, const void* A, const void* Bt,
-                 const void* scale, void* out, int T, int K, void* stream) {
-  if (K < 1 || K > TL_KP || T < 1) return (int)cudaErrorInvalidValue;
-  tail_kernel<false><<<T, TL_THREADS, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)x, (const __nv_bfloat16*)x, ldx, ldx, K,
-      (const __nv_bfloat16*)A, (const __nv_bfloat16*)Bt, (const float*)scale,
-      (int8_t*)out);
-  return (int)cudaGetLastError();
+                 const void* scale, void* out, int T, int K, int qmin,
+                 int qmax, void* stream) {
+  return launch_tail<kInX>(x, x, ldx, ldx, nullptr, nullptr, A, Bt, scale, out,
+                           T, K, qmin, qmax, stream);
 }
 
-// out (T, n) int8 = clip(round(x * rsqrt(mean(x^2) + eps) * w / scale)); x:
-// (T, n) bf16 rows at stride ldx (16-byte aligned), w: (n,) bf16, scale: one
-// f32 on the device; n % 16 == 0.
+// out (T, K * 128) int8 = clip(round((A (x) H_128) . x / scale), qmin, qmax)
+// with x = bf16(silu(g * gs) * (u * us)) in f32; g, u: (T, K * 128) int32
+// rows at strides ldg / ldu (elements; rows 16-byte aligned); gs, us: (K *
+// 128,) f32; A, Bt, scale, K, qmin, qmax as above.
+int mq_dequant_swiglu_had_quant(const void* g, const void* u, int ldg, int ldu,
+                                const void* gs, const void* us, const void* A,
+                                const void* Bt, const void* scale, void* out,
+                                int T, int K, int qmin, int qmax,
+                                void* stream) {
+  return launch_tail<kInDequant>(g, u, ldg, ldu, gs, us, A, Bt, scale, out, T,
+                                 K, qmin, qmax, stream);
+}
+
+// out (T, n) int8 = clip(round(x * rsqrt(mean(x^2) + eps) * w / scale), qmin,
+// qmax); x: (T, n) bf16 rows at stride ldx (16-byte aligned), w: (n,) bf16,
+// scale: one f32 on the device; n % 16 == 0.
 int mq_rms_norm_quant(const void* x, int ldx, const void* w, const void* scale,
-                      void* out, int T, int n, float eps, void* stream) {
-  if (T < 1 || n < 16 || n % 16 || ldx % 8) return (int)cudaErrorInvalidValue;
+                      void* out, int T, int n, float eps, int qmin, int qmax,
+                      void* stream) {
+  if (T < 1 || n < 16 || n % 16 || ldx % 8 || bad_range(qmin, qmax))
+    return (int)cudaErrorInvalidValue;
   rms_quant_kernel<<<T, RQ_THREADS, 0, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)x, ldx, (const __nv_bfloat16*)w,
-      (const float*)scale, (int8_t*)out, n, eps);
+      (const float*)scale, (int8_t*)out, n, eps, qmin, qmax);
   return (int)cudaGetLastError();
 }
 

@@ -14,6 +14,17 @@
 //                (_qmm_w4_kernel with its k accumulator) and the XLA s8 dots
 //                it stood beside: int8 x int8 -> int32 GEMM on W4 packed or
 //                W8 weights with the per-token x per-channel dequant fused.
+// K12 w8_bf16_gemv  replaces scripts/gemv_bench.py::w8_bf16_gemv_pallas
+//                (pl.pallas_call at :70): y = bf16((x . f32(W)) * w_scale)
+//                for bf16 x (M <= 8, K) and int8 W (K, N), f32 sums.
+// K13 w4_unpack_gemv  replaces scripts/w4_unpack_tune.py::pallas_gemv with
+//                its kernels P0-P3 (:72-107, pl.pallas_call at :115): the
+//                packed-W4 GEMV to int32 with the nibbles unpacked three
+//                ways (P1 i32 mask / select, P2 int8 shifts, P3 i32 shifts)
+//                and P0, x_lo . int8(packed bytes) without an unpack (the
+//                probe's bound on the packed stream, not the W4 product). K1's
+//                GEMV with the unpack as a template parameter: the loads,
+//                the __dp4a loop, the split-K reduction are K1's.
 //
 // What bounds them on an H100. The GEMVs stream the weight once per token:
 // 0.5 B per weight (K1) or 1 B (K2) against ~3.35 TB/s of HBM; the x vector
@@ -30,8 +41,19 @@
 // no int8 copy of a W4 weight ever exists in device memory. wgmma/TMA and
 // pipelined stages are later work: this version is simple and exact first.
 //
-// Epilogue (all kernels): y = (float(acc) * x_scale[m]) * w_scale[n], then
+// Epilogue (K1-K3): y = (float(acc) * x_scale[m]) * w_scale[n], then
 // rounded to the output type, the order of qmm.py:549/:577.
+//
+// K12 streams 1 B per weight and does 2 M flops on it: at M = 8 and (3584,
+// 19968), 72 MB (21 us at 3.35 TB/s) against 1.1 GFLOP of f32 FMA (17 us at
+// the 67 TFLOP/s f32 rate): the two bounds nearly meet, so the int8 -> f32
+// convert has to stay cheap (one byte permute and one add per weight: the
+// byte, biased to [0, 255], as the low mantissa bits of 2^23). Each block
+// owns 128 columns over all of K (156 blocks at N = 19968; no split-K, so
+// the f32 sums are deterministic): a thread streams 8 columns of 4 rows at a
+// time with 8-byte loads, x is staged in shared memory as f32 in chunks of
+// 1024 rows, and the 16 row slices meet through one shuffle and a fixed-order
+// sum over the 8 warps in shared memory.
 //
 // Any K (K2 and K3 on int8 weights; K3 on packed W4 with K even): the RMS
 // split stores 18943 int8 rows of `down`, as the JAX package writes them. The
@@ -124,16 +146,53 @@ constexpr int GV_TX = 8;     // threads along N, 16 columns each
 constexpr int GV_TY = 32;    // K slices inside a block, 4 rows each step
 constexpr int GV_BN = GV_TX * 16;
 
-// W4: w is (R = K/2, N) packed bytes; x row m contributes x[m, r] to the low
+// The weight forms of the GEMV (template parameter WT):
+// kW4: w is (R = K/2, N) packed bytes; x row m contributes x[m, r] to the low
 // plane and x[m, R + r] to the high one. The dot runs on biased nibbles
 // u = w + 8 (two masks per word), and 8 * sum(x) is taken off at the end:
 // x.w = x.u - 8 * sum(x), exactly.
-// W8: w is (R = K, N) int8.
-template <bool W4, int MC, bool TAIL>
+// kW8: w is (R = K, N) int8.
+// kP1 .. kP3 (K13): kW4's product with signed nibbles unpacked byte by byte
+// (unpack_probe); kP0: x[m, :R] . int8(packed bytes), kW8's loop on the
+// packed matrix.
+enum GemvW { kW8 = 0, kW4 = 1, kP0 = 2, kP1 = 3, kP2 = 4, kP3 = 5 };
+
+// The signed nibbles of the 4 packed bytes of w as the probe's three unpacks
+// compute them (w4_unpack_tune.py:52-69), each byte alone; lo / hi receive
+// the low / high nibbles as 4 signed bytes.
+template <int WT>
+__device__ __forceinline__ void unpack_probe(uint32_t w, uint32_t& lo,
+                                             uint32_t& hi) {
+  lo = hi = 0u;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    int l, h;
+    if constexpr (WT == kP1) {  // i32 masks, then x >= 8 ? x - 16 : x
+      const int b = (int)((w >> (8 * j)) & 0xFFu);
+      l = b & 15;
+      h = (b >> 4) & 15;
+      l = l >= 8 ? l - 16 : l;
+      h = h >= 8 ? h - 16 : h;
+    } else if constexpr (WT == kP2) {  // int8 arithmetic shifts
+      const int8_t b = (int8_t)(w >> (8 * j));
+      l = (int8_t)(b << 4) >> 4;
+      h = b >> 4;
+    } else {  // kP3: int32 shifts of the sign-extended byte
+      const int b = (int8_t)(w >> (8 * j));
+      l = (int)((uint32_t)b << 28) >> 28;
+      h = b >> 4;
+    }
+    lo |= (uint32_t)(l & 0xFF) << (8 * j);
+    hi |= (uint32_t)(h & 0xFF) << (8 * j);
+  }
+}
+
+template <int WT, int MC, bool TAIL>
 __global__ void __launch_bounds__(GV_TX* GV_TY)
     gemv_kernel(const int8_t* __restrict__ x, int M, int K,
                 const int8_t* __restrict__ w, int R, int N, int rows_per_split,
                 int* __restrict__ acc_out) {
+  constexpr bool kHi = WT != kW8 && WT != kP0;  // reads the high plane's x
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int warp = (ty * GV_TX + tx) >> 5, lane = (ty * GV_TX + tx) & 31;
   const int col0 = blockIdx.x * GV_BN + tx * 16;
@@ -168,13 +227,13 @@ __global__ void __launch_bounds__(GV_TX* GV_TY)
           const int8_t* xr = x + (long)(m0 + mi) * K;
           if (TAIL) {
             xlo[mi] = live ? (int)load4_tail(xr, r, r_end) : 0;
-            xhi[mi] = (W4 && live) ? (int)load4_tail(xr + R, r, r_end) : 0;
+            xhi[mi] = (kHi && live) ? (int)load4_tail(xr + R, r, r_end) : 0;
           } else {
             xlo[mi] = live ? *reinterpret_cast<const int*>(xr + r) : 0;
             xhi[mi] =
-                (W4 && live) ? *reinterpret_cast<const int*>(xr + R + r) : 0;
+                (kHi && live) ? *reinterpret_cast<const int*>(xr + R + r) : 0;
           }
-          if (W4) {
+          if (WT == kW4) {
             xsum[mi] = __dp4a(xlo[mi], 0x01010101, xsum[mi]);
             xsum[mi] = __dp4a(xhi[mi], 0x01010101, xsum[mi]);
           }
@@ -187,13 +246,17 @@ __global__ void __launch_bounds__(GV_TX* GV_TY)
             const uint4 q = v[i];
             rows[i] = c == 0 ? q.x : c == 1 ? q.y : c == 2 ? q.z : q.w;
           }
-          if (W4) {
+          if constexpr (kHi) {
             uint32_t lo[4], hi[4], loc[4], hic[4];
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
-              const uint32_t u = rows[i] ^ 0x88888888u;
-              lo[i] = u & 0x0F0F0F0Fu;
-              hi[i] = (u >> 4) & 0x0F0F0F0Fu;
+              if constexpr (WT == kW4) {
+                const uint32_t u = rows[i] ^ 0x88888888u;
+                lo[i] = u & 0x0F0F0F0Fu;
+                hi[i] = (u >> 4) & 0x0F0F0F0Fu;
+              } else {
+                unpack_probe<WT>(rows[i], lo[i], hi[i]);
+              }
             }
             transpose4x4(lo, loc);
             transpose4x4(hi, hic);
@@ -222,7 +285,7 @@ __global__ void __launch_bounds__(GV_TX* GV_TY)
     // reduce the 32 K slices: 4 per warp through shuffles, 8 warps in smem
 #pragma unroll
     for (int mi = 0; mi < MC; ++mi) {
-      const int corr = W4 ? 8 * xsum[mi] : 0;
+      const int corr = WT == kW4 ? 8 * xsum[mi] : 0;
 #pragma unroll
       for (int c = 0; c < 16; ++c) {
         int s = acc[mi][c] - corr;
@@ -418,18 +481,18 @@ __global__ void __launch_bounds__(256)
       }
 }
 
-template <bool W4, int MC, bool TAIL>
+template <int WT, int MC, bool TAIL>
 void gemv(dim3 grid, dim3 block, cudaStream_t stream, const void* x, int M,
           int K, const void* w, int R, int N, int rps, void* acc) {
-  gemv_kernel<W4, MC, TAIL><<<grid, block, 0, stream>>>(
+  gemv_kernel<WT, MC, TAIL><<<grid, block, 0, stream>>>(
       (const int8_t*)x, M, K, (const int8_t*)w, R, N, rps, (int*)acc);
 }
 
-template <bool W4>
+template <int WT>
 int launch_gemv(const void* x, const void* w, const void* xs, const void* wsc,
                 void* acc, void* out, int M, int K, int N, int splits,
                 int out_kind, cudaStream_t stream) {
-  const int R = W4 ? K / 2 : K;
+  const int R = WT == kW8 ? K : K / 2;
   // the predicated K tail only where rows or x words are not 4-aligned
   const bool tail = R % 4 || K % 4 || reinterpret_cast<uintptr_t>(x) % 4;
   // rows per split: a multiple of 4 that covers R in `splits` pieces
@@ -439,19 +502,127 @@ int launch_gemv(const void* x, const void* w, const void* xs, const void* wsc,
   cudaMemsetAsync(acc, 0, sizeof(int) * (size_t)M * N, stream);
   dim3 grid((N + GV_BN - 1) / GV_BN, grid_y), block(GV_TX, GV_TY);
   if (M == 1 && tail)
-    gemv<W4, 1, true>(grid, block, stream, x, M, K, w, R, N, rps, acc);
+    gemv<WT, 1, true>(grid, block, stream, x, M, K, w, R, N, rps, acc);
   else if (M == 1)
-    gemv<W4, 1, false>(grid, block, stream, x, M, K, w, R, N, rps, acc);
+    gemv<WT, 1, false>(grid, block, stream, x, M, K, w, R, N, rps, acc);
   else if (tail)
-    gemv<W4, 4, true>(grid, block, stream, x, M, K, w, R, N, rps, acc);
+    gemv<WT, 4, true>(grid, block, stream, x, M, K, w, R, N, rps, acc);
   else
-    gemv<W4, 4, false>(grid, block, stream, x, M, K, w, R, N, rps, acc);
+    gemv<WT, 4, false>(grid, block, stream, x, M, K, w, R, N, rps, acc);
   if (out_kind != 2) {
     const long total = (long)M * N;
     epilogue_kernel<<<(total + 255) / 256, 256, 0, stream>>>(
         (const int*)acc, M, N, (const float*)xs, (const float*)wsc, out,
         out_kind);
   }
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// K12: int8 weights -> f32, bf16 x, f32 sums, M <= 8
+// ---------------------------------------------------------------------------
+
+constexpr int W8_TX = 16;          // threads along N, 8 columns each
+constexpr int W8_TY = 16;          // row slices, 4 rows a step
+constexpr int W8_BN = W8_TX * 8;   // 128 columns a block
+constexpr int W8_KC = 1024;        // x rows staged in shared memory at a time
+
+// four int8 bytes of w as exact floats: the byte + 128 becomes the low
+// mantissa bits of 2^23, and 2^23 + 128 is subtracted
+__device__ __forceinline__ void s8x4_to_f32(uint32_t w, float f[4]) {
+  const uint32_t u = w ^ 0x80808080u;
+  f[0] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650)) - 8388736.f;
+  f[1] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651)) - 8388736.f;
+  f[2] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7652)) - 8388736.f;
+  f[3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7653)) - 8388736.f;
+}
+
+// x (M, K) bf16, w (K, N) int8 row-major, ws (N,) f32 -> out (M, N) bf16;
+// MC >= M rows of x, the rest zero
+template <int MC>
+__global__ void __launch_bounds__(W8_TX* W8_TY, 2)
+    w8_bf16_gemv_kernel(const __nv_bfloat16* __restrict__ x, int M, int K,
+                        const int8_t* __restrict__ w, int N,
+                        const float* __restrict__ ws,
+                        __nv_bfloat16* __restrict__ out) {
+  // x chunk (W8_KC, MC) f32, then the warps' partial sums (8, MC, W8_BN)
+  constexpr int kXs = W8_KC * MC, kRed = (W8_TX * W8_TY / 32) * MC * W8_BN;
+  __shared__ __align__(16) float sm[kXs > kRed ? kXs : kRed];
+  const int tid = threadIdx.x, tx = tid % W8_TX, ty = tid / W8_TX;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int col0 = blockIdx.x * W8_BN + tx * 8;
+  const bool live = col0 < N;  // N % 8 == 0: all 8 columns or none
+
+  float acc[MC][8];
+#pragma unroll
+  for (int m = 0; m < MC; ++m)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[m][c] = 0.f;
+
+  for (int kb = 0; kb < K; kb += W8_KC) {
+    const int rows = min(W8_KC, K - kb);
+    __syncthreads();  // the previous chunk has been read
+    for (int i = tid; i < W8_KC * MC; i += W8_TX * W8_TY) {
+      const int m = i / W8_KC, k = i % W8_KC;  // coalesced along k
+      sm[k * MC + m] = m < M && k < rows
+                           ? __bfloat162float(x[(long)m * K + kb + k])
+                           : 0.f;
+    }
+    __syncthreads();
+    if (!live) continue;
+    for (int r = ty * 4; r < rows; r += W8_TY * 4) {
+      uint2 wv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)  // rows past K read as zero weights
+        wv[i] = r + i < rows ? __ldg(reinterpret_cast<const uint2*>(
+                                   w + (long)(kb + r + i) * N + col0))
+                             : make_uint2(0u, 0u);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float wf[8];
+        s8x4_to_f32(wv[i].x, wf);
+        s8x4_to_f32(wv[i].y, wf + 4);
+        const float* xk = sm + (r + i) * MC;
+#pragma unroll
+        for (int m = 0; m < MC; ++m) {
+          const float xv = xk[m];
+#pragma unroll
+          for (int c = 0; c < 8; ++c) acc[m][c] = fmaf(xv, wf[c], acc[m][c]);
+        }
+      }
+    }
+  }
+
+  // the 16 row slices: two per warp by one shuffle, then the 8 warps in a
+  // fixed order (every output's sum is the same on every run)
+  __syncthreads();  // the last x chunk has been read
+#pragma unroll
+  for (int m = 0; m < MC; ++m)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const float s = acc[m][c] + __shfl_xor_sync(0xffffffffu, acc[m][c], 16);
+      if (lane < 16) sm[(warp * MC + m) * W8_BN + tx * 8 + c] = s;
+    }
+  __syncthreads();
+  for (int i = tid; i < MC * W8_BN; i += W8_TX * W8_TY) {
+    const int m = i / W8_BN, c = i % W8_BN;
+    const int n = blockIdx.x * W8_BN + c;
+    if (m >= M || n >= N) continue;
+    float s = 0.f;
+#pragma unroll
+    for (int wi = 0; wi < W8_TX * W8_TY / 32; ++wi)
+      s += sm[(wi * MC + m) * W8_BN + c];
+    out[(long)m * N + n] = __float2bfloat16_rn(s * __ldg(ws + n));
+  }
+}
+
+template <int MC>
+int launch_w8_bf16(const void* x, const void* w, const void* ws, void* out,
+                   int M, int K, int N, cudaStream_t stream) {
+  w8_bf16_gemv_kernel<MC>
+      <<<(N + W8_BN - 1) / W8_BN, W8_TX * W8_TY, 0, stream>>>(
+          (const __nv_bfloat16*)x, M, K, (const int8_t*)w, N,
+          (const float*)ws, (__nv_bfloat16*)out);
   return (int)cudaGetLastError();
 }
 
@@ -464,15 +635,54 @@ extern "C" {
 int mq_w4a8_gemv(const void* x, const void* w, const void* xs, const void* wsc,
                  void* acc, void* out, int M, int K, int N, int splits,
                  int out_kind, void* stream) {
-  return launch_gemv<true>(x, w, xs, wsc, acc, out, M, K, N, splits, out_kind,
+  return launch_gemv<kW4>(x, w, xs, wsc, acc, out, M, K, N, splits, out_kind,
                            (cudaStream_t)stream);
 }
 
 int mq_int8_gemv(const void* x, const void* w, const void* xs, const void* wsc,
                  void* acc, void* out, int M, int K, int N, int splits,
                  int out_kind, void* stream) {
-  return launch_gemv<false>(x, w, xs, wsc, acc, out, M, K, N, splits,
-                            out_kind, (cudaStream_t)stream);
+  return launch_gemv<kW8>(x, w, xs, wsc, acc, out, M, K, N, splits,
+                          out_kind, (cudaStream_t)stream);
+}
+
+// acc (M, N) int32 = x (M, K) . W4 packed (K/2, N) by the unpack `variant`
+// 1 .. 3 (P1 .. P3), or x[:, :K/2] . int8(packed) for variant 0 (P0).
+// M <= 8, K even.
+int mq_w4_unpack_gemv(const void* x, const void* w, void* acc, int M, int K,
+                      int N, int splits, int variant, void* stream) {
+  if (M < 1 || M > 8 || K < 2 || K % 2 || N < 1 || splits < 1)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (variant) {
+    case 0:
+      return launch_gemv<kP0>(x, w, nullptr, nullptr, acc, nullptr, M, K, N,
+                              splits, 2, st);
+    case 1:
+      return launch_gemv<kP1>(x, w, nullptr, nullptr, acc, nullptr, M, K, N,
+                              splits, 2, st);
+    case 2:
+      return launch_gemv<kP2>(x, w, nullptr, nullptr, acc, nullptr, M, K, N,
+                              splits, 2, st);
+    case 3:
+      return launch_gemv<kP3>(x, w, nullptr, nullptr, acc, nullptr, M, K, N,
+                              splits, 2, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// out (M, N) bf16 = bf16((x . f32(W)) * ws) for bf16 x (M, K), int8 W (K, N)
+// row-major (rows 8-byte aligned), ws (N,) f32; f32 sums. M <= 8, N % 8 == 0.
+int mq_w8_bf16_gemv(const void* x, const void* w, const void* ws, void* out,
+                    int M, int K, int N, void* stream) {
+  if (M < 1 || M > 8 || K < 1 || N < 8 || N % 8)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (M == 1) return launch_w8_bf16<1>(x, w, ws, out, M, K, N, st);
+  if (M == 2) return launch_w8_bf16<2>(x, w, ws, out, M, K, N, st);
+  if (M <= 4) return launch_w8_bf16<4>(x, w, ws, out, M, K, N, st);
+  return launch_w8_bf16<8>(x, w, ws, out, M, K, N, st);
 }
 
 // y (M, N) = epilogue(x (M, K) . W), W4 packed (K/2, N) if w4 else int8 (K, N).

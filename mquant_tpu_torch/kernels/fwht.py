@@ -6,7 +6,7 @@ hadK @ (X · H_m) for X = x viewed (K, m). JAX runs :func:`online_hadamard`
 on XLA, outside Pallas, so here it is two ``torch.matmul`` calls. Block mode
 (I ⊗ H₁₂₈) is the m = 128, K = 1 case: one (…, 128) @ (128, 128) product.
 
-Four hand-written CUDA kernels (``csrc/fwht.cu``), each for rows of n = K·128
+Five hand-written CUDA kernels (``csrc/fwht.cu``), each for rows of n = K·128
 with K ≤ 160 (18944 = 148·128; pow2 n up to 16384):
 
   * :func:`fused_swiglu_had_quant` — silu(g)·u → hadK ⊗ H₁₂₈ → static
@@ -19,9 +19,17 @@ with K ≤ 160 (18944 = 148·128; pow2 n up to 16384):
     in and out; replaces ``_fwht_kernel`` / ``fwht_pallas``.
   * :func:`rms_norm_quant` — RMSNorm → static int8 in one pass (any n with
     n % 16 == 0); replaces ``_rms_quant_kernel`` / ``rms_norm_quant``.
+  * :func:`dequant_swiglu_had_quant` — the int8 MLP's epilogue: int32 gate
+    and up accumulators × per-channel scales → silu(g)·u → the tail's
+    Hadamard and int8; replaces the kernel of
+    ``scripts/mlp_variants.py::mlp_int8_fused_epilogue`` (the tail kernel
+    reading int32 rows).
 
-No served JAX path reaches the last three; ``scripts/prefill_probe.py`` does,
-and so does its port ``mquant_tpu_torch.scripts.prefill_probe``.
+No served JAX path reaches the last four; ``scripts/prefill_probe.py`` and
+``scripts/mlp_variants.py`` do, and so do their ports in
+``mquant_tpu_torch.scripts``. The quantizers take the code range
+``[qmin, qmax]`` (default [−128, 127]; −128 ≤ qmin ≤ qmax ≤ 127) as the JAX
+kernels do.
 
 Each wrapper launches its kernel for a CUDA tensor (or raises) and takes its
 plain PyTorch version (``*_ref``) only for a CPU tensor. ``LAUNCHES`` counts
@@ -42,7 +50,8 @@ from ..transform import hadamard as H
 
 # kernel launches per wrapper (read and reset by chip_smoke.py)
 LAUNCHES: Dict[str, int] = {"fused_swiglu_had_quant": 0, "had_quant": 0,
-                            "fwht_two_matmul": 0, "rms_norm_quant": 0}
+                            "fwht_two_matmul": 0, "rms_norm_quant": 0,
+                            "dequant_swiglu_had_quant": 0}
 
 # the Hadamard kernels' row tile: (TAIL_MAX_K, TAIL_M), the hadK axis
 # zero-padded to TAIL_MAX_K (148 → 160 for n = 18944)
@@ -115,14 +124,16 @@ def online_hadamard(x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _quantize_static(y: torch.Tensor, scale) -> torch.Tensor:
-    """round(y · (1/scale)) half to even, clipped to [−128, 127], int8 (1/scale
-    in f32 once, as the TPU kernels do)."""
+def _quantize_static(y: torch.Tensor, scale, qmin: int = -128,
+                     qmax: int = 127) -> torch.Tensor:
+    """round(y · (1/scale)) half to even, clipped to [qmin, qmax], int8
+    (1/scale in f32 once, as the TPU kernels do)."""
     inv = 1.0 / torch.as_tensor(scale, dtype=torch.float32, device=y.device)
-    return torch.clamp(torch.round(y * inv), -128, 127).to(torch.int8)
+    return torch.clamp(torch.round(y * inv), qmin, qmax).to(torch.int8)
 
 
-def _had_quant_bf16(x: torch.Tensor, scale) -> torch.Tensor:
+def _had_quant_bf16(x: torch.Tensor, scale, qmin: int = -128,
+                    qmax: int = 127) -> torch.Tensor:
     """The TPU kernels' Hadamard → int8 on a bf16 x (…, n): the m-axis product
     (bf16 operands, f32 sums) rounded to bf16, the K-axis product in f32."""
     n = x.shape[-1]
@@ -131,25 +142,45 @@ def _had_quant_bf16(x: torch.Tensor, scale) -> torch.Tensor:
     # cuBLAS's reduced-precision or TF32 flags say
     t = torch.matmul(x.reshape(*x.shape[:-1], K, n // K).float(), B.float())
     y = torch.matmul(A.float(), t.to(torch.bfloat16).float())
-    return _quantize_static(y, scale).reshape(x.shape)
+    return _quantize_static(y, scale, qmin, qmax).reshape(x.shape)
 
 
-def fused_swiglu_had_quant_ref(g: torch.Tensor, u: torch.Tensor, scale
+def _swiglu_bf16(gf: torch.Tensor, uf: torch.Tensor) -> torch.Tensor:
+    """(g · sigmoid(g)) · u in f32, rounded to bf16 (the tail kernels' x)."""
+    return ((gf * torch.sigmoid(gf)) * uf).to(torch.bfloat16)
+
+
+def fused_swiglu_had_quant_ref(g: torch.Tensor, u: torch.Tensor, scale,
+                               qmin: int = -128, qmax: int = 127
                                ) -> torch.Tensor:
     """Plain version of :func:`fused_swiglu_had_quant`, at the TPU kernel's
     rounding points: silu(g)·u in f32, rounded to bf16, then
     :func:`had_quant_ref`'s pipeline."""
-    gf, uf = g.float(), u.float()
-    return _had_quant_bf16(((gf * torch.sigmoid(gf)) * uf).to(torch.bfloat16),
-                           scale)
+    return _had_quant_bf16(_swiglu_bf16(g.float(), u.float()), scale, qmin,
+                           qmax)
 
 
-def had_quant_ref(x: torch.Tensor, scale) -> torch.Tensor:
+def had_quant_ref(x: torch.Tensor, scale, qmin: int = -128,
+                  qmax: int = 127) -> torch.Tensor:
     """Plain version of :func:`had_quant` (``_had_quant_kernel``): x rounded
     to bf16; X·H_m with bf16 operands and f32 sums, rounded to bf16; the hadK
     product in f32; then round(y · (1/scale)) half to even, clipped to
-    [−128, 127]."""
-    return _had_quant_bf16(x.to(torch.bfloat16), scale)
+    [qmin, qmax]."""
+    return _had_quant_bf16(x.to(torch.bfloat16), scale, qmin, qmax)
+
+
+def dequant_swiglu_had_quant_ref(g: torch.Tensor, u: torch.Tensor, g_scale,
+                                 u_scale, scale, qmin: int = -128,
+                                 qmax: int = 127) -> torch.Tensor:
+    """Plain version of :func:`dequant_swiglu_had_quant`, at the TPU kernel's
+    rounding points (mlp_variants.py:159-170): gf = f32(g) · g_scale and
+    uf = f32(u) · u_scale per channel, silu(gf)·uf in f32 rounded to bf16,
+    then :func:`had_quant_ref`'s pipeline."""
+    gs = torch.as_tensor(g_scale, dtype=torch.float32, device=g.device)
+    us = torch.as_tensor(u_scale, dtype=torch.float32, device=u.device)
+    return _had_quant_bf16(_swiglu_bf16(g.float() * gs.reshape(-1),
+                                        u.float() * us.reshape(-1)),
+                           scale, qmin, qmax)
 
 
 def fwht_two_matmul_ref(x: torch.Tensor) -> torch.Tensor:
@@ -166,14 +197,16 @@ def fwht_two_matmul_ref(x: torch.Tensor) -> torch.Tensor:
 
 
 def rms_norm_quant_ref(x: torch.Tensor, w: torch.Tensor, scale,
-                       eps: float = 1e-6) -> torch.Tensor:
+                       eps: float = 1e-6, qmin: int = -128,
+                       qmax: int = 127) -> torch.Tensor:
     """Plain version of :func:`rms_norm_quant` (``_rms_quant_kernel``):
     y = x · rsqrt(mean(x²) + eps) · w in f32, then round(y · (1/scale)) half
-    to even, clipped to [−128, 127]. Unlike quantize(rms_norm(x, w)), y is
+    to even, clipped to [qmin, qmax]. Unlike quantize(rms_norm(x, w)), y is
     never rounded to x's dtype (ROADMAP C-w7)."""
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
-    return _quantize_static(xf * torch.rsqrt(var + eps) * w.float(), scale)
+    return _quantize_static(xf * torch.rsqrt(var + eps) * w.float(), scale,
+                            qmin, qmax)
 
 
 # ---------------------------------------------------------------------------
@@ -235,11 +268,23 @@ def _hadamard_K(name: str, n: int) -> int:
 
 
 def _scale(name: str, scale, device) -> torch.Tensor:
-    s = torch.as_tensor(scale, dtype=torch.float32, device=device)
+    """The per-tensor scale as one f32 on ``device``; a Python number is
+    filled in there (no host copy, so a CUDA graph can capture the call)."""
+    s = (torch.as_tensor(scale, dtype=torch.float32, device=device)
+         if isinstance(scale, torch.Tensor) else
+         torch.full((), float(scale), dtype=torch.float32, device=device))
     if s.numel() != 1:
         raise ValueError(f"{name}: scale must be per tensor, got "
                          f"{tuple(s.shape)}")
     return s
+
+
+def _code_range(name: str, qmin: int, qmax: int) -> tuple[int, int]:
+    """(qmin, qmax) as ints; raises unless −128 ≤ qmin ≤ qmax ≤ 127."""
+    if not -128 <= qmin <= qmax <= 127:
+        raise ValueError(f"{name}: needs -128 <= qmin <= qmax <= 127, got "
+                         f"[{qmin}, {qmax}]")
+    return int(qmin), int(qmax)
 
 
 def _finish(name: str, status: int):
@@ -248,19 +293,20 @@ def _finish(name: str, status: int):
         raise RuntimeError(f"{name}: CUDA error {status}")
 
 
-def fused_swiglu_had_quant(g: torch.Tensor, u: torch.Tensor, scale
-                           ) -> torch.Tensor:
-    """int8 (…, n) = clip(round(((hadK ⊗ H₁₂₈) · silu(g)·u) / scale)) for bf16
-    g, u (…, n) and a per-tensor ``scale``; CUDA kernel
+def fused_swiglu_had_quant(g: torch.Tensor, u: torch.Tensor, scale,
+                           qmin: int = -128, qmax: int = 127) -> torch.Tensor:
+    """int8 (…, n) = clip(round(((hadK ⊗ H₁₂₈) · silu(g)·u) / scale), qmin,
+    qmax) for bf16 g, u (…, n) and a per-tensor ``scale``; CUDA kernel
     ``mq_fused_swiglu_had_quant``. Takes n = K·128 with K ≤ 160 (n = 18944:
     K = 148) and rows with unit column stride (g and u may be the two halves
     of one fused gate|up output)."""
     name = "fused_swiglu_had_quant"
+    qmin, qmax = _code_range(name, qmin, qmax)
     if g.shape != u.shape or g.dtype != u.dtype or g.device != u.device:
         raise ValueError(f"{name}: g {tuple(g.shape)} {g.dtype} {g.device} "
                          f"and u {tuple(u.shape)} {u.dtype} {u.device} differ")
     if not _on_card(name, g):
-        return fused_swiglu_had_quant_ref(g, u, scale)
+        return fused_swiglu_had_quant_ref(g, u, scale, qmin, qmax)
     n = g.shape[-1]
     K = _hadamard_K(name, n)
     if g.dtype != torch.bfloat16:
@@ -278,18 +324,20 @@ def fused_swiglu_had_quant(g: torch.Tensor, u: torch.Tensor, scale
     _finish(name, load().mq_fused_swiglu_had_quant(
         g2.data_ptr(), u2.data_ptr(), g2.stride(0), u2.stride(0),
         A_pad.data_ptr(), B_t.data_ptr(), s.data_ptr(), out.data_ptr(), T, K,
-        stream))
+        qmin, qmax, stream))
     return out.reshape(g.shape)
 
 
-def had_quant(x: torch.Tensor, scale) -> torch.Tensor:
-    """int8 (…, n) = clip(round(((hadK ⊗ H₁₂₈) · x) / scale)) for bf16 x (…, n)
-    and a per-tensor ``scale``; CUDA kernel ``mq_had_quant`` (the tail
-    kernel reading x instead of silu(g)·u). n = K·128 with K ≤ 160, rows
-    with unit column stride."""
+def had_quant(x: torch.Tensor, scale, qmin: int = -128,
+              qmax: int = 127) -> torch.Tensor:
+    """int8 (…, n) = clip(round(((hadK ⊗ H₁₂₈) · x) / scale), qmin, qmax) for
+    bf16 x (…, n) and a per-tensor ``scale``; CUDA kernel ``mq_had_quant``
+    (the tail kernel reading x instead of silu(g)·u). n = K·128 with
+    K ≤ 160, rows with unit column stride."""
     name = "had_quant"
+    qmin, qmax = _code_range(name, qmin, qmax)
     if not _on_card(name, x):
-        return had_quant_ref(x, scale)
+        return had_quant_ref(x, scale, qmin, qmax)
     n = x.shape[-1]
     K = _hadamard_K(name, n)
     if x.dtype != torch.bfloat16:
@@ -306,8 +354,61 @@ def had_quant(x: torch.Tensor, scale) -> torch.Tensor:
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _finish(name, load().mq_had_quant(
         x2.data_ptr(), x2.stride(0), A_pad.data_ptr(), B_t.data_ptr(),
-        s.data_ptr(), out.data_ptr(), T, K, stream))
+        s.data_ptr(), out.data_ptr(), T, K, qmin, qmax, stream))
     return out.reshape(x.shape)
+
+
+def _channel_scale(name: str, s: torch.Tensor, n: int, device) -> torch.Tensor:
+    """``s`` as a contiguous f32 (n,) view on ``device``; raises otherwise."""
+    if (not isinstance(s, torch.Tensor) or s.dtype != torch.float32
+            or s.numel() != n or s.device != device or not s.is_contiguous()):
+        raise ValueError(f"{name}: channel scales must be contiguous f32 "
+                         f"with {n} elements on {device}")
+    return s.reshape(n)
+
+
+def dequant_swiglu_had_quant(g: torch.Tensor, u: torch.Tensor,
+                             g_scale: torch.Tensor, u_scale: torch.Tensor,
+                             scale, qmin: int = -128, qmax: int = 127
+                             ) -> torch.Tensor:
+    """int8 (…, n) = clip(round(((hadK ⊗ H₁₂₈) · x) / scale), qmin, qmax)
+    with x = bf16(silu(gf)·uf), gf = f32(g)·g_scale, uf = f32(u)·u_scale,
+    for int32 g, u (…, n) (the gate and up GEMMs' raw sums), f32 per-channel
+    ``g_scale``, ``u_scale`` (n elements, already × the activation scale)
+    and a per-tensor ``scale``; CUDA kernel ``mq_dequant_swiglu_had_quant``
+    (the tail kernel reading int32 rows). n = K·128 with K ≤ 160; rows with
+    unit column stride (g and u may be the two halves of one fused int32
+    gate|up output)."""
+    name = "dequant_swiglu_had_quant"
+    qmin, qmax = _code_range(name, qmin, qmax)
+    if g.shape != u.shape or g.device != u.device:
+        raise ValueError(f"{name}: g {tuple(g.shape)} {g.device} and u "
+                         f"{tuple(u.shape)} {u.device} differ")
+    if not _on_card(name, g):
+        return dequant_swiglu_had_quant_ref(g, u, g_scale, u_scale, scale,
+                                            qmin, qmax)
+    n = g.shape[-1]
+    K = _hadamard_K(name, n)
+    if g.dtype != torch.int32 or u.dtype != torch.int32:
+        raise ValueError(f"{name}: the kernel takes int32 g and u, got "
+                         f"{g.dtype}, {u.dtype}")
+    gs = _channel_scale(name, g_scale, n, g.device)
+    us = _channel_scale(name, u_scale, n, g.device)
+    s = _scale(name, scale, g.device)
+    g2, u2 = _rows(name, g, n), _rows(name, u, n)
+    T = g2.shape[0]
+    out = torch.empty((T, n), dtype=torch.int8, device=g.device)
+    if T == 0:
+        return out.reshape(g.shape)
+    from ._build import load
+
+    A_pad, B_t = _tail_factors(n, g.device)
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    _finish(name, load().mq_dequant_swiglu_had_quant(
+        g2.data_ptr(), u2.data_ptr(), g2.stride(0), u2.stride(0),
+        gs.data_ptr(), us.data_ptr(), A_pad.data_ptr(), B_t.data_ptr(),
+        s.data_ptr(), out.data_ptr(), T, K, qmin, qmax, stream))
+    return out.reshape(g.shape)
 
 
 def fwht_two_matmul(x: torch.Tensor) -> torch.Tensor:
@@ -340,13 +441,16 @@ def fwht_two_matmul(x: torch.Tensor) -> torch.Tensor:
 
 
 def rms_norm_quant(x: torch.Tensor, w: torch.Tensor, scale,
-                   eps: float = 1e-6) -> torch.Tensor:
-    """int8 (…, n) = clip(round(x · rsqrt(mean(x²) + eps) · w / scale)) in f32
-    for bf16 x (…, n), bf16 w (n,) and a per-tensor ``scale``; CUDA kernel
-    ``mq_rms_norm_quant``. n % 16 == 0, rows with unit column stride."""
+                   eps: float = 1e-6, qmin: int = -128,
+                   qmax: int = 127) -> torch.Tensor:
+    """int8 (…, n) = clip(round(x · rsqrt(mean(x²) + eps) · w / scale), qmin,
+    qmax) in f32 for bf16 x (…, n), bf16 w (n,) and a per-tensor ``scale``;
+    CUDA kernel ``mq_rms_norm_quant``. n % 16 == 0, rows with unit column
+    stride."""
     name = "rms_norm_quant"
+    qmin, qmax = _code_range(name, qmin, qmax)
     if not _on_card(name, x):
-        return rms_norm_quant_ref(x, w, scale, eps)
+        return rms_norm_quant_ref(x, w, scale, eps, qmin, qmax)
     n = x.shape[-1]
     if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
         raise ValueError(f"{name}: the kernel takes bf16 x and w, got "
@@ -367,16 +471,18 @@ def rms_norm_quant(x: torch.Tensor, w: torch.Tensor, scale,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _finish(name, load().mq_rms_norm_quant(
         x2.data_ptr(), x2.stride(0), w.data_ptr(), s.data_ptr(),
-        out.data_ptr(), T, n, float(eps), stream))
+        out.data_ptr(), T, n, float(eps), qmin, qmax, stream))
     return out.reshape(x.shape)
 
 
 # the kernels or their plain versions, looked up at call time by
-# models/llm.py::_mlp_tail and the prefill probe (chip_smoke.py swaps PLAIN
-# into KERNELS for a reference run)
+# models/llm.py::_mlp_tail and the probes (chip_smoke.py swaps PLAIN into
+# KERNELS for a reference run)
 KERNELS = {"fused_swiglu_had_quant": fused_swiglu_had_quant,
            "had_quant": had_quant, "fwht_two_matmul": fwht_two_matmul,
-           "rms_norm_quant": rms_norm_quant}
+           "rms_norm_quant": rms_norm_quant,
+           "dequant_swiglu_had_quant": dequant_swiglu_had_quant}
 PLAIN = {"fused_swiglu_had_quant": fused_swiglu_had_quant_ref,
          "had_quant": had_quant_ref, "fwht_two_matmul": fwht_two_matmul_ref,
-         "rms_norm_quant": rms_norm_quant_ref}
+         "rms_norm_quant": rms_norm_quant_ref,
+         "dequant_swiglu_had_quant": dequant_swiglu_had_quant_ref}

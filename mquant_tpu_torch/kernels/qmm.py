@@ -18,6 +18,16 @@ Three hand-written CUDA kernels (``csrc/qmm.cu``) carry the int8 compute:
   * :func:`int8_gemm` — int8 GEMM, M > 32, W4 packed or W8 (prefill, ViT,
     merger); replaces ``_qmm_pallas_w4``'s M > 32 branch.
 
+and two more the decode probes use (``mquant_tpu_torch.scripts``):
+
+  * :func:`w8_bf16_gemv` — bf16 x (M ≤ 8) against int8 weights converted to
+    f32 in the kernel, f32 sums × per-channel scale → bf16; replaces
+    ``scripts/gemv_bench.py::w8_bf16_gemv_pallas``.
+  * :func:`w4_unpack_gemv` — the packed-W4 GEMV to int32 with the nibbles
+    unpacked by one of the probe's variants P0-P3; replaces
+    ``scripts/w4_unpack_tune.py::pallas_gemv`` (``mq_w4a8_gemv``'s loop with
+    the unpack as a template parameter).
+
 Each wrapper launches its kernel for a CUDA tensor (or raises) and takes its
 plain PyTorch version (``*_ref``) only for a CPU tensor. ``LAUNCHES`` counts
 the kernel launches of each wrapper. ``out_dtype=torch.int32`` returns the
@@ -34,9 +44,14 @@ from ..core import quant as Q
 from ..core.formats import INT8, get_format
 
 # kernel launches per wrapper (read and reset by chip_smoke.py)
-LAUNCHES: Dict[str, int] = {"w4a8_gemv": 0, "int8_gemv": 0, "int8_gemm": 0}
+LAUNCHES: Dict[str, int] = {"w4a8_gemv": 0, "int8_gemv": 0, "int8_gemm": 0,
+                            "w8_bf16_gemv": 0, "w4_unpack_gemv": 0}
 
 GEMV_MAX_M = 32
+PROBE_MAX_M = 8  # rows of the probes' GEMVs (the JAX probes' M = 8 tile)
+# w4_unpack_gemv's variants (w4_unpack_tune.py's P0-P3)
+W4_VARIANTS = {0: "P0 packed-dot bound", 1: "P1 i32 mask/where",
+               2: "P2 int8 arith shifts", 3: "P3 i32 shifts"}
 _OUT_KIND = {torch.bfloat16: 0, torch.float32: 1, torch.int32: 2}
 
 
@@ -251,6 +266,25 @@ def int8_gemm_ref(xq, x_scale, w, w_scale, out_dtype=torch.bfloat16,
     return _epilogue(_exact_dot(xq, w), x_scale, w_scale, out_dtype)
 
 
+def w8_bf16_gemv_ref(x, w, w_scale):
+    """Plain version of :func:`w8_bf16_gemv`: Σ_k x·w in float64 (every
+    product of a bf16 and an int8 is exact there, and the sum rounds far
+    below f32), cast to f32, × w_scale in f32, then bf16. No TF32 or
+    reduced-precision flag of cuBLAS can move it."""
+    acc = (x.double() @ w.double()).float()
+    return (acc * w_scale.float().reshape(1, -1)).to(torch.bfloat16)
+
+
+def w4_unpack_gemv_ref(xq, w_packed, variant: int):
+    """Plain version of :func:`w4_unpack_gemv`, exact in float64 (|acc| ≤
+    128² · K < 2^53): P1-P3 x · unpack(W), the W4 product of
+    :func:`w4a8_gemv_ref`; P0 x[:, :K/2] · int8(packed bytes)."""
+    _variant(variant)
+    if variant == 0:
+        return _exact_dot(xq[:, :w_packed.shape[0]], w_packed)
+    return _exact_dot(xq, unpack_int4_weights({"w_q": w_packed}))
+
+
 def _check_args(name, xq, x_scale, w, w_scale, out_dtype, packed, max_m=None):
     """Validate a kernel call; returns (M, K, N). Raises on anything the
     kernels do not take."""
@@ -321,6 +355,97 @@ def _launch_gemv(name, entry, xq, x_scale, w, w_scale, out_dtype, packed):
     return out
 
 
+def _variant(variant: int) -> None:
+    if variant not in W4_VARIANTS:
+        raise ValueError(f"w4_unpack_gemv: variant must be one of "
+                         f"{sorted(W4_VARIANTS)}, got {variant}")
+
+
+def w8_bf16_gemv(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor
+                 ) -> torch.Tensor:
+    """y (M, N) bf16 = bf16((Σ_k f32(x)·f32(w)) · w_scale) for bf16 x (M ≤ 8,
+    K), int8 w (K, N) row-major and f32 w_scale (N elements); CUDA kernel
+    ``mq_w8_bf16_gemv`` (f32 sums, deterministic). Every column is computed
+    (the JAX probe's grid drops N mod its tile, ROADMAP C-w8). N % 8 == 0."""
+    name = "w8_bf16_gemv"
+    if x.dtype != torch.bfloat16 or x.ndim != 2 or not x.is_contiguous():
+        raise ValueError(f"{name}: x must be contiguous bf16 (M, K)")
+    if w.dtype != torch.int8 or w.ndim != 2 or not w.is_contiguous() or \
+            w.shape[0] != x.shape[1]:
+        raise ValueError(f"{name}: w must be contiguous int8 (K, N) with "
+                         f"K = {x.shape[1]}, got {tuple(w.shape)}")
+    M, N = x.shape[0], w.shape[1]
+    if w_scale.dtype != torch.float32 or w_scale.numel() != N or \
+            not w_scale.is_contiguous():
+        raise ValueError(f"{name}: w_scale must be contiguous f32 with {N} "
+                         "elements")
+    if len({x.device, w.device, w_scale.device}) != 1:
+        raise ValueError(f"{name}: tensors on several devices")
+    if not 1 <= M <= PROBE_MAX_M:
+        raise ValueError(f"{name}: needs 1 <= M <= {PROBE_MAX_M}, got {M}")
+    if x.device.type == "cpu":
+        return w8_bf16_gemv_ref(x, w, w_scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if N % 8 or w.data_ptr() % 8:
+        raise ValueError(f"{name}: needs N % 8 == 0 and 8-byte aligned "
+                         f"weight rows, got N={N}")
+    from ._build import load
+
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    status = load().mq_w8_bf16_gemv(x.data_ptr(), w.data_ptr(),
+                                    w_scale.data_ptr(), out.data_ptr(), M,
+                                    x.shape[1], N, stream)
+    LAUNCHES[name] += 1
+    _raise_on_status(name, status)
+    return out
+
+
+def w4_unpack_gemv(xq: torch.Tensor, w_packed: torch.Tensor, variant: int
+                   ) -> torch.Tensor:
+    """int32 (M, N) for int8 xq (M ≤ 8, K), K even, and split-half packed W4
+    (K/2, N) (a layer view of an (L, K/2, N) stack): variant 1-3 (P1 i32
+    mask/where, P2 int8 shifts, P3 i32 shifts) give x · unpack(W), the W4
+    product; variant 0 (P0) gives x[:, :K/2] · int8(packed), the probe's
+    packed-stream bound, with the same loads and loop. CUDA kernel
+    ``mq_w4_unpack_gemv``; every row of W is reduced (the JAX probe's K
+    grid drops K/2 mod its tile, ROADMAP C-w8). N % 16 == 0."""
+    name = "w4_unpack_gemv"
+    _variant(variant)
+    if xq.dtype != torch.int8 or xq.ndim != 2 or not xq.is_contiguous():
+        raise ValueError(f"{name}: xq must be contiguous int8 (M, K)")
+    M, K = xq.shape
+    if w_packed.dtype != torch.int8 or w_packed.ndim != 2 or \
+            not w_packed.is_contiguous() or K % 2 or \
+            w_packed.shape[0] != K // 2:
+        raise ValueError(f"{name}: w_packed must be contiguous int8 (K/2, N) "
+                         f"for an even K = {K}, got {tuple(w_packed.shape)}")
+    if xq.device != w_packed.device:
+        raise ValueError(f"{name}: tensors on several devices")
+    if not 1 <= M <= PROBE_MAX_M:
+        raise ValueError(f"{name}: needs 1 <= M <= {PROBE_MAX_M}, got {M}")
+    if xq.device.type == "cpu":
+        return w4_unpack_gemv_ref(xq, w_packed, variant)
+    if xq.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {xq.device}")
+    N = w_packed.shape[1]
+    if N % 16 or w_packed.data_ptr() % 16:
+        raise ValueError(f"{name}: needs N % 16 == 0 and 16-byte aligned "
+                         f"weight rows, got N={N}")
+    from ._build import load
+
+    acc = torch.empty((M, N), dtype=torch.int32, device=xq.device)
+    splits = _gemv_splits(xq.device, -(-N // 128), K // 2)
+    stream = torch.cuda.current_stream(xq.device).cuda_stream
+    status = load().mq_w4_unpack_gemv(xq.data_ptr(), w_packed.data_ptr(),
+                                      acc.data_ptr(), M, K, N, splits,
+                                      variant, stream)
+    LAUNCHES[name] += 1
+    _raise_on_status(name, status)
+    return acc
+
+
 def w4a8_gemv(xq, x_scale, w_packed, w_scale, out_dtype=torch.bfloat16):
     """y (M, N) = ((x·W) · x_scale) · w_scale for int8 x (M ≤ 32, K) and
     split-half packed W4 (K/2, N); CUDA kernel ``mq_w4a8_gemv``."""
@@ -362,13 +487,15 @@ def int8_gemm(xq, x_scale, w, w_scale, out_dtype=torch.bfloat16,
 
 
 # the two ways to run the integer products: the hand-written kernels, which
-# quantized_matmul_pre dispatches to, or their plain versions (chip_smoke.py
-# swaps PLAIN into KERNELS for its on-card reference forward; on a CPU tensor
-# both end in the plain version)
+# quantized_matmul_pre and the probes dispatch to, or their plain versions
+# (chip_smoke.py swaps PLAIN into KERNELS for its on-card reference forward;
+# on a CPU tensor both end in the plain version)
 KERNELS = {"w4a8_gemv": w4a8_gemv, "int8_gemv": int8_gemv,
-           "int8_gemm": int8_gemm}
+           "int8_gemm": int8_gemm, "w8_bf16_gemv": w8_bf16_gemv,
+           "w4_unpack_gemv": w4_unpack_gemv}
 PLAIN = {"w4a8_gemv": w4a8_gemv_ref, "int8_gemv": int8_gemv_ref,
-         "int8_gemm": int8_gemm_ref}
+         "int8_gemm": int8_gemm_ref, "w8_bf16_gemv": w8_bf16_gemv_ref,
+         "w4_unpack_gemv": w4_unpack_gemv_ref}
 
 
 # ---------------------------------------------------------------------------

@@ -12,6 +12,10 @@ the same; rms_norm_quant within ±1 and at most 1e-3 differing (another sum
 order of the squares). fwht in f32: max |Δ| ≤ 1e-5 of the plain version's
 largest magnitude (f32 sums against its float64 ones); bf16 output within one
 bf16 ulp plus that bound (near zero, cancellation decides the f32 value).
+The probes' kernels: w8_bf16_gemv bf16 within one ulp plus 1e-5 of the
+largest magnitude (f32 sums against float64 ones, as fwht); w4_unpack_gemv
+int32 bit-equal (P1-P3 also to w4a8_gemv's); dequant_swiglu_had_quant the
+tail's rule; the quantizers' code range [qmin, qmax] likewise.
 """
 
 import pytest
@@ -307,3 +311,111 @@ def test_attention_wrappers_raise_on_unsupported(cuda):
     with pytest.raises(ValueError):  # non-bf16
         TF.flash_attention_causal(*(torch.zeros((1, 128, 2, 128),
                                                 device=cuda),) * 3, 0.1)
+
+
+def _within_ulp_slack(y, ref):
+    """One bf16 ulp at max(|y|, |ref|), plus 1e-5 of max |ref|."""
+    y, ref = y.float(), ref.float()
+    m = torch.maximum(y.abs(), ref.abs()).clamp(min=2.0**-126)
+    ulp = torch.exp2(torch.floor(torch.log2(m)) - 7)
+    return bool(((y - ref).abs() <= ulp + 1e-5 * ref.abs().max()).all())
+
+
+# the probe's (8, 3584, 19968); one and five rows; N = 1040 (a partial
+# 128-column block); a K that is no multiple of 4 and spans two x chunks
+@pytest.mark.parametrize("M,K,N", [(8, 3584, 19968), (1, 3584, 19968),
+                                   (5, 3584, 1040), (3, 2051, 136)])
+def test_w8_bf16_gemv(cuda, M, K, N):
+    g = torch.Generator(device=cuda).manual_seed(M + N)
+    x = torch.randn((M, K), generator=g, device=cuda).to(torch.bfloat16)
+    w = torch.randint(-127, 127, (K, N), generator=g, device=cuda,
+                      dtype=torch.int8)
+    ws = torch.rand((N,), generator=g, device=cuda) * 0.01 + 1e-3
+    before = qmm.LAUNCHES["w8_bf16_gemv"]
+    y = qmm.w8_bf16_gemv(x, w, ws)
+    assert qmm.LAUNCHES["w8_bf16_gemv"] == before + 1
+    ref = qmm.w8_bf16_gemv_ref(x, w, ws)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16 and y.shape == (M, N)
+    assert _within_ulp_slack(y, ref)
+    assert torch.equal(y, qmm.w8_bf16_gemv(x, w, ws))  # deterministic sums
+
+
+# the probe's (8, 18944, 3584); one row; K/2 odd (the predicated tail)
+@pytest.mark.parametrize("variant", [0, 1, 2, 3])
+@pytest.mark.parametrize("M,K,N", [(8, 18944, 3584), (1, 3584, 4608),
+                                   (3, 1002, 1040)])
+def test_w4_unpack_gemv(cuda, M, K, N, variant):
+    x, xs, w, ws = _operands(cuda, M, K, N, True)
+    before = qmm.LAUNCHES["w4_unpack_gemv"]
+    acc = qmm.w4_unpack_gemv(x, w, variant)
+    assert qmm.LAUNCHES["w4_unpack_gemv"] == before + 1
+    assert torch.equal(acc, qmm.w4_unpack_gemv_ref(x, w, variant))
+    if variant:
+        ones_m, ones_n = torch.ones(M, device=cuda), torch.ones(N, device=cuda)
+        assert torch.equal(acc, qmm.w4a8_gemv_ref(x, ones_m, w, ones_n,
+                                                  torch.int32))
+        if (K // 2) % 4 == 0:  # the served kernel's contract
+            assert torch.equal(acc, qmm.w4a8_gemv(x, ones_m, w, ones_n,
+                                                  torch.int32))
+
+
+def _int32_pair(dev, T, n, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randint(-2**20, 2**20, (T, n), generator=g, device=dev,
+                          dtype=torch.int32) for _ in range(2)]
+
+
+# the probe's (1024, 18944); T = 5; K = 28 (n = 3584)
+@pytest.mark.parametrize("T,n", [(1024, 18944), (5, 18944), (64, 3584)])
+def test_dequant_swiglu_had_quant(cuda, T, n):
+    gi, ui = _int32_pair(cuda, T, n)
+    gs = torch.rand((n,), device=cuda) * 2e-6 + 1e-7
+    us = torch.rand((n,), device=cuda) * 2e-6 + 1e-7
+    s = torch.tensor(0.05, device=cuda)
+    before = fwht.LAUNCHES["dequant_swiglu_had_quant"]
+    q = fwht.dequant_swiglu_had_quant(gi, ui, gs, us, s, -127, 127)
+    assert fwht.LAUNCHES["dequant_swiglu_had_quant"] == before + 1
+    ref = fwht.dequant_swiglu_had_quant_ref(gi, ui, gs, us, s, -127, 127)
+    torch.cuda.synchronize()
+    assert q.dtype == torch.int8 and q.shape == (T, n)
+    assert int(q.min()) >= -127 and int(q.max()) <= 127
+    _check_codes(q, ref)
+    gu = torch.cat([gi, ui], dim=-1)  # the halves of one gate|up output
+    assert torch.equal(q, fwht.dequant_swiglu_had_quant(
+        gu[:, :n], gu[:, n:], gs, us, s, -127, 127))
+
+
+@pytest.mark.parametrize("qrange", [(-127, 127), (-8, 7)])
+@pytest.mark.parametrize("name", ["fused_swiglu_had_quant", "had_quant",
+                                  "rms_norm_quant"])
+def test_code_range(cuda, name, qrange):
+    x = _bf16(cuda, 256, 3584, sd=3.0)
+    s = torch.tensor(0.05, device=cuda)
+    args = {"fused_swiglu_had_quant": (x, x * 0.5, s),
+            "had_quant": (x, s), "rms_norm_quant": (x, x[0], s, 1e-6)}[name]
+    q = fwht.KERNELS[name](*args, *qrange)
+    ref = fwht.PLAIN[name](*args, *qrange)
+    torch.cuda.synchronize()
+    assert int(q.min()) == qrange[0] and int(q.max()) == qrange[1]
+    _check_codes(q, ref)
+
+
+def test_probe_kernels_raise_outside_contract(cuda):
+    x = _bf16(cuda, 2, 64)
+    w = torch.zeros((64, 36), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError):  # N % 8 != 0
+        qmm.w8_bf16_gemv(x, w[:, :33].contiguous(), torch.ones(33,
+                                                               device=cuda))
+    xq = torch.zeros((2, 64), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError):  # N % 16 != 0
+        qmm.w4_unpack_gemv(xq, w[:32].contiguous(), 1)
+    gi, ui = _int32_pair(cuda, 2, 512)
+    one = torch.ones(512, device=cuda)
+    with pytest.raises(ValueError):  # bf16 g, u
+        fwht.dequant_swiglu_had_quant(gi.bfloat16(), ui.bfloat16(), one, one,
+                                      0.05)
+    with pytest.raises(ValueError):  # a scale vector of another width
+        fwht.dequant_swiglu_had_quant(gi, ui, one[:256], one, 0.05)
+    with pytest.raises(ValueError):  # qmin > qmax
+        fwht.dequant_swiglu_had_quant(gi, ui, one, one, 0.05, 3, 2)

@@ -224,3 +224,51 @@ def test_port_sums_bf16_products_in_f32(monkeypatch):
     TF.online_hadamard(x)
     assert seen == [False, False]
     assert flags.allow_bf16_reduced_precision_reduction
+
+
+# (port function, JAX kernel call); inputs x ~ N(0, 3²) (…, 512), so that
+# codes reach past ±127 at scale 0.05 and every range clips some
+_RANGED = {
+    "fused_swiglu_had_quant": (
+        lambda x, r: TF.fused_swiglu_had_quant(_t(x), _t(x) * 0.5, SCALE,
+                                               *r),
+        lambda x, r: JF.fused_swiglu_had_quant(
+            jnp.asarray(x), jnp.asarray(x) * 0.5, jnp.float32(SCALE), *r,
+            interpret=True)),
+    "had_quant": (
+        lambda x, r: TF.had_quant(_t(x), SCALE, *r),
+        lambda x, r: JF.had_quant(jnp.asarray(x), jnp.float32(SCALE), *r,
+                                  interpret=True)),
+    "rms_norm_quant": (
+        lambda x, r: TF.rms_norm_quant(_t(x), _t(x[0, 0]), SCALE, 1e-6, *r),
+        lambda x, r: JF.rms_norm_quant(jnp.asarray(x), jnp.asarray(x[0, 0]),
+                                       jnp.float32(SCALE), 1e-6, *r,
+                                       interpret=True)),
+}
+
+
+@pytest.mark.parametrize("qrange", [(-127, 127), (-8, 7)])
+@pytest.mark.parametrize("name", list(_RANGED))
+def test_code_range_plain_matches_jax_kernel(name, qrange):
+    """ROADMAP C-w9: the three quantizers take the JAX kernels' code range
+    [qmin, qmax]. Codes within ±1 of JAX's, under 1% differing (the tail's
+    rule), every code inside the range, and the range reached."""
+    port, jax_fn = _RANGED[name]
+    rng = np.random.default_rng(len(name) + qrange[1])
+    x = np.asarray(jnp.asarray(rng.normal(size=(1, 256, 512)) * 3.0,
+                               jnp.bfloat16))
+    got = port(x, qrange).numpy()
+    ref = np.asarray(jax_fn(x, qrange))
+    worst, frac = _code_diff(got, ref)
+    assert worst <= 1 and frac < 0.01, (worst, frac)
+    assert got.min() == qrange[0] and got.max() == qrange[1]
+
+
+@pytest.mark.parametrize("qrange", [(-129, 0), (0, 128), (5, 4)])
+def test_code_range_raises(qrange):
+    x = torch.zeros((2, 512), dtype=torch.bfloat16)
+    for fn in (lambda: TF.had_quant(x, SCALE, *qrange),
+               lambda: TF.fused_swiglu_had_quant(x, x, SCALE, *qrange),
+               lambda: TF.rms_norm_quant(x, x[0], SCALE, 1e-6, *qrange)):
+        with pytest.raises(ValueError):
+            fn()
