@@ -4,11 +4,16 @@
 Phases, in order (any failed check raises and the script exits non-zero):
 
 1. device: needs CUDA; prints the card's name and power limit.
-2. build: compiles the CUDA kernels from ``mquant_tpu_torch/kernels/csrc``.
+2. build: compiles the CUDA kernels from ``mquant_tpu_torch/kernels/csrc``
+   and counts the wgmma (``IGMMA`` / ``HGMMA``) and TMA (``UTMALDG``)
+   instructions of the TMA + wgmma GEMM and flash kernels in their SASS
+   (fails without them).
 3. kernels: each kernel against its plain PyTorch version at the shapes of
-   the main path: int32 accumulators and bf16 outputs bit-equal (K = 18943
-   included: the RMS split's rows of ``down``; and the prefill probe's W8
-   products); the attention
+   the main path: int32 accumulators and bf16 outputs bit-equal (the int8
+   GEMM through its route: the TMA kernel inside its contract, the mma.sync
+   one outside, as K = 18943 of the RMS split; the mma.sync kernel also
+   timed at each TMA shape as its predecessor; the document path's 4096-row
+   products; the prefill probe's W8 products); the attention
    kernels' written cache rows bit-equal and outputs within 1e-2 of the
    plain version's largest magnitude, with cache columns outside [start,
    pos) poisoned; the fused swiglu → Hadamard → int8 tail's codes within ±1
@@ -18,6 +23,9 @@ Phases, in order (any failed check raises and the script exits non-zero):
    replay with L2-cold weights / caches (median of replays), beside the
    least time the card could take (bytes over 3.35 TB/s or operations over
    the dense peak); the unfused torch chain of the tail is timed beside it.
+   The port's bf16 products outside the kernels (the einsum attention's
+   P·V at T = 1024, the fp-mode patch embed) with cuBLAS's reduced-precision
+   bf16 reduction on and off: bit-equal or not (ROADMAP C-w11).
    The prefill probe's kernels likewise (rms_norm_quant: codes within ±1,
    at most 1e-3 differing; had_quant: the tail's rule; fwht_two_matmul:
    f32 within 1e-5 of the plain version's largest magnitude, bf16 within
@@ -136,6 +144,19 @@ KERNEL_SHAPES = [
     ("int8_gemm", "probe gate|up W8", 1024, 3584, 37888, False),
     ("int8_gemm", "probe down W8", 1024, 18944, 3584, False),
 ]
+# the document path's products at its 4096-token prefill and 4096-row ViT
+# (main path, held and timed, outside the 1024-token sums that earlier runs
+# give)
+DOC_GEMM_SHAPES = [
+    ("int8_gemm", "doc prefill q|k|v", 4096, 3584, 4608, True),
+    ("int8_gemm", "doc prefill o", 4096, 3584, 3584, True),
+    ("int8_gemm", "doc prefill gate|up", 4096, 3584, 37888, True),
+    ("int8_gemm", "doc prefill down", 4096, 18944, 3584, True),
+    ("int8_gemm", "doc vit q/k/v/o", 4096, 1280, 1280, False),
+    ("int8_gemm", "doc vit fc1", 4096, 1280, 5120, False),
+    ("int8_gemm", "doc vit fc2", 4096, 5120, 1280, False),
+    ("int8_gemm", "doc merger mlp0", 1024, 5120, 5120, False),
+]
 # off the 1-token decode path but inside the kernels' contract: several rows
 # in the GEMV, ragged M, N and K edges in the GEMM
 EDGE_SHAPES = [
@@ -149,6 +170,7 @@ REPLACES = {
     "w4a8_gemv": "mquant_tpu/kernels/qmm.py:869",
     "int8_gemv": "mquant_tpu/kernels/qmm.py:637",
     "int8_gemm": "mquant_tpu/kernels/qmm.py:840, scripts/mxu_rate.py:90",
+    "int8_gemm_sm80": "mquant_tpu/kernels/qmm.py:840",
     "attn_decode": "mquant_tpu/kernels/attn_decode.py:206",
     "flash_attn_causal": "mquant_tpu/models/layers.py:385",
     "fused_swiglu_had_quant": "mquant_tpu/kernels/fwht.py:320",
@@ -162,6 +184,7 @@ REPLACES = {
 SOURCES = {"w4a8_gemv": "mquant_tpu_torch/kernels/csrc/qmm.cu",
            "int8_gemv": "mquant_tpu_torch/kernels/csrc/qmm.cu",
            "int8_gemm": "mquant_tpu_torch/kernels/csrc/qmm.cu",
+           "int8_gemm_sm80": "mquant_tpu_torch/kernels/csrc/qmm.cu",
            "attn_decode": "mquant_tpu_torch/kernels/csrc/attn.cu",
            "flash_attn_causal": "mquant_tpu_torch/kernels/csrc/attn.cu",
            "fused_swiglu_had_quant": "mquant_tpu_torch/kernels/csrc/fwht.cu",
@@ -212,8 +235,9 @@ def check_kernels(seed: int) -> dict:
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev = torch.device("cuda")
     summary = {k: new_summary() for k in ("w4a8_gemv", "int8_gemv",
-                                          "int8_gemm")}
-    for name, label, M, K, N, packed in KERNEL_SHAPES + EDGE_SHAPES:
+                                          "int8_gemm", "int8_gemm_sm80")}
+    for name, label, M, K, N, packed in (KERNEL_SHAPES + DOC_GEMM_SHAPES
+                                         + EDGE_SHAPES):
         main = (name, label, M, K, N, packed) in KERNEL_SHAPES
         rows = K // 2 if packed else K
         x = torch.randint(-127, 128, (M, K), generator=g, device=dev,
@@ -224,10 +248,17 @@ def check_kernels(seed: int) -> dict:
             w.clamp_(min=-127)
         xs = torch.rand((M,), generator=g, device=dev) * 0.1 + 1e-3
         ws = torch.rand((N,), generator=g, device=dev) * 0.01 + 1e-4
+        # the GEMM's route: the TMA kernel inside its contract, the
+        # mma.sync kernel (its own launch count) outside
+        if name == "int8_gemm" and not qmm.tma_supports(K, N, packed):
+            name = "int8_gemm_sm80"
         kern = qmm.KERNELS[name]
         plain = qmm.PLAIN[name]
-        extra = {"packed": packed} if name == "int8_gemm" else {}
+        extra = {"packed": packed} if name.startswith("int8_gemm") else {}
+        before = qmm.LAUNCHES[name]
         acc_k = kern(x, xs, w, ws, torch.int32, **extra)
+        if qmm.LAUNCHES[name] != before + 1:
+            raise AssertionError(f"{name} [{label}]: not launched")
         acc_p = plain(x, xs, w, ws, torch.int32, **extra)
         torch.cuda.synchronize()
         if not torch.equal(acc_k, acc_p):
@@ -255,7 +286,7 @@ def check_kernels(seed: int) -> dict:
         # 32, and K % 8 == 0, so K is zero-padded, which leaves the int32
         # sums as they are); no single call computes the packed-W4 product
         lms = None
-        if not packed and main:
+        if not packed and (main or label.startswith("doc")):
             kp = -K % 8
             xl = torch.nn.functional.pad(
                 x, (0, kp, 0, 32 - M if M <= 16 else 0))
@@ -269,12 +300,35 @@ def check_kernels(seed: int) -> dict:
         nbytes = wbytes + M * K + 2 * M * N + 4 * (M + N)
         bms, by = bound(nbytes, 2 * M * K * N, INT8_OPS)
         lib_txt = "none" if lms is None else f"{lms:.4f} ms"
-        log(f"kernel {name:10s} {label:18s} M={M:5d} K={K:6d} N={N:6d}: "
+        # the TMA kernel's predecessor on the same operands, held and timed
+        # in the same call (its launches count as comparisons only)
+        old_txt = ""
+        if name == "int8_gemm":
+            if not torch.equal(qmm.int8_gemm_sm80(x, xs, w, ws, torch.bfloat16,
+                                                  packed), y_k):
+                raise AssertionError(f"int8_gemm_sm80 [{label}]: differs")
+            oms = cuda_ms(lambda i: qmm.int8_gemm_sm80(
+                x, xs, ws_cold[i % len(ws_cold)], ws, torch.bfloat16, packed),
+                20)
+            # the block width the wrapper did not pick
+            other = 384 - qmm.tma_tokens(M, N, torch.cuda.get_device_properties(
+                dev).multi_processor_count)
+            if not torch.equal(qmm._gemm_tma(x, xs, w, ws, torch.bfloat16,
+                                             packed, other), y_k):
+                raise AssertionError(f"int8_gemm [{label}] at {other} tokens "
+                                     "a block: differs")
+            tms = cuda_ms(lambda i: qmm._gemm_tma(
+                x, xs, ws_cold[i % len(ws_cold)], ws, torch.bfloat16, packed,
+                other), 20)
+            old_txt = (f", mma.sync kernel {oms:.4f} ms ({oms / ms:.2f}x), "
+                       f"{other} tokens a block {tms:.4f} ms")
+        log(f"kernel {name:10s} {label:20s} M={M:5d} K={K:6d} N={N:6d}: "
             "acc exact, bf16 bit-equal; "
             f"{ms:.4f} ms vs plain {pms:.4f} ms, library {lib_txt}, bound "
-            f"{bms:.4f} ms ({by}); weight stream "
+            f"{bms:.4f} ms ({by}){old_txt}; weight stream "
             f"{wbytes / ms / 1e6:.1f} GB/s, {2 * M * K * N / ms / 1e9:.2f} "
-            f"TOP/s")
+            f"TOP/s ({2 * M * K * N / ms / 1e9 / (INT8_OPS / 1e12):.1%} of "
+            "the int8 peak)")
         s = summary[name]
         s["max_abs_err"] = max(s["max_abs_err"], err)
         if main:
@@ -301,7 +355,8 @@ DECODE_SHAPES = [
      [0, 37, 500, 0], False),
 ]
 # causal flash prefill (label, T, main path)
-FLASH_SHAPES = [("prefill T 2048", 2048, False),
+FLASH_SHAPES = [("prefill T 1024", 1024, False),
+                ("prefill T 2048", 2048, False),
                 ("doc prefill T 4096", 4096, True)]
 
 
@@ -415,6 +470,47 @@ def check_attention(seed: int) -> dict:
         del q, k, v, out
     torch.cuda.empty_cache()
     return summary
+
+
+def check_bf16_reduction(seed: int) -> None:
+    """Phase 3 (ROADMAP C-w11): the port's bf16 products outside the
+    kernels, with cuBLAS's ``allow_bf16_reduced_precision_reduction`` on
+    (PyTorch's default) and off, on the same inputs: the einsum attention
+    at T = 1024 (its P·V product, ``layers.einsum_attention``) and the
+    fp-mode ``qlinear`` at the ViT patch-embed shape (1024, 1176) × (1176,
+    1280). Prints whether the two results are bit-equal."""
+    import torch
+
+    from mquant_tpu_torch.models import layers as L
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 5)
+
+    def r(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    q, k, v = r(1, 1024, HEADS, HD), r(1, 1024, KVH, HD), r(1, 1024, KVH, HD)
+    x, w = r(1024, 1176), r(1176, 1280) * 0.03
+    cases = {"einsum attention P.V, T 1024": lambda: L.einsum_attention(
+                 q, k, v, None, HD**-0.5, causal=True),
+             "fp qlinear patch embed (1024, 1176) x (1176, 1280)":
+                 lambda: L.qlinear(x, {"w": w}, "vis.patch_embed")}
+    flags = torch.backends.cuda.matmul
+    prev = flags.allow_bf16_reduced_precision_reduction
+    try:
+        for label, fn in cases.items():
+            outs = []
+            for on in (True, False):
+                flags.allow_bf16_reduced_precision_reduction = on
+                outs.append(fn().float())
+            d = (outs[0] - outs[1]).abs()
+            log(f"bf16 reduction [{label}]: flag on vs off "
+                + ("bit-equal" if torch.equal(*outs) else
+                   f"differ in {int((d > 0).sum())} of {d.numel()} outputs, "
+                   f"max |d| {float(d.max()):.3g} of max "
+                   f"{float(outs[1].abs().max()):.3g}"))
+    finally:
+        flags.allow_bf16_reduced_precision_reduction = prev
 
 
 TAIL_N, TAIL_SCALE = 18944, 0.05  # Qwen2-VL-7B's intermediate = 148 · 128
@@ -771,16 +867,12 @@ def check_decode_probe_kernels(seed: int) -> dict:
     return summary
 
 
-def sass_unpack_variants(lib) -> None:
-    """Phase 2: the SASS of w4_unpack_gemv's instantiations (``cuobjdump
-    -sass`` of the built library): instructions per variant and whether P2
-    (int8 shifts) and P3 (int32 shifts) compiled to the same code, for each
-    rows-per-pass / tail instantiation. Prints only; the kernels' checks
-    are phase 3's."""
+def sass_functions(lib) -> dict:
+    """Phase 2: the SASS of the built library (``cuobjdump -sass``) as
+    {function name: [instruction, ...]}; fails without ``cuobjdump``."""
     exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(exe):
-        log("sass: cuobjdump not found; P2 / P3 code not compared")
-        return
+        raise AssertionError("sass: cuobjdump not found")
     dump = subprocess.run([exe, "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
     funcs, cur = {}, None
@@ -792,6 +884,37 @@ def sass_unpack_variants(lib) -> None:
         m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
         if m and cur is not None:
             cur.append(m.group(1))
+    return funcs
+
+
+# the Hopper-native kernels and the warpgroup product each must contain
+HOPPER_SASS = {"gemm_tma_kernel": "IGMMA", "flash_causal_kernel": "HGMMA"}
+
+
+def sass_hopper_kernels(funcs: dict) -> None:
+    """Phase 2: counts of wgmma (``IGMMA`` / ``HGMMA``) and TMA load
+    (``UTMALDG``) instructions in each instantiation of the TMA + wgmma
+    kernels; fails if one has none of either, so that an mma.sync kernel
+    cannot pass for them."""
+    for kern, mma in HOPPER_SASS.items():
+        hits = {k: v for k, v in funcs.items() if kern in k}
+        if not hits:
+            raise AssertionError(f"sass: {kern} not found in the library")
+        for fn, code in sorted(hits.items()):
+            op = lambda name: sum(  # noqa: E731 (a predicate may lead)
+                bool(re.match(rf"(@!?U?P\w+\s+)?{name}\b", i)) for i in code)
+            n_mma, n_tma = op(mma), op("UTMALDG")
+            log(f"sass: {fn}: {len(code)} instructions, {mma} {n_mma}, "
+                f"UTMALDG {n_tma}")
+            if n_mma == 0 or n_tma == 0:
+                raise AssertionError(f"sass: {fn} has no {mma} or no UTMALDG")
+
+
+def sass_unpack_variants(funcs: dict) -> None:
+    """Phase 2: instructions per variant of w4_unpack_gemv's instantiations
+    and whether P2 (int8 shifts) and P3 (int32 shifts) compiled to the same
+    code, for each rows-per-pass / tail instantiation. Prints only; the
+    kernels' checks are phase 3's."""
 
     def code(wt, mc, tail):
         key = f"gemv_kernelILi{wt}ELi{mc}ELb{tail}E"
@@ -965,7 +1088,7 @@ SLICE_KERNELS = ("w4a8_gemv", "int8_gemv", "int8_gemm", "attn_decode")
 DOC_KERNELS = SLICE_KERNELS + ("flash_attn_causal",)
 BATCH_KERNELS = SLICE_KERNELS
 FULL_KERNELS = SLICE_KERNELS + ("fused_swiglu_had_quant",)
-SPLIT_KERNELS = SLICE_KERNELS
+SPLIT_KERNELS = SLICE_KERNELS + ("int8_gemm_sm80",)
 # path F's text request (bucket 128, below the tail's 256): it only shows
 # that the tail does not launch there, so two tokens do
 FULL_TEXT, FULL_TEXT_TOKENS = 77, 2
@@ -1457,6 +1580,10 @@ def run_document(m: dict, card: str) -> dict:
 
         out, t_req, ttft = timed_request(gen, doc, DOC_TOKENS, positions=pos)
         launches = read_launches("document", DOC_KERNELS)
+        if launches["flash_attn_causal"] != gen.cfg.n_layers:
+            raise AssertionError(f"document: {launches['flash_attn_causal']} "
+                                 f"flash launches, not one per layer "
+                                 f"({gen.cfg.n_layers})")
         peak = torch.cuda.max_memory_allocated() / 2**30
         check_tokens("document", out, DOC_TOKENS, gen.cfg.vocab)
         emb = held["emb"]
@@ -1662,11 +1789,14 @@ def main(argv=None) -> int:
     path, secs = _build.build(verbose=True)
     log(f"build: {path.name} in {secs:.1f} s")
     _build.load()
-    sass_unpack_variants(path)
+    funcs = sass_functions(path)
+    sass_hopper_kernels(funcs)
+    sass_unpack_variants(funcs)
 
     # phase 3: kernels vs plain
     summary = check_kernels(args.seed)
     summary.update(check_attention(args.seed))
+    check_bf16_reduction(args.seed)
     summary.update(check_tail(args.seed))
     summary.update(check_probe_kernels(args.seed))
     summary.update(check_decode_probe_kernels(args.seed))

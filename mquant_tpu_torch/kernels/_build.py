@@ -4,8 +4,8 @@ C interface and loads it with ctypes.
 The build runs at first use, with ``nvcc -gencode arch=compute_90a,code=sm_90a``
 for Hopper, into ``kernels/build/`` (git-ignored): one ``nvcc -c`` per source,
 all started together, then one link. The library's file name
-carries a hash of the sources, so an edited source is rebuilt and a stale
-library is never loaded. Nothing here runs at import time: this module is
+carries a hash of the sources and their headers (``*.cu``, ``*.cuh``), so an
+edited source or header is rebuilt and a stale library is never loaded. Nothing here runs at import time: this module is
 imported on machines without a CUDA toolkit.
 """
 
@@ -31,8 +31,9 @@ _SIGNATURES = {
     # x, w, xs, ws, acc, out, M, K, N, splits, out_kind, stream
     "mq_w4a8_gemv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "mq_int8_gemv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # x, w, xs, ws, out, M, K, N, w4, out_kind, stream
-    "mq_int8_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, w, xs, ws, out, M, K, N, w4, out_kind, (tokens per block,) stream
+    "mq_int8_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "mq_int8_gemm_sm80": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # q, k_new, v_new, k_cache, v_cache, pos, start, out, part, pos_all,
     # start_all, B, S, H, KVH, splits, scale, stream
     "mq_attn_decode": [_P] * 9 + [_I] * 7 + [_F, _P],
@@ -61,6 +62,10 @@ def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def _headers() -> list[Path]:
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -73,7 +78,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in _sources():
+    for src in _sources() + _headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(ARCH_FLAGS).encode())

@@ -100,6 +100,30 @@ def attn_decode_ref(q, k_new, v_new, k_cache, v_cache, pos, scale: float,
     return out.to(q.dtype).reshape(B, 1, H, hd), k_cache, v_cache
 
 
+def supports(hd: int, G: int, dtype: torch.dtype) -> bool:
+    """The kernel's contract: head_dim 128, at most ``MAX_GROUP`` query heads
+    per KV head, bf16 operands. The wrapper raises on a CUDA tensor outside
+    it, and ``models.llm._use_fused_decode_attn`` routes by it."""
+    return hd == HEAD_DIM and 1 <= G <= MAX_GROUP and dtype == torch.bfloat16
+
+
+def _check_card(q, k_new, v_new, k_cache, v_cache) -> None:
+    """Raises unless the kernel takes these operands: :func:`supports`,
+    one dtype, contiguous, one device."""
+    name = "attn_decode"
+    B, H, hd, S, KVH = _check_shapes(q, k_new, v_new, k_cache, v_cache)
+    ts = (q, k_new, v_new, k_cache, v_cache)
+    dtypes = {t.dtype for t in ts}
+    if len(dtypes) != 1 or not supports(hd, H // KVH, q.dtype):
+        raise ValueError(f"{name}: needs bf16 q, k/v and caches, head_dim == "
+                         f"{HEAD_DIM} and H / KVH <= {MAX_GROUP}, got "
+                         f"{sorted(map(str, dtypes))}, {hd}, {H // KVH}")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError(f"{name}: operands must be contiguous")
+    if len({t.device for t in ts}) != 1:
+        raise ValueError(f"{name}: tensors on several devices")
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -133,16 +157,7 @@ def attn_decode(q, k_new, v_new, k_cache, v_cache, pos, scale: float,
                                start)
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
-    ts = (q, k_new, v_new, k_cache, v_cache)
-    if any(t.dtype != torch.bfloat16 for t in ts):
-        raise ValueError(f"{name}: the kernel takes bf16 q, k/v and caches")
-    if hd != HEAD_DIM or H // KVH > MAX_GROUP:
-        raise ValueError(f"{name}: needs head_dim == {HEAD_DIM} and "
-                         f"H / KVH <= {MAX_GROUP}, got {hd}, {H // KVH}")
-    if not all(t.is_contiguous() for t in ts):
-        raise ValueError(f"{name}: operands must be contiguous")
-    if len({t.device for t in ts}) != 1:
-        raise ValueError(f"{name}: tensors on several devices")
+    _check_card(q, k_new, v_new, k_cache, v_cache)
     if isinstance(pos, int) and not 0 <= pos < S:
         raise ValueError(f"{name}: pos {pos} outside the cache of {S} rows")
     pos_t, pos_v = _per_row(pos, B, q.device)

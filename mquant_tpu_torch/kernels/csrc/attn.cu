@@ -41,23 +41,23 @@
 //                  causal) v, q (B, T, H, 128), k / v (B, T, KVH, 128), bf16.
 //     Bound: operations. 4 * B * H * 128 * T^2 / 2 FLOPs causal: 120 GFLOP a
 //     layer at T = 4096, H = 28, 0.12 ms at 989 TFLOP/s dense bf16. The
-//     design keeps the (T, T) scores out of device memory: grid (T/64, H, B),
-//     a block of 4 warps owns 64 query rows (16 per warp, held as mma A
-//     fragments in registers) and walks the K/V tiles of 64 rows up to the
-//     diagonal (tiles above it are never loaded). Q.K^T and P.V run on
-//     mma.sync.m16n8k16 bf16 with f32 accumulation; the softmax is online in
-//     f32 (running row max and sum, the accumulator rescaled per tile) and
-//     P is rounded to bf16 for the second product. The causal mask is
-//     applied inside the diagonal tile. GQA is native: query head h reads KV
-//     head h / (H / KVH), and K/V are never repeated in memory. V fragments
-//     come from shared memory through ldmatrix.trans. wgmma, TMA and a
-//     producer / consumer pipeline are later work: the tiles are loaded
-//     synchronously, one at a time.
+//     (T, T) scores never reach device memory: grid (T/128, H, B), a block
+//     owns 128 query rows and walks the 128-row K/V tiles up to the diagonal
+//     (tiles above it are never loaded; the mask is applied only inside the
+//     diagonal tile). Hopper-native: a producer warp keeps TMA loads of K/V
+//     in flight through an mbarrier ring while two consumer warpgroups run
+//     Q.K^T and P.V on wgmma (bf16, f32 accumulation); the softmax is online
+//     in f32 (running row max and sum, the accumulator rescaled per tile)
+//     and P is rounded to bf16 for the second product. GQA is native: query
+//     head h reads KV head h / (H / KVH), and K/V are never repeated in
+//     memory. Details at K5 below.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -275,177 +275,271 @@ __global__ void __launch_bounds__(HD)
 }
 
 // ---------------------------------------------------------------------------
-// K5: causal flash attention, mma.sync m16n8k16 bf16
+// K5: causal flash attention, TMA + wgmma bf16
 // ---------------------------------------------------------------------------
+//
+// Block: 128 query rows of one head; warpgroups 0 and 1 own 64 rows each,
+// warp 8 is the TMA producer. Q (128 x 128) is loaded once; K and V tiles
+// of 128 rows go through a 2-stage ring (64 KB a stage). Every tile is two
+// TMA boxes of 64 columns (128 bytes, the swizzle span) over the 4-D view
+// (dim, head, token, batch), so tokens past T are zero-filled per batch.
+// S = Q K^T is wgmma m64n128k16 with both operands K-major in shared memory
+// (hd is contiguous); the online softmax runs on the f32 accumulator in
+// registers, and its bf16 rounding is laid out as the A fragment of
+// O += P V (wgmma with A from registers). V is read MN-major through the
+// descriptor's transpose bit: the leading offset steps from dims 0-63 to
+// 64-127 (one box), the stride offset from 8 key rows to the next. Each
+// warpgroup issues the next tile's Q K^T right behind the current P V (one
+// wait for both); the two warpgroups interleave on their own.
 
-constexpr int FA_BM = 64, FA_BN = 64, FA_THREADS = 128;
-constexpr int FA_LD = HD + 8;  // padded row (272 B): conflict-free fragments
+constexpr int FA_BM = 128, FA_BN = 128, FA_THREADS = 384;
+constexpr int FA_HALF = 128 * 128;  // bytes of one 128-row x 64-dim box
+constexpr int FA_TILE = 2 * FA_HALF;
+constexpr int FA_STAGES = 2;
+constexpr int FA_SMEM = FA_TILE * (1 + 2 * FA_STAGES) + 1024 + 64;
+
+// 2^x (ex2.approx: what __expf computes after its multiply by log2(e))
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
+// d (64 x 128 f32) (+)= A (64 x 16, descriptor) . B (16 x 128, descriptor)
+__device__ __forceinline__ void wgmma_bf16_ss(float d[64], uint64_t da,
+                                              uint64_t db, int accumulate) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// four 8x8 b16 matrices, transposed: lanes 8i..8i+7 give the row addresses
-// of matrix i; r[i] receives matrix i's (2t, 2t+1) x g elements
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const void* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+// d (64 x 128 f32) += A (64 x 16, registers) . B (16 x 128, descriptor,
+// MN-major)
+__device__ __forceinline__ void wgmma_bf16_rs_tb(float d[64],
+                                                 const uint32_t a[4],
+                                                 uint64_t db) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-__global__ void __launch_bounds__(FA_THREADS)
-    flash_causal_kernel(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v,
+// S = Q K_j^T of key tile j into s, once tile j's stage has landed; qw:
+// the warpgroup's 64 Q rows, kv: the K/V stages
+__device__ __forceinline__ void issue_scores(float (&s)[64], const uint8_t* qw,
+                                             const uint8_t* kv, uint64_t* full,
+                                             int j) {
+  const int slot = j % FA_STAGES;
+  hopper::mbar_wait(&full[slot], (j / FA_STAGES) & 1);
+  const uint8_t* kt = kv + slot * 2 * FA_TILE;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) hopper::reg_fence(s[i]);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const int c = kk / 4, off = (kk % 4) * 32;
+    wgmma_bf16_ss(s, hopper::desc_sw128(qw + c * FA_HALF + off, 16, 1024),
+                  hopper::desc_sw128(kt + c * FA_HALF + off, 16, 1024),
+                  kk > 0);
+  }
+  hopper::wgmma_commit();
+}
+
+// The online-softmax step of one key tile, on its scores s in place (they
+// become unnormalised probabilities). s[i] is row r0 + 8 * ((i >> 1) & 1),
+// column col0 + (i >> 2) * 8 + 2t + (i & 1); the mask only on the diagonal
+// tile. It runs in the log2 domain: exp(scale * (s - max)) =
+// 2^(s * c2 - max * c2) with c2 = scale * log2(e), one FFMA and one ex2 an
+// element (scale > 0, so the row max of s gives that of s * scale). m0 / m1
+// become the running row maxima, a0 / a1 the rescale factors of what came
+// before, rs0 / rs1 the tile's row sums.
+__device__ __forceinline__ void softmax_tile(float (&s)[64], bool diag,
+                                             int col0, int r0, int t, float c2,
+                                             float& m0, float& m1, float& a0,
+                                             float& a1, float& rs0,
+                                             float& rs1) {
+  float mx0 = m0, mx1 = m1;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    if (diag) {
+      const int col = col0 + (i >> 2) * 8 + 2 * t + (i & 1);
+      const int row = r0 + (((i >> 1) & 1) ? 8 : 0);
+      if (col > row) s[i] = -INFINITY;
+    }
+    if ((i >> 1) & 1)
+      mx1 = fmaxf(mx1, s[i]);
+    else
+      mx0 = fmaxf(mx0, s[i]);
+  }
+  mx0 = fmaxf(mx0, __shfl_xor_sync(FULL, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(FULL, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(FULL, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(FULL, mx1, 2));
+  // tile 0 holds column 0 <= every row, so mx0 / mx1 are finite here and
+  // the first rescale is 2^-inf = 0
+  a0 = exp2_approx((m0 - mx0) * c2);
+  a1 = exp2_approx((m1 - mx1) * c2);
+  m0 = mx0;
+  m1 = mx1;
+  const float b0 = m0 * c2, b1 = m1 * c2;
+  rs0 = rs1 = 0.f;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    if ((i >> 1) & 1) {
+      s[i] = exp2_approx(fmaf(s[i], c2, -b1));
+      rs1 += s[i];
+    } else {
+      s[i] = exp2_approx(fmaf(s[i], c2, -b0));
+      rs0 += s[i];
+    }
+  }
+  rs0 += __shfl_xor_sync(FULL, rs0, 1);
+  rs0 += __shfl_xor_sync(FULL, rs0, 2);
+  rs1 += __shfl_xor_sync(FULL, rs1, 1);
+  rs1 += __shfl_xor_sync(FULL, rs1, 2);
+}
+
+// P in bf16 as the A fragments of P V: key block kk's is s[8kk .. 8kk + 7]
+__device__ __forceinline__ void pack_probs(const float (&s)[64],
+                                           uint32_t (&pa)[FA_BN / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < FA_BN / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      pa[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+}
+
+__global__ void __launch_bounds__(FA_THREADS, 1)
+    flash_causal_kernel(const __grid_constant__ CUtensorMap qmap,
+                        const __grid_constant__ CUtensorMap kmap,
+                        const __grid_constant__ CUtensorMap vmap,
                         __nv_bfloat16* __restrict__ out, int T, int H, int KVH,
                         float scale) {
-  __shared__ __align__(16) __nv_bfloat16 Ks[FA_BN][FA_LD];
-  __shared__ __align__(16) __nv_bfloat16 Vs[FA_BN][FA_LD];
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* Qs = smem;
+  uint8_t* KVs = smem + FA_TILE;  // stage i: K at 2i tiles, V after it
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      smem + FA_TILE * (1 + 2 * FA_STAGES));
+  uint64_t* qbar = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + FA_STAGES;
   const int qt = gridDim.x - 1 - blockIdx.x;  // the longest rows start first
   const int h = blockIdx.y, b = blockIdx.z;
   const int kh = h / (H / KVH);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int r0 = qt * FA_BM + warp * 16 + g;  // this thread's rows r0, r0 + 8
-  const long qs = (long)H * HD, ks = (long)KVH * HD;  // token strides
-  const __nv_bfloat16* qb = q + (long)b * T * qs + (long)h * HD;
-  const __nv_bfloat16* kb = k + (long)b * T * ks + (long)kh * HD;
-  const __nv_bfloat16* vb = v + (long)b * T * ks + (long)kh * HD;
 
-  // A fragments of the warp's 16 query rows over the 8 k-steps of HD
-  uint32_t qa[HD / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    const __nv_bfloat16* p0 = qb + (long)r0 * qs + kk * 16 + 2 * t;
-    const __nv_bfloat16* p1 = p0 + 8 * qs;
-    qa[kk][0] = *reinterpret_cast<const uint32_t*>(p0);
-    qa[kk][1] = *reinterpret_cast<const uint32_t*>(p1);
-    qa[kk][2] = *reinterpret_cast<const uint32_t*>(p0 + 8);
-    qa[kk][3] = *reinterpret_cast<const uint32_t*>(p1 + 8);
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(qbar, 1);
+    for (int i = 0; i < FA_STAGES; ++i) {
+      hopper::mbar_init(&full[i], 1);
+      hopper::mbar_init(&empty[i], 2);  // one arrival per consumer warpgroup
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {  // producer
+    hopper::setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      hopper::prefetch_map(&qmap);
+      hopper::prefetch_map(&kmap);
+      hopper::prefetch_map(&vmap);
+      const uint64_t once = hopper::policy_evict_first();
+      const uint64_t keep = hopper::policy_evict_last();
+      hopper::mbar_arrive_expect_tx(qbar, FA_TILE);
+      for (int c = 0; c < 2; ++c)
+        hopper::tma_load_4d(Qs + c * FA_HALF, &qmap, qbar, 64 * c, h,
+                            qt * FA_BM, b, once);
+      for (int j = 0; j <= qt; ++j) {
+        const int slot = j % FA_STAGES;
+        hopper::mbar_wait(&empty[slot], ((j / FA_STAGES) & 1) ^ 1);
+        uint8_t* kt = KVs + slot * 2 * FA_TILE;
+        hopper::mbar_arrive_expect_tx(&full[slot], 2 * FA_TILE);
+        for (int c = 0; c < 2; ++c) {
+          hopper::tma_load_4d(kt + c * FA_HALF, &kmap, &full[slot], 64 * c,
+                              kh, j * FA_BN, b, keep);
+          hopper::tma_load_4d(kt + FA_TILE + c * FA_HALF, &vmap, &full[slot],
+                              64 * c, kh, j * FA_BN, b, keep);
+        }
+      }
+    }
+    return;
   }
 
-  float o[HD / 8][4];
+  hopper::setmaxnreg_inc<232>();
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  // this thread's rows of the (T, T) problem: r0 and r0 + 8
+  const int r0 = qt * FA_BM + wg * 64 + warp * 16 + g;
+  float s[64], o[64];
 #pragma unroll
-  for (int i = 0; i < HD / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
+  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+  // running row max of the raw scores, and row sums
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  const float c2 = scale * 1.4426950408889634f;  // scale · log2(e)
+  hopper::mbar_wait(qbar, 0);
+  const uint8_t* qw = Qs + wg * 64 * 128;  // this warpgroup's 64 rows
 
-  for (int j = 0; j <= qt; ++j) {  // FA_BM == FA_BN: tile qt is the diagonal
-    const int k0 = j * FA_BN;
-    __syncthreads();  // the previous tile's fragments are read
-    for (int p = tid; p < FA_BN * HD / 8; p += FA_THREADS) {
-      const int rr = p >> 4, cc = (p & 15) * 8;
-      *reinterpret_cast<uint4*>(&Ks[rr][cc]) =
-          *reinterpret_cast<const uint4*>(kb + (long)(k0 + rr) * ks + cc);
-      *reinterpret_cast<uint4*>(&Vs[rr][cc]) =
-          *reinterpret_cast<const uint4*>(vb + (long)(k0 + rr) * ks + cc);
-    }
-    __syncthreads();
-
-    float s[FA_BN / 8][4];
+  float a0, a1, rs0, rs1;
+  uint32_t pa[FA_BN / 16][4];  // P in bf16: key block kk's A fragment
+  issue_scores(s, qw, KVs, full, 0);
+  hopper::wgmma_wait<0>();
+  for (int j = 0; j <= qt; ++j) {
+    const int slot = j % FA_STAGES;
+    const uint8_t* vt = KVs + slot * 2 * FA_TILE + FA_TILE;
 #pragma unroll
-    for (int nb = 0; nb < FA_BN / 8; ++nb) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        const __nv_bfloat16* kp = &Ks[nb * 8 + g][kk * 16 + 2 * t];
-        mma_bf16(s[nb], qa[kk], *reinterpret_cast<const uint32_t*>(kp),
-                 *reinterpret_cast<const uint32_t*>(kp + 8));
-      }
-    }
-    const bool diag = j == qt;
-    float mx0 = m0, mx1 = m1;
-#pragma unroll
-    for (int nb = 0; nb < FA_BN / 8; ++nb) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float val = s[nb][e] * scale;
-        if (diag) {
-          const int col = k0 + nb * 8 + 2 * t + (e & 1);
-          const int row = r0 + (e >= 2 ? 8 : 0);
-          if (col > row) val = -INFINITY;
-        }
-        s[nb][e] = val;
-      }
-      mx0 = fmaxf(mx0, fmaxf(s[nb][0], s[nb][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[nb][2], s[nb][3]));
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(FULL, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(FULL, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(FULL, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(FULL, mx1, 2));
-    // tile 0 holds column 0 <= every row, so mx0 / mx1 are finite here and
-    // the first rescale is exp(-inf) = 0
-    const float a0 = __expf(m0 - mx0), a1 = __expf(m1 - mx1);
-    m0 = mx0;
-    m1 = mx1;
-    float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-    for (int nb = 0; nb < FA_BN / 8; ++nb) {
-      s[nb][0] = __expf(s[nb][0] - m0);
-      s[nb][1] = __expf(s[nb][1] - m0);
-      s[nb][2] = __expf(s[nb][2] - m1);
-      s[nb][3] = __expf(s[nb][3] - m1);
-      rs0 += s[nb][0] + s[nb][1];
-      rs1 += s[nb][2] + s[nb][3];
-    }
-    rs0 += __shfl_xor_sync(FULL, rs0, 1);
-    rs0 += __shfl_xor_sync(FULL, rs0, 2);
-    rs1 += __shfl_xor_sync(FULL, rs1, 1);
-    rs1 += __shfl_xor_sync(FULL, rs1, 2);
+    for (int i = 0; i < 64; ++i) hopper::reg_fence(s[i]);
+    softmax_tile(s, j == qt, j * FA_BN, r0, t, c2, m0, m1, a0, a1, rs0, rs1);
     l0 = l0 * a0 + rs0;
     l1 = l1 * a1 + rs1;
 #pragma unroll
-    for (int i = 0; i < HD / 8; ++i) {
-      o[i][0] *= a0;
-      o[i][1] *= a0;
-      o[i][2] *= a1;
-      o[i][3] *= a1;
+    for (int i = 0; i < 64; ++i) {
+      o[i] *= ((i >> 1) & 1) ? a1 : a0;
+      hopper::reg_fence(o[i]);
     }
-
-    // O += P V: the S accumulator fragments are P's A fragments
+    pack_probs(s, pa);
+    hopper::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < FA_BN / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const int vr = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+    for (int kk = 0; kk < FA_BN / 16; ++kk)
+      wgmma_bf16_rs_tb(o, pa[kk],
+                       hopper::desc_sw128(vt + kk * 16 * 128, FA_HALF, 1024));
+    hopper::wgmma_commit();
+    // the next tile's scores go in behind P V (s is free: P is packed), so
+    // the tensor cores get both without a wait in between
+    if (j < qt) issue_scores(s, qw, KVs, full, j + 1);
+    hopper::wgmma_wait<0>();
 #pragma unroll
-      for (int dp = 0; dp < HD / 16; ++dp) {
-        uint32_t vf[4];
-        ldsm_x4_trans(vf, &Vs[vr][dp * 16 + (lane >> 4) * 8]);
-        mma_bf16(o[2 * dp], pa, vf[0], vf[1]);
-        mma_bf16(o[2 * dp + 1], pa, vf[2], vf[3]);
-      }
-    }
+    for (int i = 0; i < 64; ++i) hopper::reg_fence(o[i]);
+#pragma unroll
+    for (int kk = 0; kk < FA_BN / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) hopper::reg_fence(pa[kk][r]);
+    if (tid == 0) hopper::mbar_arrive(&empty[slot]);
   }
 
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  const long qs = (long)H * HD;
   __nv_bfloat16* ob = out + (long)b * T * qs + (long)h * HD;
 #pragma unroll
-  for (int i = 0; i < HD / 8; ++i) {
-    const int d = i * 8 + 2 * t;
-    *reinterpret_cast<uint32_t*>(ob + (long)r0 * qs + d) =
-        pack_bf16(o[i][0] * inv0, o[i][1] * inv0);
-    *reinterpret_cast<uint32_t*>(ob + (long)(r0 + 8) * qs + d) =
-        pack_bf16(o[i][2] * inv1, o[i][3] * inv1);
+  for (int i = 0; i < 64; i += 4) {
+    const int d = (i >> 2) * 8 + 2 * t;
+    if (r0 < T)
+      *reinterpret_cast<uint32_t*>(ob + (long)r0 * qs + d) =
+          pack_bf16(o[i] * inv0, o[i + 1] * inv0);
+    if (r0 + 8 < T)
+      *reinterpret_cast<uint32_t*>(ob + (long)(r0 + 8) * qs + d) =
+          pack_bf16(o[i + 2] * inv1, o[i + 3] * inv1);
   }
 }
 
@@ -478,14 +572,34 @@ int mq_attn_decode(const void* q, const void* kn, const void* vn, void* kc,
 }
 
 // out (B, T, H, 128) = causal softmax(q k^T * scale) v; q (B, T, H, 128),
-// k / v (B, T, KVH, 128), T % 64 == 0.
+// k / v (B, T, KVH, 128), bf16, contiguous, 16-byte aligned; T % 64 == 0.
 int mq_flash_attn_causal(const void* q, const void* k, const void* v,
                          void* out, int B, int T, int H, int KVH, float scale,
                          void* stream) {
-  flash_causal_kernel<<<dim3(T / FA_BM, H, B), FA_THREADS, 0,
-                        (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (__nv_bfloat16*)out, T, H, KVH, scale);
+  if (B < 1 || T < 1 || T % 64 || H < 1 || KVH < 1 || H % KVH)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap qmap, kmap, vmap;
+  const uint32_t box[4] = {64, 1, 128, 1};
+  const uint64_t qd[4] = {HD, (uint64_t)H, (uint64_t)T, (uint64_t)B};
+  const uint64_t qst[3] = {2 * HD, 2ull * HD * H, 2ull * HD * H * T};
+  const uint64_t kd[4] = {HD, (uint64_t)KVH, (uint64_t)T, (uint64_t)B};
+  const uint64_t kst[3] = {2 * HD, 2ull * HD * KVH, 2ull * HD * KVH * T};
+  const CUtensorMapDataType bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  int err = hopper::encode_map(&qmap, bf, 4, q, qd, qst, box);
+  if (!err) err = hopper::encode_map(&kmap, bf, 4, k, kd, kst, box);
+  if (!err) err = hopper::encode_map(&vmap, bf, 4, v, kd, kst, box);
+  if (err) return err;
+  static bool attr = false;
+  if (!attr) {
+    err = (int)cudaFuncSetAttribute(flash_causal_kernel,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    FA_SMEM);
+    if (err) return err;
+    attr = true;
+  }
+  flash_causal_kernel<<<dim3((T + FA_BM - 1) / FA_BM, H, B), FA_THREADS,
+                        FA_SMEM, (cudaStream_t)stream>>>(
+      qmap, kmap, vmap, (__nv_bfloat16*)out, T, H, KVH, scale);
   return (int)cudaGetLastError();
 }
 

@@ -35,11 +35,13 @@
 // stays under the byte rate. Narrow-N sites (N = 3584) split K across blocks
 // so every SM has a slice of the stream; partial sums meet in an int32
 // workspace through atomicAdd, which is exact and order-independent.
-// The GEMM at prefill (M = 1024) is bound by int8 tensor-core throughput:
-// it runs mma.sync m16n8k32 s8 on 128x128 block tiles staged through shared
-// memory. Nibbles are unpacked while the tile is written to shared memory, so
-// no int8 copy of a W4 weight ever exists in device memory. wgmma/TMA and
-// pipelined stages are later work: this version is simple and exact first.
+// The GEMM at prefill (M = 1024) is bound by int8 tensor-core throughput.
+// K3's main kernel is Hopper-native (gemm_tma_kernel): TMA loads of x and
+// the raw W tile through an mbarrier ring, wgmma with W^T built in
+// registers (nibbles unpacked there, so no int8 copy of a W4 weight ever
+// exists in device memory). Shapes outside TMA's 16-byte stride contract
+// (K = 18943 of the RMS split, ragged N) run the earlier mma.sync kernel
+// (gemm_kernel), which stages 128x128 tiles through shared memory.
 //
 // Epilogue (K1-K3): y = (float(acc) * x_scale[m]) * w_scale[n], then
 // rounded to the output type, the order of qmm.py:549/:577.
@@ -66,6 +68,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -481,6 +485,319 @@ __global__ void __launch_bounds__(256)
       }
 }
 
+// ---------------------------------------------------------------------------
+// K3 on Hopper: TMA + wgmma, the operands swapped
+// ---------------------------------------------------------------------------
+//
+// Integer wgmma (s8 x s8 -> s32) takes only K-major operands, and W's rows
+// are N-contiguous, so W cannot be wgmma's B. The tile is computed
+// transposed, out^T (channels x tokens) = W^T x^T: A = W^T is built in
+// registers from the raw W tile (TMA copies W's bytes unchanged into shared
+// memory; each thread reads 4 rows x 4 channels as four words, unpacks the
+// nibbles for W4 and transposes the 4x4 bytes with prmt), and B = x^T is the
+// x tile, whose rows are K-contiguous: K-major, as TMA stores it. wgmma reads
+// A from registers (the RS form) and B from shared memory.
+//
+// Block: 128 channels x 2 NT tokens (NT = 64 or 128, the host picks);
+// warpgroups 0 and 1 each own NT tokens and all 128 channels (two m64nNTk32
+// tiles), warp 8 is the TMA producer.
+// A thread of warp w, lane (g, t) holds channels 4c..4c+3, c = 8w + g: tile
+// 0's rows g and g+8 are channels 4c and 4c+1, tile 1's are 4c+2 and 4c+3,
+// so the epilogue writes 4 neighbouring channels of a token at once. A
+// stage is 128 W rows (16 KB; W4: 128 packed rows) and 128 k columns of
+// the block's x rows (W4: the low-plane and the high-plane columns); as
+// many stages as fit in 192 KB are in flight (2-6). A k32 step's A
+// fragments are built while the previous step's products run. K, N and M need not be multiples of the tile: TMA
+// zero-fills outside the tensors (W rows past K or K/2 are zero, so the x
+// bytes they meet add nothing) and the epilogue stores only m < M, n < N.
+// TMA's contract: 16-byte aligned bases and row strides (K % 16, N % 16,
+// W4: (K/2) % 16); the host sends other shapes to gemm_kernel above.
+
+constexpr int TG_BM = 128;  // channels per block
+constexpr int TG_BK = 128;  // x columns (bytes) per stage; W rows per stage
+constexpr int TG_WTILE = TG_BK * TG_BM;  // bytes of the W tile of a stage
+constexpr int TG_THREADS = 384;
+
+// NT tokens per consumer warpgroup (64 or 128): the block covers 2 * NT
+template <bool W4, int NT>
+struct TmaGemmCfg {
+  static constexpr int kXTile = 2 * NT * TG_BK;  // x tile of a stage
+  static constexpr int kStageBytes = TG_WTILE + (W4 ? 2 : 1) * kXTile;
+  static constexpr int kStages = (192 * 1024) / kStageBytes;
+  static constexpr int kSmem = kStages * kStageBytes + 1024 + 2 * 8 * kStages;
+};
+
+// d += A (64 x 32, registers) . B (32 x N, descriptor), s8 x s8 -> s32,
+// N = 64 or 128 (the accumulator's size picks the shape)
+__device__ __forceinline__ void wgmma_s8(int (&d)[32], const uint32_t a[4],
+                                         uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_s8(int (&d)[64], const uint32_t a[4],
+                                         uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// the four A-fragment words of k32 step kk for this thread's channels:
+// rows kk*32 + 4q + i (q = t, t + 4; i = 0..3) at byte 4c of the swizzled
+// W tile (row r's 16-byte chunk j sits at chunk j ^ (r % 8))
+__device__ __forceinline__ void load_w_quads(const uint8_t* wt, int kk, int c,
+                                             int t, uint32_t rows[2][4]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = kk * 32 + 4 * (t + 4 * h) + i;
+      const int off = r * 128 + (((c >> 2) ^ (r & 7)) << 4) + ((c & 3) << 2);
+      rows[h][i] = *reinterpret_cast<const uint32_t*>(wt + off);
+    }
+}
+
+// A fragments of the two m64 tiles from the row words: tile j's rows g /
+// g+8 are channels 4c + 2j / 4c + 2j + 1; registers 0/1 hold k quad t,
+// 2/3 k quad t + 4
+__device__ __forceinline__ void frags_from_rows(uint32_t rows[2][4],
+                                                uint32_t a0[4],
+                                                uint32_t a1[4]) {
+  uint32_t c0[4], c1[4];
+  transpose4x4(rows[0], c0);
+  transpose4x4(rows[1], c1);
+  a0[0] = c0[0];
+  a0[1] = c0[1];
+  a0[2] = c1[0];
+  a0[3] = c1[1];
+  a1[0] = c0[2];
+  a1[1] = c0[3];
+  a1[2] = c1[2];
+  a1[3] = c1[3];
+}
+
+// both tiles' A fragments of k32 step kk (W4: the low plane in a, the high
+// plane in h)
+template <bool W4>
+__device__ __forceinline__ void build_frags(const uint8_t* wt, int kk, int c,
+                                            int t, uint32_t a[2][4],
+                                            uint32_t h[2][4]) {
+  uint32_t rows[2][4];
+  load_w_quads(wt, kk, c, t, rows);
+  if constexpr (W4) {
+    uint32_t lo[2][4], hi[2][4];
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) unpack_signed(rows[q][i], lo[q][i], hi[q][i]);
+    frags_from_rows(lo, a[0], a[1]);
+    frags_from_rows(hi, h[0], h[1]);
+  } else {
+    frags_from_rows(rows, a[0], a[1]);
+  }
+}
+
+// keeps fragments in their registers up to this point (a product that
+// reads them may still be running before it)
+template <bool W4>
+__device__ __forceinline__ void fence_frags(uint32_t a[2][4],
+                                            uint32_t h[2][4]) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      hopper::reg_fence(a[j][i]);
+      if constexpr (W4) hopper::reg_fence(h[j][i]);
+    }
+}
+
+template <bool W4, int NT>
+__global__ void __launch_bounds__(TG_THREADS, 1)
+    gemm_tma_kernel(const __grid_constant__ CUtensorMap xmap,
+                    const __grid_constant__ CUtensorMap wmap, int M, int K,
+                    int N, const float* __restrict__ xs,
+                    const float* __restrict__ wsc, void* out, int out_kind) {
+  using Cfg = TmaGemmCfg<W4, NT>;
+  constexpr int S = Cfg::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S * Cfg::kStageBytes);
+  uint64_t* empty = full + S;
+  const int tok0 = blockIdx.x * 2 * NT, ch0 = blockIdx.y * TG_BM;
+  const int K2 = K / 2;
+  const int steps = ((W4 ? K2 : K) + TG_BK - 1) / TG_BK;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < S; ++i) {
+      hopper::mbar_init(&full[i], 1);
+      hopper::mbar_init(&empty[i], 2);  // one arrival per consumer warpgroup
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {  // producer warpgroup: one thread issues TMA
+    hopper::setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      hopper::prefetch_map(&xmap);
+      hopper::prefetch_map(&wmap);
+      // x is read by every channel tile; a W tile by the few token tiles
+      // that run beside it (the grid walks tokens fastest)
+      const uint64_t keep = hopper::policy_evict_last();
+      const uint64_t once = hopper::policy_evict_first();
+      for (int s = 0; s < steps; ++s) {
+        const int slot = s % S;
+        hopper::mbar_wait(&empty[slot], ((s / S) & 1) ^ 1);
+        uint8_t* st = smem + slot * Cfg::kStageBytes;
+        hopper::mbar_arrive_expect_tx(&full[slot], Cfg::kStageBytes);
+        const int r0 = s * TG_BK;
+        hopper::tma_load_2d(st, &wmap, &full[slot], ch0, r0, once);
+        hopper::tma_load_2d(st + TG_WTILE, &xmap, &full[slot], r0, tok0,
+                            keep);
+        if (W4)
+          hopper::tma_load_2d(st + TG_WTILE + Cfg::kXTile, &xmap, &full[slot],
+                              K2 + r0, tok0, keep);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroups
+  hopper::setmaxnreg_inc<232>();
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int c = 8 * warp + g;
+  constexpr int NR = NT / 2;  // accumulator registers of one m64 tile
+  int acc0[NR], acc1[NR];
+#pragma unroll
+  for (int i = 0; i < NR; ++i) acc0[i] = acc1[i] = 0;
+
+  // A fragments of two k32 steps: step kk's are built while step kk - 1's
+  // products run, in the other buffer
+  uint32_t a[2][2][4], h[2][2][4];
+  for (int s = 0; s < steps; ++s) {
+    const int slot = s % S;
+    hopper::mbar_wait(&full[slot], (s / S) & 1);
+    const uint8_t* st = smem + slot * Cfg::kStageBytes;
+    // this warpgroup's NT token rows of the x tile(s), NT / 8 swizzle atoms
+    const uint8_t* xb = st + TG_WTILE + wg * NT * 128;
+    build_frags<W4>(st, 0, c, t, a[0], h[0]);
+#pragma unroll
+    for (int kk = 0; kk < TG_BK / 32; ++kk) {
+      const int cur = kk & 1;
+#pragma unroll
+      for (int i = 0; i < NR; ++i) {
+        hopper::reg_fence(acc0[i]);
+        hopper::reg_fence(acc1[i]);
+      }
+      hopper::wgmma_fence();
+      const uint64_t db = hopper::desc_sw128(xb + kk * 32, 16, 1024);
+      wgmma_s8(acc0, a[cur][0], db);
+      wgmma_s8(acc1, a[cur][1], db);
+      if constexpr (W4) {
+        const uint64_t dh =
+            hopper::desc_sw128(xb + Cfg::kXTile + kk * 32, 16, 1024);
+        wgmma_s8(acc0, h[cur][0], dh);
+        wgmma_s8(acc1, h[cur][1], dh);
+      }
+      hopper::wgmma_commit();
+      // step kk - 1's products are done: its fragments end their life here,
+      // and the buffer takes step kk + 1's
+      hopper::wgmma_wait<1>();
+      fence_frags<W4>(a[cur ^ 1], h[cur ^ 1]);
+      if (kk + 1 < TG_BK / 32)
+        build_frags<W4>(st, kk + 1, c, t, a[cur ^ 1], h[cur ^ 1]);
+    }
+    hopper::wgmma_wait<0>();
+    fence_frags<W4>(a[(TG_BK / 32 - 1) & 1], h[(TG_BK / 32 - 1) & 1]);
+    // every thread of the warpgroup has issued its last product on this
+    // stage (wgmma is warpgroup-wide) and waited for it
+    if (tid == 0) hopper::mbar_arrive(&empty[slot]);
+  }
+#pragma unroll
+  for (int i = 0; i < NR; ++i) {
+    hopper::reg_fence(acc0[i]);
+    hopper::reg_fence(acc1[i]);
+  }
+
+  // accumulator d[i] of an m64nNT tile: token (i / 4) * 8 + 2t + (i & 1) of
+  // the warpgroup's NT, row g (i % 4 < 2) or g + 8
+  const int n0 = ch0 + 4 * c;
+  if (n0 >= N) return;
+  const float4 wv = make_float4(wsc[n0], wsc[n0 + 1], wsc[n0 + 2],
+                                wsc[n0 + 3]);
+#pragma unroll
+  for (int nb = 0; nb < NT / 8; ++nb)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int m = tok0 + wg * NT + nb * 8 + 2 * t + e;
+      if (m >= M) continue;
+      const int v[4] = {acc0[nb * 4 + e], acc0[nb * 4 + 2 + e],
+                        acc1[nb * 4 + e], acc1[nb * 4 + 2 + e]};
+      const long idx = (long)m * N + n0;
+      if (out_kind == 2) {
+        *reinterpret_cast<int4*>(reinterpret_cast<int*>(out) + idx) =
+            make_int4(v[0], v[1], v[2], v[3]);
+        continue;
+      }
+      const float x = xs[m];
+      const float y0 = (static_cast<float>(v[0]) * x) * wv.x;
+      const float y1 = (static_cast<float>(v[1]) * x) * wv.y;
+      const float y2 = (static_cast<float>(v[2]) * x) * wv.z;
+      const float y3 = (static_cast<float>(v[3]) * x) * wv.w;
+      if (out_kind == 1) {
+        *reinterpret_cast<float4*>(reinterpret_cast<float*>(out) + idx) =
+            make_float4(y0, y1, y2, y3);
+      } else {
+        __nv_bfloat162 p0 = __floats2bfloat162_rn(y0, y1);
+        __nv_bfloat162 p1 = __floats2bfloat162_rn(y2, y3);
+        uint2 u;
+        u.x = *reinterpret_cast<uint32_t*>(&p0);
+        u.y = *reinterpret_cast<uint32_t*>(&p1);
+        *reinterpret_cast<uint2*>(reinterpret_cast<__nv_bfloat16*>(out) +
+                                  idx) = u;
+      }
+    }
+}
+
+template <bool W4, int NT>
+int launch_gemm_tma(const void* x, const void* w, const void* xs,
+                    const void* wsc, void* out, int M, int K, int N,
+                    int out_kind, cudaStream_t stream) {
+  using Cfg = TmaGemmCfg<W4, NT>;
+  CUtensorMap xmap, wmap;
+  const uint64_t xd[2] = {(uint64_t)K, (uint64_t)M}, xst[1] = {(uint64_t)K};
+  const uint64_t wd[2] = {(uint64_t)N, (uint64_t)(W4 ? K / 2 : K)};
+  const uint64_t wst[1] = {(uint64_t)N};
+  const uint32_t xbox[2] = {TG_BK, 2 * NT}, wbox[2] = {TG_BM, TG_BK};
+  int err = hopper::encode_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, x, xd,
+                               xst, xbox);
+  if (err) return err;
+  err = hopper::encode_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, w, wd, wst,
+                           wbox);
+  if (err) return err;
+  static bool attr = false;
+  if (!attr) {
+    err = (int)cudaFuncSetAttribute(gemm_tma_kernel<W4, NT>,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    Cfg::kSmem);
+    if (err) return err;
+    attr = true;
+  }
+  dim3 grid((M + 2 * NT - 1) / (2 * NT), (N + TG_BM - 1) / TG_BM);
+  gemm_tma_kernel<W4, NT><<<grid, TG_THREADS, Cfg::kSmem, stream>>>(
+      xmap, wmap, M, K, N, (const float*)xs, (const float*)wsc, out, out_kind);
+  return (int)cudaGetLastError();
+}
+
 template <int WT, int MC, bool TAIL>
 void gemv(dim3 grid, dim3 block, cudaStream_t stream, const void* x, int M,
           int K, const void* w, int R, int N, int rps, void* acc) {
@@ -685,8 +1002,31 @@ int mq_w8_bf16_gemv(const void* x, const void* w, const void* ws, void* out,
   return launch_w8_bf16<8>(x, w, ws, out, M, K, N, st);
 }
 
-// y (M, N) = epilogue(x (M, K) . W), W4 packed (K/2, N) if w4 else int8 (K, N).
+// y (M, N) = epilogue(x (M, K) . W), W4 packed (K/2, N) if w4 else int8 (K, N):
+// the TMA + wgmma kernel on blocks of 128 channels x `tokens` (128 or 256)
+// tokens. Needs 16-byte aligned x and w, K % 16 == 0, N % 16 == 0 and, for
+// W4, (K/2) % 16 == 0 (the host routes other shapes to mq_int8_gemm_sm80).
 int mq_int8_gemm(const void* x, const void* w, const void* xs, const void* wsc,
+                 void* out, int M, int K, int N, int w4, int out_kind,
+                 int tokens, void* stream) {
+  if (M < 1 || K < 16 || K % 16 || N % 16 || (w4 && (K / 2) % 16) ||
+      reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(w) % 16 || (tokens != 128 && tokens != 256))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (tokens == 128)
+    return w4 ? launch_gemm_tma<true, 64>(x, w, xs, wsc, out, M, K, N,
+                                          out_kind, st)
+              : launch_gemm_tma<false, 64>(x, w, xs, wsc, out, M, K, N,
+                                           out_kind, st);
+  return w4 ? launch_gemm_tma<true, 128>(x, w, xs, wsc, out, M, K, N,
+                                         out_kind, st)
+            : launch_gemm_tma<false, 128>(x, w, xs, wsc, out, M, K, N,
+                                          out_kind, st);
+}
+
+// The same product on mma.sync (gemm_kernel): any K (W4: K even), N % 4 == 0.
+int mq_int8_gemm_sm80(const void* x, const void* w, const void* xs, const void* wsc,
                  void* out, int M, int K, int N, int w4, int out_kind,
                  void* stream) {
   dim3 grid((N + GM_BN - 1) / GM_BN, (M + GM_BM - 1) / GM_BM), block(256);

@@ -4,8 +4,9 @@ Pallas kernel ``jax.experimental.pallas.ops.tpu.flash_attention`` that
 T == S ≥ 2048).
 
 :func:`flash_attention_causal` launches the hand-written CUDA kernel
-``mq_flash_attn_causal`` (``csrc/attn.cu``: mma.sync bf16 tiles, online f32
-softmax, the (T, T) scores never in device memory) for a CUDA tensor, or
+``mq_flash_attn_causal`` (``csrc/attn.cu``: TMA loads through an mbarrier
+ring, wgmma bf16 products, online f32 softmax, the (T, T) scores never in
+device memory) for a CUDA tensor inside its contract (:func:`supports`), or
 raises; :func:`flash_attention_causal_ref` is its plain version, the port's
 f32 GQA einsum, taken only for a CPU tensor. GQA is native: query head h
 reads KV head h // (H / KVH), and K/V are never repeated (the JAX call
@@ -22,7 +23,7 @@ import torch
 LAUNCHES: Dict[str, int] = {"flash_attn_causal": 0}
 
 HEAD_DIM = 128  # the kernel's head width
-BLOCK_T = 64  # query / key rows per tile: T must be a multiple
+BLOCK_T = 64  # T must be a multiple (the kernel's 128-row tiles zero-fill)
 
 
 def _check_shapes(q, k, v):
@@ -46,25 +47,42 @@ def flash_attention_causal_ref(q, k, v, scale: float):
     return einsum_attention(q, k, v, None, scale, causal=True)
 
 
+def supports(hd: int, dtype: torch.dtype, T: int) -> bool:
+    """The kernel's contract: head_dim 128, bf16, T a positive multiple of
+    ``BLOCK_T``. The wrapper raises on a CUDA tensor outside it, and
+    ``models.layers.attention`` routes by it."""
+    return hd == HEAD_DIM and dtype == torch.bfloat16 and T > 0 and \
+        T % BLOCK_T == 0
+
+
+def _check_card(q, k, v) -> None:
+    """Raises unless the kernel takes these operands: :func:`supports`, one
+    dtype, contiguous, one device."""
+    name = "flash_attn_causal"
+    B, T, H, hd, KVH = _check_shapes(q, k, v)
+    if len({t.dtype for t in (q, k, v)}) != 1 or not supports(hd, q.dtype, T):
+        raise ValueError(f"{name}: needs bf16 q, k, v, head_dim == "
+                         f"{HEAD_DIM} and T % {BLOCK_T} == 0, got {q.dtype}, "
+                         f"{hd}, {T}")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
+               for t in (q, k, v)):
+        raise ValueError(f"{name}: operands must be contiguous and 16-byte "
+                         "aligned (TMA)")
+    if len({t.device for t in (q, k, v)}) != 1:
+        raise ValueError(f"{name}: tensors on several devices")
+
+
 def flash_attention_causal(q, k, v, scale: float):
     """out (B, T, H, hd) = softmax(q·kᵀ·scale, causal)·v in q's dtype for
-    q (B, T, H, hd), k / v (B, T, KVH, hd). On CUDA: bf16, hd == 128,
-    T % 64 == 0, contiguous operands."""
+    q (B, T, H, hd), k / v (B, T, KVH, hd). On CUDA: :func:`supports`,
+    contiguous operands."""
     name = "flash_attn_causal"
     B, T, H, hd, KVH = _check_shapes(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_causal_ref(q, k, v, scale)
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
-    if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
-        raise ValueError(f"{name}: the kernel takes bf16 q, k, v")
-    if hd != HEAD_DIM or T % BLOCK_T:
-        raise ValueError(f"{name}: needs head_dim == {HEAD_DIM} and "
-                         f"T % {BLOCK_T} == 0, got {hd}, {T}")
-    if not all(t.is_contiguous() for t in (q, k, v)):
-        raise ValueError(f"{name}: operands must be contiguous")
-    if len({t.device for t in (q, k, v)}) != 1:
-        raise ValueError(f"{name}: tensors on several devices")
+    _check_card(q, k, v)
     out = torch.empty_like(q)
     from ._build import load
 

@@ -257,14 +257,35 @@ def _on_card(name: str, x: torch.Tensor) -> bool:
     return True
 
 
+def tail_supports(n: int, dtype: torch.dtype = torch.bfloat16) -> bool:
+    """The Hadamard kernels' row contract: n = K·128 with K ≤ TAIL_MAX_K
+    (their row tile; pow2 n above 16384 splits with m ≥ 256, n = 96 has
+    m = 8), and bf16 rows. The wrappers raise on a CUDA tensor outside it,
+    and ``models.llm._use_fused_tail`` routes by it."""
+    if dtype != torch.bfloat16 or n < TAIL_M or n % TAIL_M:
+        return False
+    try:
+        K = _factors(n)[2]
+    except ValueError:  # no Hadamard construction of n
+        return False
+    return n // K == TAIL_M and K <= TAIL_MAX_K
+
+
 def _hadamard_K(name: str, n: int) -> int:
     """K of n = K·128 with K ≤ TAIL_MAX_K (the kernels' row tile); raises for
-    any other n (pow2 n above 16384 splits with m ≥ 256)."""
-    K = _factors(n)[2]
-    if n // K != TAIL_M or K > TAIL_MAX_K:
+    any other n (:func:`tail_supports`)."""
+    if not tail_supports(n):
         raise ValueError(f"{name}: needs n = K·{TAIL_M} with K ≤ "
-                         f"{TAIL_MAX_K}, got n = {n} = {K}·{n // K}")
-    return K
+                         f"{TAIL_MAX_K}, got n = {n}")
+    return _factors(n)[2]
+
+
+def _check_tail(name: str, n: int, dtype: torch.dtype) -> int:
+    """K of the bf16 rows of n = K·128 that the tail kernels take; raises
+    exactly where :func:`tail_supports` says no."""
+    if dtype != torch.bfloat16:
+        raise ValueError(f"{name}: the kernel takes bf16, got {dtype}")
+    return _hadamard_K(name, n)
 
 
 def _scale(name: str, scale, device) -> torch.Tensor:
@@ -308,9 +329,7 @@ def fused_swiglu_had_quant(g: torch.Tensor, u: torch.Tensor, scale,
     if not _on_card(name, g):
         return fused_swiglu_had_quant_ref(g, u, scale, qmin, qmax)
     n = g.shape[-1]
-    K = _hadamard_K(name, n)
-    if g.dtype != torch.bfloat16:
-        raise ValueError(f"{name}: the kernel takes bf16, got {g.dtype}")
+    K = _check_tail(name, n, g.dtype)
     s = _scale(name, scale, g.device)
     g2, u2 = _rows(name, g, n), _rows(name, u, n)
     T = g2.shape[0]
@@ -339,9 +358,7 @@ def had_quant(x: torch.Tensor, scale, qmin: int = -128,
     if not _on_card(name, x):
         return had_quant_ref(x, scale, qmin, qmax)
     n = x.shape[-1]
-    K = _hadamard_K(name, n)
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"{name}: the kernel takes bf16, got {x.dtype}")
+    K = _check_tail(name, n, x.dtype)
     s = _scale(name, scale, x.device)
     x2 = _rows(name, x, n)
     T = x2.shape[0]

@@ -16,7 +16,9 @@ Three hand-written CUDA kernels (``csrc/qmm.cu``) carry the int8 compute:
   * :func:`int8_gemv` — int8-weight GEMV, M ≤ 32 (the int8 lm_head);
     replaces ``_qmm_pallas_gemv``.
   * :func:`int8_gemm` — int8 GEMM, M > 32, W4 packed or W8 (prefill, ViT,
-    merger); replaces ``_qmm_pallas_w4``'s M > 32 branch.
+    merger); replaces ``_qmm_pallas_w4``'s M > 32 branch. A TMA + wgmma
+    kernel for the shapes of :func:`tma_supports`, the ``mma.sync`` kernel
+    (:func:`int8_gemm_sm80`, its own launch count) for the rest.
 
 and two more the decode probes use (``mquant_tpu_torch.scripts``):
 
@@ -45,7 +47,8 @@ from ..core.formats import INT8, get_format
 
 # kernel launches per wrapper (read and reset by chip_smoke.py)
 LAUNCHES: Dict[str, int] = {"w4a8_gemv": 0, "int8_gemv": 0, "int8_gemm": 0,
-                            "w8_bf16_gemv": 0, "w4_unpack_gemv": 0}
+                            "int8_gemm_sm80": 0, "w8_bf16_gemv": 0,
+                            "w4_unpack_gemv": 0}
 
 GEMV_MAX_M = 32
 PROBE_MAX_M = 8  # rows of the probes' GEMVs (the JAX probes' M = 8 tile)
@@ -460,12 +463,79 @@ def int8_gemv(xq, x_scale, w, w_scale, out_dtype=torch.bfloat16):
                         out_dtype, packed=False)
 
 
+def tma_supports(K: int, N: int, packed: bool) -> bool:
+    """The shapes the TMA + wgmma GEMM (``mq_int8_gemm``) takes: TMA needs
+    16-byte row strides, so K % 16 == 0 and N % 16 == 0, and for packed W4
+    also (K/2) % 16 == 0. Every served product of the 7B prefill, the ViT
+    and the merger meets it; the RMS split's K = 18943 and ragged edges do
+    not, and :func:`int8_gemm` sends those to :func:`int8_gemm_sm80`."""
+    return K >= 16 and K % 16 == 0 and N % 16 == 0 and \
+        (not packed or (K // 2) % 16 == 0)
+
+
+def tma_tokens(M: int, N: int, sms: int = 132) -> int:
+    """Tokens per block of the TMA GEMM (blocks are 128 channels wide): 256
+    (two warpgroups of 128 tokens: half the A-fragment work per product)
+    unless that leaves fewer blocks than half the SMs, where 128 keeps more
+    of them busy (the ViT's N = 1280, the merger's M = 256, N = 512).
+    ``chip_smoke.py`` times both widths at each main-path shape."""
+    blocks = -(-M // 256) * -(-N // 128)
+    return 256 if 2 * blocks >= sms else 128
+
+
+def _launch_gemm(name, entry, xq, x_scale, w, w_scale, out_dtype, packed,
+                 M, K, N, *tile):
+    from ._build import load
+
+    out = torch.empty((M, N), dtype=out_dtype, device=xq.device)
+    stream = torch.cuda.current_stream(xq.device).cuda_stream
+    status = getattr(load(), entry)(
+        xq.data_ptr(), w.data_ptr(), x_scale.data_ptr(), w_scale.data_ptr(),
+        out.data_ptr(), M, K, N, int(packed), _OUT_KIND[out_dtype], *tile,
+        stream)
+    LAUNCHES[name] += 1
+    _raise_on_status(name, status)
+    return out
+
+
+def _gemm_tma(xq, x_scale, w, w_scale, out_dtype, packed, tokens):
+    """The TMA kernel at a given block width (``tokens`` 128 or 256), for
+    timing the one :func:`tma_tokens` does not pick."""
+    M, K, N = _check_args("int8_gemm", xq, x_scale, w, w_scale, out_dtype,
+                          packed)
+    return _launch_gemm("int8_gemm", "mq_int8_gemm", xq, x_scale, w, w_scale,
+                        out_dtype, packed, M, K, N, tokens)
+
+
 def int8_gemm(xq, x_scale, w, w_scale, out_dtype=torch.bfloat16,
               packed: bool = False):
     """int8 GEMM for M > 32 on W4 packed (K/2, N) or W8 (K, N) weights, any
-    K, with the fused per-token × per-channel epilogue; CUDA kernel
-    ``mq_int8_gemm``."""
+    K, with the fused per-token × per-channel epilogue. Shapes inside
+    :func:`tma_supports` with 16-byte aligned operands run the TMA + wgmma
+    kernel ``mq_int8_gemm``; the others :func:`int8_gemm_sm80` (both exact,
+    so the route changes no bit)."""
     name = "int8_gemm"
+    M, K, N = _check_args(name, xq, x_scale, w, w_scale, out_dtype, packed)
+    if xq.device.type == "cpu":
+        return int8_gemm_ref(xq, x_scale, w, w_scale, out_dtype, packed)
+    if xq.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {xq.device}")
+    if not tma_supports(K, N, packed) or xq.data_ptr() % 16 or \
+            w.data_ptr() % 16:
+        return int8_gemm_sm80(xq, x_scale, w, w_scale, out_dtype, packed)
+    return _launch_gemm(name, "mq_int8_gemm", xq, x_scale, w, w_scale,
+                        out_dtype, packed, M, K, N, tma_tokens(
+                            M, N, torch.cuda.get_device_properties(
+                                xq.device).multi_processor_count))
+
+
+def int8_gemm_sm80(xq, x_scale, w, w_scale, out_dtype=torch.bfloat16,
+                   packed: bool = False):
+    """The same GEMM on ``mma.sync`` (``mq_int8_gemm_sm80``, the port's
+    first GEMM kernel): any K, N % 4 == 0, x rows at any alignment. It carries the
+    shapes outside :func:`tma_supports` and is timed beside the TMA kernel
+    as its predecessor."""
+    name = "int8_gemm_sm80"
     M, K, N = _check_args(name, xq, x_scale, w, w_scale, out_dtype, packed)
     if xq.device.type == "cpu":
         return int8_gemm_ref(xq, x_scale, w, w_scale, out_dtype, packed)
@@ -473,17 +543,8 @@ def int8_gemm(xq, x_scale, w, w_scale, out_dtype=torch.bfloat16,
         raise ValueError(f"{name}: unsupported device {xq.device}")
     if N % 4:
         raise ValueError(f"{name}: needs N % 4 == 0, got N={N}")
-    from ._build import load
-
-    lib = load()
-    out = torch.empty((M, N), dtype=out_dtype, device=xq.device)
-    stream = torch.cuda.current_stream(xq.device).cuda_stream
-    status = lib.mq_int8_gemm(
-        xq.data_ptr(), w.data_ptr(), x_scale.data_ptr(), w_scale.data_ptr(),
-        out.data_ptr(), M, K, N, int(packed), _OUT_KIND[out_dtype], stream)
-    LAUNCHES[name] += 1
-    _raise_on_status(name, status)
-    return out
+    return _launch_gemm(name, "mq_int8_gemm_sm80", xq, x_scale, w, w_scale,
+                        out_dtype, packed, M, K, N)
 
 
 # the two ways to run the integer products: the hand-written kernels, which
@@ -491,10 +552,11 @@ def int8_gemm(xq, x_scale, w, w_scale, out_dtype=torch.bfloat16,
 # (chip_smoke.py swaps PLAIN into KERNELS for its on-card reference forward;
 # on a CPU tensor both end in the plain version)
 KERNELS = {"w4a8_gemv": w4a8_gemv, "int8_gemv": int8_gemv,
-           "int8_gemm": int8_gemm, "w8_bf16_gemv": w8_bf16_gemv,
-           "w4_unpack_gemv": w4_unpack_gemv}
+           "int8_gemm": int8_gemm, "int8_gemm_sm80": int8_gemm_sm80,
+           "w8_bf16_gemv": w8_bf16_gemv, "w4_unpack_gemv": w4_unpack_gemv}
 PLAIN = {"w4a8_gemv": w4a8_gemv_ref, "int8_gemv": int8_gemv_ref,
-         "int8_gemm": int8_gemm_ref, "w8_bf16_gemv": w8_bf16_gemv_ref,
+         "int8_gemm": int8_gemm_ref, "int8_gemm_sm80": int8_gemm_ref,
+         "w8_bf16_gemv": w8_bf16_gemv_ref,
          "w4_unpack_gemv": w4_unpack_gemv_ref}
 
 

@@ -221,6 +221,13 @@ def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
 FLASH_MIN_T = 2048
 
 
+def _on_card(t: torch.Tensor) -> bool:
+    """Whether ``t`` lies on the card, where the kernels' contracts bind (on
+    the CPU every plain version takes everything). The routers of this
+    module and of ``models.llm`` ask it."""
+    return t.device.type == "cuda"
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               mask: Optional[torch.Tensor] = None,
               scale: Optional[float] = None, causal: bool = False
@@ -230,14 +237,16 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (no mask, T == S ≥ ``FLASH_MIN_T``, hd % 128 == 0, T % 128 == 0) goes to
     ``kernels.flash_attn`` (the CUDA kernel on a CUDA tensor, its plain
     version on a CPU tensor), as the JAX function routes to Pallas flash
-    attention; everything else is :func:`einsum_attention`."""
+    attention; on the card only inside the kernel's contract
+    (``flash_attn.supports``). Everything else is :func:`einsum_attention`."""
+    from ..kernels import flash_attn
+
     B, T, H, hd = q.shape
     S = k.shape[1]
     scale = scale if scale is not None else hd**-0.5
     if (causal and mask is None and T == S and T >= FLASH_MIN_T
-            and hd % 128 == 0 and T % 128 == 0):
-        from ..kernels import flash_attn
-
+            and hd % 128 == 0 and T % 128 == 0
+            and (not _on_card(q) or flash_attn.supports(hd, q.dtype, T))):
         return flash_attn.KERNELS["flash_attn_causal"](
             q.contiguous(), k.contiguous(), v.contiguous(), scale)
     return einsum_attention(q, k, v, mask, scale, causal)

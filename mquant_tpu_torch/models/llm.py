@@ -101,13 +101,21 @@ def layer_views(tree: Any, l: int) -> Any:
     return tree
 
 
-def _use_fused_tail(dspec, mode: str, T: int, dp: Dict, act) -> bool:
+def _use_fused_tail(dspec, mode: str, T: int, dp: Dict, act,
+                    g: Optional[torch.Tensor] = None) -> bool:
     """Eligibility of ``kernels.fwht.fused_swiglu_had_quant`` (the JAX
     function's, without its two TPU-only gates, the backend and the
     ``MQUANT_FUSED_TAIL`` flag): real mode, full online Hadamard, static
     symmetric per-tensor int8 activations, no output quantizer, integer
     storage without the RMS split, and a prefill of T ≥ 256 with
-    T % 256 == 0."""
+    T % 256 == 0. For a gate ``g`` on the card, also the kernel's row
+    contract (``fwht.tail_supports``: n and bf16); a row outside it takes
+    the unfused chain, as JAX's default does."""
+    from ..kernels import fwht
+
+    if g is not None and L._on_card(g) and not fwht.tail_supports(
+            g.shape[-1], g.dtype):
+        return False
     return (mode == "real" and dspec is not None
             and dspec.online_had == "full" and dspec.a_bits == 8
             and dspec.a_static and dspec.a_symmetric
@@ -123,7 +131,7 @@ def _mlp_tail(dspec, mode, g, u, dp, lstate):
     integer GEMM; otherwise the unfused chain of ``qlinear``."""
     dstate = None if lstate is None else lstate.get("llm.down")
     act = None if dstate is None else dstate.get("act")
-    if _use_fused_tail(dspec, mode, g.shape[-2], dp, act):
+    if _use_fused_tail(dspec, mode, g.shape[-2], dp, act, g):
         from ..kernels import fwht
         from ..kernels.qmm import quantized_matmul_pre
 
@@ -212,10 +220,17 @@ def _use_fused_decode_attn(cfg: DecoderConfig, cache: Optional[Dict], T: int,
     VMEM budget and S % 8 (its 8-row write-back window), are TPU scratch
     limits, not semantics, and are not carried over. JAX's ``MQUANT_ATTN``
     default leaves decode attention to its XLA einsum after a TPU A/B; the
-    port takes its kernel wherever it is eligible."""
+    port takes its kernel wherever it is eligible. A cache on the card must
+    also meet the kernel's contract (``attn_decode.supports``); outside it
+    the step takes the einsum, JAX's route where its own gate says no."""
+    from ..kernels import attn_decode
+
     if attn_mask is not None or cache is None or prefill_fresh or T != 1:
         return False
     if cache["k"].dtype != cfg.dtype:
+        return False
+    if L._on_card(cache["k"]) and not attn_decode.supports(
+            cfg.head_dim, cfg.n_heads // cfg.n_kv_heads, cache["k"].dtype):
         return False
     return cfg.head_dim % 128 == 0 and cfg.n_heads % cfg.n_kv_heads == 0
 

@@ -2,7 +2,8 @@
 
 Marked ``gpu``: they skip where no CUDA device is present (CUDA kernels have
 no CPU mode). On the card: ``python -m pytest tests/test_torch_cuda.py``.
-Tolerances: int32 accumulators bit-equal; bf16 outputs within 1 bf16 ulp.
+Tolerances: int32 accumulators bit-equal; bf16 outputs within 1 bf16 ulp
+(the GEMMs' bit-equal: their epilogue is the plain version's).
 Attention: written cache rows bit-equal; outputs within 1e-2 of their
 largest magnitude (the kernels round the probabilities to bf16 at other
 points than the plain versions and sum in other orders). Fused tail: int8
@@ -48,17 +49,29 @@ def _operands(dev, M, K, N, packed, seed=0):
     return x, xs, w, ws
 
 
+def _counter(name, K, N, packed):
+    """The launch count a call adds to: ``int8_gemm`` routes shapes outside
+    the TMA kernel's contract to the mma.sync kernel's own count."""
+    if name == "int8_gemm" and not qmm.tma_supports(K, N, packed):
+        return "int8_gemm_sm80"
+    return name
+
+
 def _check(name, dev, M, K, N, packed):
     x, xs, w, ws = _operands(dev, M, K, N, packed)
-    extra = {"packed": packed} if name == "int8_gemm" else {}
+    gemm = name.startswith("int8_gemm")
+    extra = {"packed": packed} if gemm else {}
     kern, plain = qmm.KERNELS[name], qmm.PLAIN[name]
-    before = qmm.LAUNCHES[name]
+    counter = _counter(name, K, N, packed)
+    before = qmm.LAUNCHES[counter]
     acc = kern(x, xs, w, ws, torch.int32, **extra)
-    assert qmm.LAUNCHES[name] == before + 1
+    assert qmm.LAUNCHES[counter] == before + 1
     torch.testing.assert_close(acc, plain(x, xs, w, ws, torch.int32, **extra),
                                rtol=0, atol=0)
     y = kern(x, xs, w, ws, torch.bfloat16, **extra).float()
     r = plain(x, xs, w, ws, torch.bfloat16, **extra).float()
+    if gemm:  # the GEMMs' epilogue is the plain version's: bit-equal
+        assert torch.equal(y, r)
     mag = torch.maximum(y.abs(), r.abs()).clamp(min=2.0**-126)
     ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
     assert bool(((y - r).abs() <= ulp).all())
@@ -78,22 +91,85 @@ def test_int8_gemv(cuda, M, K, N):
     _check("int8_gemv", cuda, M, K, N, False)
 
 
-@pytest.mark.parametrize("M,K,N,packed", [(1024, 3584, 4608, True),
-                                          (77, 3584, 4100, True),
-                                          (1024, 1280, 5120, False),
-                                          (333, 1280, 1000, False),
-                                          (1024, 18943, 3584, False),
-                                          (77, 1001, 1000, False),
-                                          (40, 3, 64, False),
-                                          (100, 3586, 4100, True)])
+# the main path's products (7B prefill W4, ViT and merger W8, the prefill
+# probe's W8 products, path S's K = 18943 `down`), then ragged M on a W4 and
+# a W8 shape, then the edges outside the TMA contract (N = 4100 / 1000,
+# K = 1001 / 3, W4 K/2 = 1793), which run the mma.sync kernel
+_MAIN_GEMM = [(1024, 3584, 4608, True), (1024, 3584, 3584, True),
+              (1024, 3584, 37888, True), (1024, 18944, 3584, True),
+              (1024, 1280, 1280, False), (1024, 1280, 5120, False),
+              (1024, 5120, 1280, False), (256, 5120, 5120, False),
+              (256, 5120, 3584, False), (1024, 3584, 512, False),
+              (1024, 3584, 18944, False), (1024, 18944, 3584, False),
+              (1024, 18943, 3584, False), (4096, 3584, 4608, True)]
+_RAGGED_M = [(m, 3584, 4608, True) for m in (33, 77, 256, 300, 1025, 4096)] \
+    + [(m, 1280, 1280, False) for m in (33, 77, 256, 300, 1025, 4096)]
+_EDGES = [(77, 3584, 4100, True), (333, 1280, 1000, False),
+          (77, 1001, 1000, False), (40, 3, 64, False), (100, 3586, 4100, True)]
+
+
+@pytest.mark.parametrize("M,K,N,packed", _MAIN_GEMM + _RAGGED_M + _EDGES)
 def test_int8_gemm(cuda, M, K, N, packed):
     _check("int8_gemm", cuda, M, K, N, packed)
+
+
+# both block widths of the TMA kernel, whichever the wrapper picks
+@pytest.mark.parametrize("tokens", [128, 256])
+@pytest.mark.parametrize("M,K,N,packed", [(1024, 3584, 4608, True),
+                                          (300, 1280, 1280, False),
+                                          (77, 3584, 512, False)])
+def test_int8_gemm_block_widths(cuda, M, K, N, packed, tokens):
+    x, xs, w, ws = _operands(cuda, M, K, N, packed)
+    ref = qmm.int8_gemm_ref(x, xs, w, ws, torch.int32, packed)
+    assert torch.equal(qmm._gemm_tma(x, xs, w, ws, torch.int32, packed,
+                                     tokens), ref)
+
+
+# the mma.sync kernel on its own at main-path shapes (the TMA kernel's
+# predecessor, timed beside it) and an unaligned-K edge
+@pytest.mark.parametrize("M,K,N,packed", [(1024, 3584, 4608, True),
+                                          (256, 5120, 3584, False),
+                                          (77, 1001, 1000, False)])
+def test_int8_gemm_sm80(cuda, M, K, N, packed):
+    _check("int8_gemm_sm80", cuda, M, K, N, packed)
+
+
+def test_gemm_route_follows_tma_contract(cuda):
+    """Every main-path shape takes the TMA kernel, every edge the mma.sync
+    one, and an x that is not 16-byte aligned the mma.sync one too."""
+    for M, K, N, packed in _MAIN_GEMM + _EDGES:
+        assert _counter("int8_gemm", K, N, packed) == (
+            "int8_gemm" if (M, K, N, packed) not in _EDGES and K != 18943
+            else "int8_gemm_sm80")
+    x, xs, w, ws = _operands(cuda, 64, 1296, 256, False)
+    xo = x.reshape(-1)[8:8 + 64 * 1280].reshape(64, 1280)  # 8 bytes off
+    before = dict(qmm.LAUNCHES)
+    y = qmm.int8_gemm(xo, xs, w[:1280].contiguous(), ws, torch.int32)
+    assert qmm.LAUNCHES["int8_gemm_sm80"] == before["int8_gemm_sm80"] + 1
+    assert qmm.LAUNCHES["int8_gemm"] == before["int8_gemm"]
+    assert torch.equal(y, qmm.int8_gemm_ref(xo, xs, w[:1280].contiguous(), ws,
+                                            torch.int32))
 
 
 def test_wrapper_raises_on_unsupported_shape(cuda):
     x, xs, w, ws = _operands(cuda, 40, 96, 66, False)  # N % 4 != 0
     with pytest.raises(ValueError):
         qmm.int8_gemm(x, xs, w, ws)
+    with pytest.raises(ValueError):
+        qmm.int8_gemm_sm80(x, xs, w, ws)
+    x, xs, w, ws = _operands(cuda, 40, 96, 64, True)
+    with pytest.raises(ValueError):  # packed rows of another K
+        qmm.int8_gemm(x, xs, w[:40].contiguous(), ws, packed=True)
+    # the C entry refuses what the TMA kernel does not take, whatever the
+    # wrapper sends (K % 16 != 0)
+    from mquant_tpu_torch.kernels._build import load
+
+    x, xs, w, ws = _operands(cuda, 40, 40, 64, False)
+    out = torch.empty((40, 64), dtype=torch.int32, device=cuda)
+    assert load().mq_int8_gemm(
+        x.data_ptr(), w.data_ptr(), xs.data_ptr(), ws.data_ptr(),
+        out.data_ptr(), 40, 40, 64, 0, 2, 128,
+        torch.cuda.current_stream().cuda_stream) != 0
 
 
 def _tail_inputs(dev, T, n, seed=0):
@@ -282,8 +358,14 @@ def test_attn_decode(cuda, B, S, H, KVH, pos, start):
     _close(out, ref)
 
 
+# the document prefill (T 4096, 28 / 4 heads), T = 2048; T = 128 / 1024 /
+# 4224 (33 tiles); G = 1 / 4 / 7; B = 2; T = 192, which is no multiple of
+# the 128-row tile (its last tile is half zero-filled)
 @pytest.mark.parametrize("B,T,H,KVH", [(1, 2048, 28, 4), (1, 4096, 28, 4),
-                                       (2, 128, 4, 2), (1, 192, 8, 8)])
+                                       (2, 128, 4, 2), (1, 192, 8, 8),
+                                       (1, 128, 28, 4), (1, 1024, 28, 4),
+                                       (1, 4224, 28, 4), (2, 1024, 8, 8),
+                                       (2, 1024, 28, 7), (2, 4224, 8, 2)])
 def test_flash_attn_causal(cuda, B, T, H, KVH):
     g = torch.Generator(device=cuda).manual_seed(1)
     r = lambda *sh: torch.randn(sh, generator=g, device=cuda).to(  # noqa: E731
@@ -305,12 +387,23 @@ def test_attention_wrappers_raise_on_unsupported(cuda):
         TA.attn_decode(q[..., :64].contiguous(), kn[..., :64].contiguous(),
                        vn[..., :64].contiguous(), kc[..., :64].contiguous(),
                        vc[..., :64].contiguous(), 10, 0.1)
+    q16, kn16, vn16, kc16, vc16 = _decode_operands(cuda, 1, 64, 32, 2, 10,
+                                                   None)
+    with pytest.raises(ValueError):  # G = 16 (GLM-4V's 32 / 2 heads)
+        TA.attn_decode(q16, kn16, vn16, kc16, vc16, 10, 0.1)
     x = torch.zeros((1, 128, 2, 64), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError):  # head_dim != 128
         TF.flash_attention_causal(x, x, x, 0.1)
-    with pytest.raises(ValueError):  # non-bf16
-        TF.flash_attention_causal(*(torch.zeros((1, 128, 2, 128),
-                                                device=cuda),) * 3, 0.1)
+    for dt in (torch.float32, torch.float16):
+        with pytest.raises(ValueError):  # non-bf16
+            TF.flash_attention_causal(*(torch.zeros(
+                (1, 128, 2, 128), dtype=dt, device=cuda),) * 3, 0.1)
+    x = torch.zeros((1, 96, 2, 128), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):  # T % 64 != 0
+        TF.flash_attention_causal(x, x, x, 0.1)
+    x = torch.zeros((1, 128, 2, 256), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):  # head_dim 256
+        TF.flash_attention_causal(x, x, x, 0.1)
 
 
 def _within_ulp_slack(y, ref):
