@@ -5,21 +5,26 @@ Phases, in order (any failed check raises and the script exits non-zero):
 
 1. device: needs CUDA; prints the card's name and power limit.
 2. build: compiles the CUDA kernels from ``mquant_tpu_torch/kernels/csrc``
-   and counts the wgmma (``IGMMA`` / ``HGMMA``) and TMA (``UTMALDG``)
-   instructions of the TMA + wgmma GEMM and flash kernels in their SASS
+   and counts the tensor-core products and shared-memory copies in the SASS
+   of the tensor-core kernels: wgmma (``IGMMA`` / ``HGMMA``) and TMA
+   (``UTMALDG``) in the GEMM and flash kernels, ``IMMA`` and ``UTMALDG`` in
+   the W4 GEMV, ``HMMA`` and cp.async (``LDGSTS``) in decode attention
    (fails without them).
 3. kernels: each kernel against its plain PyTorch version at the shapes of
    the main path: int32 accumulators and bf16 outputs bit-equal (the int8
    GEMM through its route: the TMA kernel inside its contract, the mma.sync
    one outside, as K = 18943 of the RMS split; the mma.sync kernel also
    timed at each TMA shape as its predecessor; the document path's 4096-row
-   products; the prefill probe's W8 products); the attention
+   products; the prefill probe's W8 products; the W4 GEMV at 1, 4, 8 and 32
+   token rows); the attention
    kernels' written cache rows bit-equal and outputs within 1e-2 of the
    plain version's largest magnitude, with cache columns outside [start,
    pos) poisoned; the fused swiglu → Hadamard → int8 tail's codes within ±1
    with at most 1% of them differing (the fraction printed); device time per
    call of kernel, plain version and, where one exists, the one PyTorch call
-   that computes the same function (``torch._int_mm``, SDPA), by CUDA-graph
+   that computes the same function (``torch._int_mm``; SDPA, over only the
+   cache columns the kernel reads where start and pos are one value, masked
+   over the whole cache where they are per row), by CUDA-graph
    replay with L2-cold weights / caches (median of replays), beside the
    least time the card could take (bytes over 3.35 TB/s or operations over
    the dense peak); the unfused torch chain of the tail is timed beside it.
@@ -76,7 +81,9 @@ Phases, in order (any failed check raises and the script exits non-zero):
    the 1024-token prefill and a decode step (block Hadamard, then path F's,
    then path S's decode step), then of the 4096-token prefill and a decode
    step at position ~4100; and the stream time between CUDA events around
-   every ``layers.attention`` call.
+   every ``layers.attention`` call. For each decode step: device operations
+   per step, the wrappers' calls per step, and device launches per W4 GEMV
+   and per attention call (one each).
 
 Last line of stdout: {"ok": true, "device": {...}}. Usage:
 ``python3 chip_smoke.py [--seed 0]``.
@@ -157,6 +164,13 @@ DOC_GEMM_SHAPES = [
     ("int8_gemm", "doc vit fc2", 4096, 5120, 1280, False),
     ("int8_gemm", "doc merger mlp0", 1024, 5120, 5120, False),
 ]
+# the W4 GEMV at several token rows (_qmm_pallas_w4's M <= 32 branch): the
+# ragged batch decodes 4 rows; 8 and 32 are the contract's n8 tiles. Held and
+# timed, summed apart from the 1-token decode shapes (PERF.md's row 2)
+ROWS_SHAPES = [("w4a8_gemv", f"{site}, {m} rows", m, k, n, True)
+               for m in (4, 8, 32)
+               for site, k, n in (("gate|up", 3584, 37888),
+                                  ("down", 18944, 3584))]
 # off the 1-token decode path but inside the kernels' contract: several rows
 # in the GEMV, ragged M, N and K edges in the GEMM
 EDGE_SHAPES = [
@@ -236,8 +250,9 @@ def check_kernels(seed: int) -> dict:
     dev = torch.device("cuda")
     summary = {k: new_summary() for k in ("w4a8_gemv", "int8_gemv",
                                           "int8_gemm", "int8_gemm_sm80")}
+    rows_sum = new_summary()
     for name, label, M, K, N, packed in (KERNEL_SHAPES + DOC_GEMM_SHAPES
-                                         + EDGE_SHAPES):
+                                         + ROWS_SHAPES + EDGE_SHAPES):
         main = (name, label, M, K, N, packed) in KERNEL_SHAPES
         rows = K // 2 if packed else K
         x = torch.randint(-127, 128, (M, K), generator=g, device=dev,
@@ -333,7 +348,12 @@ def check_kernels(seed: int) -> dict:
         s["max_abs_err"] = max(s["max_abs_err"], err)
         if main:
             add_main(s, ms, pms, bms, by, lms)
+        elif (name, label, M, K, N, packed) in ROWS_SHAPES:
+            add_main(rows_sum, ms, pms, bms, by, lms)
         del x, w, ws_cold, acc_k, acc_p, y_k, y_p
+    log(f"kernel w4a8_gemv at 4 / 8 / 32 rows (gate|up, down): {rows_sum['ms']:.4f} "
+        f"ms summed, plain {rows_sum['plain_ms']:.4f} ms, bound "
+        f"{rows_sum['bound_ms']:.4f} ms")
     torch.cuda.empty_cache()
     return summary
 
@@ -421,22 +441,36 @@ def check_attention(seed: int) -> dict:
         pms = cuda_ms(lambda i: TA.attn_decode_ref(
             q, kn, vn, *caches[i % n_copy], pos_a, scale, start=st_a), 4,
             reps=3)
-        # SDPA over the attended columns start ≤ col ≤ pos, without the
-        # cache write (the same number of K/V rows as the kernel reads)
-        amask = ((cols >= st[:, None]) & (cols <= p[:, None]))[:, None, None]
+        # SDPA as the yardstick, without the cache write: with one start
+        # and pos for every row, over K / V sliced to the columns start ≤
+        # col ≤ pos (the rows the kernel reads, the new one in place of row
+        # pos); with per-row indices, over the whole cache with a mask (it
+        # reads all S rows: no single call reads only the kernel's)
         qt = q.transpose(1, 2)
-        lms = cuda_ms(lambda i: F.scaled_dot_product_attention(
-            qt, caches[i % n_copy][0].transpose(1, 2),
-            caches[i % n_copy][1].transpose(1, 2), attn_mask=amask,
-            scale=scale, enable_gqa=True), 20)
+        if isinstance(pos, int) and not isinstance(start, list):
+            s0, s1 = (start or 0), pos + 1
+            sdpa_txt = f"SDPA on columns [{s0}, {s1})"
+            lms = cuda_ms(lambda i: F.scaled_dot_product_attention(
+                qt, caches[i % n_copy][0][:, s0:s1].transpose(1, 2),
+                caches[i % n_copy][1][:, s0:s1].transpose(1, 2),
+                scale=scale, enable_gqa=True), 20)
+        else:
+            amask = ((cols >= st[:, None])
+                     & (cols <= p[:, None]))[:, None, None]
+            sdpa_txt = f"SDPA masked over all {S} rows"
+            lms = cuda_ms(lambda i: F.scaled_dot_product_attention(
+                qt, caches[i % n_copy][0].transpose(1, 2),
+                caches[i % n_copy][1].transpose(1, 2), attn_mask=amask,
+                scale=scale, enable_gqa=True), 20)
         cols_read = int((p - st).clamp(min=0).sum())
         nbytes = (2 * cols_read * KVH * HD * 2 + 2 * B * HEADS * HD * 2
                   + 4 * B * KVH * HD * 2)
         bms, by = bound(nbytes, 4 * HEADS * HD * (cols_read + B), BF16_FLOPS)
         log(f"kernel attn_decode {label:24s} B={B} S={S}: cache rows equal, "
             f"max |d| {err:.3g} ({ulps:.2f} bf16 ulp at max |ref| {mag:.3g}); "
-            f"{ms:.4f} ms vs plain {pms:.4f} ms, SDPA {lms:.4f} ms, bound "
-            f"{bms:.3g} ms ({by}); {nbytes / ms / 1e6:.1f} GB/s")
+            f"{ms:.4f} ms vs plain {pms:.4f} ms, {sdpa_txt} {lms:.4f} ms"
+            f"{' (faster than the kernel)' if lms < ms else ''}, bound "
+            f"{bms:.4f} ms ({by}); {nbytes / ms / 1e6:.1f} GB/s")
         s = summary["attn_decode"]
         s["max_abs_err"] = max(s["max_abs_err"], err)
         if main:
@@ -887,27 +921,34 @@ def sass_functions(lib) -> dict:
     return funcs
 
 
-# the Hopper-native kernels and the warpgroup product each must contain
-HOPPER_SASS = {"gemm_tma_kernel": "IGMMA", "flash_causal_kernel": "HGMMA"}
+# the tensor-core kernels: the product instruction each must contain (wgmma
+# IGMMA / HGMMA, mma.sync IMMA / HMMA) and its copy into shared memory (TMA
+# UTMALDG, cp.async LDGSTS)
+HOPPER_SASS = {"gemm_tma_kernel": ("IGMMA", "UTMALDG"),
+               "flash_causal_kernel": ("HGMMA", "UTMALDG"),
+               "gemv_tc_kernel": ("IMMA", "UTMALDG"),
+               "decode_attn_kernel": ("HMMA", "LDGSTS")}
 
 
 def sass_hopper_kernels(funcs: dict) -> None:
-    """Phase 2: counts of wgmma (``IGMMA`` / ``HGMMA``) and TMA load
-    (``UTMALDG``) instructions in each instantiation of the TMA + wgmma
-    kernels; fails if one has none of either, so that an mma.sync kernel
-    cannot pass for them."""
-    for kern, mma in HOPPER_SASS.items():
+    """Phase 2: counts of the tensor-core product and the shared-memory copy
+    instructions (and TMA / bulk copies: ``UTMALDG``, ``UBLKCP``) in each
+    instantiation of the tensor-core kernels; fails if one lacks its product
+    or its copy, so that a CUDA-core kernel cannot pass for them."""
+    for kern, (mma, cp) in HOPPER_SASS.items():
         hits = {k: v for k, v in funcs.items() if kern in k}
         if not hits:
             raise AssertionError(f"sass: {kern} not found in the library")
         for fn, code in sorted(hits.items()):
             op = lambda name: sum(  # noqa: E731 (a predicate may lead)
                 bool(re.match(rf"(@!?U?P\w+\s+)?{name}\b", i)) for i in code)
-            n_mma, n_tma = op(mma), op("UTMALDG")
-            log(f"sass: {fn}: {len(code)} instructions, {mma} {n_mma}, "
-                f"UTMALDG {n_tma}")
-            if n_mma == 0 or n_tma == 0:
-                raise AssertionError(f"sass: {fn} has no {mma} or no UTMALDG")
+            n_mma, n_cp = op(mma), op(cp)
+            extra = "".join(f", {c} {op(c)}" for c in ("UTMALDG", "UBLKCP")
+                            if c != cp)
+            log(f"sass: {fn}: {len(code)} instructions, {mma} {n_mma}, {cp} "
+                f"{n_cp}{extra}")
+            if n_mma == 0 or n_cp == 0:
+                raise AssertionError(f"sass: {fn} has no {mma} or no {cp}")
 
 
 def sass_unpack_variants(funcs: dict) -> None:
@@ -921,11 +962,11 @@ def sass_unpack_variants(funcs: dict) -> None:
         hits = [v for k, v in funcs.items() if key in k]
         return hits[0] if len(hits) == 1 else None
 
-    # the GemvW enum of qmm.cu: kW4 = 1, kP0 .. kP3 = 2 .. 5
+    # the GemvW enum of qmm.cu: kP0 .. kP3 = 2 .. 5
     for mc in (1, 4):
         for tail in (0, 1):
             c = {n: code(wt, mc, tail) for n, wt in
-                 (("W4", 1), ("P0", 2), ("P1", 3), ("P2", 4), ("P3", 5))}
+                 (("P0", 2), ("P1", 3), ("P2", 4), ("P3", 5))}
             if any(v is None for v in c.values()):
                 log(f"sass: rows {mc}, tail {tail}: instantiation not found")
                 continue
@@ -1718,6 +1759,30 @@ def attention_events(store: list):
         L.attention = attention
 
 
+# device kernels of the decode GEMVs and attention, by the profiler's names
+STEP_DEVICE_OPS = {"w4a8_gemv": ("gemv_tc_kernel",),
+                   "attn_decode": ("decode_attn_kernel",)}
+
+
+def log_step_launches(items, calls: dict) -> None:
+    """Phase 5: device operations per decode step (the profiler's kernels
+    and memsets), the wrappers' calls per step, and the device launches per
+    W4 GEMV and per attention call (one each: the kernels launch nothing
+    else; the int8 GEMV's memset and epilogue kernel stay)."""
+    ops = sum(n for _, n, _ in items)
+    memsets = sum(n for _, n, key in items if "memset" in key.lower())
+    per_call = {}
+    for w, keys in STEP_DEVICE_OPS.items():
+        dev = sum(n for _, n, key in items if any(k in key for k in keys))
+        if calls.get(w):
+            per_call[w] = round(dev / calls[w], 3)
+    log(f"profile:   launches per step: {ops:.1f} device operations "
+        f"({memsets:.1f} memsets); wrapper calls "
+        + ", ".join(f"{k} {v:.1f}" for k, v in sorted(calls.items()))
+        + "; device launches per call "
+        + ", ".join(f"{k} {v}" for k, v in per_call.items()))
+
+
 def profile_phases(phases, card: str):
     """Phase 5. For each (name, fn, calls per run): wall time with a
     synchronize at each end (best of 3), device busy time (sum of the CUDA
@@ -1740,10 +1805,13 @@ def profile_phases(phases, card: str):
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3 / per)
         wall = min(walls)
+        reset_launches()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
+        calls = {k: n / per for m in kernel_modules()
+                 for k, n in m.LAUNCHES.items() if n}
         items = sorted(((e.self_device_time_total / 1e3 / per, e.count / per,
                          e.key) for e in prof.key_averages()
                         if e.device_type == DeviceType.CUDA
@@ -1757,6 +1825,8 @@ def profile_phases(phases, card: str):
             f"{busy:.2f} ms, idle share {1 - busy / wall:.3f}; card {card}")
         for ms, n, key in items[:TOP_ITEMS]:
             log(f"profile:   {ms:8.3f} ms {n:7.1f}x  {key[:90]}")
+        if name.startswith("decode step"):
+            log_step_launches(items, calls)
         if events:
             att = sum(a.elapsed_time(b) for a, b in events) / per
             log(f"profile:   {att:8.3f} ms {len(events) / per:7.1f}x  "

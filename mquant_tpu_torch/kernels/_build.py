@@ -28,15 +28,16 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # c_void_p, so ctypes passes them as 64-bit values)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
+    # x, w, xs, ws, out, M, K, N, splits, rows per split, out_kind, stream
+    "mq_w4a8_gemv": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, w, xs, ws, acc, out, M, K, N, splits, out_kind, stream
-    "mq_w4a8_gemv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "mq_int8_gemv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, w, xs, ws, out, M, K, N, w4, out_kind, (tokens per block,) stream
     "mq_int8_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "mq_int8_gemm_sm80": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # q, k_new, v_new, k_cache, v_cache, pos, start, out, part, pos_all,
-    # start_all, B, S, H, KVH, splits, scale, stream
-    "mq_attn_decode": [_P] * 9 + [_I] * 7 + [_F, _P],
+    # q, k_new, v_new, k_cache, v_cache, pos, start, out, part, counters,
+    # pos_all, start_all, B, S, H, KVH, splits, scale, stream
+    "mq_attn_decode": [_P] * 10 + [_I] * 7 + [_F, _P],
     # q, k, v, out, B, T, H, KVH, scale, stream
     "mq_flash_attn_causal": [_P] * 4 + [_I] * 4 + [_F, _P],
     # x, w, ws, out, M, K, N, stream

@@ -6,10 +6,11 @@ cache at row ``pos`` and q attends to the cache columns ``start ≤ col < pos``
 plus the new token, carried as a separate softmax term (the JAX kernel's
 algebra: m = max(max scores, s_new), denom = Σ exp + exp(s_new − m),
 out = P·V + p_new·v_new). :func:`attn_decode` launches the hand-written CUDA
-kernel ``mq_attn_decode`` (``csrc/attn.cu``: split-S partials, then a merge
-that adds the new token and writes the row) for a CUDA tensor, or raises;
-:func:`attn_decode_ref` is its plain version, taken only for a CPU tensor.
-``LAUNCHES`` counts the kernel launches.
+kernel ``mq_attn_decode`` (``csrc/attn.cu``: one launch; split-S blocks on
+the tensor cores, the last block of each (batch row, KV head) merges the
+partials, adds the new token and writes the row) for a CUDA tensor, or
+raises; :func:`attn_decode_ref` is its plain version, taken only for a CPU
+tensor. ``LAUNCHES`` counts the kernel launches.
 """
 
 from __future__ import annotations
@@ -24,8 +25,13 @@ LAUNCHES: Dict[str, int] = {"attn_decode": 0}
 
 HEAD_DIM = 128  # the kernel's head width
 MAX_GROUP = 8  # query heads per KV head the kernel holds in registers
-_COLS_PER_SPLIT = 32  # at least this many cache columns per block
-_MAX_SPLITS = 256  # the merge kernel's shared-memory table
+_MIN_COLS = 16  # at least this many cache columns per block
+_MAX_SPLITS = 256  # the merge's shared-memory table
+# arrival counters of the kernel's last-block merge, one buffer per device
+# (zero between calls: the merging block resets its counter). Calls on one
+# device must not overlap, so they run on one stream, as the decoder's do.
+_COUNTERS: Dict[int, torch.Tensor] = {}
+_COUNTERS_MIN = 1024
 
 
 def _rows(x, B: int, device) -> torch.Tensor:
@@ -129,17 +135,46 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _splits(device, B: int, KVH: int, n_cols: int) -> int:
-    """Column splits so that the grid gives every SM about two blocks, with
-    at least ``_COLS_PER_SPLIT`` columns per block."""
-    want = -(-2 * _sm_count(device.index) // (B * KVH))
-    return max(1, min(want, -(-n_cols // _COLS_PER_SPLIT), _MAX_SPLITS))
+def _plan(B: int, KVH: int, n_cols: int, sms: int) -> int:
+    """Column splits per (batch row, KV head): about one block per SM (each
+    split's partial is read back by the merging block, so fewer, longer
+    splits than two a SM), at least ``_MIN_COLS`` columns a block, at most
+    ``_MAX_SPLITS``. ``n_cols`` bounds the columns of any row (the cache
+    length where pos or start lie on the device)."""
+    want = -(-sms // (B * KVH))
+    return max(1, min(want, -(-n_cols // _MIN_COLS), _MAX_SPLITS))
+
+
+def _split_ranges(start: int, pos: int, splits: int) -> list:
+    """The kernel's columns [lo, hi) of each split of one row (csrc/attn.cu,
+    decode_attn_kernel): ceil((pos − start) / splits) columns each from
+    start, clipped to pos; trailing splits may be empty."""
+    n = max(pos - start, 0)
+    chunk = -(-n // splits)
+    return [(start + s * chunk, min(pos, start + (s + 1) * chunk))
+            for s in range(splits)]
+
+
+def _counters(device, n: int) -> torch.Tensor:
+    """The device's zeroed arrival counters (at least ``n``). A new buffer
+    is made only outside CUDA-graph capture (a capture would not run its
+    fill): call once eagerly before capturing."""
+    buf = _COUNTERS.get(device.index)
+    if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("attn_decode: its counters are allocated at "
+                               "the first call; call it once before a CUDA "
+                               "graph capture")
+        buf = torch.zeros(max(n, _COUNTERS_MIN), dtype=torch.int32,
+                          device=device)
+        _COUNTERS[device.index] = buf
+    return buf
 
 
 def attn_decode(q, k_new, v_new, k_cache, v_cache, pos, scale: float,
                 start=None):
     """One-token GQA decode attention with the cache write, in one launch
-    pair (CUDA kernel ``mq_attn_decode``).
+    (CUDA kernel ``mq_attn_decode``).
 
     ``q`` (B, 1, H, hd) post-rope; ``k_new`` / ``v_new`` (B, 1, KVH, hd);
     ``k_cache`` / ``v_cache`` the layer's (B, S, KVH, hd) cache views;
@@ -164,10 +199,11 @@ def attn_decode(q, k_new, v_new, k_cache, v_cache, pos, scale: float,
     start_t, start_v = _per_row(0 if start is None else start, B, q.device)
     # host ints bound the columns read; device indices may reach row S
     n_cols = S if pos_t is not None or start_t is not None else pos_v - start_v
-    splits = _splits(q.device, B, KVH, n_cols)
+    splits = _plan(B, KVH, n_cols, _sm_count(q.device.index))
     G = H // KVH
+    counters = _counters(q.device, B * KVH)
     out = torch.empty((B, 1, H, hd), dtype=q.dtype, device=q.device)
-    part = torch.empty((B * KVH * splits * G * (2 + hd),),
+    part = torch.empty((B * KVH * splits * G * (4 + hd),),
                        dtype=torch.float32, device=q.device)
     from ._build import load
 
@@ -177,8 +213,8 @@ def attn_decode(q, k_new, v_new, k_cache, v_cache, pos, scale: float,
     status = lib.mq_attn_decode(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
         v_cache.data_ptr(), ptr(pos_t), ptr(start_t), out.data_ptr(),
-        part.data_ptr(), pos_v, start_v, B, S, H, KVH, splits, float(scale),
-        stream)
+        part.data_ptr(), counters.data_ptr(), pos_v, start_v, B, S, H, KVH,
+        splits, float(scale), stream)
     LAUNCHES[name] += 1
     if status != 0:
         raise RuntimeError(f"{name}: CUDA error {status}")

@@ -15,24 +15,24 @@
 //     the new row and the output: 8.6 MB at pos = 4223, 2.6 us at 3.35 TB/s.
 //     With batch 1 and 4 KV heads there are only 4 (b, kv head) pairs for
 //     132 SMs, so the column range is split across blocks ("split-S"):
-//     grid (splits, KVH, B). A block holds the G query rows of its KV head
-//     in registers, streams its slice of K and V with 16-byte loads (a
-//     half-warp per column row of 256 B) and keeps an f32 running max, sum
-//     and P.V accumulator (online softmax); its 8 half-warps meet in shared
-//     memory and the block writes one (m, l, acc) partial per query row.
-//     A second small kernel, one block per (b, kv head, query row), merges
-//     the partials with the new-token term (JAX _kernel's m / denom / out
-//     algebra), and the row-0 block writes k_new / v_new into row pos.
-//     Attention never reads row pos from the cache (col < pos), and the
-//     merge runs after the split kernel on the same stream, so the write
-//     races nothing.
-//     Columns outside [start, pos) are never read (stale KV of a reused
-//     slot or a left pad cannot leak in).
+//     grid (splits, KVH, B), one launch. The scores and P.V run on the
+//     tensor cores (mma.sync m16n8k16 bf16, f32 accumulation: the G <= 8
+//     query rows padded to 16) and the online softmax on the fragments in
+//     f32; the last block of each (b, kv head) to finish merges the
+//     splits' partials with the new-token term and writes the new row.
+//     Details at K4 below.
+//     Columns outside [start, pos) are never read: the cp.async of a column
+//     at or past the split's end reads no byte and zero-fills its row
+//     (stale KV of a reused slot or a left pad cannot leak in), and the
+//     softmax masks those zero rows out.
 //     Numerics: the JAX kernel normalizes the probabilities and rounds them
-//     to bf16 before P.V; here P.V runs on f32 unnormalized probabilities
-//     and is divided by the sum at the end, so outputs agree with the plain
-//     version to bf16 rounding, not bit for bit. The written cache rows are
-//     copies, bit-equal.
+//     to bf16 before P.V; here P.V runs on the unnormalized probabilities
+//     (relative to the running max) in f32 precision, as three bf16 terms
+//     on the tensor cores, and the sum is divided out at the end, so
+//     outputs agree with the plain version to bf16 rounding, not bit for
+//     bit; and a batch row agrees with the row served alone, whatever the
+//     split boundaries, as closely as f32 sums in other orders do. The
+//     written cache rows are copies, bit-equal.
 //
 // K5  flash_attn_causal  replaces the library Pallas kernel
 //                  jax.experimental.pallas.ops.tpu.flash_attention that
@@ -64,39 +64,129 @@ namespace {
 constexpr int HD = 128;
 constexpr unsigned FULL = 0xffffffffu;
 
-__device__ __forceinline__ void bf16x8_to_f32(const uint4& u, float f[8]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 t = __bfloat1622float2(h[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
-  }
+// 2^x (ex2.approx: what __expf computes after its multiply by log2(e))
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // ---------------------------------------------------------------------------
-// K4: decode attention, split-S
+// K4: decode attention, split-S, one launch, mma.sync bf16
 // ---------------------------------------------------------------------------
+//
+// Grid (splits, KVH, B): block `split` of (b, kv head) owns the columns
+// [lo, hi) of [start, pos), `chunk` = ceil((pos - start) / splits) each
+// (attn_decode._split_ranges is the same rule). 4 warps. The G <= 8 query
+// rows of the KV head are the A operand of mma.sync.m16n8k16 (rows g < G of
+// an m16 tile, the rest zero), held in registers. K / V tiles of 64 columns
+// x 128 dims come through a 2-stage cp.async ring into padded rows (272 B:
+// the fragment loads are free of bank conflicts); a column at or past hi is
+// zero-filled, never read. Warp w takes columns 16w .. 16w+15 of a tile:
+// S = q K^T (K rows are dim-contiguous: the col-major B operand, one 32-bit
+// load per register), the online softmax on the S fragment in the log2
+// domain (running max and sum per warp), P split into three bf16 terms
+// (hi + mid + lo carry its 24 bits) as the A fragments of P V, V's B
+// fragments by ldmatrix.trans. The 4 warps meet in
+// shared memory and the block writes one (m, l, acc[128]) partial per query
+// row to `part`. Then it counts itself in counters[b, kv head] (after a
+// __threadfence); the block that arrives last merges the splits' partials
+// (read through L2) with the new-token term (JAX _kernel's m / denom / out
+// algebra), writes the output, writes k_new / v_new into cache row pos (no
+// block reads it: every column read is < pos, and every block of the pair
+// has finished), and sets the counter back to 0, so the next call (or a
+// CUDA graph replay) starts from zero with no memset. Calls that share the
+// counters must not overlap (attn_decode.py owns one buffer per device).
+// An empty split (lo >= hi) writes m = -1e30, l = 0, acc = 0: weight 0.
 
-constexpr int DEC_THREADS = 128;              // 4 warps
-constexpr int DEC_HALVES = DEC_THREADS / 16;  // half-warps, one column each
-constexpr int MAXG = 8;                       // query rows per KV head
+constexpr int DEC_THREADS = 128;        // 4 warps
+constexpr int DEC_TILE = 64;            // cache columns per tile, 16 a warp
+constexpr int DEC_LD = HD + 8;          // bf16 per padded smem row (272 B)
+constexpr int DEC_STAGES = 2;
+constexpr int DEC_SMEM = DEC_STAGES * 2 * DEC_TILE * DEC_LD * 2;  // 68 KB
+constexpr int MAXG = 8;                 // query rows per KV head
+constexpr int MAX_SPLITS = 256;         // the merge's weight table
+constexpr int PART = HD + 4;            // floats of a partial: m, l, -, -, acc
 constexpr float NEG_BIG = -1e30f;
 
-// part: (B, KVH, splits, G, 2 + HD) f32 = (m, l, acc[HD]) per query row.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   hopper::smem_u32(dst)),
+               "l"(src), "r"(live ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// d (16 x 8 f32) += a (16 x 16 bf16) . b (16 x 8 bf16)
+__device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(hopper::smem_u32(p)));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
+  return v;
+}
+
+// part: (B, KVH, splits, G, PART) f32 = (m, l, -, -, acc[HD]) per query
+// row (acc 16-byte aligned), m in log2 units (score * scale * log2 e). G:
+// query rows per KV head, a template parameter so the merge's loads are
+// unrolled for exactly G rows.
+template <int G>
 __global__ void __launch_bounds__(DEC_THREADS)
-    decode_split_kernel(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ kc,
-                        const __nv_bfloat16* __restrict__ vc,
-                        const int* __restrict__ pos,
-                        const int* __restrict__ start, int pos_all,
-                        int start_all, float* __restrict__ part, int S, int H,
-                        int KVH, int G, float scale) {
+    decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
+                       const __nv_bfloat16* __restrict__ kn,
+                       const __nv_bfloat16* __restrict__ vn,
+                       __nv_bfloat16* __restrict__ kc,
+                       __nv_bfloat16* __restrict__ vc,
+                       const int* __restrict__ pos,
+                       const int* __restrict__ start, int pos_all,
+                       int start_all, float* __restrict__ part,
+                       unsigned* __restrict__ counters,
+                       __nv_bfloat16* __restrict__ out, int S, int H, int KVH,
+                       float scale) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ float sm_m[DEC_THREADS / 32][MAXG], sm_l[DEC_THREADS / 32][MAXG];
+  __shared__ float sm_pn[MAXG], sm_L[MAXG];
+  __shared__ int sm_last;
   const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
   const int splits = gridDim.x;
-  const int tid = threadIdx.x, half = tid >> 4, hl = tid & 15;
-  const int warp = tid >> 5, wh = half & 1;
-  const int d0 = hl * 8;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const float c2 = scale * 1.4426950408889634f;  // scale · log2(e)
 
   const int p = min(pos ? pos[b] : pos_all, S);
   const int st = max(start ? start[b] : start_all, 0);
@@ -104,174 +194,278 @@ __global__ void __launch_bounds__(DEC_THREADS)
   const int chunk = (n + splits - 1) / splits;
   const int lo = st + split * chunk;
   const int hi = min(p, lo + chunk);
+  const int ntiles = hi > lo ? (hi - lo + DEC_TILE - 1) / DEC_TILE : 0;
 
-  float qf[MAXG][8];
+  // q rows as A fragments: a0 / a2 of row g (dims 16kk + 2t, + 8), rows g + 8
+  // (a1 / a3) and g >= G zero
+  uint32_t qa[HD / 16][2];
+  const __nv_bfloat16* qrow = q + ((long)b * H + kh * G + min(g, G - 1)) * HD;
 #pragma unroll
-  for (int g = 0; g < MAXG; ++g) {
-    if (g < G) {
-      const uint4 u = *reinterpret_cast<const uint4*>(
-          q + ((long)b * H + kh * G + g) * HD + d0);
-      bf16x8_to_f32(u, qf[g]);
-    } else {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) qf[g][i] = 0.f;
-    }
-  }
-  float m[MAXG], l[MAXG], acc[MAXG][8];
-#pragma unroll
-  for (int g = 0; g < MAXG; ++g) {
-    m[g] = NEG_BIG;
-    l[g] = 0.f;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) acc[g][i] = 0.f;
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    qa[kk][0] = g < G ? *reinterpret_cast<const uint32_t*>(
+                            qrow + 16 * kk + 2 * t)
+                      : 0u;
+    qa[kk][1] = g < G ? *reinterpret_cast<const uint32_t*>(
+                            qrow + 16 * kk + 8 + 2 * t)
+                      : 0u;
   }
 
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);
   const long row = (long)KVH * HD;
-  const __nv_bfloat16* kb = kc + (long)b * S * row + kh * HD + d0;
-  const __nv_bfloat16* vb = vc + (long)b * S * row + kh * HD + d0;
-  // both half-warps of a warp step together (the shuffles need the whole
-  // warp); a half-warp past the end computes on zeros and discards them
-  for (int c0 = lo + warp * 2; c0 < hi; c0 += DEC_HALVES) {
-    const int c = c0 + wh;
-    const bool live = c < hi;
-    float kf[8], vf[8];
-    if (live) {
-      bf16x8_to_f32(*reinterpret_cast<const uint4*>(kb + c * row), kf);
-      bf16x8_to_f32(*reinterpret_cast<const uint4*>(vb + c * row), vf);
-    } else {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) kf[i] = vf[i] = 0.f;
+  auto load_tile = [&](int tile, int slot) {
+    __nv_bfloat16* ks = ring + slot * 2 * DEC_TILE * DEC_LD;
+    __nv_bfloat16* vs = ks + DEC_TILE * DEC_LD;
+    const int c0 = lo + tile * DEC_TILE;
+    for (int i = tid; i < DEC_TILE * (HD / 8); i += DEC_THREADS) {
+      const int r = i >> 4, ch = i & 15;
+      const int col = c0 + r;
+      const bool live = col < hi;
+      const long off =
+          ((long)b * S + (live ? col : lo)) * row + (long)kh * HD + ch * 8;
+      cp_async16(ks + r * DEC_LD + ch * 8, kc + off, live);
+      cp_async16(vs + r * DEC_LD + ch * 8, vc + off, live);
     }
-    float s[MAXG];
+  };
+
+  float m2 = NEG_BIG, l = 0.f;  // row g: running max (log2 units), sum share
+  float o[HD / 8][4];
 #pragma unroll
-    for (int g = 0; g < MAXG; ++g) {
-      float t = 0.f;
+  for (int i = 0; i < HD / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+
+  if (ntiles > 0) load_tile(0, 0);
+  cp_async_commit();
+  if (ntiles > 1) load_tile(1, 1);
+  cp_async_commit();
+  for (int tile = 0; tile < ntiles; ++tile) {
+    cp_async_wait<1>();
+    __syncthreads();
+    const int slot = tile & 1;
+    const __nv_bfloat16* ks = ring + slot * 2 * DEC_TILE * DEC_LD;
+    const __nv_bfloat16* vs = ks + DEC_TILE * DEC_LD;
+    const int cw = warp * 16;
+    const int col0 = lo + tile * DEC_TILE + cw;
+    if (col0 < hi) {  // warp-uniform
+      float s[2][4];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) t = fmaf(qf[g][i], kf[i], t);
-      t += __shfl_xor_sync(FULL, t, 8);
-      t += __shfl_xor_sync(FULL, t, 4);
-      t += __shfl_xor_sync(FULL, t, 2);
-      t += __shfl_xor_sync(FULL, t, 1);
-      s[g] = t * scale;
-    }
-    if (live) {
+      for (int j = 0; j < 2; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
-      for (int g = 0; g < MAXG; ++g) {
-        if (g < G) {
-          const float mn = fmaxf(m[g], s[g]);
-          const float a = expf(m[g] - mn);
-          const float pe = expf(s[g] - mn);
-          l[g] = l[g] * a + pe;
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint32_t a[4] = {qa[kk][0], 0u, qa[kk][1], 0u};
 #pragma unroll
-          for (int i = 0; i < 8; ++i) acc[g][i] = fmaf(pe, vf[i], acc[g][i] * a);
-          m[g] = mn;
+        for (int j = 0; j < 2; ++j) {
+          const __nv_bfloat16* kr =
+              ks + (cw + 8 * j + g) * DEC_LD + 16 * kk + 2 * t;
+          mma_bf16(s[j], a, *reinterpret_cast<const uint32_t*>(kr),
+                   *reinterpret_cast<const uint32_t*>(kr + 8));
+        }
+      }
+      // row g's scores: s[j][e] at column col0 + 8j + 2t + e
+      float sv[2][2], mx = NEG_BIG;
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool live = col0 + 8 * j + 2 * t + e < hi;
+          sv[j][e] = live ? s[j][e] * c2 : NEG_BIG;
+          mx = fmaxf(mx, sv[j][e]);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
+      const float mn = fmaxf(m2, mx);
+      const float alpha = exp2_approx(m2 - mn);
+      m2 = mn;
+      float pr[2][2], psum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          pr[j][e] = sv[j][e] > 0.5f * NEG_BIG ? exp2_approx(sv[j][e] - mn)
+                                               : 0.f;
+          psum += pr[j][e];
+        }
+      l = l * alpha + psum;
+#pragma unroll
+      for (int i = 0; i < HD / 8; ++i) {
+        o[i][0] *= alpha;
+        o[i][1] *= alpha;
+      }
+      // P as three bf16 terms (8 + 8 + 8 significant bits: P.V in f32
+      // precision, as the f32 probabilities of the earlier kernel), each the
+      // A fragment of one product, the smallest first
+      uint32_t pa[3][4];
+      {
+        float rem[2][2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) rem[j][e] = pr[j][e];
+#pragma unroll
+        for (int k = 2; k >= 0; --k) {
+          float part_[2][2];
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              part_[j][e] = __bfloat162float(__float2bfloat16_rn(rem[j][e]));
+              rem[j][e] -= part_[j][e];
+            }
+          pa[k][0] = pack_bf16(part_[0][0], part_[0][1]);
+          pa[k][1] = 0u;
+          pa[k][2] = pack_bf16(part_[1][0], part_[1][1]);
+          pa[k][3] = 0u;
+        }
+      }
+      const int mi = lane >> 3, r = lane & 7;
+#pragma unroll
+      for (int jj = 0; jj < HD / 16; ++jj) {
+        uint32_t vb[4];
+        ldsm_x4_trans(vb, vs + (cw + (mi & 1) * 8 + r) * DEC_LD + 16 * jj +
+                              (mi >> 1) * 8);
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          mma_bf16(o[2 * jj], pa[k], vb[0], vb[1]);
+          mma_bf16(o[2 * jj + 1], pa[k], vb[2], vb[3]);
         }
       }
     }
+    __syncthreads();  // the slot is read: it takes tile + 2
+    if (tile + 2 < ntiles) load_tile(tile + 2, slot);
+    cp_async_commit();
   }
+  cp_async_wait<0>();
+  __syncthreads();
 
-  // the 8 half-warps meet in shared memory; thread tid owns dim tid
-  __shared__ float sm_m[DEC_HALVES][MAXG], sm_l[DEC_HALVES][MAXG];
-  __shared__ float sm_acc[DEC_HALVES][MAXG][HD];
-  if (hl == 0) {
+  // the 4 warps meet over the drained ring: so[warp][g][d]
+  l += __shfl_xor_sync(FULL, l, 1);
+  l += __shfl_xor_sync(FULL, l, 2);
+  float* so = reinterpret_cast<float*>(smem);
+  if (g < G) {
+    if (t == 0) {
+      sm_m[warp][g] = m2;
+      sm_l[warp][g] = l;
+    }
 #pragma unroll
-    for (int g = 0; g < MAXG; ++g) {
-      sm_m[half][g] = m[g];
-      sm_l[half][g] = l[g];
+    for (int i = 0; i < HD / 8; ++i) {
+      so[(warp * MAXG + g) * HD + 8 * i + 2 * t] = o[i][0];
+      so[(warp * MAXG + g) * HD + 8 * i + 2 * t + 1] = o[i][1];
     }
   }
-#pragma unroll
-  for (int g = 0; g < MAXG; ++g)
-#pragma unroll
-    for (int i = 0; i < 8; ++i) sm_acc[half][g][d0 + i] = acc[g][i];
   __syncthreads();
-  for (int g = 0; g < G; ++g) {
+  const long pair = (long)b * KVH + kh;
+  const long sstep = (long)G * PART;
+  float* mine = part + (pair * splits + split) * sstep;
+  for (int gg = 0; gg < G; ++gg) {
     float M = NEG_BIG;
 #pragma unroll
-    for (int h = 0; h < DEC_HALVES; ++h) M = fmaxf(M, sm_m[h][g]);
+    for (int w = 0; w < DEC_THREADS / 32; ++w) M = fmaxf(M, sm_m[w][gg]);
     float L = 0.f, A = 0.f;
 #pragma unroll
-    for (int h = 0; h < DEC_HALVES; ++h) {
-      const float w = expf(sm_m[h][g] - M);
-      L = fmaf(w, sm_l[h][g], L);
-      A = fmaf(w, sm_acc[h][g][tid], A);
+    for (int w = 0; w < DEC_THREADS / 32; ++w) {
+      const float e = exp2f(sm_m[w][gg] - M);
+      L = fmaf(e, sm_l[w][gg], L);
+      A = fmaf(e, so[(w * MAXG + gg) * HD + tid], A);
     }
-    float* dst = part + ((((long)b * KVH + kh) * splits + split) * G + g) *
-                            (2 + HD);
     if (tid == 0) {
-      dst[0] = M;
-      dst[1] = L;
+      mine[gg * PART] = M;
+      mine[gg * PART + 1] = L;
     }
-    dst[2 + tid] = A;
+    mine[gg * PART + 4 + tid] = A;
   }
-}
-
-constexpr int MAX_SPLITS = 256;
-
-// Sum (or max) of one value per thread over the 128-thread block.
-template <bool MAX>
-__device__ __forceinline__ float block_reduce(float v, float* red) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const float u = __shfl_xor_sync(FULL, v, o);
-    v = MAX ? fmaxf(v, u) : v + u;
-  }
-  __syncthreads();  // red is free again
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __threadfence();
   __syncthreads();
-  v = red[0];
+  if (tid == 0)
+    sm_last = atomicAdd(&counters[pair], 1u) == (unsigned)(splits - 1);
+  __syncthreads();
+  if (!sm_last) return;
+  __threadfence();
+
+  // the last block of (b, kv head): merge the splits and the new token.
+  // Warp w takes query rows w, w + 4: the new score, every split's (m, l)
+  // in one load a lane, M, the split weights 2^(m_s - M) into wsm, and L.
+  // Then warp w sums the acc rows of splits w, w + 4, ... (4 dims a lane,
+  // 4 splits a round: 4 G 16-byte loads in flight a thread), and the 4
+  // warps meet in shared memory.
+  float* wsm = so + (DEC_THREADS / 32) * MAXG * HD;  // [MAXG][MAX_SPLITS]
+  const float* all = part + pair * splits * sstep;
+  const __nv_bfloat16* knr = kn + pair * HD;
+  const __nv_bfloat16* vnr = vn + pair * HD;
+  for (int gg = warp; gg < G; gg += DEC_THREADS / 32) {
+    const __nv_bfloat16* qr = q + ((long)b * H + kh * G + gg) * HD;
+    float dot = 0.f;
+    for (int d = lane; d < HD; d += 32)
+      dot = fmaf(__bfloat162float(qr[d]), __bfloat162float(knr[d]), dot);
+    const float snew = warp_sum(dot) * c2;
+    float2 ml[MAX_SPLITS / 32];
+    float M = snew;
 #pragma unroll
-  for (int w = 1; w < HD / 32; ++w) v = MAX ? fmaxf(v, red[w]) : v + red[w];
-  return v;
-}
-
-// One block per (query row g, kv head, b); thread d owns output dim d. The
-// split weights exp(m_s - M) are computed once, in parallel over the splits,
-// so the accumulation over splits is independent loads.
-__global__ void __launch_bounds__(HD)
-    decode_merge_kernel(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ kn,
-                        const __nv_bfloat16* __restrict__ vn,
-                        __nv_bfloat16* __restrict__ kc,
-                        __nv_bfloat16* __restrict__ vc,
-                        const int* __restrict__ pos, int pos_all,
-                        const float* __restrict__ part,
-                        __nv_bfloat16* __restrict__ out, int S, int H, int KVH,
-                        int G, int splits, float scale) {
-  const int g = blockIdx.x, kh = blockIdx.y, b = blockIdx.z, d = threadIdx.x;
-  __shared__ float red[HD / 32];
-  __shared__ float wsm[MAX_SPLITS];
-  const long nrow = ((long)b * KVH + kh) * HD + d;
-  const __nv_bfloat16 knb = kn[nrow], vnb = vn[nrow];
-  const long qrow = ((long)b * H + kh * G + g) * HD;
-  const float snew =
-      block_reduce<false>(__bfloat162float(q[qrow + d]) *
-                              __bfloat162float(knb), red) * scale;
-
-  const long sstep = (long)G * (2 + HD);
-  const float* src = part + (((long)b * KVH + kh) * splits * G + g) * (2 + HD);
-  float M = snew;
-  for (int s = d; s < splits; s += HD) M = fmaxf(M, src[s * sstep]);
-  M = block_reduce<true>(M, red);
-  float L = 0.f;
-  for (int s = d; s < splits; s += HD) {
-    const float w = expf(src[s * sstep] - M);
-    wsm[s] = w;
-    L = fmaf(w, src[s * sstep + 1], L);
+    for (int i = 0; i < MAX_SPLITS / 32; ++i) {
+      const int s = min(lane + 32 * i, splits - 1);
+      ml[i] = __ldcg(reinterpret_cast<const float2*>(all + s * sstep +
+                                                     gg * PART));
+      M = fmaxf(M, ml[i].x);
+    }
+    M = warp_max(M);
+    float L = 0.f;
+#pragma unroll
+    for (int i = 0; i < MAX_SPLITS / 32; ++i) {
+      const int s = lane + 32 * i;
+      const float w = s < splits ? exp2f(ml[i].x - M) : 0.f;
+      if (s < splits) wsm[gg * MAX_SPLITS + s] = w;
+      L = fmaf(w, ml[i].y, L);
+    }
+    L = warp_sum(L);
+    if (lane == 0) {
+      const float pn = exp2f(snew - M);
+      sm_pn[gg] = pn;
+      sm_L[gg] = L + pn;
+    }
   }
-  const float pn = expf(snew - M);
-  L = block_reduce<false>(L, red) + pn;  // its barriers publish wsm too
-  float A = pn * __bfloat162float(vnb);
-#pragma unroll 4
-  for (int s = 0; s < splits; ++s) A = fmaf(wsm[s], src[s * sstep + 2 + d], A);
-  out[qrow + d] = __float2bfloat16_rn(A / L);
-
-  const int p = pos ? pos[b] : pos_all;
-  if (g == 0 && p >= 0 && p < S) {
-    const long idx = (((long)b * S + p) * KVH + kh) * HD + d;
-    kc[idx] = knb;
-    vc[idx] = vnb;
+  __syncthreads();
+  float4 a[G];
+#pragma unroll
+  for (int gg = 0; gg < G; ++gg) a[gg] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int s0 = warp; s0 < splits; s0 += 4 * (DEC_THREADS / 32)) {
+    float4 v[4][G];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int sc = min(s0 + 4 * u, splits - 1);
+#pragma unroll
+      for (int gg = 0; gg < G; ++gg)
+        v[u][gg] = __ldcg(reinterpret_cast<const float4*>(
+                              all + sc * sstep + gg * PART + 4) + lane);
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int sn = s0 + 4 * u;
+#pragma unroll
+      for (int gg = 0; gg < G; ++gg) {
+        const float w = sn < splits ? wsm[gg * MAX_SPLITS + sn] : 0.f;
+        a[gg].x = fmaf(w, v[u][gg].x, a[gg].x);
+        a[gg].y = fmaf(w, v[u][gg].y, a[gg].y);
+        a[gg].z = fmaf(w, v[u][gg].z, a[gg].z);
+        a[gg].w = fmaf(w, v[u][gg].w, a[gg].w);
+      }
+    }
   }
+  float4* red = reinterpret_cast<float4*>(so);  // [warp][MAXG][HD / 4]
+#pragma unroll
+  for (int gg = 0; gg < G; ++gg) red[(warp * MAXG + gg) * (HD / 4) + lane] = a[gg];
+  __syncthreads();
+  const float vd = __bfloat162float(vnr[tid]);
+#pragma unroll
+  for (int gg = 0; gg < G; ++gg) {
+    float A = sm_pn[gg] * vd;
+#pragma unroll
+    for (int w = 0; w < DEC_THREADS / 32; ++w) A += so[(w * MAXG + gg) * HD + tid];
+    out[((long)b * H + kh * G + gg) * HD + tid] =
+        __float2bfloat16_rn(A / sm_L[gg]);
+  }
+  if (p >= 0 && p < S) {
+    const long idx = ((long)b * S + p) * row + (long)kh * HD + tid;
+    kc[idx] = knr[tid];
+    vc[idx] = vnr[tid];
+  }
+  if (tid == 0) counters[pair] = 0u;
 }
 
 // ---------------------------------------------------------------------------
@@ -297,18 +491,6 @@ constexpr int FA_HALF = 128 * 128;  // bytes of one 128-row x 64-dim box
 constexpr int FA_TILE = 2 * FA_HALF;
 constexpr int FA_STAGES = 2;
 constexpr int FA_SMEM = FA_TILE * (1 + 2 * FA_STAGES) + 1024 + 64;
-
-// 2^x (ex2.approx: what __expf computes after its multiply by log2(e))
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // d (64 x 128 f32) (+)= A (64 x 16, descriptor) . B (16 x 128, descriptor)
 __device__ __forceinline__ void wgmma_bf16_ss(float d[64], uint64_t da,
@@ -543,6 +725,29 @@ __global__ void __launch_bounds__(FA_THREADS, 1)
   }
 }
 
+template <int G>
+int launch_decode(const void* q, const void* kn, const void* vn, void* kc,
+                  void* vc, const void* pos, const void* start, void* out,
+                  void* part, void* counters, int pos_all, int start_all,
+                  int B, int S, int H, int KVH, int splits, float scale,
+                  void* stream) {
+  static bool attr = false;
+  if (!attr) {
+    const int err = (int)cudaFuncSetAttribute(
+        decode_attn_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        DEC_SMEM);
+    if (err) return err;
+    attr = true;
+  }
+  decode_attn_kernel<G><<<dim3(splits, KVH, B), DEC_THREADS, DEC_SMEM,
+                          (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)kn,
+      (const __nv_bfloat16*)vn, (__nv_bfloat16*)kc, (__nv_bfloat16*)vc,
+      (const int*)pos, (const int*)start, pos_all, start_all, (float*)part,
+      (unsigned*)counters, (__nv_bfloat16*)out, S, H, KVH, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -552,23 +757,26 @@ extern "C" {
 // = kn / vn (B, KVH, 128). pos / start: (B,) int32 on the device, or null
 // for one value of every row, passed by value in pos_all / start_all (a
 // decode step's host position: no copy or fill kernel per layer). part: f32
-// scratch of B * KVH * splits * G * 130; splits <= 256.
+// scratch of B * KVH * splits * G * 132; counters: B * KVH unsigned, zero
+// before the call and zero after it. One launch; H / KVH <= 8, splits <= 256.
 int mq_attn_decode(const void* q, const void* kn, const void* vn, void* kc,
                    void* vc, const void* pos, const void* start, void* out,
-                   void* part, int pos_all, int start_all, int B, int S, int H,
-                   int KVH, int splits, float scale, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const int G = H / KVH;
-  decode_split_kernel<<<dim3(splits, KVH, B), DEC_THREADS, 0, st>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)kc,
-      (const __nv_bfloat16*)vc, (const int*)pos, (const int*)start, pos_all,
-      start_all, (float*)part, S, H, KVH, G, scale);
-  decode_merge_kernel<<<dim3(G, KVH, B), HD, 0, st>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)kn,
-      (const __nv_bfloat16*)vn, (__nv_bfloat16*)kc, (__nv_bfloat16*)vc,
-      (const int*)pos, pos_all, (const float*)part, (__nv_bfloat16*)out, S, H,
-      KVH, G, splits, scale);
-  return (int)cudaGetLastError();
+                   void* part, void* counters, int pos_all, int start_all,
+                   int B, int S, int H, int KVH, int splits, float scale,
+                   void* stream) {
+  if (B < 1 || S < 1 || KVH < 1 || H % KVH || H / KVH < 1 ||
+      H / KVH > MAXG || splits < 1 || splits > MAX_SPLITS)
+    return (int)cudaErrorInvalidValue;
+  switch (H / KVH) {
+    case 1: return launch_decode<1>(q, kn, vn, kc, vc, pos, start, out, part, counters, pos_all, start_all, B, S, H, KVH, splits, scale, stream);
+    case 2: return launch_decode<2>(q, kn, vn, kc, vc, pos, start, out, part, counters, pos_all, start_all, B, S, H, KVH, splits, scale, stream);
+    case 3: return launch_decode<3>(q, kn, vn, kc, vc, pos, start, out, part, counters, pos_all, start_all, B, S, H, KVH, splits, scale, stream);
+    case 4: return launch_decode<4>(q, kn, vn, kc, vc, pos, start, out, part, counters, pos_all, start_all, B, S, H, KVH, splits, scale, stream);
+    case 5: return launch_decode<5>(q, kn, vn, kc, vc, pos, start, out, part, counters, pos_all, start_all, B, S, H, KVH, splits, scale, stream);
+    case 6: return launch_decode<6>(q, kn, vn, kc, vc, pos, start, out, part, counters, pos_all, start_all, B, S, H, KVH, splits, scale, stream);
+    case 7: return launch_decode<7>(q, kn, vn, kc, vc, pos, start, out, part, counters, pos_all, start_all, B, S, H, KVH, splits, scale, stream);
+    default: return launch_decode<8>(q, kn, vn, kc, vc, pos, start, out, part, counters, pos_all, start_all, B, S, H, KVH, splits, scale, stream);
+  }
 }
 
 // out (B, T, H, 128) = causal softmax(q k^T * scale) v; q (B, T, H, 128),

@@ -7,7 +7,10 @@
 //                _qmm_w4_kernel_nok / _qmm_w4_kernel). Decode GEMV on
 //                split-half packed int4 weights: byte row r of the (K/2, N)
 //                matrix holds weight row r in its low nibble and row r+K/2 in
-//                its high nibble.
+//                its high nibble. One launch (gemv_tc_kernel): TMA streams W,
+//                mma.sync s8 on the tensor cores reads it once for any
+//                M <= 32, the K splits of a channel tile meet through a
+//                thread block cluster's distributed shared memory.
 // K2  int8_gemv  replaces qmm.py::_qmm_pallas_gemv (_gemv_kernel): the same
 //                GEMV on int8 (K, N) weights (the int8 lm_head).
 // K3  int8_gemm  replaces the M>32 branch of qmm.py::_qmm_pallas_w4
@@ -22,19 +25,21 @@
 //                packed-W4 GEMV to int32 with the nibbles unpacked three
 //                ways (P1 i32 mask / select, P2 int8 shifts, P3 i32 shifts)
 //                and P0, x_lo . int8(packed bytes) without an unpack (the
-//                probe's bound on the packed stream, not the W4 product). K1's
-//                GEMV with the unpack as a template parameter: the loads,
-//                the __dp4a loop, the split-K reduction are K1's.
+//                probe's bound on the packed stream, not the W4 product).
+//                K2's GEMV (gemv_kernel) with the unpack as a template
+//                parameter: the loads, the __dp4a loop, the split-K
+//                reduction are K2's.
 //
-// What bounds them on an H100. The GEMVs stream the weight once per token:
-// 0.5 B per weight (K1) or 1 B (K2) against ~3.35 TB/s of HBM; the x vector
-// is a few KB and stays in L1/L2. The design therefore reads each weight byte
-// once with 16-byte loads (a warp covers 512 contiguous bytes of a row),
-// unpacks nibbles in registers with word-wide (SWAR) masks, and spends the
-// arithmetic on __dp4a (4 int8 MACs per instruction) so the integer pipe
-// stays under the byte rate. Narrow-N sites (N = 3584) split K across blocks
-// so every SM has a slice of the stream; partial sums meet in an int32
-// workspace through atomicAdd, which is exact and order-independent.
+// What bounds them on an H100. The GEMVs stream the weight once per call:
+// 0.5 B per weight (K1) or 1 B (K2) against ~3.35 TB/s of HBM; the x rows
+// are a few KB and stay in L1/L2. K1 reads each weight byte once by TMA and
+// puts the products on the tensor cores (mma.sync with the token rows as
+// the n8 side), so neither the integer pipe nor M moves the byte count;
+// narrow-N sites (N = 3584) split K across the blocks of a cluster so every
+// SM has a slice of the stream. K2 (and K13) read each byte
+// with 16-byte loads (a warp covers 512 contiguous bytes of a row), spend
+// the arithmetic on __dp4a (4 int8 MACs per instruction), and meet their K
+// splits in an int32 workspace through atomicAdd (exact, any order).
 // The GEMM at prefill (M = 1024) is bound by int8 tensor-core throughput.
 // K3's main kernel is Hopper-native (gemm_tma_kernel): TMA loads of x and
 // the raw W tile through an mbarrier ring, wgmma with W^T built in
@@ -65,6 +70,7 @@
 // a tensor is read. The host picks them only for such shapes: aligned shapes
 // run the plain vector loads (the predicates cost the GEMM ~15% on the card).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -151,15 +157,13 @@ constexpr int GV_TY = 32;    // K slices inside a block, 4 rows each step
 constexpr int GV_BN = GV_TX * 16;
 
 // The weight forms of the GEMV (template parameter WT):
-// kW4: w is (R = K/2, N) packed bytes; x row m contributes x[m, r] to the low
-// plane and x[m, R + r] to the high one. The dot runs on biased nibbles
-// u = w + 8 (two masks per word), and 8 * sum(x) is taken off at the end:
-// x.w = x.u - 8 * sum(x), exactly.
 // kW8: w is (R = K, N) int8.
-// kP1 .. kP3 (K13): kW4's product with signed nibbles unpacked byte by byte
-// (unpack_probe); kP0: x[m, :R] . int8(packed bytes), kW8's loop on the
-// packed matrix.
-enum GemvW { kW8 = 0, kW4 = 1, kP0 = 2, kP1 = 3, kP2 = 4, kP3 = 5 };
+// kP1 .. kP3 (K13): w is (R = K/2, N) packed bytes; x row m contributes
+// x[m, r] to the low plane and x[m, R + r] to the high one, with signed
+// nibbles unpacked byte by byte (unpack_probe); kP0: x[m, :R] . int8(packed
+// bytes), kW8's loop on the packed matrix. (The values are the template
+// arguments chip_smoke.py's SASS report looks for.)
+enum GemvW { kW8 = 0, kP0 = 2, kP1 = 3, kP2 = 4, kP3 = 5 };
 
 // The signed nibbles of the 4 packed bytes of w as the probe's three unpacks
 // compute them (w4_unpack_tune.py:52-69), each byte alone; lo / hi receive
@@ -206,10 +210,8 @@ __global__ void __launch_bounds__(GV_TX* GV_TY)
 
   for (int m0 = 0; m0 < M; m0 += MC) {
     int acc[MC][16];
-    int xsum[MC];
 #pragma unroll
     for (int mi = 0; mi < MC; ++mi) {
-      xsum[mi] = 0;
 #pragma unroll
       for (int c = 0; c < 16; ++c) acc[mi][c] = 0;
     }
@@ -237,10 +239,6 @@ __global__ void __launch_bounds__(GV_TX* GV_TY)
             xhi[mi] =
                 (kHi && live) ? *reinterpret_cast<const int*>(xr + R + r) : 0;
           }
-          if (WT == kW4) {
-            xsum[mi] = __dp4a(xlo[mi], 0x01010101, xsum[mi]);
-            xsum[mi] = __dp4a(xhi[mi], 0x01010101, xsum[mi]);
-          }
         }
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
@@ -253,15 +251,7 @@ __global__ void __launch_bounds__(GV_TX* GV_TY)
           if constexpr (kHi) {
             uint32_t lo[4], hi[4], loc[4], hic[4];
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              if constexpr (WT == kW4) {
-                const uint32_t u = rows[i] ^ 0x88888888u;
-                lo[i] = u & 0x0F0F0F0Fu;
-                hi[i] = (u >> 4) & 0x0F0F0F0Fu;
-              } else {
-                unpack_probe<WT>(rows[i], lo[i], hi[i]);
-              }
-            }
+            for (int i = 0; i < 4; ++i) unpack_probe<WT>(rows[i], lo[i], hi[i]);
             transpose4x4(lo, loc);
             transpose4x4(hi, hic);
 #pragma unroll
@@ -289,10 +279,9 @@ __global__ void __launch_bounds__(GV_TX* GV_TY)
     // reduce the 32 K slices: 4 per warp through shuffles, 8 warps in smem
 #pragma unroll
     for (int mi = 0; mi < MC; ++mi) {
-      const int corr = WT == kW4 ? 8 * xsum[mi] : 0;
 #pragma unroll
       for (int c = 0; c < 16; ++c) {
-        int s = acc[mi][c] - corr;
+        int s = acc[mi][c];
         s += __shfl_down_sync(0xffffffffu, s, 16);
         s += __shfl_down_sync(0xffffffffu, s, 8);
         if (lane < 8) red[warp][mi][lane * 16 + c] = s;
@@ -798,6 +787,374 @@ int launch_gemm_tma(const void* x, const void* w, const void* xs,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// K1 on Hopper: one launch, tensor cores, W read once for any M <= 32
+// ---------------------------------------------------------------------------
+//
+// out^T (channels x tokens) = W^T x^T on mma.sync.m16n8k32 s8, the operands
+// swapped as in gemm_tma_kernel: the channels are the 16-row A side, the
+// tokens the n8 side, so M <= 8 is one n8 tile and M <= 32 four, and every
+// packed W byte is read from HBM and unpacked once whatever M is (the
+// dp4a GEMV streams W once per 4 token rows).
+// Block: 128 channels x one K split of `rps` packed rows. Two groups of 4
+// consumer warps take the even and the odd stages; in a group, warp w owns
+// 32 channels (two m16 tiles: thread (g, t) holds channels 4c..4c+3,
+// c = 8w + g, as rows g / g+8 of tile 0 and tile 1); warp 8 is the TMA
+// producer. A stage is one TMA box of 32 packed rows x 128 channels (4 KB,
+// 128-byte swizzle), TV_STAGES in flight. Per stage a consumer warp
+// loads its 4x4-byte quads, unpacks the signed nibbles (no 8*sum(x)
+// correction) and transposes them with prmt into the A fragments of the low
+// plane (W rows r) and the high plane (W rows K/2 + r); the B fragments are
+// words of x rows (K-contiguous), x columns [r, r+32) and [K/2 + r, ...),
+// loaded from global memory (L1 / L2) one stage ahead.
+// The K splits of one channel tile form a thread block cluster (grid.x =
+// splits = cluster size <= 8). Each block leaves its int32 partial tile in
+// its own shared memory (over the drained stage ring); after a cluster
+// barrier every block sums its share of the tile over the cluster's blocks
+// through distributed shared memory, applies the epilogue and stores. No
+// workspace, memset, atomics or second kernel: one launch, graph-capturable
+// (one split launches without a cluster). Splits are whole 32-row stages;
+// rows past K/2 are zero-filled by TMA and meet zero x words. At M = 1 the same kernel takes the product on
+// __dp4a instead (dp4a_row: W straight into registers, no TMA): at one token
+// row the card streams W faster that way (PERF.md, Findings), and the K splits
+// still meet through the cluster, in the one launch. Contract (mq_w4a8_gemv
+// checks it): M <= 32, K even, N % 16 == 0, W 16-byte aligned (TMA's row
+// stride), rps % 32 == 0.
+
+constexpr int TV_BN = 128;               // channels per block
+constexpr int TV_BR = 32;                // packed rows per stage: one k32 step
+constexpr int TV_STAGE = TV_BR * TV_BN;  // bytes of a stage (4 KB)
+constexpr int TV_STAGES = 8;
+constexpr int TV_THREADS = 288;          // 8 consumer warps + the producer
+constexpr int TV_MAX_CLUSTER = 8;        // the portable cluster size
+constexpr int TV_SMEM = TV_STAGES * TV_STAGE + 1024 + 2 * 8 * TV_STAGES;
+
+// x word base[c .. c+3], zero at or past `limit` (TAIL: any alignment)
+template <bool TAIL>
+__device__ __forceinline__ uint32_t x_word(const int8_t* base, int c,
+                                           int limit) {
+  if (TAIL) return load4_tail(base, c, limit);
+  return c < limit ? __ldg(reinterpret_cast<const unsigned int*>(base + c))
+                   : 0u;
+}
+
+// the B fragments of one stage: token tile nb's words of the low plane
+// (columns r + 4t, r + 16 + 4t) and of the high plane (K/2 + the same)
+template <int NB, bool TAIL>
+__device__ __forceinline__ void load_x_frags(const int8_t* x, int M, int K,
+                                             int r, int r_end, int g, int t,
+                                             uint32_t (&xb)[NB][2][2]) {
+  const int R = K / 2;
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb) {
+    const int m = nb * 8 + g;
+    if (m < M) {
+      const int8_t* xr = x + (long)m * K;
+      xb[nb][0][0] = x_word<TAIL>(xr, r + 4 * t, r_end);
+      xb[nb][0][1] = x_word<TAIL>(xr, r + 16 + 4 * t, r_end);
+      xb[nb][1][0] = x_word<TAIL>(xr + R, r + 4 * t, r_end);
+      xb[nb][1][1] = x_word<TAIL>(xr + R, r + 16 + 4 * t, r_end);
+    } else {
+      xb[nb][0][0] = xb[nb][0][1] = xb[nb][1][0] = xb[nb][1][1] = 0u;
+    }
+  }
+}
+
+// the epilogue of 4 neighbouring channels n0..n0+3 of token m
+__device__ __forceinline__ void store_out4(void* out, int out_kind, long idx,
+                                           int4 v, float x,
+                                           const float* __restrict__ wsc,
+                                           int n0) {
+  if (out_kind == 2) {
+    *reinterpret_cast<int4*>(reinterpret_cast<int*>(out) + idx) = v;
+    return;
+  }
+  const float y0 = (static_cast<float>(v.x) * x) * wsc[n0];
+  const float y1 = (static_cast<float>(v.y) * x) * wsc[n0 + 1];
+  const float y2 = (static_cast<float>(v.z) * x) * wsc[n0 + 2];
+  const float y3 = (static_cast<float>(v.w) * x) * wsc[n0 + 3];
+  if (out_kind == 1) {
+    *reinterpret_cast<float4*>(reinterpret_cast<float*>(out) + idx) =
+        make_float4(y0, y1, y2, y3);
+  } else {
+    __nv_bfloat162 p0 = __floats2bfloat162_rn(y0, y1);
+    __nv_bfloat162 p1 = __floats2bfloat162_rn(y2, y3);
+    uint2 u;
+    u.x = *reinterpret_cast<uint32_t*>(&p0);
+    u.y = *reinterpret_cast<uint32_t*>(&p1);
+    *reinterpret_cast<uint2*>(reinterpret_cast<__nv_bfloat16*>(out) + idx) = u;
+  }
+}
+
+// One token row (M = 1, the decode step), where the bytes alone set the
+// bound: warps 0-7 stream the block's rows straight into registers with
+// 16-byte loads and take the product on __dp4a (biased nibbles, 8 * sum(x)
+// taken off), 16 channels x 4 rows a thread a step, as the first W4 kernel
+// did; the card streams W faster this way than through the TMA ring when
+// each W byte meets one token. The block's partial row lands in red[0..127]
+// (rows 1-7 of the tile are not stored), through wred = red + 1024.
+template <bool TAIL>
+__device__ __forceinline__ void dp4a_row(const int8_t* __restrict__ x, int K,
+                                         const int8_t* __restrict__ w, int N,
+                                         int ch0, int r_begin, int r_end,
+                                         int* red) {
+  const int R = K / 2;
+  const int tid = threadIdx.x, tx = tid & 7, ty = tid >> 3;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int col0 = ch0 + tx * 16;
+  int acc[16];
+#pragma unroll
+  for (int c = 0; c < 16; ++c) acc[c] = 0;
+  int xsum = 0;
+  if (col0 < N) {
+    for (int r = r_begin + ty * 4; r < r_end; r += 32 * 4) {
+      uint4 v[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        v[i] = !TAIL || r + i < r_end
+                   ? *reinterpret_cast<const uint4*>(w + (long)(r + i) * N +
+                                                     col0)
+                   : make_uint4(0, 0, 0, 0);
+      const int xlo = TAIL ? (int)load4_tail(x, r, r_end)
+                           : *reinterpret_cast<const int*>(x + r);
+      const int xhi = TAIL ? (int)load4_tail(x + R, r, r_end)
+                           : *reinterpret_cast<const int*>(x + R + r);
+      xsum = __dp4a(xlo, 0x01010101, xsum);
+      xsum = __dp4a(xhi, 0x01010101, xsum);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        uint32_t lo[4], hi[4], loc[4], hic[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const uint4 q = v[i];
+          const uint32_t u =
+              (c == 0 ? q.x : c == 1 ? q.y : c == 2 ? q.z : q.w) ^ 0x88888888u;
+          lo[i] = u & 0x0F0F0F0Fu;
+          hi[i] = (u >> 4) & 0x0F0F0F0Fu;
+        }
+        transpose4x4(lo, loc);
+        transpose4x4(hi, hic);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          acc[c * 4 + j] = __dp4a((int)loc[j], xlo, acc[c * 4 + j]);
+          acc[c * 4 + j] = __dp4a((int)hic[j], xhi, acc[c * 4 + j]);
+        }
+      }
+    }
+  }
+  // the 32 row slices: 4 a warp by shuffles, then the 8 warps
+  int* wred = red + 8 * TV_BN;
+#pragma unroll
+  for (int c = 0; c < 16; ++c) {
+    int s = acc[c] - 8 * xsum;
+    s += __shfl_down_sync(0xffffffffu, s, 16);
+    s += __shfl_down_sync(0xffffffffu, s, 8);
+    if (lane < 8) wred[warp * TV_BN + lane * 16 + c] = s;
+  }
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+  if (tid < TV_BN) {
+    int s = 0;
+#pragma unroll
+    for (int wi = 0; wi < 8; ++wi) s += wred[wi * TV_BN + tid];
+    red[tid] = s;
+  }
+}
+
+template <int NB, bool TAIL>
+__global__ void __launch_bounds__(TV_THREADS)
+    gemv_tc_kernel(const __grid_constant__ CUtensorMap wmap,
+                   const int8_t* __restrict__ w, const int8_t* __restrict__ x,
+                   int M, int K, int N, int rps, const float* __restrict__ xs,
+                   const float* __restrict__ wsc, void* out, int out_kind) {
+  namespace cg = cooperative_groups;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + TV_STAGES * TV_STAGE);
+  uint64_t* empty = full + TV_STAGES;
+  const int R = K / 2;
+  const int r_begin = blockIdx.x * rps;
+  const int r_end = min(R, r_begin + rps);
+  const int steps = max(0, (r_end - r_begin + TV_BR - 1) / TV_BR);
+  const int ch0 = blockIdx.y * TV_BN;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int grp = warp >> 2;         // consumers: stages grp, grp + 2, ...
+  const int c = 8 * (warp & 3) + g;  // channels ch0 + 4c .. + 3
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < TV_STAGES; ++i) {
+      hopper::mbar_init(&full[i], 1);
+      hopper::mbar_init(&empty[i], 4);  // one arrival per warp of a group
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  int acc[2][NB][4];
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][nb][e] = 0;
+
+  if (NB == 1 && M == 1) {  // one token row: dp4a_row, no TMA
+    if (warp < 8)
+      dp4a_row<TAIL>(x, K, w, N, ch0, r_begin, r_end,
+                     reinterpret_cast<int*>(smem));
+  } else if (warp == 8) {  // producer: one thread keeps the ring full
+    if (lane == 0) {
+      hopper::prefetch_map(&wmap);
+      const uint64_t once = hopper::policy_evict_first();
+      for (int s = 0; s < steps; ++s) {
+        const int slot = s % TV_STAGES;
+        hopper::mbar_wait(&empty[slot], ((s / TV_STAGES) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(&full[slot], TV_STAGE);
+        hopper::tma_load_2d(smem + slot * TV_STAGE, &wmap, &full[slot], ch0,
+                            r_begin + s * TV_BR, once);
+      }
+    }
+  } else {
+    // this stage's B fragments and the group's next stage's, loaded ahead
+    uint32_t xb[NB][2][2], xn[NB][2][2] = {};
+    if (grp < steps)
+      load_x_frags<NB, TAIL>(x, M, K, r_begin + grp * TV_BR, r_end, g, t,
+                             xb);
+    for (int s = grp; s < steps; s += 2) {
+      if (s + 2 < steps)
+        load_x_frags<NB, TAIL>(x, M, K, r_begin + (s + 2) * TV_BR, r_end, g,
+                               t, xn);
+      const int slot = s % TV_STAGES;
+      hopper::mbar_wait(&full[slot], (s / TV_STAGES) & 1);
+      uint32_t rows[2][4], lo[2][4], hi[2][4];
+      load_w_quads(smem + slot * TV_STAGE, 0, c, t, rows);
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) unpack_signed(rows[q][i], lo[q][i], hi[q][i]);
+      // the stage's bytes are in registers: the slot may be refilled
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&empty[slot]);
+      uint32_t alo[2][4], ahi[2][4];
+      frags_from_rows(lo, alo[0], alo[1]);
+      frags_from_rows(hi, ahi[0], ahi[1]);
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          mma_s8(acc[j][nb], alo[j], xb[nb][0]);
+          mma_s8(acc[j][nb], ahi[j], xb[nb][1]);
+        }
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          xb[nb][h][0] = xn[nb][h][0];
+          xb[nb][h][1] = xn[nb][h][1];
+        }
+    }
+    // every consumer is done with the ring: it takes the partial tile,
+    // red[token][channel] (token m's channels 4c..4c+3 from the fragments
+    // d0 / d2 of both tiles at column 2t + e), group 0's, then group 1's
+    // added
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    int* red = reinterpret_cast<int*>(smem);
+    for (int turn = 0; turn < 2; ++turn) {
+      if (grp == turn) {
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            int4* dst = reinterpret_cast<int4*>(
+                red + (nb * 8 + 2 * t + e) * TV_BN + 4 * c);
+            int4 v = make_int4(acc[0][nb][e], acc[0][nb][2 + e],
+                               acc[1][nb][e], acc[1][nb][2 + e]);
+            if (turn == 1) {
+              const int4 u = *dst;
+              v.x += u.x;
+              v.y += u.y;
+              v.z += u.z;
+              v.w += u.w;
+            }
+            *dst = v;
+          }
+      }
+      asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    }
+  }
+
+  // the K splits meet: block `rank` sums every cs-th group of 4 channels
+  // over the cluster's partial tiles (int32, exact in any order)
+  __syncwarp();
+  cg::cluster_group cl = cg::this_cluster();
+  cl.sync();
+  const int cs = (int)cl.num_blocks(), rank = (int)cl.block_rank();
+  constexpr int kGroups = NB * 8 * (TV_BN / 4);
+  for (int i = rank * TV_THREADS + threadIdx.x; i < kGroups;
+       i += cs * TV_THREADS) {
+    int4 sum = make_int4(0, 0, 0, 0);
+    for (int q = 0; q < cs; ++q) {
+      const int4 v = cl.map_shared_rank(reinterpret_cast<int4*>(smem), q)[i];
+      sum.x += v.x;
+      sum.y += v.y;
+      sum.z += v.z;
+      sum.w += v.w;
+    }
+    const int m = i / (TV_BN / 4), n0 = ch0 + 4 * (i % (TV_BN / 4));
+    if (m < M && n0 < N)
+      store_out4(out, out_kind, (long)m * N + n0, sum,
+                 out_kind == 2 ? 0.f : xs[m], wsc, n0);
+  }
+  cl.sync();  // no block leaves while another still reads its tile
+}
+
+template <int NB, bool TAIL>
+int launch_gemv_tc(const CUtensorMap& wmap, const void* w, const void* x,
+                   const void* xs,
+                   const void* wsc, void* out, int M, int K, int N,
+                   int splits, int rps, int out_kind, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits, (N + TV_BN - 1) / TV_BN);
+  cfg.blockDim = dim3(TV_THREADS);
+  cfg.dynamicSmemBytes = TV_SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  // one split: no cluster (the cluster barrier then spans the block alone)
+  cfg.numAttrs = splits > 1 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, gemv_tc_kernel<NB, TAIL>, wmap, (const int8_t*)w,
+      (const int8_t*)x, M, K, N, rps, (const float*)xs, (const float*)wsc,
+      out, out_kind);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+template <bool TAIL>
+int launch_gemv_tc_m(const CUtensorMap& wmap, const void* w, const void* x,
+                     const void* xs,
+                     const void* wsc, void* out, int M, int K, int N,
+                     int splits, int rps, int out_kind, cudaStream_t st) {
+  switch ((M + 7) / 8) {
+    case 1:
+      return launch_gemv_tc<1, TAIL>(wmap, w, x, xs, wsc, out, M, K, N, splits,
+                                     rps, out_kind, st);
+    case 2:
+      return launch_gemv_tc<2, TAIL>(wmap, w, x, xs, wsc, out, M, K, N, splits,
+                                     rps, out_kind, st);
+    case 3:
+      return launch_gemv_tc<3, TAIL>(wmap, w, x, xs, wsc, out, M, K, N, splits,
+                                     rps, out_kind, st);
+    default:
+      return launch_gemv_tc<4, TAIL>(wmap, w, x, xs, wsc, out, M, K, N, splits,
+                                     rps, out_kind, st);
+  }
+}
+
 template <int WT, int MC, bool TAIL>
 void gemv(dim3 grid, dim3 block, cudaStream_t stream, const void* x, int M,
           int K, const void* w, int R, int N, int rps, void* acc) {
@@ -947,13 +1304,33 @@ int launch_w8_bf16(const void* x, const void* w, const void* ws, void* out,
 
 extern "C" {
 
-// y (M, N) = epilogue(x (M, K) . W4 packed (K/2, N)). acc: int32 (M, N)
-// workspace; with out_kind 2 it is the result and `out` is unused.
+// y (M, N) = epilogue(x (M, K) . W4 packed (K/2, N)), or the int32
+// accumulator for out_kind 2, in one launch of gemv_tc_kernel: `splits`
+// blocks of `rps` packed rows (a cluster) per 128 channels. Needs 1 <= M <=
+// 32, K even, N % 16 == 0, a 16-byte aligned w, 1 <= splits <= 8 and rps a
+// multiple of 32 with the splits covering K/2 rows, the last one non-empty.
 int mq_w4a8_gemv(const void* x, const void* w, const void* xs, const void* wsc,
-                 void* acc, void* out, int M, int K, int N, int splits,
+                 void* out, int M, int K, int N, int splits, int rps,
                  int out_kind, void* stream) {
-  return launch_gemv<kW4>(x, w, xs, wsc, acc, out, M, K, N, splits, out_kind,
-                           (cudaStream_t)stream);
+  const int R = K / 2;
+  if (M < 1 || M > 32 || K < 2 || K % 2 || N < 16 || N % 16 ||
+      reinterpret_cast<uintptr_t>(w) % 16 || splits < 1 ||
+      splits > TV_MAX_CLUSTER || rps < TV_BR || rps % TV_BR ||
+      (long)splits * rps < R || (long)(splits - 1) * rps >= R)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap wmap;
+  const uint64_t wd[2] = {(uint64_t)N, (uint64_t)R}, wst[1] = {(uint64_t)N};
+  const uint32_t wbox[2] = {TV_BN, TV_BR};
+  const int err = hopper::encode_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
+                                     w, wd, wst, wbox);
+  if (err) return err;
+  // x words read as aligned words only where every one is 4-byte aligned
+  const bool tail = R % 4 || reinterpret_cast<uintptr_t>(x) % 4;
+  const cudaStream_t st = (cudaStream_t)stream;
+  return tail ? launch_gemv_tc_m<true>(wmap, w, x, xs, wsc, out, M, K, N,
+                                       splits, rps, out_kind, st)
+              : launch_gemv_tc_m<false>(wmap, w, x, xs, wsc, out, M, K, N,
+                                        splits, rps, out_kind, st);
 }
 
 int mq_int8_gemv(const void* x, const void* w, const void* xs, const void* wsc,

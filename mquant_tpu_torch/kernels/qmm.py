@@ -12,7 +12,11 @@ Three hand-written CUDA kernels (``csrc/qmm.cu``) carry the int8 compute:
   * :func:`w4a8_gemv` — packed-W4 GEMV, M ≤ 32 (decode q|k|v, o, gate|up,
     down); replaces ``_qmm_pallas_w4_stacked`` / ``_qmm_pallas_w4`` (M ≤ 32).
     A stacked ``(L, in/2, out)`` weight's layer is the view ``w[l]``, so one
-    kernel serves both of the TPU forms.
+    kernel serves both of the TPU forms. One launch: TMA streams W once,
+    ``mma.sync`` on the tensor cores takes every token row (at M = 1 the
+    same kernel streams W into registers for ``__dp4a``, which the card
+    runs faster there), the K splits of a channel tile meet in a thread
+    block cluster (:func:`_gemv_plan`).
   * :func:`int8_gemv` — int8-weight GEMV, M ≤ 32 (the int8 lm_head);
     replaces ``_qmm_pallas_gemv``.
   * :func:`int8_gemm` — int8 GEMM, M > 32, W4 packed or W8 (prefill, ViT,
@@ -38,6 +42,7 @@ raw int32 accumulator (the bit-exact check of the integer dot).
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional
 
 import torch
@@ -51,6 +56,10 @@ LAUNCHES: Dict[str, int] = {"w4a8_gemv": 0, "int8_gemv": 0, "int8_gemm": 0,
                             "w4_unpack_gemv": 0}
 
 GEMV_MAX_M = 32
+# the W4 GEMV's launch plan (csrc/qmm.cu, gemv_tc_kernel): 128 channels a
+# block, K split in steps of 32 packed rows across at most 8 blocks (one
+# thread block cluster, the portable size)
+GEMV_TILE_N, GEMV_STEP_ROWS, GEMV_MAX_CLUSTER = 128, 32, 8
 PROBE_MAX_M = 8  # rows of the probes' GEMVs (the JAX probes' M = 8 tile)
 # w4_unpack_gemv's variants (w4_unpack_tune.py's P0-P3)
 W4_VARIANTS = {0: "P0 packed-dot bound", 1: "P1 i32 mask/where",
@@ -329,25 +338,59 @@ def _gemv_splits(device: torch.device, n_col_blocks: int, rows: int) -> int:
     return max(1, min(want, rows // 128))
 
 
-def _launch_gemv(name, entry, xq, x_scale, w, w_scale, out_dtype, packed):
-    M, K, N = _check_args(name, xq, x_scale, w, w_scale, out_dtype, packed,
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def gemv_supports(M: int, K: int, N: int) -> bool:
+    """The contract of the W4 GEMV kernel (``mq_w4a8_gemv``): 1 ≤ M ≤ 32
+    token rows, an even K (split-half packing) and N % 16 == 0 (TMA's
+    16-byte row stride; every channel quad of a block lies inside N or
+    outside it). Any packed row count and any x alignment."""
+    return 1 <= M <= GEMV_MAX_M and K >= 2 and K % 2 == 0 and N >= 16 \
+        and N % 16 == 0
+
+
+def _check_gemv(name: str, M: int, K: int, N: int, w: torch.Tensor) -> None:
+    """Raises unless the W4 GEMV kernel takes the call: :func:`gemv_supports`
+    and a 16-byte aligned weight (TMA's base address)."""
+    if not gemv_supports(M, K, N) or w.data_ptr() % 16:
+        raise ValueError(f"{name}: needs 1 <= M <= {GEMV_MAX_M}, an even K, "
+                         f"N % 16 == 0 and a 16-byte aligned weight, got "
+                         f"M={M}, K={K}, N={N}")
+
+
+def _gemv_plan(K: int, N: int, sms: int) -> tuple:
+    """(channel tiles, K splits, packed rows per split) of the W4 GEMV: the
+    splits of a tile form one cluster (≤ GEMV_MAX_CLUSTER blocks) and take
+    whole 32-row steps, so that the grid gives every SM about two blocks;
+    the last split may be shorter, none is empty. The plan does not depend
+    on M: every token row meets each W byte in the same block."""
+    R = K // 2
+    tiles = -(-N // GEMV_TILE_N)
+    steps = -(-R // GEMV_STEP_ROWS)
+    splits = max(1, min(GEMV_MAX_CLUSTER, -(-2 * sms // tiles), steps))
+    rps = -(-steps // splits) * GEMV_STEP_ROWS
+    return tiles, -(-R // rps), rps
+
+
+def _launch_gemv(name, entry, xq, x_scale, w, w_scale, out_dtype):
+    M, K, N = _check_args(name, xq, x_scale, w, w_scale, out_dtype, False,
                           max_m=GEMV_MAX_M)
     if xq.device.type == "cpu":
-        ref = w4a8_gemv_ref if packed else int8_gemv_ref
-        return ref(xq, x_scale, w, w_scale, out_dtype)
+        return int8_gemv_ref(xq, x_scale, w, w_scale, out_dtype)
     if xq.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {xq.device}")
-    R = K // 2 if packed else K
-    if N % 16 or (packed and R % 4):
-        raise ValueError(f"{name}: needs N % 16 == 0 (and packed rows % 4 == "
-                         f"0), got N={N}, rows={R}")
+    if N % 16:
+        raise ValueError(f"{name}: needs N % 16 == 0, got N={N}")
     from ._build import load
 
     lib = load()
     acc = torch.empty((M, N), dtype=torch.int32, device=xq.device)
     out = acc if out_dtype == torch.int32 else torch.empty(
         (M, N), dtype=out_dtype, device=xq.device)
-    splits = _gemv_splits(xq.device, -(-N // 128), R)
+    splits = _gemv_splits(xq.device, -(-N // 128), K)
     stream = torch.cuda.current_stream(xq.device).cuda_stream
     status = getattr(lib, entry)(
         xq.data_ptr(), w.data_ptr(), x_scale.data_ptr(), w_scale.data_ptr(),
@@ -451,16 +494,37 @@ def w4_unpack_gemv(xq: torch.Tensor, w_packed: torch.Tensor, variant: int
 
 def w4a8_gemv(xq, x_scale, w_packed, w_scale, out_dtype=torch.bfloat16):
     """y (M, N) = ((x·W) · x_scale) · w_scale for int8 x (M ≤ 32, K) and
-    split-half packed W4 (K/2, N); CUDA kernel ``mq_w4a8_gemv``."""
-    return _launch_gemv("w4a8_gemv", "mq_w4a8_gemv", xq, x_scale, w_packed,
-                        w_scale, out_dtype, packed=True)
+    split-half packed W4 (K/2, N); CUDA kernel ``mq_w4a8_gemv``, one launch
+    (no workspace: ``out_dtype=torch.int32`` is the accumulator itself).
+    On CUDA: :func:`gemv_supports` and a 16-byte aligned weight."""
+    name = "w4a8_gemv"
+    M, K, N = _check_args(name, xq, x_scale, w_packed, w_scale, out_dtype,
+                          True, max_m=GEMV_MAX_M)
+    if xq.device.type == "cpu":
+        return w4a8_gemv_ref(xq, x_scale, w_packed, w_scale, out_dtype)
+    if xq.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {xq.device}")
+    _check_gemv(name, M, K, N, w_packed)
+    from ._build import load
+
+    _, splits, rps = _gemv_plan(K, N, _sm_count(xq.device.index))
+    out = torch.empty((M, N), dtype=out_dtype, device=xq.device)
+    stream = torch.cuda.current_stream(xq.device).cuda_stream
+    status = load().mq_w4a8_gemv(
+        xq.data_ptr(), w_packed.data_ptr(), x_scale.data_ptr(),
+        w_scale.data_ptr(), out.data_ptr(), M, K, N, splits, rps,
+        _OUT_KIND[out_dtype], stream)
+    LAUNCHES[name] += 1
+    _raise_on_status(name, status)
+    return out
+
 
 
 def int8_gemv(xq, x_scale, w, w_scale, out_dtype=torch.bfloat16):
     """The same GEMV on int8 weights (K, N), any K (the RMS split's 18943
     rows of ``down``); CUDA kernel ``mq_int8_gemv``."""
     return _launch_gemv("int8_gemv", "mq_int8_gemv", xq, x_scale, w, w_scale,
-                        out_dtype, packed=False)
+                        out_dtype)
 
 
 def tma_supports(K: int, N: int, packed: bool) -> bool:

@@ -7,7 +7,8 @@ x (8, 18944) against L = 8 distinct stacked layers of split-half packed W4
         output, cast to int32: a timing line; its sums round to bf16)
   A4  : XLA's native S4 storage: TPU-only, not ported (ROADMAP "Do not
         port")
-  W4  : the served ``qmm.w4a8_gemv`` with int32 output (biased nibbles)
+  W4  : the served ``qmm.w4a8_gemv`` with int32 output (at M = 8 its
+        tensor-core path: signed nibbles, W read once for all 8 rows)
   P0  : ``qmm.w4_unpack_gemv`` variant 0: x_lo · int8(packed bytes), no
         unpack (the bound of the packed stream; not the W4 product)
   P1  : variant 1, i32 mask/where unpack

@@ -83,6 +83,61 @@ def test_w4a8_gemv(cuda, M, K, N):
     _check("w4a8_gemv", cuda, M, K, N, True)
 
 
+# every token-row count of the one-launch tensor-core GEMV (one to four n8
+# tiles, partial tiles) at the decode shapes q|k|v and down and at a K whose
+# packed rows are no multiple of 4 (K/2 = 1793: x words read unaligned)
+@pytest.mark.parametrize("M", [1, 2, 3, 4, 5, 8, 16, 31, 32])
+@pytest.mark.parametrize("K,N", [(3584, 4608), (18944, 3584), (3586, 160)])
+def test_w4a8_gemv_rows(cuda, M, K, N):
+    _check("w4a8_gemv", cuda, M, K, N, True)
+
+
+def test_w4a8_gemv_unaligned_x_and_layer_view(cuda):
+    """x rows 2 bytes off 4-byte alignment, and a stacked weight's layer
+    view (the decoder's ``w[l]``): int32 bit-equal to the plain version."""
+    x, xs, w, ws = _operands(cuda, 3, 3586, 4608, True)
+    xo = torch.cat([x.reshape(-1), x.reshape(-1)[:6]])[2:2 + 3 * 3584]
+    xo = xo.reshape(3, 3584)
+    stack = torch.stack([w[:1792], w[1:1793]])
+    for layer in (0, 1):
+        acc = qmm.w4a8_gemv(xo, xs, stack[layer], ws, torch.int32)
+        assert torch.equal(acc, qmm.w4a8_gemv_ref(xo, xs, stack[layer], ws,
+                                                  torch.int32))
+
+
+def test_w4a8_gemv_cuda_graph(cuda):
+    """One launch, capturable: a CUDA graph of the GEMV replayed on two
+    inputs equals eager calls and the plain version, int32 bit for bit."""
+    x, xs, w, ws = _operands(cuda, 8, 3584, 4608, True)
+    qmm.w4a8_gemv(x, xs, w, ws, torch.int32)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = qmm.w4a8_gemv(x, xs, w, ws, torch.int32)
+    for seed in (1, 2):
+        x.copy_(_operands(cuda, 8, 3584, 4608, True, seed=seed)[0])
+        graph.replay()
+        eager = qmm.w4a8_gemv(x, xs, w, ws, torch.int32)
+        torch.cuda.synchronize()
+        assert torch.equal(y, eager)
+        assert torch.equal(y, qmm.w4a8_gemv_ref(x, xs, w, ws, torch.int32))
+
+
+def test_w4a8_gemv_raises_outside_contract(cuda):
+    x, xs, w, ws = _operands(cuda, 2, 64, 40, True)  # N % 16 != 0
+    assert not qmm.gemv_supports(2, 64, 40)
+    with pytest.raises(ValueError):
+        qmm.w4a8_gemv(x, xs, w, ws)
+    x, xs, w, ws = _operands(cuda, 33, 64, 64, True)  # M > 32
+    with pytest.raises(ValueError):
+        qmm.w4a8_gemv(x, xs, w, ws)
+    x, xs, w, ws = _operands(cuda, 2, 64, 64, True)
+    wo = torch.cat([w.reshape(-1), w.reshape(-1)[:8]])[8:].reshape(32, 64)
+    assert wo.data_ptr() % 16 == 8  # a view 8 bytes off 16
+    with pytest.raises(ValueError):
+        qmm.w4a8_gemv(x, xs, wo, ws)
+
+
 # K = 18943: the RMS split's int8 rows of ``down``; other ragged K tails
 @pytest.mark.parametrize("M,K,N", [(1, 3584, 152064), (7, 384, 2048),
                                    (1, 18943, 3584), (3, 18943, 3584),
@@ -377,6 +432,58 @@ def test_flash_attn_causal(cuda, B, T, H, KVH):
     ref = TF.flash_attention_causal_ref(q, k, v, 128**-0.5)
     torch.cuda.synchronize()
     _close(out, ref)
+
+
+# the contract's edges of the one-launch kernel, with the columns outside
+# [start, pos) poisoned: G = 1, 4, 7, 8; a per-row pos with an empty row
+# (pos == start, pos == 0) and a row of pos 1; device indices (33 splits a
+# row on the cache length) with a short row, so most of its splits are empty
+@pytest.mark.parametrize("B,S,H,KVH,pos,start", [
+    (1, 4096, 4, 4, 3000, 17),
+    (2, 512, 8, 2, [300, 5], [0, 5]),
+    (1, 8192, 28, 4, 1, None),
+    (3, 256, 16, 2, [200, 0, 255], [10, 0, 3]),
+    (1, 8192, 28, 4, [10], [0]),
+    (2, 2048, 28, 4, [2047, 3], [1000, 3]),
+])
+def test_attn_decode_edges(cuda, B, S, H, KVH, pos, start):
+    test_attn_decode(cuda, B, S, H, KVH, pos, start)
+
+
+def test_attn_decode_cuda_graph(cuda):
+    """One launch, capturable with device-side pos: a CUDA graph replayed at
+    two positions equals eager calls (written cache rows equal, outputs
+    bit-equal) and the plain version within the bound; the arrival counters
+    are back at zero after every call."""
+    B, S, H, KVH = 2, 2048, 28, 4
+    q, kn, vn, kc, vc = _decode_operands(cuda, B, S, H, KVH, S, None)
+    kc0, vc0 = kc.clone(), vc.clone()
+    pos = torch.tensor([100, 700], dtype=torch.int32, device=cuda)
+    start = torch.tensor([0, 3], dtype=torch.int32, device=cuda)
+    TA.attn_decode(q, kn, vn, kc.clone(), vc.clone(), pos, 128**-0.5,
+                   start=start)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, _, _ = TA.attn_decode(q, kn, vn, kc, vc, pos, 128**-0.5,
+                                   start=start)
+    for p in ([100, 700], [1500, 2]):
+        kc.copy_(kc0)
+        vc.copy_(vc0)
+        pos.copy_(torch.tensor(p, dtype=torch.int32, device=cuda))
+        graph.replay()
+        kc_e, vc_e = kc0.clone(), vc0.clone()
+        eager, _, _ = TA.attn_decode(q, kn, vn, kc_e, vc_e, pos.clone(),
+                                     128**-0.5, start=start)
+        kc_p, vc_p = kc0.clone(), vc0.clone()
+        ref, _, _ = TA.attn_decode_ref(q, kn, vn, kc_p, vc_p, pos.clone(),
+                                       128**-0.5, start=start)
+        torch.cuda.synchronize()
+        assert torch.equal(kc, kc_e) and torch.equal(vc, vc_e)
+        assert torch.equal(kc, kc_p) and torch.equal(vc, vc_p)
+        assert torch.equal(out, eager)
+        _close(out, ref)
+        assert int(TA._COUNTERS[cuda.index or 0].abs().sum()) == 0
 
 
 def test_attention_wrappers_raise_on_unsupported(cuda):
