@@ -8,19 +8,24 @@ Phases, in order (any failed check raises and the script exits non-zero):
    and counts the tensor-core products and shared-memory copies in the SASS
    of the tensor-core kernels: wgmma (``IGMMA`` / ``HGMMA``) and TMA
    (``UTMALDG``) in the GEMM and flash kernels, ``IMMA`` and ``UTMALDG`` in
-   the W4 GEMV, ``HMMA`` and cp.async (``LDGSTS``) in decode attention
+   the W4 GEMV, ``HMMA`` and cp.async (``LDGSTS``) in decode attention,
+   ``HGMMA`` and the bulk copy (``UBLKCP``) in the Hadamard tail kernel
    (fails without them).
 3. kernels: each kernel against its plain PyTorch version at the shapes of
    the main path: int32 accumulators and bf16 outputs bit-equal (the int8
-   GEMM through its route: the TMA kernel inside its contract, the mma.sync
-   one outside, as K = 18943 of the RMS split; the mma.sync kernel also
-   timed at each TMA shape as its predecessor; the document path's 4096-row
+   GEMM through its route: the TMA kernel inside its contract, K = 18943 of
+   the RMS split included (x in rows padded to 16 bytes, as the split's
+   quantizer writes them), the mma.sync one outside (ragged N); the mma.sync
+   kernel also timed at each TMA shape as its predecessor; the document
+   path's 4096-row
    products; the prefill probe's W8 products; the W4 GEMV at 1, 4, 8 and 32
    token rows); the attention
    kernels' written cache rows bit-equal and outputs within 1e-2 of the
    plain version's largest magnitude, with cache columns outside [start,
    pos) poisoned; the fused swiglu → Hadamard → int8 tail's codes within ±1
-   with at most 1% of them differing (the fraction printed); device time per
+   with at most 1% of them differing (the fraction printed; bf16 and f32
+   rows, g and u as the halves of one gate|up row, a token count that is no
+   multiple of the persistent grid); device time per
    call of kernel, plain version and, where one exists, the one PyTorch call
    that computes the same function (``torch._int_mm``; SDPA, over only the
    cache columns the kernel reads where start and pos are one value, masked
@@ -71,7 +76,8 @@ Phases, in order (any failed check raises and the script exits non-zero):
    unfused chain, no tail launch);
    path S adds the RMS first-column split (``down`` as 18943 int8 rows +
    an f32 ``w_col0``: ``int8_gemm`` / ``int8_gemv`` at K = 18943) and
-   serves the full-VLM request.
+   serves the full-VLM request; its prefill's 28 ``down`` calls must launch
+   the TMA kernel (``int8_gemm``) and ``int8_gemm_sm80`` none.
    Each path's prefill and first 7 decode steps are held against the same
    forward with the integer products through their plain versions (logits
    within the bound, greedy tokens equal), and every attention and tail
@@ -79,8 +85,10 @@ Phases, in order (any failed check raises and the script exits non-zero):
 5. profile: wall time (best of 3) and, under ``torch.profiler``, device
    busy time, idle share and the largest device items of the vision tower,
    the 1024-token prefill and a decode step (block Hadamard, then path F's,
-   then path S's decode step), then of the 4096-token prefill and a decode
-   step at position ~4100; and the stream time between CUDA events around
+   then path S's prefill, beside it with ``down`` forced onto the mma.sync
+   kernel, its route before the K tail, and its decode step), then of the
+   4096-token prefill and a decode step at position ~4100; and the stream
+   time between CUDA events around
    every ``layers.attention`` call. For each decode step: device operations
    per step, the wrappers' calls per step, and device launches per W4 GEMV
    and per attention call (one each).
@@ -179,7 +187,12 @@ EDGE_SHAPES = [
     ("int8_gemm", "ragged W8", 333, 1280, 1000, False),
     ("int8_gemm", "ragged W4", 77, 3584, 4100, True),
     ("int8_gemm", "ragged K W8", 77, 1001, 1000, False),
+    ("int8_gemm", "ragged K W8, N % 16 = 0", 77, 1001, 1024, False),
 ]
+# int8_gemm_sm80's line in the kernels summary: its time as the TMA
+# kernel's predecessor at the shape it served on the main path until the
+# K tail (path S's prefill down); on the main path it launches no more
+SM80_SHAPE = "S prefill down"
 REPLACES = {
     "w4a8_gemv": "mquant_tpu/kernels/qmm.py:869",
     "int8_gemv": "mquant_tpu/kernels/qmm.py:637",
@@ -270,8 +283,14 @@ def check_kernels(seed: int) -> dict:
         kern = qmm.KERNELS[name]
         plain = qmm.PLAIN[name]
         extra = {"packed": packed} if name.startswith("int8_gemm") else {}
+        # x as the GEMM meets it on the served path: a K that is no multiple
+        # of 16 in rows padded to 16 bytes (qmm._codes_out), read in place
+        xk = x
+        if name == "int8_gemm" and K % 16:
+            xk = torch.empty((M, -(-K // 16) * 16), dtype=torch.int8,
+                             device=dev)[:, :K].copy_(x)
         before = qmm.LAUNCHES[name]
-        acc_k = kern(x, xs, w, ws, torch.int32, **extra)
+        acc_k = kern(xk, xs, w, ws, torch.int32, **extra)
         if qmm.LAUNCHES[name] != before + 1:
             raise AssertionError(f"{name} [{label}]: not launched")
         acc_p = plain(x, xs, w, ws, torch.int32, **extra)
@@ -280,7 +299,7 @@ def check_kernels(seed: int) -> dict:
             bad = int((acc_k != acc_p).sum())
             raise AssertionError(f"{name} [{label}]: int32 accumulator differs "
                                  f"in {bad} of {acc_k.numel()} entries")
-        y_k = kern(x, xs, w, ws, torch.bfloat16, **extra)
+        y_k = kern(xk, xs, w, ws, torch.bfloat16, **extra)
         y_p = plain(x, xs, w, ws, torch.bfloat16, **extra)
         err, ulps = bf16_ulp_err(y_k, y_p)
         if not torch.equal(y_k, y_p):
@@ -292,7 +311,7 @@ def check_kernels(seed: int) -> dict:
         wbytes = rows * N
         ws_cold = [w] + [w.clone() for _ in range(
             min(15, -(-L2_COLD_BYTES // wbytes) - 1))]
-        ms = cuda_ms(lambda i: kern(x, xs, ws_cold[i % len(ws_cold)], ws,
+        ms = cuda_ms(lambda i: kern(xk, xs, ws_cold[i % len(ws_cold)], ws,
                                     torch.bfloat16, **extra), 20)
         pms = cuda_ms(lambda i: plain(x, xs, ws_cold[i % len(ws_cold)], ws,
                                       torch.bfloat16, **extra), 4, reps=3)
@@ -328,15 +347,19 @@ def check_kernels(seed: int) -> dict:
             # the block width the wrapper did not pick
             other = 384 - qmm.tma_tokens(M, N, torch.cuda.get_device_properties(
                 dev).multi_processor_count)
-            if not torch.equal(qmm._gemm_tma(x, xs, w, ws, torch.bfloat16,
+            if not torch.equal(qmm._gemm_tma(xk, xs, w, ws, torch.bfloat16,
                                              packed, other), y_k):
                 raise AssertionError(f"int8_gemm [{label}] at {other} tokens "
                                      "a block: differs")
             tms = cuda_ms(lambda i: qmm._gemm_tma(
-                x, xs, ws_cold[i % len(ws_cold)], ws, torch.bfloat16, packed,
+                xk, xs, ws_cold[i % len(ws_cold)], ws, torch.bfloat16, packed,
                 other), 20)
             old_txt = (f", mma.sync kernel {oms:.4f} ms ({oms / ms:.2f}x), "
                        f"{other} tokens a block {tms:.4f} ms")
+            if label == SM80_SHAPE:  # the shape it carried until the K tail
+                s8 = summary["int8_gemm_sm80"]
+                s8["max_abs_err"] = max(s8["max_abs_err"], err)
+                add_main(s8, oms, pms, bms, by, lms)
         log(f"kernel {name:10s} {label:20s} M={M:5d} K={K:6d} N={N:6d}: "
             "acc exact, bf16 bit-equal; "
             f"{ms:.4f} ms vs plain {pms:.4f} ms, library {lib_txt}, bound "
@@ -350,7 +373,7 @@ def check_kernels(seed: int) -> dict:
             add_main(s, ms, pms, bms, by, lms)
         elif (name, label, M, K, N, packed) in ROWS_SHAPES:
             add_main(rows_sum, ms, pms, bms, by, lms)
-        del x, w, ws_cold, acc_k, acc_p, y_k, y_p
+        del x, xk, w, ws_cold, acc_k, acc_p, y_k, y_p
     log(f"kernel w4a8_gemv at 4 / 8 / 32 rows (gate|up, down): {rows_sum['ms']:.4f} "
         f"ms summed, plain {rows_sum['plain_ms']:.4f} ms, bound "
         f"{rows_sum['bound_ms']:.4f} ms")
@@ -548,10 +571,16 @@ def check_bf16_reduction(seed: int) -> None:
 
 
 TAIL_N, TAIL_SCALE = 18944, 0.05  # Qwen2-VL-7B's intermediate = 148 · 128
-# the fused tail (label, T, main path): path F's 1024-token prefill, the
-# shortest prefill that takes it, and a few rows
-TAIL_SHAPES = [("F prefill T 1024", 1024, True), ("T 256", 256, False),
-               ("T 5", 5, False)]
+# the fused tail (label, T, main path, f32 rows, g and u as the halves of
+# one gate|up row): path F's 1024-token prefill, the shortest prefill that
+# takes it, a few rows, one token past a block per SM (132 blocks: one
+# takes two), the served halves, f32 rows
+TAIL_SHAPES = [("F prefill T 1024", 1024, True, False, False),
+               ("T 256", 256, False, False, False),
+               ("T 5", 5, False, False, False),
+               ("T 133", 133, False, False, False),
+               ("T 1024, gate|up halves", 1024, False, False, True),
+               ("T 1024, f32 g, u", 1024, False, True, False)]
 TAIL_MAX_FRAC = 0.01  # at most 1% of the codes one step off the plain's
 
 
@@ -581,10 +610,16 @@ def check_tail(seed: int) -> dict:
     s = torch.tensor(TAIL_SCALE, device=dev)
     K = fwht._factors(TAIL_N)[2]
     summary = new_summary()
-    for label, T, main in TAIL_SHAPES:
-        # two input copies: 155 MB at T = 1024, beyond the 50 MB L2
-        ins = [[torch.randn((T, TAIL_N), generator=g, device=dev).to(
-            torch.bfloat16) for _ in range(2)] for _ in range(2)]
+    for label, T, main, f32, halves in TAIL_SHAPES:
+        dt = torch.float32 if f32 else torch.bfloat16
+        # two input copies: 155 MB at T = 1024 in bf16, beyond the 50 MB L2
+        ins = []
+        for _ in range(2):
+            gu = torch.randn((T, 2 * TAIL_N), generator=g, device=dev).to(dt)
+            ins.append([gu[:, :TAIL_N], gu[:, TAIL_N:]] if halves else
+                       [gu[:, :TAIL_N].contiguous(),
+                        gu[:, TAIL_N:].contiguous()])
+            del gu
         q = fwht.fused_swiglu_had_quant(*ins[0], s)
         ref = fwht.fused_swiglu_had_quant_ref(*ins[0], s)
         torch.cuda.synchronize()
@@ -593,10 +628,10 @@ def check_tail(seed: int) -> dict:
                      20)
         pms = cuda_ms(lambda i: fwht.fused_swiglu_had_quant_ref(
             *ins[i % 2], s), 4, reps=3)
-        nbytes = 2 * 2 * T * TAIL_N + T * TAIL_N
+        nbytes = 2 * ins[0][0].element_size() * T * TAIL_N + T * TAIL_N
         bms, by = bound(nbytes, 2 * T * TAIL_N * (K + TAIL_N // K),
                         BF16_FLOPS)
-        log(f"kernel fused_swiglu_had_quant {label:17s} n={TAIL_N}: codes "
+        log(f"kernel fused_swiglu_had_quant {label:22s} n={TAIL_N}: codes "
             f"within {worst}, {frac:.6f} of them differ; {ms:.4f} ms vs "
             f"plain {pms:.4f} ms, library none, bound {bms:.4f} ms ({by}); "
             f"{nbytes / ms / 1e6:.1f} GB/s")
@@ -626,6 +661,8 @@ PROBE_SHAPES = [
     ("rms_norm_quant", "T 333", 333, 3584, False, False),
     ("had_quant", "probe", 1024, 18944, False, True),
     ("had_quant", "K 28", 256, 3584, False, False),
+    ("had_quant", "T 133", 133, 18944, False, False),
+    ("had_quant", "f32", 1024, 18944, True, False),
     ("fwht_two_matmul", "probe, bf16", 1024, 18944, False, True),
     ("fwht_two_matmul", "f32", 1024, 18944, True, False),
     ("fwht_two_matmul", "pow2, f32", 64, 4096, True, False),
@@ -713,7 +750,7 @@ def check_probe_kernels(seed: int) -> dict:
         if name == "rms_norm_quant":
             nbytes, ops, peak = 3 * T * n + 2 * n + 4, 5 * T * n, F32_FLOPS
         elif name == "had_quant":
-            nbytes = 3 * T * n + 2 * (160 * 160 + 128 * 128) + 4
+            nbytes = in_bytes + T * n + 2 * (160 * 160 + 128 * 128) + 4
             ops, peak = 2 * T * n * (K + 128), BF16_FLOPS
         else:  # the butterfly form: 2 K n FMA flops + 8 n per row
             nbytes = 2 * in_bytes + 4 * K * 160
@@ -749,7 +786,8 @@ W4U_SHAPES = [("w4_unpack_tune", 8, 18944, 3584, True),
 # mlp_variants' fused epilogue (label, T, n, main path): T = 1024 at 18944,
 # a few rows, K = 28
 DEQ_SHAPES = [("mlp_variants T 1024", 1024, 18944, True),
-              ("T 5", 5, 18944, False), ("K 28", 64, 3584, False)]
+              ("T 5", 5, 18944, False), ("K 28", 64, 3584, False),
+              ("T 133", 133, 18944, False)]
 
 
 def check_decode_probe_kernels(seed: int) -> dict:
@@ -927,7 +965,8 @@ def sass_functions(lib) -> dict:
 HOPPER_SASS = {"gemm_tma_kernel": ("IGMMA", "UTMALDG"),
                "flash_causal_kernel": ("HGMMA", "UTMALDG"),
                "gemv_tc_kernel": ("IMMA", "UTMALDG"),
-               "decode_attn_kernel": ("HMMA", "LDGSTS")}
+               "decode_attn_kernel": ("HMMA", "LDGSTS"),
+               "tail_kernel": ("HGMMA", "UBLKCP")}
 
 
 def sass_hopper_kernels(funcs: dict) -> None:
@@ -1129,7 +1168,9 @@ SLICE_KERNELS = ("w4a8_gemv", "int8_gemv", "int8_gemm", "attn_decode")
 DOC_KERNELS = SLICE_KERNELS + ("flash_attn_causal",)
 BATCH_KERNELS = SLICE_KERNELS
 FULL_KERNELS = SLICE_KERNELS + ("fused_swiglu_had_quant",)
-SPLIT_KERNELS = SLICE_KERNELS + ("int8_gemm_sm80",)
+# path S: its K = 18943 `down` runs on the TMA GEMM (int8_gemm) since the K
+# tail; int8_gemm_sm80 must launch no time there (run_split checks both)
+SPLIT_KERNELS = SLICE_KERNELS
 # path F's text request (bucket 128, below the tail's 256): it only shows
 # that the tail does not launch there, so two tokens do
 FULL_TEXT, FULL_TEXT_TOKENS = 77, 2
@@ -1233,16 +1274,20 @@ def shadow_tail(path: str):
 
 @contextlib.contextmanager
 def gemm_depths(store: list):
-    """Appends (kernel, K) of every int8_gemv / int8_gemm call to ``store``
-    (the wrappers still count their launches)."""
+    """Appends (kernel, K, the launch counts it moved) of every int8_gemv /
+    int8_gemm call to ``store`` (the wrappers still count their
+    launches)."""
     from mquant_tpu_torch.kernels import qmm
 
     saved = {k: qmm.KERNELS[k] for k in ("int8_gemv", "int8_gemm")}
 
     def recorder(name):
         def call(xq, *a, **kw):
-            store.append((name, xq.shape[-1]))
-            return saved[name](xq, *a, **kw)
+            before = dict(qmm.LAUNCHES)
+            out = saved[name](xq, *a, **kw)
+            store.append((name, xq.shape[-1], tuple(
+                k for k, v in qmm.LAUNCHES.items() if v != before[k])))
+            return out
         return call
 
     qmm.KERNELS.update({k: recorder(k) for k in saved})
@@ -1535,9 +1580,12 @@ def run_full(m: dict, card: str) -> dict:
 def run_split(m: dict, card: str) -> dict:
     """Phase 4, path S: path F plus the RMS first-column split (``down`` as
     18943 int8 rows and an f32 ``w_col0``; the pipeline's default artifact).
-    The full-VLM request; ``down`` runs through ``int8_gemm`` at prefill and
-    ``int8_gemv`` in decode at K = 18943. Returns the launch counts;
-    profiles a decode step."""
+    The full-VLM request; ``down`` runs through ``int8_gemm`` at prefill (the
+    TMA kernel, on codes the split's quantizer writes in padded rows: 28
+    launches, none of ``int8_gemm_sm80``) and ``int8_gemv`` in decode at
+    K = 18943. Returns the launch counts; profiles the prefill (beside it
+    with ``down`` on the mma.sync kernel, the route before the K tail) and
+    a decode step."""
     import torch
 
     from mquant_tpu_torch import random_init as R
@@ -1569,28 +1617,59 @@ def run_split(m: dict, card: str) -> dict:
             out, t_req, ttft = timed_request(gen, vlm, GEN_TOKENS)
         launches = read_launches("split", SPLIT_KERNELS)
         peak = torch.cuda.max_memory_allocated() / 2**30
-        down = {k: sum(1 for n, d in depths if n == k and d == K)
+        down = {k: sum(1 for n, d, moved in depths if n == k and d == K
+                       and moved == (k,))
                 for k in ("int8_gemm", "int8_gemv")}
         want = {"int8_gemm": cfg.n_layers,
                 "int8_gemv": cfg.n_layers * (GEN_TOKENS - 1)}
-        if down != want or launches["fused_swiglu_had_quant"]:
-            raise AssertionError(f"split: down calls at K = {K} {down}, "
+        if (down != want or launches["fused_swiglu_had_quant"]
+                or launches["int8_gemm_sm80"]):
+            raise AssertionError(f"split: down launches at K = {K} {down}, "
                                  f"expected {want}; tail launches "
-                                 f"{launches['fused_swiglu_had_quant']}")
+                                 f"{launches['fused_swiglu_had_quant']}, "
+                                 f"int8_gemm_sm80 "
+                                 f"{launches['int8_gemm_sm80']}, expected 0")
         check_tokens("split", out, GEN_TOKENS, cfg.vocab)
         emb = held["emb"]
         against_plain("split", gen, lambda: gen.prefill(emb))
     log(f"split: full-VLM request ({PREFILL}-token prompt, {GEN_TOKENS} "
         f"tokens) {t_req:.3f} s; TTFT {ttft * 1e3:.1f} ms; decode "
-        f"{(GEN_TOKENS - 1) / (t_req - ttft):.1f} tok/s; down at K = {K}: "
-        f"{down}; peak {peak:.2f} GiB; card {card}")
+        f"{(GEN_TOKENS - 1) / (t_req - ttft):.1f} tok/s; down launches at K "
+        f"= {K}: {down}, int8_gemm_sm80 0; peak {peak:.2f} GiB; card {card}")
     with torch.no_grad():
+        profile_phases([("prefill 1024 (full Hadamard + RMS split)",
+                         lambda: gen.prefill(emb), 1)], card)
+        with sm80_route():
+            profile_phases([("prefill 1024 (full Hadamard + RMS split), down "
+                             "on int8_gemm_sm80 (the route before the K "
+                             "tail)", lambda: gen.prefill(emb), 1)], card)
         profile_phases([("decode step (full Hadamard + RMS split)",
                          decode_steps(gen, gen.prefill(emb)[1]),
                          PROFILE_STEPS)], card)
     del gen
     torch.cuda.empty_cache()
     return launches
+
+
+@contextlib.contextmanager
+def sm80_route():
+    """``int8_gemm`` calls at a K that is no multiple of 16 go to the
+    mma.sync kernel on a contiguous x, as they did before the TMA kernel's
+    K tail (the comparison of path S's prefill in one run)."""
+    from mquant_tpu_torch.kernels import qmm
+
+    gemm = qmm.KERNELS["int8_gemm"]
+
+    def old(xq, *a, **kw):
+        if xq.shape[-1] % 16:
+            return qmm.int8_gemm_sm80(xq.contiguous(), *a, **kw)
+        return gemm(xq, *a, **kw)
+
+    qmm.KERNELS["int8_gemm"] = old
+    try:
+        yield
+    finally:
+        qmm.KERNELS["int8_gemm"] = gemm
 
 
 def run_document(m: dict, card: str) -> dict:

@@ -39,15 +39,17 @@ def scales_from_minmax(xmin: torch.Tensor, xmax: torch.Tensor, fmt: IntFormat,
     return QuantParams(scale=scale, zero_point=zero_point)
 
 
-def quantize(x: torch.Tensor, qp: QuantParams, fmt: IntFormat) -> torch.Tensor:
-    """Quantize to integers in the format's storage dtype (no dequant)."""
+def quantize(x: torch.Tensor, qp: QuantParams, fmt: IntFormat,
+             out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Quantize to integers in the format's storage dtype (no dequant); into
+    ``out`` (x's shape, the storage dtype, any strides) where given."""
     inv = 1.0 / torch.as_tensor(qp.scale, dtype=torch.float32,
                                 device=x.device)
     q = torch.round(x.float() * inv)
     if qp.zero_point is not None:
         q = q + qp.zero_point
     q = torch.clamp(q, fmt.qmin, fmt.qmax)
-    return q.to(fmt.storage_dtype)
+    return q.to(fmt.storage_dtype) if out is None else out.copy_(q)
 
 
 def dequantize(q: torch.Tensor, qp: QuantParams,

@@ -32,8 +32,9 @@ _SIGNATURES = {
     "mq_w4a8_gemv": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, w, xs, ws, acc, out, M, K, N, splits, out_kind, stream
     "mq_int8_gemv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # x, w, xs, ws, out, M, K, N, w4, out_kind, (tokens per block,) stream
-    "mq_int8_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, ldx, w, xs, ws, out, M, K, N, w4, out_kind, tokens per block, stream
+    "mq_int8_gemm": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, w, xs, ws, out, M, K, N, w4, out_kind, stream
     "mq_int8_gemm_sm80": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # q, k_new, v_new, k_cache, v_cache, pos, start, out, part, counters,
     # pos_all, start_all, B, S, H, KVH, splits, scale, stream
@@ -44,14 +45,17 @@ _SIGNATURES = {
     "mq_w8_bf16_gemv": [_P, _P, _P, _P, _I, _I, _I, _P],
     # x, w, acc, M, K, N, splits, variant, stream
     "mq_w4_unpack_gemv": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # g, u, ldg, ldu, A, Bt, scale, out, T, K, qmin, qmax, stream
-    "mq_fused_swiglu_had_quant": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _I,
-                                  _I, _I, _P],
-    # g, u, ldg, ldu, gs, us, A, Bt, scale, out, T, K, qmin, qmax, stream
-    "mq_dequant_swiglu_had_quant": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P,
-                                    _I, _I, _I, _I, _P],
-    # x, ldx, A, Bt, scale, out, T, K, qmin, qmax, stream
-    "mq_had_quant": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # g, u, ldg, ldu, A, Bt, scale, out, T, K, qmin, qmax, in_f32, blocks,
+    # sub-rows per chunk, ring slots, stream
+    "mq_fused_swiglu_had_quant": [_P, _P, _I, _I, _P, _P, _P, _P] + [_I] * 8
+                                 + [_P],
+    # g, u, ldg, ldu, gs, us, A, Bt, scale, out, T, K, qmin, qmax, blocks,
+    # sub-rows per chunk, ring slots, stream
+    "mq_dequant_swiglu_had_quant": [_P, _P, _I, _I] + [_P] * 6 + [_I] * 7
+                                   + [_P],
+    # x, ldx, A, Bt, scale, out, T, K, qmin, qmax, in_f32, blocks, sub-rows
+    # per chunk, ring slots, stream
+    "mq_had_quant": [_P, _I, _P, _P, _P, _P] + [_I] * 8 + [_P],
     # x, ldx, w, scale, out, T, n, eps, qmin, qmax, stream
     "mq_rms_norm_quant": [_P, _I, _P, _P, _P, _I, _I, _F, _I, _I, _P],
     # x, ldx, At, hm, out, T, K, is_f32, stream

@@ -13,9 +13,11 @@
 //     dots (preferred_element_type=f32); rounding is half to even. The
 //     code range [qmin, qmax] (default [-128, 127]) is a runtime argument of
 //     every quantizing kernel here, as in the TPU kernels.
+//     g and u are bf16 or f32 rows (the TPU kernel casts both to f32 first,
+//     so an f32 g enters silu unrounded).
 // K7  had_quant  replaces fwht.py::had_quant (_had_quant_kernel, :187): the
-//     same pipeline on one bf16 input x instead of silu(g) * u (the tail
-//     kernel instantiated with kIn = kInX).
+//     same pipeline on one input x instead of silu(g) * u, x bf16 or f32
+//     rounded to bf16 (the tail kernel instantiated with kIn = kInX).
 // K8  rms_norm_quant  replaces fwht.py::rms_norm_quant (_rms_quant_kernel,
 //     :246): q = clip(round(x * rsqrt(mean(x^2) + eps) * w * (1 / scale))).
 // K14 dequant_swiglu_had_quant  replaces scripts/mlp_variants.py::
@@ -35,20 +37,34 @@
 // element) and writes one int8 code per element: 97 MB at T = 1024, 29 us at
 // 3.35 TB/s. The two products are 2 * n * (K + 128) = 10.5 MFLOP per token,
 // 10.7 GFLOP at T = 1024 (11 us at the dense bf16 peak): the kernel is bound
-// by bytes as long as the products stay on the tensor cores. So one block
-// keeps one whole row in shared memory through all three steps (38 KB as
-// (160, 128) bf16), device memory sees g, u and the codes once, and both
-// products run on mma.sync m16n8k16 bf16 -> f32. The hadK axis is zero-padded
-// from K to 160 (ten 16-row tiles): exact, since the pad rows of X and the
-// pad rows and columns of A are zero, and the pad rows of Y are never
-// written. The factor matrices come from the wrapper (A padded, B
-// transposed), the very matrices of the plain version; the 51 KB A and 32 KB
-// B are read through L1 by every block. Each of the 8 warps owns 16 output
-// columns over all 160 rows (80 f32 accumulators). The codes are staged in
-// shared memory and written out with 16-byte stores. A TMA / wgmma pipeline
-// and several tokens per block (to share the A fragments) are later work.
+// by bytes as long as the products stay on the tensor cores, and device
+// memory sees g, u and the codes once: a token's row stays in shared memory
+// through all three steps, and both products run on wgmma bf16 -> f32. The
+// hadK axis is zero-padded from K to 160 (ten k16 steps): exact, since the
+// pad rows of X and the pad rows and columns of A are zero, and the pad
+// rows of Y are never written. The factor matrices come from the wrapper (A
+// padded, B transposed), the very matrices of the plain version.
+// The design is persistent, with the factors resident: one block of three
+// warpgroups per SM walks over tokens b, b + grid, ... Step 2 is wgmma
+// m64n128k16 with X (192 x 128: rows past K zero, 64 a warpgroup) and
+// H_128 / sqrt(128) both K-major in shared memory (128-byte swizzled rows,
+// hopper.cuh); H is copied there once. Step 3 is wgmma m64n128k16 with
+// hadK's A fragments in registers (each thread's two rows over the ten k16
+// steps: 40 registers, loaded once) and Y1 read MN-major through the
+// descriptor's transpose bit. So no factor byte is read per token, and the
+// operands' shared-memory traffic is ~0.26 MB a token (a warp-level
+// mma.sync design re-reads A and X once per warp: ~0.82 MB). The g / u rows
+// come through a ring of slots fed by cp.async.bulk: one thread copies a
+// token's g and u rows (or chunks of cs 128-wide sub-rows of them, where a
+// whole row does not fit: int32 or f32 pairs) straight from device memory
+// into a slot and an mbarrier reports the bytes; a slot is refilled with the
+// next chunk of the sequence as soon as every thread has read it, so the
+// next token's row loads while this token's steps 2-4 run. The codes are
+// staged in shared memory over X (swizzled 128-byte rows) and leave as
+// 16-byte stores. Three barriers a token, plus one per ring chunk.
 // had_quant reads 2 bytes per element instead of 4 (58 MB, 17 us);
-// dequant_swiglu_had_quant 8 (int32 g and u: 175 MB with the codes, 52 us).
+// dequant_swiglu_had_quant 8 (int32 g and u: 175 MB with the codes, 52 us;
+// it reads the two scale vectors from L2 per token).
 //
 // rms_norm_quant moves 3 bytes per element (11 MB at (1024, 3584), 3.3 us)
 // and does a few flops per byte: bound by bytes. One block per row: 16-byte
@@ -69,37 +85,32 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int TL_M = 128;           // the power-of-two factor: row tile width
-constexpr int TL_KP = 160;          // hadK rows, zero-padded to 10 m16 tiles
-constexpr int TL_MT = TL_KP / 16;   // m tiles
-constexpr int TL_LD = TL_M + 8;     // padded row (272 B): conflict-free fragments
-constexpr int TL_THREADS = 256;     // 8 warps x 16 output columns
+constexpr int TL_KP = 160;          // hadK, zero-padded to ten k16 steps
+constexpr int TL_MT = TL_KP / 16;   // k16 steps of the hadK product
+constexpr int TL_WGS = 3;           // warpgroups: 64 rows each of 192
+constexpr int TL_ROWS = 64 * TL_WGS;
+constexpr int TL_THREADS = 128 * TL_WGS;
+// shared-memory tiles, 128-byte swizzled rows (hopper.cuh): X and Y1 as two
+// boxes of 64 columns over 192 rows, H_128 / sqrt(128) as two boxes of 64
+// columns over its 128 rows
+constexpr int TL_BOX = TL_ROWS * 128;       // 24,576
+constexpr int TL_X_BYTES = 2 * TL_BOX;      // 49,152
+constexpr int TL_H_BOX = TL_M * 128;        // 16,384
+constexpr int TL_FIXED = 2 * TL_X_BYTES + 2 * TL_H_BOX;  // X, Y1, H
+constexpr int TL_SMEM = 232448;     // a block's shared memory on sm_90
+constexpr int TL_MAX_SLOTS = 8;
+// what is left for the ring of g / u slots (1024 bytes go to alignment)
+constexpr int TL_STAGE_MAX =
+    TL_SMEM - TL_FIXED - 1024 - 8 * TL_MAX_SLOTS;  // 100,288
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// four 8x8 b16 matrices, transposed: lanes 8i..8i+7 give the row addresses
-// of matrix i; r[i] receives matrix i's (2t, 2t+1) x g elements
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const void* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
 }
 
 __device__ __forceinline__ uint32_t ldg32(const __nv_bfloat16* p) {
@@ -111,20 +122,28 @@ __device__ __forceinline__ int quant8(float y, float inv, int qmin,
   return max(qmin, min(qmax, __float2int_rn(y * inv)));
 }
 
-// silu(g) * u of two bf16 pairs, in f32 as (g * sigmoid(g)) * u, rounded to
-// bf16 (the plain version's torch.sigmoid is 1 / (1 + exp(-g)) in f32)
+// byte offset of 16-byte chunk `chunk` (0-7) of row r in a tile of
+// 128-byte swizzled rows
+__device__ __forceinline__ int swz(int r, int chunk) {
+  return r * 128 + ((chunk ^ (r & 7)) << 4);
+}
+
+// silu(g) * u in f32 as (g * sigmoid(g)) * u (the plain version's
+// torch.sigmoid is 1 / (1 + exp(-g)) in f32)
+__device__ __forceinline__ float swiglu1(float g, float u) {
+  return (g * (1.f / (1.f + expf(-g)))) * u;
+}
+
+// silu(g) * u of two bf16 pairs, rounded to bf16
 __device__ __forceinline__ uint32_t swiglu2(uint32_t gw, uint32_t uw) {
   const float2 gf = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&gw));
   const float2 uf = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&uw));
-  const float s0 = 1.f / (1.f + expf(-gf.x)), s1 = 1.f / (1.f + expf(-gf.y));
-  return pack_bf16((gf.x * s0) * uf.x, (gf.y * s1) * uf.y);
+  return pack_bf16(swiglu1(gf.x, uf.x), swiglu1(gf.y, uf.y));
 }
 
-// silu(gf) * uf of one int32 pair dequantized by its channel scales, in
-// f32 as swiglu2 computes it
+// silu(gf) * uf of one int32 pair dequantized by its channel scales
 __device__ __forceinline__ float dswiglu(int g, int u, float gs, float us) {
-  const float gf = (float)g * gs, uf = (float)u * us;
-  return (gf * (1.f / (1.f + expf(-gf)))) * uf;
+  return swiglu1((float)g * gs, (float)u * us);
 }
 
 // four int32 pairs at channels 4 c .. 4 c + 3 into two bf16 words
@@ -134,153 +153,220 @@ __device__ __forceinline__ uint2 dswiglu4(int4 g, int4 u, float4 gs, float4 us) 
       pack_bf16(dswiglu(g.z, u.z, gs.z, us.z), dswiglu(g.w, u.w, gs.w, us.w)));
 }
 
-// the tail kernel's input: x = g (bf16), x = bf16(silu(g) * u) (bf16 g, u:
-// the fused tail) or x = bf16(silu(g * gs) * (u * us)) (int32 g, u)
+// the tail kernel's input: x = g (bf16, or f32 rounded to bf16), x =
+// bf16(silu(g) * u) (bf16 or f32 g, u: the fused tail) or x = bf16(silu(g *
+// gs) * (u * us)) (int32 g, u)
 enum TailIn { kInX = 0, kInSwiglu = 1, kInDequant = 2 };
 
-template <int kIn>
-__global__ void __launch_bounds__(TL_THREADS, 2)
-    tail_kernel(const void* __restrict__ g, const void* __restrict__ u,
-                int ldg_, int ldu_, const float* __restrict__ gs,
-                const float* __restrict__ us, int K,
+// step 1 on one chunk: the nr sub-rows r0 .. r0 + nr - 1 of x, from the g
+// (and u) halves of a ring slot into X's rows (element k of sub-row r in box
+// k / 64, chunk (k % 64) / 8); E = bytes per input element
+template <int kIn, int E>
+__device__ __forceinline__ void tail_in(const uint8_t* sg, const uint8_t* su,
+                                        const float* __restrict__ gs,
+                                        const float* __restrict__ us, int r0,
+                                        int nr, uint8_t* X, int tid) {
+  if constexpr (E == 2) {  // bf16: 8 elements (one chunk) a step
+    for (int v = tid; v < nr * (TL_M / 8); v += TL_THREADS) {
+      uint4 o = reinterpret_cast<const uint4*>(sg)[v];
+      if constexpr (kIn == kInSwiglu) {
+        const uint4 uv = reinterpret_cast<const uint4*>(su)[v];
+        o = make_uint4(swiglu2(o.x, uv.x), swiglu2(o.y, uv.y),
+                       swiglu2(o.z, uv.z), swiglu2(o.w, uv.w));
+      }
+      const int r = r0 + v / 16, k8 = v % 16;
+      *reinterpret_cast<uint4*>(X + (k8 >> 3) * TL_BOX + swz(r, k8 & 7)) = o;
+    }
+  } else {  // f32 or int32: 4 elements (half a chunk) a step
+    for (int v = tid; v < nr * (TL_M / 4); v += TL_THREADS) {
+      uint2 o;
+      if constexpr (kIn == kInDequant) {
+        const int c = r0 * TL_M + 4 * v;  // channel
+        o = dswiglu4(reinterpret_cast<const int4*>(sg)[v],
+                     reinterpret_cast<const int4*>(su)[v],
+                     __ldg(reinterpret_cast<const float4*>(gs + c)),
+                     __ldg(reinterpret_cast<const float4*>(us + c)));
+      } else {
+        const float4 gv = reinterpret_cast<const float4*>(sg)[v];
+        if constexpr (kIn == kInSwiglu) {
+          const float4 uv = reinterpret_cast<const float4*>(su)[v];
+          o = make_uint2(pack_bf16(swiglu1(gv.x, uv.x), swiglu1(gv.y, uv.y)),
+                         pack_bf16(swiglu1(gv.z, uv.z), swiglu1(gv.w, uv.w)));
+        } else {
+          o = make_uint2(pack_bf16(gv.x, gv.y), pack_bf16(gv.z, gv.w));
+        }
+      }
+      const int r = r0 + v / 32, k4 = v % 32;
+      *reinterpret_cast<uint2*>(X + (k4 >> 4) * TL_BOX +
+                                swz(r, (k4 >> 1) & 7) + (k4 & 1) * 8) = o;
+    }
+  }
+}
+
+// One block of 3 warpgroups per SM over tokens blockIdx.x, + gridDim.x, ...;
+// g, u rows at byte strides ldg_b / ldu_b (16-byte aligned); a token's K
+// sub-rows arrive in chunks of cs through a ring of S slots (the host's
+// plan: fwht.py::_tail_plan). Dynamic shared memory, 1024-byte aligned:
+// X | Y1 | H | S slots | S mbarriers.
+template <int kIn, int E>
+__global__ void __launch_bounds__(TL_THREADS, 1)
+    tail_kernel(const uint8_t* __restrict__ g, const uint8_t* __restrict__ u,
+                long ldg_b, long ldu_b, const float* __restrict__ gs,
+                const float* __restrict__ us, int T, int K, int cs, int S,
                 const __nv_bfloat16* __restrict__ A,   // (TL_KP, TL_KP)
                 const __nv_bfloat16* __restrict__ Bt,  // (TL_M, TL_M), B^T
                 const float* __restrict__ scale, int qmin, int qmax,
                 int8_t* __restrict__ out) {
-  __shared__ __align__(16) __nv_bfloat16 Xs[TL_KP][TL_LD];
-  const long row = blockIdx.x;
-  const int n = K * TL_M;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gq = lane >> 2, t = lane & 3;
-  const int n0 = warp * 16;  // this warp's output columns n0 .. n0 + 15
+  constexpr int P = kIn == kInX ? 1 : 2;  // inputs per element
+  extern __shared__ uint8_t tl_raw[];
+  uint8_t* Xs = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(tl_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* Ys = Xs + TL_X_BYTES;
+  uint8_t* Hs = Ys + TL_X_BYTES;
+  uint8_t* Qs = Xs;  // the codes, staged over X's first box once X is read
+  uint8_t* stage = Xs + TL_FIXED;
+  const int half = cs * TL_M * E;  // bytes of one input in a slot
+  const int slot_b = P * half;
+  uint64_t* full = reinterpret_cast<uint64_t*>(stage + S * slot_b);
 
-  // 1. x into rows 0..K-1 (8 elements a step), zeros into the pad rows
-  for (int v = tid; v < n / 8; v += TL_THREADS) {
-    uint4 o;
-    if constexpr (kIn == kInDequant) {
-      const int4* gr =
-          reinterpret_cast<const int4*>(static_cast<const int*>(g) +
-                                        row * ldg_) + 2 * v;
-      const int4* ur =
-          reinterpret_cast<const int4*>(static_cast<const int*>(u) +
-                                        row * ldu_) + 2 * v;
-      const float4* gsv = reinterpret_cast<const float4*>(gs) + 2 * v;
-      const float4* usv = reinterpret_cast<const float4*>(us) + 2 * v;
-      const uint2 a = dswiglu4(__ldg(gr), __ldg(ur), __ldg(gsv), __ldg(usv));
-      const uint2 b = dswiglu4(__ldg(gr + 1), __ldg(ur + 1), __ldg(gsv + 1),
-                               __ldg(usv + 1));
-      o = make_uint4(a.x, a.y, b.x, b.y);
-    } else {
-      const uint4* gr = reinterpret_cast<const uint4*>(
-          static_cast<const __nv_bfloat16*>(g) + row * ldg_);
-      o = __ldg(gr + v);
-      if constexpr (kIn == kInSwiglu) {
-        const uint4* ur = reinterpret_cast<const uint4*>(
-            static_cast<const __nv_bfloat16*>(u) + row * ldu_);
-        const uint4 uv = __ldg(ur + v);
-        o = make_uint4(swiglu2(o.x, uv.x), swiglu2(o.y, uv.y),
-                       swiglu2(o.z, uv.z), swiglu2(o.w, uv.w));
-      }
-    }
-    const int e = v * 8;
-    *reinterpret_cast<uint4*>(&Xs[e / TL_M][e % TL_M]) = o;
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int lane = tid & 31, gq = lane >> 2, t = lane & 3;
+  const int row0 = wg * 64 + warp * 16 + gq;  // this thread's rows: + 0, + 8
+  const int n = K * TL_M;
+  const int nch = (K + cs - 1) / cs;
+  const int kt_end = (K + 15) / 16;  // k16 steps of the hadK product
+  const int ntok = (T - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  const int Q = ntok * nch;  // chunks this block consumes, in order
+
+  // chunk q (token q / nch, chunk q % nch) into slot q % S (thread 0 only)
+  auto load_chunk = [&](int q) {
+    const long tok = blockIdx.x + (long)(q / nch) * gridDim.x;
+    const int r0 = (q % nch) * cs, nr = min(cs, K - r0);
+    const uint32_t bytes = (uint32_t)nr * TL_M * E;
+    const long off = (long)r0 * TL_M * E;
+    uint8_t* dst = stage + (q % S) * slot_b;
+    uint64_t* bar = &full[q % S];
+    hopper::mbar_arrive_expect_tx(bar, P * bytes);
+    hopper::bulk_load(dst, g + tok * ldg_b + off, bytes, bar);
+    if constexpr (P == 2) hopper::bulk_load(dst + half, u + tok * ldu_b + off,
+                                            bytes, bar);
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i < S; ++i) hopper::mbar_init(&full[i], 1);
+    hopper::mbar_fence_init();
+    for (int q = 0; q < S && q < Q; ++q) load_chunk(q);
   }
-  for (int v = tid; v < (TL_KP - K) * TL_M / 8; v += TL_THREADS) {
-    const int e = v * 8;
-    *reinterpret_cast<uint4*>(&Xs[K + e / TL_M][e % TL_M]) =
+  // the factors, once: H_128 / sqrt(128) into shared memory (row j of B^T
+  // is column j of B: the K-major B operand of step 2), hadK's A fragments
+  // of this thread's rows into registers (40 a thread, zero past row 160);
+  // X's pad rows K..191 zeroed (the codes staged over X never reach them)
+  for (int v = tid; v < TL_M * (TL_M / 8); v += TL_THREADS) {
+    const int j = v / 16, k8 = v % 16;
+    *reinterpret_cast<uint4*>(Hs + (k8 >> 3) * TL_H_BOX + swz(j, k8 & 7)) =
+        __ldg(reinterpret_cast<const uint4*>(Bt) + v);
+  }
+  for (int v = tid; v < 2 * (TL_ROWS - K) * 8; v += TL_THREADS) {
+    const int b = v / ((TL_ROWS - K) * 8), w = v % ((TL_ROWS - K) * 8);
+    *reinterpret_cast<uint4*>(Xs + b * TL_BOX + swz(K + w / 8, w % 8)) =
         make_uint4(0, 0, 0, 0);
   }
-  __syncthreads();
-
-  float acc[TL_MT][2][4];
+  uint32_t ha[TL_MT][4];
 #pragma unroll
-  for (int mt = 0; mt < TL_MT; ++mt)
+  for (int kk = 0; kk < TL_MT; ++kk)
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-
-  // 2. Y1 = X . B over the 128-wide axis (8 k steps); B fragments from B^T,
-  //    whose row n holds column n of B with consecutive k
-#pragma unroll 2
-  for (int kk = 0; kk < TL_M / 16; ++kk) {
-    uint32_t b[2][2];
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-      const __nv_bfloat16* bp = Bt + (n0 + nt * 8 + gq) * TL_M + kk * 16 + 2 * t;
-      b[nt][0] = ldg32(bp);
-      b[nt][1] = ldg32(bp + 8);
+    for (int i = 0; i < 4; ++i) {
+      const int r = row0 + (i & 1) * 8, c = kk * 16 + 2 * t + (i >> 1) * 8;
+      ha[kk][i] = r < TL_KP ? ldg32(A + r * TL_KP + c) : 0u;
     }
-#pragma unroll
-    for (int mt = 0; mt < TL_MT; ++mt) {
-      const int r = mt * 16 + gq, c = kk * 16 + 2 * t;
-      uint32_t a[4];
-      a[0] = *reinterpret_cast<const uint32_t*>(&Xs[r][c]);
-      a[1] = *reinterpret_cast<const uint32_t*>(&Xs[r + 8][c]);
-      a[2] = *reinterpret_cast<const uint32_t*>(&Xs[r][c + 8]);
-      a[3] = *reinterpret_cast<const uint32_t*>(&Xs[r + 8][c + 8]);
-      mma_bf16(acc[mt][0], a, b[0][0], b[0][1]);
-      mma_bf16(acc[mt][1], a, b[1][0], b[1][1]);
-    }
-  }
-  __syncthreads();  // every warp has read X: Y1 (bf16) goes over it
-#pragma unroll
-  for (int mt = 0; mt < TL_MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-      const int r = mt * 16 + gq, c = n0 + nt * 8 + 2 * t;
-      *reinterpret_cast<uint32_t*>(&Xs[r][c]) =
-          pack_bf16(acc[mt][nt][0], acc[mt][nt][1]);
-      *reinterpret_cast<uint32_t*>(&Xs[r + 8][c]) =
-          pack_bf16(acc[mt][nt][2], acc[mt][nt][3]);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-    }
-  __syncthreads();
-
-  // 3. Y = A . Y1 over the padded hadK axis (10 k steps); Y1's B fragments
-  //    through ldmatrix.trans (rows k, columns n0 .. n0 + 15)
-#pragma unroll 1
-  for (int kk = 0; kk < TL_MT; ++kk) {
-    uint32_t vf[4];
-    const int vr = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-    ldsm_x4_trans(vf, &Xs[vr][n0 + (lane >> 4) * 8]);
-#pragma unroll
-    for (int mt = 0; mt < TL_MT; ++mt) {
-      const __nv_bfloat16* ap = A + (mt * 16 + gq) * TL_KP + kk * 16 + 2 * t;
-      uint32_t a[4];
-      a[0] = ldg32(ap);
-      a[1] = ldg32(ap + 8 * TL_KP);
-      a[2] = ldg32(ap + 8);
-      a[3] = ldg32(ap + 8 * TL_KP + 8);
-      mma_bf16(acc[mt][0], a, vf[0], vf[1]);
-      mma_bf16(acc[mt][1], a, vf[2], vf[3]);
-    }
-  }
-
-  // 4. static int8: round half to even, clip; the row's codes are staged in
-  //    shared memory (k * 128 + j) and leave as 16-byte stores
   const float inv = 1.f / __ldg(scale);
-  __syncthreads();  // every warp has read Y1
-  int8_t* Qs = reinterpret_cast<int8_t*>(&Xs[0][0]);
-#pragma unroll
-  for (int mt = 0; mt < TL_MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = mt * 16 + gq + 8 * h, c = n0 + nt * 8 + 2 * t;
-        if (r < K) {
-          const int q0 = quant8(acc[mt][nt][2 * h], inv, qmin, qmax);
-          const int q1 = quant8(acc[mt][nt][2 * h + 1], inv, qmin, qmax);
-          *reinterpret_cast<uint16_t*>(Qs + r * TL_M + c) =
-              (uint16_t)((q0 & 0xFF) | ((q1 & 0xFF) << 8));
-        }
-      }
+  hopper::fence_proxy_async();  // H and the zero rows, for the wgmma reads
   __syncthreads();
-  int8_t* orow = out + row * n;
-  for (int v = tid; v < n / 16; v += TL_THREADS)
-    reinterpret_cast<uint4*>(orow)[v] = reinterpret_cast<const uint4*>(Qs)[v];
+
+  float acc[64];
+  int q = 0;
+  for (int j = 0; j < ntok; ++j) {
+    const long tok = blockIdx.x + (long)j * gridDim.x;
+    // 1. x into X's rows 0..K-1, chunk by chunk as the ring delivers them;
+    //    a slot read by every thread takes the sequence's next chunk
+    for (int c = 0; c < nch; ++c, ++q) {
+      const int slot = q % S;
+      hopper::mbar_wait(&full[slot], (q / S) & 1);
+      const uint8_t* sg = stage + slot * slot_b;
+      tail_in<kIn, E>(sg, sg + half, gs, us, c * cs, min(cs, K - c * cs), Xs,
+                      tid);
+      hopper::fence_proxy_async();  // X's rows, for step 2's wgmma
+      __syncthreads();
+      if (tid == 0 && q + S < Q) load_chunk(q + S);
+    }
+
+    // 2. Y1 = X . B: wgmma m64n128k16 over the 128-wide axis, this
+    //    warpgroup's 64 rows of X (A) against H (B), both K-major
+#pragma unroll
+    for (int i = 0; i < 64; ++i) hopper::reg_fence(acc[i]);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TL_M / 16; ++kk) {
+      const int box = kk / 4, off = (kk % 4) * 32;
+      hopper::wgmma_bf16_ss(
+          acc, hopper::desc_sw128(Xs + box * TL_BOX + wg * 64 * 128 + off, 16,
+                                  1024),
+          hopper::desc_sw128(Hs + box * TL_H_BOX + off, 16, 1024), kk > 0);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < 64; ++i) hopper::reg_fence(acc[i]);
+    // Y1 in bf16: acc[i] is row row0 + 8 ((i >> 1) & 1), column
+    // (i >> 2) * 8 + 2t + (i & 1); rows past K are zero (X's pad rows)
+#pragma unroll
+    for (int i = 0; i < 64; i += 2) {
+      const int r = row0 + ((i >> 1) & 1) * 8, col = (i >> 2) * 8 + 2 * t;
+      *reinterpret_cast<uint32_t*>(Ys + (col >> 6) * TL_BOX +
+                                   swz(r, (col >> 3) & 7) + (col & 7) * 2) =
+          pack_bf16(acc[i], acc[i + 1]);
+      acc[i] = acc[i + 1] = 0.f;
+    }
+    hopper::fence_proxy_async();  // Y1, for step 3's wgmma
+    __syncthreads();
+
+    // 3. Y = hadK . Y1: wgmma m64n128k16 over the hadK axis (k16 steps up
+    //    to K), hadK's fragments from registers (A), Y1 MN-major through
+    //    the descriptor's transpose bit (B: 64-column boxes, 8-row groups)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) hopper::reg_fence(acc[i]);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TL_MT; ++kk)
+      if (kk < kt_end)  // uniform over the block
+        hopper::wgmma_bf16_rs_tb(
+            acc, ha[kk], hopper::desc_sw128(Ys + kk * 16 * 128, TL_BOX, 1024));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < 64; ++i) hopper::reg_fence(acc[i]);
+
+    // 4. static int8: round half to even, clip; code (r, col) staged at
+    //    byte col of swizzled row r over X's first box (every warpgroup has
+    //    read X: step 2 ended before the last barrier), then the row's n
+    //    bytes leave as 16-byte stores
+#pragma unroll
+    for (int i = 0; i < 64; i += 2) {
+      const int r = row0 + ((i >> 1) & 1) * 8, col = (i >> 2) * 8 + 2 * t;
+      if (r < K) {
+        const int q0 = quant8(acc[i], inv, qmin, qmax);
+        const int q1 = quant8(acc[i + 1], inv, qmin, qmax);
+        *reinterpret_cast<uint16_t*>(Qs + swz(r, col >> 4) + (col & 15)) =
+            (uint16_t)((q0 & 0xFF) | ((q1 & 0xFF) << 8));
+      }
+    }
+    __syncthreads();
+    int8_t* orow = out + tok * n;
+    for (int v = tid; v < n / 16; v += TL_THREADS)
+      reinterpret_cast<uint4*>(orow)[v] =
+          *reinterpret_cast<const uint4*>(Qs + swz(v >> 3, v & 7));
+    __syncthreads();  // the codes are read: the next token's x goes over them
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -472,15 +558,31 @@ bool bad_range(int qmin, int qmax) {
   return qmin < -128 || qmin > qmax || qmax > 127;
 }
 
-template <int kIn>
+// the tail kernel for E-byte inputs at element strides ldg / ldu on the
+// plan (grid blocks, chunks of cs sub-rows, S ring slots)
+template <int kIn, int E>
 int launch_tail(const void* g, const void* u, int ldg, int ldu, const void* gs,
                 const void* us, const void* A, const void* Bt,
                 const void* scale, void* out, int T, int K, int qmin,
-                int qmax, void* stream) {
-  if (K < 1 || K > TL_KP || T < 1 || bad_range(qmin, qmax))
+                int qmax, int grid, int cs, int S, void* stream) {
+  constexpr int P = kIn == kInX ? 1 : 2;
+  if (K < 1 || K > TL_KP || T < 1 || bad_range(qmin, qmax) || grid < 1 ||
+      grid > T || cs < 1 || cs > K || S < 1 || S > TL_MAX_SLOTS)
     return (int)cudaErrorInvalidValue;
-  tail_kernel<kIn><<<T, TL_THREADS, 0, (cudaStream_t)stream>>>(
-      g, u, ldg, ldu, (const float*)gs, (const float*)us, K,
+  const long stage = (long)S * P * cs * TL_M * E;
+  if (stage > TL_STAGE_MAX) return (int)cudaErrorInvalidValue;
+  static bool sized = false;  // above 48 KB only after the attribute is set
+  if (!sized) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        tail_kernel<kIn, E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        TL_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    sized = true;
+  }
+  const int smem = TL_FIXED + 1024 + (int)stage + 8 * S;
+  tail_kernel<kIn, E><<<grid, TL_THREADS, smem, (cudaStream_t)stream>>>(
+      (const uint8_t*)g, (const uint8_t*)u, (long)ldg * E, (long)ldu * E,
+      (const float*)gs, (const float*)us, T, K, cs, S,
       (const __nv_bfloat16*)A, (const __nv_bfloat16*)Bt, (const float*)scale,
       qmin, qmax, (int8_t*)out);
   return (int)cudaGetLastError();
@@ -491,39 +593,51 @@ int launch_tail(const void* g, const void* u, int ldg, int ldu, const void* gs,
 extern "C" {
 
 // out (T, K * 128) int8 = clip(round((A (x) H_128) . (silu(g) * u) / scale),
-// qmin, qmax). g, u: (T, K * 128) bf16 rows at strides ldg / ldu (elements;
-// rows 16-byte aligned). A: (160, 160) bf16, hadK zero-padded; Bt: (128, 128)
-// bf16, the transposed H_128 / sqrt(128); scale: one f32 on the device.
-// K <= 160; -128 <= qmin <= qmax <= 127.
+// qmin, qmax). g, u: (T, K * 128) rows at strides ldg / ldu (elements; rows
+// 16-byte aligned), bf16, or f32 where in_f32. A: (160, 160) bf16, hadK
+// zero-padded; Bt: (128, 128) bf16, the transposed H_128 / sqrt(128); scale:
+// one f32 on the device. K <= 160; -128 <= qmin <= qmax <= 127. The plan:
+// `grid` blocks (<= T), chunks of cs sub-rows, S ring slots (<= 8) whose
+// S * (2 cs * 128 * element bytes) fit the ring's 135,104 bytes.
 int mq_fused_swiglu_had_quant(const void* g, const void* u, int ldg, int ldu,
                               const void* A, const void* Bt, const void* scale,
                               void* out, int T, int K, int qmin, int qmax,
+                              int in_f32, int grid, int cs, int S,
                               void* stream) {
-  return launch_tail<kInSwiglu>(g, u, ldg, ldu, nullptr, nullptr, A, Bt, scale,
-                                out, T, K, qmin, qmax, stream);
+  return in_f32 ? launch_tail<kInSwiglu, 4>(g, u, ldg, ldu, nullptr, nullptr,
+                                            A, Bt, scale, out, T, K, qmin,
+                                            qmax, grid, cs, S, stream)
+                : launch_tail<kInSwiglu, 2>(g, u, ldg, ldu, nullptr, nullptr,
+                                            A, Bt, scale, out, T, K, qmin,
+                                            qmax, grid, cs, S, stream);
 }
 
-// out (T, K * 128) int8 = clip(round((A (x) H_128) . x / scale), qmin, qmax);
-// x: (T, K * 128) bf16 rows at stride ldx; A, Bt, scale, K, qmin, qmax as
-// above.
+// out (T, K * 128) int8 = clip(round((A (x) H_128) . bf16(x) / scale), qmin,
+// qmax); x: (T, K * 128) rows at stride ldx, bf16, or f32 where in_f32 (each
+// element rounded to bf16); A, Bt, scale, K, qmin, qmax and the plan as
+// above (one input: S * cs * 128 * element bytes).
 int mq_had_quant(const void* x, int ldx, const void* A, const void* Bt,
                  const void* scale, void* out, int T, int K, int qmin,
-                 int qmax, void* stream) {
-  return launch_tail<kInX>(x, x, ldx, ldx, nullptr, nullptr, A, Bt, scale, out,
-                           T, K, qmin, qmax, stream);
+                 int qmax, int in_f32, int grid, int cs, int S, void* stream) {
+  return in_f32 ? launch_tail<kInX, 4>(x, x, ldx, ldx, nullptr, nullptr, A,
+                                       Bt, scale, out, T, K, qmin, qmax, grid,
+                                       cs, S, stream)
+                : launch_tail<kInX, 2>(x, x, ldx, ldx, nullptr, nullptr, A,
+                                       Bt, scale, out, T, K, qmin, qmax, grid,
+                                       cs, S, stream);
 }
 
 // out (T, K * 128) int8 = clip(round((A (x) H_128) . x / scale), qmin, qmax)
 // with x = bf16(silu(g * gs) * (u * us)) in f32; g, u: (T, K * 128) int32
 // rows at strides ldg / ldu (elements; rows 16-byte aligned); gs, us: (K *
-// 128,) f32; A, Bt, scale, K, qmin, qmax as above.
+// 128,) f32; A, Bt, scale, K, qmin, qmax and the plan as above.
 int mq_dequant_swiglu_had_quant(const void* g, const void* u, int ldg, int ldu,
                                 const void* gs, const void* us, const void* A,
                                 const void* Bt, const void* scale, void* out,
-                                int T, int K, int qmin, int qmax,
-                                void* stream) {
-  return launch_tail<kInDequant>(g, u, ldg, ldu, gs, us, A, Bt, scale, out, T,
-                                 K, qmin, qmax, stream);
+                                int T, int K, int qmin, int qmax, int grid,
+                                int cs, int S, void* stream) {
+  return launch_tail<kInDequant, 4>(g, u, ldg, ldu, gs, us, A, Bt, scale, out,
+                                    T, K, qmin, qmax, grid, cs, S, stream);
 }
 
 // out (T, n) int8 = clip(round(x * rsqrt(mean(x^2) + eps) * w / scale), qmin,

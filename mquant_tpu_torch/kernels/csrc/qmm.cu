@@ -44,9 +44,12 @@
 // K3's main kernel is Hopper-native (gemm_tma_kernel): TMA loads of x and
 // the raw W tile through an mbarrier ring, wgmma with W^T built in
 // registers (nibbles unpacked there, so no int8 copy of a W4 weight ever
-// exists in device memory). Shapes outside TMA's 16-byte stride contract
-// (K = 18943 of the RMS split, ragged N) run the earlier mma.sync kernel
-// (gemm_kernel), which stages 128x128 tiles through shared memory.
+// exists in device memory). It takes any K on int8 weights (the RMS split's
+// K = 18943: TMA zero-fills W's rows and x's columns at and past K, so the
+// last k step adds nothing), with x read at its own row stride, a multiple
+// of 16. Shapes outside TMA's 16-byte stride contract (ragged N, packed W4
+// with (K/2) % 16 != 0) run the earlier mma.sync kernel (gemm_kernel), which
+// stages 128x128 tiles through shared memory.
 //
 // Epilogue (K1-K3): y = (float(acc) * x_scale[m]) * w_scale[n], then
 // rounded to the output type, the order of qmm.py:549/:577.
@@ -64,6 +67,8 @@
 //
 // Any K (K2 and K3 on int8 weights; K3 on packed W4 with K even): the RMS
 // split stores 18943 int8 rows of `down`, as the JAX package writes them. The
+// TMA GEMM leaves the K tail to TMA's zero fill (above). In the GEMVs and
+// the mma.sync GEMM the
 // TAIL instantiations predicate and zero-fill the last row group and k step,
 // and read activation rows that are not 4- (16-) byte aligned as aligned
 // words shifted into place, so the int32 sums stay exact and no byte outside
@@ -497,10 +502,12 @@ __global__ void __launch_bounds__(256)
 // the block's x rows (W4: the low-plane and the high-plane columns); as
 // many stages as fit in 192 KB are in flight (2-6). A k32 step's A
 // fragments are built while the previous step's products run. K, N and M need not be multiples of the tile: TMA
-// zero-fills outside the tensors (W rows past K or K/2 are zero, so the x
-// bytes they meet add nothing) and the epilogue stores only m < M, n < N.
-// TMA's contract: 16-byte aligned bases and row strides (K % 16, N % 16,
-// W4: (K/2) % 16); the host sends other shapes to gemm_kernel above.
+// zero-fills outside the tensors (W rows past K or K/2 are zero, and so are
+// x's columns past K: a k step that runs past K adds nothing, and the int32
+// sums stay exact for any K) and the epilogue stores only m < M, n < N.
+// TMA's contract: 16-byte aligned bases and row strides (x's stride ldx and
+// N multiples of 16, W4: (K/2) % 16); the host sends other shapes to
+// gemm_kernel above.
 
 constexpr int TG_BM = 128;  // channels per block
 constexpr int TG_BK = 128;  // x columns (bytes) per stage; W rows per stage
@@ -758,12 +765,12 @@ __global__ void __launch_bounds__(TG_THREADS, 1)
 }
 
 template <bool W4, int NT>
-int launch_gemm_tma(const void* x, const void* w, const void* xs,
+int launch_gemm_tma(const void* x, int ldx, const void* w, const void* xs,
                     const void* wsc, void* out, int M, int K, int N,
                     int out_kind, cudaStream_t stream) {
   using Cfg = TmaGemmCfg<W4, NT>;
   CUtensorMap xmap, wmap;
-  const uint64_t xd[2] = {(uint64_t)K, (uint64_t)M}, xst[1] = {(uint64_t)K};
+  const uint64_t xd[2] = {(uint64_t)K, (uint64_t)M}, xst[1] = {(uint64_t)ldx};
   const uint64_t wd[2] = {(uint64_t)N, (uint64_t)(W4 ? K / 2 : K)};
   const uint64_t wst[1] = {(uint64_t)N};
   const uint32_t xbox[2] = {TG_BK, 2 * NT}, wbox[2] = {TG_BM, TG_BK};
@@ -1381,24 +1388,26 @@ int mq_w8_bf16_gemv(const void* x, const void* w, const void* ws, void* out,
 
 // y (M, N) = epilogue(x (M, K) . W), W4 packed (K/2, N) if w4 else int8 (K, N):
 // the TMA + wgmma kernel on blocks of 128 channels x `tokens` (128 or 256)
-// tokens. Needs 16-byte aligned x and w, K % 16 == 0, N % 16 == 0 and, for
-// W4, (K/2) % 16 == 0 (the host routes other shapes to mq_int8_gemm_sm80).
-int mq_int8_gemm(const void* x, const void* w, const void* xs, const void* wsc,
-                 void* out, int M, int K, int N, int w4, int out_kind,
-                 int tokens, void* stream) {
-  if (M < 1 || K < 16 || K % 16 || N % 16 || (w4 && (K / 2) % 16) ||
+// tokens. x rows at stride ldx (bytes, a multiple of 16, >= K); needs
+// 16-byte aligned x and w, N % 16 == 0 and, for W4, (K/2) % 16 == 0 (the
+// host routes other shapes to mq_int8_gemm_sm80). Any K >= 1 on int8 W.
+int mq_int8_gemm(const void* x, int ldx, const void* w, const void* xs,
+                 const void* wsc, void* out, int M, int K, int N, int w4,
+                 int out_kind, int tokens, void* stream) {
+  if (M < 1 || K < 1 || ldx < K || ldx % 16 || N < 16 || N % 16 ||
+      (w4 && (K % 2 || (K / 2) % 16)) ||
       reinterpret_cast<uintptr_t>(x) % 16 ||
       reinterpret_cast<uintptr_t>(w) % 16 || (tokens != 128 && tokens != 256))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   if (tokens == 128)
-    return w4 ? launch_gemm_tma<true, 64>(x, w, xs, wsc, out, M, K, N,
+    return w4 ? launch_gemm_tma<true, 64>(x, ldx, w, xs, wsc, out, M, K, N,
                                           out_kind, st)
-              : launch_gemm_tma<false, 64>(x, w, xs, wsc, out, M, K, N,
+              : launch_gemm_tma<false, 64>(x, ldx, w, xs, wsc, out, M, K, N,
                                            out_kind, st);
-  return w4 ? launch_gemm_tma<true, 128>(x, w, xs, wsc, out, M, K, N,
+  return w4 ? launch_gemm_tma<true, 128>(x, ldx, w, xs, wsc, out, M, K, N,
                                          out_kind, st)
-            : launch_gemm_tma<false, 128>(x, w, xs, wsc, out, M, K, N,
+            : launch_gemm_tma<false, 128>(x, ldx, w, xs, wsc, out, M, K, N,
                                           out_kind, st);
 }
 

@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from ..transform import hadamard as H
+from .qmm import _sm_count
 
 # kernel launches per wrapper (read and reset by chip_smoke.py)
 LAUNCHES: Dict[str, int] = {"fused_swiglu_had_quant": 0, "had_quant": 0,
@@ -56,6 +57,13 @@ LAUNCHES: Dict[str, int] = {"fused_swiglu_had_quant": 0, "had_quant": 0,
 # the Hadamard kernels' row tile: (TAIL_MAX_K, TAIL_M), the hadK axis
 # zero-padded to TAIL_MAX_K (148 → 160 for n = 18944)
 TAIL_M, TAIL_MAX_K = 128, 160
+# the tail kernel's shared memory (csrc/fwht.cu): of a block's 232,448 bytes,
+# the token's X and Y1 tiles (192 × 128 bf16 each) and H₁₂₈ (128 × 128 bf16)
+# stay, 1024 bytes go to alignment; the rest, less TAIL_MAX_SLOTS mbarriers,
+# is the ring of g / u slots
+TAIL_FIXED_BYTES = 2 * 192 * 128 * 2 + 128 * 128 * 2
+TAIL_MAX_SLOTS = 8
+TAIL_STAGE_BYTES = 232448 - TAIL_FIXED_BYTES - 1024 - 8 * TAIL_MAX_SLOTS
 
 
 def _pow2_split(n: int) -> tuple[int, int]:
@@ -258,11 +266,14 @@ def _on_card(name: str, x: torch.Tensor) -> bool:
 
 
 def tail_supports(n: int, dtype: torch.dtype = torch.bfloat16) -> bool:
-    """The Hadamard kernels' row contract: n = K·128 with K ≤ TAIL_MAX_K
-    (their row tile; pow2 n above 16384 splits with m ≥ 256, n = 96 has
-    m = 8), and bf16 rows. The wrappers raise on a CUDA tensor outside it,
-    and ``models.llm._use_fused_tail`` routes by it."""
-    if dtype != torch.bfloat16 or n < TAIL_M or n % TAIL_M:
+    """The Hadamard tail kernel's row contract: n = K·128 with K ≤ TAIL_MAX_K
+    (its row tile; pow2 n above 16384 splits with m ≥ 256, n = 96 has
+    m = 8), and bf16 or f32 rows (f32 g, u enter silu as they are, an f32 x
+    is rounded to bf16: the TPU kernels' casts). The wrappers of
+    :func:`fused_swiglu_had_quant` and :func:`had_quant` raise on a CUDA
+    tensor outside it, and ``models.llm._use_fused_tail`` routes by it."""
+    if dtype not in (torch.bfloat16, torch.float32) or n < TAIL_M or \
+            n % TAIL_M:
         return False
     try:
         K = _factors(n)[2]
@@ -273,7 +284,7 @@ def tail_supports(n: int, dtype: torch.dtype = torch.bfloat16) -> bool:
 
 def _hadamard_K(name: str, n: int) -> int:
     """K of n = K·128 with K ≤ TAIL_MAX_K (the kernels' row tile); raises for
-    any other n (:func:`tail_supports`)."""
+    any other n (:func:`tail_supports`'s row rule)."""
     if not tail_supports(n):
         raise ValueError(f"{name}: needs n = K·{TAIL_M} with K ≤ "
                          f"{TAIL_MAX_K}, got n = {n}")
@@ -281,11 +292,35 @@ def _hadamard_K(name: str, n: int) -> int:
 
 
 def _check_tail(name: str, n: int, dtype: torch.dtype) -> int:
-    """K of the bf16 rows of n = K·128 that the tail kernels take; raises
-    exactly where :func:`tail_supports` says no."""
-    if dtype != torch.bfloat16:
-        raise ValueError(f"{name}: the kernel takes bf16, got {dtype}")
+    """K of the bf16 or f32 rows of n = K·128 that the tail kernel takes;
+    raises exactly where :func:`tail_supports` says no."""
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{name}: the kernel takes bf16 or f32, got {dtype}")
     return _hadamard_K(name, n)
+
+
+def _tail_plan(T: int, K: int, sub_bytes: int, sms: int) -> tuple:
+    """(blocks, sub-rows per chunk, ring slots) of the tail kernel for T
+    token rows of K 128-wide sub-rows, each ``sub_bytes`` of input (g and u
+    together). One persistent block per SM, at most T: block b takes tokens
+    b, b + blocks, b + 2·blocks, ... A token's row comes through the ring
+    in chunks of ``cs`` sub-rows; of the chunk sizes whose slots fit
+    TAIL_STAGE_BYTES, the one that keeps the largest share of the next
+    token's row in flight while this token's products run (all of it where
+    one slot holds a row: bf16 pairs, one f32 or bf16 input; 5 of 8
+    chunks for int32 or f32 pairs at K = 148), with the fewest chunks."""
+    best = None
+    for want in range(1, TAIL_MAX_SLOTS + 1):
+        cs = -(-K // want)
+        nch = -(-K // cs)
+        slots = min(nch, TAIL_MAX_SLOTS, TAIL_STAGE_BYTES // (cs * sub_bytes))
+        if slots and (best is None or slots * best[2] > best[1] * nch):
+            best = (cs, slots, nch)
+    if best is None:
+        raise ValueError(f"tail: a {sub_bytes}-byte sub-row does not fit the "
+                         "ring")
+    return min(T, sms), best[0], best[1]
+
 
 
 def _scale(name: str, scale, device) -> torch.Tensor:
@@ -317,10 +352,10 @@ def _finish(name: str, status: int):
 def fused_swiglu_had_quant(g: torch.Tensor, u: torch.Tensor, scale,
                            qmin: int = -128, qmax: int = 127) -> torch.Tensor:
     """int8 (…, n) = clip(round(((hadK ⊗ H₁₂₈) · silu(g)·u) / scale), qmin,
-    qmax) for bf16 g, u (…, n) and a per-tensor ``scale``; CUDA kernel
-    ``mq_fused_swiglu_had_quant``. Takes n = K·128 with K ≤ 160 (n = 18944:
-    K = 148) and rows with unit column stride (g and u may be the two halves
-    of one fused gate|up output)."""
+    qmax) for bf16 or f32 g, u (…, n) and a per-tensor ``scale``; CUDA
+    kernel ``mq_fused_swiglu_had_quant``. Takes n = K·128 with K ≤ 160
+    (n = 18944: K = 148) and rows with unit column stride (g and u may be
+    the two halves of one fused gate|up output)."""
     name = "fused_swiglu_had_quant"
     qmin, qmax = _code_range(name, qmin, qmax)
     if g.shape != u.shape or g.dtype != u.dtype or g.device != u.device:
@@ -339,20 +374,22 @@ def fused_swiglu_had_quant(g: torch.Tensor, u: torch.Tensor, scale,
     from ._build import load
 
     A_pad, B_t = _tail_factors(n, g.device)
+    plan = _tail_plan(T, K, 2 * TAIL_M * g.element_size(),
+                      _sm_count(g.device.index))
     stream = torch.cuda.current_stream(g.device).cuda_stream
     _finish(name, load().mq_fused_swiglu_had_quant(
         g2.data_ptr(), u2.data_ptr(), g2.stride(0), u2.stride(0),
         A_pad.data_ptr(), B_t.data_ptr(), s.data_ptr(), out.data_ptr(), T, K,
-        qmin, qmax, stream))
+        qmin, qmax, int(g.dtype == torch.float32), *plan, stream))
     return out.reshape(g.shape)
 
 
 def had_quant(x: torch.Tensor, scale, qmin: int = -128,
               qmax: int = 127) -> torch.Tensor:
-    """int8 (…, n) = clip(round(((hadK ⊗ H₁₂₈) · x) / scale), qmin, qmax) for
-    bf16 x (…, n) and a per-tensor ``scale``; CUDA kernel ``mq_had_quant``
-    (the tail kernel reading x instead of silu(g)·u). n = K·128 with
-    K ≤ 160, rows with unit column stride."""
+    """int8 (…, n) = clip(round(((hadK ⊗ H₁₂₈) · bf16(x)) / scale), qmin,
+    qmax) for bf16 or f32 x (…, n) and a per-tensor ``scale``; CUDA kernel
+    ``mq_had_quant`` (the tail kernel reading x instead of silu(g)·u).
+    n = K·128 with K ≤ 160, rows with unit column stride."""
     name = "had_quant"
     qmin, qmax = _code_range(name, qmin, qmax)
     if not _on_card(name, x):
@@ -368,10 +405,13 @@ def had_quant(x: torch.Tensor, scale, qmin: int = -128,
     from ._build import load
 
     A_pad, B_t = _tail_factors(n, x.device)
+    plan = _tail_plan(T, K, TAIL_M * x.element_size(),
+                      _sm_count(x.device.index))
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _finish(name, load().mq_had_quant(
         x2.data_ptr(), x2.stride(0), A_pad.data_ptr(), B_t.data_ptr(),
-        s.data_ptr(), out.data_ptr(), T, K, qmin, qmax, stream))
+        s.data_ptr(), out.data_ptr(), T, K, qmin, qmax,
+        int(x.dtype == torch.float32), *plan, stream))
     return out.reshape(x.shape)
 
 
@@ -420,11 +460,12 @@ def dequant_swiglu_had_quant(g: torch.Tensor, u: torch.Tensor,
     from ._build import load
 
     A_pad, B_t = _tail_factors(n, g.device)
+    plan = _tail_plan(T, K, 2 * TAIL_M * 4, _sm_count(g.device.index))
     stream = torch.cuda.current_stream(g.device).cuda_stream
     _finish(name, load().mq_dequant_swiglu_had_quant(
         g2.data_ptr(), u2.data_ptr(), g2.stride(0), u2.stride(0),
         gs.data_ptr(), us.data_ptr(), A_pad.data_ptr(), B_t.data_ptr(),
-        s.data_ptr(), out.data_ptr(), T, K, qmin, qmax, stream))
+        s.data_ptr(), out.data_ptr(), T, K, qmin, qmax, *plan, stream))
     return out.reshape(g.shape)
 
 

@@ -20,8 +20,9 @@ Three hand-written CUDA kernels (``csrc/qmm.cu``) carry the int8 compute:
   * :func:`int8_gemv` — int8-weight GEMV, M ≤ 32 (the int8 lm_head);
     replaces ``_qmm_pallas_gemv``.
   * :func:`int8_gemm` — int8 GEMM, M > 32, W4 packed or W8 (prefill, ViT,
-    merger); replaces ``_qmm_pallas_w4``'s M > 32 branch. A TMA + wgmma
-    kernel for the shapes of :func:`tma_supports`, the ``mma.sync`` kernel
+    merger, the RMS split's K = 18943 ``down``); replaces
+    ``_qmm_pallas_w4``'s M > 32 branch. A TMA + wgmma kernel for the shapes
+    of :func:`tma_supports`, the ``mma.sync`` kernel
     (:func:`int8_gemm_sm80`, its own launch count) for the rest.
 
 and two more the decode probes use (``mquant_tpu_torch.scripts``):
@@ -95,7 +96,8 @@ def _act_int8(x: torch.Tensor, spec, site_state, p=None) -> ActQ:
                 "per-channel static activation scales require realize-time "
                 "folding into the weights (a_fold / a_corr), not ported yet")
         if qp.zero_point is None:
-            return ActQ(Q.quantize(x, qp, INT8), qp.scale, None)
+            return ActQ(Q.quantize(x, qp, INT8, _codes_out(x)), qp.scale,
+                        None)
         q = torch.round(x.float() / qp.scale) + qp.zero_point
         q = (torch.clamp(q, 0, 255) - 128.0).to(torch.int8)
         return ActQ(q, qp.scale, qp.zero_point - 128.0)
@@ -106,7 +108,22 @@ def _act_int8(x: torch.Tensor, spec, site_state, p=None) -> ActQ:
     qp = Q.dynamic_qparams(x, INT8, axis=-1 if spec.a_per_token else None,
                            symmetric=spec.a_symmetric,
                            clip_ratio=spec.a_clip_ratio)
-    return ActQ(Q.quantize(x, qp, INT8), qp.scale, qp.zero_point)
+    return ActQ(Q.quantize(x, qp, INT8, _codes_out(x)), qp.scale,
+                qp.zero_point)
+
+
+def _codes_out(x: torch.Tensor) -> Optional[torch.Tensor]:
+    """Where the codes of x (…, K) will meet the int8 GEMM (more than
+    GEMV_MAX_M token rows) and K is no multiple of 16 (the RMS split's
+    18943), empty int8 codes (…, K) as a view of rows padded to a multiple
+    of 16 bytes, which the TMA GEMM reads in place (:func:`tma_supports`);
+    else None (contiguous codes)."""
+    K = x.shape[-1]
+    if K % 16 == 0 or x.numel() <= GEMV_MAX_M * K:
+        return None
+    buf = torch.empty((*x.shape[:-1], -(-K // 16) * 16), dtype=torch.int8,
+                      device=x.device)
+    return buf[..., :K]
 
 
 def quantize_weights_real(w: torch.Tensor, bits: int, pack: bool = True,
@@ -297,11 +314,16 @@ def w4_unpack_gemv_ref(xq, w_packed, variant: int):
     return _exact_dot(xq, unpack_int4_weights({"w_q": w_packed}))
 
 
-def _check_args(name, xq, x_scale, w, w_scale, out_dtype, packed, max_m=None):
+def _check_args(name, xq, x_scale, w, w_scale, out_dtype, packed, max_m=None,
+                x_rows=False):
     """Validate a kernel call; returns (M, K, N). Raises on anything the
-    kernels do not take."""
-    if xq.dtype != torch.int8 or xq.ndim != 2 or not xq.is_contiguous():
-        raise ValueError(f"{name}: xq must be contiguous int8 (M, K)")
+    kernels do not take. With ``x_rows`` xq's rows may lie at any stride
+    ≥ K (unit column stride), as the TMA GEMM reads them."""
+    if xq.dtype != torch.int8 or xq.ndim != 2 or not (
+            xq.is_contiguous() or x_rows and xq.stride(1) == 1
+            and xq.stride(0) >= xq.shape[1]):
+        raise ValueError(f"{name}: xq must be contiguous int8 (M, K)"
+                         + (" or rows at a stride >= K" if x_rows else ""))
     if w.dtype != torch.int8 or w.ndim != 2 or not w.is_contiguous():
         raise ValueError(f"{name}: w must be contiguous int8 2-D")
     M, K = xq.shape
@@ -528,13 +550,19 @@ def int8_gemv(xq, x_scale, w, w_scale, out_dtype=torch.bfloat16):
 
 
 def tma_supports(K: int, N: int, packed: bool) -> bool:
-    """The shapes the TMA + wgmma GEMM (``mq_int8_gemm``) takes: TMA needs
-    16-byte row strides, so K % 16 == 0 and N % 16 == 0, and for packed W4
-    also (K/2) % 16 == 0. Every served product of the 7B prefill, the ViT
-    and the merger meets it; the RMS split's K = 18943 and ragged edges do
-    not, and :func:`int8_gemm` sends those to :func:`int8_gemm_sm80`."""
-    return K >= 16 and K % 16 == 0 and N % 16 == 0 and \
-        (not packed or (K // 2) % 16 == 0)
+    """The shapes the TMA + wgmma GEMM (``mq_int8_gemm``) takes. TMA needs
+    16-byte row strides: N % 16 == 0 (W's rows), and for packed W4
+    (K/2) % 16 == 0. On int8 weights any K: TMA zero-fills W's rows and x's
+    columns past K, so the RMS split's K = 18943 ``down`` runs here. x's
+    rows must lie at a stride that is a multiple of 16 bytes, on a 16-byte
+    aligned base: ``_act_int8`` writes such codes for every K that is no
+    multiple of 16 (:func:`_codes_out`), and :func:`int8_gemm` copies any
+    other x into padded rows once (one (M, K) copy, stated, never on the
+    served path). Every served product of the 7B prefill, the ViT and the
+    merger meets it; the ragged-N edges and packed W4 with (K/2) % 16 != 0
+    do not, and :func:`int8_gemm` sends those to :func:`int8_gemm_sm80`."""
+    return K >= 1 and N >= 16 and N % 16 == 0 and \
+        (not packed or (K % 2 == 0 and (K // 2) % 16 == 0))
 
 
 def tma_tokens(M: int, N: int, sms: int = 132) -> int:
@@ -548,13 +576,16 @@ def tma_tokens(M: int, N: int, sms: int = 132) -> int:
 
 
 def _launch_gemm(name, entry, xq, x_scale, w, w_scale, out_dtype, packed,
-                 M, K, N, *tile):
+                 M, K, N, *tile, ldx=None):
+    """One GEMM launch; ``ldx`` (x's row stride in bytes) only for the TMA
+    kernel's entry, which reads x at its own stride."""
     from ._build import load
 
+    x = (xq.data_ptr(),) if ldx is None else (xq.data_ptr(), ldx)
     out = torch.empty((M, N), dtype=out_dtype, device=xq.device)
     stream = torch.cuda.current_stream(xq.device).cuda_stream
     status = getattr(load(), entry)(
-        xq.data_ptr(), w.data_ptr(), x_scale.data_ptr(), w_scale.data_ptr(),
+        *x, w.data_ptr(), x_scale.data_ptr(), w_scale.data_ptr(),
         out.data_ptr(), M, K, N, int(packed), _OUT_KIND[out_dtype], *tile,
         stream)
     LAUNCHES[name] += 1
@@ -562,35 +593,49 @@ def _launch_gemm(name, entry, xq, x_scale, w, w_scale, out_dtype, packed,
     return out
 
 
+def _tma_rows(xq: torch.Tensor) -> torch.Tensor:
+    """xq itself where its rows lie on a 16-byte aligned base at a stride
+    that is a multiple of 16 bytes (TMA's contract); else one copy of it
+    into such rows, the stride K rounded up to 16."""
+    if xq.stride(0) % 16 == 0 and xq.data_ptr() % 16 == 0:
+        return xq
+    M, K = xq.shape
+    return torch.empty((M, -(-K // 16) * 16), dtype=torch.int8,
+                       device=xq.device)[:, :K].copy_(xq)
+
+
 def _gemm_tma(xq, x_scale, w, w_scale, out_dtype, packed, tokens):
     """The TMA kernel at a given block width (``tokens`` 128 or 256), for
     timing the one :func:`tma_tokens` does not pick."""
     M, K, N = _check_args("int8_gemm", xq, x_scale, w, w_scale, out_dtype,
-                          packed)
-    return _launch_gemm("int8_gemm", "mq_int8_gemm", xq, x_scale, w, w_scale,
-                        out_dtype, packed, M, K, N, tokens)
+                          packed, x_rows=True)
+    x2 = _tma_rows(xq)
+    return _launch_gemm("int8_gemm", "mq_int8_gemm", x2, x_scale, w, w_scale,
+                        out_dtype, packed, M, K, N, tokens,
+                        ldx=x2.stride(0))
 
 
 def int8_gemm(xq, x_scale, w, w_scale, out_dtype=torch.bfloat16,
               packed: bool = False):
     """int8 GEMM for M > 32 on W4 packed (K/2, N) or W8 (K, N) weights, any
-    K, with the fused per-token × per-channel epilogue. Shapes inside
-    :func:`tma_supports` with 16-byte aligned operands run the TMA + wgmma
-    kernel ``mq_int8_gemm``; the others :func:`int8_gemm_sm80` (both exact,
-    so the route changes no bit)."""
+    K, with the fused per-token × per-channel epilogue; xq's rows may lie at
+    any stride ≥ K. Shapes inside :func:`tma_supports` with a 16-byte
+    aligned weight run the TMA + wgmma kernel ``mq_int8_gemm`` (x rows
+    padded by one copy where their stride or base is not 16-byte aligned);
+    the others :func:`int8_gemm_sm80` on a contiguous x (both exact, so the
+    route changes no bit)."""
     name = "int8_gemm"
-    M, K, N = _check_args(name, xq, x_scale, w, w_scale, out_dtype, packed)
+    M, K, N = _check_args(name, xq, x_scale, w, w_scale, out_dtype, packed,
+                          x_rows=True)
     if xq.device.type == "cpu":
         return int8_gemm_ref(xq, x_scale, w, w_scale, out_dtype, packed)
     if xq.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {xq.device}")
-    if not tma_supports(K, N, packed) or xq.data_ptr() % 16 or \
-            w.data_ptr() % 16:
-        return int8_gemm_sm80(xq, x_scale, w, w_scale, out_dtype, packed)
-    return _launch_gemm(name, "mq_int8_gemm", xq, x_scale, w, w_scale,
-                        out_dtype, packed, M, K, N, tma_tokens(
-                            M, N, torch.cuda.get_device_properties(
-                                xq.device).multi_processor_count))
+    if not tma_supports(K, N, packed) or w.data_ptr() % 16:
+        return int8_gemm_sm80(xq.contiguous(), x_scale, w, w_scale, out_dtype,
+                              packed)
+    return _gemm_tma(xq, x_scale, w, w_scale, out_dtype, packed, tma_tokens(
+        M, N, _sm_count(xq.device.index)))
 
 
 def int8_gemm_sm80(xq, x_scale, w, w_scale, out_dtype=torch.bfloat16,
@@ -660,7 +705,7 @@ def quantized_matmul_pre(xq: torch.Tensor, x_scale, p: Dict[str, Any],
             "epilogue (_grouped_epilogue), not ported yet")
     lead = xq.shape[:-1]
     K = xq.shape[-1]
-    x2 = xq.reshape(-1, K).contiguous()
+    x2 = xq.reshape(-1, K)  # a view where xq's rows are padded (_codes_out)
     M = x2.shape[0]
     xs = torch.as_tensor(x_scale, dtype=torch.float32, device=xq.device)
     xs = xs.reshape(-1).expand(M).contiguous() if xs.numel() == 1 else \
@@ -670,7 +715,9 @@ def quantized_matmul_pre(xq: torch.Tensor, x_scale, p: Dict[str, Any],
     packed = w.shape[-2] * 2 == K
     if M <= GEMV_MAX_M:
         fn = KERNELS["w4a8_gemv"] if packed else KERNELS["int8_gemv"]
-        y = fn(x2, xs, w, ws, out_dtype)
+        y = fn(x2.contiguous(), xs, w, ws, out_dtype)
     else:
+        if x2.stride(-1) != 1:
+            x2 = x2.contiguous()
         y = KERNELS["int8_gemm"](x2, xs, w, ws, out_dtype, packed=packed)
     return y.reshape(*lead, y.shape[-1])

@@ -9,7 +9,8 @@ largest magnitude (the kernels round the probabilities to bf16 at other
 points than the plain versions and sum in other orders). Fused tail: int8
 codes within ±1 and at most 1% of them differing (f32 sums in other orders
 and another exp may move a code on a rounding tie by one step); had_quant
-the same; rms_norm_quant within ±1 and at most 1e-3 differing (another sum
+the same, in all three input modes (bf16 or f32 x, bf16 or f32 g and u,
+int32 g and u); rms_norm_quant within ±1 and at most 1e-3 differing (another sum
 order of the squares). fwht in f32: max |Δ| ≤ 1e-5 of the plain version's
 largest magnitude (f32 sums against its float64 ones); bf16 output within one
 bf16 ulp plus that bound (near zero, cancellation decides the f32 value).
@@ -148,8 +149,9 @@ def test_int8_gemv(cuda, M, K, N):
 
 # the main path's products (7B prefill W4, ViT and merger W8, the prefill
 # probe's W8 products, path S's K = 18943 `down`), then ragged M on a W4 and
-# a W8 shape, then the edges outside the TMA contract (N = 4100 / 1000,
-# K = 1001 / 3, W4 K/2 = 1793), which run the mma.sync kernel
+# a W8 shape, then the edges: outside the TMA contract (N = 4100 / 1000,
+# W4 K/2 = 1793), which run the mma.sync kernel, and K = 3 on int8 weights,
+# which the TMA kernel takes from a padded copy of x
 _MAIN_GEMM = [(1024, 3584, 4608, True), (1024, 3584, 3584, True),
               (1024, 3584, 37888, True), (1024, 18944, 3584, True),
               (1024, 1280, 1280, False), (1024, 1280, 5120, False),
@@ -190,20 +192,51 @@ def test_int8_gemm_sm80(cuda, M, K, N, packed):
 
 
 def test_gemm_route_follows_tma_contract(cuda):
-    """Every main-path shape takes the TMA kernel, every edge the mma.sync
-    one, and an x that is not 16-byte aligned the mma.sync one too."""
+    """Every main-path shape takes the TMA kernel (path S's K = 18943
+    too), the ragged-N and W4 K/2 = 1793 edges the mma.sync one; an x that
+    is not 16-byte aligned takes the TMA kernel through a padded copy."""
     for M, K, N, packed in _MAIN_GEMM + _EDGES:
         assert _counter("int8_gemm", K, N, packed) == (
-            "int8_gemm" if (M, K, N, packed) not in _EDGES and K != 18943
-            else "int8_gemm_sm80")
+            "int8_gemm" if N % 16 == 0 and not packed or (
+                M, K, N, packed) in _MAIN_GEMM else "int8_gemm_sm80")
     x, xs, w, ws = _operands(cuda, 64, 1296, 256, False)
     xo = x.reshape(-1)[8:8 + 64 * 1280].reshape(64, 1280)  # 8 bytes off
     before = dict(qmm.LAUNCHES)
     y = qmm.int8_gemm(xo, xs, w[:1280].contiguous(), ws, torch.int32)
-    assert qmm.LAUNCHES["int8_gemm_sm80"] == before["int8_gemm_sm80"] + 1
-    assert qmm.LAUNCHES["int8_gemm"] == before["int8_gemm"]
+    assert qmm.LAUNCHES["int8_gemm"] == before["int8_gemm"] + 1
+    assert qmm.LAUNCHES["int8_gemm_sm80"] == before["int8_gemm_sm80"]
     assert torch.equal(y, qmm.int8_gemm_ref(xo, xs, w[:1280].contiguous(), ws,
                                             torch.int32))
+
+
+def _padded(x):
+    """x's values in rows padded to a multiple of 16 bytes (the layout of
+    ``qmm._codes_out``); the pad bytes hold garbage that must not count."""
+    M, K = x.shape
+    buf = torch.full((M, -(-K // 16) * 16), 99, dtype=torch.int8,
+                     device=x.device)
+    buf[:, :K] = x
+    return buf[:, :K]
+
+
+# the K tail of the TMA kernel on int8 weights: the RMS split's K = 18943
+# and K = 1001, at ragged and full token counts, with x in padded rows (the
+# served layout) and contiguous (the wrapper pads it by one copy)
+@pytest.mark.parametrize("padded", [True, False])
+@pytest.mark.parametrize("M", [33, 77, 1024, 4096])
+@pytest.mark.parametrize("K,N", [(18943, 3584), (1001, 1024)])
+def test_int8_gemm_k_tail(cuda, M, K, N, padded):
+    x, xs, w, ws = _operands(cuda, M, K, N, False)
+    xin = _padded(x) if padded else x
+    assert xin.stride(0) % 16 == 0 or not padded
+    before = dict(qmm.LAUNCHES)
+    acc = qmm.int8_gemm(xin, xs, w, ws, torch.int32)
+    y = qmm.int8_gemm(xin, xs, w, ws, torch.bfloat16)
+    assert qmm.LAUNCHES["int8_gemm"] == before["int8_gemm"] + 2
+    assert qmm.LAUNCHES["int8_gemm_sm80"] == before["int8_gemm_sm80"]
+    torch.cuda.synchronize()
+    assert torch.equal(acc, qmm.int8_gemm_ref(x, xs, w, ws, torch.int32))
+    assert torch.equal(y, qmm.int8_gemm_ref(x, xs, w, ws, torch.bfloat16))
 
 
 def test_wrapper_raises_on_unsupported_shape(cuda):
@@ -216,15 +249,19 @@ def test_wrapper_raises_on_unsupported_shape(cuda):
     with pytest.raises(ValueError):  # packed rows of another K
         qmm.int8_gemm(x, xs, w[:40].contiguous(), ws, packed=True)
     # the C entry refuses what the TMA kernel does not take, whatever the
-    # wrapper sends (K % 16 != 0)
+    # wrapper sends (an x row stride that is no multiple of 16 bytes; packed
+    # W4 with (K/2) % 16 != 0)
     from mquant_tpu_torch.kernels._build import load
 
     x, xs, w, ws = _operands(cuda, 40, 40, 64, False)
     out = torch.empty((40, 64), dtype=torch.int32, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
     assert load().mq_int8_gemm(
-        x.data_ptr(), w.data_ptr(), xs.data_ptr(), ws.data_ptr(),
-        out.data_ptr(), 40, 40, 64, 0, 2, 128,
-        torch.cuda.current_stream().cuda_stream) != 0
+        x.data_ptr(), 40, w.data_ptr(), xs.data_ptr(), ws.data_ptr(),
+        out.data_ptr(), 40, 40, 64, 0, 2, 128, stream) != 0
+    assert load().mq_int8_gemm(
+        x.data_ptr(), 48, w.data_ptr(), xs.data_ptr(), ws.data_ptr(),
+        out.data_ptr(), 40, 40, 64, 1, 2, 128, stream) != 0
 
 
 def _tail_inputs(dev, T, n, seed=0):
@@ -268,8 +305,8 @@ def test_fused_tail_raises_on_unsupported(cuda):
     with pytest.raises(ValueError):
         fwht.fused_swiglu_had_quant(g, u, 0.05)
     g, u = _tail_inputs(cuda, 4, 18944)
-    with pytest.raises(ValueError):  # f32
-        fwht.fused_swiglu_had_quant(g.float(), u.float(), 0.05)
+    with pytest.raises(ValueError):  # f16 (bf16 and f32 are the contract)
+        fwht.fused_swiglu_had_quant(g.half(), u.half(), 0.05)
     with pytest.raises(ValueError):  # per-token scale
         fwht.fused_swiglu_had_quant(g, u, torch.ones(4, device=cuda))
     wide = torch.cat([g, g[:, :8]], dim=-1)
@@ -343,8 +380,8 @@ def test_probe_kernels_raise_on_unsupported(cuda):
         with pytest.raises(ValueError):  # pow2 n = 32768 splits m = 256
             fn(_bf16(cuda, 2, 32768), s)
     x = _bf16(cuda, 4, 3584)
-    with pytest.raises(ValueError):  # f32 into the int8 kernels
-        fwht.had_quant(x.float(), s)
+    with pytest.raises(ValueError):  # f16 (bf16 and f32 are had_quant's)
+        fwht.had_quant(x.half(), s)
     with pytest.raises(ValueError):
         fwht.rms_norm_quant(x.float(), x[0], s)
     with pytest.raises(ValueError):  # fp16 into fwht
@@ -584,6 +621,45 @@ def test_dequant_swiglu_had_quant(cuda, T, n):
     gu = torch.cat([gi, ui], dim=-1)  # the halves of one gate|up output
     assert torch.equal(q, fwht.dequant_swiglu_had_quant(
         gu[:, :n], gu[:, n:], gs, us, s, -127, 127))
+
+
+# the persistent tail kernel in its three input modes over token counts
+# below, at and above a block per SM (T = 1, 5, 255, 256, 1024, 4096 at
+# 132 SMs: 1-32 tokens a block, ragged), each on the two halves of one
+# (T, 2n) row (g and u at the fused gate|up stride); bf16 and f32 rows
+# (whole-row ring slots) and int32 rows (5 slots of 6 chunks a token)
+_TAIL_MODES = [("fused_swiglu_had_quant", torch.bfloat16),
+               ("fused_swiglu_had_quant", torch.float32),
+               ("had_quant", torch.bfloat16), ("had_quant", torch.float32),
+               ("dequant_swiglu_had_quant", torch.int32)]
+
+
+@pytest.mark.parametrize("name,dtype", _TAIL_MODES)
+@pytest.mark.parametrize("T", [1, 5, 255, 256, 1024, 4096])
+def test_tail_modes_strided(cuda, name, dtype, T):
+    n = 18944
+    gen = torch.Generator(device=cuda).manual_seed(T)
+    if dtype == torch.int32:
+        gu = torch.randint(-2**20, 2**20, (T, 2 * n), generator=gen,
+                           device=cuda, dtype=torch.int32)
+    else:
+        gu = (torch.randn((T, 2 * n), generator=gen, device=cuda)
+              * (3.0 if name == "had_quant" else 1.0)).to(dtype)
+    g, u = gu[:, :n], gu[:, n:]
+    s = torch.tensor(0.05, device=cuda)
+    sc = [torch.rand((n,), generator=gen, device=cuda) * 2e-6 + 1e-7
+          for _ in range(2)]
+    args = {"fused_swiglu_had_quant": (g, u, s), "had_quant": (u, s),
+            "dequant_swiglu_had_quant": (g, u, *sc, s)}[name]
+    before = fwht.LAUNCHES[name]
+    q = fwht.KERNELS[name](*args)
+    assert fwht.LAUNCHES[name] == before + 1
+    ref = fwht.PLAIN[name](*args)
+    torch.cuda.synchronize()
+    assert q.dtype == torch.int8 and q.shape == (T, n)
+    _check_codes(q, ref)
+    assert torch.equal(q, fwht.KERNELS[name](*(
+        a.contiguous() if a.ndim == 2 else a for a in args)))
 
 
 @pytest.mark.parametrize("qrange", [(-127, 127), (-8, 7)])

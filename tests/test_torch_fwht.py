@@ -15,6 +15,10 @@ numpy inputs from fixed seeds for both packages).
 * The routing of ``_mlp_tail``: which sites and prefill lengths take the
   fused kernel, recorded through a monkeypatched ``KERNELS`` entry.
 * ``online_hadamard`` on bf16 inputs against JAX within one bf16 ulp.
+* f32 rows: the plain versions of the fused tail and ``had_quant`` against
+  the JAX kernels on f32 inputs (the same rule), and the tail kernel's
+  launch plan (``_tail_plan``): every token and sub-row once, the ring
+  inside a block's shared memory.
 """
 
 import dataclasses
@@ -71,6 +75,71 @@ def test_tail_plain_matches_jax_kernel(n, T):
     np.testing.assert_array_equal(
         TF.fused_swiglu_had_quant(_t(g), _t(u), SCALE).numpy(), got.numpy())
     assert TF.LAUNCHES["fused_swiglu_had_quant"] == before
+
+
+# f32 rows (ROADMAP B-c2): the JAX kernels cast g and u to f32 (an f32 g
+# enters silu unrounded) and x to bf16; the port's kernel reads f32 rows
+# the same way, so its plain version is held to JAX's on f32 inputs
+@pytest.mark.parametrize("name", ["fused_swiglu_had_quant", "had_quant"])
+@pytest.mark.parametrize("n,T", [(512, 256), (18944, 256)])
+def test_tail_plain_matches_jax_kernel_f32(name, n, T):
+    rng = np.random.default_rng(n + T + len(name))
+    g, u = (rng.normal(size=(1, T, n)).astype(np.float32) for _ in range(2))
+    if name == "had_quant":
+        ref = JF.had_quant(jnp.asarray(g), jnp.float32(SCALE), interpret=True)
+        got = TF.had_quant(_t(g), SCALE)
+    else:
+        ref = JF.fused_swiglu_had_quant(jnp.asarray(g), jnp.asarray(u),
+                                        jnp.float32(SCALE), interpret=True)
+        got = TF.fused_swiglu_had_quant(_t(g), _t(u), SCALE)
+    assert got.dtype == torch.int8 and got.shape == (1, T, n)
+    worst, frac = _code_diff(got.numpy(), ref)
+    assert worst <= 1 and frac < 0.01, (worst, frac)
+
+
+SMS = 132  # the H100's SMs
+
+
+# sub-row bytes: one bf16 input (had_quant), a bf16 pair or one f32 input,
+# an int32 or f32 pair
+@pytest.mark.parametrize("sub_bytes", [256, 512, 1024])
+@pytest.mark.parametrize("T", [1, 5, 255, 256, 1024, 4096])
+@pytest.mark.parametrize("K", [148, 28, 4, 128, 160])
+def test_tail_plan_covers_every_token_and_sub_row_once(K, T, sub_bytes):
+    """``_tail_plan``: block b of the persistent grid takes tokens b,
+    b + blocks, ... (the kernel's count: ceil((T − b) / blocks)), which
+    covers every token once; a token's chunks of cs sub-rows cover its K
+    sub-rows once; the ring's slots and the resident tiles fit a block's
+    shared memory."""
+    blocks, cs, slots = TF._tail_plan(T, K, sub_bytes, SMS)
+    assert blocks == min(T, SMS)
+    seen = np.zeros(T, np.int64)
+    for b in range(blocks):
+        ntok = (T - b + blocks - 1) // blocks
+        assert ntok >= 1
+        toks = b + blocks * np.arange(ntok)
+        assert toks.max() < T
+        seen[toks] += 1
+    assert (seen == 1).all()
+    nch = -(-K // cs)
+    rows = np.zeros(K, np.int64)
+    for c in range(nch):
+        rows[c * cs:min(K, (c + 1) * cs)] += 1
+    assert (rows == 1).all()
+    assert 1 <= slots <= min(nch, TF.TAIL_MAX_SLOTS)
+    assert slots * cs * sub_bytes <= TF.TAIL_STAGE_BYTES
+    assert (TF.TAIL_FIXED_BYTES + 1024 + slots * cs * sub_bytes
+            + 8 * slots) <= 232448
+
+
+def test_tail_plan_at_the_main_path_width():
+    """n = 18944 (K = 148): one slot holds a whole bf16 g, u row (the next
+    token's row loads under this token's products); int32 or f32 pairs
+    take 8 chunks through 5 slots."""
+    assert TF._tail_plan(1024, 148, 512, SMS) == (132, 148, 1)
+    assert TF._tail_plan(1024, 148, 256, SMS) == (132, 148, 1)
+    assert TF._tail_plan(1024, 148, 1024, SMS) == (132, 19, 5)
+    assert TF._tail_plan(5, 148, 512, SMS) == (5, 148, 1)
 
 
 @pytest.mark.parametrize("n,T", [(512, 256), (2368, 512)])

@@ -53,7 +53,8 @@ def test_attn_decode_supports(hd, G, dtype, ok):
     (96, BF16, False),        # 12 · 8: m != 128
     (32768, BF16, False),     # pow2 that splits with m = 256
     (2368, BF16, False),      # 148 · 16
-    (18944, F32, False), (18944, F16, False)])
+    (18944, F32, True),       # f32 rows: the TPU kernels' f32 casts
+    (3584, F32, True), (29568, F32, False), (18944, F16, False)])
 def test_tail_supports(n, dtype, ok):
     assert fwht.tail_supports(n, dtype) is ok
 
@@ -69,8 +70,10 @@ def test_flash_supports(hd, dtype, T, ok):
 
 
 # the main path's GEMM shapes (7B prefill W4, ViT and merger W8, the probes'
-# W8 products) take the TMA kernel; the RMS split's K = 18943 and the ragged
-# edges of tests/test_torch_cuda.py go to the mma.sync kernel
+# W8 products, the RMS split's K = 18943) take the TMA kernel, and so does
+# any other K on int8 weights (TMA zero-fills past K); the ragged-N edges of
+# tests/test_torch_cuda.py and packed W4 with (K/2) % 16 != 0 go to the
+# mma.sync kernel
 @pytest.mark.parametrize("K,N,packed,ok", [
     (3584, 4608, True, True), (3584, 3584, True, True),
     (3584, 37888, True, True), (18944, 3584, True, True),
@@ -78,9 +81,11 @@ def test_flash_supports(hd, dtype, T, ok):
     (5120, 1280, False, True), (5120, 5120, False, True),
     (5120, 3584, False, True), (3584, 512, False, True),
     (3584, 19968, False, True), (18944, 3584, False, True),
-    (18943, 3584, False, False), (3584, 4100, True, False),
+    (18943, 3584, False, True), (3584, 4100, True, False),
     (1280, 1000, False, False), (1001, 1000, False, False),
-    (3, 64, False, False), (3586, 4100, True, False),
+    (3, 64, False, True), (3586, 4100, True, False),
+    (1001, 1024, False, True), (18943, 3584, True, False),
+    (3586, 64, True, False),  # K/2 = 1793
     (1040, 64, True, False)])  # K/2 = 520: 16-byte rows, high plane off
 def test_gemm_tma_supports(K, N, packed, ok):
     assert qmm.tma_supports(K, N, packed) is ok
@@ -124,7 +129,7 @@ def test_flash_check_agrees_with_supports(hd, T, dtype):
 
 @pytest.mark.parametrize("n,dtype", [
     (18944, BF16), (3584, BF16), (29568, BF16), (96, BF16), (32768, BF16),
-    (18944, F32)])
+    (18944, F32), (18944, F16)])
 def test_tail_check_agrees_with_supports(n, dtype):
     if fwht.tail_supports(n, dtype):
         assert fwht._check_tail("t", n, dtype) * fwht.TAIL_M == n
@@ -217,11 +222,11 @@ def _tail_route(n, dtype):
                                 TQP(torch.tensor(SCALE)), g)
 
 
-_TAIL_OUT = [(29568, BF16), (96, BF16), (18944, F32)]
+_TAIL_OUT = [(29568, BF16), (96, BF16), (18944, F16)]
 
 
 def test_tail_router_on_card(on_card):
-    assert _tail_route(18944, BF16)
+    assert _tail_route(18944, BF16) and _tail_route(18944, F32)
     for case in _TAIL_OUT:
         assert not _tail_route(*case), case
 

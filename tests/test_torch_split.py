@@ -76,6 +76,43 @@ def test_qlinear_split_matches_jax(had):
     _close(yt, yj)
 
 
+def test_qlinear_split_padded_codes_match_jax(monkeypatch):
+    """Path S at a prefill (more than 32 tokens): the split's codes (K =
+    n − 1 = 95) are written into rows padded to 96 bytes, which the GEMM
+    takes in place (no copy), and they are JAX's codes: the int32 product
+    bit-equal to JAX's codes against the weight, the output within RTOL."""
+    from mquant_tpu.kernels import qmm as JK
+    from mquant_tpu_torch.kernels import qmm as TK
+
+    rng = np.random.default_rng(4)
+    n, out, T = 96, 40, 77
+    x = rng.normal(size=(1, T, n)).astype(np.float32)
+    p = _site(rng, n, out, split=True)
+    kw = dict(w_bits=4, a_bits=8, a_static=True, online_had="full",
+              split=True)
+    seen_j, seen_t = [], []
+    jpre = JK.quantized_matmul_pre
+    monkeypatch.setattr(JK, "quantized_matmul_pre", lambda xq, *a, **k: (
+        seen_j.append(np.asarray(xq)), jpre(xq, *a, **k))[1])
+    tgemm = TK.KERNELS["int8_gemm"]
+    monkeypatch.setitem(TK.KERNELS, "int8_gemm", lambda xq, *a, **k: (
+        seen_t.append(xq), tgemm(xq, *a, **k))[1])
+    yj = JL.qlinear(jnp.asarray(x), {k: jnp.asarray(v) for k, v in p.items()},
+                    "llm.down", JL.SiteSpec(**kw),
+                    {"llm.down": {"act": JQP(jnp.float32(0.02))}}, "real")
+    yt = TL.qlinear(_t(x), {k: _t(v) for k, v in p.items()}, "llm.down",
+                    TL.SiteSpec(**kw),
+                    {"llm.down": {"act": TQP(torch.tensor(0.02))}}, "real")
+    (xq,), (xj,) = seen_t, seen_j
+    assert xq.shape == (T, n - 1) and xq.stride() == (96, 1)
+    acc = TK.int8_gemm_ref(xq, torch.ones(T), _t(p["w_q"]), torch.ones(out),
+                           torch.int32)
+    np.testing.assert_array_equal(
+        acc.numpy(), xj.reshape(T, n - 1).astype(np.int64)
+        @ p["w_q"].astype(np.int64))
+    _close(yt, yj)
+
+
 def test_qlinear_split_fp_recombine_matches_jax():
     """fp mode: w_col0 rejoins ``w`` as its first input row."""
     rng = np.random.default_rng(2)
