@@ -8,9 +8,11 @@ Phases, in order (any failed check raises and the script exits non-zero):
    and counts the tensor-core products and shared-memory copies in the SASS
    of the tensor-core kernels: wgmma (``IGMMA`` / ``HGMMA``) and TMA
    (``UTMALDG``) in the GEMM and flash kernels, ``IMMA`` and ``UTMALDG`` in
-   the W4 GEMV, ``HMMA`` and cp.async (``LDGSTS``) in decode attention,
-   ``HGMMA`` and the bulk copy (``UBLKCP``) in the Hadamard tail kernel
-   (fails without them).
+   the W4 GEMV (each of w4_unpack_gemv's P0-P3 instantiations too, their
+   counts printed beside the served unpack's), ``HMMA`` and cp.async
+   (``LDGSTS``) in decode attention, ``HGMMA`` and the bulk copy
+   (``UBLKCP``) in the Hadamard tail kernel and in fwht's (fails without
+   them).
 3. kernels: each kernel against its plain PyTorch version at the shapes of
    the main path: int32 accumulators and bf16 outputs bit-equal (the int8
    GEMM through its route: the TMA kernel inside its contract, K = 18943 of
@@ -42,8 +44,9 @@ Phases, in order (any failed check raises and the script exits non-zero):
    one ulp plus that), each beside its unfused torch chain. The decode
    probes' kernels likewise (w8_bf16_gemv: bf16 within one ulp plus 1e-5
    of max |plain|, and deterministic; w4_unpack_gemv P0-P3: int32
-   bit-equal, P1-P3 also to w4a8_gemv's; dequant_swiglu_had_quant: the
-   tail's rule, codes in [−127, 127]).
+   bit-equal, P1-P3 also to w4a8_gemv's, each timed beside w4a8_gemv at
+   the same shape; dequant_swiglu_had_quant: the tail's rule, codes in
+   [−127, 127]).
 4. probes: the T = 1024 prefill probe at 7B widths
    (``mquant_tpu_torch.scripts.prefill_probe``: every segment, device ms per
    step of a chain of 16 in one CUDA graph; each fused segment against its
@@ -236,20 +239,24 @@ def bound(nbytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
 
 def new_summary() -> dict:
     return {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-            "op_bound_ms": 0.0, "library_ms": 0.0, "has_library": True}
+            "op_bound_ms": 0.0, "library_ms": 0.0, "lib_kernel_ms": 0.0,
+            "lib_shapes": 0, "shapes": 0}
 
 
 def add_main(s: dict, ms, pms, bms, bound_by, lms):
-    """Sum one main-path shape into a kernel's summary; the library time
-    stays only if every main-path shape has one."""
+    """Sum one main-path shape into a kernel's summary. The library time
+    sums over the shapes that have one, beside the kernel's time over the
+    same shapes; the summary line's ``library_ms`` takes it only if every
+    main-path shape has one."""
     s["ms"] += ms
     s["plain_ms"] += pms
     s["bound_ms"] += bms
     s["op_bound_ms"] += bms if bound_by == "operations" else 0.0
-    if lms is None:
-        s["has_library"] = False
-    else:
+    s["shapes"] += 1
+    if lms is not None:
         s["library_ms"] += lms
+        s["lib_kernel_ms"] += ms
+        s["lib_shapes"] += 1
 
 
 def check_kernels(seed: int) -> dict:
@@ -377,6 +384,12 @@ def check_kernels(seed: int) -> dict:
     log(f"kernel w4a8_gemv at 4 / 8 / 32 rows (gate|up, down): {rows_sum['ms']:.4f} "
         f"ms summed, plain {rows_sum['plain_ms']:.4f} ms, bound "
         f"{rows_sum['bound_ms']:.4f} ms")
+    for name, s in summary.items():
+        if 0 < s["lib_shapes"] < s["shapes"]:
+            log(f"kernel {name}: library {s['library_ms']:.4f} ms summed over "
+                f"the {s['lib_shapes']} main-path shapes that have one (of "
+                f"{s['shapes']}), the kernel {s['lib_kernel_ms']:.4f} ms over "
+                "the same shapes")
     torch.cuda.empty_cache()
     return summary
 
@@ -654,7 +667,8 @@ RMS_MAX_FRAC = 1e-3  # rms_norm_quant: at most 1e-3 of the codes one step off
 FWHT_RTOL = 1e-5  # fwht: max |Δ| ≤ FWHT_RTOL · max |plain|
 # the prefill probe's kernels (kernel, label, T, n, f32 input, main path):
 # the probe's shapes, then edges (one row, a ragged T, K = 28, f32 in and
-# out, a power-of-two n)
+# out, a power-of-two n, K = 1, and fwht's dense route: the K = 156 block
+# that is no scaled sign matrix)
 PROBE_SHAPES = [
     ("rms_norm_quant", "probe", 1024, 3584, False, True),
     ("rms_norm_quant", "T 1", 1, 3584, False, False),
@@ -666,6 +680,8 @@ PROBE_SHAPES = [
     ("fwht_two_matmul", "probe, bf16", 1024, 18944, False, True),
     ("fwht_two_matmul", "f32", 1024, 18944, True, False),
     ("fwht_two_matmul", "pow2, f32", 64, 4096, True, False),
+    ("fwht_two_matmul", "K 1", 133, 128, False, False),
+    ("fwht_two_matmul", "K 156, f32", 64, 19968, True, False),
 ]
 
 
@@ -752,9 +768,16 @@ def check_probe_kernels(seed: int) -> dict:
         elif name == "had_quant":
             nbytes = in_bytes + T * n + 2 * (160 * 160 + 128 * 128) + 4
             ops, peak = 2 * T * n * (K + 128), BF16_FLOPS
-        else:  # the butterfly form: 2 K n FMA flops + 8 n per row
+        elif fwht._sign_factor(n) is None:  # dense hadK by f32 FMA
             nbytes = 2 * in_bytes + 4 * K * 160
             ops, peak = T * (2 * K * n + 8 * n), F32_FLOPS
+        else:
+            # hadK = c · sign(hadK) on the tensor cores: three exact bf16
+            # products of 2 K n flops a row, the butterfly's 8 n f32 flops
+            # as the bf16 flops of the same time
+            nbytes = 2 * in_bytes + 2 * 160 * 160
+            ops = T * (3 * 2 * K * n + 8 * n * BF16_FLOPS / F32_FLOPS)
+            peak = BF16_FLOPS
         bms, by = bound(nbytes, ops, peak)
         log(f"kernel {name} {label:11s} T={T:5d} n={n:5d}: {text}; {ms:.4f} "
             f"ms vs plain {pms:.4f} ms, library none, bound {bms:.4f} ms "
@@ -765,8 +788,10 @@ def check_probe_kernels(seed: int) -> dict:
         if main:
             chain_ms = cuda_ms(lambda i: chains[name](xs[i % len(xs)], w), 4,
                                reps=3)
-            log(f"kernel {name} {label}: the unfused torch chain "
-                f"{chain_ms:.4f} ms")
+            log(f"kernel {name} {label}: {ms:.4f} ms, bound {bms:.4f} ms "
+                f"({by}), the unfused torch chain ("
+                + ("online_hadamard" if name == "fwht_two_matmul" else
+                   "torch ops") + f") {chain_ms:.4f} ms")
             add_main(s_, ms, pms, bms, by, None)
         del xs, out, ref
     torch.cuda.empty_cache()
@@ -853,14 +878,21 @@ def check_decode_probe_kernels(seed: int) -> dict:
         wps = [torch.randint(-128, 128, (K // 2, N), generator=g, device=dev,
                              dtype=torch.int8) for _ in range(4)]
         ones_m, ones_n = torch.ones(M, device=dev), torch.ones(N, device=dev)
-        served = qmm.w4a8_gemv_ref(x, ones_m, wps[0], ones_n, torch.int32)
-        if (K // 2) % 4 == 0 and not torch.equal(served, qmm.w4a8_gemv(
-                x, ones_m, wps[0], ones_n, torch.int32)):
+        served = qmm.w4a8_gemv(x, ones_m, wps[0], ones_n, torch.int32)
+        if not torch.equal(served, qmm.w4a8_gemv_ref(x, ones_m, wps[0],
+                                                     ones_n, torch.int32)):
             raise AssertionError(f"w4a8_gemv [{label}]: int32 differs")
+        # the served kernel at the same shape, on the same weight cycle: the
+        # yardstick of each unpack in front of the same tensor-core product
+        sms_ = cuda_ms(lambda i: qmm.w4a8_gemv(x, ones_m, wps[i % 4], ones_n,
+                                               torch.int32), 20)
         nbytes = K // 2 * N + M * K + 4 * M * N
         bms, by = bound(nbytes, 2 * M * K * N, INT8_OPS)
         for v, name in qmm.W4_VARIANTS.items():
+            before = qmm.LAUNCHES["w4_unpack_gemv"]
             acc = qmm.w4_unpack_gemv(x, wps[0], v)
+            if qmm.LAUNCHES["w4_unpack_gemv"] != before + 1:
+                raise AssertionError(f"w4_unpack_gemv {name}: not launched")
             ref = qmm.w4_unpack_gemv_ref(x, wps[0], v)
             torch.cuda.synchronize()
             if not torch.equal(acc, ref) or (v and not torch.equal(acc,
@@ -873,7 +905,8 @@ def check_decode_probe_kernels(seed: int) -> dict:
                           4, reps=3)
             log(f"kernel w4_unpack_gemv {name:20s} [{label}] M={M} K={K} "
                 f"N={N}: int32 bit-equal{' (and to w4a8_gemv)' if v else ''};"
-                f" {ms:.4f} ms vs plain {pms:.4f} ms, library none, bound "
+                f" {ms:.4f} ms vs plain {pms:.4f} ms, served w4a8_gemv "
+                f"{sms_:.4f} ms ({ms / sms_:.2f}x), library none, bound "
                 f"{bms:.4f} ms ({by}); {K // 2 * N / ms / 1e6:.1f} GB/s of "
                 "packed weight")
             if main:
@@ -966,7 +999,8 @@ HOPPER_SASS = {"gemm_tma_kernel": ("IGMMA", "UTMALDG"),
                "flash_causal_kernel": ("HGMMA", "UTMALDG"),
                "gemv_tc_kernel": ("IMMA", "UTMALDG"),
                "decode_attn_kernel": ("HMMA", "LDGSTS"),
-               "tail_kernel": ("HGMMA", "UBLKCP")}
+               "tail_kernel": ("HGMMA", "UBLKCP"),
+               "fwht_tc_kernel": ("HGMMA", "UBLKCP")}
 
 
 def sass_hopper_kernels(funcs: dict) -> None:
@@ -991,31 +1025,38 @@ def sass_hopper_kernels(funcs: dict) -> None:
 
 
 def sass_unpack_variants(funcs: dict) -> None:
-    """Phase 2: instructions per variant of w4_unpack_gemv's instantiations
-    and whether P2 (int8 shifts) and P3 (int32 shifts) compiled to the same
-    code, for each rows-per-pass / tail instantiation. Prints only; the
-    kernels' checks are phase 3's."""
+    """Phase 2: instructions, ``IMMA`` and ``UTMALDG`` per variant of
+    w4_unpack_gemv's instantiations of the tensor-core GEMV (one token tile,
+    each tail instantiation) beside the served unpack's, and whether P2 (int8
+    shifts) and P3 (int32 shifts) compiled to the same code; fails if a
+    variant is missing or lacks the tensor-core product or the TMA copy."""
 
-    def code(wt, mc, tail):
-        key = f"gemv_kernelILi{wt}ELi{mc}ELb{tail}E"
+    def code(u, tail):
+        key = f"gemv_tc_kernelILi1ELb{tail}ELi{u}E"
         hits = [v for k, v in funcs.items() if key in k]
-        return hits[0] if len(hits) == 1 else None
+        if len(hits) != 1:
+            raise AssertionError(f"sass: {key} found {len(hits)} times")
+        return hits[0]
 
-    # the GemvW enum of qmm.cu: kP0 .. kP3 = 2 .. 5
-    for mc in (1, 4):
-        for tail in (0, 1):
-            c = {n: code(wt, mc, tail) for n, wt in
-                 (("P0", 2), ("P1", 3), ("P2", 4), ("P3", 5))}
-            if any(v is None for v in c.values()):
-                log(f"sass: rows {mc}, tail {tail}: instantiation not found")
-                continue
-            same = c["P2"] == c["P3"]
-            ndiff = sum(a != b for a, b in zip(c["P2"], c["P3"])) + abs(
-                len(c["P2"]) - len(c["P3"]))
-            log(f"sass: gemv rows {mc}, tail {tail}: instructions "
-                + ", ".join(f"{n} {len(v)}" for n, v in c.items())
-                + f"; P2 and P3 {'identical' if same else 'differ'}"
-                + ("" if same else f" ({ndiff} instructions)"))
+    def op(c, name):
+        return sum(bool(re.match(rf"(@!?U?P\w+\s+)?{name}\b", i)) for i in c)
+
+    # the GemvUnpack enum of qmm.cu: P0 .. P3 = 0 .. 3, the served one 4
+    for tail in (0, 1):
+        c = {n: code(u, tail) for n, u in
+             (("P0", 0), ("P1", 1), ("P2", 2), ("P3", 3), ("served", 4))}
+        for n, v in c.items():
+            if op(v, "IMMA") == 0 or op(v, "UTMALDG") == 0:
+                raise AssertionError(f"sass: {n}, tail {tail}: no IMMA or no "
+                                     "UTMALDG")
+        same = c["P2"] == c["P3"]
+        ndiff = sum(a != b for a, b in zip(c["P2"], c["P3"])) + abs(
+            len(c["P2"]) - len(c["P3"]))
+        log(f"sass: gemv_tc one token tile, tail {tail}: "
+            + ", ".join(f"{n} {len(v)} instructions ({op(v, 'IMMA')} IMMA, "
+                        f"{op(v, 'UTMALDG')} UTMALDG)" for n, v in c.items())
+            + f"; P2 and P3 {'identical' if same else 'differ'}"
+            + ("" if same else f" ({ndiff} instructions)"))
 
 
 def kernel_modules():
@@ -1970,7 +2011,8 @@ def main(argv=None) -> int:
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": ("operations" if s["op_bound_ms"] * 2 >= s["bound_ms"]
                          else "bytes"),
-            "library_ms": s["library_ms"] if s["has_library"] else None})
+            "library_ms": (s["library_ms"] if s["lib_shapes"] == s["shapes"]
+                           else None)})
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -43,8 +43,8 @@ _SIGNATURES = {
     "mq_flash_attn_causal": [_P] * 4 + [_I] * 4 + [_F, _P],
     # x, w, ws, out, M, K, N, stream
     "mq_w8_bf16_gemv": [_P, _P, _P, _P, _I, _I, _I, _P],
-    # x, w, acc, M, K, N, splits, variant, stream
-    "mq_w4_unpack_gemv": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, w, acc, M, K, N, splits, rows per split, variant, stream
+    "mq_w4_unpack_gemv": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # g, u, ldg, ldu, A, Bt, scale, out, T, K, qmin, qmax, in_f32, blocks,
     # sub-rows per chunk, ring slots, stream
     "mq_fused_swiglu_had_quant": [_P, _P, _I, _I, _P, _P, _P, _P] + [_I] * 8
@@ -58,8 +58,11 @@ _SIGNATURES = {
     "mq_had_quant": [_P, _I, _P, _P, _P, _P] + [_I] * 8 + [_P],
     # x, ldx, w, scale, out, T, n, eps, qmin, qmax, stream
     "mq_rms_norm_quant": [_P, _I, _P, _P, _P, _I, _I, _F, _I, _I, _P],
+    # x, ldx, sign(hadK), c, hm, out, T, K, is_f32, blocks, ring slots,
+    # stream
+    "mq_fwht": [_P, _I, _P, _F, _F, _P] + [_I] * 5 + [_P],
     # x, ldx, At, hm, out, T, K, is_f32, stream
-    "mq_fwht": [_P, _I, _P, _F, _P, _I, _I, _I, _P],
+    "mq_fwht_dense": [_P, _I, _P, _F, _P, _I, _I, _I, _P],
 }
 
 

@@ -31,7 +31,8 @@
 //     differs. It reads 8 bytes of g, u per element and 8 bytes of the two
 //     scale vectors (the scales from L2: every block reads all of them).
 // K9  fwht  replaces fwht.py::fwht_pallas (_fwht_kernel, :122): y = (A (x)
-//     H_128) x in f32 throughout, bf16 or f32 in and out.
+//     H_128) x in f32 throughout, bf16 or f32 in and out (fwht_tc_kernel;
+//     fwht_kernel for the one hadK that is not c times a sign matrix).
 //
 // What bounds the tail on an H100. Per token it reads g and u (4 bytes per
 // element) and writes one int8 code per element: 97 MB at T = 1024, 29 us at
@@ -71,15 +72,35 @@
 // loads, the f32 sum of squares by warp shuffles and one shared-memory pass,
 // then the row again (from L1) into 16-byte int8 stores.
 //
-// fwht must hold f32 to ~1e-6, so no tensor cores (TF32 keeps 10 mantissa
-// bits). As a butterfly the 128-wide factor costs 8 n flops and the dense
-// hadK product 2 K n (5.9 GFLOP at (1024, 18944): 88 us at the 67 TFLOP/s f32
-// rate, above the 23 us of its bf16 bytes): bound by operations. One block
-// per row: each warp transforms whole 128-wide sub-rows in registers (4
-// values a lane; two stages inside the lane, five by shuffles) into shared
-// memory (f32, 74 KB at K = 148, dynamic), then each warp computes 20 rows of
-// A . Y1 for the 4 columns of each lane (80 f32 FMA accumulators), with A^T
-// zero-padded to 160 columns and read as broadcast 16-byte loads through L1.
+// fwht must hold f32 to ~1e-6, and TF32 keeps 10 mantissa bits. But every
+// hadK the Hadamard constructions give (Paley, Sylvester, their products) is
+// one f32 scalar c times a +-1 sign matrix, which bf16 holds exactly; and an
+// f32 value y is exactly hi + mid + lo in three bf16 terms. So the hadK
+// product runs on wgmma with exact products and f32 sums: Y = c (sgn . lo +
+// sgn . mid + sgn . hi). With the products on the tensor cores (3 x 5.7
+// GFLOP padded to 192 x 160 at (1024, 18944): ~24 us at the dense bf16 peak)
+// the bytes bound it: 77.6 MB of bf16 in and out, 23 us at 3.35 TB/s (f32:
+// 155 MB, 46 us). fwht_tc_kernel is the tail kernel's persistent schedule:
+// one block of three warpgroups per SM over the tokens, x rows through a
+// cp.async.bulk ring of whole rows (38 KB bf16, 76 KB f32 at K = 148); per
+// token each warp transforms whole 128-wide sub-rows in registers (H_128 as
+// a butterfly in f32, 8 n flops: 4 values a lane, two stages inside the
+// lane, five by shuffles), splits Y1 into the three bf16 planes in shared
+// memory (the tail's Y1 layout: 128-byte swizzled, read MN-major), and each
+// warpgroup chains the three planes' wgmma m64n128k16 against the sign
+// fragments held in registers (40 a thread, loaded once: no factor byte is
+// read per token). c times the f32 sums leaves f32 straight from the
+// registers, or rounded once to bf16 through the warpgroup's own staging
+// rows as 16-byte stores. At K = 1 the butterfly is the result. Two block
+// barriers a token: the planes written, the planes read; the next token's
+// step 1 runs under this token's stores. The butterfly and the products
+// do not overlap: a slab-by-slab pipeline of the two on the same warps,
+// and one butterfly warpgroup beside three product warpgroups, both lost
+// (PERF.md, Findings).
+// The seeded random orthogonal block of K = 156 (n = 19968: no Hadamard
+// construction of that order) is no scaled sign matrix: fwht_kernel takes
+// its product by f32 FMA, one block per row (the dense factor read through
+// L1 per row).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -443,6 +464,247 @@ __global__ void __launch_bounds__(RQ_THREADS)
 // fwht: f32 two-factor Hadamard
 // ---------------------------------------------------------------------------
 
+// one butterfly stage across lanes: element i meets i ^ (4 * mask); the
+// lower one keeps the sum v + p, the upper one the difference p - v, as
+// p + sg v with sg = +-1 (one exactly rounded operation either way)
+__device__ __forceinline__ float bfly(float v, int mask, float sg) {
+  return fmaf(sg, v, __shfl_xor_sync(0xffffffffu, v, mask));
+}
+
+// Y1 = X . H_128 of one 128-wide sub-row v (this lane's elements 4 lane ..
+// 4 lane + 3) in place: index bits 0-1 in the lane, bits 2-6 across lanes;
+// Sylvester order, as hadamard_matrix(128)
+__device__ __forceinline__ void butterfly128(float4& v, int lane) {
+  const float a0 = v.x + v.y, a1 = v.x - v.y;  // h = 1
+  const float a2 = v.z + v.w, a3 = v.z - v.w;
+  float e0 = a0 + a2, e1 = a1 + a3, e2 = a0 - a2, e3 = a1 - a3;  // h = 2
+#pragma unroll
+  for (int s = 1; s < 32; s <<= 1) {  // h = 4 .. 64
+    const float sg = lane & s ? -1.f : 1.f;
+    e0 = bfly(e0, s, sg);
+    e1 = bfly(e1, s, sg);
+    e2 = bfly(e2, s, sg);
+    e3 = bfly(e3, s, sg);
+  }
+  v = make_float4(e0, e1, e2, e3);
+}
+
+// fwht_tc_kernel's shared memory: the three bf16 planes of Y1 (hi, mid, lo),
+// each two boxes of 64 columns over TL_KP rows (128-byte swizzled, rows K ..
+// TL_KP - 1 zero), the output staging (bf16 only), then the ring of x rows
+// and their mbarriers
+constexpr int FT_BOX = TL_KP * 128;     // 20,480
+constexpr int FT_PLANE = 2 * FT_BOX;    // 40,960
+constexpr int FT_FIXED = 3 * FT_PLANE;  // 122,880
+constexpr int FT_STAGE_MAX =
+    TL_SMEM - FT_FIXED - 1024 - 8 * TL_MAX_SLOTS;  // 108,480
+// bf16 outputs are staged per warpgroup (64 rows of 256 bytes each) so that
+// they leave as 16-byte stores: 4-byte ones write half sectors, which cost
+// the bf16 kernel more than its products (PERF.md, Findings); f32 pairs fill
+// whole 32-byte sectors straight from the registers
+constexpr int FT_OSTAGE_WG = 64 * 256;
+
+// the pair (a, b) as 8 bytes of f32 or 4 of bf16 at p
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
+}
+
+__device__ __forceinline__ float4 slot_row(const float* p, int lane) {
+  return reinterpret_cast<const float4*>(p)[lane];
+}
+__device__ __forceinline__ float4 slot_row(const __nv_bfloat16* p, int lane) {
+  const uint2 v = reinterpret_cast<const uint2*>(p)[lane];
+  const float2 a = bf2(v.x), b = bf2(v.y);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// y, three bf16 terms that sum to it exactly (hi = bf16(y), mid =
+// bf16(y - hi), lo = y - hi - mid: each difference is exact in f32, and lo
+// keeps the last 8 of y's 24 bits)
+__device__ __forceinline__ void split3(float y, __nv_bfloat16& h,
+                                       __nv_bfloat16& m, __nv_bfloat16& l) {
+  h = __float2bfloat16_rn(y);
+  const float r1 = y - __bfloat162float(h);
+  m = __float2bfloat16_rn(r1);
+  l = __float2bfloat16_rn(r1 - __bfloat162float(m));
+}
+
+// One block of 3 warpgroups per SM over tokens blockIdx.x, + gridDim.x, ...
+// (the tail kernel's schedule): x rows at byte stride ldx_b through a ring of
+// S slots of one whole row each (fwht.py::_fwht_plan); hadK = c * sgn, sgn
+// (TL_KP, TL_KP) bf16 +-1, zero-padded; hm = 1 / sqrt(128). Dynamic shared
+// memory, 1024-byte aligned: planes | bf16 staging | S slots | S mbarriers.
+template <typename V>
+__global__ void __launch_bounds__(TL_THREADS, 1)
+    fwht_tc_kernel(const uint8_t* __restrict__ x, long ldx_b, int T, int K,
+                   int S, const __nv_bfloat16* __restrict__ sgn, float c,
+                   float hm, V* __restrict__ out) {
+  extern __shared__ uint8_t ft_raw[];
+  uint8_t* Ys = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(ft_raw) + 1023) & ~uintptr_t(1023));
+  constexpr bool kStaged = sizeof(V) == 2;
+  uint8_t* stage = Ys + FT_FIXED + (kStaged ? 3 * FT_OSTAGE_WG : 0);
+  const int n = K * TL_M;
+  const int row_b = n * (int)sizeof(V);
+  uint64_t* full = reinterpret_cast<uint64_t*>(stage + S * row_b);
+
+  const int tid = threadIdx.x, wg = tid >> 7, warp = tid >> 5;
+  const int lane = tid & 31, gq = lane >> 2, t = lane & 3;
+  const int row0 = wg * 64 + (warp & 3) * 16 + gq;  // rows + 0, + 8
+  const bool live = wg * 64 < K;  // this warpgroup has output rows
+  const int kt_end = (K + 15) / 16;  // k16 steps of the hadK product
+  const int ntok = (T - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+
+  // token j of this block into slot j % S (thread 0 only)
+  auto load_row = [&](int j) {
+    const long tok = blockIdx.x + (long)j * gridDim.x;
+    hopper::mbar_arrive_expect_tx(&full[j % S], row_b);
+    hopper::bulk_load(stage + (j % S) * row_b, x + tok * ldx_b, row_b,
+                      &full[j % S]);
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i < S; ++i) hopper::mbar_init(&full[i], 1);
+    hopper::mbar_fence_init();
+    for (int j = 0; j < S && j < ntok; ++j) load_row(j);
+  }
+  // the planes' pad rows K .. TL_KP - 1 zeroed once (the sign fragments'
+  // pad columns are zero, but 0 times a stale value need not be); the
+  // sign fragments of this thread's rows into registers, once (40 a
+  // thread, zero past row TL_KP)
+  for (int v = tid; v < 6 * (TL_KP - K) * 8; v += TL_THREADS) {
+    const int b = v / ((TL_KP - K) * 8), w = v % ((TL_KP - K) * 8);
+    *reinterpret_cast<uint4*>(Ys + b * FT_BOX + swz(K + w / 8, w % 8)) =
+        make_uint4(0, 0, 0, 0);
+  }
+  uint32_t sa[TL_MT][4];
+#pragma unroll
+  for (int kk = 0; kk < TL_MT; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = row0 + (i & 1) * 8, col = kk * 16 + 2 * t + (i >> 1) * 8;
+      sa[kk][i] = r < TL_KP ? ldg32(sgn + r * TL_KP + col) : 0u;
+    }
+  hopper::fence_proxy_async();  // the zero rows, for the wgmma reads
+  __syncthreads();
+
+  float acc[64];
+  for (int j = 0; j < ntok; ++j) {
+    V* orow = out + (blockIdx.x + (long)j * gridDim.x) * n;
+    hopper::mbar_wait(&full[j % S], (j / S) & 1);
+    const V* src = reinterpret_cast<const V*>(stage + (j % S) * row_b);
+    // 1. Y1 = X . H_128 / sqrt(128) in f32, one sub-row per warp at a time,
+    //    split into the three planes (element (l, col) at byte 2 col of row
+    //    l); at K = 1 Y1 is the result, stored at once
+    for (int l = warp; l < K; l += TL_THREADS / 32) {
+      float4 v = slot_row(src + l * TL_M, lane);
+      butterfly128(v, lane);
+      const float y[4] = {v.x * hm, v.y * hm, v.z * hm, v.w * hm};
+      if (K == 1) {
+        store2(orow + 4 * lane, y[0] * c, y[1] * c);
+        store2(orow + 4 * lane + 2, y[2] * c, y[3] * c);
+        continue;
+      }
+      uint32_t pw[3][2];  // plane pl's 4 bf16 terms, 2 a word
+#pragma unroll
+      for (int k = 0; k < 4; k += 2) {
+        __nv_bfloat16 a[3], b[3];
+        split3(y[k], a[0], a[1], a[2]);
+        split3(y[k + 1], b[0], b[1], b[2]);
+#pragma unroll
+        for (int pl = 0; pl < 3; ++pl)
+          pw[pl][k >> 1] = (uint32_t)__bfloat16_as_ushort(a[pl]) |
+                           ((uint32_t)__bfloat16_as_ushort(b[pl]) << 16);
+      }
+      const int off = (lane >> 4) * FT_BOX + swz(l, (lane >> 1) & 7) +
+                      (lane & 1) * 8;
+#pragma unroll
+      for (int pl = 0; pl < 3; ++pl)
+        *reinterpret_cast<uint2*>(Ys + pl * FT_PLANE + off) =
+            make_uint2(pw[pl][0], pw[pl][1]);
+    }
+    hopper::fence_proxy_async();  // the planes, for step 2's wgmma
+    __syncthreads();
+    if (tid == 0 && j + S < ntok) load_row(j + S);  // the slot is read
+    if (K == 1) continue;
+
+    // 2. Y = c (sgn . lo + sgn . mid + sgn . hi): wgmma m64n128k16 over
+    //    the hadK axis (k16 steps up to K), the sign fragments from
+    //    registers (A), each plane MN-major through the descriptor's
+    //    transpose bit (B); every product is exact and the sums are f32,
+    //    smallest plane first
+    if (live) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        acc[i] = 0.f;
+        hopper::reg_fence(acc[i]);
+      }
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int pl = 2; pl >= 0; --pl)
+#pragma unroll
+        for (int kk = 0; kk < TL_MT; ++kk)
+          if (kk < kt_end)  // uniform over the block
+            hopper::wgmma_bf16_rs_tb(
+                acc, sa[kk],
+                hopper::desc_sw128(Ys + pl * FT_PLANE + kk * 16 * 128,
+                                   FT_BOX, 1024));
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < 64; ++i) hopper::reg_fence(acc[i]);
+    }
+    // every warpgroup's products have read the planes: the next token's
+    // step 1 may write them while this token's outputs leave
+    __syncthreads();
+    // 3. c . acc: acc[i] is row row0 + 8 ((i >> 1) & 1), column (i >> 2) *
+    //    8 + 2t + (i & 1). f32: straight from the registers (a warp's store
+    //    covers 8 rows x 8 columns, 32-byte sectors). bf16: through this
+    //    warpgroup's staging rows (row lr's 16-byte chunk ch at ch ^ (lr %
+    //    8)), then 16-byte stores; the next token's staging writes follow
+    //    two block barriers, after these reads
+    if (live) {
+      if constexpr (kStaged) {
+        uint8_t* St = Ys + FT_FIXED + wg * FT_OSTAGE_WG;
+#pragma unroll
+        for (int i = 0; i < 64; i += 2) {
+          const int lr = row0 - wg * 64 + ((i >> 1) & 1) * 8;
+          const int col = (i >> 2) * 8 + 2 * t;
+          *reinterpret_cast<uint32_t*>(St + lr * 256 +
+                                       (((col >> 3) ^ (lr & 7)) << 4) +
+                                       (col & 7) * 2) =
+              pack_bf16(acc[i] * c, acc[i + 1] * c);
+        }
+        asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+        const int rows = min(64, K - wg * 64);
+        for (int v = tid & 127; v < rows * 16; v += 128) {
+          const int lr = v >> 4, ch = v & 15;
+          reinterpret_cast<uint4*>(orow + (wg * 64 + lr) * TL_M)[ch] =
+              *reinterpret_cast<const uint4*>(St + lr * 256 +
+                                              ((ch ^ (lr & 7)) << 4));
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 64; i += 2) {
+          const int r = row0 + ((i >> 1) & 1) * 8, col = (i >> 2) * 8 + 2 * t;
+          if (r < K)
+            store2(orow + r * TL_M + col, acc[i] * c, acc[i + 1] * c);
+        }
+      }
+    }
+  }
+}
+
+// the dense hadK product, for a factor that is not c times a sign matrix
+// (the seeded random orthogonal block of K = 156, which no Hadamard
+// construction gives): one block per row, each warp transforms whole
+// 128-wide sub-rows in registers into shared memory (f32, 80 KB at K =
+// 156), then computes 20 rows of A . Y1 for the 4 columns of each lane (80
+// f32 FMA accumulators), with A^T zero-padded to 160 columns and read as
+// broadcast 16-byte loads through L1.
 constexpr int FW_THREADS = 256;               // 8 warps
 constexpr int FW_ROWS = TL_KP / (FW_THREADS / 32);  // 20 hadK rows a warp
 
@@ -462,41 +724,23 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
                                             pack_bf16(v.z, v.w));
 }
 
-// one butterfly stage across lanes: element i meets i ^ (4 * mask); the
-// lower one keeps the sum, the upper one the difference
-__device__ __forceinline__ float bfly(float v, int mask, bool upper) {
-  const float p = __shfl_xor_sync(0xffffffffu, v, mask);
-  return upper ? p - v : v + p;
-}
-
-template <typename T>
+template <typename V>
 __global__ void __launch_bounds__(FW_THREADS, 2)
-    fwht_kernel(const T* __restrict__ x, int ldx, int K,
+    fwht_kernel(const V* __restrict__ x, int ldx, int K,
                 const float* __restrict__ At,  // (K, TL_KP): A^T, zero-padded
-                float hm, T* __restrict__ out) {
+                float hm, V* __restrict__ out) {
   extern __shared__ float4 Ys4[];  // Y1 (K, 128) f32
   const long row = blockIdx.x;
   const int n = K * TL_M;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const T* xr = x + row * ldx;
+  const V* xr = x + row * ldx;
 
-  // 1. Y1 = X . H_128 / sqrt(128), one 128-wide sub-row per warp at a time;
-  //    lane holds elements 4 lane .. 4 lane + 3 (index bits 0-1 in the lane,
-  //    bits 2-6 across lanes); Sylvester order, as hadamard_matrix(128)
+  // 1. Y1 = X . H_128 / sqrt(128), one 128-wide sub-row per warp at a time
   for (int l = warp; l < K; l += FW_THREADS / 32) {
-    const float4 v = load4(xr + l * TL_M + 4 * lane);
-    const float a0 = v.x + v.y, a1 = v.x - v.y;  // h = 1
-    const float a2 = v.z + v.w, a3 = v.z - v.w;
-    float e0 = a0 + a2, e1 = a1 + a3, e2 = a0 - a2, e3 = a1 - a3;  // h = 2
-#pragma unroll
-    for (int s = 1; s < 32; s <<= 1) {  // h = 4 .. 64
-      const bool up = lane & s;
-      e0 = bfly(e0, s, up);
-      e1 = bfly(e1, s, up);
-      e2 = bfly(e2, s, up);
-      e3 = bfly(e3, s, up);
-    }
-    Ys4[l * (TL_M / 4) + lane] = make_float4(e0 * hm, e1 * hm, e2 * hm, e3 * hm);
+    float4 v = load4(xr + l * TL_M + 4 * lane);
+    butterfly128(v, lane);
+    Ys4[l * (TL_M / 4) + lane] =
+        make_float4(v.x * hm, v.y * hm, v.z * hm, v.w * hm);
   }
   __syncthreads();
 
@@ -530,7 +774,7 @@ __global__ void __launch_bounds__(FW_THREADS, 2)
   }
 
   // 3. out[k * 128 + 4 lane ..]: 512 contiguous bytes (f32) a row per warp
-  T* orow = out + row * n;
+  V* orow = out + row * n;
 #pragma unroll
   for (int i = 0; i < FW_ROWS; ++i)
     if (k0 + i < K)
@@ -538,19 +782,43 @@ __global__ void __launch_bounds__(FW_THREADS, 2)
              make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
 }
 
-template <typename T>
-int launch_fwht(const void* x, int ldx, const void* At, float hm, void* out,
-                int T_, int K, cudaStream_t stream) {
+template <typename V>
+int launch_fwht(const void* x, int ldx, const void* sgn, float c, float hm,
+                void* out, int T, int K, int grid, int S, void* stream) {
+  if (K < 1 || K > TL_KP || T < 1 || grid < 1 || grid > T || S < 1 ||
+      S > TL_MAX_SLOTS)
+    return (int)cudaErrorInvalidValue;
+  const int ostage = sizeof(V) == 2 ? 3 * FT_OSTAGE_WG : 0;
+  const long ring = (long)S * K * TL_M * sizeof(V);
+  if (ring > FT_STAGE_MAX - ostage) return (int)cudaErrorInvalidValue;
+  static bool sized = false;  // above 48 KB only after the attribute is set
+  if (!sized) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fwht_tc_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        TL_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    sized = true;
+  }
+  const int smem = FT_FIXED + ostage + 1024 + (int)ring + 8 * S;
+  fwht_tc_kernel<V><<<grid, TL_THREADS, smem, (cudaStream_t)stream>>>(
+      (const uint8_t*)x, (long)ldx * sizeof(V), T, K, S,
+      (const __nv_bfloat16*)sgn, c, hm, (V*)out);
+  return (int)cudaGetLastError();
+}
+
+template <typename V>
+int launch_fwht_dense(const void* x, int ldx, const void* At, float hm,
+                      void* out, int T_, int K, cudaStream_t stream) {
   static bool sized = false;  // above 48 KB only after the attribute is set
   const int smem = TL_KP * TL_M * (int)sizeof(float);
   if (!sized) {
     const cudaError_t e = cudaFuncSetAttribute(
-        fwht_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        fwht_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
     sized = true;
   }
-  fwht_kernel<T><<<T_, FW_THREADS, K * TL_M * (int)sizeof(float), stream>>>(
-      (const T*)x, ldx, K, (const float*)At, hm, (T*)out);
+  fwht_kernel<V><<<T_, FW_THREADS, K * TL_M * (int)sizeof(float), stream>>>(
+      (const V*)x, ldx, K, (const float*)At, hm, (V*)out);
   return (int)cudaGetLastError();
 }
 
@@ -654,16 +922,31 @@ int mq_rms_norm_quant(const void* x, int ldx, const void* w, const void* scale,
   return (int)cudaGetLastError();
 }
 
-// out (T, K * 128) = (A (x) H_128) . x in f32, stored as x's type (is_f32:
-// f32, else bf16); x rows at stride ldx (16-byte aligned); At: (K, 160) f32,
-// A^T zero-padded; hm: the f32 entry 1 / sqrt(128) of H_128 / sqrt(128).
-int mq_fwht(const void* x, int ldx, const void* At, float hm, void* out,
-            int T, int K, int is_f32, void* stream) {
+// out (T, K * 128) = c (sgn (x) H_128) . x in f32, stored as x's type
+// (is_f32: f32, else bf16), on the tensor cores; x rows at stride ldx
+// (elements; rows 16-byte aligned); sgn: (160, 160) bf16, sign(hadK)
+// zero-padded, hadK = c sgn; hm: the f32 entry 1 / sqrt(128) of H_128 /
+// sqrt(128). K <= 160. The plan: `grid` blocks (<= T), S ring slots (<= 8)
+// of one row each, S * K * 128 * element bytes within the ring's 108,480
+// bytes (bf16: 59,328, beside the output staging).
+int mq_fwht(const void* x, int ldx, const void* sgn, float c, float hm,
+            void* out, int T, int K, int is_f32, int grid, int S,
+            void* stream) {
+  return is_f32 ? launch_fwht<float>(x, ldx, sgn, c, hm, out, T, K, grid, S,
+                                     stream)
+                : launch_fwht<__nv_bfloat16>(x, ldx, sgn, c, hm, out, T, K,
+                                             grid, S, stream);
+}
+
+// The same transform for a hadK that is not c times a sign matrix, by f32
+// FMA; At: (K, 160) f32, A^T zero-padded.
+int mq_fwht_dense(const void* x, int ldx, const void* At, float hm, void* out,
+                  int T, int K, int is_f32, void* stream) {
   if (K < 1 || K > TL_KP || T < 1) return (int)cudaErrorInvalidValue;
-  return is_f32 ? launch_fwht<float>(x, ldx, At, hm, out, T, K,
-                                     (cudaStream_t)stream)
-                : launch_fwht<__nv_bfloat16>(x, ldx, At, hm, out, T, K,
-                                             (cudaStream_t)stream);
+  return is_f32 ? launch_fwht_dense<float>(x, ldx, At, hm, out, T, K,
+                                           (cudaStream_t)stream)
+                : launch_fwht_dense<__nv_bfloat16>(x, ldx, At, hm, out, T, K,
+                                                   (cudaStream_t)stream);
 }
 
 }  // extern "C"

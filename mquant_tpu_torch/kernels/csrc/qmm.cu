@@ -26,9 +26,13 @@
 //                ways (P1 i32 mask / select, P2 int8 shifts, P3 i32 shifts)
 //                and P0, x_lo . int8(packed bytes) without an unpack (the
 //                probe's bound on the packed stream, not the W4 product).
-//                K2's GEMV (gemv_kernel) with the unpack as a template
-//                parameter: the loads, the __dp4a loop, the split-K
-//                reduction are K2's.
+//                K1's one-launch tensor-core GEMV (gemv_tc_kernel) with the
+//                unpack as a template parameter: the TMA ring, the mma.sync
+//                products, the cluster K-split and the plan are K1's, so
+//                the probe weighs each unpack in front of a tensor-core
+//                product that reads W once (P0: the packed bytes are the
+//                low plane's A fragments, the high plane's products are
+//                skipped).
 //
 // What bounds them on an H100. The GEMVs stream the weight once per call:
 // 0.5 B per weight (K1) or 1 B (K2) against ~3.35 TB/s of HBM; the x rows
@@ -36,10 +40,11 @@
 // puts the products on the tensor cores (mma.sync with the token rows as
 // the n8 side), so neither the integer pipe nor M moves the byte count;
 // narrow-N sites (N = 3584) split K across the blocks of a cluster so every
-// SM has a slice of the stream. K2 (and K13) read each byte
-// with 16-byte loads (a warp covers 512 contiguous bytes of a row), spend
-// the arithmetic on __dp4a (4 int8 MACs per instruction), and meet their K
-// splits in an int32 workspace through atomicAdd (exact, any order).
+// SM has a slice of the stream; K13 is K1 with another unpack. K2 reads
+// each byte with 16-byte loads (a warp covers 512 contiguous bytes of a
+// row), spends the arithmetic on __dp4a (4 int8 MACs per instruction), and
+// meets its K splits in an int32 workspace through atomicAdd (exact, any
+// order).
 // The GEMM at prefill (M = 1024) is bound by int8 tensor-core throughput.
 // K3's main kernel is Hopper-native (gemm_tma_kernel): TMA loads of x and
 // the raw W tile through an mbarrier ring, wgmma with W^T built in
@@ -161,32 +166,31 @@ constexpr int GV_TX = 8;     // threads along N, 16 columns each
 constexpr int GV_TY = 32;    // K slices inside a block, 4 rows each step
 constexpr int GV_BN = GV_TX * 16;
 
-// The weight forms of the GEMV (template parameter WT):
-// kW8: w is (R = K, N) int8.
-// kP1 .. kP3 (K13): w is (R = K/2, N) packed bytes; x row m contributes
-// x[m, r] to the low plane and x[m, R + r] to the high one, with signed
-// nibbles unpacked byte by byte (unpack_probe); kP0: x[m, :R] . int8(packed
-// bytes), kW8's loop on the packed matrix. (The values are the template
-// arguments chip_smoke.py's SASS report looks for.)
-enum GemvW { kW8 = 0, kP0 = 2, kP1 = 3, kP2 = 4, kP3 = 5 };
+// The unpacks of the W4 tensor-core GEMV (gemv_tc_kernel's template
+// parameter U): kSigned, the served one (unpack_signed: eight word
+// operations for 8 nibbles); kP1 .. kP3 (K13), the probe's three, byte by
+// byte (unpack_probe); kP0 (K13), none: x[m, :K/2] . int8(packed bytes). The
+// P values are the probe's variant numbers, which chip_smoke.py's SASS
+// report looks for in the template arguments.
+enum GemvUnpack { kP0 = 0, kP1 = 1, kP2 = 2, kP3 = 3, kSigned = 4 };
 
 // The signed nibbles of the 4 packed bytes of w as the probe's three unpacks
 // compute them (w4_unpack_tune.py:52-69), each byte alone; lo / hi receive
 // the low / high nibbles as 4 signed bytes.
-template <int WT>
+template <int U>
 __device__ __forceinline__ void unpack_probe(uint32_t w, uint32_t& lo,
                                              uint32_t& hi) {
   lo = hi = 0u;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     int l, h;
-    if constexpr (WT == kP1) {  // i32 masks, then x >= 8 ? x - 16 : x
+    if constexpr (U == kP1) {  // i32 masks, then x >= 8 ? x - 16 : x
       const int b = (int)((w >> (8 * j)) & 0xFFu);
       l = b & 15;
       h = (b >> 4) & 15;
       l = l >= 8 ? l - 16 : l;
       h = h >= 8 ? h - 16 : h;
-    } else if constexpr (WT == kP2) {  // int8 arithmetic shifts
+    } else if constexpr (U == kP2) {  // int8 arithmetic shifts
       const int8_t b = (int8_t)(w >> (8 * j));
       l = (int8_t)(b << 4) >> 4;
       h = b >> 4;
@@ -200,17 +204,27 @@ __device__ __forceinline__ void unpack_probe(uint32_t w, uint32_t& lo,
   }
 }
 
-template <int WT, int MC, bool TAIL>
+// unpack U of one packed word (U != kP0)
+template <int U>
+__device__ __forceinline__ void unpack_w4(uint32_t w, uint32_t& lo,
+                                          uint32_t& hi) {
+  if constexpr (U == kSigned)
+    unpack_signed(w, lo, hi);
+  else
+    unpack_probe<U>(w, lo, hi);
+}
+
+// K2 on int8 weights w (K, N)
+template <int MC, bool TAIL>
 __global__ void __launch_bounds__(GV_TX* GV_TY)
     gemv_kernel(const int8_t* __restrict__ x, int M, int K,
-                const int8_t* __restrict__ w, int R, int N, int rows_per_split,
+                const int8_t* __restrict__ w, int N, int rows_per_split,
                 int* __restrict__ acc_out) {
-  constexpr bool kHi = WT != kW8 && WT != kP0;  // reads the high plane's x
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int warp = (ty * GV_TX + tx) >> 5, lane = (ty * GV_TX + tx) & 31;
   const int col0 = blockIdx.x * GV_BN + tx * 16;
   const int r_begin = blockIdx.y * rows_per_split;
-  const int r_end = min(R, r_begin + rows_per_split);
+  const int r_end = min(K, r_begin + rows_per_split);
   __shared__ int red[GV_TY / 4][MC][GV_BN];
 
   for (int m0 = 0; m0 < M; m0 += MC) {
@@ -231,53 +245,31 @@ __global__ void __launch_bounds__(GV_TX* GV_TY)
                      ? *reinterpret_cast<const uint4*>(w + (long)(r + i) * N +
                                                        col0)
                      : make_uint4(0, 0, 0, 0);
-        int xlo[MC], xhi[MC];
+        int xw[MC];
 #pragma unroll
         for (int mi = 0; mi < MC; ++mi) {
           const bool live = m0 + mi < M;
           const int8_t* xr = x + (long)(m0 + mi) * K;
-          if (TAIL) {
-            xlo[mi] = live ? (int)load4_tail(xr, r, r_end) : 0;
-            xhi[mi] = (kHi && live) ? (int)load4_tail(xr + R, r, r_end) : 0;
-          } else {
-            xlo[mi] = live ? *reinterpret_cast<const int*>(xr + r) : 0;
-            xhi[mi] =
-                (kHi && live) ? *reinterpret_cast<const int*>(xr + R + r) : 0;
-          }
+          if (TAIL)
+            xw[mi] = live ? (int)load4_tail(xr, r, r_end) : 0;
+          else
+            xw[mi] = live ? *reinterpret_cast<const int*>(xr + r) : 0;
         }
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
-          uint32_t rows[4];
+          uint32_t rows[4], cols[4];
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             const uint4 q = v[i];
             rows[i] = c == 0 ? q.x : c == 1 ? q.y : c == 2 ? q.z : q.w;
           }
-          if constexpr (kHi) {
-            uint32_t lo[4], hi[4], loc[4], hic[4];
+          transpose4x4(rows, cols);
 #pragma unroll
-            for (int i = 0; i < 4; ++i) unpack_probe<WT>(rows[i], lo[i], hi[i]);
-            transpose4x4(lo, loc);
-            transpose4x4(hi, hic);
+          for (int j = 0; j < 4; ++j)
 #pragma unroll
-            for (int j = 0; j < 4; ++j)
-#pragma unroll
-              for (int mi = 0; mi < MC; ++mi) {
-                acc[mi][c * 4 + j] =
-                    __dp4a((int)loc[j], xlo[mi], acc[mi][c * 4 + j]);
-                acc[mi][c * 4 + j] =
-                    __dp4a((int)hic[j], xhi[mi], acc[mi][c * 4 + j]);
-              }
-          } else {
-            uint32_t cols[4];
-            transpose4x4(rows, cols);
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-#pragma unroll
-              for (int mi = 0; mi < MC; ++mi)
-                acc[mi][c * 4 + j] =
-                    __dp4a((int)cols[j], xlo[mi], acc[mi][c * 4 + j]);
-          }
+            for (int mi = 0; mi < MC; ++mi)
+              acc[mi][c * 4 + j] =
+                  __dp4a((int)cols[j], xw[mi], acc[mi][c * 4 + j]);
         }
       }
     }
@@ -821,12 +813,16 @@ int launch_gemm_tma(const void* x, int ldx, const void* w, const void* xs,
 // through distributed shared memory, applies the epilogue and stores. No
 // workspace, memset, atomics or second kernel: one launch, graph-capturable
 // (one split launches without a cluster). Splits are whole 32-row stages;
-// rows past K/2 are zero-filled by TMA and meet zero x words. At M = 1 the same kernel takes the product on
-// __dp4a instead (dp4a_row: W straight into registers, no TMA): at one token
-// row the card streams W faster that way (PERF.md, Findings), and the K splits
-// still meet through the cluster, in the one launch. Contract (mq_w4a8_gemv
-// checks it): M <= 32, K even, N % 16 == 0, W 16-byte aligned (TMA's row
-// stride), rps % 32 == 0.
+// rows past K/2 are zero-filled by TMA and meet zero x words. At M = 1
+// the served unpack takes the product on __dp4a instead (dp4a_row: W
+// straight into registers, no TMA): at one token row the card streams W
+// faster that way (PERF.md, Findings), and the K splits still meet through
+// the cluster, in the one launch. The unpack is the template parameter U
+// (GemvUnpack): the served kSigned, or one of the probe's P0-P3 (K13), which
+// stay on the tensor cores at every M <= 8 and change nothing else but the
+// A fragments' arithmetic (P0 skips the high plane's x words and products).
+// Contract (w4_gemv_map checks it): M <= 32 (K13: 8), K even, N % 16 == 0,
+// W 16-byte aligned (TMA's row stride), rps % 32 == 0.
 
 constexpr int TV_BN = 128;               // channels per block
 constexpr int TV_BR = 32;                // packed rows per stage: one k32 step
@@ -846,8 +842,9 @@ __device__ __forceinline__ uint32_t x_word(const int8_t* base, int c,
 }
 
 // the B fragments of one stage: token tile nb's words of the low plane
-// (columns r + 4t, r + 16 + 4t) and of the high plane (K/2 + the same)
-template <int NB, bool TAIL>
+// (columns r + 4t, r + 16 + 4t) and, where HI, of the high plane (K/2 + the
+// same; zero otherwise)
+template <int NB, bool TAIL, bool HI>
 __device__ __forceinline__ void load_x_frags(const int8_t* x, int M, int K,
                                              int r, int r_end, int g, int t,
                                              uint32_t (&xb)[NB][2][2]) {
@@ -859,8 +856,8 @@ __device__ __forceinline__ void load_x_frags(const int8_t* x, int M, int K,
       const int8_t* xr = x + (long)m * K;
       xb[nb][0][0] = x_word<TAIL>(xr, r + 4 * t, r_end);
       xb[nb][0][1] = x_word<TAIL>(xr, r + 16 + 4 * t, r_end);
-      xb[nb][1][0] = x_word<TAIL>(xr + R, r + 4 * t, r_end);
-      xb[nb][1][1] = x_word<TAIL>(xr + R, r + 16 + 4 * t, r_end);
+      xb[nb][1][0] = HI ? x_word<TAIL>(xr + R, r + 4 * t, r_end) : 0u;
+      xb[nb][1][1] = HI ? x_word<TAIL>(xr + R, r + 16 + 4 * t, r_end) : 0u;
     } else {
       xb[nb][0][0] = xb[nb][0][1] = xb[nb][1][0] = xb[nb][1][1] = 0u;
     }
@@ -967,7 +964,7 @@ __device__ __forceinline__ void dp4a_row(const int8_t* __restrict__ x, int K,
   }
 }
 
-template <int NB, bool TAIL>
+template <int NB, bool TAIL, int U>
 __global__ void __launch_bounds__(TV_THREADS)
     gemv_tc_kernel(const __grid_constant__ CUtensorMap wmap,
                    const int8_t* __restrict__ w, const int8_t* __restrict__ x,
@@ -1006,7 +1003,10 @@ __global__ void __launch_bounds__(TV_THREADS)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[j][nb][e] = 0;
 
-  if (NB == 1 && M == 1) {  // one token row: dp4a_row, no TMA
+  constexpr bool kHi = U != kP0;  // the high plane's products
+  // one token row of the served unpack: dp4a_row, no TMA (the probe's
+  // unpacks stay on the tensor cores at every M)
+  if (U == kSigned && NB == 1 && M == 1) {
     if (warp < 8)
       dp4a_row<TAIL>(x, K, w, N, ch0, r_begin, r_end,
                      reinterpret_cast<int*>(smem));
@@ -1026,32 +1026,38 @@ __global__ void __launch_bounds__(TV_THREADS)
     // this stage's B fragments and the group's next stage's, loaded ahead
     uint32_t xb[NB][2][2], xn[NB][2][2] = {};
     if (grp < steps)
-      load_x_frags<NB, TAIL>(x, M, K, r_begin + grp * TV_BR, r_end, g, t,
-                             xb);
+      load_x_frags<NB, TAIL, kHi>(x, M, K, r_begin + grp * TV_BR, r_end, g,
+                                  t, xb);
     for (int s = grp; s < steps; s += 2) {
       if (s + 2 < steps)
-        load_x_frags<NB, TAIL>(x, M, K, r_begin + (s + 2) * TV_BR, r_end, g,
-                               t, xn);
+        load_x_frags<NB, TAIL, kHi>(x, M, K, r_begin + (s + 2) * TV_BR,
+                                    r_end, g, t, xn);
       const int slot = s % TV_STAGES;
       hopper::mbar_wait(&full[slot], (s / TV_STAGES) & 1);
-      uint32_t rows[2][4], lo[2][4], hi[2][4];
+      uint32_t rows[2][4];
       load_w_quads(smem + slot * TV_STAGE, 0, c, t, rows);
-#pragma unroll
-      for (int q = 0; q < 2; ++q)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) unpack_signed(rows[q][i], lo[q][i], hi[q][i]);
       // the stage's bytes are in registers: the slot may be refilled
       __syncwarp();
       if (lane == 0) hopper::mbar_arrive(&empty[slot]);
       uint32_t alo[2][4], ahi[2][4];
-      frags_from_rows(lo, alo[0], alo[1]);
-      frags_from_rows(hi, ahi[0], ahi[1]);
+      if constexpr (kHi) {
+        uint32_t lo[2][4], hi[2][4];
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            unpack_w4<U>(rows[q][i], lo[q][i], hi[q][i]);
+        frags_from_rows(lo, alo[0], alo[1]);
+        frags_from_rows(hi, ahi[0], ahi[1]);
+      } else {  // P0: the packed bytes are the low plane's A fragments
+        frags_from_rows(rows, alo[0], alo[1]);
+      }
 #pragma unroll
       for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           mma_s8(acc[j][nb], alo[j], xb[nb][0]);
-          mma_s8(acc[j][nb], ahi[j], xb[nb][1]);
+          if constexpr (kHi) mma_s8(acc[j][nb], ahi[j], xb[nb][1]);
         }
 #pragma unroll
       for (int nb = 0; nb < NB; ++nb)
@@ -1116,11 +1122,11 @@ __global__ void __launch_bounds__(TV_THREADS)
   cl.sync();  // no block leaves while another still reads its tile
 }
 
-template <int NB, bool TAIL>
+template <int NB, bool TAIL, int U>
 int launch_gemv_tc(const CUtensorMap& wmap, const void* w, const void* x,
-                   const void* xs,
-                   const void* wsc, void* out, int M, int K, int N,
-                   int splits, int rps, int out_kind, cudaStream_t stream) {
+                   const void* xs, const void* wsc, void* out, int M, int K,
+                   int N, int splits, int rps, int out_kind,
+                   cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(splits, (N + TV_BN - 1) / TV_BN);
   cfg.blockDim = dim3(TV_THREADS);
@@ -1135,7 +1141,7 @@ int launch_gemv_tc(const CUtensorMap& wmap, const void* w, const void* x,
   // one split: no cluster (the cluster barrier then spans the block alone)
   cfg.numAttrs = splits > 1 ? 1 : 0;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, gemv_tc_kernel<NB, TAIL>, wmap, (const int8_t*)w,
+      &cfg, gemv_tc_kernel<NB, TAIL, U>, wmap, (const int8_t*)w,
       (const int8_t*)x, M, K, N, rps, (const float*)xs, (const float*)wsc,
       out, out_kind);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
@@ -1148,48 +1154,88 @@ int launch_gemv_tc_m(const CUtensorMap& wmap, const void* w, const void* x,
                      int splits, int rps, int out_kind, cudaStream_t st) {
   switch ((M + 7) / 8) {
     case 1:
-      return launch_gemv_tc<1, TAIL>(wmap, w, x, xs, wsc, out, M, K, N, splits,
-                                     rps, out_kind, st);
+      return launch_gemv_tc<1, TAIL, kSigned>(wmap, w, x, xs, wsc, out, M, K,
+                                              N, splits, rps, out_kind, st);
     case 2:
-      return launch_gemv_tc<2, TAIL>(wmap, w, x, xs, wsc, out, M, K, N, splits,
-                                     rps, out_kind, st);
+      return launch_gemv_tc<2, TAIL, kSigned>(wmap, w, x, xs, wsc, out, M, K,
+                                              N, splits, rps, out_kind, st);
     case 3:
-      return launch_gemv_tc<3, TAIL>(wmap, w, x, xs, wsc, out, M, K, N, splits,
-                                     rps, out_kind, st);
+      return launch_gemv_tc<3, TAIL, kSigned>(wmap, w, x, xs, wsc, out, M, K,
+                                              N, splits, rps, out_kind, st);
     default:
-      return launch_gemv_tc<4, TAIL>(wmap, w, x, xs, wsc, out, M, K, N, splits,
-                                     rps, out_kind, st);
+      return launch_gemv_tc<4, TAIL, kSigned>(wmap, w, x, xs, wsc, out, M, K,
+                                              N, splits, rps, out_kind, st);
   }
 }
 
-template <int WT, int MC, bool TAIL>
-void gemv(dim3 grid, dim3 block, cudaStream_t stream, const void* x, int M,
-          int K, const void* w, int R, int N, int rps, void* acc) {
-  gemv_kernel<WT, MC, TAIL><<<grid, block, 0, stream>>>(
-      (const int8_t*)x, M, K, (const int8_t*)w, R, N, rps, (int*)acc);
+// the probe's unpack `variant` (P0 .. P3) at M <= 8 (one n8 token tile),
+// int32 out
+template <bool TAIL>
+int launch_unpack_gemv(const CUtensorMap& wmap, const void* w, const void* x,
+                       void* acc, int M, int K, int N, int splits, int rps,
+                       int variant, cudaStream_t st) {
+  switch (variant) {
+    case kP0:
+      return launch_gemv_tc<1, TAIL, kP0>(wmap, w, x, nullptr, nullptr, acc,
+                                          M, K, N, splits, rps, 2, st);
+    case kP1:
+      return launch_gemv_tc<1, TAIL, kP1>(wmap, w, x, nullptr, nullptr, acc,
+                                          M, K, N, splits, rps, 2, st);
+    case kP2:
+      return launch_gemv_tc<1, TAIL, kP2>(wmap, w, x, nullptr, nullptr, acc,
+                                          M, K, N, splits, rps, 2, st);
+    default:
+      return launch_gemv_tc<1, TAIL, kP3>(wmap, w, x, nullptr, nullptr, acc,
+                                          M, K, N, splits, rps, 2, st);
+  }
 }
 
-template <int WT>
+// the W4 GEMV's contract (K1 and K13): M rows in 1 .. max_m, K even, N % 16
+// == 0, a 16-byte aligned w, 1 <= splits <= 8 and rps a multiple of 32 with
+// the splits covering K/2 rows, the last one non-empty; then the tensor map
+// of w (boxes of 32 packed rows x 128 channels) into wmap. 0 or an error.
+int w4_gemv_map(CUtensorMap* wmap, const void* w, int M, int max_m, int K,
+                int N, int splits, int rps) {
+  const int R = K / 2;
+  if (M < 1 || M > max_m || K < 2 || K % 2 || N < 16 || N % 16 ||
+      reinterpret_cast<uintptr_t>(w) % 16 || splits < 1 ||
+      splits > TV_MAX_CLUSTER || rps < TV_BR || rps % TV_BR ||
+      (long)splits * rps < R || (long)(splits - 1) * rps >= R)
+    return (int)cudaErrorInvalidValue;
+  const uint64_t wd[2] = {(uint64_t)N, (uint64_t)R}, wst[1] = {(uint64_t)N};
+  const uint32_t wbox[2] = {TV_BN, TV_BR};
+  return hopper::encode_map(wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, w, wd,
+                            wst, wbox);
+}
+
+template <int MC, bool TAIL>
+void gemv(dim3 grid, dim3 block, cudaStream_t stream, const void* x, int M,
+          int K, const void* w, int N, int rps, void* acc) {
+  gemv_kernel<MC, TAIL><<<grid, block, 0, stream>>>(
+      (const int8_t*)x, M, K, (const int8_t*)w, N, rps, (int*)acc);
+}
+
+// K2: the int32 sums into `acc` (zeroed first), then the epilogue kernel
+// unless out_kind is 2
 int launch_gemv(const void* x, const void* w, const void* xs, const void* wsc,
                 void* acc, void* out, int M, int K, int N, int splits,
                 int out_kind, cudaStream_t stream) {
-  const int R = WT == kW8 ? K : K / 2;
   // the predicated K tail only where rows or x words are not 4-aligned
-  const bool tail = R % 4 || K % 4 || reinterpret_cast<uintptr_t>(x) % 4;
-  // rows per split: a multiple of 4 that covers R in `splits` pieces
-  int rps = (R + splits - 1) / splits;
+  const bool tail = K % 4 || reinterpret_cast<uintptr_t>(x) % 4;
+  // rows per split: a multiple of 4 that covers K in `splits` pieces
+  int rps = (K + splits - 1) / splits;
   rps = (rps + 3) / 4 * 4;
-  const int grid_y = (R + rps - 1) / rps;
+  const int grid_y = (K + rps - 1) / rps;
   cudaMemsetAsync(acc, 0, sizeof(int) * (size_t)M * N, stream);
   dim3 grid((N + GV_BN - 1) / GV_BN, grid_y), block(GV_TX, GV_TY);
   if (M == 1 && tail)
-    gemv<WT, 1, true>(grid, block, stream, x, M, K, w, R, N, rps, acc);
+    gemv<1, true>(grid, block, stream, x, M, K, w, N, rps, acc);
   else if (M == 1)
-    gemv<WT, 1, false>(grid, block, stream, x, M, K, w, R, N, rps, acc);
+    gemv<1, false>(grid, block, stream, x, M, K, w, N, rps, acc);
   else if (tail)
-    gemv<WT, 4, true>(grid, block, stream, x, M, K, w, R, N, rps, acc);
+    gemv<4, true>(grid, block, stream, x, M, K, w, N, rps, acc);
   else
-    gemv<WT, 4, false>(grid, block, stream, x, M, K, w, R, N, rps, acc);
+    gemv<4, false>(grid, block, stream, x, M, K, w, N, rps, acc);
   if (out_kind != 2) {
     const long total = (long)M * N;
     epilogue_kernel<<<(total + 255) / 256, 256, 0, stream>>>(
@@ -1314,25 +1360,15 @@ extern "C" {
 // y (M, N) = epilogue(x (M, K) . W4 packed (K/2, N)), or the int32
 // accumulator for out_kind 2, in one launch of gemv_tc_kernel: `splits`
 // blocks of `rps` packed rows (a cluster) per 128 channels. Needs 1 <= M <=
-// 32, K even, N % 16 == 0, a 16-byte aligned w, 1 <= splits <= 8 and rps a
-// multiple of 32 with the splits covering K/2 rows, the last one non-empty.
+// 32 and w4_gemv_map's contract.
 int mq_w4a8_gemv(const void* x, const void* w, const void* xs, const void* wsc,
                  void* out, int M, int K, int N, int splits, int rps,
                  int out_kind, void* stream) {
-  const int R = K / 2;
-  if (M < 1 || M > 32 || K < 2 || K % 2 || N < 16 || N % 16 ||
-      reinterpret_cast<uintptr_t>(w) % 16 || splits < 1 ||
-      splits > TV_MAX_CLUSTER || rps < TV_BR || rps % TV_BR ||
-      (long)splits * rps < R || (long)(splits - 1) * rps >= R)
-    return (int)cudaErrorInvalidValue;
   CUtensorMap wmap;
-  const uint64_t wd[2] = {(uint64_t)N, (uint64_t)R}, wst[1] = {(uint64_t)N};
-  const uint32_t wbox[2] = {TV_BN, TV_BR};
-  const int err = hopper::encode_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
-                                     w, wd, wst, wbox);
+  const int err = w4_gemv_map(&wmap, w, M, 32, K, N, splits, rps);
   if (err) return err;
   // x words read as aligned words only where every one is 4-byte aligned
-  const bool tail = R % 4 || reinterpret_cast<uintptr_t>(x) % 4;
+  const bool tail = (K / 2) % 4 || reinterpret_cast<uintptr_t>(x) % 4;
   const cudaStream_t st = (cudaStream_t)stream;
   return tail ? launch_gemv_tc_m<true>(wmap, w, x, xs, wsc, out, M, K, N,
                                        splits, rps, out_kind, st)
@@ -1343,34 +1379,26 @@ int mq_w4a8_gemv(const void* x, const void* w, const void* xs, const void* wsc,
 int mq_int8_gemv(const void* x, const void* w, const void* xs, const void* wsc,
                  void* acc, void* out, int M, int K, int N, int splits,
                  int out_kind, void* stream) {
-  return launch_gemv<kW8>(x, w, xs, wsc, acc, out, M, K, N, splits,
-                          out_kind, (cudaStream_t)stream);
+  return launch_gemv(x, w, xs, wsc, acc, out, M, K, N, splits, out_kind,
+                     (cudaStream_t)stream);
 }
 
 // acc (M, N) int32 = x (M, K) . W4 packed (K/2, N) by the unpack `variant`
-// 1 .. 3 (P1 .. P3), or x[:, :K/2] . int8(packed) for variant 0 (P0).
-// M <= 8, K even.
+// 1 .. 3 (P1 .. P3), or x[:, :K/2] . int8(packed) for variant 0 (P0): one
+// launch of gemv_tc_kernel on mq_w4a8_gemv's plan, M <= 8 and
+// w4_gemv_map's contract.
 int mq_w4_unpack_gemv(const void* x, const void* w, void* acc, int M, int K,
-                      int N, int splits, int variant, void* stream) {
-  if (M < 1 || M > 8 || K < 2 || K % 2 || N < 1 || splits < 1)
-    return (int)cudaErrorInvalidValue;
+                      int N, int splits, int rps, int variant, void* stream) {
+  if (variant < kP0 || variant > kP3) return (int)cudaErrorInvalidValue;
+  CUtensorMap wmap;
+  const int err = w4_gemv_map(&wmap, w, M, 8, K, N, splits, rps);
+  if (err) return err;
+  const bool tail = (K / 2) % 4 || reinterpret_cast<uintptr_t>(x) % 4;
   const cudaStream_t st = (cudaStream_t)stream;
-  switch (variant) {
-    case 0:
-      return launch_gemv<kP0>(x, w, nullptr, nullptr, acc, nullptr, M, K, N,
-                              splits, 2, st);
-    case 1:
-      return launch_gemv<kP1>(x, w, nullptr, nullptr, acc, nullptr, M, K, N,
-                              splits, 2, st);
-    case 2:
-      return launch_gemv<kP2>(x, w, nullptr, nullptr, acc, nullptr, M, K, N,
-                              splits, 2, st);
-    case 3:
-      return launch_gemv<kP3>(x, w, nullptr, nullptr, acc, nullptr, M, K, N,
-                              splits, 2, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return tail ? launch_unpack_gemv<true>(wmap, w, x, acc, M, K, N, splits,
+                                         rps, variant, st)
+              : launch_unpack_gemv<false>(wmap, w, x, acc, M, K, N, splits,
+                                          rps, variant, st);
 }
 
 // out (M, N) bf16 = bf16((x . f32(W)) * ws) for bf16 x (M, K), int8 W (K, N)

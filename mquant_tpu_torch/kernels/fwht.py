@@ -16,7 +16,9 @@ with K ≤ 160 (18944 = 148·128; pow2 n up to 16384):
   * :func:`had_quant` — the same pipeline on one bf16 input; replaces
     ``_had_quant_kernel`` / ``had_quant``.
   * :func:`fwht_two_matmul` — the transform in f32 throughout, bf16 or f32
-    in and out; replaces ``_fwht_kernel`` / ``fwht_pallas``.
+    in and out (the hadK factor on wgmma with exact products, as
+    c · sign(hadK) against three bf16 terms of the f32 intermediate);
+    replaces ``_fwht_kernel`` / ``fwht_pallas``.
   * :func:`rms_norm_quant` — RMSNorm → static int8 in one pass (any n with
     n % 16 == 0); replaces ``_rms_quant_kernel`` / ``rms_norm_quant``.
   * :func:`dequant_swiglu_had_quant` — the int8 MLP's epilogue: int32 gate
@@ -64,6 +66,12 @@ TAIL_M, TAIL_MAX_K = 128, 160
 TAIL_FIXED_BYTES = 2 * 192 * 128 * 2 + 128 * 128 * 2
 TAIL_MAX_SLOTS = 8
 TAIL_STAGE_BYTES = 232448 - TAIL_FIXED_BYTES - 1024 - 8 * TAIL_MAX_SLOTS
+# fwht's: the three bf16 planes of Y1 (TAIL_MAX_K × 128 each) stay, and for
+# bf16 outputs their staging (3 warpgroups × 64 rows × 256 bytes); the rest,
+# less the alignment and the mbarriers, is its ring of x rows
+FWHT_STAGE_BYTES = (232448 - 3 * TAIL_MAX_K * 128 * 2 - 1024
+                    - 8 * TAIL_MAX_SLOTS)
+FWHT_OUT_STAGE_BYTES = 3 * 64 * 256
 
 
 def _pow2_split(n: int) -> tuple[int, int]:
@@ -235,13 +243,37 @@ def _tail_factors(n: int, device: torch.device):
 
 
 @functools.lru_cache(maxsize=None)
+def _sign_factor(n: int):
+    """(sign(A), c) with A = c · sign(A) for the K-axis factor A of n, c one
+    f32 value (every Hadamard construction's hadK, and Sylvester's H_a for
+    pow2 n); None where |A| takes more than one value (the seeded random
+    orthogonal block of K = 156)."""
+    A = _factors(n)[0]
+    c = np.float32(abs(A[0, 0]))
+    if not np.all(np.abs(A) == c):
+        return None
+    return np.sign(A).astype(np.float32), float(c)
+
+
+@functools.lru_cache(maxsize=None)
 def _fwht_factors(n: int, device: torch.device):
-    """``mq_fwht``'s operands: Aᵀ (K, TAIL_MAX_K) f32 zero-padded, and the
-    f32 entry 1/√128 of the m-axis factor."""
-    A, B, K = _factor_tensors(n, torch.float32, device)
+    """(factor, c, hm): the kernel's operands. For A = c · sign(A),
+    ``mq_fwht``'s sign(A) zero-padded to (TAIL_MAX_K, TAIL_MAX_K) bf16
+    (exact) and c; else ``mq_fwht_dense``'s Aᵀ (K, TAIL_MAX_K) f32
+    zero-padded and c = None. hm: the f32 entry 1/√128 of the m-axis
+    factor."""
+    _, B, K = _factors(n)
+    hm = float(B[0, 0])
+    sf = _sign_factor(n)
+    if sf is not None:
+        S = torch.zeros((TAIL_MAX_K, TAIL_MAX_K), dtype=torch.bfloat16,
+                        device=device)
+        S[:K, :K] = torch.from_numpy(sf[0])
+        return S, sf[1], hm
+    A, _, _ = _factor_tensors(n, torch.float32, device)
     At = torch.zeros((K, TAIL_MAX_K), dtype=torch.float32, device=device)
     At[:, :K] = A.t()
-    return At, float(_factors(n)[1][0, 0])
+    return At, None, hm
 
 
 def _rows(name: str, t: torch.Tensor, n: int) -> torch.Tensor:
@@ -321,6 +353,16 @@ def _tail_plan(T: int, K: int, sub_bytes: int, sms: int) -> tuple:
                          "ring")
     return min(T, sms), best[0], best[1]
 
+
+def _fwht_plan(T: int, n: int, elem_bytes: int, sms: int) -> tuple:
+    """(blocks, ring slots) of ``mq_fwht`` for T rows of n elements of
+    ``elem_bytes``: one persistent block per SM, at most T, and as many
+    whole-row slots as the ring holds (at most TAIL_MAX_SLOTS): f32 rows in
+    FWHT_STAGE_BYTES, bf16 rows beside the output staging. Every row of the
+    contract fits one slot (n = 160·128: 81,920 bytes in f32, 40,960 in
+    bf16)."""
+    ring = FWHT_STAGE_BYTES - (FWHT_OUT_STAGE_BYTES if elem_bytes == 2 else 0)
+    return min(T, sms), min(TAIL_MAX_SLOTS, ring // (n * elem_bytes))
 
 
 def _scale(name: str, scale, device) -> torch.Tensor:
@@ -471,10 +513,13 @@ def dequant_swiglu_had_quant(g: torch.Tensor, u: torch.Tensor,
 
 def fwht_two_matmul(x: torch.Tensor) -> torch.Tensor:
     """(hadK ⊗ H₁₂₈) x along the last axis in f32 throughout, returned in x's
-    dtype (bf16 or f32); CUDA kernel ``mq_fwht`` (the H₁₂₈ factor as a
-    butterfly, the hadK factor by f32 FMA; no TF32). n = K·128 with K ≤ 160,
-    rows with unit column stride. Unlike :func:`online_hadamard` on bf16, no
-    rounding between the two factors."""
+    dtype (bf16 or f32); CUDA kernel ``mq_fwht``: the H₁₂₈ factor as an f32
+    butterfly, the hadK = c · sign(hadK) factor on wgmma with exact bf16
+    products (the f32 Y1 as three bf16 terms) and f32 sums, times c; no
+    TF32. The one hadK that is no scaled sign matrix (K = 156, a random
+    orthogonal block) runs ``mq_fwht_dense`` (f32 FMA). n = K·128 with
+    K ≤ 160, rows with unit column stride. Unlike :func:`online_hadamard`
+    on bf16, no rounding between the two factors."""
     name = "fwht_two_matmul"
     if not _on_card(name, x):
         return fwht_two_matmul_ref(x)
@@ -490,11 +535,19 @@ def fwht_two_matmul(x: torch.Tensor) -> torch.Tensor:
         return out.reshape(x.shape)
     from ._build import load
 
-    At, hm = _fwht_factors(n, x.device)
+    F, c, hm = _fwht_factors(n, x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    _finish(name, load().mq_fwht(
-        x2.data_ptr(), x2.stride(0), At.data_ptr(), hm, out.data_ptr(), T, K,
-        int(x.dtype == torch.float32), stream))
+    is_f32 = int(x.dtype == torch.float32)
+    if c is None:
+        status = load().mq_fwht_dense(x2.data_ptr(), x2.stride(0),
+                                      F.data_ptr(), hm, out.data_ptr(), T, K,
+                                      is_f32, stream)
+    else:
+        plan = _fwht_plan(T, n, x.element_size(), _sm_count(x.device.index))
+        status = load().mq_fwht(x2.data_ptr(), x2.stride(0), F.data_ptr(), c,
+                                hm, out.data_ptr(), T, K, is_f32, *plan,
+                                stream)
+    _finish(name, status)
     return out.reshape(x.shape)
 
 

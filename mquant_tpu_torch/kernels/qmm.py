@@ -32,8 +32,9 @@ and two more the decode probes use (``mquant_tpu_torch.scripts``):
     ``scripts/gemv_bench.py::w8_bf16_gemv_pallas``.
   * :func:`w4_unpack_gemv` — the packed-W4 GEMV to int32 with the nibbles
     unpacked by one of the probe's variants P0-P3; replaces
-    ``scripts/w4_unpack_tune.py::pallas_gemv`` (``mq_w4a8_gemv``'s loop with
-    the unpack as a template parameter).
+    ``scripts/w4_unpack_tune.py::pallas_gemv`` (``mq_w4a8_gemv``'s one
+    tensor-core launch with the unpack as a template parameter, at every
+    M).
 
 Each wrapper launches its kernel for a CUDA tensor (or raises) and takes its
 plain PyTorch version (``*_ref``) only for a CPU tensor. ``LAUNCHES`` counts
@@ -476,9 +477,11 @@ def w4_unpack_gemv(xq: torch.Tensor, w_packed: torch.Tensor, variant: int
     (K/2, N) (a layer view of an (L, K/2, N) stack): variant 1-3 (P1 i32
     mask/where, P2 int8 shifts, P3 i32 shifts) give x · unpack(W), the W4
     product; variant 0 (P0) gives x[:, :K/2] · int8(packed), the probe's
-    packed-stream bound, with the same loads and loop. CUDA kernel
-    ``mq_w4_unpack_gemv``; every row of W is reduced (the JAX probe's K
-    grid drops K/2 mod its tile, ROADMAP C-w8). N % 16 == 0."""
+    packed-stream bound. CUDA kernel ``mq_w4_unpack_gemv``: the served
+    :func:`w4a8_gemv`'s one tensor-core launch (its plan, TMA ring and
+    cluster K-split) with the variant's unpack in front of the products, at
+    every M (no ``__dp4a`` row); every row of W is reduced (the JAX probe's
+    K grid drops K/2 mod its tile, ROADMAP C-w8). N % 16 == 0."""
     name = "w4_unpack_gemv"
     _variant(variant)
     if xq.dtype != torch.int8 or xq.ndim != 2 or not xq.is_contiguous():
@@ -498,16 +501,14 @@ def w4_unpack_gemv(xq: torch.Tensor, w_packed: torch.Tensor, variant: int
     if xq.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {xq.device}")
     N = w_packed.shape[1]
-    if N % 16 or w_packed.data_ptr() % 16:
-        raise ValueError(f"{name}: needs N % 16 == 0 and 16-byte aligned "
-                         f"weight rows, got N={N}")
+    _check_gemv(name, M, K, N, w_packed)
     from ._build import load
 
     acc = torch.empty((M, N), dtype=torch.int32, device=xq.device)
-    splits = _gemv_splits(xq.device, -(-N // 128), K // 2)
+    _, splits, rps = _gemv_plan(K, N, _sm_count(xq.device.index))
     stream = torch.cuda.current_stream(xq.device).cuda_stream
     status = load().mq_w4_unpack_gemv(xq.data_ptr(), w_packed.data_ptr(),
-                                      acc.data_ptr(), M, K, N, splits,
+                                      acc.data_ptr(), M, K, N, splits, rps,
                                       variant, stream)
     LAUNCHES[name] += 1
     _raise_on_status(name, status)

@@ -350,16 +350,7 @@ def test_had_quant(cuda, T, n):
     _check_codes(q, ref)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("T,n", [(1024, 18944), (64, 4096), (5, 128),
-                                 (3, 16384), (9, 3584)])
-def test_fwht_two_matmul(cuda, T, n, dtype):
-    x = _bf16(cuda, T, n).to(dtype)
-    before = fwht.LAUNCHES["fwht_two_matmul"]
-    y = fwht.fwht_two_matmul(x)
-    assert fwht.LAUNCHES["fwht_two_matmul"] == before + 1
-    ref = fwht.fwht_two_matmul_ref(x)
-    torch.cuda.synchronize()
+def _check_fwht(y, ref, dtype, T, n):
     assert y.dtype == dtype and y.shape == (T, n)
     y, ref = y.float(), ref.float()
     mag = float(ref.abs().max())
@@ -369,6 +360,35 @@ def test_fwht_two_matmul(cuda, T, n, dtype):
         m = torch.maximum(y.abs(), ref.abs()).clamp(min=2.0**-126)
         ulp = torch.exp2(torch.floor(torch.log2(m)) - 7)
         assert bool(((y - ref).abs() <= ulp + 1e-5 * mag).all())
+
+
+# K = 148, pow2 n (K = 32, 128), K = 1, K = 28; K = 156 (n = 19968: the
+# random orthogonal block, no scaled sign matrix: the dense route)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("T,n", [(1024, 18944), (64, 4096), (5, 128),
+                                 (3, 16384), (9, 3584), (64, 19968)])
+def test_fwht_two_matmul(cuda, T, n, dtype):
+    x = _bf16(cuda, T, n).to(dtype)
+    before = fwht.LAUNCHES["fwht_two_matmul"]
+    y = fwht.fwht_two_matmul(x)
+    assert fwht.LAUNCHES["fwht_two_matmul"] == before + 1
+    ref = fwht.fwht_two_matmul_ref(x)
+    torch.cuda.synchronize()
+    _check_fwht(y, ref, dtype, T, n)
+
+
+# the wgmma kernel at token counts below, at and above the persistent grid,
+# K = 148, pow2 n (K = 32) and K = 1: two calls bit-equal (the f32 sums run
+# in a fixed order), both within the bounds above
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n", [18944, 4096, 128])
+@pytest.mark.parametrize("T", [1, 5, 133, 1024])
+def test_fwht_two_matmul_deterministic(cuda, T, n, dtype):
+    x = (_bf16(cuda, T, n, seed=T).float()
+         * torch.rand((T, n), device=cuda) * 4).to(dtype)
+    y = fwht.fwht_two_matmul(x)
+    assert torch.equal(y, fwht.fwht_two_matmul(x))
+    _check_fwht(y, fwht.fwht_two_matmul_ref(x), dtype, T, n)
 
 
 def test_probe_kernels_raise_on_unsupported(cuda):
@@ -595,6 +615,49 @@ def test_w4_unpack_gemv(cuda, M, K, N, variant):
         if (K // 2) % 4 == 0:  # the served kernel's contract
             assert torch.equal(acc, qmm.w4a8_gemv(x, ones_m, w, ones_n,
                                                   torch.int32))
+
+
+@pytest.mark.parametrize("variant", [0, 1, 2, 3])
+def test_w4_unpack_gemv_cuda_graph(cuda, variant):
+    """One launch, capturable: the variant's CUDA graph replayed on two
+    inputs equals eager calls and the plain version, int32 bit for bit."""
+    x, _, w, _ = _operands(cuda, 8, 18944, 3584, True)
+    qmm.w4_unpack_gemv(x, w, variant)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = qmm.w4_unpack_gemv(x, w, variant)
+    for seed in (1, 2):
+        x.copy_(_operands(cuda, 8, 18944, 3584, True, seed=seed)[0])
+        graph.replay()
+        eager = qmm.w4_unpack_gemv(x, w, variant)
+        torch.cuda.synchronize()
+        assert torch.equal(y, eager)
+        assert torch.equal(y, qmm.w4_unpack_gemv_ref(x, w, variant))
+
+
+@pytest.mark.parametrize("variant", [0, 1, 2, 3])
+def test_w4_unpack_gemv_one_device_op(cuda, variant):
+    """One device operation per call, the tensor-core GEMV (the profiler's
+    count): no memset, workspace or second kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x, _, w, _ = _operands(cuda, 1, 3584, 4608, True)
+    qmm.w4_unpack_gemv(x, w, variant)
+    torch.cuda.synchronize()
+    # the first profiler run of a process may miss its first kernel while
+    # the tracer starts: one run first, then the one counted
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                qmm.w4_unpack_gemv(x, w, variant)
+            torch.cuda.synchronize()
+    ops = {e.key: e.count for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA}
+    assert sum(ops.values()) == 3, ops
+    assert all("gemv_tc_kernel" in k for k in ops), ops
 
 
 def _int32_pair(dev, T, n, seed=0):

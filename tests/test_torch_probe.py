@@ -168,6 +168,81 @@ def test_fwht_two_matmul_keeps_f32_between_factors():
     assert not torch.equal(TF.fwht_two_matmul_ref(x), TF.online_hadamard(x))
 
 
+# every n = K·128 of the Hadamard kernels' contract (K ≤ 160)
+KERNEL_NS = [K * TF.TAIL_M for K in range(1, TF.TAIL_MAX_K + 1)
+             if TF.tail_supports(K * TF.TAIL_M)]
+
+
+@pytest.mark.parametrize("n", KERNEL_NS)
+def test_fwht_hadK_is_a_scaled_sign_matrix(n):
+    """The K-axis factor of every n the kernels take (the Paley / get_hadK
+    orders, the pow2 splits' Sylvester H_a, K = 1) is c · sign(A) with one
+    f32 c = 1/√K, which ``mq_fwht`` takes on the tensor cores; only the
+    seeded random orthogonal block (K = 156) is not, and goes to
+    ``mq_fwht_dense``. ``mq_fwht``'s ring holds a whole bf16 or f32 row of
+    every such n (``_fwht_plan``)."""
+    for elem, ring in ((2, TF.FWHT_STAGE_BYTES - TF.FWHT_OUT_STAGE_BYTES),
+                       (4, TF.FWHT_STAGE_BYTES)):
+        blocks, slots = TF._fwht_plan(1024, n, elem, 132)
+        assert blocks == 132 and 1 <= slots <= TF.TAIL_MAX_SLOTS
+        assert slots * n * elem <= ring
+    assert TF._fwht_plan(5, n, 2, 132)[0] == 5
+    A, _, K = TF._factors(n)
+    sf = TF._sign_factor(n)
+    c_kernel = TF._fwht_factors(n, torch.device("cpu"))[1]
+    if K in TH._RANDOM_ORTHO_K:
+        assert sf is None and c_kernel is None  # mq_fwht_dense
+        return
+    S, c = sf
+    assert c_kernel == c  # mq_fwht
+    assert set(np.unique(S).tolist()) == ({1.0} if K == 1 else {-1.0, 1.0})
+    np.testing.assert_array_equal(np.float32(c) * S, A)
+    np.testing.assert_allclose(c, 1 / np.sqrt(K), rtol=1e-6)
+
+
+def _fwht_tc_model(x: torch.Tensor) -> torch.Tensor:
+    """``fwht_tc_kernel``'s arithmetic in plain PyTorch: Y1 = X·H₁₂₈ by an
+    f32 butterfly (Sylvester order), × 1/√128; Y1 split into three bf16
+    terms hi + mid + lo (exactly Y1); c · (S·lo + S·mid + S·hi) with the
+    sign matrix S, exact products and f32 sums; cast to x's dtype."""
+    n = x.shape[-1]
+    _, B, K = TF._factors(n)
+    S, c = TF._sign_factor(n)
+    X = x.float().reshape(-1, K, TF.TAIL_M)
+    h = 1
+    while h < TF.TAIL_M:  # pairs (i, i + h) in blocks of 2h
+        X = X.reshape(*X.shape[:2], -1, 2, h)
+        X = torch.stack([X[..., 0, :] + X[..., 1, :],
+                         X[..., 0, :] - X[..., 1, :]], dim=-2)
+        h *= 2
+    Y1 = X.reshape(-1, K, TF.TAIL_M) * float(B[0, 0])
+    hi = Y1.bfloat16().float()
+    mid = (Y1 - hi).bfloat16().float()
+    lo = (Y1 - hi - mid).bfloat16().float()
+    assert torch.equal(hi + mid + lo, Y1)  # the split is exact
+    St = torch.from_numpy(S)
+    acc = St @ lo
+    acc = acc + St @ mid
+    acc = acc + St @ hi
+    return (acc * c).reshape(x.shape).to(x.dtype)
+
+
+@pytest.mark.parametrize("against", ["plain", "jax"])
+@pytest.mark.parametrize("n", [18944, 4096, 3584, 128])
+def test_fwht_tc_model_matches(n, against):
+    """The kernel's arithmetic (:func:`_fwht_tc_model`) against
+    ``fwht_two_matmul_ref`` (float64) and JAX ``fwht_pallas`` in interpret
+    mode, on f32 rows: within 1e-5 of the largest magnitude (the card's
+    bound, FWHT_RTOL)."""
+    rng = np.random.default_rng(n)
+    x = (rng.normal(size=(3, n)) * 3).astype(np.float32)
+    got = _fwht_tc_model(_t(x)).numpy()
+    ref = (TF.fwht_two_matmul_ref(_t(x)).numpy() if against == "plain" else
+           np.asarray(JF.fwht_pallas(jnp.asarray(x), tile_t=8,
+                                     interpret=True)))
+    assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
 @pytest.mark.parametrize("n", [8, 128, 1024])
 def test_fwht_butterfly_matches_jax(n):
     x = np.random.default_rng(n).normal(size=(4, n)).astype(np.float32)
