@@ -7,9 +7,12 @@ Phases, in order (any failed check raises and the script exits non-zero):
 2. build: compiles the CUDA kernels from ``mquant_tpu_torch/kernels/csrc``
    and counts the tensor-core products and shared-memory copies in the SASS
    of the tensor-core kernels: wgmma (``IGMMA`` / ``HGMMA``) and TMA
-   (``UTMALDG``) in the GEMM and flash kernels, ``IMMA`` and ``UTMALDG`` in
+   (``UTMALDG``) in the GEMM (the ragged instantiations' too: x's tiles)
+   and flash kernels, ``IMMA`` and ``UTMALDG`` in
    the W4 GEMV (each of w4_unpack_gemv's P0-P3 instantiations too, their
-   counts printed beside the served unpack's), ``HMMA`` and cp.async
+   counts printed beside the served unpack's), ``HMMA`` and ``UTMALDG`` or
+   cp.async ``LDGSTS`` in w8_bf16_gemv's (with its consumer loop's
+   instructions per weight byte), ``HMMA`` and cp.async
    (``LDGSTS``) in decode attention, ``HGMMA`` and the bulk copy
    (``UBLKCP``) in the Hadamard tail kernel and in fwht's (fails without
    them).
@@ -17,9 +20,11 @@ Phases, in order (any failed check raises and the script exits non-zero):
    the main path: int32 accumulators and bf16 outputs bit-equal (the int8
    GEMM through its route: the TMA kernel inside its contract, K = 18943 of
    the RMS split included (x in rows padded to 16 bytes, as the split's
-   quantizer writes them), the mma.sync one outside (ragged N); the mma.sync
-   kernel also timed at each TMA shape as its predecessor; the document
-   path's 4096-row
+   quantizer writes them), the ragged kernel (W's tile written by threads)
+   outside: ragged N, W4 with (K/2) % 16 != 0 and the full-logit lm_heads
+   of InternVL2-8B (N = 92553) and MiniCPM-V-2.6 (N = 151666), its
+   main-path shapes; the ragged kernel also timed at each TMA shape beside
+   the TMA kernel; the document path's 4096-row
    products; the prefill probe's W8 products; the W4 GEMV at 1, 4, 8 and 32
    token rows); the attention
    kernels' written cache rows bit-equal and outputs within 1e-2 of the
@@ -43,7 +48,8 @@ Phases, in order (any failed check raises and the script exits non-zero):
    f32 within 1e-5 of the plain version's largest magnitude, bf16 within
    one ulp plus that), each beside its unfused torch chain. The decode
    probes' kernels likewise (w8_bf16_gemv: bf16 within one ulp plus 1e-5
-   of max |plain|, and deterministic; w4_unpack_gemv P0-P3: int32
+   of max |plain|, and deterministic, N % 16 = 8 included; w4_unpack_gemv
+   P0-P3: int32
    bit-equal, P1-P3 also to w4a8_gemv's, each timed beside w4a8_gemv at
    the same shape; dequant_swiglu_had_quant: the tail's rule, codes in
    [−127, 127]).
@@ -80,7 +86,9 @@ Phases, in order (any failed check raises and the script exits non-zero):
    path S adds the RMS first-column split (``down`` as 18943 int8 rows +
    an f32 ``w_col0``: ``int8_gemm`` / ``int8_gemv`` at K = 18943) and
    serves the full-VLM request; its prefill's 28 ``down`` calls must launch
-   the TMA kernel (``int8_gemm``) and ``int8_gemm_sm80`` none.
+   the TMA kernel (``int8_gemm``) and ``int8_gemm_ragged`` none; then the
+   same prefill with ``down`` forced onto ``int8_gemm_ragged`` (28
+   launches) is held against plain as below.
    Each path's prefill and first 7 decode steps are held against the same
    forward with the integer products through their plain versions (logits
    within the bound, greedy tokens equal), and every attention and tail
@@ -88,8 +96,8 @@ Phases, in order (any failed check raises and the script exits non-zero):
 5. profile: wall time (best of 3) and, under ``torch.profiler``, device
    busy time, idle share and the largest device items of the vision tower,
    the 1024-token prefill and a decode step (block Hadamard, then path F's,
-   then path S's prefill, beside it with ``down`` forced onto the mma.sync
-   kernel, its route before the K tail, and its decode step), then of the
+   then path S's prefill, beside it with ``down`` forced onto the ragged
+   kernel, and its decode step), then of the
    4096-token prefill and a decode step at position ~4100; and the stream
    time between CUDA events around
    every ``layers.attention`` call. For each decode step: device operations
@@ -183,7 +191,8 @@ ROWS_SHAPES = [("w4a8_gemv", f"{site}, {m} rows", m, k, n, True)
                for site, k, n in (("gate|up", 3584, 37888),
                                   ("down", 18944, 3584))]
 # off the 1-token decode path but inside the kernels' contract: several rows
-# in the GEMV, ragged M, N and K edges in the GEMM
+# in the GEMV, ragged M, N and K edges in the GEMM (N odd, N % 4 = 2 and
+# W4 with (K/2) % 16 != 0 on the ragged kernel)
 EDGE_SHAPES = [
     ("w4a8_gemv", "q|k|v, 5 rows", 5, 3584, 4608, True),
     ("int8_gemv", "lm_head, 3 rows", 3, 3584, 152064, False),
@@ -191,16 +200,21 @@ EDGE_SHAPES = [
     ("int8_gemm", "ragged W4", 77, 3584, 4100, True),
     ("int8_gemm", "ragged K W8", 77, 1001, 1000, False),
     ("int8_gemm", "ragged K W8, N % 16 = 0", 77, 1001, 1024, False),
+    ("int8_gemm", "ragged K W8, N odd", 77, 1001, 1003, False),
+    ("int8_gemm", "W4 (K/2) % 16 = 4", 77, 1000, 1024, True),
 ]
-# int8_gemm_sm80's line in the kernels summary: its time as the TMA
-# kernel's predecessor at the shape it served on the main path until the
-# K tail (path S's prefill down); on the main path it launches no more
-SM80_SHAPE = "S prefill down"
+# the ragged kernel's main-path shapes: the full-logit lm_head (calibration,
+# scoring, speculative verification: decoder_forward with every position's
+# logits) over a 1024-token prompt at the published vocabularies, N % 16 != 0
+RAGGED_SHAPES = [
+    ("int8_gemm", "InternVL2-8B lm_head", 1024, 4096, 92553, False),
+    ("int8_gemm", "MiniCPM-V-2.6 lm_head", 1024, 3584, 151666, False),
+]
 REPLACES = {
     "w4a8_gemv": "mquant_tpu/kernels/qmm.py:869",
     "int8_gemv": "mquant_tpu/kernels/qmm.py:637",
     "int8_gemm": "mquant_tpu/kernels/qmm.py:840, scripts/mxu_rate.py:90",
-    "int8_gemm_sm80": "mquant_tpu/kernels/qmm.py:840",
+    "int8_gemm_ragged": "mquant_tpu/kernels/qmm.py:840",
     "attn_decode": "mquant_tpu/kernels/attn_decode.py:206",
     "flash_attn_causal": "mquant_tpu/models/layers.py:385",
     "fused_swiglu_had_quant": "mquant_tpu/kernels/fwht.py:320",
@@ -214,7 +228,7 @@ REPLACES = {
 SOURCES = {"w4a8_gemv": "mquant_tpu_torch/kernels/csrc/qmm.cu",
            "int8_gemv": "mquant_tpu_torch/kernels/csrc/qmm.cu",
            "int8_gemm": "mquant_tpu_torch/kernels/csrc/qmm.cu",
-           "int8_gemm_sm80": "mquant_tpu_torch/kernels/csrc/qmm.cu",
+           "int8_gemm_ragged": "mquant_tpu_torch/kernels/csrc/qmm.cu",
            "attn_decode": "mquant_tpu_torch/kernels/csrc/attn.cu",
            "flash_attn_causal": "mquant_tpu_torch/kernels/csrc/attn.cu",
            "fused_swiglu_had_quant": "mquant_tpu_torch/kernels/csrc/fwht.cu",
@@ -269,11 +283,12 @@ def check_kernels(seed: int) -> dict:
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev = torch.device("cuda")
     summary = {k: new_summary() for k in ("w4a8_gemv", "int8_gemv",
-                                          "int8_gemm", "int8_gemm_sm80")}
+                                          "int8_gemm", "int8_gemm_ragged")}
     rows_sum = new_summary()
     for name, label, M, K, N, packed in (KERNEL_SHAPES + DOC_GEMM_SHAPES
-                                         + ROWS_SHAPES + EDGE_SHAPES):
-        main = (name, label, M, K, N, packed) in KERNEL_SHAPES
+                                         + ROWS_SHAPES + EDGE_SHAPES
+                                         + RAGGED_SHAPES):
+        main = (name, label, M, K, N, packed) in KERNEL_SHAPES + RAGGED_SHAPES
         rows = K // 2 if packed else K
         x = torch.randint(-127, 128, (M, K), generator=g, device=dev,
                           dtype=torch.int8)
@@ -283,17 +298,17 @@ def check_kernels(seed: int) -> dict:
             w.clamp_(min=-127)
         xs = torch.rand((M,), generator=g, device=dev) * 0.1 + 1e-3
         ws = torch.rand((N,), generator=g, device=dev) * 0.01 + 1e-4
-        # the GEMM's route: the TMA kernel inside its contract, the
-        # mma.sync kernel (its own launch count) outside
+        # the GEMM's route: the TMA kernel inside its contract, the ragged
+        # kernel (its own launch count) outside
         if name == "int8_gemm" and not qmm.tma_supports(K, N, packed):
-            name = "int8_gemm_sm80"
+            name = "int8_gemm_ragged"
         kern = qmm.KERNELS[name]
         plain = qmm.PLAIN[name]
         extra = {"packed": packed} if name.startswith("int8_gemm") else {}
         # x as the GEMM meets it on the served path: a K that is no multiple
         # of 16 in rows padded to 16 bytes (qmm._codes_out), read in place
         xk = x
-        if name == "int8_gemm" and K % 16:
+        if name.startswith("int8_gemm") and K % 16:
             xk = torch.empty((M, -(-K // 16) * 16), dtype=torch.int8,
                              device=dev)[:, :K].copy_(x)
         before = qmm.LAUNCHES[name]
@@ -306,6 +321,7 @@ def check_kernels(seed: int) -> dict:
             bad = int((acc_k != acc_p).sum())
             raise AssertionError(f"{name} [{label}]: int32 accumulator differs "
                                  f"in {bad} of {acc_k.numel()} entries")
+        del acc_p
         y_k = kern(xk, xs, w, ws, torch.bfloat16, **extra)
         y_p = plain(x, xs, w, ws, torch.bfloat16, **extra)
         err, ulps = bf16_ulp_err(y_k, y_p)
@@ -313,6 +329,7 @@ def check_kernels(seed: int) -> dict:
             raise AssertionError(f"{name} [{label}]: bf16 output differs from "
                                  f"the plain version's by up to {ulps} ulp "
                                  f"(max abs {err})")
+        del y_p
         # timed calls cycle over weight copies that together exceed the
         # 50 MB L2, so each call streams its weight from HBM as decode does
         wbytes = rows * N
@@ -324,16 +341,17 @@ def check_kernels(seed: int) -> dict:
                                       torch.bfloat16, **extra), 4, reps=3)
         # one library call on the same int8 operands: torch._int_mm (W8
         # only; it needs more than 16 rows, so a GEMV's rows are padded to
-        # 32, and K % 8 == 0, so K is zero-padded, which leaves the int32
-        # sums as they are); no single call computes the packed-W4 product
+        # 32, and K % 8 == 0 and N % 8 == 0, so K and N are zero-padded,
+        # which leaves the int32 sums as they are, and the output sliced);
+        # no single call computes the packed-W4 product
         lms = None
         if not packed and (main or label.startswith("doc")):
-            kp = -K % 8
+            kp, np_ = -K % 8, -N % 8
             xl = torch.nn.functional.pad(
                 x, (0, kp, 0, 32 - M if M <= 16 else 0))
-            wl = ws_cold if kp == 0 else [
-                torch.nn.functional.pad(c, (0, 0, 0, kp)) for c in ws_cold]
-            if not torch.equal(torch._int_mm(xl, wl[0])[:M], acc_k):
+            wl = ws_cold if kp == np_ == 0 else [
+                torch.nn.functional.pad(c, (0, np_, 0, kp)) for c in ws_cold]
+            if not torch.equal(torch._int_mm(xl, wl[0])[:M, :N], acc_k):
                 raise AssertionError(f"{name} [{label}]: torch._int_mm on the "
                                      "padded operands differs")
             lms = cuda_ms(lambda i: torch._int_mm(xl, wl[i % len(wl)]), 20)
@@ -341,16 +359,18 @@ def check_kernels(seed: int) -> dict:
         nbytes = wbytes + M * K + 2 * M * N + 4 * (M + N)
         bms, by = bound(nbytes, 2 * M * K * N, INT8_OPS)
         lib_txt = "none" if lms is None else f"{lms:.4f} ms"
-        # the TMA kernel's predecessor on the same operands, held and timed
-        # in the same call (its launches count as comparisons only)
+        # the ragged kernel on the TMA kernel's shapes, held and timed in the
+        # same call (its launches count as comparisons only): what the
+        # threads' W producer costs against TMA's
         old_txt = ""
         if name == "int8_gemm":
-            if not torch.equal(qmm.int8_gemm_sm80(x, xs, w, ws, torch.bfloat16,
-                                                  packed), y_k):
-                raise AssertionError(f"int8_gemm_sm80 [{label}]: differs")
-            oms = cuda_ms(lambda i: qmm.int8_gemm_sm80(
-                x, xs, ws_cold[i % len(ws_cold)], ws, torch.bfloat16, packed),
-                20)
+            if not torch.equal(qmm.int8_gemm_ragged(xk, xs, w, ws,
+                                                    torch.bfloat16, packed),
+                               y_k):
+                raise AssertionError(f"int8_gemm_ragged [{label}]: differs")
+            oms = cuda_ms(lambda i: qmm.int8_gemm_ragged(
+                xk, xs, ws_cold[i % len(ws_cold)], ws, torch.bfloat16,
+                packed), 20)
             # the block width the wrapper did not pick
             other = 384 - qmm.tma_tokens(M, N, torch.cuda.get_device_properties(
                 dev).multi_processor_count)
@@ -361,12 +381,8 @@ def check_kernels(seed: int) -> dict:
             tms = cuda_ms(lambda i: qmm._gemm_tma(
                 xk, xs, ws_cold[i % len(ws_cold)], ws, torch.bfloat16, packed,
                 other), 20)
-            old_txt = (f", mma.sync kernel {oms:.4f} ms ({oms / ms:.2f}x), "
+            old_txt = (f", ragged kernel {oms:.4f} ms ({oms / ms:.2f}x), "
                        f"{other} tokens a block {tms:.4f} ms")
-            if label == SM80_SHAPE:  # the shape it carried until the K tail
-                s8 = summary["int8_gemm_sm80"]
-                s8["max_abs_err"] = max(s8["max_abs_err"], err)
-                add_main(s8, oms, pms, bms, by, lms)
         log(f"kernel {name:10s} {label:20s} M={M:5d} K={K:6d} N={N:6d}: "
             "acc exact, bf16 bit-equal; "
             f"{ms:.4f} ms vs plain {pms:.4f} ms, library {lib_txt}, bound "
@@ -380,7 +396,8 @@ def check_kernels(seed: int) -> dict:
             add_main(s, ms, pms, bms, by, lms)
         elif (name, label, M, K, N, packed) in ROWS_SHAPES:
             add_main(rows_sum, ms, pms, bms, by, lms)
-        del x, xk, w, ws_cold, acc_k, acc_p, y_k, y_p
+        del x, xk, w, ws_cold, acc_k, y_k
+        torch.cuda.empty_cache()
     log(f"kernel w4a8_gemv at 4 / 8 / 32 rows (gate|up, down): {rows_sum['ms']:.4f} "
         f"ms summed, plain {rows_sum['plain_ms']:.4f} ms, bound "
         f"{rows_sum['bound_ms']:.4f} ms")
@@ -800,10 +817,12 @@ def check_probe_kernels(seed: int) -> dict:
 
 W8_SLACK = 1e-5  # w8_bf16_gemv: one bf16 ulp + W8_SLACK · max |plain|
 # the decode probes' kernels (label, M, K, N, main path): gemv_bench's
-# shape, then edges (one and five rows, a partial 128-column block)
+# shape, then edges (one and five rows, a partial 128-column block, rows
+# that TMA cannot stream (N % 16 = 8) with a K that is no multiple of 4)
 W8_SHAPES = [("gemv_bench", 8, 3584, 19968, True),
              ("M 1", 1, 3584, 19968, False), ("M 5", 5, 3584, 19968, False),
-             ("N 1040", 8, 3584, 1040, False)]
+             ("N 1040", 8, 3584, 1040, False),
+             ("N % 16 = 8", 3, 2051, 1032, False)]
 # w4_unpack_tune's layer shape for each variant, and an edge with K/2 odd
 # (the predicated tail)
 W4U_SHAPES = [("w4_unpack_tune", 8, 18944, 3584, True),
@@ -998,6 +1017,7 @@ def sass_functions(lib) -> dict:
 HOPPER_SASS = {"gemm_tma_kernel": ("IGMMA", "UTMALDG"),
                "flash_causal_kernel": ("HGMMA", "UTMALDG"),
                "gemv_tc_kernel": ("IMMA", "UTMALDG"),
+               "w8_bf16_tc_kernel": ("HMMA", "UTMALDG|LDGSTS"),
                "decode_attn_kernel": ("HMMA", "LDGSTS"),
                "tail_kernel": ("HGMMA", "UBLKCP"),
                "fwht_tc_kernel": ("HGMMA", "UBLKCP")}
@@ -1014,14 +1034,46 @@ def sass_hopper_kernels(funcs: dict) -> None:
             raise AssertionError(f"sass: {kern} not found in the library")
         for fn, code in sorted(hits.items()):
             op = lambda name: sum(  # noqa: E731 (a predicate may lead)
-                bool(re.match(rf"(@!?U?P\w+\s+)?{name}\b", i)) for i in code)
+                bool(re.match(rf"(@!?U?P\w+\s+)?({name})\b", i))
+                for i in code)
             n_mma, n_cp = op(mma), op(cp)
-            extra = "".join(f", {c} {op(c)}" for c in ("UTMALDG", "UBLKCP")
-                            if c != cp)
+            extra = "".join(f", {c} {op(c)}" for c in ("UTMALDG", "UBLKCP",
+                                                       "LDGSTS")
+                            if c not in cp.split("|"))
             log(f"sass: {fn}: {len(code)} instructions, {mma} {n_mma}, {cp} "
                 f"{n_cp}{extra}")
             if n_mma == 0 or n_cp == 0:
                 raise AssertionError(f"sass: {fn} has no {mma} or no {cp}")
+
+
+def sass_w8_bf16(funcs: dict) -> None:
+    """Phase 2: the consumer loop of each instantiation of w8_bf16_gemv's
+    tensor-core kernel (the shortest backward branch around its HMMA; a
+    listed instruction is 16 bytes): instructions, and the conversion's
+    byte permutes, f32 adds and logic ops (PRMT, FADD, LOP3), per weight
+    byte of a thread (an HMMA m16n8k16 takes 256 bytes of a warp, 8 a
+    thread)."""
+    def op(i):
+        w = i.split()
+        return (w[1] if w[0].startswith("@") else w[0]).split(".")[0]
+
+    for fn, code in sorted((k, v) for k, v in funcs.items()
+                           if "w8_bf16_tc_kernel" in k):
+        loops = []
+        for at, ins in enumerate(code):
+            m = re.search(r"\bBRA (0x[0-9a-f]+)", ins)
+            if m and int(m.group(1), 16) // 16 < at:
+                body = [op(i) for i in code[int(m.group(1), 16) // 16:at + 1]]
+                if "HMMA" in body:
+                    loops.append(body)
+        if not loops:
+            raise AssertionError(f"sass: {fn}: no loop around its HMMA")
+        body = min(loops, key=len)
+        nbytes = 8 * body.count("HMMA")
+        conv = sum(body.count(k) for k in ("PRMT", "FADD", "LOP3"))
+        log(f"sass: {fn}: consumer loop {len(body)} instructions for "
+            f"{nbytes} weight bytes a thread: {len(body) / nbytes:.2f} a "
+            f"byte, of them PRMT + FADD + LOP3 {conv / nbytes:.2f}")
 
 
 def sass_unpack_variants(funcs: dict) -> None:
@@ -1210,7 +1262,7 @@ DOC_KERNELS = SLICE_KERNELS + ("flash_attn_causal",)
 BATCH_KERNELS = SLICE_KERNELS
 FULL_KERNELS = SLICE_KERNELS + ("fused_swiglu_had_quant",)
 # path S: its K = 18943 `down` runs on the TMA GEMM (int8_gemm) since the K
-# tail; int8_gemm_sm80 must launch no time there (run_split checks both)
+# tail; int8_gemm_ragged must launch no time there (run_split checks both)
 SPLIT_KERNELS = SLICE_KERNELS
 # path F's text request (bucket 128, below the tail's 256): it only shows
 # that the tail does not launch there, so two tokens do
@@ -1623,13 +1675,16 @@ def run_split(m: dict, card: str) -> dict:
     18943 int8 rows and an f32 ``w_col0``; the pipeline's default artifact).
     The full-VLM request; ``down`` runs through ``int8_gemm`` at prefill (the
     TMA kernel, on codes the split's quantizer writes in padded rows: 28
-    launches, none of ``int8_gemm_sm80``) and ``int8_gemv`` in decode at
-    K = 18943. Returns the launch counts; profiles the prefill (beside it
-    with ``down`` on the mma.sync kernel, the route before the K tail) and
-    a decode step."""
+    launches, none of ``int8_gemm_ragged``) and ``int8_gemv`` in decode at
+    K = 18943. Then the prefill with ``down`` forced onto
+    ``int8_gemm_ragged`` (28 launches, outside the returned counts) is held
+    against plain as the served one is. Returns the launch counts; profiles
+    the prefill (beside it with ``down`` on the ragged kernel) and a decode
+    step."""
     import torch
 
     from mquant_tpu_torch import random_init as R
+    from mquant_tpu_torch.kernels import qmm
     from mquant_tpu_torch.serve.generate import Generator
 
     base = m["gen"]
@@ -1664,26 +1719,38 @@ def run_split(m: dict, card: str) -> dict:
         want = {"int8_gemm": cfg.n_layers,
                 "int8_gemv": cfg.n_layers * (GEN_TOKENS - 1)}
         if (down != want or launches["fused_swiglu_had_quant"]
-                or launches["int8_gemm_sm80"]):
+                or launches["int8_gemm_ragged"]):
             raise AssertionError(f"split: down launches at K = {K} {down}, "
                                  f"expected {want}; tail launches "
                                  f"{launches['fused_swiglu_had_quant']}, "
-                                 f"int8_gemm_sm80 "
-                                 f"{launches['int8_gemm_sm80']}, expected 0")
+                                 f"int8_gemm_ragged "
+                                 f"{launches['int8_gemm_ragged']}, expected 0")
         check_tokens("split", out, GEN_TOKENS, cfg.vocab)
         emb = held["emb"]
         against_plain("split", gen, lambda: gen.prefill(emb))
+        # the one depth-28 path through the ragged kernel: `down` forced
+        # onto it, held against plain in the same way
+        before = qmm.LAUNCHES["int8_gemm_ragged"]
+        with ragged_route():
+            against_plain("split, down on int8_gemm_ragged", gen,
+                          lambda: gen.prefill(emb))
+        forced = qmm.LAUNCHES["int8_gemm_ragged"] - before
+        if forced != cfg.n_layers:
+            raise AssertionError(f"split: down forced onto int8_gemm_ragged "
+                                 f"launched it {forced} times, expected "
+                                 f"{cfg.n_layers}")
     log(f"split: full-VLM request ({PREFILL}-token prompt, {GEN_TOKENS} "
         f"tokens) {t_req:.3f} s; TTFT {ttft * 1e3:.1f} ms; decode "
         f"{(GEN_TOKENS - 1) / (t_req - ttft):.1f} tok/s; down launches at K "
-        f"= {K}: {down}, int8_gemm_sm80 0; peak {peak:.2f} GiB; card {card}")
+        f"= {K}: {down}, int8_gemm_ragged 0 (forced: {forced} in one "
+        f"prefill); peak {peak:.2f} GiB; card {card}")
     with torch.no_grad():
         profile_phases([("prefill 1024 (full Hadamard + RMS split)",
                          lambda: gen.prefill(emb), 1)], card)
-        with sm80_route():
+        with ragged_route():
             profile_phases([("prefill 1024 (full Hadamard + RMS split), down "
-                             "on int8_gemm_sm80 (the route before the K "
-                             "tail)", lambda: gen.prefill(emb), 1)], card)
+                             "on int8_gemm_ragged", lambda: gen.prefill(emb),
+                             1)], card)
         profile_phases([("decode step (full Hadamard + RMS split)",
                          decode_steps(gen, gen.prefill(emb)[1]),
                          PROFILE_STEPS)], card)
@@ -1693,20 +1760,20 @@ def run_split(m: dict, card: str) -> dict:
 
 
 @contextlib.contextmanager
-def sm80_route():
-    """``int8_gemm`` calls at a K that is no multiple of 16 go to the
-    mma.sync kernel on a contiguous x, as they did before the TMA kernel's
-    K tail (the comparison of path S's prefill in one run)."""
+def ragged_route():
+    """``int8_gemm`` calls at a K that is no multiple of 16 (path S's
+    ``down``) go to the ragged kernel, on the padded rows the split's
+    quantizer writes (the comparison of path S's prefill in one run)."""
     from mquant_tpu_torch.kernels import qmm
 
     gemm = qmm.KERNELS["int8_gemm"]
 
-    def old(xq, *a, **kw):
+    def forced(xq, *a, **kw):
         if xq.shape[-1] % 16:
-            return qmm.int8_gemm_sm80(xq.contiguous(), *a, **kw)
+            return qmm.int8_gemm_ragged(xq, *a, **kw)
         return gemm(xq, *a, **kw)
 
-    qmm.KERNELS["int8_gemm"] = old
+    qmm.KERNELS["int8_gemm"] = forced
     try:
         yield
     finally:
@@ -1982,6 +2049,7 @@ def main(argv=None) -> int:
     funcs = sass_functions(path)
     sass_hopper_kernels(funcs)
     sass_unpack_variants(funcs)
+    sass_w8_bf16(funcs)
 
     # phase 3: kernels vs plain
     summary = check_kernels(args.seed)

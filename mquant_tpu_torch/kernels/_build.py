@@ -34,15 +34,16 @@ _SIGNATURES = {
     "mq_int8_gemv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, ldx, w, xs, ws, out, M, K, N, w4, out_kind, tokens per block, stream
     "mq_int8_gemm": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # x, w, xs, ws, out, M, K, N, w4, out_kind, stream
-    "mq_int8_gemm_sm80": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # the same arguments (any N)
+    "mq_int8_gemm_ragged": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _P],
     # q, k_new, v_new, k_cache, v_cache, pos, start, out, part, counters,
     # pos_all, start_all, B, S, H, KVH, splits, scale, stream
     "mq_attn_decode": [_P] * 10 + [_I] * 7 + [_F, _P],
     # q, k, v, out, B, T, H, KVH, scale, stream
     "mq_flash_attn_causal": [_P] * 4 + [_I] * 4 + [_F, _P],
-    # x, w, ws, out, M, K, N, stream
-    "mq_w8_bf16_gemv": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # x, w, ws, out, M, K, N, splits, rows per split, stream
+    "mq_w8_bf16_gemv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, w, acc, M, K, N, splits, rows per split, variant, stream
     "mq_w4_unpack_gemv": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # g, u, ldg, ldu, A, Bt, scale, out, T, K, qmin, qmax, in_f32, blocks,

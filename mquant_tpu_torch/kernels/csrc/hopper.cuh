@@ -1,7 +1,8 @@
 // Hopper (sm_90a) primitives shared by the TMA + wgmma kernels of qmm.cu,
-// attn.cu and fwht.cu: mbarriers, TMA tile loads and bulk copies, the
-// CUtensorMap encoder, wgmma shared-memory descriptors, the bf16 wgmma
-// products and the warpgroup fences, register reallocation.
+// attn.cu and fwht.cu: mbarriers, TMA tile loads and bulk copies, cp.async
+// with zero fill and its mbarrier arrival, the CUtensorMap encoder, wgmma
+// shared-memory descriptors, the bf16 wgmma and mma.sync products and the
+// warpgroup fences, register reallocation.
 //
 // Shared-memory layout the kernels use with these: every operand tile is
 // loaded by TMA with CU_TENSOR_MAP_SWIZZLE_128B (or written by threads in the
@@ -123,6 +124,25 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
 // made visible to it) before its later async-proxy (TMA, bulk) accesses
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// 8 bytes from src (8-byte aligned) into shared memory at dst, or 8 zeros
+// where !live (src is then not read)
+__device__ __forceinline__ void cp_async8_zfill(void* dst, const void* src,
+                                                bool live) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(live ? 8 : 0)
+               : "memory");
+}
+
+// one arrival on `bar` once this thread's earlier cp.async copies have
+// landed (.noinc: the arrival is one of those the barrier was initialised
+// to expect)
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
 }
 
 __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
@@ -252,6 +272,16 @@ __device__ __forceinline__ void wgmma_bf16_rs_tb(float d[64],
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (16 x 8 f32) += a (16 x 16 bf16) . b (16 x 8 bf16), mma.sync
+__device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 template <int R>

@@ -18,8 +18,10 @@
 //                it stood beside: int8 x int8 -> int32 GEMM on W4 packed or
 //                W8 weights with the per-token x per-channel dequant fused.
 // K12 w8_bf16_gemv  replaces scripts/gemv_bench.py::w8_bf16_gemv_pallas
-//                (pl.pallas_call at :70): y = bf16((x . f32(W)) * w_scale)
-//                for bf16 x (M <= 8, K) and int8 W (K, N), f32 sums.
+//                (pl.pallas_call at :70): y = bf16((x . bf16(W)) * w_scale)
+//                for bf16 x (M <= 8, K) and int8 W (K, N), f32 sums: K1's
+//                one-launch design with the products in bf16 on the tensor
+//                cores (w8_bf16_tc_kernel).
 // K13 w4_unpack_gemv  replaces scripts/w4_unpack_tune.py::pallas_gemv with
 //                its kernels P0-P3 (:72-107, pl.pallas_call at :115): the
 //                packed-W4 GEMV to int32 with the nibbles unpacked three
@@ -52,33 +54,23 @@
 // exists in device memory). It takes any K on int8 weights (the RMS split's
 // K = 18943: TMA zero-fills W's rows and x's columns at and past K, so the
 // last k step adds nothing), with x read at its own row stride, a multiple
-// of 16. Shapes outside TMA's 16-byte stride contract (ragged N, packed W4
-// with (K/2) % 16 != 0) run the earlier mma.sync kernel (gemm_kernel), which
-// stages 128x128 tiles through shared memory.
+// of 16. Shapes outside TMA's 16-byte stride contract (any N, packed W4
+// with (K/2) % 16 != 0: the lm_heads of N = 92553 and 151666) run the same
+// kernel with W's tile written by threads instead of TMA (the ragged kernel,
+// mq_int8_gemm_ragged).
 //
 // Epilogue (K1-K3): y = (float(acc) * x_scale[m]) * w_scale[n], then
 // rounded to the output type, the order of qmm.py:549/:577.
 //
-// K12 streams 1 B per weight and does 2 M flops on it: at M = 8 and (3584,
-// 19968), 72 MB (21 us at 3.35 TB/s) against 1.1 GFLOP of f32 FMA (17 us at
-// the 67 TFLOP/s f32 rate): the two bounds nearly meet, so the int8 -> f32
-// convert has to stay cheap (one byte permute and one add per weight: the
-// byte, biased to [0, 255], as the low mantissa bits of 2^23). Each block
-// owns 128 columns over all of K (156 blocks at N = 19968; no split-K, so
-// the f32 sums are deterministic): a thread streams 8 columns of 4 rows at a
-// time with 8-byte loads, x is staged in shared memory as f32 in chunks of
-// 1024 rows, and the 16 row slices meet through one shuffle and a fixed-order
-// sum over the 8 warps in shared memory.
-//
 // Any K (K2 and K3 on int8 weights; K3 on packed W4 with K even): the RMS
 // split stores 18943 int8 rows of `down`, as the JAX package writes them. The
-// TMA GEMM leaves the K tail to TMA's zero fill (above). In the GEMVs and
-// the mma.sync GEMM the
+// TMA GEMM leaves the K tail to TMA's zero fill (above). In the GEMVs the
 // TAIL instantiations predicate and zero-fill the last row group and k step,
-// and read activation rows that are not 4- (16-) byte aligned as aligned
-// words shifted into place, so the int32 sums stay exact and no byte outside
-// a tensor is read. The host picks them only for such shapes: aligned shapes
-// run the plain vector loads (the predicates cost the GEMM ~15% on the card).
+// and read activation rows that are not 4-byte aligned as aligned words
+// shifted into place, so the int32 sums stay exact and no byte outside a
+// tensor is read. The host picks them only for such shapes: aligned shapes
+// run the plain vector loads (predicates cost an aligned GEMM ~15% on the
+// card).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -145,17 +137,6 @@ __device__ __forceinline__ uint32_t load4_tail(const int8_t* base, int c,
     v = __funnelshift_r(v, hi, (uint32_t)(p - a) * 8u);
   }
   return n >= 4 ? v : v & ((1u << (8 * n)) - 1u);
-}
-
-// 16 bytes base[c .. c+15], those at or past `limit` as 0 (see load4_tail).
-__device__ __forceinline__ uint4 load16_tail(const int8_t* base, int c,
-                                             int limit) {
-  const uintptr_t p = reinterpret_cast<uintptr_t>(base + c);
-  if (c + 16 <= limit && (p & 15) == 0)
-    return *reinterpret_cast<const uint4*>(p);
-  return make_uint4(load4_tail(base, c, limit), load4_tail(base, c + 4, limit),
-                    load4_tail(base, c + 8, limit),
-                    load4_tail(base, c + 12, limit));
 }
 
 // ---------------------------------------------------------------------------
@@ -307,13 +288,7 @@ __global__ void epilogue_kernel(const int* __restrict__ acc, int M, int N,
   store_out(out, out_kind, idx, acc[idx], xs[m], wsc[n]);
 }
 
-// ---------------------------------------------------------------------------
-// K3: GEMM, M > 32, mma.sync m16n8k32 s8
-// ---------------------------------------------------------------------------
-
-constexpr int GM_BM = 128, GM_BN = 128, GM_BK = 64;
-constexpr int GM_LD = GM_BK + 16;  // padded row: conflict-free fragment loads
-
+// d (16 x 8 s32) += a (16 x 32 s8) . b (32 x 8 s8), mma.sync
 __device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4],
                                        const uint32_t b[2]) {
   asm volatile(
@@ -321,154 +296,6 @@ __device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// x (M, K) int8. W4: w (K/2, N) packed; W8: w (K, N) int8.
-// One k step covers 64 activation columns: for W4 the 32 low-plane columns
-// [r0, r0+32) and the 32 high-plane columns [K/2 + r0, ...) of packed rows
-// [r0, r0+32); for W8 columns [k0, k0+64).
-// Shared tiles: As[m][k] row-major, Bs[n][k] (transposed, so one 32-bit load
-// gives a B fragment register: four consecutive k of one column).
-template <bool W4, bool TAIL>
-__global__ void __launch_bounds__(256)
-    gemm_kernel(const int8_t* __restrict__ x, int M, int K,
-                const int8_t* __restrict__ w, int N,
-                const float* __restrict__ xs, const float* __restrict__ wsc,
-                void* out, int out_kind) {
-  __shared__ __align__(16) int8_t As[GM_BM][GM_LD];
-  __shared__ __align__(16) int8_t Bs[GM_BN][GM_LD];
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp >> 2, wn = warp & 3;  // 2 x 4 warps, 64 x 32 each
-  const int bm = blockIdx.y * GM_BM, bn = blockIdx.x * GM_BN;
-  const int K2 = K / 2;
-  // the last step of a K that is no multiple of 64 (W4: of 64 packed rows)
-  // is zero-filled past K (K2 in each nibble plane)
-  const int steps = W4 ? (K2 + GM_BK / 2 - 1) / (GM_BK / 2)
-                       : (K + GM_BK - 1) / GM_BK;
-
-  int acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-
-  for (int s = 0; s < steps; ++s) {
-    // A tile: 128 rows x 64 bytes = 512 16-byte pieces, 2 per thread
-#pragma unroll
-    for (int p = 0; p < 2; ++p) {
-      const int piece = tid + p * 256;
-      const int row = piece >> 2, q = piece & 3;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (bm + row < M) {
-        const int8_t* xr = x + (long)(bm + row) * K;
-        // W4: low plane columns [r0, r0+32), high plane K2 + the same
-        const int r0 = s * (GM_BK / 2);
-        if (TAIL) {
-          if (W4)
-            v = q < 2 ? load16_tail(xr, r0 + 16 * q, K2)
-                      : load16_tail(xr + K2, r0 + 16 * (q - 2), K2);
-          else
-            v = load16_tail(xr, s * GM_BK + 16 * q, K);
-        } else {
-          const int col = W4 ? (q < 2 ? r0 + 16 * q : K2 + r0 + 16 * (q - 2))
-                             : s * GM_BK + 16 * q;
-          v = *reinterpret_cast<const uint4*>(xr + col);
-        }
-      }
-      *reinterpret_cast<uint4*>(&As[row][16 * q]) = v;
-    }
-    // B tile, 4x4 byte blocks: a thread reads four 32-bit words (four k rows,
-    // four n columns) and writes four transposed words into Bs[n][k..k+3]
-    if (W4) {
-      const int rq = tid >> 5, cq = tid & 31;  // 8 row groups x 32 col groups
-      const int n = bn + 4 * cq;
-      uint32_t rows[4] = {0, 0, 0, 0};
-      if (n < N) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int kr = s * (GM_BK / 2) + 4 * rq + i;
-          if (!TAIL || kr < K2)
-            rows[i] = *reinterpret_cast<const uint32_t*>(w + (long)kr * N + n);
-        }
-      }
-      uint32_t lo[4], hi[4], loc[4], hic[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) unpack_signed(rows[i], lo[i], hi[i]);
-      transpose4x4(lo, loc);
-      transpose4x4(hi, hic);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        *reinterpret_cast<uint32_t*>(&Bs[4 * cq + j][4 * rq]) = loc[j];
-        *reinterpret_cast<uint32_t*>(&Bs[4 * cq + j][GM_BK / 2 + 4 * rq]) =
-            hic[j];
-      }
-    } else {
-#pragma unroll
-      for (int p = 0; p < 2; ++p) {
-        const int rq = (tid >> 5) + 8 * p, cq = tid & 31;  // 16 x 32 groups
-        const int n = bn + 4 * cq;
-        uint32_t rows[4] = {0, 0, 0, 0};
-        if (n < N) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int kr = s * GM_BK + 4 * rq + i;
-            if (!TAIL || kr < K)
-              rows[i] =
-                  *reinterpret_cast<const uint32_t*>(w + (long)kr * N + n);
-          }
-        }
-        uint32_t cols[4];
-        transpose4x4(rows, cols);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          *reinterpret_cast<uint32_t*>(&Bs[4 * cq + j][4 * rq]) = cols[j];
-      }
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int kk = 0; kk < GM_BK; kk += 32) {
-      uint32_t a[4][4], b[4][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = wm * 64 + i * 16 + g;
-        a[i][0] = *reinterpret_cast<const uint32_t*>(&As[r][kk + 4 * t]);
-        a[i][1] = *reinterpret_cast<const uint32_t*>(&As[r + 8][kk + 4 * t]);
-        a[i][2] = *reinterpret_cast<const uint32_t*>(&As[r][kk + 16 + 4 * t]);
-        a[i][3] =
-            *reinterpret_cast<const uint32_t*>(&As[r + 8][kk + 16 + 4 * t]);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = wn * 32 + j * 8 + g;
-        b[j][0] = *reinterpret_cast<const uint32_t*>(&Bs[c][kk + 4 * t]);
-        b[j][1] = *reinterpret_cast<const uint32_t*>(&Bs[c][kk + 16 + 4 * t]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_s8(acc[i][j], a[i], b[j]);
-    }
-    __syncthreads();
-  }
-
-  // accumulator fragment: c0,c1 at (g, 2t..2t+1), c2,c3 at (g+8, 2t..2t+1)
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int m = bm + wm * 64 + i * 16 + g + (e >= 2 ? 8 : 0);
-        const int n = bn + wn * 32 + j * 8 + 2 * t + (e & 1);
-        if (m < M && n < N)
-          store_out(out, out_kind, (long)m * N + n, acc[i][j][e], xs[m],
-                    wsc[n]);
-      }
 }
 
 // ---------------------------------------------------------------------------
@@ -486,20 +313,41 @@ __global__ void __launch_bounds__(256)
 //
 // Block: 128 channels x 2 NT tokens (NT = 64 or 128, the host picks);
 // warpgroups 0 and 1 each own NT tokens and all 128 channels (two m64nNTk32
-// tiles), warp 8 is the TMA producer.
+// tiles), warpgroup 2 is the producer: in the served kernel one thread of
+// it issues TMA for W and x.
 // A thread of warp w, lane (g, t) holds channels 4c..4c+3, c = 8w + g: tile
 // 0's rows g and g+8 are channels 4c and 4c+1, tile 1's are 4c+2 and 4c+3,
 // so the epilogue writes 4 neighbouring channels of a token at once. A
 // stage is 128 W rows (16 KB; W4: 128 packed rows) and 128 k columns of
 // the block's x rows (W4: the low-plane and the high-plane columns); as
 // many stages as fit in 192 KB are in flight (2-6). A k32 step's A
-// fragments are built while the previous step's products run. K, N and M need not be multiples of the tile: TMA
-// zero-fills outside the tensors (W rows past K or K/2 are zero, and so are
-// x's columns past K: a k step that runs past K adds nothing, and the int32
-// sums stay exact for any K) and the epilogue stores only m < M, n < N.
-// TMA's contract: 16-byte aligned bases and row strides (x's stride ldx and
-// N multiples of 16, W4: (K/2) % 16); the host sends other shapes to
-// gemm_kernel above.
+// fragments are built while the previous step's products run. K, N and M
+// need not be multiples of the tile: TMA zero-fills outside the tensors (W
+// rows past K or K/2 are zero, and so are x's columns past K: a k step that
+// runs past K adds nothing, and the int32 sums stay exact for any K) and the
+// epilogue stores only m < M, n < N. TMA's contract: 16-byte aligned bases
+// and row strides (x's stride ldx and N multiples of 16, W4: (K/2) % 16).
+//
+// The ragged kernel (mq_int8_gemm_ragged) is the same kernel for every
+// other shape: x keeps TMA (its rows padded to a 16-byte stride by the
+// host), and W's rows, at a stride TMA cannot address, are written into the
+// same swizzled tile by the 128 threads of warpgroup 2 (template parameter
+// RAGGED), zero past R rows and N channels: the aligned words that hold a
+// row's bytes are loaded into registers and shifted into place across the
+// row's misalignment (a thread's 16-byte chunk of a row from 4 loaded words
+// and the neighbouring lane's first) and stored as 16 bytes; for W8 the next
+// stage's words are loaded before the slot of this stage's is waited for
+// (two stages in flight: the producer takes 120 registers, the consumers
+// 192; W4, whose consumers need 208, keeps one). At N % 4 == 0 this was as
+// fast as 4-byte cp.async of each word in place (PERF.md, Findings). Each
+// producer thread arrives on the stage's full barrier after its stores (129
+// arrivals: 128 and the x load's expect-tx).
+// A TMA box must start on 16 bytes of x's row: for W4 with (K/2) % 16 != 0
+// the host writes the two planes 16-byte aligned (the high one from column
+// H = K/2 rounded up to 16, kernel argument hoff); where a low-plane box
+// runs past K/2 it reads the pad or the high plane's columns, which meet
+// the zero rows past K/2. Where N breaks the 4-channel vector store the
+// epilogue stores channel by channel.
 
 constexpr int TG_BM = 128;  // channels per block
 constexpr int TG_BK = 128;  // x columns (bytes) per stage; W rows per stage
@@ -510,7 +358,8 @@ constexpr int TG_THREADS = 384;
 template <bool W4, int NT>
 struct TmaGemmCfg {
   static constexpr int kXTile = 2 * NT * TG_BK;  // x tile of a stage
-  static constexpr int kStageBytes = TG_WTILE + (W4 ? 2 : 1) * kXTile;
+  static constexpr int kXBytes = (W4 ? 2 : 1) * kXTile;
+  static constexpr int kStageBytes = TG_WTILE + kXBytes;
   static constexpr int kStages = (192 * 1024) / kStageBytes;
   static constexpr int kSmem = kStages * kStageBytes + 1024 + 2 * 8 * kStages;
 };
@@ -606,11 +455,75 @@ __device__ __forceinline__ void fence_frags(uint32_t a[2][4],
     }
 }
 
-template <bool W4, int NT>
+// The ragged kernel's W tile of one stage: rows [r0, r0 + 128) x channels
+// [ch0, ch0 + 128) of the (R, N) int8 matrix w in the swizzled tile wt, zero
+// past R rows and N channels; rows start at any byte. Producer thread (warp
+// pw, lane l) owns the 16-byte chunk j = l % 8 of rows 4 pw + l / 8 + 16 i
+// (i = 0..7), so a warp reads 4 tile rows (128 contiguous bytes each) per
+// instruction: it loads the 4 aligned words that start sh = (row address)
+// % 4 bytes before the chunk (the fifth word is the next lane's first; lane
+// j = 7 loads it itself), zero where a word holds no byte of a row below R
+// at a column below N ...
+struct WordChunks {
+  uint32_t v[8][4], e[8];
+};
+
+__device__ __forceinline__ void load_w_words(WordChunks& wc,
+                                             const int8_t* __restrict__ w,
+                                             int R, int N, int r0, int ch0,
+                                             int pw, int lane) {
+  const int j = lane & 7, c = ch0 + 16 * j;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int gr = r0 + 4 * pw + (lane >> 3) + 16 * i;
+    const uintptr_t p = reinterpret_cast<uintptr_t>(w + (long)gr * N + c);
+    const int sh = (int)(p & 3);
+    const uint32_t* a = reinterpret_cast<const uint32_t*>(p - sh);
+    const bool row = gr < R;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      wc.v[i][q] = row && c + 4 * q - sh < N ? __ldg(a + q) : 0u;
+    wc.e[i] = j == 7 && row && sh && c + 16 - sh < N ? __ldg(a + 4) : 0u;
+  }
+}
+
+// ... and, once the slot is free, shifts each word into place (its bytes
+// and the next word's), clears the bytes at or past column N and stores
+// the chunk (one 16-byte store into the swizzled tile)
+__device__ __forceinline__ void store_w_words(uint8_t* wt,
+                                              const WordChunks& wc,
+                                              const int8_t* __restrict__ w,
+                                              int N, int r0, int ch0, int pw,
+                                              int lane) {
+  const int j = lane & 7, c = ch0 + 16 * j;
+  uint32_t keep[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int n = N - (c + 4 * q);  // the word's channels below N
+    keep[q] = n >= 4 ? ~0u : n <= 0 ? 0u : (1u << (8 * n)) - 1u;
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = 4 * pw + (lane >> 3) + 16 * i;
+    const int sh = (int)(reinterpret_cast<uintptr_t>(
+                             w + (long)(r0 + r) * N + c) & 3);
+    uint32_t next = __shfl_down_sync(0xffffffffu, wc.v[i][0], 1);
+    if (j == 7) next = wc.e[i];
+    uint4 o;
+    o.x = __funnelshift_r(wc.v[i][0], wc.v[i][1], 8 * sh) & keep[0];
+    o.y = __funnelshift_r(wc.v[i][1], wc.v[i][2], 8 * sh) & keep[1];
+    o.z = __funnelshift_r(wc.v[i][2], wc.v[i][3], 8 * sh) & keep[2];
+    o.w = __funnelshift_r(wc.v[i][3], next, 8 * sh) & keep[3];
+    *reinterpret_cast<uint4*>(wt + r * 128 + ((j ^ (r & 7)) << 4)) = o;
+  }
+}
+
+template <bool W4, int NT, bool RAGGED>
 __global__ void __launch_bounds__(TG_THREADS, 1)
     gemm_tma_kernel(const __grid_constant__ CUtensorMap xmap,
-                    const __grid_constant__ CUtensorMap wmap, int M, int K,
-                    int N, const float* __restrict__ xs,
+                    const __grid_constant__ CUtensorMap wmap,
+                    const int8_t* __restrict__ w, int M, int K, int N,
+                    int hoff, const float* __restrict__ xs,
                     const float* __restrict__ wsc, void* out, int out_kind) {
   using Cfg = TmaGemmCfg<W4, NT>;
   constexpr int S = Cfg::kStages;
@@ -625,41 +538,89 @@ __global__ void __launch_bounds__(TG_THREADS, 1)
 
   if (threadIdx.x == 0) {
     for (int i = 0; i < S; ++i) {
-      hopper::mbar_init(&full[i], 1);
+      // TMA: the one expect-tx arrival; ragged: and one per producer thread
+      hopper::mbar_init(&full[i], RAGGED ? 129 : 1);
       hopper::mbar_init(&empty[i], 2);  // one arrival per consumer warpgroup
     }
     hopper::mbar_fence_init();
   }
   __syncthreads();
 
-  if (threadIdx.x >= 256) {  // producer warpgroup: one thread issues TMA
-    hopper::setmaxnreg_dec<40>();
-    if (threadIdx.x == 256) {
-      hopper::prefetch_map(&xmap);
-      hopper::prefetch_map(&wmap);
-      // x is read by every channel tile; a W tile by the few token tiles
-      // that run beside it (the grid walks tokens fastest)
+  if (threadIdx.x >= 256) {  // producer warpgroup
+    if constexpr (!RAGGED) {  // one thread issues TMA for W and x
+      hopper::setmaxnreg_dec<40>();
+      if (threadIdx.x == 256) {
+        hopper::prefetch_map(&xmap);
+        hopper::prefetch_map(&wmap);
+        // x is read by every channel tile; a W tile by the few token tiles
+        // that run beside it (the grid walks tokens fastest)
+        const uint64_t keep = hopper::policy_evict_last();
+        const uint64_t once = hopper::policy_evict_first();
+        for (int s = 0; s < steps; ++s) {
+          const int slot = s % S;
+          hopper::mbar_wait(&empty[slot], ((s / S) & 1) ^ 1);
+          uint8_t* st = smem + slot * Cfg::kStageBytes;
+          hopper::mbar_arrive_expect_tx(&full[slot], Cfg::kStageBytes);
+          const int r0 = s * TG_BK;
+          hopper::tma_load_2d(st, &wmap, &full[slot], ch0, r0, once);
+          hopper::tma_load_2d(st + TG_WTILE, &xmap, &full[slot], r0, tok0,
+                              keep);
+          if (W4)
+            hopper::tma_load_2d(st + TG_WTILE + Cfg::kXTile, &xmap,
+                                &full[slot], hoff + r0, tok0, keep);
+        }
+      }
+    } else {  // ragged: one thread issues x's TMA, all 128 write W's tile
+      // W8: the word producer holds two stages of loads
+      if constexpr (W4)
+        hopper::setmaxnreg_dec<88>();
+      else
+        hopper::setmaxnreg_dec<120>();
+      const int pt = threadIdx.x - 256, pw = pt >> 5, lane = pt & 31;
+      const int R = W4 ? K2 : K;
+      if (pt == 0) hopper::prefetch_map(&xmap);
       const uint64_t keep = hopper::policy_evict_last();
-      const uint64_t once = hopper::policy_evict_first();
+      WordChunks cur, nxt;
+      load_w_words(cur, w, R, N, 0, ch0, pw, lane);
       for (int s = 0; s < steps; ++s) {
         const int slot = s % S;
+        const int r0 = s * TG_BK;
+        // W8: the next stage's words are loaded before this stage's slot is
+        // waited for
+        if constexpr (!W4)
+          if (s + 1 < steps)
+            load_w_words(nxt, w, R, N, r0 + TG_BK, ch0, pw, lane);
         hopper::mbar_wait(&empty[slot], ((s / S) & 1) ^ 1);
         uint8_t* st = smem + slot * Cfg::kStageBytes;
-        hopper::mbar_arrive_expect_tx(&full[slot], Cfg::kStageBytes);
-        const int r0 = s * TG_BK;
-        hopper::tma_load_2d(st, &wmap, &full[slot], ch0, r0, once);
-        hopper::tma_load_2d(st + TG_WTILE, &xmap, &full[slot], r0, tok0,
-                            keep);
-        if (W4)
-          hopper::tma_load_2d(st + TG_WTILE + Cfg::kXTile, &xmap, &full[slot],
-                              K2 + r0, tok0, keep);
+        if (pt == 0) {
+          hopper::mbar_arrive_expect_tx(&full[slot], Cfg::kXBytes);
+          hopper::tma_load_2d(st + TG_WTILE, &xmap, &full[slot], r0, tok0,
+                              keep);
+          if (W4)
+            hopper::tma_load_2d(st + TG_WTILE + Cfg::kXTile, &xmap,
+                                &full[slot], hoff + r0, tok0, keep);
+        }
+        store_w_words(st, cur, w, N, r0, ch0, pw, lane);
+        hopper::mbar_arrive(&full[slot]);
+        if constexpr (W4) {
+          if (s + 1 < steps)
+            load_w_words(cur, w, R, N, r0 + TG_BK, ch0, pw, lane);
+        } else {
+          cur = nxt;
+        }
       }
     }
     return;
   }
 
   // consumer warpgroups
-  hopper::setmaxnreg_inc<232>();
+  // the block holds 384 x 168 registers: 2 x 128 x C + 128 x P of them
+  if constexpr (!RAGGED)
+    hopper::setmaxnreg_inc<232>();
+  else if constexpr (W4)
+    hopper::setmaxnreg_inc<208>();
+  else
+    hopper::setmaxnreg_inc<192>();
   const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
   const int c = 8 * warp + g;
@@ -720,6 +681,25 @@ __global__ void __launch_bounds__(TG_THREADS, 1)
   // the warpgroup's NT, row g (i % 4 < 2) or g + 8
   const int n0 = ch0 + 4 * c;
   if (n0 >= N) return;
+  if (RAGGED && N % 4) {  // rows of no 4-channel alignment: one by one
+    const int nv = min(4, N - n0);
+#pragma unroll
+    for (int nb = 0; nb < NT / 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int m = tok0 + wg * NT + nb * 8 + 2 * t + e;
+        if (m >= M) continue;
+        const int v[4] = {acc0[nb * 4 + e], acc0[nb * 4 + 2 + e],
+                          acc1[nb * 4 + e], acc1[nb * 4 + 2 + e]};
+        const float x = out_kind == 2 ? 0.f : xs[m];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (q < nv)
+            store_out(out, out_kind, (long)m * N + n0 + q, v[q], x,
+                      out_kind == 2 ? 0.f : wsc[n0 + q]);
+      }
+    return;
+  }
   const float4 wv = make_float4(wsc[n0], wsc[n0 + 1], wsc[n0 + 2],
                                 wsc[n0 + 3]);
 #pragma unroll
@@ -756,34 +736,60 @@ __global__ void __launch_bounds__(TG_THREADS, 1)
     }
 }
 
-template <bool W4, int NT>
-int launch_gemm_tma(const void* x, int ldx, const void* w, const void* xs,
-                    const void* wsc, void* out, int M, int K, int N,
-                    int out_kind, cudaStream_t stream) {
+// One launch of gemm_tma_kernel<W4, NT, RAGGED>
+// (x's row holds its columns [0, xcols); W4: the high plane from column
+// hoff)
+template <bool W4, int NT, bool RAGGED>
+int launch_gemm_tma(const void* x, int ldx, int xcols, int hoff,
+                    const void* w, const void* xs, const void* wsc, void* out,
+                    int M, int K, int N, int out_kind, cudaStream_t stream) {
   using Cfg = TmaGemmCfg<W4, NT>;
-  CUtensorMap xmap, wmap;
-  const uint64_t xd[2] = {(uint64_t)K, (uint64_t)M}, xst[1] = {(uint64_t)ldx};
-  const uint64_t wd[2] = {(uint64_t)N, (uint64_t)(W4 ? K / 2 : K)};
-  const uint64_t wst[1] = {(uint64_t)N};
-  const uint32_t xbox[2] = {TG_BK, 2 * NT}, wbox[2] = {TG_BM, TG_BK};
+  CUtensorMap xmap, wmap = {};
+  const uint64_t xd[2] = {(uint64_t)xcols, (uint64_t)M};
+  const uint64_t xst[1] = {(uint64_t)ldx};
+  const uint32_t xbox[2] = {TG_BK, 2 * NT};
   int err = hopper::encode_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, x, xd,
                                xst, xbox);
   if (err) return err;
-  err = hopper::encode_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, w, wd, wst,
-                           wbox);
-  if (err) return err;
+  if (!RAGGED) {
+    const uint64_t wd[2] = {(uint64_t)N, (uint64_t)(W4 ? K / 2 : K)};
+    const uint64_t wst[1] = {(uint64_t)N};
+    const uint32_t wbox[2] = {TG_BM, TG_BK};
+    err = hopper::encode_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, w, wd,
+                             wst, wbox);
+    if (err) return err;
+  }
   static bool attr = false;
   if (!attr) {
-    err = (int)cudaFuncSetAttribute(gemm_tma_kernel<W4, NT>,
+    err = (int)cudaFuncSetAttribute(gemm_tma_kernel<W4, NT, RAGGED>,
                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
                                     Cfg::kSmem);
     if (err) return err;
     attr = true;
   }
   dim3 grid((M + 2 * NT - 1) / (2 * NT), (N + TG_BM - 1) / TG_BM);
-  gemm_tma_kernel<W4, NT><<<grid, TG_THREADS, Cfg::kSmem, stream>>>(
-      xmap, wmap, M, K, N, (const float*)xs, (const float*)wsc, out, out_kind);
+  gemm_tma_kernel<W4, NT, RAGGED><<<grid, TG_THREADS, Cfg::kSmem, stream>>>(
+      xmap, wmap, (const int8_t*)w, M, K, N, hoff, (const float*)xs,
+      (const float*)wsc, out, out_kind);
   return (int)cudaGetLastError();
+}
+
+// the four instantiations (W4 or W8, 128 or 256 tokens a block) of one
+// producer
+template <bool RAGGED>
+int launch_gemm(const void* x, int ldx, int xcols, int hoff, const void* w,
+                const void* xs, const void* wsc, void* out, int M, int K,
+                int N, int w4, int out_kind, int tokens, cudaStream_t st) {
+  if (tokens == 128)
+    return w4 ? launch_gemm_tma<true, 64, RAGGED>(x, ldx, xcols, hoff, w, xs, wsc,
+                                              out, M, K, N, out_kind, st)
+              : launch_gemm_tma<false, 64, RAGGED>(x, ldx, xcols, hoff, w, xs,
+                                               wsc, out, M, K, N, out_kind,
+                                               st);
+  return w4 ? launch_gemm_tma<true, 128, RAGGED>(x, ldx, xcols, hoff, w, xs, wsc,
+                                             out, M, K, N, out_kind, st)
+            : launch_gemm_tma<false, 128, RAGGED>(x, ldx, xcols, hoff, w, xs, wsc,
+                                              out, M, K, N, out_kind, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -1190,22 +1196,32 @@ int launch_unpack_gemv(const CUtensorMap& wmap, const void* w, const void* x,
   }
 }
 
-// the W4 GEMV's contract (K1 and K13): M rows in 1 .. max_m, K even, N % 16
-// == 0, a 16-byte aligned w, 1 <= splits <= 8 and rps a multiple of 32 with
-// the splits covering K/2 rows, the last one non-empty; then the tensor map
-// of w (boxes of 32 packed rows x 128 channels) into wmap. 0 or an error.
-int w4_gemv_map(CUtensorMap* wmap, const void* w, int M, int max_m, int K,
-                int N, int splits, int rps) {
-  const int R = K / 2;
-  if (M < 1 || M > max_m || K < 2 || K % 2 || N < 16 || N % 16 ||
-      reinterpret_cast<uintptr_t>(w) % 16 || splits < 1 ||
-      splits > TV_MAX_CLUSTER || rps < TV_BR || rps % TV_BR ||
-      (long)splits * rps < R || (long)(splits - 1) * rps >= R)
-    return (int)cudaErrorInvalidValue;
+// a GEMV launch plan's contract: 1 <= splits <= 8 and rps a multiple of 32
+// with the splits covering R rows, the last one non-empty
+bool plan_ok(int R, int splits, int rps) {
+  return splits >= 1 && splits <= TV_MAX_CLUSTER && rps >= TV_BR &&
+         rps % TV_BR == 0 && (long)splits * rps >= R &&
+         (long)(splits - 1) * rps < R;
+}
+
+// the tensor map of a GEMV weight of R rows x N channels (int8, or packed
+// W4), boxes of 32 rows x 128 channels. 0 or an error.
+int gemv_wmap(CUtensorMap* wmap, const void* w, int R, int N) {
   const uint64_t wd[2] = {(uint64_t)N, (uint64_t)R}, wst[1] = {(uint64_t)N};
   const uint32_t wbox[2] = {TV_BN, TV_BR};
   return hopper::encode_map(wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, w, wd,
                             wst, wbox);
+}
+
+// the W4 GEMV's contract (K1 and K13): M rows in 1 .. max_m, K even, N % 16
+// == 0, a 16-byte aligned w and plan_ok over the K/2 packed rows; then the
+// tensor map of w into wmap. 0 or an error.
+int w4_gemv_map(CUtensorMap* wmap, const void* w, int M, int max_m, int K,
+                int N, int splits, int rps) {
+  if (M < 1 || M > max_m || K < 2 || K % 2 || N < 16 || N % 16 ||
+      reinterpret_cast<uintptr_t>(w) % 16 || !plan_ok(K / 2, splits, rps))
+    return (int)cudaErrorInvalidValue;
+  return gemv_wmap(wmap, w, K / 2, N);
 }
 
 template <int MC, bool TAIL>
@@ -1246,111 +1262,267 @@ int launch_gemv(const void* x, const void* w, const void* xs, const void* wsc,
 }
 
 // ---------------------------------------------------------------------------
-// K12: int8 weights -> f32, bf16 x, f32 sums, M <= 8
+// K12: bf16 x (M <= 8) against int8 W on the tensor cores, one launch
 // ---------------------------------------------------------------------------
+//
+// K1's design (gemv_tc_kernel) on int8 rows, in bf16 as the TPU kernel
+// computes it: out^T (channels x tokens) = W^T x^T on
+// mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32, the channels the m16 side
+// and the M <= 8 tokens one n8 tile, so W is read once whatever M is. Block:
+// 128 channels x one K split of `rps` rows (qmm._gemv_plan on K rows); the
+// splits of a channel tile form one thread block cluster and meet through
+// distributed shared memory. Warp 8 keeps a ring of 8 stages of 32 rows x
+// 128 channels (4 KB, 128-byte swizzle) full: a TMA box where N % 16 == 0;
+// where N % 16 == 8 W's rows are no legal TMA stride, and the warp's 32
+// lanes copy the same tile with 8-byte cp.async, zero-filled past K and N.
+// Two groups of 4 consumer warps take the even and the odd stages; thread
+// (g, t) of warp w reads its quads (load_w_quads: channels 4c..4c+3, c = 8w
+// + g, of rows 4t..4t+3 and 16 + the same) and builds the bf16 A fragments
+// in registers (bf16_frags): a byte biased into the low mantissa of 2^23 is
+// one prmt and one fadd from an exact f32, and one more prmt packs the
+// upper halves of two rows' values (exact: every int8 is a bf16), so the
+// 4x4 byte transpose of frags_from_rows costs nothing of its own. Inside a
+// k16 product k is permuted (the fragments' k 2t, 2t+1, 2t+8, 2t+9 are rows
+// 4t .. 4t+3), so that a thread's B fragment is 4 consecutive bf16 of x row
+// g: one 8-byte load from L1 / L2, a stage ahead (zero past the split's
+// rows, whose W the box may hold, and for tokens g >= M).
+// What bounds it: 1 B of W per weight against ~3.35 TB/s (72 MB at (3584,
+// 19968): 21 us); the products, 2 * 8 flops a byte on the tensor cores, are
+// far below that, and the conversion is ~2.75 instructions a byte.
+// Sums are f32 in a fixed order: by stage within a group, group 0 then
+// group 1 in shared memory, then the splits in rank order; a call gives the
+// same bits on every run. Epilogue: bf16(sum * ws[n]). One launch, no
+// workspace, memset or atomics; graph-capturable.
+// Contract (mq_w8_bf16_gemv checks it): 1 <= M <= 8, any K >= 1, N % 8 ==
+// 0, an 8-byte aligned w, plan_ok over K rows.
 
-constexpr int W8_TX = 16;          // threads along N, 8 columns each
-constexpr int W8_TY = 16;          // row slices, 4 rows a step
-constexpr int W8_BN = W8_TX * 8;   // 128 columns a block
-constexpr int W8_KC = 1024;        // x rows staged in shared memory at a time
-
-// four int8 bytes of w as exact floats: the byte + 128 becomes the low
-// mantissa bits of 2^23, and 2^23 + 128 is subtracted
-__device__ __forceinline__ void s8x4_to_f32(uint32_t w, float f[4]) {
-  const uint32_t u = w ^ 0x80808080u;
-  f[0] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650)) - 8388736.f;
-  f[1] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651)) - 8388736.f;
-  f[2] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7652)) - 8388736.f;
-  f[3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7653)) - 8388736.f;
+// the A fragments (bf16) of the two m16 tiles for one k16 half, from its
+// four row words rows[i] (row 4t + i of the half, channels 4c..4c+3): tile
+// j's rows g / g+8 are channels 4c + 2j / 4c + 2j + 1; registers 0 / 1 hold
+// rows 4t and 4t+1, registers 2 / 3 rows 4t+2 and 4t+3
+// (magic: 2^23's f32 bits, 0x4B000000, passed in a register: with both
+// operands of a prmt constant, the compiler makes the magic the immediate
+// and materializes every selector in a register, an instruction each)
+__device__ __forceinline__ void bf16_frags(const uint32_t rows[4],
+                                           uint32_t magic, uint32_t a0[4],
+                                           uint32_t a1[4]) {
+  uint32_t u[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) u[i] = rows[i] ^ 0x80808080u;  // byte + 128
+  // row i's byte b as the bits of an exact f32: 2^23 + byte + 128, less
+  // 2^23 + 128
+  auto f32 = [&](int i, int b) {
+    return __float_as_uint(
+        __uint_as_float(__byte_perm(u[i], magic, 0x7650 + b)) - 8388736.f);
+  };
+  // two f32 integers in [-128, 127] as one bf16x2 (their upper halves)
+  auto pack = [](uint32_t lo, uint32_t hi) {
+    return __byte_perm(lo, hi, 0x7632);
+  };
+  uint32_t* a[2] = {a0, a1};
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    a[j][0] = pack(f32(0, 2 * j), f32(1, 2 * j));
+    a[j][1] = pack(f32(0, 2 * j + 1), f32(1, 2 * j + 1));
+    a[j][2] = pack(f32(2, 2 * j), f32(3, 2 * j));
+    a[j][3] = pack(f32(2, 2 * j + 1), f32(3, 2 * j + 1));
+  }
 }
 
-// x (M, K) bf16, w (K, N) int8 row-major, ws (N,) f32 -> out (M, N) bf16;
-// MC >= M rows of x, the rest zero
-template <int MC>
-__global__ void __launch_bounds__(W8_TX* W8_TY, 2)
-    w8_bf16_gemv_kernel(const __nv_bfloat16* __restrict__ x, int M, int K,
-                        const int8_t* __restrict__ w, int N,
-                        const float* __restrict__ ws,
-                        __nv_bfloat16* __restrict__ out) {
-  // x chunk (W8_KC, MC) f32, then the warps' partial sums (8, MC, W8_BN)
-  constexpr int kXs = W8_KC * MC, kRed = (W8_TX * W8_TY / 32) * MC * W8_BN;
-  __shared__ __align__(16) float sm[kXs > kRed ? kXs : kRed];
-  const int tid = threadIdx.x, tx = tid % W8_TX, ty = tid / W8_TX;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int col0 = blockIdx.x * W8_BN + tx * 8;
-  const bool live = col0 < N;  // N % 8 == 0: all 8 columns or none
-
-  float acc[MC][8];
-#pragma unroll
-  for (int m = 0; m < MC; ++m)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[m][c] = 0.f;
-
-  for (int kb = 0; kb < K; kb += W8_KC) {
-    const int rows = min(W8_KC, K - kb);
-    __syncthreads();  // the previous chunk has been read
-    for (int i = tid; i < W8_KC * MC; i += W8_TX * W8_TY) {
-      const int m = i / W8_KC, k = i % W8_KC;  // coalesced along k
-      sm[k * MC + m] = m < M && k < rows
-                           ? __bfloat162float(x[(long)m * K + kb + k])
-                           : 0.f;
-    }
-    __syncthreads();
-    if (!live) continue;
-    for (int r = ty * 4; r < rows; r += W8_TY * 4) {
-      uint2 wv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)  // rows past K read as zero weights
-        wv[i] = r + i < rows ? __ldg(reinterpret_cast<const uint2*>(
-                                   w + (long)(kb + r + i) * N + col0))
+// x[k .. k+3] of one bf16 row as a B fragment, zero at or past `limit`
+// (TAIL: any K and alignment, element by element)
+template <bool TAIL>
+__device__ __forceinline__ uint2 x_quad(const __nv_bfloat16* xr, bool live,
+                                        int k, int limit) {
+  if (!TAIL)
+    return live && k < limit ? __ldg(reinterpret_cast<const uint2*>(xr + k))
                              : make_uint2(0u, 0u);
+  const unsigned short* p = reinterpret_cast<const unsigned short*>(xr);
+  uint32_t e[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float wf[8];
-        s8x4_to_f32(wv[i].x, wf);
-        s8x4_to_f32(wv[i].y, wf + 4);
-        const float* xk = sm + (r + i) * MC;
-#pragma unroll
-        for (int m = 0; m < MC; ++m) {
-          const float xv = xk[m];
-#pragma unroll
-          for (int c = 0; c < 8; ++c) acc[m][c] = fmaf(xv, wf[c], acc[m][c]);
+  for (int i = 0; i < 4; ++i) e[i] = live && k + i < limit ? p[k + i] : 0u;
+  return make_uint2(e[0] | (e[1] << 16), e[2] | (e[3] << 16));
+}
+
+template <bool TMA_W, bool TAIL>
+__global__ void __launch_bounds__(TV_THREADS)
+    w8_bf16_tc_kernel(const __grid_constant__ CUtensorMap wmap,
+                      const int8_t* __restrict__ w,
+                      const __nv_bfloat16* __restrict__ x, int M, int K,
+                      int N, int rps, const float* __restrict__ ws,
+                      __nv_bfloat16* __restrict__ out) {
+  namespace cg = cooperative_groups;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + TV_STAGES * TV_STAGE);
+  uint64_t* empty = full + TV_STAGES;
+  const int r_begin = blockIdx.x * rps;
+  const int r_end = min(K, r_begin + rps);
+  const int steps = max(0, (r_end - r_begin + TV_BR - 1) / TV_BR);
+  const int ch0 = blockIdx.y * TV_BN;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int grp = warp >> 2;         // consumers: stages grp, grp + 2, ...
+  const int c = 8 * (warp & 3) + g;  // channels ch0 + 4c .. + 3
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < TV_STAGES; ++i) {
+      // TMA: the expect-tx arrival; cp.async: one per lane of warp 8
+      hopper::mbar_init(&full[i], TMA_W ? 1 : 32);
+      hopper::mbar_init(&empty[i], 4);  // one arrival per warp of a group
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 8) {  // producer
+    if (TMA_W && lane == 0) {
+      hopper::prefetch_map(&wmap);
+      const uint64_t once = hopper::policy_evict_first();
+      for (int s = 0; s < steps; ++s) {
+        const int slot = s % TV_STAGES;
+        hopper::mbar_wait(&empty[slot], ((s / TV_STAGES) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(&full[slot], TV_STAGE);
+        hopper::tma_load_2d(smem + slot * TV_STAGE, &wmap, &full[slot], ch0,
+                            r_begin + s * TV_BR, once);
+      }
+    } else if (!TMA_W) {
+      for (int s = 0; s < steps; ++s) {
+        const int slot = s % TV_STAGES;
+        hopper::mbar_wait(&empty[slot], ((s / TV_STAGES) & 1) ^ 1);
+        uint8_t* st = smem + slot * TV_STAGE;
+        const int r0 = r_begin + s * TV_BR;
+        // 512 pieces of 8 bytes: a warp instruction covers two rows
+#pragma unroll 4
+        for (int i = 0; i < TV_STAGE / 8 / 32; ++i) {
+          const int p = lane + 32 * i, r = p >> 4, cb = (p & 15) * 8;
+          const int gr = r0 + r, col = ch0 + cb;
+          const bool live = gr < K && col < N;
+          hopper::cp_async8_zfill(
+              st + r * 128 + (((cb >> 4) ^ (r & 7)) << 4) + (cb & 15),
+              live ? w + (long)gr * N + col : w, live);
         }
+        hopper::cp_async_mbar_arrive(&full[slot]);
       }
     }
+  } else {
+    float acc[2][4] = {};
+    // 0x4B000000, opaque to the compiler (threadIdx.x < 1024)
+    const uint32_t magic = 0x4B000000u | (threadIdx.x >> 10);
+    const __nv_bfloat16* xr = x + (long)g * K;
+    const bool live = g < M;
+    // this stage's B fragments (k16 halves h = 0, 1) and the group's next
+    // stage's, loaded ahead
+    uint2 xb[2], xn[2] = {};
+    if (grp < steps)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        xb[h] = x_quad<TAIL>(xr, live, r_begin + grp * TV_BR + 16 * h + 4 * t,
+                             r_end);
+    for (int s = grp; s < steps; s += 2) {
+      if (s + 2 < steps)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          xn[h] = x_quad<TAIL>(
+              xr, live, r_begin + (s + 2) * TV_BR + 16 * h + 4 * t, r_end);
+      const int slot = s % TV_STAGES;
+      hopper::mbar_wait(&full[slot], (s / TV_STAGES) & 1);
+      uint32_t rows[2][4];
+      load_w_quads(smem + slot * TV_STAGE, 0, c, t, rows);
+      // the stage's bytes are in registers: the slot may be refilled
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&empty[slot]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        uint32_t a0[4], a1[4];
+        bf16_frags(rows[h], magic, a0, a1);
+        hopper::mma_bf16(acc[0], a0, xb[h].x, xb[h].y);
+        hopper::mma_bf16(acc[1], a1, xb[h].x, xb[h].y);
+      }
+      xb[0] = xn[0];
+      xb[1] = xn[1];
+    }
+    // the block's partial tile red[token][channel] (f32): token 2t + e's
+    // channels 4c..4c+3 from c_e / c_{2+e} of both tiles; group 0's, then
+    // group 1's added
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    float* red = reinterpret_cast<float*>(smem);
+    for (int turn = 0; turn < 2; ++turn) {
+      if (grp == turn) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float4* dst =
+              reinterpret_cast<float4*>(red + (2 * t + e) * TV_BN + 4 * c);
+          float4 v = make_float4(acc[0][e], acc[0][2 + e], acc[1][e],
+                                 acc[1][2 + e]);
+          if (turn == 1) {
+            const float4 u = *dst;
+            v.x = u.x + v.x;
+            v.y = u.y + v.y;
+            v.z = u.z + v.z;
+            v.w = u.w + v.w;
+          }
+          *dst = v;
+        }
+      }
+      asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    }
   }
 
-  // the 16 row slices: two per warp by one shuffle, then the 8 warps in a
-  // fixed order (every output's sum is the same on every run)
-  __syncthreads();  // the last x chunk has been read
-#pragma unroll
-  for (int m = 0; m < MC; ++m)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const float s = acc[m][c] + __shfl_xor_sync(0xffffffffu, acc[m][c], 16);
-      if (lane < 16) sm[(warp * MC + m) * W8_BN + tx * 8 + c] = s;
+  // the K splits meet: block `rank` sums every cs-th group of 4 channels
+  // over the cluster's partial tiles, in rank order
+  __syncwarp();
+  cg::cluster_group cl = cg::this_cluster();
+  cl.sync();
+  const int cs = (int)cl.num_blocks(), rank = (int)cl.block_rank();
+  constexpr int kGroups = 8 * (TV_BN / 4);
+  for (int i = rank * TV_THREADS + threadIdx.x; i < kGroups;
+       i += cs * TV_THREADS) {
+    float4 sum = cl.map_shared_rank(reinterpret_cast<float4*>(smem), 0)[i];
+    for (int q = 1; q < cs; ++q) {
+      const float4 v = cl.map_shared_rank(reinterpret_cast<float4*>(smem), q)[i];
+      sum.x += v.x;
+      sum.y += v.y;
+      sum.z += v.z;
+      sum.w += v.w;
     }
-  __syncthreads();
-  for (int i = tid; i < MC * W8_BN; i += W8_TX * W8_TY) {
-    const int m = i / W8_BN, c = i % W8_BN;
-    const int n = blockIdx.x * W8_BN + c;
-    if (m >= M || n >= N) continue;
-    float s = 0.f;
-#pragma unroll
-    for (int wi = 0; wi < W8_TX * W8_TY / 32; ++wi)
-      s += sm[(wi * MC + m) * W8_BN + c];
-    out[(long)m * N + n] = __float2bfloat16_rn(s * __ldg(ws + n));
+    const int m = i / (TV_BN / 4), n0 = ch0 + 4 * (i % (TV_BN / 4));
+    if (m < M && n0 < N) {
+      __nv_bfloat162 p0 = __floats2bfloat162_rn(sum.x * ws[n0],
+                                                sum.y * ws[n0 + 1]);
+      __nv_bfloat162 p1 = __floats2bfloat162_rn(sum.z * ws[n0 + 2],
+                                                sum.w * ws[n0 + 3]);
+      uint2 u;
+      u.x = *reinterpret_cast<uint32_t*>(&p0);
+      u.y = *reinterpret_cast<uint32_t*>(&p1);
+      *reinterpret_cast<uint2*>(out + (long)m * N + n0) = u;
+    }
   }
+  cl.sync();  // no block leaves while another still reads its tile
 }
 
-template <int MC>
-int launch_w8_bf16(const void* x, const void* w, const void* ws, void* out,
-                   int M, int K, int N, cudaStream_t stream) {
-  w8_bf16_gemv_kernel<MC>
-      <<<(N + W8_BN - 1) / W8_BN, W8_TX * W8_TY, 0, stream>>>(
-          (const __nv_bfloat16*)x, M, K, (const int8_t*)w, N,
-          (const float*)ws, (__nv_bfloat16*)out);
-  return (int)cudaGetLastError();
+template <bool TMA_W, bool TAIL>
+int launch_w8_bf16(const CUtensorMap& wmap, const void* w, const void* x,
+                   const void* ws, void* out, int M, int K, int N, int splits,
+                   int rps, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits, (N + TV_BN - 1) / TV_BN);
+  cfg.blockDim = dim3(TV_THREADS);
+  cfg.dynamicSmemBytes = TV_SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = splits > 1 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, w8_bf16_tc_kernel<TMA_W, TAIL>, wmap, (const int8_t*)w,
+      (const __nv_bfloat16*)x, M, K, N, rps, (const float*)ws,
+      (__nv_bfloat16*)out);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -1401,24 +1573,41 @@ int mq_w4_unpack_gemv(const void* x, const void* w, void* acc, int M, int K,
                                           rps, variant, st);
 }
 
-// out (M, N) bf16 = bf16((x . f32(W)) * ws) for bf16 x (M, K), int8 W (K, N)
-// row-major (rows 8-byte aligned), ws (N,) f32; f32 sums. M <= 8, N % 8 == 0.
+// out (M, N) bf16 = bf16((x . W) * ws) for bf16 x (M, K), int8 W (K, N)
+// row-major, ws (N,) f32, f32 sums: one launch of w8_bf16_tc_kernel,
+// `splits` blocks of `rps` rows (a cluster) per 128 channels. Needs 1 <= M
+// <= 8, N % 8 == 0, an 8-byte aligned w and plan_ok over K rows; W by TMA
+// where N % 16 == 0 and w is 16-byte aligned, by cp.async otherwise.
 int mq_w8_bf16_gemv(const void* x, const void* w, const void* ws, void* out,
-                    int M, int K, int N, void* stream) {
-  if (M < 1 || M > 8 || K < 1 || N < 8 || N % 8)
+                    int M, int K, int N, int splits, int rps, void* stream) {
+  if (M < 1 || M > 8 || K < 1 || N < 8 || N % 8 ||
+      reinterpret_cast<uintptr_t>(w) % 8 || !plan_ok(K, splits, rps))
     return (int)cudaErrorInvalidValue;
+  const bool tma = N % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  CUtensorMap wmap = {};
+  if (tma) {
+    const int err = gemv_wmap(&wmap, w, K, N);
+    if (err) return err;
+  }
+  // 8-byte x loads only where every quad of a row is 8-byte aligned
+  const bool tail = K % 4 || reinterpret_cast<uintptr_t>(x) % 8;
   const cudaStream_t st = (cudaStream_t)stream;
-  if (M == 1) return launch_w8_bf16<1>(x, w, ws, out, M, K, N, st);
-  if (M == 2) return launch_w8_bf16<2>(x, w, ws, out, M, K, N, st);
-  if (M <= 4) return launch_w8_bf16<4>(x, w, ws, out, M, K, N, st);
-  return launch_w8_bf16<8>(x, w, ws, out, M, K, N, st);
+  if (tma)
+    return tail ? launch_w8_bf16<true, true>(wmap, w, x, ws, out, M, K, N,
+                                             splits, rps, st)
+                : launch_w8_bf16<true, false>(wmap, w, x, ws, out, M, K, N,
+                                              splits, rps, st);
+  return tail ? launch_w8_bf16<false, true>(wmap, w, x, ws, out, M, K, N,
+                                            splits, rps, st)
+              : launch_w8_bf16<false, false>(wmap, w, x, ws, out, M, K, N,
+                                             splits, rps, st);
 }
 
 // y (M, N) = epilogue(x (M, K) . W), W4 packed (K/2, N) if w4 else int8 (K, N):
 // the TMA + wgmma kernel on blocks of 128 channels x `tokens` (128 or 256)
 // tokens. x rows at stride ldx (bytes, a multiple of 16, >= K); needs
 // 16-byte aligned x and w, N % 16 == 0 and, for W4, (K/2) % 16 == 0 (the
-// host routes other shapes to mq_int8_gemm_sm80). Any K >= 1 on int8 W.
+// host routes other shapes to mq_int8_gemm_ragged). Any K >= 1 on int8 W.
 int mq_int8_gemm(const void* x, int ldx, const void* w, const void* xs,
                  const void* wsc, void* out, int M, int K, int N, int w4,
                  int out_kind, int tokens, void* stream) {
@@ -1427,44 +1616,26 @@ int mq_int8_gemm(const void* x, int ldx, const void* w, const void* xs,
       reinterpret_cast<uintptr_t>(x) % 16 ||
       reinterpret_cast<uintptr_t>(w) % 16 || (tokens != 128 && tokens != 256))
     return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (tokens == 128)
-    return w4 ? launch_gemm_tma<true, 64>(x, ldx, w, xs, wsc, out, M, K, N,
-                                          out_kind, st)
-              : launch_gemm_tma<false, 64>(x, ldx, w, xs, wsc, out, M, K, N,
-                                           out_kind, st);
-  return w4 ? launch_gemm_tma<true, 128>(x, ldx, w, xs, wsc, out, M, K, N,
-                                         out_kind, st)
-            : launch_gemm_tma<false, 128>(x, ldx, w, xs, wsc, out, M, K, N,
-                                          out_kind, st);
+  return launch_gemm<false>(x, ldx, K, K / 2, w, xs, wsc, out, M, K, N, w4,
+                            out_kind, tokens, (cudaStream_t)stream);
 }
 
-// The same product on mma.sync (gemm_kernel): any K (W4: K even), N % 4 == 0.
-int mq_int8_gemm_sm80(const void* x, const void* w, const void* xs, const void* wsc,
-                 void* out, int M, int K, int N, int w4, int out_kind,
-                 void* stream) {
-  dim3 grid((N + GM_BN - 1) / GM_BN, (M + GM_BM - 1) / GM_BM), block(256);
-  cudaStream_t st = (cudaStream_t)stream;
-  // the predicated K tail only where a k step is partial or an x row is not
-  // 16-byte aligned
-  const bool tail = (w4 ? (K / 2) % (GM_BK / 2) : K % GM_BK) ||
-                    reinterpret_cast<uintptr_t>(x) % 16;
-  const int8_t* xp = (const int8_t*)x;
-  const int8_t* wp = (const int8_t*)w;
-  const float *xsp = (const float*)xs, *wsp = (const float*)wsc;
-  if (w4 && tail)
-    gemm_kernel<true, true><<<grid, block, 0, st>>>(xp, M, K, wp, N, xsp, wsp,
-                                                    out, out_kind);
-  else if (w4)
-    gemm_kernel<true, false><<<grid, block, 0, st>>>(xp, M, K, wp, N, xsp,
-                                                     wsp, out, out_kind);
-  else if (tail)
-    gemm_kernel<false, true><<<grid, block, 0, st>>>(xp, M, K, wp, N, xsp,
-                                                     wsp, out, out_kind);
-  else
-    gemm_kernel<false, false><<<grid, block, 0, st>>>(xp, M, K, wp, N, xsp,
-                                                      wsp, out, out_kind);
-  return (int)cudaGetLastError();
+// The same product for any N >= 1 and any w alignment (W4: K even): the same
+// kernel with W's tile written by warpgroup 2 (aligned words shifted into
+// place); x as for mq_int8_gemm, by TMA, whose boxes must start on 16
+// bytes: for W4 with (K/2) % 16 != 0 x's rows hold the low plane at columns
+// [0, K/2) and the high plane at [H, H + K/2), H = K/2 rounded up to 16
+// (qmm._w4_planes writes them; ldx >= 2H).
+int mq_int8_gemm_ragged(const void* x, int ldx, const void* w, const void* xs,
+                        const void* wsc, void* out, int M, int K, int N,
+                        int w4, int out_kind, int tokens, void* stream) {
+  const int hoff = w4 ? (K / 2 + 15) / 16 * 16 : 0;
+  const int xcols = w4 && hoff != K / 2 ? 2 * hoff : K;
+  if (M < 1 || K < 1 || N < 1 || ldx < xcols || ldx % 16 || (w4 && K % 2) ||
+      reinterpret_cast<uintptr_t>(x) % 16 || (tokens != 128 && tokens != 256))
+    return (int)cudaErrorInvalidValue;
+  return launch_gemm<true>(x, ldx, xcols, hoff, w, xs, wsc, out, M, K, N, w4,
+                           out_kind, tokens, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -20,15 +20,18 @@ Three hand-written CUDA kernels (``csrc/qmm.cu``) carry the int8 compute:
   * :func:`int8_gemv` — int8-weight GEMV, M ≤ 32 (the int8 lm_head);
     replaces ``_qmm_pallas_gemv``.
   * :func:`int8_gemm` — int8 GEMM, M > 32, W4 packed or W8 (prefill, ViT,
-    merger, the RMS split's K = 18943 ``down``); replaces
-    ``_qmm_pallas_w4``'s M > 32 branch. A TMA + wgmma kernel for the shapes
-    of :func:`tma_supports`, the ``mma.sync`` kernel
-    (:func:`int8_gemm_sm80`, its own launch count) for the rest.
+    merger, the RMS split's K = 18943 ``down``, full-logit lm_heads);
+    replaces ``_qmm_pallas_w4``'s M > 32 branch and the XLA s8 dots beside
+    it. A TMA + wgmma kernel for the shapes of :func:`tma_supports`, the
+    same kernel with W's tile written by threads (:func:`int8_gemm_ragged`,
+    its own launch count) for any other N and packed W4 with
+    (K/2) % 16 != 0.
 
 and two more the decode probes use (``mquant_tpu_torch.scripts``):
 
   * :func:`w8_bf16_gemv` — bf16 x (M ≤ 8) against int8 weights converted to
-    f32 in the kernel, f32 sums × per-channel scale → bf16; replaces
+    bf16 in registers, products on the tensor cores, f32 sums × per-channel
+    scale → bf16 (:func:`w4a8_gemv`'s one-launch design); replaces
     ``scripts/gemv_bench.py::w8_bf16_gemv_pallas``.
   * :func:`w4_unpack_gemv` — the packed-W4 GEMV to int32 with the nibbles
     unpacked by one of the probe's variants P0-P3; replaces
@@ -54,7 +57,7 @@ from ..core.formats import INT8, get_format
 
 # kernel launches per wrapper (read and reset by chip_smoke.py)
 LAUNCHES: Dict[str, int] = {"w4a8_gemv": 0, "int8_gemv": 0, "int8_gemm": 0,
-                            "int8_gemm_sm80": 0, "w8_bf16_gemv": 0,
+                            "int8_gemm_ragged": 0, "w8_bf16_gemv": 0,
                             "w4_unpack_gemv": 0}
 
 GEMV_MAX_M = 32
@@ -384,13 +387,15 @@ def _check_gemv(name: str, M: int, K: int, N: int, w: torch.Tensor) -> None:
                          f"M={M}, K={K}, N={N}")
 
 
-def _gemv_plan(K: int, N: int, sms: int) -> tuple:
-    """(channel tiles, K splits, packed rows per split) of the W4 GEMV: the
-    splits of a tile form one cluster (≤ GEMV_MAX_CLUSTER blocks) and take
-    whole 32-row steps, so that the grid gives every SM about two blocks;
-    the last split may be shorter, none is empty. The plan does not depend
-    on M: every token row meets each W byte in the same block."""
-    R = K // 2
+def _gemv_plan(K: int, N: int, sms: int, packed: bool = True) -> tuple:
+    """(channel tiles, K splits, rows per split) of the one-launch
+    tensor-core GEMVs over the weight's rows (K/2 packed rows of the W4
+    GEMV, K int8 rows of :func:`w8_bf16_gemv`): the splits of a tile form
+    one cluster (≤ GEMV_MAX_CLUSTER blocks) and take whole 32-row steps, so
+    that the grid gives every SM about two blocks; the last split may be
+    shorter, none is empty. The plan does not depend on M: every token row
+    meets each W byte in the same block."""
+    R = K // 2 if packed else K
     tiles = -(-N // GEMV_TILE_N)
     steps = -(-R // GEMV_STEP_ROWS)
     splits = max(1, min(GEMV_MAX_CLUSTER, -(-2 * sms // tiles), steps))
@@ -432,10 +437,13 @@ def _variant(variant: int) -> None:
 
 def w8_bf16_gemv(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor
                  ) -> torch.Tensor:
-    """y (M, N) bf16 = bf16((Σ_k f32(x)·f32(w)) · w_scale) for bf16 x (M ≤ 8,
-    K), int8 w (K, N) row-major and f32 w_scale (N elements); CUDA kernel
-    ``mq_w8_bf16_gemv`` (f32 sums, deterministic). Every column is computed
-    (the JAX probe's grid drops N mod its tile, ROADMAP C-w8). N % 8 == 0."""
+    """y (M, N) bf16 = bf16((Σ_k x·bf16(w) in f32) · w_scale) for bf16 x
+    (M ≤ 8, K), int8 w (K, N) row-major and f32 w_scale (N elements); CUDA
+    kernel ``mq_w8_bf16_gemv``: one launch on :func:`_gemv_plan` over K rows,
+    bf16 products on the tensor cores, f32 sums merged in a fixed order
+    (deterministic). Every column is computed (the JAX probe's grid drops N
+    mod its tile, ROADMAP C-w8). Any K; N % 8 == 0 and 8-byte aligned rows
+    (TMA streams W where N % 16 == 0, cp.async where N % 16 == 8)."""
     name = "w8_bf16_gemv"
     if x.dtype != torch.bfloat16 or x.ndim != 2 or not x.is_contiguous():
         raise ValueError(f"{name}: x must be contiguous bf16 (M, K)")
@@ -461,11 +469,13 @@ def w8_bf16_gemv(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor
                          f"weight rows, got N={N}")
     from ._build import load
 
+    K = x.shape[1]
+    _, splits, rps = _gemv_plan(K, N, _sm_count(x.device.index), packed=False)
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     status = load().mq_w8_bf16_gemv(x.data_ptr(), w.data_ptr(),
-                                    w_scale.data_ptr(), out.data_ptr(), M,
-                                    x.shape[1], N, stream)
+                                    w_scale.data_ptr(), out.data_ptr(), M, K,
+                                    N, splits, rps, stream)
     LAUNCHES[name] += 1
     _raise_on_status(name, status)
     return out
@@ -560,10 +570,18 @@ def tma_supports(K: int, N: int, packed: bool) -> bool:
     multiple of 16 (:func:`_codes_out`), and :func:`int8_gemm` copies any
     other x into padded rows once (one (M, K) copy, stated, never on the
     served path). Every served product of the 7B prefill, the ViT and the
-    merger meets it; the ragged-N edges and packed W4 with (K/2) % 16 != 0
-    do not, and :func:`int8_gemm` sends those to :func:`int8_gemm_sm80`."""
+    merger meets it; other N (the lm_heads of N = 92553 and 151666) and
+    packed W4 with (K/2) % 16 != 0 do not, and :func:`int8_gemm` sends
+    those to :func:`int8_gemm_ragged`."""
     return K >= 1 and N >= 16 and N % 16 == 0 and \
         (not packed or (K % 2 == 0 and (K // 2) % 16 == 0))
+
+
+def ragged_supports(K: int, N: int, packed: bool) -> bool:
+    """The shapes the ragged GEMM (``mq_int8_gemm_ragged``) takes: any
+    K ≥ 1 and N ≥ 1, K even for packed W4 (split-half packing): every shape
+    of :func:`tma_supports` and all that it refuses."""
+    return K >= 1 and N >= 1 and (not packed or K % 2 == 0)
 
 
 def tma_tokens(M: int, N: int, sms: int = 132) -> int:
@@ -577,18 +595,17 @@ def tma_tokens(M: int, N: int, sms: int = 132) -> int:
 
 
 def _launch_gemm(name, entry, xq, x_scale, w, w_scale, out_dtype, packed,
-                 M, K, N, *tile, ldx=None):
-    """One GEMM launch; ``ldx`` (x's row stride in bytes) only for the TMA
-    kernel's entry, which reads x at its own stride."""
+                 M, K, N, tokens, ldx):
+    """One launch of a GEMM entry: x's rows at stride ``ldx`` bytes,
+    blocks of 128 channels × ``tokens`` tokens."""
     from ._build import load
 
-    x = (xq.data_ptr(),) if ldx is None else (xq.data_ptr(), ldx)
     out = torch.empty((M, N), dtype=out_dtype, device=xq.device)
     stream = torch.cuda.current_stream(xq.device).cuda_stream
     status = getattr(load(), entry)(
-        *x, w.data_ptr(), x_scale.data_ptr(), w_scale.data_ptr(),
-        out.data_ptr(), M, K, N, int(packed), _OUT_KIND[out_dtype], *tile,
-        stream)
+        xq.data_ptr(), ldx, w.data_ptr(), x_scale.data_ptr(),
+        w_scale.data_ptr(), out.data_ptr(), M, K, N, int(packed),
+        _OUT_KIND[out_dtype], tokens, stream)
     LAUNCHES[name] += 1
     _raise_on_status(name, status)
     return out
@@ -605,6 +622,19 @@ def _tma_rows(xq: torch.Tensor) -> torch.Tensor:
                        device=xq.device)[:, :K].copy_(xq)
 
 
+def _w4_planes(xq: torch.Tensor) -> torch.Tensor:
+    """x (M, K) for packed W4 whose K/2 is no multiple of 16, as the ragged
+    GEMM reads it: the low plane at columns [0, K/2), the high plane at
+    [H, H + K/2), H = K/2 rounded up to 16, zeros between (one copy)."""
+    M, K = xq.shape
+    half = K // 2
+    H = -(-half // 16) * 16
+    x2 = torch.zeros((M, 2 * H), dtype=torch.int8, device=xq.device)
+    x2[:, :half] = xq[:, :half]
+    x2[:, H:H + half] = xq[:, half:]
+    return x2
+
+
 def _gemm_tma(xq, x_scale, w, w_scale, out_dtype, packed, tokens):
     """The TMA kernel at a given block width (``tokens`` 128 or 256), for
     timing the one :func:`tma_tokens` does not pick."""
@@ -619,12 +649,12 @@ def _gemm_tma(xq, x_scale, w, w_scale, out_dtype, packed, tokens):
 def int8_gemm(xq, x_scale, w, w_scale, out_dtype=torch.bfloat16,
               packed: bool = False):
     """int8 GEMM for M > 32 on W4 packed (K/2, N) or W8 (K, N) weights, any
-    K, with the fused per-token × per-channel epilogue; xq's rows may lie at
-    any stride ≥ K. Shapes inside :func:`tma_supports` with a 16-byte
-    aligned weight run the TMA + wgmma kernel ``mq_int8_gemm`` (x rows
-    padded by one copy where their stride or base is not 16-byte aligned);
-    the others :func:`int8_gemm_sm80` on a contiguous x (both exact, so the
-    route changes no bit)."""
+    K and N, with the fused per-token × per-channel epilogue; xq's rows may
+    lie at any stride ≥ K. Shapes inside :func:`tma_supports` with a 16-byte
+    aligned weight run the TMA + wgmma kernel ``mq_int8_gemm``; the others
+    :func:`int8_gemm_ragged` (both exact, so the route changes no bit; x
+    rows padded by one copy where their stride or base is not 16-byte
+    aligned)."""
     name = "int8_gemm"
     M, K, N = _check_args(name, xq, x_scale, w, w_scale, out_dtype, packed,
                           x_rows=True)
@@ -632,29 +662,44 @@ def int8_gemm(xq, x_scale, w, w_scale, out_dtype=torch.bfloat16,
         return int8_gemm_ref(xq, x_scale, w, w_scale, out_dtype, packed)
     if xq.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {xq.device}")
-    if not tma_supports(K, N, packed) or w.data_ptr() % 16:
-        return int8_gemm_sm80(xq.contiguous(), x_scale, w, w_scale, out_dtype,
-                              packed)
-    return _gemm_tma(xq, x_scale, w, w_scale, out_dtype, packed, tma_tokens(
-        M, N, _sm_count(xq.device.index)))
+    if _gemm_route(K, N, packed, w.data_ptr() % 16 == 0) == name:
+        return _gemm_tma(xq, x_scale, w, w_scale, out_dtype, packed,
+                         tma_tokens(M, N, _sm_count(xq.device.index)))
+    return int8_gemm_ragged(xq, x_scale, w, w_scale, out_dtype, packed)
 
 
-def int8_gemm_sm80(xq, x_scale, w, w_scale, out_dtype=torch.bfloat16,
-                   packed: bool = False):
-    """The same GEMM on ``mma.sync`` (``mq_int8_gemm_sm80``, the port's
-    first GEMM kernel): any K, N % 4 == 0, x rows at any alignment. It carries the
-    shapes outside :func:`tma_supports` and is timed beside the TMA kernel
-    as its predecessor."""
-    name = "int8_gemm_sm80"
-    M, K, N = _check_args(name, xq, x_scale, w, w_scale, out_dtype, packed)
+def _gemm_route(K: int, N: int, packed: bool, w_aligned: bool) -> str:
+    """The kernel :func:`int8_gemm` launches on the card: ``"int8_gemm"``
+    (TMA) inside :func:`tma_supports` with a 16-byte aligned weight, else
+    ``"int8_gemm_ragged"`` (:func:`ragged_supports` takes every shape that
+    :func:`_check_args` lets through)."""
+    if tma_supports(K, N, packed) and w_aligned:
+        return "int8_gemm"
+    return "int8_gemm_ragged"
+
+
+def int8_gemm_ragged(xq, x_scale, w, w_scale, out_dtype=torch.bfloat16,
+                     packed: bool = False):
+    """The same GEMM for every shape of :func:`ragged_supports`
+    (``mq_int8_gemm_ragged``): the TMA + wgmma kernel with W's tile written
+    into shared memory by a warpgroup of threads (the aligned words that
+    hold each row's bytes, shifted into place), for W rows at a stride TMA
+    cannot address. x as the TMA kernel reads it (rows at any
+    stride ≥ K, one copy into 16-byte rows where TMA cannot read them; for
+    packed W4 with (K/2) % 16 != 0 one copy into :func:`_w4_planes`, since a
+    TMA box starts on 16 bytes)."""
+    name = "int8_gemm_ragged"
+    M, K, N = _check_args(name, xq, x_scale, w, w_scale, out_dtype, packed,
+                          x_rows=True)
     if xq.device.type == "cpu":
         return int8_gemm_ref(xq, x_scale, w, w_scale, out_dtype, packed)
     if xq.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {xq.device}")
-    if N % 4:
-        raise ValueError(f"{name}: needs N % 4 == 0, got N={N}")
-    return _launch_gemm(name, "mq_int8_gemm_sm80", xq, x_scale, w, w_scale,
-                        out_dtype, packed, M, K, N)
+    x2 = _w4_planes(xq) if packed and (K // 2) % 16 else _tma_rows(xq)
+    return _launch_gemm(name, "mq_int8_gemm_ragged", x2, x_scale, w, w_scale,
+                        out_dtype, packed, M, K, N,
+                        tma_tokens(M, N, _sm_count(xq.device.index)),
+                        ldx=x2.stride(0))
 
 
 # the two ways to run the integer products: the hand-written kernels, which
@@ -662,10 +707,10 @@ def int8_gemm_sm80(xq, x_scale, w, w_scale, out_dtype=torch.bfloat16,
 # (chip_smoke.py swaps PLAIN into KERNELS for its on-card reference forward;
 # on a CPU tensor both end in the plain version)
 KERNELS = {"w4a8_gemv": w4a8_gemv, "int8_gemv": int8_gemv,
-           "int8_gemm": int8_gemm, "int8_gemm_sm80": int8_gemm_sm80,
+           "int8_gemm": int8_gemm, "int8_gemm_ragged": int8_gemm_ragged,
            "w8_bf16_gemv": w8_bf16_gemv, "w4_unpack_gemv": w4_unpack_gemv}
 PLAIN = {"w4a8_gemv": w4a8_gemv_ref, "int8_gemv": int8_gemv_ref,
-         "int8_gemm": int8_gemm_ref, "int8_gemm_sm80": int8_gemm_ref,
+         "int8_gemm": int8_gemm_ref, "int8_gemm_ragged": int8_gemm_ref,
          "w8_bf16_gemv": w8_bf16_gemv_ref,
          "w4_unpack_gemv": w4_unpack_gemv_ref}
 

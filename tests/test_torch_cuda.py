@@ -15,7 +15,8 @@ order of the squares). fwht in f32: max |Δ| ≤ 1e-5 of the plain version's
 largest magnitude (f32 sums against its float64 ones); bf16 output within one
 bf16 ulp plus that bound (near zero, cancellation decides the f32 value).
 The probes' kernels: w8_bf16_gemv bf16 within one ulp plus 1e-5 of the
-largest magnitude (f32 sums against float64 ones, as fwht); w4_unpack_gemv
+largest magnitude (f32 sums against float64 ones, as fwht) and the same bits
+on every call; w4_unpack_gemv
 int32 bit-equal (P1-P3 also to w4a8_gemv's); dequant_swiglu_had_quant the
 tail's rule; the quantizers' code range [qmin, qmax] likewise.
 """
@@ -52,9 +53,9 @@ def _operands(dev, M, K, N, packed, seed=0):
 
 def _counter(name, K, N, packed):
     """The launch count a call adds to: ``int8_gemm`` routes shapes outside
-    the TMA kernel's contract to the mma.sync kernel's own count."""
+    the TMA kernel's contract to the ragged kernel's own count."""
     if name == "int8_gemm" and not qmm.tma_supports(K, N, packed):
-        return "int8_gemm_sm80"
+        return "int8_gemm_ragged"
     return name
 
 
@@ -150,8 +151,9 @@ def test_int8_gemv(cuda, M, K, N):
 # the main path's products (7B prefill W4, ViT and merger W8, the prefill
 # probe's W8 products, path S's K = 18943 `down`), then ragged M on a W4 and
 # a W8 shape, then the edges: outside the TMA contract (N = 4100 / 1000,
-# W4 K/2 = 1793), which run the mma.sync kernel, and K = 3 on int8 weights,
-# which the TMA kernel takes from a padded copy of x
+# W4 K/2 = 1793; N odd, N % 4 == 2, W4 (K/2) % 16 != 0 at N % 16 == 0),
+# which run the ragged kernel, and K = 3 on int8 weights, which the TMA
+# kernel takes from a padded copy of x
 _MAIN_GEMM = [(1024, 3584, 4608, True), (1024, 3584, 3584, True),
               (1024, 3584, 37888, True), (1024, 18944, 3584, True),
               (1024, 1280, 1280, False), (1024, 1280, 5120, False),
@@ -162,7 +164,9 @@ _MAIN_GEMM = [(1024, 3584, 4608, True), (1024, 3584, 3584, True),
 _RAGGED_M = [(m, 3584, 4608, True) for m in (33, 77, 256, 300, 1025, 4096)] \
     + [(m, 1280, 1280, False) for m in (33, 77, 256, 300, 1025, 4096)]
 _EDGES = [(77, 3584, 4100, True), (333, 1280, 1000, False),
-          (77, 1001, 1000, False), (40, 3, 64, False), (100, 3586, 4100, True)]
+          (77, 1001, 1000, False), (40, 3, 64, False), (100, 3586, 4100, True),
+          (77, 1001, 1003, False), (77, 1000, 1002, False),
+          (77, 1000, 1024, True), (300, 64, 1001, True)]
 
 
 @pytest.mark.parametrize("M,K,N,packed", _MAIN_GEMM + _RAGGED_M + _EDGES)
@@ -182,29 +186,101 @@ def test_int8_gemm_block_widths(cuda, M, K, N, packed, tokens):
                                      tokens), ref)
 
 
-# the mma.sync kernel on its own at main-path shapes (the TMA kernel's
-# predecessor, timed beside it) and an unaligned-K edge
+# the ragged kernel on its own: at main-path shapes of the TMA kernel (timed
+# beside it), an unaligned-K edge, N odd, N % 4 == 2, W4 with
+# (K/2) % 16 != 0, one token row, and the lm_heads' N at a short K
 @pytest.mark.parametrize("M,K,N,packed", [(1024, 3584, 4608, True),
                                           (256, 5120, 3584, False),
-                                          (77, 1001, 1000, False)])
-def test_int8_gemm_sm80(cuda, M, K, N, packed):
-    _check("int8_gemm_sm80", cuda, M, K, N, packed)
+                                          (77, 1001, 1000, False),
+                                          (77, 1001, 1003, False),
+                                          (300, 3584, 4102, False),
+                                          (77, 1000, 1024, True),
+                                          (1, 66, 5, False),
+                                          (1024, 64, 92553, False),
+                                          (40, 128, 151666, True)])
+def test_int8_gemm_ragged(cuda, M, K, N, packed):
+    _check("int8_gemm_ragged", cuda, M, K, N, packed)
+
+
+def test_int8_gemm_ragged_unaligned_weight(cuda):
+    """A weight view 1 and 2 bytes off 4-byte alignment (the word producer
+    at N % 4 == 0) and x rows at a padded stride: bit-equal."""
+    x, xs, w, ws = _operands(cuda, 77, 300, 1024, False)
+    flat = torch.cat([w.reshape(-1), w.reshape(-1)[:4]])
+    for off in (1, 2):
+        wo = flat[off:off + w.numel()].reshape(w.shape)
+        assert wo.data_ptr() % 4 == off
+        acc = qmm.int8_gemm_ragged(_padded(x), xs, wo, ws, torch.int32)
+        assert torch.equal(acc, qmm.int8_gemm_ref(x, xs, wo, ws, torch.int32))
+
+
+def _graph_node_types(fn):
+    """The node types (CUgraphNodeType: 0 kernel, 1 memcpy, 2 memset, ...)
+    of ``fn()`` captured in a CUDA graph, read through the driver API."""
+    import ctypes
+
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    drv = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    assert drv.cuGraphGetNodes(handle, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * n.value)()
+    assert drv.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) == 0
+    types = []
+    for node in nodes:
+        t = ctypes.c_int(-1)
+        assert drv.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                      ctypes.byref(t)) == 0
+        types.append(t.value)
+    return types
+
+
+@pytest.mark.parametrize("M,K,N,packed", [(77, 1001, 1003, False),
+                                          (77, 1024, 1002, True)])
+def test_int8_gemm_ragged_one_launch_and_graph(cuda, M, K, N, packed):
+    """One device operation per call (x in 16-byte rows: no copy; a call
+    captured in a CUDA graph is one kernel node), and a CUDA graph replayed
+    on two inputs equal to eager calls and the plain version, int32 bit for
+    bit."""
+    x, xs, w, ws = _operands(cuda, M, K, N, packed)
+    xp = _padded(x)
+    qmm.int8_gemm_ragged(xp, xs, w, ws, torch.int32, packed)
+    torch.cuda.synchronize()
+    before = qmm.LAUNCHES["int8_gemm_ragged"]
+    assert _graph_node_types(lambda: qmm.int8_gemm_ragged(
+        xp, xs, w, ws, torch.int32, packed)) == [0]
+    assert qmm.LAUNCHES["int8_gemm_ragged"] == before + 1
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = qmm.int8_gemm_ragged(xp, xs, w, ws, torch.int32, packed)
+    for seed in (1, 2):
+        x.copy_(_operands(cuda, M, K, N, packed, seed=seed)[0])
+        xp.copy_(x)
+        graph.replay()
+        eager = qmm.int8_gemm_ragged(xp, xs, w, ws, torch.int32, packed)
+        torch.cuda.synchronize()
+        assert torch.equal(y, eager)
+        assert torch.equal(y, qmm.int8_gemm_ref(x, xs, w, ws, torch.int32,
+                                                packed))
 
 
 def test_gemm_route_follows_tma_contract(cuda):
     """Every main-path shape takes the TMA kernel (path S's K = 18943
-    too), the ragged-N and W4 K/2 = 1793 edges the mma.sync one; an x that
-    is not 16-byte aligned takes the TMA kernel through a padded copy."""
+    too), the ragged-N and W4 (K/2) % 16 != 0 edges the ragged one; an x
+    that is not 16-byte aligned takes the TMA kernel through a padded
+    copy."""
     for M, K, N, packed in _MAIN_GEMM + _EDGES:
         assert _counter("int8_gemm", K, N, packed) == (
             "int8_gemm" if N % 16 == 0 and not packed or (
-                M, K, N, packed) in _MAIN_GEMM else "int8_gemm_sm80")
+                M, K, N, packed) in _MAIN_GEMM else "int8_gemm_ragged")
     x, xs, w, ws = _operands(cuda, 64, 1296, 256, False)
     xo = x.reshape(-1)[8:8 + 64 * 1280].reshape(64, 1280)  # 8 bytes off
     before = dict(qmm.LAUNCHES)
     y = qmm.int8_gemm(xo, xs, w[:1280].contiguous(), ws, torch.int32)
     assert qmm.LAUNCHES["int8_gemm"] == before["int8_gemm"] + 1
-    assert qmm.LAUNCHES["int8_gemm_sm80"] == before["int8_gemm_sm80"]
+    assert qmm.LAUNCHES["int8_gemm_ragged"] == before["int8_gemm_ragged"]
     assert torch.equal(y, qmm.int8_gemm_ref(xo, xs, w[:1280].contiguous(), ws,
                                             torch.int32))
 
@@ -233,21 +309,24 @@ def test_int8_gemm_k_tail(cuda, M, K, N, padded):
     acc = qmm.int8_gemm(xin, xs, w, ws, torch.int32)
     y = qmm.int8_gemm(xin, xs, w, ws, torch.bfloat16)
     assert qmm.LAUNCHES["int8_gemm"] == before["int8_gemm"] + 2
-    assert qmm.LAUNCHES["int8_gemm_sm80"] == before["int8_gemm_sm80"]
+    assert qmm.LAUNCHES["int8_gemm_ragged"] == before["int8_gemm_ragged"]
     torch.cuda.synchronize()
     assert torch.equal(acc, qmm.int8_gemm_ref(x, xs, w, ws, torch.int32))
     assert torch.equal(y, qmm.int8_gemm_ref(x, xs, w, ws, torch.bfloat16))
 
 
 def test_wrapper_raises_on_unsupported_shape(cuda):
-    x, xs, w, ws = _operands(cuda, 40, 96, 66, False)  # N % 4 != 0
-    with pytest.raises(ValueError):
-        qmm.int8_gemm(x, xs, w, ws)
-    with pytest.raises(ValueError):
-        qmm.int8_gemm_sm80(x, xs, w, ws)
+    # N % 4 != 0 is no longer refused: the ragged kernel takes any N
+    x, xs, w, ws = _operands(cuda, 40, 96, 66, False)
+    assert torch.equal(qmm.int8_gemm(x, xs, w, ws),
+                       qmm.int8_gemm_ref(x, xs, w, ws))
+    assert torch.equal(qmm.int8_gemm_ragged(x, xs, w, ws),
+                       qmm.int8_gemm_ref(x, xs, w, ws))
     x, xs, w, ws = _operands(cuda, 40, 96, 64, True)
     with pytest.raises(ValueError):  # packed rows of another K
         qmm.int8_gemm(x, xs, w[:40].contiguous(), ws, packed=True)
+    with pytest.raises(ValueError):
+        qmm.int8_gemm_ragged(x, xs, w[:40].contiguous(), ws, packed=True)
     # the C entry refuses what the TMA kernel does not take, whatever the
     # wrapper sends (an x row stride that is no multiple of 16 bytes; packed
     # W4 with (K/2) % 16 != 0)
@@ -262,6 +341,14 @@ def test_wrapper_raises_on_unsupported_shape(cuda):
     assert load().mq_int8_gemm(
         x.data_ptr(), 48, w.data_ptr(), xs.data_ptr(), ws.data_ptr(),
         out.data_ptr(), 40, 40, 64, 1, 2, 128, stream) != 0
+    # the ragged entry takes that W4, but no x row stride off 16 bytes and
+    # no odd K for packed W4
+    assert load().mq_int8_gemm_ragged(
+        x.data_ptr(), 40, w.data_ptr(), xs.data_ptr(), ws.data_ptr(),
+        out.data_ptr(), 40, 40, 64, 0, 2, 128, stream) != 0
+    assert load().mq_int8_gemm_ragged(
+        x.data_ptr(), 48, w.data_ptr(), xs.data_ptr(), ws.data_ptr(),
+        out.data_ptr(), 40, 39, 64, 1, 2, 128, stream) != 0
 
 
 def _tail_inputs(dev, T, n, seed=0):
@@ -579,9 +666,13 @@ def _within_ulp_slack(y, ref):
 
 
 # the probe's (8, 3584, 19968); one and five rows; N = 1040 (a partial
-# 128-column block); a K that is no multiple of 4 and spans two x chunks
+# 128-column block); a K that is no multiple of 4 at N % 16 == 8 (cp.async
+# rows, the x tail); N % 16 == 8 at an aligned K, many K splits (18944
+# rows) and one short K
 @pytest.mark.parametrize("M,K,N", [(8, 3584, 19968), (1, 3584, 19968),
-                                   (5, 3584, 1040), (3, 2051, 136)])
+                                   (5, 3584, 1040), (3, 2051, 136),
+                                   (8, 3584, 1032), (7, 18944, 3592),
+                                   (2, 5, 8)])
 def test_w8_bf16_gemv(cuda, M, K, N):
     g = torch.Generator(device=cuda).manual_seed(M + N)
     x = torch.randn((M, K), generator=g, device=cuda).to(torch.bfloat16)
@@ -596,6 +687,33 @@ def test_w8_bf16_gemv(cuda, M, K, N):
     assert y.dtype == torch.bfloat16 and y.shape == (M, N)
     assert _within_ulp_slack(y, ref)
     assert torch.equal(y, qmm.w8_bf16_gemv(x, w, ws))  # deterministic sums
+
+
+@pytest.mark.parametrize("M,K,N", [(8, 3584, 19968), (5, 2051, 1032)])
+def test_w8_bf16_gemv_one_launch_and_graph(cuda, M, K, N):
+    """One device operation per call (TMA and cp.async rows: a call captured
+    in a CUDA graph is one kernel node, no memset), and a CUDA graph
+    replayed on two inputs equal to eager calls, bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(N)
+    x = torch.randn((M, K), generator=g, device=cuda).to(torch.bfloat16)
+    w = torch.randint(-127, 127, (K, N), generator=g, device=cuda,
+                      dtype=torch.int8)
+    ws = torch.rand((N,), generator=g, device=cuda) * 0.01 + 1e-3
+    qmm.w8_bf16_gemv(x, w, ws)
+    torch.cuda.synchronize()
+    before = qmm.LAUNCHES["w8_bf16_gemv"]
+    assert _graph_node_types(lambda: qmm.w8_bf16_gemv(x, w, ws)) == [0]
+    assert qmm.LAUNCHES["w8_bf16_gemv"] == before + 1
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = qmm.w8_bf16_gemv(x, w, ws)
+    for seed in (1, 2):
+        x.copy_(torch.randn((M, K), generator=g, device=cuda))
+        graph.replay()
+        eager = qmm.w8_bf16_gemv(x, w, ws)
+        torch.cuda.synchronize()
+        assert torch.equal(y, eager)
+        assert _within_ulp_slack(y, qmm.w8_bf16_gemv_ref(x, w, ws))
 
 
 # the probe's (8, 18944, 3584); one row; K/2 odd (the predicated tail)

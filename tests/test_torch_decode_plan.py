@@ -60,6 +60,25 @@ def test_gemv_plan_covers_every_packed_row_once(K, N):
     assert (seen == 1).all()
 
 
+# w8_bf16_gemv's plan over K int8 rows: gemv_bench's shape, N % 16 == 8
+# at the split's K, a K tail, a K below one step
+@pytest.mark.parametrize("K,N", [(3584, 19968), (18944, 3592), (2051, 136),
+                                 (5, 8)])
+def test_gemv_plan_covers_every_int8_row_once(K, N):
+    tiles, splits, rps = TK._gemv_plan(K, N, SMS, packed=False)
+    assert tiles * TK.GEMV_TILE_N >= N > (tiles - 1) * TK.GEMV_TILE_N
+    assert 1 <= splits <= TK.GEMV_MAX_CLUSTER
+    assert rps % TK.GEMV_STEP_ROWS == 0
+    seen = np.zeros(K, np.int64)
+    for s in range(splits):
+        lo, hi = s * rps, min(K, (s + 1) * rps)
+        assert lo < hi  # no split is empty
+        seen[lo:hi] += 1
+    assert (seen == 1).all()
+    if K >= 3584:  # the probe's widths: every SM has a block
+        assert tiles * splits >= SMS
+
+
 @pytest.mark.parametrize("K,N", DECODE_GEMV)
 def test_gemv_plan_gives_every_sm_a_block(K, N):
     tiles, splits, _ = TK._gemv_plan(K, N, SMS)

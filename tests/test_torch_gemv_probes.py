@@ -12,6 +12,13 @@ passed explicitly).
 * ``w4_unpack_gemv_ref`` P0-P3 against ``scripts/w4_unpack_tune.py::
   pallas_gemv`` with each kernel: int32 equal; P1-P3 equal to the served
   ``w4a8_gemv``'s int32 as well.
+* A plain model of ``mq_w8_bf16_gemv``'s arithmetic (the tensor-core
+  kernel): W's bytes converted to bf16 by the kernel's bit trick (exact for
+  all 256 bytes), each k16 product's exact sum added to f32 accumulators in
+  the kernel's order (stages alternating between two consumer groups, group
+  0 + group 1, then the K splits of ``qmm._gemv_plan`` in rank order), held
+  against ``w8_bf16_gemv_ref`` within chip_smoke.py's bound (one bf16 ulp
+  plus 1e-5 of the largest magnitude).
 * ROADMAP C-w8, the two floored grids: at a shape the tile does not divide,
   JAX leaves the last output columns unwritten (NaN under interpret) or the
   last packed rows unsummed; the port computes the whole product.
@@ -94,6 +101,68 @@ def test_w8_bf16_gemv_floored_grid(monkeypatch):
     _within_ulp(got[:, :512], ref[:, :512])
     exact = (x.astype(np.float64) @ w.astype(np.float64)) * ws
     _within_ulp(got, exact.astype(np.float32))
+
+
+def _bf16_of_bytes(w: np.ndarray) -> np.ndarray:
+    """int8 w as the kernel converts it (bf16_frags, csrc/qmm.cu): the byte
+    + 128 as the low mantissa bits of 2^23, less 2^23 + 128 in f32, then
+    the f32's upper half as a bf16 (here: an f32 with the low half 0)."""
+    u = (w.astype(np.int32) & 0xFF) ^ 0x80
+    f = (np.uint32(0x4B000000) | u.astype(np.uint32)).view(np.float32) \
+        - np.float32(8388736.0)
+    return (f.view(np.uint32) & np.uint32(0xFFFF0000)).view(np.float32)
+
+
+def test_w8_bf16_byte_conversion_is_exact():
+    b = np.arange(-128, 128, dtype=np.int32).astype(np.int8)
+    np.testing.assert_array_equal(_bf16_of_bytes(b), b.astype(np.float32))
+
+
+def _w8_tc_model(x: torch.Tensor, w: np.ndarray, ws: torch.Tensor,
+                 sms: int = 132) -> torch.Tensor:
+    """The tensor-core kernel's sums: each mma.sync k16 product adds the
+    exact sum of its 16 products (bf16 x times the converted byte) to an f32
+    accumulator; a split's 32-row stages go to consumer groups 0 and 1 in
+    turn (k16 halves in order), the groups meet as group 0 + group 1, the
+    splits in rank order; then × w_scale in f32 and bf16."""
+    M, K = x.shape
+    N = w.shape[1]
+    _, splits, rps = qmm._gemv_plan(K, N, sms, packed=False)
+    kp = -(-K // 32) * 32
+    xd = torch.zeros((M, kp), dtype=torch.float64)
+    xd[:, :K] = x.double()
+    wd = torch.zeros((kp, N), dtype=torch.float64)
+    wd[:K] = torch.from_numpy(_bf16_of_bytes(w)).double()
+    blocks = torch.stack([(xd[:, b:b + 16] @ wd[b:b + 16]).float()
+                          for b in range(0, kp, 16)])
+    total = None
+    for s in range(splits):
+        r0 = s * rps
+        steps = -(-(min(K, r0 + rps) - r0) // 32)
+        red = None
+        for grp in (0, 1):
+            acc = torch.zeros((M, N), dtype=torch.float32)
+            for st in range(grp, steps, 2):
+                for h in (0, 1):
+                    acc = acc + blocks[(r0 + 32 * st) // 16 + h]
+            red = acc if red is None else red + acc
+        total = red if total is None else total + red
+    return (total * ws.float()).to(torch.bfloat16)
+
+
+# gemv_bench's widths at N = 2048 and M = 8, 1, 5; N % 16 == 8 (the
+# cp.async rows); a K that is no multiple of 32 or of 4
+@pytest.mark.parametrize("M,K,N", [(8, 3584, 2048), (1, 3584, 2048),
+                                   (5, 3584, 2048), (8, 3584, 1032),
+                                   (3, 2051, 136)])
+def test_w8_bf16_tc_model_within_bound(M, K, N):
+    x, w, ws = _w8_operands(K + N, M, K, N)
+    xt = torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16)
+    wst = torch.from_numpy(ws[0])
+    model = _w8_tc_model(xt, w, wst)
+    ref = qmm.w8_bf16_gemv_ref(xt, torch.from_numpy(w), wst)
+    assert model.shape == ref.shape == (M, N)
+    _within_ulp(model.float().numpy(), ref.float().numpy())
 
 
 def _w4_operands(seed, M, K, N):

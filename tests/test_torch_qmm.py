@@ -147,6 +147,30 @@ def test_int8_gemm_w8_matches_xla_s8_dot(rng):
     np.testing.assert_array_equal(y_t.numpy(), np.asarray(y_j))
 
 
+# ragged N at M = 40 (a GEMM): N odd and N % 4 == 2 at K = 1000, and
+# InternVL2-8B's lm_head width N = 92553 at a short K; W8 and packed W4
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("K,N", [(1000, 1003), (1000, 1002), (64, 92553)])
+def test_quantized_matmul_pre_ragged_n_matches_jax(rng, packed, K, N):
+    """JAX ``quantized_matmul_pre`` on its default M > 32 route (the exact s8
+    dot_general for W8, ``_two_gemm_packed`` for W4) against the port's on
+    the CPU (the plain version that ``int8_gemm_ragged`` holds on the card),
+    shared operands: bf16 bit-equal (both integer sums are exact)."""
+    M = 40
+    x, w, xs, ws = _operands(rng, M, K, N, packed=packed)
+    y_j = JK.quantized_matmul_pre(jnp.asarray(x), jnp.asarray(xs),
+                                  {"w_q": jnp.asarray(w),
+                                   "w_scale": jnp.asarray(ws)}, jnp.bfloat16)
+    y_t = TK.quantized_matmul_pre(_t(x), _t(xs),
+                                  {"w_q": _t(w), "w_scale": _t(ws)},
+                                  torch.bfloat16)
+    assert y_t.shape == (M, N) and y_t.dtype == torch.bfloat16
+    np.testing.assert_array_equal(
+        y_t.float().numpy(), np.asarray(jnp.asarray(y_j, jnp.float32)))
+    assert TK.ragged_supports(K, N, packed) and not TK.tma_supports(
+        K, N, packed)
+
+
 @pytest.mark.parametrize("packed", [True, False])
 @pytest.mark.parametrize("lead", [(2,), (1, 3), (45,), (3, 17)])
 def test_quantized_matmul_pre_routing(rng, packed, lead):
@@ -220,7 +244,8 @@ def test_unpack_int4_weights_matches_jax(rng):
         np.asarray(JK.unpack_int4_weights({"w_q": jnp.asarray(b)})))
 
 
-@pytest.mark.parametrize("name", ["w4a8_gemv", "int8_gemv", "int8_gemm"])
+@pytest.mark.parametrize("name", ["w4a8_gemv", "int8_gemv", "int8_gemm",
+                                  "int8_gemm_ragged"])
 def test_wrappers_reject_bad_operands(rng, name):
     """The wrappers check dtype, shape and device and raise; a tensor that
     is neither on the CPU nor on a CUDA card gets no plain fallback."""
@@ -234,7 +259,7 @@ def test_wrappers_reject_bad_operands(rng, name):
         fn(args[0], args[1], args[2][:-2], args[3])  # K mismatch
     with pytest.raises(ValueError):
         fn(*[a.to("meta") for a in args])
-    TK.LAUNCHES.clear()
-    TK.LAUNCHES.update({"w4a8_gemv": 0, "int8_gemv": 0, "int8_gemm": 0})
+    for k in TK.LAUNCHES:
+        TK.LAUNCHES[k] = 0
     fn(*args)  # CPU: the plain version, not a kernel launch
     assert TK.LAUNCHES[name] == 0

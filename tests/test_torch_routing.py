@@ -73,8 +73,8 @@ def test_flash_supports(hd, dtype, T, ok):
 # W8 products, the RMS split's K = 18943) take the TMA kernel, and so does
 # any other K on int8 weights (TMA zero-fills past K); the ragged-N edges of
 # tests/test_torch_cuda.py and packed W4 with (K/2) % 16 != 0 go to the
-# mma.sync kernel
-@pytest.mark.parametrize("K,N,packed,ok", [
+# ragged kernel
+_GEMM_SHAPES = [
     (3584, 4608, True, True), (3584, 3584, True, True),
     (3584, 37888, True, True), (18944, 3584, True, True),
     (1280, 1280, False, True), (1280, 5120, False, True),
@@ -86,9 +86,85 @@ def test_flash_supports(hd, dtype, T, ok):
     (3, 64, False, True), (3586, 4100, True, False),
     (1001, 1024, False, True), (18943, 3584, True, False),
     (3586, 64, True, False),  # K/2 = 1793
-    (1040, 64, True, False)])  # K/2 = 520: 16-byte rows, high plane off
+    (1040, 64, True, False),  # K/2 = 520: 16-byte rows, high plane off
+    # the full-logit lm_heads of InternVL2-8B and MiniCPM-V-2.6, N odd,
+    # N % 4 == 2, W4 with (K/2) % 16 == 4
+    (4096, 92553, False, False), (3584, 151666, False, False),
+    (1001, 1003, False, False), (1000, 1002, False, False),
+    (1000, 1024, True, False)]
+
+
+@pytest.mark.parametrize("K,N,packed,ok", _GEMM_SHAPES)
 def test_gemm_tma_supports(K, N, packed, ok):
     assert qmm.tma_supports(K, N, packed) is ok
+
+
+# the ragged kernel takes every shape the wrappers let through: any K and
+# N >= 1, K even for packed W4
+@pytest.mark.parametrize("K,N,packed,ok", [
+    (4096, 92553, False, True), (3584, 151666, False, True),
+    (1001, 1003, False, True), (1, 1, False, True), (2, 1, True, True),
+    (18943, 3584, False, True), (3584, 4608, True, True),
+    (1001, 1003, True, False), (0, 64, False, False), (64, 0, False, False)])
+def test_gemm_ragged_supports(K, N, packed, ok):
+    assert qmm.ragged_supports(K, N, packed) is ok
+
+
+@pytest.mark.parametrize("K,N,packed,ok", _GEMM_SHAPES)
+def test_gemm_route_on_card_by_predicate(K, N, packed, ok):
+    """On the card ``int8_gemm`` launches the TMA kernel exactly inside
+    ``tma_supports`` with a 16-byte aligned weight and the ragged kernel
+    everywhere else, which ``ragged_supports`` takes (packed W4 of an odd
+    K is refused by the wrappers' checks before any route)."""
+    for aligned in (True, False):
+        route = qmm._gemm_route(K, N, packed, aligned)
+        assert route == ("int8_gemm" if ok and aligned else
+                         "int8_gemm_ragged")
+    assert qmm.ragged_supports(K, N, packed) is (not packed or K % 2 == 0)
+
+
+@pytest.mark.parametrize("K", [1000, 1002, 64])
+def test_w4_planes_layout(K):
+    """The ragged GEMM's x for packed W4 with (K/2) % 16 != 0: the low plane
+    at columns [0, K/2), the high plane from H (K/2 rounded up to 16), zeros
+    between and after, rows at a 16-byte stride: its two plane products
+    against W's nibble planes are x · unpack(W)."""
+    rng = np.random.default_rng(K)
+    x = torch.from_numpy(rng.integers(-127, 128, (5, K)).astype(np.int8))
+    w = torch.from_numpy(rng.integers(-128, 128, (K // 2, 7)).astype(np.int8))
+    half, H = K // 2, -(-(K // 2) // 16) * 16
+    x2 = qmm._w4_planes(x)
+    assert x2.shape == (5, 2 * H) and x2.stride(0) % 16 == 0
+    assert torch.equal(x2[:, :half], x[:, :half])
+    assert torch.equal(x2[:, H:H + half], x[:, half:])
+    assert not x2[:, half:H].any() and not x2[:, H + half:].any()
+    planes = qmm.unpack_int4_weights({"w_q": w})
+    lo, hi = planes[:half].double(), planes[half:].double()
+    got = x2[:, :half].double() @ lo + x2[:, H:H + half].double() @ hi
+    assert torch.equal(got.to(torch.int32), qmm.int8_gemm_ref(
+        x, torch.ones(5), w, torch.ones(7), torch.int32, packed=True))
+
+
+@pytest.mark.parametrize("M,K,N,packed", [(40, 1000, 1003, False),
+                                          (40, 1000, 1002, True),
+                                          (33, 64, 4096, True)])
+def test_gemm_cpu_route_is_the_plain_version(M, K, N, packed):
+    """On CPU tensors ``int8_gemm`` and ``int8_gemm_ragged`` are the plain
+    version (exact), whatever the shape, and launch nothing."""
+    rng = np.random.default_rng(M + N)
+    x = torch.from_numpy(rng.integers(-127, 128, (M, K)).astype(np.int8))
+    w = torch.from_numpy(rng.integers(-128, 128, (K // 2 if packed else K,
+                                                   N)).astype(np.int8))
+    xs = torch.from_numpy(rng.uniform(0.01, 0.1, M).astype(np.float32))
+    ws = torch.from_numpy(rng.uniform(1e-3, 1e-2, N).astype(np.float32))
+    before = dict(qmm.LAUNCHES)
+    ref = qmm.int8_gemm_ref(x, xs, w, ws, torch.int32, packed)
+    for fn in (qmm.int8_gemm, qmm.int8_gemm_ragged):
+        assert torch.equal(fn(x, xs, w, ws, torch.int32, packed), ref)
+        assert torch.equal(fn(x, xs, w, ws, torch.bfloat16, packed),
+                           qmm.int8_gemm_ref(x, xs, w, ws, torch.bfloat16,
+                                             packed))
+    assert qmm.LAUNCHES == before
 
 
 # ---------------------------------------------------------------------------
