@@ -77,22 +77,35 @@ Phases, in order (any failed check raises and the script exits non-zero):
    itself served alone through the first CMP_LAYERS layers (prefill
    logits within the bound, the first 8 tokens equal). Each of the three
    paths runs with the launch counts set to 0 just before it and must
-   launch every kernel it reaches.
+   launch every kernel it reaches. Decode runs in ``serve.generate``'s
+   decode loop: one greedy step captured in a CUDA graph and replayed
+   once a token; the launch counts grow by the captured step's launches a
+   replay (``serve.generate.Graphed``), so they count what ran.
    Then, on the same weights, the full online Hadamard before ``down``
-   (hadK ⊗ H₁₂₈ over 18944): path F serves the full-VLM request (its
-   1024-token prefill through the fused tail kernel, 28 launches; none in
-   decode) and a 77-token text request of two tokens (bucket 128: the
-   unfused chain, no tail launch);
+   (hadK ⊗ H₁₂₈ over 18944): path F serves the full-VLM request and a
+   77-token text request of two tokens on the default route (the unfused
+   chain, JAX's default: no tail launch), then the request's 1024-token
+   prefill with ``MQUANT_FUSED_TAIL=1`` (the fused tail kernel, 28
+   launches, each call held against its plain version);
    path S adds the RMS first-column split (``down`` as 18943 int8 rows +
    an f32 ``w_col0``: ``int8_gemm`` / ``int8_gemv`` at K = 18943) and
    serves the full-VLM request; its prefill's 28 ``down`` calls must launch
-   the TMA kernel (``int8_gemm``) and ``int8_gemm_ragged`` none; then the
-   same prefill with ``down`` forced onto ``int8_gemm_ragged`` (28
-   launches) is held against plain as below.
+   the TMA kernel (``int8_gemm``) and ``int8_gemm_ragged`` none, an eager
+   decode step's 28 ``int8_gemv``, and the request 29 ``int8_gemv`` a step
+   and one for the prefill's head; then the same prefill with ``down``
+   forced onto ``int8_gemm_ragged`` (28 launches) is held against plain as
+   below.
    Each path's prefill and first 7 decode steps are held against the same
    forward with the integer products through their plain versions (logits
    within the bound, greedy tokens equal), and every attention and tail
    kernel call against its plain version on the call's own inputs.
+   Graph decode, on the block, F and S paths (every KV buffer of the
+   loops poisoned with NaN before each request, ROADMAP C-w1): the
+   full-VLM request through the decode loop's graph against the eager
+   loop ``Generator._decode_loop`` (128 tokens equal, last-step logits
+   max |d| 0), and a 2-row ``generate_batch`` with an eos id at which the
+   rows stop at different steps (tokens equal); the graph step's wall and
+   stream ms (CUDA events) and its device busy ms under torch.profiler.
 5. profile: wall time (best of 3) and, under ``torch.profiler``, device
    busy time, idle share and the largest device items of the vision tower,
    the 1024-token prefill and a decode step (block Hadamard, then path F's,
@@ -100,9 +113,14 @@ Phases, in order (any failed check raises and the script exits non-zero):
    kernel, and its decode step), then of the
    4096-token prefill and a decode step at position ~4100; and the stream
    time between CUDA events around
-   every ``layers.attention`` call. For each decode step: device operations
-   per step, the wrappers' calls per step, and device launches per W4 GEMV
-   and per attention call (one each).
+   every ``layers.attention`` call. For each decode step (the eager step,
+   where the profiler sees every kernel): device operations per step, the
+   wrappers' calls per step, and device launches per W4 GEMV and per
+   attention call (one each).
+6. bench: ``mquant_tpu_torch.bench.main`` (W4A8 against bf16 at depth 28:
+   the lm_head gate, chained TTFT, decode tok/s of the decode loop, the
+   LLM and full-VLM requests, the rooflines), its JSON on a line of its
+   own.
 
 Last line of stdout: {"ok": true, "device": {...}}. Usage:
 ``python3 chip_smoke.py [--seed 0]``.
@@ -114,6 +132,7 @@ import argparse
 import contextlib
 import copy
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -1264,8 +1283,8 @@ FULL_KERNELS = SLICE_KERNELS + ("fused_swiglu_had_quant",)
 # path S: its K = 18943 `down` runs on the TMA GEMM (int8_gemm) since the K
 # tail; int8_gemm_ragged must launch no time there (run_split checks both)
 SPLIT_KERNELS = SLICE_KERNELS
-# path F's text request (bucket 128, below the tail's 256): it only shows
-# that the tail does not launch there, so two tokens do
+# path F's text request (bucket 128, below the tail's 256, on the default
+# route): two tokens show the route and the loop at that shape
 FULL_TEXT, FULL_TEXT_TOKENS = 77, 2
 
 
@@ -1456,6 +1475,7 @@ def depth_cut(gen, n: int):
 
     sites = {"llm." + s for s in LLM_SITES}
     g = copy.copy(gen)
+    g._kv, g._loops = {}, {}  # decode loops of its own depth
     g.cfg = dataclasses.replace(gen.cfg, n_layers=n)
     g.params = {**gen.params, "layers": cut(gen.params["layers"])}
     g.state = {k: cut(v) if k in sites else v for k, v in gen.state.items()}
@@ -1544,6 +1564,123 @@ def timed_request(gen, x, n: int, at_first=None, **kw):
     return out, time.perf_counter() - t0, first[0] - t0
 
 
+EOS_PROMPTS, EOS_TOKENS = (300, 77), 32  # graph decode's 2-row eos batch
+
+
+def poison(gen):
+    """NaN into every KV buffer of ``gen``'s decode loops: a request must
+    read only the rows its prefill and steps write (ROADMAP C-w1)."""
+    for k, v in gen._kv.values():
+        k.fill_(float("nan"))
+        v.fill_(float("nan"))
+
+
+def eos_pick(rows):
+    """An eos id at which the rows' free-running tokens stop at different
+    steps, and those steps: one that every row meets if there is one (the
+    loop then exits early), else one that some row never meets (that row
+    runs to the end)."""
+    cands = []
+    for row in rows:
+        for t in row[1:]:
+            firsts = [r.index(t) if t in r else len(r) for r in rows]
+            if len(set(firsts)) > 1 and min(firsts) < len(row) - 1:
+                cands.append((max(firsts) >= len(row), t, firsts))
+    if not cands:
+        raise AssertionError(f"no eos id stops the rows at different "
+                             f"steps: {rows}")
+    _, t, firsts = min(cands, key=lambda c: c[0])
+    return t, firsts
+
+
+def graph_decode(path: str, gen, x, m: dict, card: str) -> None:
+    """Phase 4, graph decode (``serve.generate.DecodeLoop``: one greedy step
+    captured in a CUDA graph, one replay a token). With every KV buffer of
+    the loops poisoned first (NaN): the request ``x`` through the loop
+    against the eager reference ``_decode_loop`` from its own prefill
+    (all GEN_TOKENS tokens equal, last-step logits max |d| 0), then a
+    2-row ``generate_batch`` with an eos id at which the rows stop at
+    different steps against the eager loop (tokens equal). Then, a step:
+    the wall time, host enqueue time and stream time (CUDA events) of
+    GEN_TOKENS − 1 replays (the median of 3 runs), the device busy time of
+    PROFILE_STEPS replays under torch.profiler (not measured where it sees
+    no kernel) and the idle share against the median wall, and
+    ``measure_decode_tps``'s rate on the same request."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mquant_tpu_torch.serve.generate import measure_decode_tps
+
+    poison(gen)
+    out = gen.generate_on_device(x, GEN_TOKENS)
+    loop = gen._loop(1, None, False)
+    logits_g = loop.logits.clone()
+    lg, cache = gen.prefill(x)
+    tok = lg.argmax(-1).to(torch.int32)[:, None]
+    ref, logits_e = gen._decode_loop(tok, cache, GEN_TOKENS, None,
+                                     with_logits=True)
+    err = float((logits_g.float() - logits_e.float()).abs().max())
+    if not torch.equal(out, ref) or err != 0:
+        raise AssertionError(f"{path}: graph decode tokens equal to eager: "
+                             f"{torch.equal(out, ref)}; last-step logits "
+                             f"max |d| {err}")
+    V = gen.cfg.vocab
+    seqs = [torch.randint(0, V, (n,), generator=m["g"], device=m["dev"])
+            for n in EOS_PROMPTS]
+    eos, firsts = eos_pick(gen.generate_batch(seqs, EOS_TOKENS))
+    poison(gen)
+    got = gen.generate_batch(seqs, EOS_TOKENS, eos_id=eos)
+    lb, cb, starts = gen.prefill_batch(seqs)
+    tb = lb.argmax(-1).to(torch.int32)[:, None]
+    ref_b = gen._decode_loop(tb, cb, EOS_TOKENS, eos,
+                             attn_start=starts).tolist()
+    ref_b = [r[:r.index(eos)] if eos in r else r for r in ref_b]
+    if got != ref_b:
+        raise AssertionError(f"{path}: graph eos batch {got} vs eager "
+                             f"{ref_b}")
+    log(f"{path}: graph decode: {GEN_TOKENS} tokens equal to the eager loop,"
+        f" last-step logits max |d| {err}; eos batch ({len(seqs)} rows of "
+        f"{EOS_PROMPTS} tokens, eos {eos} at steps {firsts}) equal to the "
+        f"eager loop; every KV buffer poisoned (NaN) before each request")
+
+    lg, cache = gen.prefill(x, kv=(loop.k, loop.v))
+    tok = lg.argmax(-1).to(torch.int32)[:, None]
+    steps = GEN_TOKENS - 1
+    runs = []  # (wall, host enqueue, stream) ms a step
+    for _ in range(3):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev[0].record()
+        loop.run(tok, cache, GEN_TOKENS)
+        t1 = time.perf_counter()
+        ev[1].record()
+        torch.cuda.synchronize()
+        runs.append(((time.perf_counter() - t0) * 1e3 / steps,
+                     (t1 - t0) * 1e3 / steps,
+                     ev[0].elapsed_time(ev[1]) / steps))
+    wall, enq, stream = sorted(runs)[1]  # the median run
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        loop.run(tok, cache, PROFILE_STEPS + 1)
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / PROFILE_STEPS
+    busy_s = (f"device busy {busy:.3f} ms under torch.profiler "
+              f"({PROFILE_STEPS} replays), idle share 1 − busy / median wall "
+              f"{1 - busy / wall:.3f}" if busy > 0 else
+              "device busy not measured (the profiler saw no kernel of the "
+              "graph)")
+    tps = measure_decode_tps(gen, x, n_tokens=steps)
+    log(f"profile: decode step, graph ({path}): wall {wall:.3f} ms a step "
+        f"(median of 3 runs of {steps} replays, synchronized at both ends; "
+        f"all {', '.join(f'{r[0]:.3f}' for r in runs)}), host enqueue "
+        f"{enq:.3f} ms a step, stream {stream:.3f} ms a step (CUDA events); "
+        f"{busy_s}; measure_decode_tps {tps:.1f} tok/s; card {card}")
+
+
 def run_slice(m: dict, card: str) -> dict:
     """Phase 4. Serves one full-VLM and two text requests at Qwen2-VL-7B
     widths; returns the kernel launch counts of that main-path run."""
@@ -1588,6 +1725,7 @@ def run_slice(m: dict, card: str) -> dict:
         check_close("slice: merger out vs plain kernels", held["merged"],
                     merged_p)
         against_plain("slice", gen, lambda: gen.prefill(emb))
+        graph_decode("slice", gen, emb, m, card)
     log(f"slice: full-VLM request (448² image, {PREFILL}-token prompt, "
         f"{GEN_TOKENS} tokens) {t_req:.3f} s; TTFT {ttft * 1e3:.1f} ms; "
         f"decode {decode_tps:.1f} tok/s; text requests "
@@ -1602,12 +1740,30 @@ def run_slice(m: dict, card: str) -> dict:
     return launches
 
 
+@contextlib.contextmanager
+def fused_tail():
+    """``MQUANT_FUSED_TAIL=1`` inside (the fused tail's opt-in route, as
+    JAX's), restored after."""
+    prev = os.environ.get("MQUANT_FUSED_TAIL")
+    os.environ["MQUANT_FUSED_TAIL"] = "1"
+    try:
+        yield
+    finally:
+        if prev is None:
+            del os.environ["MQUANT_FUSED_TAIL"]
+        else:
+            os.environ["MQUANT_FUSED_TAIL"] = prev
+
+
 def run_full(m: dict, card: str) -> dict:
     """Phase 4, path F: the full online Hadamard before ``down`` on the same
-    weights. The full-VLM request (its prefill through the fused tail: one
-    launch per layer, none in decode) and a 77-token text request (the
-    unfused chain). Returns the launch counts; profiles the prefill and a
-    decode step."""
+    weights. The full-VLM request and a 77-token text request on the
+    default route (the unfused chain, JAX's default: no tail launch), then
+    the request's 1024-token prefill with ``MQUANT_FUSED_TAIL=1`` (the
+    fused tail: one launch a layer, each call held against its plain
+    version). Returns the launch counts of the three; holds the default
+    route against plain, checks the graph decode loop, profiles the prefill
+    on both routes and a decode step."""
     import torch
 
     from mquant_tpu_torch import random_init as R
@@ -1625,46 +1781,54 @@ def run_full(m: dict, card: str) -> dict:
     tail = fwht.LAUNCHES
     name = "fused_swiglu_had_quant"
     with torch.no_grad():
-        # warm-up at both prefill shapes; not counted
+        # warm-up at both prefill shapes and on the fused route; not counted
         gen.generate_on_device(embeds()[0], max_new_tokens=4)
         gen.generate_on_device(text, max_new_tokens=2)
+        with fused_tail():
+            gen.prefill(embeds()[0])
         torch.cuda.synchronize()
 
         reset_launches()
         torch.cuda.reset_peak_memory_stats()
-        held, at_first = {}, []
+        held = {}
 
         def vlm():
             held["emb"], held["merged"] = embeds()
             return held["emb"]
 
-        out_vlm, t_req, ttft = timed_request(
-            gen, vlm, GEN_TOKENS, at_first=lambda: at_first.append(tail[name]))
-        after_vlm = tail[name]
+        out_vlm, t_req, ttft = timed_request(gen, vlm, GEN_TOKENS)
         out_txt, t_txt, _ = timed_request(gen, text, FULL_TEXT_TOKENS)
+        on_default = tail[name]
+        emb = held["emb"]
+        with fused_tail(), shadow_tail("full, fused tail"):
+            gen.prefill(emb)
         launches = read_launches("full", FULL_KERNELS)
         peak = torch.cuda.max_memory_allocated() / 2**30
-        if (at_first[0], after_vlm, launches[name]) != (cfg.n_layers,) * 3:
+        if (on_default, launches[name]) != (0, cfg.n_layers):
             raise AssertionError(
-                f"full: tail launches {at_first[0]} in the {PREFILL}-token "
-                f"prefill, {after_vlm - at_first[0]} in decode, "
-                f"{launches[name] - after_vlm} in the {FULL_TEXT}-token "
-                f"request; expected {cfg.n_layers}, 0, 0")
+                f"full: tail launches {on_default} on the default route, "
+                f"{launches[name] - on_default} in the {PREFILL}-token "
+                f"prefill with MQUANT_FUSED_TAIL=1; expected 0, "
+                f"{cfg.n_layers}")
         check_tokens("full", out_vlm, GEN_TOKENS, cfg.vocab)
         check_tokens("full", out_txt, FULL_TEXT_TOKENS, cfg.vocab)
-        emb = held["emb"]
-        with shadow_tail("full"):
-            against_plain("full", gen, lambda: gen.prefill(emb))
+        against_plain("full", gen, lambda: gen.prefill(emb))
+        graph_decode("full", gen, emb, m, card)
     log(f"full: full-VLM request ({PREFILL}-token prompt, {GEN_TOKENS} "
-        f"tokens) {t_req:.3f} s; TTFT {ttft * 1e3:.1f} ms; decode "
-        f"{(GEN_TOKENS - 1) / (t_req - ttft):.1f} tok/s; text request "
-        f"{FULL_TEXT} tok + {FULL_TEXT_TOKENS}: {t_txt:.3f} s; tail launches "
-        f"{at_first[0]} per {PREFILL}-token prefill, 0 in decode and at T "
-        f"= 128; peak {peak:.2f} GiB; card {card}")
+        f"tokens, default route: the unfused chain) {t_req:.3f} s; TTFT "
+        f"{ttft * 1e3:.1f} ms; decode {(GEN_TOKENS - 1) / (t_req - ttft):.1f}"
+        f" tok/s; text request {FULL_TEXT} tok + {FULL_TEXT_TOKENS}: "
+        f"{t_txt:.3f} s; tail launches 0 on the default route, "
+        f"{launches[name]} in one prefill with MQUANT_FUSED_TAIL=1; peak "
+        f"{peak:.2f} GiB; card {card}")
     with torch.no_grad():
         profile_phases([("prefill 1024 (full Hadamard)",
-                         lambda: gen.prefill(emb), 1),
-                        ("decode step (full Hadamard)",
+                         lambda: gen.prefill(emb), 1)], card)
+        with fused_tail():
+            profile_phases([("prefill 1024 (full Hadamard, "
+                             "MQUANT_FUSED_TAIL=1)",
+                             lambda: gen.prefill(emb), 1)], card)
+        profile_phases([("decode step (full Hadamard)",
                          decode_steps(gen, gen.prefill(emb)[1]),
                          PROFILE_STEPS)], card)
     return launches
@@ -1709,24 +1873,35 @@ def run_split(m: dict, card: str) -> dict:
             held["emb"], held["merged"] = embeds()
             return held["emb"]
 
-        with gemm_depths(depths):
+        with gemm_depths(depths):  # the prefill's calls (decode replays)
             out, t_req, ttft = timed_request(gen, vlm, GEN_TOKENS)
         launches = read_launches("split", SPLIT_KERNELS)
         peak = torch.cuda.max_memory_allocated() / 2**30
-        down = {k: sum(1 for n, d, moved in depths if n == k and d == K
+        emb = held["emb"]
+        # the request's GEMM calls (its prefill's), and the int8_gemv calls
+        # of one eager decode step
+        step = [d for d in depths if d[0] == "int8_gemm"]
+        lg, cache = gen.prefill(emb)
+        with gemm_depths(step):
+            gen._forward(lg.argmax(-1).to(torch.int32)[:, None], cache)
+        down = {k: sum(1 for n, d, moved in step if n == k and d == K
                        and moved == (k,))
                 for k in ("int8_gemm", "int8_gemv")}
-        want = {"int8_gemm": cfg.n_layers,
-                "int8_gemv": cfg.n_layers * (GEN_TOKENS - 1)}
+        want = {"int8_gemm": cfg.n_layers, "int8_gemv": cfg.n_layers}
+        # the request's int8_gemv launches: the prefill's head, then down
+        # and the head each step (the decode loop's replays)
+        gemv = (cfg.n_layers + 1) * (GEN_TOKENS - 1) + 1
         if (down != want or launches["fused_swiglu_had_quant"]
-                or launches["int8_gemm_ragged"]):
-            raise AssertionError(f"split: down launches at K = {K} {down}, "
-                                 f"expected {want}; tail launches "
+                or launches["int8_gemm_ragged"]
+                or launches["int8_gemv"] != gemv):
+            raise AssertionError(f"split: down calls at K = {K} {down} (the "
+                                 f"prefill, one eager step), expected {want};"
+                                 f" int8_gemv launches {launches['int8_gemv']}"
+                                 f", expected {gemv}; tail launches "
                                  f"{launches['fused_swiglu_had_quant']}, "
                                  f"int8_gemm_ragged "
                                  f"{launches['int8_gemm_ragged']}, expected 0")
         check_tokens("split", out, GEN_TOKENS, cfg.vocab)
-        emb = held["emb"]
         against_plain("split", gen, lambda: gen.prefill(emb))
         # the one depth-28 path through the ragged kernel: `down` forced
         # onto it, held against plain in the same way
@@ -1739,11 +1914,13 @@ def run_split(m: dict, card: str) -> dict:
             raise AssertionError(f"split: down forced onto int8_gemm_ragged "
                                  f"launched it {forced} times, expected "
                                  f"{cfg.n_layers}")
+        graph_decode("split", gen, emb, m, card)
     log(f"split: full-VLM request ({PREFILL}-token prompt, {GEN_TOKENS} "
         f"tokens) {t_req:.3f} s; TTFT {ttft * 1e3:.1f} ms; decode "
-        f"{(GEN_TOKENS - 1) / (t_req - ttft):.1f} tok/s; down launches at K "
-        f"= {K}: {down}, int8_gemm_ragged 0 (forced: {forced} in one "
-        f"prefill); peak {peak:.2f} GiB; card {card}")
+        f"{(GEN_TOKENS - 1) / (t_req - ttft):.1f} tok/s; down calls at K "
+        f"= {K}: {down} (prefill, one eager step), int8_gemv launches "
+        f"{launches['int8_gemv']}, int8_gemm_ragged 0 (forced: {forced} in "
+        f"one prefill); peak {peak:.2f} GiB; card {card}")
     with torch.no_grad():
         profile_phases([("prefill 1024 (full Hadamard + RMS split)",
                          lambda: gen.prefill(emb), 1)], card)
@@ -2068,6 +2245,16 @@ def main(argv=None) -> int:
     counts += [run_slice(model, card), run_full(model, card),
                run_split(model, card), run_document(model, card),
                run_batch(model, card)]
+
+    # phase 6: the bench (W4A8 against bf16 at depth 28), its JSON printed
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    from mquant_tpu_torch import bench
+
+    t0 = time.perf_counter()
+    bench.main([])
+    log(f"bench: {time.perf_counter() - t0:.1f} s; card {card}")
 
     kernels = []
     for k in REPLACES:

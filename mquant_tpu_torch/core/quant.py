@@ -12,7 +12,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .formats import IntFormat
+from .formats import IntFormat, get_format
 
 
 class QuantParams(NamedTuple):
@@ -79,3 +79,66 @@ def dynamic_qparams(x: torch.Tensor, fmt: IntFormat, axis=None,
         xmax = xf.amax(dim=axis, keepdim=True)
     return scales_from_minmax(xmin * clip_ratio, xmax * clip_ratio, fmt,
                               symmetric)
+
+
+# ---------------------------------------------------------------------------
+# weight quantization with optional MSE clip search
+# ---------------------------------------------------------------------------
+
+
+def weight_qparams(w: torch.Tensor, fmt: IntFormat, per_channel: bool = True,
+                   symmetric: bool = True, mse_clip: bool = False,
+                   clip_grid: int = 80, max_shrink: float = 0.8,
+                   norm: float = 2.4, reduce_axes=None) -> QuantParams:
+    """Quantization params of a weight laid out (…, in, out): one scale per
+    output channel (``per_channel``; every axis but the last reduced, or
+    ``reduce_axes``, e.g. (-2,) for a stacked (L, in, out) weight) or one
+    per tensor. ``mse_clip`` runs the MSE grid search over the shrinks
+    1 − i·max_shrink/clip_grid, i < clip_grid, with error Σ |fq(w) − w|^norm
+    per channel, as one batched computation over the grid (the JAX
+    function's vmap); the first shrink of least error wins."""
+    wf = w.float()
+    if reduce_axes is not None:
+        axis = tuple(reduce_axes)
+    else:
+        axis = tuple(range(wf.ndim - 1)) if per_channel else None
+    if axis is None:
+        xmin, xmax = wf.min(), wf.max()
+    else:
+        xmin = wf.amin(dim=axis, keepdim=True)
+        xmax = wf.amax(dim=axis, keepdim=True)
+    if not mse_clip:
+        return scales_from_minmax(xmin, xmax, fmt, symmetric)
+
+    shrinks = 1.0 - (torch.arange(clip_grid, dtype=torch.float32,
+                                  device=wf.device) / clip_grid * max_shrink)
+    grid = shrinks.reshape((clip_grid,) + (1,) * wf.ndim)
+    qp = scales_from_minmax(xmin * grid, xmax * grid, fmt, symmetric)
+    e = (fake_quantize(wf, qp, fmt) - wf).abs() ** norm  # (grid, …, in, out)
+    if axis is None:
+        errs = e.reshape(clip_grid, -1).sum(-1)
+    else:
+        errs = e.sum(dim=tuple(a % wf.ndim + 1 for a in axis), keepdim=True)
+    best = shrinks[errs.argmin(dim=0)]
+    return scales_from_minmax(xmin * best, xmax * best, fmt, symmetric)
+
+
+def rtn_quantize_weight(w: torch.Tensor, bits: int, per_channel: bool = True,
+                        symmetric: bool = True, mse_clip: bool = False,
+                        reduce_axes=None):
+    """Round-to-nearest weight quantization → (integer codes, params)."""
+    fmt = get_format(bits, signed=symmetric)
+    qp = weight_qparams(w, fmt, per_channel=per_channel, symmetric=symmetric,
+                        mse_clip=mse_clip, reduce_axes=reduce_axes)
+    return quantize(w, qp, fmt), qp
+
+
+def rtn_fake_quant_weight(w: torch.Tensor, bits: int,
+                          per_channel: bool = True, symmetric: bool = True,
+                          mse_clip: bool = False, reduce_axes=None
+                          ) -> torch.Tensor:
+    """Round-to-nearest fake quantization of a weight, in w's dtype."""
+    fmt = get_format(bits, signed=symmetric)
+    qp = weight_qparams(w, fmt, per_channel=per_channel, symmetric=symmetric,
+                        mse_clip=mse_clip, reduce_axes=reduce_axes)
+    return fake_quantize(w, qp, fmt)

@@ -14,6 +14,7 @@ fp, ``w_col0``) → activation quantize → GEMM → f32 col0 correction → bia
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Dict, Optional
 
 import torch
@@ -157,6 +158,50 @@ def qlinear_group(x: torch.Tensor, ps: list, names: list,
 
 
 # ---------------------------------------------------------------------------
+# random initialization
+# ---------------------------------------------------------------------------
+
+
+_DRAW_CHUNK = 1 << 24  # values a generator draws at a time in normal_init
+
+
+def normal_init(gen: torch.Generator, shape, scale: Optional[float] = None,
+                dtype=torch.bfloat16, device="cuda") -> torch.Tensor:
+    """N(0, 1) · ``scale`` (default 1/√fan_in, fan_in = shape[-2]) drawn in
+    f32 and rounded to ``dtype`` on ``device``: the JAX package's
+    ``init_*_params`` draw. The rows (all axes but the last, flattened) go
+    in chunks of about 2²⁴ values, each from its own generator on ``gen``'s
+    device seeded by one draw from ``gen``, so the values depend on ``gen``
+    and ``shape`` only: a CPU generator gives the same values whichever
+    device they end on. On the CPU the chunks are drawn by a thread pool
+    (the weights of a 7B model in seconds, not minutes)."""
+    scale = scale if scale is not None else 1.0 / shape[-2] ** 0.5
+    out = torch.empty(shape, dtype=dtype, device=device)
+    rows = out.view(-1, shape[-1])
+    step = max(1, _DRAW_CHUNK // shape[-1])
+    starts = range(0, rows.shape[0], step)
+    seeds = torch.randint(0, 2**62, (len(starts),), generator=gen,
+                          device=gen.device).tolist()
+
+    def draw(i: int) -> torch.Tensor:
+        n = min(step, rows.shape[0] - starts[i])
+        child = torch.Generator(device=gen.device).manual_seed(seeds[i])
+        w = torch.randn((n, shape[-1]), generator=child, device=gen.device)
+        return (w * scale).to(dtype)
+
+    if gen.device.type != "cpu":
+        for i, r in enumerate(starts):
+            rows[r:r + step].copy_(draw(i))
+        return out
+    import concurrent.futures as cf
+
+    with cf.ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as pool:
+        for i, part in enumerate(pool.map(draw, range(len(starts)))):
+            rows[starts[i]:starts[i] + step].copy_(part)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # norms / activations / rope
 # ---------------------------------------------------------------------------
 
@@ -207,8 +252,18 @@ def apply_rope(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
             (k * c + rot(k) * s).to(k.dtype))
 
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """1 / (1 + exp(−x)), each op rounded to x's dtype: the expansion XLA
+    gives ``jax.nn.sigmoid`` on the CPU, so bf16 activations round where
+    the JAX package's do (one f32 sigmoid rounded once differs from it in
+    about a third of bf16 values)."""
+    return 1 / (1 + torch.exp(-x))
+
+
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
-    return torch.nn.functional.silu(gate) * up
+    """silu(gate) · up as ``jax.nn.silu(gate) * up``: (gate · sigmoid(gate))
+    · up, each product rounded to the inputs' dtype."""
+    return gate * sigmoid(gate) * up
 
 
 # ---------------------------------------------------------------------------

@@ -6,15 +6,23 @@ along a leading (L,) axis. The forward walks the layers in a Python loop and
 takes each layer's view ``w[l]``, which costs nothing; the W4 GEMV kernel
 reads such a view as it reads a per-layer matrix.
 
-The KV cache is a dict {"k", "v": (L, B, S, KVH, hd), "pos": int,
-"rope_delta": (B,) optional}. Unlike the JAX version it is updated IN PLACE
-(one row block per layer and step) to avoid copying the cache; ``pos`` is a
-host integer, so the write offset needs no device sync.
+The KV cache is a dict {"k", "v": (L, B, S, KVH, hd), "pos": 0-d int32
+tensor, "rope_delta": (B,) optional}. Unlike the JAX version it is updated
+IN PLACE (one row block per layer and step) to avoid copying the cache.
+``pos`` lives on the cache's device, as JAX's does. On the card the
+positions, the cache write (a scatter at pos) and the decode mask
+(col ≤ pos over the whole cache, JAX's formulation) derive from it with no
+host read, so a decode step can be captured in a CUDA graph
+(``serve.generate``). A host int ``pos``, or one in a CPU cache, is read on
+the host and the written rows are sliced, as before the position moved to
+the device (the einsum's f32 sums then keep their order).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import os
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -57,6 +65,39 @@ class DecoderConfig:
                 "o": self.n_heads * self.head_dim, "down": self.inter_eff}
 
 
+def init_decoder_params(cfg: DecoderConfig, gen: torch.Generator,
+                        dtype=None, device="cuda") -> Dict:
+    """Random params in the JAX package's stacked layout (its
+    ``init_decoder_params``): N(0, 1/fan_in) weights in ``dtype`` (default
+    the config's), embedding and lm_head N(0, 0.02²), unit norms, zero
+    q/k/v biases and no o bias (Qwen2's, JAX's defaults). Drawn on ``gen``'s
+    device in JAX's site order and put on ``device``; a CPU generator gives
+    the same values on the CPU and on the card. The values are not JAX's
+    (another RNG)."""
+    dtype = dtype or cfg.dtype
+    Lx, Hd, KV, hd, I = (cfg.n_layers, cfg.hidden, cfg.n_kv_heads,
+                         cfg.head_dim, cfg.inter_eff)
+    H = cfg.n_heads
+    kw = dict(dtype=dtype, device=device)
+
+    def w(*shape, scale=None):
+        return L.normal_init(gen, shape, scale, **kw)
+
+    embed = {"w": w(cfg.vocab, Hd, scale=0.02)}
+    layers = {"ln1": {"w": torch.ones((Lx, Hd), **kw)}}
+    for name, dout in (("q", H * hd), ("k", KV * hd), ("v", KV * hd)):
+        layers[name] = {"w": w(Lx, Hd, dout),
+                        "b": torch.zeros((Lx, dout), **kw)}
+    layers["o"] = {"w": w(Lx, H * hd, Hd), "b": None}
+    layers["ln2"] = {"w": torch.ones((Lx, Hd), **kw)}
+    for name, (din, dout) in (("gate", (Hd, I)), ("up", (Hd, I)),
+                              ("down", (I, Hd))):
+        layers[name] = {"w": w(Lx, din, dout), "b": None}
+    return {"embed": embed, "layers": layers,
+            "ln_f": {"w": torch.ones((Hd,), **kw)},
+            "lm_head": {"w": w(Hd, cfg.vocab, scale=0.02)}}
+
+
 # ---------------------------------------------------------------------------
 # rope
 # ---------------------------------------------------------------------------
@@ -73,9 +114,13 @@ def rope_tables(cfg: DecoderConfig, positions: torch.Tensor,
         secs = list(cfg.mrope_sections)
         if sum(secs) != rd // 2:
             raise ValueError(f"mrope_sections {secs} do not cover {rd // 2}")
-        idx = [i for i, s in enumerate(secs) for _ in range(s)]
-        plane = torch.tensor(idx + idx, device=positions.device)  # (rd,)
+        # plane[c] = the section of channel c mod rd/2, made on the device
+        # (no host copy, so a CUDA graph can capture it)
         chan = torch.arange(rd, device=positions.device)
+        half = chan % (rd // 2)
+        plane = torch.zeros_like(chan)
+        for edge in itertools.accumulate(secs[:-1]):
+            plane += half >= edge
         # (3, B, T, rd) → (B, T, rd): channel c reads plane[c]
         return cos3[plane, ..., chan].permute(1, 2, 0), \
             sin3[plane, ..., chan].permute(1, 2, 0)
@@ -104,15 +149,20 @@ def layer_views(tree: Any, l: int) -> Any:
 def _use_fused_tail(dspec, mode: str, T: int, dp: Dict, act,
                     g: Optional[torch.Tensor] = None) -> bool:
     """Eligibility of ``kernels.fwht.fused_swiglu_had_quant`` (the JAX
-    function's, without its two TPU-only gates, the backend and the
-    ``MQUANT_FUSED_TAIL`` flag): real mode, full online Hadamard, static
-    symmetric per-tensor int8 activations, no output quantizer, integer
-    storage without the RMS split, and a prefill of T ≥ 256 with
-    T % 256 == 0. For a gate ``g`` on the card, also the kernel's row
-    contract (``fwht.tail_supports``: n and bf16); a row outside it takes
-    the unfused chain, as JAX's default does."""
+    function's gate): the ``MQUANT_FUSED_TAIL`` flag set to "1" (default
+    "0": the unfused chain swiglu → ``online_hadamard`` with a bf16 output →
+    static int8, whose codes JAX's default makes), real mode, full online
+    Hadamard, static symmetric per-tensor int8 activations, no output
+    quantizer, integer storage without the RMS split, and a prefill of
+    T ≥ 256 with T % 256 == 0. JAX's other gate, the TPU backend, is the
+    card here; with the flag on a CPU tensor takes the kernel's plain
+    version. For a gate ``g`` on the card, also the kernel's row contract
+    (``fwht.tail_supports``: n and bf16); a row outside it takes the chain,
+    as JAX's default does."""
     from ..kernels import fwht
 
+    if os.environ.get("MQUANT_FUSED_TAIL", "0") != "1":
+        return False
     if g is not None and L._on_card(g) and not fwht.tail_supports(
             g.shape[-1], g.dtype):
         return False
@@ -146,14 +196,15 @@ def _mlp_tail(dspec, mode, g, u, dp, lstate):
 def _layer_step(cfg: DecoderConfig, specs: Dict[str, SiteSpec], mode: str,
                 h: torch.Tensor, lp: Dict, lstate: Optional[Dict],
                 cache_kv: Optional[Tuple[torch.Tensor, torch.Tensor]],
-                cache_pos: int, cos, sin, prefill_fresh: bool,
+                cache_pos, cos, sin, prefill_fresh: bool,
                 attn_mask: Optional[torch.Tensor] = None,
                 attn_start: Optional[torch.Tensor] = None,
                 fused_decode: bool = False) -> torch.Tensor:
     """One decoder layer. ``cache_kv`` = this layer's (k, v) cache views
-    (B, S, KVH, hd), written in place at rows [cache_pos, cache_pos + T).
-    ``fused_decode``: the T == 1 cache write and attention are one
-    ``kernels.attn_decode`` call (mask start ≤ col ≤ pos)."""
+    (B, S, KVH, hd), written in place at rows [cache_pos, cache_pos + T)
+    (``cache_pos`` a 0-d device tensor or a host int). ``fused_decode``: the
+    T == 1 cache write and attention are one ``kernels.attn_decode`` call
+    (mask start ≤ col ≤ pos)."""
     B, T, _ = h.shape
     hd, H, KV = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
 
@@ -180,8 +231,16 @@ def _layer_step(cfg: DecoderConfig, specs: Dict[str, SiteSpec], mode: str,
             k_all, v_all = k, v
         else:
             ck, cv = cache_kv
-            ck[:, cache_pos:cache_pos + T] = k.to(ck.dtype)
-            cv[:, cache_pos:cache_pos + T] = v.to(cv.dtype)
+            host = not (isinstance(cache_pos, torch.Tensor)
+                        and L._on_card(cache_pos))
+            if host:  # a host int, or a position in host memory
+                cache_pos = int(cache_pos)
+                ck[:, cache_pos:cache_pos + T] = k.to(ck.dtype)
+                cv[:, cache_pos:cache_pos + T] = v.to(cv.dtype)
+            else:  # rows pos + arange(T), scattered on the device
+                rows = cache_pos + torch.arange(T, device=h.device)
+                ck.index_copy_(1, rows, k.to(ck.dtype))
+                cv.index_copy_(1, rows, v.to(cv.dtype))
             if prefill_fresh:
                 # attend to the local T rows: causally, or by the caller's
                 # (B, 1, T, T) mask (a left-padded ragged batch)
@@ -189,9 +248,13 @@ def _layer_step(cfg: DecoderConfig, specs: Dict[str, SiteSpec], mode: str,
             elif attn_mask is not None:
                 k_all, v_all = ck, cv
             else:
-                # rows ≥ pos + T hold stale or unwritten KV: attend only to
-                # the written prefix (what the JAX mask col ≤ pos + t keeps)
-                S = cache_pos + T
+                # rows ≥ pos + T hold stale or unwritten KV: the mask
+                # col ≤ pos + t keeps them out, over the whole cache for a
+                # position on the card (JAX's formulation, no host read) or
+                # over the written prefix where the position is on the host
+                # (a read that costs no sync; the softmax and P·V sums keep
+                # the prefix's length, so their f32 order)
+                S = cache_pos + T if host else ck.shape[1]
                 k_all, v_all = ck[:, :S], cv[:, :S]
                 rows = cache_pos + torch.arange(T, device=h.device)[:, None]
                 cols = torch.arange(S, device=h.device)[None, :]
@@ -269,7 +332,7 @@ def decoder_forward(cfg: DecoderConfig, params: Dict,
     else:
         h = tokens_or_embeds.to(cfg.dtype)
     B, T = h.shape[:2]
-    pos0 = int(cache["pos"]) if cache is not None else 0
+    pos0 = cache["pos"] if cache is not None else 0
 
     if positions is None:
         positions = (pos0 + torch.arange(T, device=h.device))[None].expand(B, T)
@@ -293,12 +356,14 @@ def decoder_forward(cfg: DecoderConfig, params: Dict,
         h = _layer_step(cfg, specs, mode, h, lp, lst, ckv, pos0, cos, sin,
                         prefill_fresh, attn_mask, attn_start, fused)
 
-    if last_index is not None:
-        li = torch.as_tensor(last_index, device=h.device)
+    if last_index is not None and not isinstance(last_index, torch.Tensor):
+        h = h[:, int(last_index):int(last_index) + 1]  # a host index
+    elif last_index is not None:  # a tensor index: no host read
+        li = last_index.to(device=h.device, dtype=torch.long)
         if li.ndim == 1:
-            h = torch.take_along_dim(h, li.long()[:, None, None], dim=1)
+            h = torch.take_along_dim(h, li[:, None, None], dim=1)
         else:
-            h = h[:, int(li):int(li) + 1]
+            h = h.index_select(1, li.reshape(1))
     h = L.rms_norm(h, params["ln_f"]["w"], cfg.norm_eps)
     logits = qlinear(h, params["lm_head"], "llm.lm_head",
                      specs.get("llm.lm_head"), state, mode)
@@ -311,9 +376,10 @@ def decoder_forward(cfg: DecoderConfig, params: Dict,
 def init_cache(cfg: DecoderConfig, batch: int, max_len: int, dtype=None,
                device="cuda") -> Dict:
     """bf16 (or ``dtype``) KV cache on the card unless ``device`` says
-    otherwise; int8 / int4 KV are not ported yet."""
+    otherwise, its ``pos`` a 0-d int32 tensor there; int8 / int4 KV are not
+    ported yet."""
     dtype = dtype or cfg.dtype
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
-            "pos": 0}
+            "pos": torch.zeros((), dtype=torch.int32, device=device)}

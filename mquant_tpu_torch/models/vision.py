@@ -39,6 +39,38 @@ class ViTConfig:
             object.__setattr__(self, "head_dim", self.width // self.n_heads)
 
 
+def init_vit_params(cfg: ViTConfig, gen: torch.Generator, dtype=None,
+                    device="cuda") -> Dict:
+    """Random ViT params in the JAX package's stacked layout (its
+    ``init_vit_params`` for a config without learned positions,
+    layerscale or ln_pre / ln_post, with q/k/v biases, as Qwen2-VL's):
+    N(0, 1/fan_in) weights drawn on ``gen``'s device
+    (``models.layers.normal_init``), zero biases, unit norms (with a zero
+    bias for LayerNorm)."""
+    dtype = dtype or cfg.dtype
+    Lx, W, M = cfg.n_layers, cfg.width, cfg.mlp_width
+    hd, H = cfg.head_dim, cfg.n_heads
+    kw = dict(dtype=dtype, device=device)
+
+    def site(din, dout):
+        return {"w": L.normal_init(gen, (Lx, din, dout), **kw),
+                "b": torch.zeros((Lx, dout), **kw)}
+
+    def norm():
+        d = {"w": torch.ones((Lx, W), **kw)}
+        if cfg.norm_kind == "ln":
+            d["b"] = torch.zeros((Lx, W), **kw)
+        return d
+
+    patch = {"w": L.normal_init(gen, (cfg.patch_dim, W), **kw),
+             "b": torch.zeros((W,), **kw)}
+    blocks = {"ln1": norm()}
+    blocks.update(q=site(W, H * hd), k=site(W, H * hd), v=site(W, H * hd),
+                  o=site(H * hd, W), ln2=norm(), fc1=site(W, M),
+                  fc2=site(M, W))
+    return {"patch_embed": patch, "blocks": blocks}
+
+
 def _norm(cfg: ViTConfig, x, nparams):
     # LayerNorm while the norm keeps its bias, unit RMSNorm once fusion
     # dropped it (the JAX package's rule)
@@ -51,7 +83,7 @@ def _act(cfg: ViTConfig, x):
     if cfg.act == "gelu":
         return torch.nn.functional.gelu(x, approximate="none")
     if cfg.act == "quick_gelu":
-        return x * torch.sigmoid(1.702 * x)
+        return x * L.sigmoid(1.702 * x)
     raise ValueError(cfg.act)
 
 
@@ -159,6 +191,24 @@ class MergerConfig:
     @property
     def in_dim(self) -> int:
         return self.context_dim * self.merge * self.merge
+
+
+def init_merger_params(cfg: MergerConfig, gen: torch.Generator, dtype=None,
+                       device="cuda") -> Dict:
+    """Random merger params in the JAX package's layout (its
+    ``init_merger_params``): N(0, 1/fan_in) ``mlp0`` / ``mlp2`` drawn on
+    ``gen``'s device, zero biases, a unit ``ln_q`` (zero bias for ln)."""
+    dtype = dtype or cfg.dtype
+    kw = dict(dtype=dtype, device=device)
+    D, out = cfg.in_dim, cfg.out_dim
+    p = {"ln_q": {"w": torch.ones((cfg.context_dim,), **kw)},
+         "mlp0": {"w": L.normal_init(gen, (D, D), **kw),
+                  "b": torch.zeros((D,), **kw)},
+         "mlp2": {"w": L.normal_init(gen, (D, out), **kw),
+                  "b": torch.zeros((out,), **kw)}}
+    if cfg.norm_kind == "ln":
+        p["ln_q"]["b"] = torch.zeros((cfg.context_dim,), **kw)
+    return p
 
 
 def merger_forward(cfg: MergerConfig, params, x: torch.Tensor, specs=None,

@@ -13,29 +13,34 @@ from typing import Dict, Tuple
 import torch
 
 from .core.quant import QuantParams
-from .kernels.qmm import quantize_weights_real
+from .kernels.qmm import pack_int4_split, quantize_weights_real
 from .models.layers import SiteSpec
 from .models.llm import LLM_SITES, DecoderConfig
-from .models.vision import VIT_SITES, MergerConfig, ViTConfig
+from .models.vision import (VIT_SITES, MergerConfig, ViTConfig,
+                            init_merger_params, init_vit_params)
 
 PATCH, MERGE = 14, 2  # Qwen2-VL's patch side and spatial merge
 
 
-def llm_specs(had_mode: str = "block", split: bool = False
-              ) -> Dict[str, SiteSpec]:
+def llm_specs(had_mode: str = "block", split: bool = False,
+              lm_head_bits: int = 8) -> Dict[str, SiteSpec]:
     """The serving specs of bench.py's ``llm_specs``: W4 per-channel sym,
-    static per-tensor int8 activations, int8 lm_head, and an online
-    Hadamard before ``down``: block I⊗H₁₂₈ or, with ``had_mode="full"``, the
-    exact transform over the whole width (hadK ⊗ H₁₂₈). ``split`` adds the
-    RMS first-column split on ``down`` (the pipeline's default artifact)."""
+    static per-tensor int8 activations, an int8 (or, with
+    ``lm_head_bits=4``, packed W4) lm_head, and an online Hadamard before
+    ``down``: block I⊗H₁₂₈ or, with ``had_mode="full"``, the exact transform
+    over the whole width (hadK ⊗ H₁₂₈). ``split`` adds the RMS first-column
+    split on ``down`` (the pipeline's default artifact)."""
     if had_mode not in ("block", "full"):
         raise ValueError(f"had_mode {had_mode!r}: block or full")
+    if lm_head_bits not in (4, 8):
+        raise ValueError(f"lm_head_bits {lm_head_bits}: 4 or 8")
     s = {f"llm.{n}": SiteSpec(w_bits=4, a_bits=8, a_static=True)
          for n in LLM_SITES}
     s["llm.down"] = dataclasses.replace(
         s["llm.down"], online_had=had_mode,
         head_dim=128 if had_mode == "block" else 0, split=split)
-    s["llm.lm_head"] = SiteSpec(w_bits=8, a_bits=8, a_static=True)
+    s["llm.lm_head"] = SiteSpec(w_bits=lm_head_bits, a_bits=8,
+                                a_static=True)
     return s
 
 
@@ -47,11 +52,13 @@ def vision_specs() -> Dict[str, SiteSpec]:
     return s
 
 
-def init_w4a8(cfg: DecoderConfig, gen: torch.Generator, device
-              ) -> Tuple[Dict, Dict]:
+def init_w4a8(cfg: DecoderConfig, gen: torch.Generator, device,
+              lm_head_bits: int = 8) -> Tuple[Dict, Dict]:
     """W4-grid codes in int8 storage (values in [-7, 7], per-channel scale
-    0.01), bf16 embedding, int8 lm_head (scale 2e-4) and static activation
-    scales of 0.05. Returns (params, state)."""
+    0.01), bf16 embedding, an int8 lm_head (scale 2e-4) or, with
+    ``lm_head_bits=4``, a split-half packed W4 one ((hidden/2, vocab) bytes
+    of [-7, 7] codes, scale 4e-3: bench.py's), and static activation scales
+    of 0.05. Returns (params, state)."""
     L, Hd, I = cfg.n_layers, cfg.hidden, cfg.inter_eff
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
@@ -80,12 +87,19 @@ def init_w4a8(cfg: DecoderConfig, gen: torch.Generator, device
             "down": qsite(I, Hd),
         },
         "ln_f": {"w": torch.ones((Hd,), dtype=torch.bfloat16, device=device)},
-        "lm_head": {
+    }
+    if lm_head_bits == 4:
+        hq = torch.randint(-7, 8, (Hd, cfg.vocab), generator=gen,
+                           device=device, dtype=torch.int8)
+        params["lm_head"] = {"w_q": pack_int4_split(hq),
+                             "w_scale": torch.full((cfg.vocab,), 4e-3,
+                                                   device=device)}
+        del hq
+    else:
+        params["lm_head"] = {
             "w_q": torch.randint(-127, 128, (Hd, cfg.vocab), generator=gen,
                                  device=device, dtype=torch.int8),
-            "w_scale": torch.full((cfg.vocab,), 2e-4, device=device),
-        },
-    }
+            "w_scale": torch.full((cfg.vocab,), 2e-4, device=device)}
     del embed
     state = {f"llm.{n}": {"act": QuantParams(
         torch.full((L,), 0.05, device=device))} for n in LLM_SITES}
@@ -108,12 +122,6 @@ def init_split_down(cfg: DecoderConfig, gen: torch.Generator, device
             "w_col0": col0.float() * 0.01, "b": None}
 
 
-def _normal_w(gen, device, *shape):
-    """bf16 N(0, 1/fan_in) weight, as the JAX package's init_*_params."""
-    w = torch.randn(shape, generator=gen, device=device)
-    return (w * (1.0 / shape[-2] ** 0.5)).to(torch.bfloat16)
-
-
 def _realize8(w: torch.Tensor) -> Dict[str, torch.Tensor]:
     """Per-layer ``quantize_weights_real(w, 8)`` of a stacked (L, in, out)
     or single (in, out) weight."""
@@ -123,53 +131,56 @@ def _realize8(w: torch.Tensor) -> Dict[str, torch.Tensor]:
     return {k: torch.stack([p[k] for p in parts]) for k in parts[0]}
 
 
+def realize_vision(vit: Dict, merger: Dict) -> Tuple[Dict, Dict]:
+    """The ViT's and merger's linear sites as realized int8 W8 storage
+    (per-channel minmax grid, bench.py's ``_realize_site``), biases, patch
+    embed and norms as they are."""
+    def site(p):
+        out = {k: v for k, v in p.items() if k != "w"}
+        out.update(_realize8(p["w"]))
+        return out
+
+    vq = {**vit, "blocks": {k: site(v) if k in VIT_SITES else v
+                            for k, v in vit["blocks"].items()}}
+    mq = {k: site(v) if k in ("mlp0", "mlp2") else v
+          for k, v in merger.items()}
+    return vq, mq
+
+
+def vision_state(n_layers: int, device) -> Dict:
+    """Static activation scales of 0.05 for every W8A8 vision site."""
+    state = {f"vis.{n}": {"act": QuantParams(
+        torch.full((n_layers,), 0.05, device=device))} for n in VIT_SITES}
+    state.update({f"merger.{n}": {"act": QuantParams(
+        torch.full((), 0.05, device=device))} for n in ("mlp0", "mlp2")})
+    return state
+
+
 def init_vision_w8a8(vcfg: ViTConfig, mcfg: MergerConfig,
                      gen: torch.Generator, device
                      ) -> Tuple[Dict, Dict, Dict]:
     """Qwen2-VL ViT + merger with realized int8 W8A8 sites (per-channel
-    minmax grid from N(0, 1/fan_in) bf16 weights), bf16 patch embed and
-    norms, static activation scales of 0.05. Returns (vit, merger, state)."""
-    Lv, W, M = vcfg.n_layers, vcfg.width, vcfg.mlp_width
-    hd, H = vcfg.head_dim, vcfg.n_heads
-    bf = dict(dtype=torch.bfloat16, device=device)
-
-    def site(din, dout):
-        d = _realize8(_normal_w(gen, device, Lv, din, dout))
-        d["b"] = torch.zeros((Lv, dout), **bf)
-        return d
-
-    def norm(*shape):
-        return {"w": torch.ones(shape, **bf), "b": torch.zeros(shape, **bf)}
-
-    vit = {
-        "patch_embed": {"w": _normal_w(gen, device, vcfg.patch_dim, W),
-                        "b": torch.zeros((W,), **bf)},
-        "blocks": {"ln1": norm(Lv, W), "q": site(W, H * hd),
-                   "k": site(W, H * hd), "v": site(W, H * hd),
-                   "o": site(H * hd, W), "ln2": norm(Lv, W),
-                   "fc1": site(W, M), "fc2": site(M, W)},
-    }
-    merger = {"ln_q": norm(mcfg.context_dim)}
-    for name, (din, dout) in (("mlp0", (mcfg.in_dim, mcfg.in_dim)),
-                              ("mlp2", (mcfg.in_dim, mcfg.out_dim))):
-        d = _realize8(_normal_w(gen, device, din, dout))
-        d["b"] = torch.zeros((dout,), **bf)
-        merger[name] = d
-    state = {f"vis.{n}": {"act": QuantParams(
-        torch.full((Lv,), 0.05, device=device))} for n in VIT_SITES}
-    state.update({f"merger.{n}": {"act": QuantParams(
-        torch.tensor(0.05, device=device))} for n in ("mlp0", "mlp2")})
-    return vit, merger, state
+    minmax grid from the N(0, 1/fan_in) bf16 weights of
+    ``init_vit_params`` / ``init_merger_params`` drawn on ``gen``), bf16
+    patch embed and norms, static activation scales of 0.05. Returns (vit,
+    merger, state)."""
+    vit = init_vit_params(vcfg, gen, dtype=torch.bfloat16, device=device)
+    merger = init_merger_params(mcfg, gen, dtype=torch.bfloat16,
+                                device=device)
+    vit, merger = realize_vision(vit, merger)
+    return vit, merger, vision_state(vcfg.n_layers, device)
 
 
 def vlm_inputs(image_token_id: int, patch_dim: int, prefill: int,
-               gen: torch.Generator, device, side: int = 448):
+               gen: torch.Generator, device, side: int = 448,
+               patch: int = PATCH):
     """(patches, grid, tokens) of a request with one side × side image: its
-    (side/14)² patch rows, their grid, and a ``prefill``-token prompt with the
-    image's (side/28)² merged tokens at positions 2.. (the rest token 11).
-    side 448 is bench.py's request (32×32 patches, 256 image tokens); 896 is
-    a document page (64×64 patches, 4096 ViT rows, 1024 image tokens)."""
-    g = side // PATCH
+    (side/patch)² patch rows, their grid, and a ``prefill``-token prompt
+    with the image's (side/(2·patch))² merged tokens at positions 2.. (the
+    rest token 11). side 448 is bench.py's request (32×32 patches, 256 image
+    tokens); 896 is a document page (64×64 patches, 4096 ViT rows, 1024
+    image tokens)."""
+    g = side // patch
     n_img = (g // MERGE) ** 2
     patches = torch.randn((1, g * g, patch_dim), generator=gen,
                           device=device).to(torch.bfloat16)

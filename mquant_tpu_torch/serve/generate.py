@@ -2,19 +2,29 @@
 ``mquant_tpu/serve/generate.py``).
 
 Prompt lengths are bucketed to powers of two (``bucket_len``) as in the JAX
-package. The decode loop is a Python loop over steps on the device: finished
-rows freeze to eos and the loop stops once every row is done. (CUDA graphs
-for the loop are later work.)
+package. The decode loop is JAX's on-device loop (``_decode_n``: one
+``fori_loop``, or a ``while_loop`` with eos, in one jit) in PyTorch's idiom:
+:class:`DecodeLoop` captures one greedy step (forward, argmax, eos freeze,
+the write of the token's column) on static buffers in a CUDA graph and
+replays it once per token with no host sync between replays; with an eos id
+the host reads an all-done flag every ``EOS_CHECK_EVERY`` steps through a
+pinned copy, and rows past their eos are frozen to eos, so steps run after
+the last row finished change no output. On CPU tensors the same step runs
+eagerly. :meth:`Generator._decode_loop` is the eager reference. The
+``measure_*`` helpers time prefill, decode and requests as the JAX ones do.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..models.llm import DecoderConfig, decoder_forward, init_cache
+
+EOS_CHECK_EVERY = 8  # decode steps between two reads of the all-done flag
 
 
 def bucket_len(n: int, minimum: int = 32) -> int:
@@ -46,6 +56,162 @@ def _lengths(seqs) -> list:
             for s in seqs]
 
 
+def _launch_counts() -> list:
+    """(counter dict, its values now) of every kernel module."""
+    from ..kernels import attn_decode, flash_attn, fwht, qmm
+
+    return [(m.LAUNCHES, dict(m.LAUNCHES))
+            for m in (qmm, attn_decode, flash_attn, fwht)]
+
+
+class Graphed:
+    """``fn()`` on static buffers, replayed. On the card ``fn`` runs once
+    eagerly on a side stream (one-time allocations: attention's counters,
+    library handles, cached factors) and is then captured in a CUDA graph;
+    a call replays it ``times`` times. The kernel wrappers count their
+    launches where they run, which in a capture is no launch: the capture's
+    counts are taken back and each replay adds them. On the CPU a call runs
+    ``fn`` eagerly ``times`` times."""
+
+    def __init__(self, fn: Callable[[], object], device):
+        self.fn = fn
+        self.graph = None
+        if torch.device(device).type != "cuda":
+            return
+        side = torch.cuda.Stream(device=device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream(device).wait_stream(side)
+        counts = _launch_counts()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            fn()
+        self.per_call = [(d, {k: d[k] - v for k, v in before.items()})
+                         for d, before in counts]
+        for d, before in counts:
+            d.update(before)
+
+    def __call__(self, times: int = 1):
+        if self.graph is None:
+            for _ in range(times):
+                self.fn()
+            return
+        for _ in range(times):
+            self.graph.replay()
+        for d, inc in self.per_call:
+            for k, n in inc.items():
+                d[k] += n * times
+
+
+class DecodeLoop:
+    """Greedy decode of one batch shape on static buffers (JAX's
+    ``_decode_n``). A prefill writes its KV into ``k`` / ``v`` (the
+    Generator's buffers of this batch and cache length, shared by its loops),
+    then :meth:`run` takes the first token and the prefill's ``pos`` and
+    ``rope_delta`` (and a ragged batch's ``start``) into the static buffers
+    and steps. Columns ≥ pos of the buffers may hold an earlier request's KV
+    (or anything): no step reads them. ``logits`` holds the last step's
+    (B, vocab) logits."""
+
+    def __init__(self, gen: "Generator", kv, eos_id: Optional[int],
+                 ragged: bool):
+        self.gen, self.eos_id = gen, eos_id
+        self.k, self.v = kv
+        B, dev = self.k.shape[1], self.k.device
+        i32 = dict(dtype=torch.int32, device=dev)
+        self.pos = torch.zeros((), **i32)
+        self.rope_delta = torch.zeros((B,), **i32)
+        self.start = torch.zeros((B,), **i32) if ragged else None
+        self.tok = torch.zeros((B, 1), **i32)
+        self.out = torch.zeros((B, self.k.shape[2]), **i32)
+        self.col = torch.ones((B, 1), dtype=torch.long, device=dev)
+        self.done = torch.zeros((B,), dtype=torch.bool, device=dev)
+        self.all_done = torch.zeros((), dtype=torch.bool, device=dev)
+        self.flag = (torch.zeros((), dtype=torch.bool, pin_memory=True)
+                     if dev.type == "cuda" else None)
+        self.logits = None
+        self.steps = None  # the Graphed step, made at the first run
+
+    def _step(self):
+        cache = {"k": self.k, "v": self.v, "pos": self.pos,
+                 "rope_delta": self.rope_delta}
+        logits, cache = self.gen._forward(self.tok, cache,
+                                          attn_start=self.start)
+        last = logits[:, -1]
+        nxt = last.argmax(dim=-1).to(torch.int32)
+        if self.eos_id is not None:
+            nxt = torch.where(self.done, torch.full_like(nxt, self.eos_id),
+                              nxt)
+            self.done |= nxt == self.eos_id
+            torch.all(self.done, out=self.all_done)
+        self.out.scatter_(1, self.col, nxt[:, None])
+        self.col += 1
+        self.tok.copy_(nxt[:, None])
+        self.pos.copy_(cache["pos"])
+        if self.logits is None:
+            self.logits = torch.empty_like(last)
+        self.logits.copy_(last)
+
+    @torch.no_grad()
+    def run(self, first: torch.Tensor, cache: Dict, n: int,
+            start: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(B, n) int32: ``first`` (B, 1) in column 0, then n − 1 greedy
+        steps from ``cache`` (the prefill into ``k`` / ``v``). With an eos
+        id, rows past their eos hold eos and the loop stops within
+        2 · EOS_CHECK_EVERY steps of the step that finished the last row."""
+        if n > self.out.shape[1]:
+            raise ValueError(f"decode: {n} tokens exceed the cache of "
+                             f"{self.out.shape[1]} rows")
+        self.pos.copy_(cache["pos"])
+        if self.steps is None and n > 1:
+            # the capture's eager step writes row pos, which the first
+            # replay rewrites
+            self.steps = Graphed(self._step, self.k.device)
+        self.pos.copy_(cache["pos"])
+        rope_delta = cache.get("rope_delta")
+        if rope_delta is None:
+            self.rope_delta.zero_()
+        else:
+            self.rope_delta.copy_(rope_delta)
+        if self.start is not None:
+            self.start.copy_(start)
+        self.tok.copy_(first)
+        self.out.fill_(0 if self.eos_id is None else self.eos_id)
+        self.out[:, :1].copy_(first)
+        self.col.fill_(1)
+        if self.eos_id is not None:
+            torch.eq(first[:, 0], self.eos_id, out=self.done)
+        self._advance(n - 1)
+        return self.out[:, :n].clone()
+
+    def _advance(self, steps: int):
+        if self.eos_id is None:
+            if steps > 0:
+                self.steps(steps)
+            return
+        pending = None
+        while steps > 0:
+            k = min(EOS_CHECK_EVERY, steps)
+            self.steps(k)
+            steps -= k
+            if steps <= 0:
+                break
+            if self.flag is None:  # CPU: the step has run
+                if bool(self.all_done):
+                    break
+                continue
+            # the flag only turns true, so the host reads the previous
+            # chunk's copy (or a later one) while this chunk runs
+            if pending is not None:
+                pending.synchronize()
+                if bool(self.flag):
+                    break
+            self.flag.copy_(self.all_done, non_blocking=True)
+            pending = torch.cuda.Event()
+            pending.record()
+
+
 class Generator:
     """Prefill / decode for one (cfg, specs, state, mode)."""
 
@@ -57,6 +223,8 @@ class Generator:
         self.mode = mode
         self.max_len = max_len
         self.params = prepare_w4_resident(cfg, params, self.specs, mode)
+        self._kv = {}  # (B, max_len) → the decode loops' KV buffers
+        self._loops = {}  # (B, max_len, eos_id, ragged) → DecodeLoop
 
     def _forward(self, x, cache, positions=None, last_index=None,
                  prefill_fresh=False, attn_mask=None, attn_start=None):
@@ -69,15 +237,52 @@ class Generator:
 
     def ensure_capacity(self, n: int):
         """Grow the KV cache length to hold at least ``n`` positions (sticky,
-        as in the JAX Generator)."""
+        as in the JAX Generator; the decode loops of the old length are
+        dropped and recaptured at the new one)."""
         if n > self.max_len:
             self.max_len = bucket_len(n)
 
+    def reset_capacity(self, n: int = 32):
+        """Shrink ``max_len`` back down (undo sticky growth), so later short
+        requests stop paying a long past request's cache length."""
+        self.max_len = bucket_len(max(n, 32))
+
+    def _loop(self, B: int, eos_id: Optional[int], ragged: bool
+              ) -> DecodeLoop:
+        """The decode loop of (B, max_len, eos_id, ragged), made at first
+        use; loops and buffers of another max_len are dropped."""
+        self._kv = {k: v for k, v in self._kv.items() if k[1] == self.max_len}
+        self._loops = {k: v for k, v in self._loops.items()
+                       if k[1] == self.max_len}
+        key = (B, self.max_len, eos_id, ragged)
+        if key not in self._loops:
+            kv = self._kv.get((B, self.max_len))
+            if kv is None:
+                c = init_cache(self.cfg, B, self.max_len,
+                               device=self.params["embed"]["w"].device)
+                kv = self._kv[(B, self.max_len)] = (c["k"], c["v"])
+            self._loops[key] = DecodeLoop(self, kv, eos_id, ragged)
+        return self._loops[key]
+
+    def _fresh_cache(self, B: int, device, kv=None) -> Dict:
+        """A cache at pos 0: new zeroed buffers, or the given (k, v)
+        buffers of (L, B, max_len, KVH, hd), which a prefill overwrites
+        only in its own rows."""
+        if kv is None:
+            return init_cache(self.cfg, B, self.max_len, device=device)
+        if kv[0].shape[1:3] != (B, self.max_len):
+            raise ValueError(f"prefill: buffers {tuple(kv[0].shape)} for "
+                             f"batch {B} and cache length {self.max_len}")
+        return {"k": kv[0], "v": kv[1],
+                "pos": torch.zeros((), dtype=torch.int32, device=device)}
+
     @torch.no_grad()
-    def prefill(self, tokens_or_embeds: torch.Tensor, positions=None
-                ) -> Tuple[torch.Tensor, Dict]:
+    def prefill(self, tokens_or_embeds: torch.Tensor, positions=None,
+                kv=None) -> Tuple[torch.Tensor, Dict]:
         """Run the (bucket-padded) prefill; returns (last-token logits (B, V),
-        cache). ``positions``: optional (B, T) or M-RoPE (3, B, T) ids."""
+        cache). ``positions``: optional (B, T) or M-RoPE (3, B, T) ids.
+        ``kv``: optional (k, v) buffers to write into (a decode loop's)
+        instead of a new cache."""
         B, T = tokens_or_embeds.shape[:2]
         dev = tokens_or_embeds.device
         if positions is not None:
@@ -98,11 +303,12 @@ class Generator:
                 positions = torch.cat([positions, edge], dim=-1)
         if positions is None:
             positions = torch.arange(Tb, device=dev)[None].expand(B, Tb)
-        cache = init_cache(self.cfg, B, self.max_len, device=dev)
+        cache = self._fresh_cache(B, dev, kv)
         logits, cache = self._forward(tokens_or_embeds, cache,
                                       positions=positions, last_index=T - 1,
                                       prefill_fresh=True)
-        cache["pos"] = T  # the true length, not the padded bucket
+        # the true length, not the padded bucket
+        cache["pos"] = torch.full((), T, dtype=torch.int32, device=dev)
         cache["rope_delta"] = rope_delta.contiguous()
         return logits[:, 0], cache
 
@@ -112,29 +318,38 @@ class Generator:
                            eos_id: Optional[int] = None,
                            on_first_token: Optional[Callable] = None
                            ) -> torch.Tensor:
-        """Greedy generation: (B, max_new_tokens) int32. With ``eos_id``,
-        rows past their eos are frozen to eos and the loop exits once every
-        row is done (the remaining columns hold eos). ``on_first_token`` is
-        called with the (B, 1) first tokens as soon as they are issued (to
-        stream them, or to take the time to first token)."""
+        """Greedy generation with the decode loop on the device
+        (:class:`DecodeLoop`): (B, max_new_tokens) int32. With ``eos_id``,
+        rows past their eos are frozen to eos and the loop exits soon after
+        every row is done (the remaining columns hold eos).
+        ``on_first_token`` is called with the (B, 1) first tokens as soon as
+        they are issued (to stream them, or to take the time to first
+        token)."""
         self.ensure_capacity(tokens.shape[1] + max_new_tokens)
-        last_logits, cache = self.prefill(tokens, positions=positions)
+        loop = self._loop(tokens.shape[0], eos_id, False)
+        last_logits, cache = self.prefill(tokens, positions=positions,
+                                          kv=(loop.k, loop.v))
         tok = last_logits.argmax(dim=-1).to(torch.int32)[:, None]
         if on_first_token is not None:
             on_first_token(tok)
-        return self._decode_loop(tok, cache, max_new_tokens, eos_id)
+        return loop.run(tok, cache, max_new_tokens)
 
     def _decode_loop(self, tok, cache, max_new_tokens: int,
-                     eos_id: Optional[int], attn_start=None) -> torch.Tensor:
-        """Greedy steps after the first token ``tok`` (B, 1): (B,
-        max_new_tokens) int32 with ``tok`` in column 0; rows past their eos
-        freeze to eos and the loop exits once every row is done."""
+                     eos_id: Optional[int], attn_start=None,
+                     with_logits: bool = False):
+        """The eager reference of :class:`DecodeLoop`: greedy steps after
+        the first token ``tok`` (B, 1), one forward a step, with a host read
+        of the done rows each step. Returns (B, max_new_tokens) int32 with
+        ``tok`` in column 0 (rows past their eos freeze to eos and the loop
+        exits once every row is done), and with ``with_logits`` also the
+        last step's (B, vocab) logits."""
         B = tok.shape[0]
         out = torch.full((B, max_new_tokens),
                          eos_id if eos_id is not None else 0,
                          dtype=torch.int32, device=tok.device)
         out[:, :1] = tok
         done = (tok[:, 0] == eos_id) if eos_id is not None else None
+        logits = None
         for i in range(1, max_new_tokens):
             if done is not None and bool(done.all()):
                 break
@@ -145,10 +360,12 @@ class Generator:
                 done = done | (nxt == eos_id)
             out[:, i] = nxt
             tok = nxt[:, None]
+        if with_logits:
+            return out, None if logits is None else logits[:, -1]
         return out
 
     @torch.no_grad()
-    def prefill_batch(self, seqs, positions=None):
+    def prefill_batch(self, seqs, positions=None, kv=None):
         """Prefill of ragged prompts in one batch: each is LEFT-padded to the
         shared bucket Tb, and the prefill mask (col ≤ row) & (col ≥ start_i)
         keeps the pad columns out of attention. Returns (last-token logits
@@ -159,7 +376,8 @@ class Generator:
         (T_i,), M-RoPE (3, T_i) or (3, 1, T_i), or None for arange(T_i).
         Each row's ids are shifted by its start column, the left pad is
         edge-filled (masked anyway), and the cache's per-row ``rope_delta``
-        makes decode continue at that row's max(position) + 1."""
+        makes decode continue at that row's max(position) + 1. ``kv``: as
+        in :meth:`prefill`."""
         B = len(seqs)
         lens = _lengths(seqs)
         embeds_mode = getattr(seqs[0], "ndim", 1) >= 2
@@ -197,7 +415,7 @@ class Generator:
         starts_t = torch.from_numpy(starts).to(dev)
         mask = ((r[None, :, None] >= r[None, None, :])
                 & (r[None, None, :] >= starts_t[:, None, None]))[:, None]
-        cache = init_cache(self.cfg, B, self.max_len, device=dev)
+        cache = self._fresh_cache(B, dev, kv)
         logits, cache = self._forward(x, cache, positions=pos_b,
                                       last_index=Tb - 1, prefill_fresh=True,
                                       attn_mask=mask)
@@ -217,10 +435,11 @@ class Generator:
         Qwen2-VL has no dynamic NTK and neither has the port, so there is no
         per-row NTK alpha as in the JAX function."""
         self.ensure_capacity(bucket_len(max(_lengths(seqs))) + max_new_tokens)
-        logits, cache, starts = self.prefill_batch(seqs, positions=positions)
+        loop = self._loop(len(seqs), eos_id, True)
+        logits, cache, starts = self.prefill_batch(seqs, positions=positions,
+                                                   kv=(loop.k, loop.v))
         tok = logits.argmax(dim=-1).to(torch.int32)[:, None]
-        out = self._decode_loop(tok, cache, max_new_tokens, eos_id,
-                                attn_start=starts).tolist()
+        out = loop.run(tok, cache, max_new_tokens, start=starts).tolist()
         if eos_id is not None:
             out = [o[:o.index(eos_id)] if eos_id in o else o for o in out]
         return out
@@ -241,3 +460,121 @@ class Generator:
             if eos_id is not None and bool((tok == eos_id).all()):
                 break
         return torch.cat(out, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# measurement (the JAX module's helpers: best-of-N wall spans, inputs that
+# differ between iterations)
+# ---------------------------------------------------------------------------
+
+
+def _force(x) -> float:
+    """Waits for ``x``'s work by reading one scalar of its first tensor (a
+    read of a CUDA tensor waits for the stream that wrote it)."""
+    while not isinstance(x, torch.Tensor):
+        x = next(iter(x.values() if isinstance(x, dict) else x))
+    return float(x.reshape(-1)[0])
+
+
+def measure_ttft(gen: Generator, tokens: torch.Tensor, iters: int = 5
+                 ) -> float:
+    """Best wall-clock prefill latency in seconds (after a warm-up call),
+    each iteration on other tokens."""
+    logits, _ = gen.prefill(tokens)
+    _force(logits)
+    times = []
+    for i in range(iters):
+        toks_i = (tokens + i + 1) % 100 + 1
+        t0 = time.perf_counter()
+        logits, _ = gen.prefill(toks_i)
+        _force(logits)
+        times.append(time.perf_counter() - t0)
+    return min(times)
+
+
+@torch.no_grad()
+def measure_ttft_chained(gen: Generator, tokens: torch.Tensor, chain: int = 8,
+                         iters: int = 3, stats: Optional[dict] = None
+                         ) -> float:
+    """Model-latency prefill time: ``chain`` full prefills (KV-cache write
+    included) in one dispatch, divided by chain. Each prefill feeds the
+    next its first token (``nxt % 1000 + 1`` of row 0's greedy token), so
+    none can be skipped. On the card one prefill + argmax + feed is a CUDA
+    graph (:class:`Graphed`) replayed ``chain`` times; best of ``iters``
+    chains, each from other tokens. ``stats`` (optional) receives
+    "setup_s": the wall seconds of the first chain with its eager run and
+    capture (and a kernel build, in a fresh process)."""
+    B, T = tokens.shape
+    toks = tokens.to(torch.long).clone()
+    acc = torch.zeros((B,), dtype=torch.int32, device=toks.device)
+    cache = init_cache(gen.cfg, B, gen.max_len, device=toks.device)
+
+    def body():
+        logits, _ = gen._forward(toks, cache, prefill_fresh=True,
+                                 last_index=T - 1)
+        nxt = logits[:, -1].argmax(dim=-1).to(torch.int32)
+        toks[:, 0] = nxt[0] % 1000 + 1
+        acc.add_(nxt)
+
+    t0 = time.perf_counter()
+    run = Graphed(body, toks.device)
+    run(chain)
+    _force(acc)
+    if stats is not None:
+        stats["setup_s"] = time.perf_counter() - t0
+    best = float("inf")
+    for i in range(iters):
+        toks.copy_((tokens + i + 1) % 1000 + 1)
+        t0 = time.perf_counter()
+        run(chain)
+        _force(acc)
+        best = min(best, time.perf_counter() - t0)
+    return best / chain
+
+
+def measure_request(gen: Generator, tokens: torch.Tensor,
+                    gen_tokens: int = 128, iters: int = 3) -> float:
+    """Measured end-to-end request latency: one wall-clock span over
+    prefill + ``gen_tokens`` greedy tokens (the decode loop on the device),
+    best of ``iters`` after a warm-up request, each on other tokens."""
+    _force(gen.generate_on_device(tokens, max_new_tokens=gen_tokens))
+    best = float("inf")
+    for i in range(iters):
+        toks_i = (tokens + i + 1) % 100 + 1
+        t0 = time.perf_counter()
+        _force(gen.generate_on_device(toks_i, max_new_tokens=gen_tokens))
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+@torch.no_grad()
+def measure_decode_tps(gen: Generator, tokens: torch.Tensor,
+                       n_tokens: int = 64, on_device: bool = True) -> float:
+    """Decode throughput (tokens/s) after one prefill. ``on_device``: the
+    decode loop (:class:`DecodeLoop`, n_tokens steps in one run; best of 3
+    after a warm-up run, each from another first token); else the
+    host-driven loop, one eager forward a token. ``tokens``: (B, T) ids or
+    (B, T, hidden) embeddings."""
+    B, T = tokens.shape[:2]
+    gen.ensure_capacity(T + n_tokens)
+    if on_device:
+        loop = gen._loop(B, None, False)
+        last_logits, cache = gen.prefill(tokens, kv=(loop.k, loop.v))
+        tok = last_logits.argmax(dim=-1).to(torch.int32)[:, None]
+        _force(loop.run(tok, cache, n_tokens + 1))
+        best = float("inf")
+        for i in range(3):
+            t0 = time.perf_counter()
+            _force(loop.run((tok + 1 + i) % 100, cache, n_tokens + 1))
+            best = min(best, time.perf_counter() - t0)
+        return n_tokens * B / best
+    last_logits, cache = gen.prefill(tokens)
+    tok = last_logits.argmax(dim=-1).to(torch.int32)[:, None]
+    _force(gen._forward(tok, cache)[0])  # warm-up
+    t0 = time.perf_counter()
+    c = cache
+    for _ in range(n_tokens):
+        logits, c = gen._forward(tok, c)
+        tok = logits[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
+    _force(tok)
+    return n_tokens * B / (time.perf_counter() - t0)

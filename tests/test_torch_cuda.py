@@ -876,3 +876,138 @@ def test_probe_kernels_raise_outside_contract(cuda):
         fwht.dequant_swiglu_had_quant(gi, ui, one[:256], one, 0.05)
     with pytest.raises(ValueError):  # qmin > qmax
         fwht.dequant_swiglu_had_quant(gi, ui, one, one, 0.05, 3, 2)
+
+
+# ---------------------------------------------------------------------------
+# the decode loop as a CUDA graph (serve.generate.DecodeLoop)
+# ---------------------------------------------------------------------------
+
+
+def _small_w4a8(cuda, max_len=128):
+    """A 2-layer W4A8 decoder at widths inside every kernel's contract
+    (head_dim 128, block Hadamard 128 before ``down``, int8 lm_head)."""
+    from mquant_tpu_torch import random_init as R
+    from mquant_tpu_torch.models.llm import DecoderConfig
+    from mquant_tpu_torch.serve.generate import Generator
+
+    cfg = DecoderConfig(vocab=1024, hidden=512, n_layers=2, n_heads=4,
+                        n_kv_heads=2, intermediate=1024, head_dim=128)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    params, state = R.init_w4a8(cfg, g, cuda)
+    return Generator(cfg, params, specs=R.llm_specs(), state=state,
+                     mode="real", max_len=max_len)
+
+
+def _eager(gen, x, n, eos=None):
+    logits, cache = gen.prefill(x)
+    tok = logits.argmax(-1).to(torch.int32)[:, None]
+    return gen._decode_loop(tok, cache, n, eos, with_logits=True)
+
+
+def _prompt(cuda, B, T, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return torch.randint(0, 1024, (B, T), generator=g, device=cuda)
+
+
+@torch.no_grad()
+def test_decode_graph_tokens_equal_eager(cuda):
+    gen = _small_w4a8(cuda)
+    x = _prompt(cuda, 2, 37, 1)
+    out = gen.generate_on_device(x, 24)
+    ref, ref_logits = _eager(gen, x, 24)
+    loop = gen._loop(2, None, False)
+    assert loop.steps.graph is not None
+    assert torch.equal(out, ref)
+    assert torch.equal(loop.logits, ref_logits)
+    # with an eos that one row meets: the same tokens as the eager loop
+    eos = int(ref[0, 5])
+    out = gen.generate_on_device(x, 24, eos_id=eos)
+    assert torch.equal(out, _eager(gen, x, 24, eos)[0])
+    # a ragged batch through generate_batch
+    seqs = [_prompt(cuda, 1, n, 2 + n)[0] for n in (40, 9)]
+    got = gen.generate_batch(seqs, max_new_tokens=16)
+    logits, cache, starts = gen.prefill_batch(seqs)
+    tok = logits.argmax(-1).to(torch.int32)[:, None]
+    assert got == gen._decode_loop(tok, cache, 16, None,
+                                   attn_start=starts).tolist()
+
+
+@torch.no_grad()
+def test_decode_graph_one_replay_a_step(cuda):
+    """n tokens: n − 1 replays of the captured step, and the kernels'
+    launch counts grow by one captured step's launches a replay (the
+    capture itself counts none)."""
+    gen = _small_w4a8(cuda)
+    x = _prompt(cuda, 1, 20, 3)
+    gen.generate_on_device(x, 4)  # capture
+    loop = gen._loop(1, None, False)
+    graph = loop.steps.graph
+    replays = []
+    replay = graph.replay
+    graph.replay = lambda: replays.append(1) or replay()
+    before = dict(TA.LAUNCHES), dict(qmm.LAUNCHES)
+    logits, cache = gen.prefill(x, kv=(loop.k, loop.v))
+    mid = dict(TA.LAUNCHES), dict(qmm.LAUNCHES)
+    loop.run(logits.argmax(-1).to(torch.int32)[:, None], cache, 17)
+    assert len(replays) == 16
+    assert TA.LAUNCHES["attn_decode"] - mid[0]["attn_decode"] == 16 * 2
+    # per step: q|k|v, o, gate|up, down W4 GEMVs a layer, the int8 head
+    assert qmm.LAUNCHES["w4a8_gemv"] - mid[1]["w4a8_gemv"] == 16 * 2 * 4
+    assert qmm.LAUNCHES["int8_gemv"] - mid[1]["int8_gemv"] == 16
+    assert mid[0]["attn_decode"] == before[0]["attn_decode"]
+
+
+@torch.no_grad()
+def test_decode_graph_ignores_a_poisoned_stale_tail(cuda):
+    """The loop's cache outlives a request: NaN in every row before the
+    second request (the prefill rewrites its own rows, each step its row
+    pos) changes no token (ROADMAP C-w1)."""
+    gen = _small_w4a8(cuda)
+    gen.generate_on_device(_prompt(cuda, 1, 60, 4), 30)
+    loop = gen._loop(1, None, False)
+    loop.k.fill_(float("nan"))
+    loop.v.fill_(float("nan"))
+    x = _prompt(cuda, 1, 21, 5)
+    out = gen.generate_on_device(x, 30)
+    ref, ref_logits = _eager(gen, x, 30)
+    assert torch.equal(out, ref)
+    assert torch.equal(loop.logits, ref_logits)
+
+
+@torch.no_grad()
+def test_decode_graph_recaptured_when_the_cache_grows(cuda):
+    gen = _small_w4a8(cuda, max_len=64)
+    x = _prompt(cuda, 1, 20, 6)
+    gen.generate_on_device(x, 8)
+    small = gen._loop(1, None, False)
+    long_x = _prompt(cuda, 1, 100, 7)
+    out = gen.generate_on_device(long_x, 12)  # grows max_len to 128
+    big = gen._loop(1, None, False)
+    assert gen.max_len == 128 and big is not small
+    assert big.k.shape[2] == 128 and big.steps.graph is not small.steps.graph
+    assert torch.equal(out, _eager(gen, long_x, 12)[0])
+
+
+@torch.no_grad()
+def test_chained_prefill_graph_runs(cuda):
+    from mquant_tpu_torch.serve.generate import measure_ttft_chained
+
+    gen = _small_w4a8(cuda)
+    before = qmm.LAUNCHES["int8_gemm"]
+    t = measure_ttft_chained(gen, _prompt(cuda, 1, 64, 8), chain=4, iters=2)
+    assert 0 < t < 1.0
+    # eager run + (1 + 2) chains of 4 replays, 2 layers × 4 GEMMs each
+    assert qmm.LAUNCHES["int8_gemm"] - before == (1 + 3 * 4) * 2 * 4
+
+
+def test_cpu_drawn_init_equals_on_the_card(cuda):
+    from mquant_tpu_torch.models.llm import DecoderConfig, init_decoder_params
+
+    cfg = DecoderConfig(vocab=64, hidden=128, n_layers=2, n_heads=2,
+                        n_kv_heads=1, intermediate=256)
+    a = init_decoder_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    b = init_decoder_params(cfg, torch.Generator().manual_seed(0),
+                            device=cuda)
+    assert torch.equal(a["layers"]["down"]["w"], b["layers"]["down"]["w"].cpu())
+    assert torch.equal(a["lm_head"]["w"], b["lm_head"]["w"].cpu())

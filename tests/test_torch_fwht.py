@@ -13,7 +13,9 @@ numpy inputs from fixed seeds for both packages).
   integer GEMM of its own codes, and within the bound that the differing
   codes allow.
 * The routing of ``_mlp_tail``: which sites and prefill lengths take the
-  fused kernel, recorded through a monkeypatched ``KERNELS`` entry.
+  fused kernel, recorded through a monkeypatched ``KERNELS`` entry. The
+  fused branch is JAX's opt-in route (``MQUANT_FUSED_TAIL=1``), which these
+  tests set; the default route is held in ``test_torch_tail_route.py``.
 * ``online_hadamard`` on bf16 inputs against JAX within one bf16 ulp.
 * f32 rows: the plain versions of the fused tail and ``had_quant`` against
   the JAX kernels on f32 inputs (the same rule), and the tail kernel's
@@ -181,9 +183,10 @@ def _spec(Spec, mode="full", split=False):
                 head_dim=0 if mode == "full" else 32, split=split)
 
 
-def test_mlp_tail_fused_matches_jax_composition():
+def test_mlp_tail_fused_matches_jax_composition(monkeypatch):
     """T = 256 (f32 activations): the port's fused branch against JAX's
     quantized_matmul_pre(fused_swiglu_had_quant(interpret=True), …) + b."""
+    monkeypatch.setenv("MQUANT_FUSED_TAIL", "1")
     rng = np.random.default_rng(11)
     n, hidden, T = 512, 64, 256
     g = rng.normal(size=(1, T, n)).astype(np.float32)
@@ -223,6 +226,7 @@ def test_mlp_tail_fused_matches_jax_composition():
     ("block", 256, False, False),
 ])
 def test_mlp_tail_routing(mode, T, split, fused, monkeypatch):
+    monkeypatch.setenv("MQUANT_FUSED_TAIL", "1")
     rng = np.random.default_rng(T)
     n, hidden = 512, 64
     g = torch.from_numpy(rng.normal(size=(1, T, n)).astype(np.float32))
@@ -246,6 +250,7 @@ def test_mlp_tail_routing(mode, T, split, fused, monkeypatch):
 def test_mlp_tail_needs_static_per_tensor_scale(monkeypatch):
     """Per-layer (L,) scales seen unsliced, zero points and dynamic scales
     keep the chain."""
+    monkeypatch.setenv("MQUANT_FUSED_TAIL", "1")
     calls = []
     monkeypatch.setitem(TF.KERNELS, "fused_swiglu_had_quant",
                         lambda *a: calls.append(1))

@@ -291,6 +291,12 @@ def _tail_spec():
     return TL.SiteSpec(w_bits=4, a_bits=8, a_static=True, online_had="full")
 
 
+@pytest.fixture
+def fused_tail(monkeypatch):
+    """The fused tail's opt-in flag, as JAX's ``MQUANT_FUSED_TAIL=1``."""
+    monkeypatch.setenv("MQUANT_FUSED_TAIL", "1")
+
+
 def _tail_route(n, dtype):
     dp = {"w_q": torch.zeros((n, 64), dtype=torch.int8)}
     g = torch.zeros((256, n), dtype=dtype)
@@ -301,19 +307,20 @@ def _tail_route(n, dtype):
 _TAIL_OUT = [(29568, BF16), (96, BF16), (18944, F16)]
 
 
-def test_tail_router_on_card(on_card):
+def test_tail_router_on_card(on_card, fused_tail):
     assert _tail_route(18944, BF16) and _tail_route(18944, F32)
     for case in _TAIL_OUT:
         assert not _tail_route(*case), case
 
 
-def test_tail_router_on_cpu_keeps_jax_route():
+def test_tail_router_on_cpu_keeps_jax_route(fused_tail):
     assert _tail_route(18944, BF16)
     for case in _TAIL_OUT:
         assert _tail_route(*case), case
 
 
-def test_declined_tail_takes_the_unfused_chain(on_card, monkeypatch):
+def test_declined_tail_takes_the_unfused_chain(on_card, fused_tail,
+                                               monkeypatch):
     """n = 96 on the card: ``_mlp_tail`` runs qlinear(swiglu(g, u)) (the
     online Hadamard, the quantizer, the integer GEMM), never the kernel."""
     monkeypatch.setitem(fwht.KERNELS, "fused_swiglu_had_quant",
