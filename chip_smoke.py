@@ -95,6 +95,21 @@ Phases, in order (any failed check raises and the script exits non-zero):
    and one for the prefill's head; then the same prefill with ``down``
    forced onto ``int8_gemm_ragged`` (28 launches) is held against plain as
    below.
+   Then the artifact (``run_artifact``): path S's weights in the JAX
+   pipeline's artifact layout (W4 codes one per int8 byte, the split
+   ``down``, an fp bf16 lm_head, a float bf16 ViT and merger with static
+   activation scales, ``default_w4a8_specs`` and the config dict) written
+   with ``utils.checkpoint.save_artifact`` to a temporary directory (its
+   bytes, seconds and the free disk space printed), loaded by
+   ``serve.server.build_runner_from_artifact(dir, device="cuda")`` and
+   served through the ``VLMRunner``: one request (a 448² image in a
+   1024-token prompt, 128 tokens; its seconds, TTFT and decode tok/s beside
+   path S's) and a ``generate_batch`` of three prompts (two with images),
+   counted (it must launch w4a8_gemv, int8_gemv, int8_gemm and
+   attn_decode); the request's tokens and last-step logits equal (max |d|
+   0) to the same runner built on the in-memory trees, the packed W4 bytes
+   equal to path S's, each batch row held against itself alone as the
+   ragged batch's rows are.
    Each path's prefill and first 7 decode steps are held against the same
    forward with the integer products through their plain versions (logits
    within the bound, greedy tokens equal), and every attention and tail
@@ -1542,10 +1557,10 @@ def image_request(m: dict, side: int, prefill: int):
     return embeds, toks
 
 
-def timed_request(gen, x, n: int, at_first=None, **kw):
-    """One request through ``generate_on_device``: (tokens, request s, TTFT
-    s), the clock stamped at the first token after a synchronize (then
-    ``at_first()`` is called, if given)."""
+def timed(request, at_first=None):
+    """(``request(mark)``'s result, request s, TTFT s): the clock stamped
+    where the request calls ``mark`` with its first token, after a
+    synchronize (then ``at_first()`` is called, if given)."""
     import torch
 
     first = []
@@ -1557,11 +1572,17 @@ def timed_request(gen, x, n: int, at_first=None, **kw):
             at_first()
 
     t0 = time.perf_counter()
-    x = x() if callable(x) else x
-    out = gen.generate_on_device(x, max_new_tokens=n, on_first_token=mark,
-                                 **kw)
+    out = request(mark)
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0, first[0] - t0
+
+
+def timed_request(gen, x, n: int, at_first=None, **kw):
+    """One request through ``generate_on_device``, :func:`timed`; ``x`` the
+    prompt or a function that makes it (inside the timed span)."""
+    return timed(lambda mark: gen.generate_on_device(
+        x() if callable(x) else x, max_new_tokens=n, on_first_token=mark,
+        **kw), at_first)
 
 
 EOS_PROMPTS, EOS_TOKENS = (300, 77), 32  # graph decode's 2-row eos batch
@@ -1853,9 +1874,9 @@ def run_split(m: dict, card: str) -> dict:
 
     base = m["gen"]
     cfg = base.cfg
-    params = {**base.params, "layers": {
-        **base.params["layers"],
-        "down": R.init_split_down(cfg, m["g"], m["dev"])}}
+    m["split_down"] = R.init_split_down(cfg, m["g"], m["dev"])
+    params = {**base.params, "layers": {**base.params["layers"],
+                                        "down": m["split_down"]}}
     gen = Generator(cfg, params, specs=R.llm_specs("full", split=True),
                     state=base.state, mode="real",
                     max_len=PREFILL + GEN_TOKENS)
@@ -1915,6 +1936,7 @@ def run_split(m: dict, card: str) -> dict:
                                  f"launched it {forced} times, expected "
                                  f"{cfg.n_layers}")
         graph_decode("split", gen, emb, m, card)
+    m["split_request"] = (t_req, ttft, (GEN_TOKENS - 1) / (t_req - ttft))
     log(f"split: full-VLM request ({PREFILL}-token prompt, {GEN_TOKENS} "
         f"tokens) {t_req:.3f} s; TTFT {ttft * 1e3:.1f} ms; decode "
         f"{(GEN_TOKENS - 1) / (t_req - ttft):.1f} tok/s; down calls at K "
@@ -1955,6 +1977,239 @@ def ragged_route():
         yield
     finally:
         qmm.KERNELS["int8_gemm"] = gemm
+
+
+ART_IMAGE_SIZE = 224  # the runner's base bucket: a 448² image at full size
+ART_SEED = 12  # the artifact's own draws (float head, ViT), beside --seed
+ART_BATCH_TOKENS = 64
+ARTIFACT_KERNELS = SLICE_KERNELS
+
+
+def artifact_trees(m: dict, seed: int):
+    """(params, state, specs, meta) of a Qwen2-VL-7B artifact as the JAX
+    pipeline writes it for the default QuantizeConfig with ``realize_int``:
+    path S's LLM (its W4 codes unpacked to one per int8 byte, the split
+    ``down`` at 18943 rows with its f32 ``w_col0``, the embedding) with an
+    fp bf16 lm_head; a float bf16 ViT and merger with the fused norms (no
+    bias: RMSNorm); static activation scales of 0.05 on every vision site
+    and path S's on the LLM; ``default_w4a8_specs`` (``build_specs`` of
+    that config) and the config dict."""
+    import torch
+
+    from mquant_tpu_torch import random_init as R
+    from mquant_tpu_torch.core.quant import QuantParams
+    from mquant_tpu_torch.kernels.qmm import unpack_int4_weights
+    from mquant_tpu_torch.models import layers as L
+    from mquant_tpu_torch.models.qwen2vl import default_w4a8_specs
+    from mquant_tpu_torch.models.vision import (init_merger_params,
+                                                init_vit_params)
+    from mquant_tpu_torch.utils.checkpoint import config_to_dict
+
+    base, vcfg, dev = m["gen"], m["vcfg"], m["dev"]
+    cfg, lay = base.cfg, base.params["layers"]
+    g = torch.Generator(device=dev).manual_seed(seed + ART_SEED)
+    layers = {"ln1": lay["ln1"], "ln2": lay["ln2"], "down": m["split_down"]}
+    for group in (("q", "k", "v"), ("gate", "up")):
+        codes = unpack_int4_weights({"w_q": lay[group[0]]["w_q_fused"]})
+        lo = 0
+        for n in group:
+            hi = lo + lay[n]["w_scale"].shape[-1]
+            layers[n] = {"w_q": codes[..., lo:hi].contiguous(),
+                         "w_scale": lay[n]["w_scale"], "b": lay[n]["b"]}
+            lo = hi
+        del codes
+    layers["o"] = {"w_q": unpack_int4_weights(lay["o"]),
+                   "w_scale": lay["o"]["w_scale"], "b": None}
+    llm = {"embed": base.params["embed"], "layers": layers,
+           "ln_f": base.params["ln_f"],
+           "lm_head": {"w": L.normal_init(g, (cfg.hidden, cfg.vocab), 0.02,
+                                          device=dev)}}
+    vit = init_vit_params(vcfg.vit, g, device=dev)
+    merger = init_merger_params(vcfg.merger, g, device=dev)
+    for nrm in (vit["blocks"]["ln1"], vit["blocks"]["ln2"], merger["ln_q"]):
+        del nrm["b"]
+    state = {k: v for k, v in base.state.items() if k != "llm.lm_head"}
+    state.update(R.vision_state(vcfg.vit.n_layers, dev))
+    state["vis.patch_embed"] = {"act": QuantParams(
+        torch.full((), 0.05, device=dev))}
+    meta = {"model": "qwen2vl", "config": str(vcfg),
+            "config_dict": config_to_dict(vcfg),
+            "quantize_config": {"realize_int": True}}
+    return ({"llm": llm, "vit": vit, "merger": merger}, state,
+            default_w4a8_specs(), meta)
+
+
+def artifact_prompts(runner, seed: int):
+    """The single request (a 448² image and text to PREFILL tokens in all,
+    path S's prompt bucket) and the batch's three prompts (a 448² and a
+    224×448 image, one text only), seeded."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + ART_SEED)
+
+    def image(h, w):
+        return rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+
+    def text(n):
+        return "".join(rng.choice(list("abcdefghij klmnop"), n))
+
+    img = image(448, 448)
+    head = runner.build_inputs({"text": "", "image": img})[0].shape[1]
+    single = {"text": text(PREFILL - head), "image": img}
+    batch = [{"text": text(40), "image": image(448, 448)},
+             {"text": text(120), "image": image(224, 448)},
+             {"text": text(300)}]
+    return single, batch
+
+
+def batch_rows_alone(path: str, runner, prompts, dev):
+    """Each row of the runner's batch against the row served alone, by
+    :func:`run_batch`'s rule: through the first CMP_LAYERS layers, the
+    row's prefill logits within the bound and its first N_CMP greedy
+    tokens equal, the row alone at the batch row's positions."""
+    import torch
+
+    seqs, poss = [], []
+    for p in prompts:
+        emb, pos = runner._embeds(*runner.build_inputs(p))
+        seqs.append(emb[0])
+        poss.append(pos)
+    cut = depth_cut(runner.gen, CMP_LAYERS)
+    outs_c = cut.generate_batch(seqs, max_new_tokens=N_CMP, positions=poss)
+    logits_c, _, starts = cut.prefill_batch(seqs, positions=poss)
+    for i, x in enumerate(seqs):
+        n, st = x.shape[0], int(starts[i])
+        at_pos = torch.from_numpy(poss[i] + st).to(dev)
+        what = f"{path}, depth {CMP_LAYERS}: row {i} ({n} tokens)"
+        check_close(f"{what} prefill logits vs alone", logits_c[i],
+                    cut.prefill(x[None], positions=at_pos)[0][0])
+        alone = cut.generate_on_device(x[None], max_new_tokens=N_CMP,
+                                       positions=at_pos)[0].tolist()
+        if outs_c[i] != alone:
+            raise AssertionError(f"{what}: tokens {outs_c[i]} vs alone "
+                                 f"{alone}")
+    log(f"{path}, depth {CMP_LAYERS}: every row's first {N_CMP} tokens "
+        f"equal to the row served alone (rows of {[x.shape[0] for x in seqs]}"
+        f" tokens, starts {starts.tolist()})")
+
+
+def run_artifact(m: dict, card: str, seed: int) -> dict:
+    """Phase 4, the artifact: path S's weights written as the pipeline's
+    artifact (:func:`artifact_trees`) with ``save_artifact`` to a temporary
+    directory, loaded by ``build_runner_from_artifact(dir, "cuda")`` (the
+    runner's base bucket ART_IMAGE_SIZE) and served: one request through
+    ``generate`` (a 448² image in a PREFILL-token prompt, GEN_TOKENS
+    tokens) and a ``generate_batch`` of three prompts, counted. The
+    request's tokens and last-step logits equal (max |d| 0) those of the
+    same runner built on the in-memory trees; the packed W4 bytes equal
+    path S's; each batch row holds against itself alone
+    (:func:`batch_rows_alone`). Returns the launch counts; profiles the
+    request's inputs and its vision pass."""
+    import tempfile
+
+    import torch
+
+    from mquant_tpu_torch.serve.server import build_runner_from_artifact
+    from mquant_tpu_torch.utils.checkpoint import save_artifact
+
+    from mquant_tpu_torch.evaluation.adapter import ByteTokenizer, VLMRunner
+
+    class IdTokenizer(ByteTokenizer):
+        """No eos, and token ids for text: the runners' outputs compare
+        token for token and run their full length."""
+
+        eos_id = -1
+
+        def decode(self, ids):
+            return [int(i) for i in ids]
+
+    dev, vcfg = m["dev"], m["vcfg"]
+    params, state, specs, meta = artifact_trees(m, seed)
+    kw = dict(tokenizer=IdTokenizer(), max_len=PREFILL + GEN_TOKENS)
+    art = tempfile.mkdtemp(prefix="mquant_artifact_")
+    try:
+        t0 = time.perf_counter()
+        nbytes = save_artifact(art, params, state, specs, meta)
+        t_write = time.perf_counter() - t0
+        free = shutil.disk_usage(art).free
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner = build_runner_from_artifact(art, device=dev,
+                                            image_size=ART_IMAGE_SIZE, **kw)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(art)
+    log(f"artifact: wrote {nbytes} bytes ({nbytes / 2**30:.2f} GiB) in "
+        f"{t_write:.1f} s ({nbytes / t_write / 2**30:.2f} GiB/s), "
+        f"{free / 2**30:.1f} GiB free beside it; build_runner_from_artifact "
+        f"(load, to the card, W4 packing) {t_load:.1f} s; mode "
+        f"{runner.mode}; {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"allocated; card {card}")
+    ref = VLMRunner("qwen2vl", vcfg, params, specs=specs, state=state,
+                    mode="real", image_size=ART_IMAGE_SIZE, **kw)
+    del params, state
+    lt, lb, lr = (runner.gen.params["layers"], m["gen"].params["layers"],
+                  ref.gen.params["layers"])
+    for n, key in (("q", "w_q_fused"), ("gate", "w_q_fused"), ("o", "w_q")):
+        if not (torch.equal(lt[n][key], lb[n][key])
+                and torch.equal(lr[n][key], lb[n][key])):
+            raise AssertionError(f"artifact: packed {n} bytes differ from "
+                                 "path S's")
+    if not torch.equal(lt["down"]["w_q"], m["split_down"]["w_q"]):
+        raise AssertionError("artifact: down codes differ from path S's")
+    single, batch = artifact_prompts(runner, seed)
+    with torch.no_grad():
+        runner.generate(single, max_new_tokens=4)  # warm-up; not counted
+        runner.generate_batch(batch, max_new_tokens=2)
+        torch.cuda.synchronize()
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        out, t_req, ttft = timed(lambda mark: runner.generate(
+            single, max_new_tokens=GEN_TOKENS, on_first_token=mark))
+        logits = runner.gen._loop(1, None, False).logits.clone()
+        t0 = time.perf_counter()
+        outs_b = runner.generate_batch(batch, max_new_tokens=ART_BATCH_TOKENS)
+        torch.cuda.synchronize()
+        t_b = time.perf_counter() - t0
+        launches = read_launches("artifact", ARTIFACT_KERNELS)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check_tokens("artifact", [out], GEN_TOKENS, vcfg.llm.vocab)
+        check_tokens("artifact batch", outs_b, ART_BATCH_TOKENS,
+                     vcfg.llm.vocab)
+        out_r = ref.generate(single, max_new_tokens=GEN_TOKENS)
+        err = float((logits.float() - ref.gen._loop(1, None, False).logits
+                     .float()).abs().max())
+        if out != out_r or err != 0:
+            raise AssertionError(f"artifact: tokens equal to the in-memory "
+                                 f"runner's: {out == out_r}; last-step "
+                                 f"logits max |d| {err}")
+        n_prompt = runner.build_inputs(single)[0].shape[1]
+        log(f"artifact: {GEN_TOKENS} tokens and last-step logits (max |d| "
+            f"{err}) equal to the runner on the in-memory trees; packed W4 "
+            f"bytes equal to path S's")
+        batch_rows_alone("artifact batch", runner, batch, dev)
+    s_req, s_ttft, s_tps = m["split_request"]
+    log(f"artifact: request ({n_prompt}-token prompt with a 448² image, "
+        f"{GEN_TOKENS} tokens) {t_req:.3f} s; TTFT {ttft * 1e3:.1f} ms; "
+        f"decode {(GEN_TOKENS - 1) / (t_req - ttft):.1f} tok/s; beside path "
+        f"S's request in this run: {s_req:.3f} s, TTFT {s_ttft * 1e3:.1f} "
+        f"ms, {s_tps:.1f} tok/s; generate_batch {len(batch)} prompts, "
+        f"{ART_BATCH_TOKENS} tokens each: {t_b:.3f} s, "
+        f"{len(batch) * ART_BATCH_TOKENS / t_b:.1f} tok/s; peak "
+        f"{peak:.2f} GiB; card {card}")
+    with torch.no_grad():
+        profile_phases([
+            ("artifact: build_inputs (chat template, image resize, "
+             "patchify)", lambda: runner.build_inputs(single), 1),
+            ("artifact: build_inputs + float ViT (fake path) + merger + "
+             "splice", lambda: runner._embeds(*runner.build_inputs(single)),
+             1)], card)
+    del runner, ref, m["split_down"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def run_document(m: dict, card: str) -> dict:
@@ -2243,8 +2498,8 @@ def main(argv=None) -> int:
     # phases 4 and 5: each path of the main path, then its profile
     model = build_model(args.seed)
     counts += [run_slice(model, card), run_full(model, card),
-               run_split(model, card), run_document(model, card),
-               run_batch(model, card)]
+               run_split(model, card), run_artifact(model, card, args.seed),
+               run_document(model, card), run_batch(model, card)]
 
     # phase 6: the bench (W4A8 against bf16 at depth 28), its JSON printed
     del model

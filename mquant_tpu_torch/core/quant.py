@@ -81,6 +81,21 @@ def dynamic_qparams(x: torch.Tensor, fmt: IntFormat, axis=None,
                               symmetric)
 
 
+def dynamic_fake_quant(x: torch.Tensor, bits: int = 8, per_token: bool = True,
+                       symmetric: bool = True, clip_ratio: float = 1.0,
+                       groupsize: Optional[int] = None) -> torch.Tensor:
+    """One-shot dynamic fake quantization of an activation (…, T, C): one
+    scale per token (``per_token``) or per tensor, in x's dtype. Per-group
+    scales (``groupsize``) are not ported (ROADMAP A1)."""
+    if groupsize is not None and groupsize > 0:
+        raise NotImplementedError("per-token-per-group dynamic activations "
+                                  "are not ported (ROADMAP A1)")
+    fmt = get_format(bits, signed=symmetric)
+    qp = dynamic_qparams(x, fmt, axis=-1 if per_token else None,
+                         symmetric=symmetric, clip_ratio=clip_ratio)
+    return fake_quantize(x, qp, fmt)
+
+
 # ---------------------------------------------------------------------------
 # weight quantization with optional MSE clip search
 # ---------------------------------------------------------------------------

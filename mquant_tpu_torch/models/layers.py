@@ -2,10 +2,13 @@
 ``mquant_tpu/models/layers.py``).
 
 Each linear *site* is a plain function of (x, params dict, SiteSpec, state,
-mode). Ported modes: "fp" (float weights ``w``) and "real" (integer storage
-``w_q``/``w_scale``, int8 activations, hand-written int GEMM kernels). The
-calibration and fake-quant modes and output quantizers are not on the
-serving path and raise.
+mode). Ported modes: "fp" (float weights ``w``), "fake" (float weights,
+activations fake-quantized: quantize → dequantize in x's dtype, static
+scales from ``state`` or dynamic per-token ones) and "real" (integer storage
+``w_q``/``w_scale``, int8 activations, hand-written int GEMM kernels; a
+site without ``w_q``, such as the ViT of an artifact whose LLM alone was
+realized, takes the fake path, as in the JAX package). The calibration mode
+and output quantizers raise.
 
 Forward order inside a site: online Hadamard → RMS split (channel 0 stays
 fp, ``w_col0``) → activation quantize → GEMM → f32 col0 correction → bias.
@@ -19,6 +22,8 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from ..core.formats import get_format
+from ..core.quant import dynamic_fake_quant, fake_quantize
 from ..kernels.fwht import online_hadamard
 
 
@@ -57,16 +62,32 @@ def _online_hadamard(x: torch.Tensor, spec: SiteSpec) -> torch.Tensor:
 
 
 def _check_servable(p: Dict[str, Any], spec: SiteSpec, mode: str):
-    if mode != "real":
-        raise NotImplementedError(f"mode {mode!r} is not ported (fp and real "
-                                  "are)")
+    if mode not in ("real", "fake"):
+        raise NotImplementedError(f"mode {mode!r} is not ported (fp, fake "
+                                  "and real are)")
     if spec.out_bits is not None:
         raise NotImplementedError("output quantizers are not ported yet")
-    if "w_col0" in p and not spec.split:
+    if "w_col0" in p and not spec.split and "w" not in p:
         # the JAX function rejoins w_col0 to a float ``w``, which integer
         # storage no longer has (it fails there on the missing key)
         raise NotImplementedError("split integer storage needs spec.split: "
                                   "the fp column cannot rejoin int codes")
+
+
+def _quantize_act(x: torch.Tensor, spec: SiteSpec, site_state
+                  ) -> torch.Tensor:
+    """The fake path's activation quantizer: the site's static
+    QuantParams (x unchanged while the site has none), else dynamic
+    scales."""
+    if spec.a_static:
+        if site_state is None or site_state.get("act") is None:
+            return x
+        return fake_quantize(x, site_state["act"],
+                             get_format(spec.a_bits, signed=spec.a_symmetric))
+    return dynamic_fake_quant(x, bits=spec.a_bits, per_token=spec.a_per_token,
+                              symmetric=spec.a_symmetric,
+                              clip_ratio=spec.a_clip_ratio,
+                              groupsize=spec.a_groupsize)
 
 
 def qlinear(x: torch.Tensor, p: Dict[str, Any], name: str,
@@ -76,8 +97,8 @@ def qlinear(x: torch.Tensor, p: Dict[str, Any], name: str,
     """y = x @ w + b through the site's transform / quant pipeline. Split
     storage (``w_col0`` (…, 1, out) and ``w`` / ``w_q`` over input rows
     1..n−1): with ``spec.split`` channel 0 of the (rotated) input skips the
-    quantizer and adds (x0 · w_col0) in f32 after the GEMM; in fp mode the
-    column rejoins ``w``."""
+    quantizer and adds (x0 · w_col0) in f32 after the GEMM; otherwise (fp
+    mode, or a spec without the split) the column rejoins a float ``w``."""
     from ..kernels.qmm import quantized_matmul
 
     if spec is None or mode == "fp":
@@ -90,10 +111,19 @@ def qlinear(x: torch.Tensor, p: Dict[str, Any], name: str,
     if spec.online_had is not None:
         x = _online_hadamard(x, spec)
     x0 = None
-    if "w_col0" in p:  # RMS split: channel 0 stays fp
+    if "w_col0" in p and spec.split:  # RMS split: channel 0 stays fp
         x0, x = x[..., :1], x[..., 1:]
+    elif "w_col0" in p:  # split storage, spec without the split: rejoin
+        p = {**p, "w": torch.cat([p["w_col0"], p["w"]], dim=-2)}
     site_state = None if state is None else state.get(name)
-    y = quantized_matmul(x, p, spec, site_state)
+    if mode == "real" and "w_q" in p:
+        y = quantized_matmul(x, p, spec, site_state)
+    else:
+        if "w" not in p:
+            raise ValueError(f"{name}: mode {mode!r} needs float weights "
+                             "'w' (integer storage is served in real mode)")
+        xq = x if spec.a_bits is None else _quantize_act(x, spec, site_state)
+        y = xq @ p["w"].to(xq.dtype)
     if x0 is not None:
         y = y + (x0.float() @ p["w_col0"].float()).to(y.dtype)
     if p.get("b") is not None:

@@ -45,6 +45,7 @@ class DecoderConfig:
     head_dim: int = 0
     rope_theta: float = 1_000_000.0
     norm_eps: float = 1e-6
+    tie_embeddings: bool = False  # logits = h · embedᵀ (no lm_head; 2B)
     mrope_sections: Tuple[int, ...] = ()  # Qwen2-VL M-RoPE (t, h, w) sections
     intermediate_pad: int = 0  # Hadamard-friendly padded intermediate
     dtype: Any = torch.bfloat16
@@ -70,7 +71,8 @@ def init_decoder_params(cfg: DecoderConfig, gen: torch.Generator,
     """Random params in the JAX package's stacked layout (its
     ``init_decoder_params``): N(0, 1/fan_in) weights in ``dtype`` (default
     the config's), embedding and lm_head N(0, 0.02²), unit norms, zero
-    q/k/v biases and no o bias (Qwen2's, JAX's defaults). Drawn on ``gen``'s
+    q/k/v biases and no o bias (Qwen2's, JAX's defaults), no lm_head where
+    the embedding is tied. Drawn on ``gen``'s
     device in JAX's site order and put on ``device``; a CPU generator gives
     the same values on the CPU and on the card. The values are not JAX's
     (another RNG)."""
@@ -93,9 +95,11 @@ def init_decoder_params(cfg: DecoderConfig, gen: torch.Generator,
     for name, (din, dout) in (("gate", (Hd, I)), ("up", (Hd, I)),
                               ("down", (I, Hd))):
         layers[name] = {"w": w(Lx, din, dout), "b": None}
-    return {"embed": embed, "layers": layers,
-            "ln_f": {"w": torch.ones((Hd,), **kw)},
-            "lm_head": {"w": w(Hd, cfg.vocab, scale=0.02)}}
+    params = {"embed": embed, "layers": layers,
+              "ln_f": {"w": torch.ones((Hd,), **kw)}}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = {"w": w(Hd, cfg.vocab, scale=0.02)}
+    return params
 
 
 # ---------------------------------------------------------------------------
@@ -365,8 +369,11 @@ def decoder_forward(cfg: DecoderConfig, params: Dict,
         else:
             h = h.index_select(1, li.reshape(1))
     h = L.rms_norm(h, params["ln_f"]["w"], cfg.norm_eps)
-    logits = qlinear(h, params["lm_head"], "llm.lm_head",
-                     specs.get("llm.lm_head"), state, mode)
+    if cfg.tie_embeddings:
+        logits = h @ params["embed"]["w"].T.to(h.dtype)
+    else:
+        logits = qlinear(h, params["lm_head"], "llm.lm_head",
+                         specs.get("llm.lm_head"), state, mode)
     if cache is not None:
         cache = dict(cache)
         cache["pos"] = pos0 + T

@@ -1,15 +1,18 @@
-"""Qwen2-VL configuration, multimodal splice and M-RoPE positions
+"""Qwen2-VL (2B / 7B / 72B): configurations, the multimodal splice, M-RoPE
+positions and the end-to-end forward ViT → merger → splice → decoder
 (counterpart of ``mquant_tpu/models/qwen2vl.py``)."""
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
-from .llm import DecoderConfig
-from .vision import MergerConfig, ViTConfig
+from .llm import DecoderConfig, decoder_forward, init_decoder_params
+from .vision import (MergerConfig, ViTConfig, init_merger_params,
+                     init_vit_params, merger_forward, vit_forward)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,17 +43,55 @@ class Qwen2VLConfig:
         )
 
     @staticmethod
+    def qwen2vl_2b():
+        return Qwen2VLConfig(
+            name="Qwen2-VL-2B-Instruct",
+            llm=DecoderConfig(vocab=151936, hidden=1536, n_layers=28,
+                              n_heads=12, n_kv_heads=2, intermediate=8960,
+                              tie_embeddings=True,
+                              mrope_sections=(16, 24, 24)),
+            vit=_QWEN2VL_VIT,
+            merger=MergerConfig(context_dim=1280, out_dim=1536),
+        )
+
+    @staticmethod
     def qwen2vl_7b():
         return Qwen2VLConfig(
             name="Qwen2-VL-7B-Instruct",
             llm=DecoderConfig(vocab=152064, hidden=3584, n_layers=28,
                               n_heads=28, n_kv_heads=4, intermediate=18944,
                               mrope_sections=(16, 24, 24)),
-            vit=ViTConfig(width=1280, n_layers=32, n_heads=16, mlp_width=5120,
-                          patch_dim=2 * 14 * 14 * 3, rotary_2d=True,
-                          act="quick_gelu", norm_eps=1e-6),
+            vit=_QWEN2VL_VIT,
             merger=MergerConfig(context_dim=1280, out_dim=3584),
         )
+
+    @staticmethod
+    def qwen2vl_72b():
+        """72B's intermediate of 29568 is outside the Hadamard tail
+        kernel's row contract (ROADMAP B-c1): its full-Hadamard tail takes
+        the unfused chain on the card."""
+        return Qwen2VLConfig(
+            name="Qwen2-VL-72B-Instruct",
+            llm=DecoderConfig(vocab=152064, hidden=8192, n_layers=80,
+                              n_heads=64, n_kv_heads=8, intermediate=29568,
+                              mrope_sections=(16, 24, 24)),
+            vit=_QWEN2VL_VIT,
+            merger=MergerConfig(context_dim=1280, out_dim=8192),
+        )
+
+
+_QWEN2VL_VIT = ViTConfig(width=1280, n_layers=32, n_heads=16, mlp_width=5120,
+                         patch_dim=2 * 14 * 14 * 3, rotary_2d=True,
+                         act="quick_gelu", norm_eps=1e-6)
+
+
+def init_qwen2vl_params(cfg: Qwen2VLConfig, gen: torch.Generator,
+                        device="cuda") -> Dict:
+    """Random float params of the three towers (``init_decoder_params``,
+    ``init_vit_params``, ``init_merger_params`` in that order on ``gen``)."""
+    return {"llm": init_decoder_params(cfg.llm, gen, device=device),
+            "vit": init_vit_params(cfg.vit, gen, device=device),
+            "merger": init_merger_params(cfg.merger, gen, device=device)}
 
 
 def splice_image_embeds(text_embeds: torch.Tensor, tokens: torch.Tensor,
@@ -101,3 +142,63 @@ def mrope_positions(tokens: np.ndarray, image_token_id: int, grid_thw=None,
                 p += 1
                 t_iter += 1
     return pos
+
+
+def qwen2vl_forward(cfg: Qwen2VLConfig, params: Dict, tokens: torch.Tensor,
+                    patches: Optional[torch.Tensor] = None,
+                    grid_hw: Optional[torch.Tensor] = None,
+                    specs: Optional[Dict] = None,
+                    state: Optional[Dict] = None, mode: str = "fp",
+                    positions: Optional[torch.Tensor] = None,
+                    cache: Optional[Dict] = None,
+                    vis_token_mask: Optional[torch.Tensor] = None):
+    """End-to-end VLM forward: tokens (B, T), optional patches (B, N·merge²,
+    patch_dim) with their grid (B, N·merge², 2) spliced in at the image
+    tokens, M-RoPE ``positions`` (3, B, T). Returns (logits, cache, None):
+    calibration statistics are not collected (ROADMAP A10)."""
+    embeds = params["llm"]["embed"]["w"][tokens].to(cfg.llm.dtype)
+    if patches is not None:
+        feats, _ = vit_forward(cfg.vit, params["vit"], patches, specs, state,
+                               mode, grid_hw=grid_hw,
+                               token_mask=vis_token_mask)
+        merged, _ = merger_forward(cfg.merger, params["merger"], feats,
+                                   specs, state, mode,
+                                   token_mask=vis_token_mask)
+        embeds = splice_image_embeds(embeds, tokens, merged,
+                                     cfg.image_token_id)
+    logits, cache = decoder_forward(cfg.llm, params["llm"], embeds,
+                                    specs=specs, state=state, mode=mode,
+                                    cache=cache, positions=positions)
+    return logits, cache, None
+
+
+def default_w4a8_specs(visual_w_bits: int = 8, llm_w_bits: int = 4,
+                       a_bits: int = 8, a_static: bool = True,
+                       online_had: bool = True, split: bool = True,
+                       observer: str = "minmax",
+                       online_had_mode: str = "full") -> Dict:
+    """The reference's headline config: visual W8A8 (or W4A8) + LLM W4A8,
+    static activations, online Hadamard before ``down`` (full, or block
+    I⊗H₁₂₈) with the RMS split."""
+    from .layers import SiteSpec
+    from .llm import LLM_SITES
+    from .vision import VIT_SITES
+
+    s = {}
+    for n in VIT_SITES + ("patch_embed",):
+        s[f"vis.{n}"] = SiteSpec(w_bits=visual_w_bits, a_bits=a_bits,
+                                 a_static=a_static, observer=observer)
+    for n in ("mlp0", "mlp2"):
+        s[f"merger.{n}"] = SiteSpec(w_bits=visual_w_bits, a_bits=a_bits,
+                                    a_static=a_static, observer=observer)
+    for n in LLM_SITES:
+        s[f"llm.{n}"] = SiteSpec(w_bits=llm_w_bits, a_bits=a_bits,
+                                 a_static=a_static, observer=observer)
+    if online_had:
+        if online_had_mode == "block":
+            s["llm.down"] = dataclasses.replace(
+                s["llm.down"], online_had="block", head_dim=128, split=split)
+        else:
+            s["llm.down"] = dataclasses.replace(
+                s["llm.down"], online_had="full", split=split)
+    return s

@@ -3,7 +3,13 @@
 
 Blocks are stacked (L, ...) like the decoder and walked with per-layer views.
 The patch-embed "conv" (kernel == stride) is a linear over flattened patch
-pixels (:func:`patchify_qwen2vl` + ``qlinear``).
+pixels (:func:`patchify_qwen2vl` + ``qlinear``, the ``vis.patch_embed``
+site). Every site runs in the modes ``qlinear`` ports: realized int8
+storage in "real" mode, float weights with fake-quantized activations in
+"fake" mode (or in "real" mode where the pipeline realized the LLM alone),
+``vis.fc2`` with its online Hadamard over the MLP width and its RMS split
+where the specs set them. Validity masks of padded patch sequences
+(``token_mask``) are not ported (ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -111,12 +117,20 @@ def vit_preamble(cfg: ViTConfig, params: Dict, patches: torch.Tensor,
                    state, mode)
 
 
+def _no_token_mask(token_mask):
+    if token_mask is not None:
+        raise NotImplementedError("vision token masks (padded patch "
+                                  "sequences) are not ported (ROADMAP A6)")
+
+
 def vit_forward(cfg: ViTConfig, params: Dict, patches: torch.Tensor,
                 specs: Optional[Dict[str, SiteSpec]] = None,
                 state: Optional[Dict] = None, mode: str = "fp",
-                grid_hw: Optional[torch.Tensor] = None, prefix: str = "vis"):
+                grid_hw: Optional[torch.Tensor] = None, prefix: str = "vis",
+                token_mask: Optional[torch.Tensor] = None):
     """patches (B, T, patch_dim), grid_hw (B, T, 2) → (features (B, T, W),
     None)."""
+    _no_token_mask(token_mask)
     specs = specs or {}
     B, T, _ = patches.shape
     h = vit_preamble(cfg, params, patches, specs, state, mode, prefix)
@@ -212,9 +226,10 @@ def init_merger_params(cfg: MergerConfig, gen: torch.Generator, dtype=None,
 
 
 def merger_forward(cfg: MergerConfig, params, x: torch.Tensor, specs=None,
-                   state=None, mode="fp"):
+                   state=None, mode="fp", token_mask=None):
     """x (B, T, context_dim), merge groups contiguous → ((B, T/merge²,
     out_dim), None)."""
+    _no_token_mask(token_mask)
     specs = specs or {}
     g = cfg.merge * cfg.merge
     B, T, D = x.shape

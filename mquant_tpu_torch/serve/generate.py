@@ -213,10 +213,15 @@ class DecodeLoop:
 
 
 class Generator:
-    """Prefill / decode for one (cfg, specs, state, mode)."""
+    """Prefill / decode for one (cfg, specs, state, mode). The KV cache is
+    bf16 (or the model's dtype): ``kv_quant`` (int8 / int4 KV) is not
+    ported (ROADMAP A5)."""
 
     def __init__(self, cfg: DecoderConfig, params, specs=None, state=None,
-                 mode: str = "fp", max_len: int = 512):
+                 mode: str = "fp", max_len: int = 512, kv_quant=False):
+        if kv_quant:
+            raise NotImplementedError("quantized KV caches are not ported "
+                                      "(ROADMAP A5)")
         self.cfg = cfg
         self.specs = specs or {}
         self.state = state

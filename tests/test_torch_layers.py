@@ -231,6 +231,6 @@ def test_unported_site_configs_raise(rng):
     p = TK.quantize_weights_real(torch.randn(8, 4), 4)
     with pytest.raises(NotImplementedError):  # output quantizer
         TL.qlinear(torch.randn(2, 8), p, "s", st, None, "real")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError):  # calibration mode
         TL.qlinear(torch.randn(2, 8), p, "s",
-                   dataclasses.replace(st, out_bits=None), None, "fake")
+                   dataclasses.replace(st, out_bits=None), None, "calib")

@@ -302,12 +302,16 @@ def test_interop_converts_exactly(rng):
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port pulls in no JAX."""
+    """Importing every module of the port pulls in no JAX, nothing of the
+    JAX package, and none of flax, msgpack, safetensors and ml_dtypes
+    (the card has none of them)."""
     code = ("import sys, importlib, pkgutil, mquant_tpu_torch as m\n"
             "for i in pkgutil.walk_packages(m.__path__, m.__name__ + '.'):\n"
             "    importlib.import_module(i.name)\n"
-            "bad = [k for k in sys.modules if k == 'jax' or "
-            "k.startswith(('jax.', 'jaxlib', 'mquant_tpu.'))]\n"
+            "roots = ('jax', 'jaxlib', 'flax', 'msgpack', 'safetensors', "
+            "'ml_dtypes')\n"
+            "bad = [k for k in sys.modules if k.split('.')[0] in roots "
+            "or k.startswith('mquant_tpu.')]\n"
             "assert not bad, bad\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
