@@ -2062,19 +2062,26 @@ def artifact_prompts(runner, seed: int):
     return single, batch
 
 
-def batch_rows_alone(path: str, runner, prompts, dev):
-    """Each row of the runner's batch against the row served alone, by
-    :func:`run_batch`'s rule: through the first CMP_LAYERS layers, the
-    row's prefill logits within the bound and its first N_CMP greedy
-    tokens equal, the row alone at the batch row's positions."""
-    import torch
-
+def runner_inputs(runner, prompts):
+    """Each prompt's spliced embeddings (T_i, hidden) and M-RoPE positions
+    as the runner's ``generate_batch`` builds them."""
     seqs, poss = [], []
     for p in prompts:
         emb, pos = runner._embeds(*runner.build_inputs(p))
         seqs.append(emb[0])
         poss.append(pos)
-    cut = depth_cut(runner.gen, CMP_LAYERS)
+    return seqs, poss
+
+
+def batch_rows_alone(path: str, gen, seqs, poss, dev):
+    """Each row of ``gen``'s batch of ``seqs`` against the row served
+    alone, by :func:`run_batch`'s rule: through the first CMP_LAYERS
+    layers, the row's prefill logits within the bound and its first N_CMP
+    greedy tokens equal, the row alone at the batch row's positions.
+    Returns the rows' starts in the left-padded batch."""
+    import torch
+
+    cut = depth_cut(gen, CMP_LAYERS)
     outs_c = cut.generate_batch(seqs, max_new_tokens=N_CMP, positions=poss)
     logits_c, _, starts = cut.prefill_batch(seqs, positions=poss)
     for i, x in enumerate(seqs):
@@ -2091,6 +2098,7 @@ def batch_rows_alone(path: str, runner, prompts, dev):
     log(f"{path}, depth {CMP_LAYERS}: every row's first {N_CMP} tokens "
         f"equal to the row served alone (rows of {[x.shape[0] for x in seqs]}"
         f" tokens, starts {starts.tolist()})")
+    return starts
 
 
 def run_artifact(m: dict, card: str, seed: int) -> dict:
@@ -2103,8 +2111,11 @@ def run_artifact(m: dict, card: str, seed: int) -> dict:
     request's tokens and last-step logits equal (max |d| 0) those of the
     same runner built on the in-memory trees; the packed W4 bytes equal
     path S's; each batch row holds against itself alone
-    (:func:`batch_rows_alone`). Returns the launch counts; profiles the
-    request's inputs and its vision pass."""
+    (:func:`batch_rows_alone`); the request's and the batch's prefill and
+    first decode steps hold against the integer products' plain versions
+    (:func:`against_plain`, every attention call against its own). Returns
+    the launch counts; profiles the request's inputs and its vision
+    pass."""
     import tempfile
 
     import torch
@@ -2189,7 +2200,17 @@ def run_artifact(m: dict, card: str, seed: int) -> dict:
         log(f"artifact: {GEN_TOKENS} tokens and last-step logits (max |d| "
             f"{err}) equal to the runner on the in-memory trees; packed W4 "
             f"bytes equal to path S's")
-        batch_rows_alone("artifact batch", runner, batch, dev)
+        gen = runner.gen
+        (emb,), (pos,) = runner_inputs(runner, [single])
+        pos = torch.from_numpy(pos).to(dev)
+        against_plain("artifact", gen,
+                      lambda: gen.prefill(emb[None], positions=pos))
+        seqs, poss = runner_inputs(runner, batch)
+        starts = batch_rows_alone("artifact batch", gen, seqs, poss, dev)
+        against_plain("artifact batch", gen,
+                      lambda: gen.prefill_batch(seqs, positions=poss)[:2],
+                      attn_start=starts)
+        del gen
     s_req, s_ttft, s_tps = m["split_request"]
     log(f"artifact: request ({n_prompt}-token prompt with a 448² image, "
         f"{GEN_TOKENS} tokens) {t_req:.3f} s; TTFT {ttft * 1e3:.1f} ms; "

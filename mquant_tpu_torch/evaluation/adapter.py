@@ -47,8 +47,7 @@ class VLMRunner:
                  mode: str = "fp", tokenizer=None, max_len: int = 512,
                  image_size: Optional[int] = None, max_new_tokens: int = 24,
                  bucket_spec=None, use_chat_template: bool = True,
-                 pad_to_max: bool = False, on_device_decode: bool = True,
-                 kv_quant=False):
+                 pad_to_max: bool = False, kv_quant=False):
         from ..models.buckets import BucketSpec
 
         if pad_to_max:
@@ -62,7 +61,6 @@ class VLMRunner:
         self.tok = tokenizer or ByteTokenizer()
         self.max_new_tokens = max_new_tokens
         self.use_chat_template = use_chat_template
-        self.on_device_decode = on_device_decode
         base = image_size or cfg.patch * 4
         merge = cfg.patch * 2  # grids must stay even for the 2×2 merger
         self.buckets = bucket_spec or BucketSpec(patch=cfg.patch, buckets=(
@@ -176,25 +174,11 @@ class VLMRunner:
         eos = getattr(self.tok, "eos_id", -1)
         # the cache holds the (bucket-padded) prompt and every new token
         self.gen.ensure_capacity(toks.shape[1] + max_new)
-        if self.on_device_decode:
-            seq = self.gen.generate_on_device(
-                embeds, max_new, positions=positions,
-                on_first_token=on_first_token)[0].tolist()
-            out = []
-            for t in seq:
-                if t == eos:
-                    break
-                out.append(t)
-            return self.tok.decode(out)
-        last, cache = self.gen.prefill(embeds, positions=positions)
-        tok = last.argmax(dim=-1).to(torch.int32)[:, None]
-        if on_first_token is not None:
-            on_first_token(tok)
-        out = [int(tok[0, 0])]
-        for _ in range(max_new - 1):
-            logits, cache = self.gen._forward(tok, cache)
-            tok = logits[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
-            t = int(tok[0, 0])
+        seq = self.gen.generate_on_device(
+            embeds, max_new, positions=positions,
+            on_first_token=on_first_token)[0].tolist()
+        out = []
+        for t in seq:
             if t == eos:
                 break
             out.append(t)

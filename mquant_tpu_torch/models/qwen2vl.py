@@ -10,9 +10,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from .llm import DecoderConfig, decoder_forward, init_decoder_params
-from .vision import (MergerConfig, ViTConfig, init_merger_params,
-                     init_vit_params, merger_forward, vit_forward)
+from .llm import DecoderConfig, decoder_forward
+from .vision import MergerConfig, ViTConfig, merger_forward, vit_forward
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,15 +82,6 @@ class Qwen2VLConfig:
 _QWEN2VL_VIT = ViTConfig(width=1280, n_layers=32, n_heads=16, mlp_width=5120,
                          patch_dim=2 * 14 * 14 * 3, rotary_2d=True,
                          act="quick_gelu", norm_eps=1e-6)
-
-
-def init_qwen2vl_params(cfg: Qwen2VLConfig, gen: torch.Generator,
-                        device="cuda") -> Dict:
-    """Random float params of the three towers (``init_decoder_params``,
-    ``init_vit_params``, ``init_merger_params`` in that order on ``gen``)."""
-    return {"llm": init_decoder_params(cfg.llm, gen, device=device),
-            "vit": init_vit_params(cfg.vit, gen, device=device),
-            "merger": init_merger_params(cfg.merger, gen, device=device)}
 
 
 def splice_image_embeds(text_embeds: torch.Tensor, tokens: torch.Tensor,

@@ -4,16 +4,11 @@ MiniCPM-V, GLM-4V) are not ported yet (ROADMAP A12) and raise."""
 
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple
+from typing import NamedTuple
 
 
 class ModelFamily(NamedTuple):
-    name: str
-    config_fn: Callable[[], Any]  # preset → config
-    tiny_fn: Callable[[], Any]
-    init_fn: Callable  # (cfg, gen, device) → params
-    forward_fn: Callable  # (cfg, params, tokens, …) → (logits, cache, None)
-    subsystems: tuple  # MSQ site prefixes
+    name: str  # picks the chat template
 
 
 _UNPORTED = (("qwenvl", "qwenvl"), ("qwen-vl", "qwenvl"),
@@ -23,18 +18,10 @@ _UNPORTED = (("qwenvl", "qwenvl"), ("qwen-vl", "qwenvl"),
 
 def get_family(name: str) -> ModelFamily:
     """The family of a model name (the JAX function's matching: case, "-"
-    and "_" ignored; a Qwen2-VL size picks its preset, 7B by default)."""
-    from . import qwen2vl as m
-
+    and "_" ignored)."""
     key = name.lower().replace("-", "").replace("_", "")
     if "qwen2vl" in key:
-        presets = {"qwen2vl2b": m.Qwen2VLConfig.qwen2vl_2b,
-                   "qwen2vl7b": m.Qwen2VLConfig.qwen2vl_7b,
-                   "qwen2vl72b": m.Qwen2VLConfig.qwen2vl_72b}
-        preset = presets.get(key, m.Qwen2VLConfig.qwen2vl_7b)
-        return ModelFamily("qwen2vl", preset, m.Qwen2VLConfig.tiny,
-                           m.init_qwen2vl_params, m.qwen2vl_forward,
-                           ("vis", "merger", "llm"))
+        return ModelFamily("qwen2vl")
     for pat, fam in _UNPORTED:
         if pat in key:
             raise NotImplementedError(f"model family {fam} is not ported "

@@ -14,7 +14,8 @@ than :data:`MAX_CHUNK_SIZE` bytes is stored as the map
 :func:`load` maps the file and returns CPU tensors that are views of the
 mapping (no copy of the file; bf16 from its 16-bit patterns), chunked arrays
 as :class:`Chunked` (their pieces copied once, into the tensor that
-:func:`to_tensor` makes where it is asked). :func:`dump` streams a tree of
+:func:`to_tensor` makes where it is asked; an unchunked leaf is copied only
+to another device). :func:`dump` streams a tree of
 tensors to a file leaf by leaf; its bytes equal flax's for the same tree.
 """
 
@@ -59,11 +60,13 @@ class Chunked:
 
 
 def to_tensor(leaf, device="cpu") -> torch.Tensor:
-    """A loaded array leaf as a tensor of its own on ``device`` (a copy:
-    the mapping's views are not kept)."""
+    """A loaded array leaf as a tensor on ``device``: on the CPU the leaf
+    itself (a view of the copy-on-write mapping, safe to write), elsewhere
+    one copy to the device; a chunked leaf's pieces joined into a new
+    tensor."""
     if isinstance(leaf, Chunked):
         return leaf.to_tensor(device)
-    return leaf.to(device, copy=True)
+    return leaf.to(device)
 
 
 # ---------------------------------------------------------------------------

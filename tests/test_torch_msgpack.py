@@ -114,7 +114,8 @@ def test_reader_equals_flax(tmp_path, chunk):
 
 def test_reader_views_the_file(tmp_path):
     """Unchunked leaves are views of one mapping of the file: their data
-    lie as far apart in memory as their bytes in the file."""
+    lie as far apart in memory as their bytes in the file, and
+    ``to_tensor`` on the CPU keeps the view."""
     a = np.arange(1000, dtype=np.int32)
     b = np.arange(500, dtype=np.float32) * 0.5
     path = str(tmp_path / "t.msgpack")
@@ -125,6 +126,7 @@ def test_reader_views_the_file(tmp_path):
     tree = M.load(path)
     gap = tree["b"].data_ptr() - tree["a"].data_ptr()
     assert gap == raw.find(b.tobytes()) - raw.find(a.tobytes())
+    assert M.to_tensor(tree["a"], "cpu").data_ptr() == tree["a"].data_ptr()
     # a copy-on-write mapping: writing a leaf leaves the file unchanged
     tree["a"][0] = 99
     with open(path, "rb") as f:
