@@ -121,6 +121,20 @@ Phases, in order (any failed check raises and the script exits non-zero):
    max |d| 0), and a 2-row ``generate_batch`` with an eos id at which the
    rows stop at different steps (tokens equal); the graph step's wall and
    stream ms (CUDA events) and its device busy ms under torch.profiler.
+   Then, with the model above freed, the pipeline (``run_pipeline_phase``):
+   the port's ``run_pipeline`` quantizes Qwen2-VL-7B (published widths,
+   depth 28, seeded random weights) in the reference's headline W4A8
+   configuration (rotations, full online Hadamard before ``down``, RMS
+   split, GPTQ W4 with act_order on 32 synthetic batches of a 448² image
+   and 32 text tokens, RTN W8 vision tower and merger, static int8
+   activations, ``realize_int``) into a temporary artifact: each stage's
+   seconds and peak memory, the GPTQ time split; no RTN fallback, GPTQ's
+   proxy loss tr(ΔWᵀ H ΔW) no worse than round-to-nearest's on every
+   site, lossless realization, the walk's CUDA-graph blocks bit-equal to
+   the eager walk; the artifact loaded by ``build_runner_from_artifact``
+   serves one 448² image request (1024-token prompt, 128 tokens), counted
+   (``down`` at K = 18943 on the TMA GEMM, 28 calls) and held against the
+   plain integer products (``against_plain``).
 5. profile: wall time (best of 3) and, under ``torch.profiler``, device
    busy time, idle share and the largest device items of the vision tower,
    the 1024-token prefill and a decode step (block Hadamard, then path F's,
@@ -2101,6 +2115,20 @@ def batch_rows_alone(path: str, gen, seqs, poss, dev):
     return starts
 
 
+def id_tokenizer():
+    """A ByteTokenizer without eos whose ``decode`` gives the token ids:
+    runners' outputs compare token for token and run their full length."""
+    from mquant_tpu_torch.evaluation.adapter import ByteTokenizer
+
+    class IdTokenizer(ByteTokenizer):
+        eos_id = -1
+
+        def decode(self, ids):
+            return [int(i) for i in ids]
+
+    return IdTokenizer()
+
+
 def run_artifact(m: dict, card: str, seed: int) -> dict:
     """Phase 4, the artifact: path S's weights written as the pipeline's
     artifact (:func:`artifact_trees`) with ``save_artifact`` to a temporary
@@ -2123,20 +2151,11 @@ def run_artifact(m: dict, card: str, seed: int) -> dict:
     from mquant_tpu_torch.serve.server import build_runner_from_artifact
     from mquant_tpu_torch.utils.checkpoint import save_artifact
 
-    from mquant_tpu_torch.evaluation.adapter import ByteTokenizer, VLMRunner
-
-    class IdTokenizer(ByteTokenizer):
-        """No eos, and token ids for text: the runners' outputs compare
-        token for token and run their full length."""
-
-        eos_id = -1
-
-        def decode(self, ids):
-            return [int(i) for i in ids]
+    from mquant_tpu_torch.evaluation.adapter import VLMRunner
 
     dev, vcfg = m["dev"], m["vcfg"]
     params, state, specs, meta = artifact_trees(m, seed)
-    kw = dict(tokenizer=IdTokenizer(), max_len=PREFILL + GEN_TOKENS)
+    kw = dict(tokenizer=id_tokenizer(), max_len=PREFILL + GEN_TOKENS)
     art = tempfile.mkdtemp(prefix="mquant_artifact_")
     try:
         t0 = time.perf_counter()
@@ -2352,6 +2371,246 @@ def run_batch(m: dict, card: str) -> dict:
     return launches
 
 
+PIPE_BATCHES = 32  # calibration batches (the reference calibrates on 128)
+PIPE_IMAGE = 448  # their images: 1024 patches, 256 image tokens, + 32 text
+PIPE_KERNELS = SLICE_KERNELS
+
+
+@contextlib.contextmanager
+def gptq_proxies(store: list):
+    """Wraps the GPTQ driver's ``gptq_quantize_matrix``: for every site it
+    quantizes, appends (site, the proxy loss tr(ΔWᵀ H ΔW) of GPTQ's weight,
+    that of round-to-nearest on the same grid rule, the fallback flag) and
+    adds the check's own device seconds to ``store``'s first entry."""
+    import torch
+
+    from mquant_tpu_torch.core import quant as Q
+    from mquant_tpu_torch.core.formats import get_format
+    from mquant_tpu_torch.gptq import core
+    from mquant_tpu_torch.models.llm import LLM_SITES
+
+    saved = core.gptq_quantize_matrix
+    store.append({"seconds": 0.0})
+
+    def proxy(Wq, W, H):
+        d = Wq.float() - W
+        return float((d * (H @ d)).sum())
+
+    def wrapped(W, H, bits, **kw):
+        res = saved(W, H, bits, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fmt = get_format(bits, signed=kw.get("sym", True))
+        Wf = W.float()
+        qp = Q.weight_qparams(Wf, fmt, per_channel=True,
+                              symmetric=kw.get("sym", True), recip=True)
+        site = LLM_SITES[(len(store) - 1) % len(LLM_SITES)]
+        store.append((site, proxy(res.w, Wf, H),
+                      proxy(Q.fake_quantize(Wf, qp, fmt), Wf, H),
+                      bool(res.used_fallback)))
+        torch.cuda.synchronize()
+        store[0]["seconds"] += time.perf_counter() - t0
+        return res
+
+    core.gptq_quantize_matrix = wrapped
+    try:
+        yield
+    finally:
+        core.gptq_quantize_matrix = saved
+
+
+@contextlib.contextmanager
+def realize_lossless(store: list):
+    """Wraps ``realize_decoder_weights``: every realized site's codes must
+    equal round(w / scale) of the GPTQ weight w on its grid, and code ·
+    scale rounded to w's dtype must give w back (lossless); appends the
+    sites' layer counts to ``store``."""
+    import torch
+
+    from mquant_tpu_torch.models.llm import LLM_SITES
+    from mquant_tpu_torch.transform import recipes
+
+    saved = recipes.realize_decoder_weights
+
+    def wrapped(params, specs, pack_int4=False, qps=None, state=None):
+        out = saved(params, specs, pack_int4=pack_int4, qps=qps, state=state)
+        for s in LLM_SITES:
+            w, codes = params["layers"][s]["w"], out["layers"][s]["w_q"]
+            for li in range(w.shape[0]):
+                scale = qps[s][0][li]
+                ref = torch.clamp(torch.round(w[li].float() / scale), -8, 7)
+                if not (torch.equal(codes[li], ref.to(torch.int8))
+                        and torch.equal((codes[li].float() * scale).to(
+                            w.dtype), w[li])):
+                    raise AssertionError(f"pipeline: llm.{s} layer {li}: "
+                                         "realized codes are not the GPTQ "
+                                         "weight's")
+            store.append((s, w.shape[0]))
+        return out
+
+    recipes.realize_decoder_weights = wrapped
+    try:
+        yield
+    finally:
+        recipes.realize_decoder_weights = saved
+
+
+def check_graph_walk(seed: int, dev: str = "cuda") -> None:
+    """The GPTQ walk with its full blocks replayed from one CUDA graph
+    (``gptq.core._BlockGraph``, the card's route) against the same walk
+    eager: weights and scales bit-equal, at q's (3584, 3584) with
+    act_order and at an 18943-row ``down`` slice of 1024 columns."""
+    import torch
+
+    from mquant_tpu_torch.gptq import core
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for n, out in ((3584, 3584), (18943, 1024)):
+        x = torch.randn((2048, n), generator=g, device=dev)
+        W = torch.randn((n, out), generator=g, device=dev) * 0.02
+        H = core.accumulate_hessian(None, x)
+        perm = torch.argsort(-torch.diagonal(H), stable=True)
+        Hp = H[perm][:, perm]
+        U = core._hinv_cholesky(Hp, 0.01)
+        args = (W, torch.diagonal(Hp), U, perm)
+        kw = dict(bits=4, group_size=None, mse_clip=False, sym=True)
+        a = core._gptq_walk(*args, graph=True, **kw)
+        b = core._gptq_walk(*args, graph=False, **kw)
+        if not (torch.equal(a.w, b.w) and torch.equal(a.scale, b.scale)):
+            raise AssertionError(f"GPTQ walk ({n}, {out}): the CUDA graph's "
+                                 "result differs from the eager walk's")
+    log("pipeline: the GPTQ walk's CUDA-graph blocks bit-equal to the eager "
+        "walk at (3584, 3584) and (18943, 1024), act_order")
+
+
+def run_pipeline_phase(card: str, seed: int, depth: int = 28,
+                       dev: str = "cuda", gen_tokens: int = GEN_TOKENS
+                       ) -> dict:
+    """Phase 4, the pipeline: the port's ``run_pipeline`` quantizes
+    Qwen2-VL-7B (published widths, ``depth`` LLM layers, seeded random
+    weights) in the reference's headline W4A8 configuration (full online
+    Hadamard before ``down``, RMS split, GPTQ with act_order on PIPE_BATCHES
+    synthetic batches of a PIPE_IMAGE² image and 32 text tokens, RTN W8
+    vision tower and merger, static per-tensor int8 activations, realized
+    int storage) and writes its artifact to a temporary directory. Prints
+    each stage's seconds and peak memory and the GPTQ time split; checks no
+    RTN fallback, GPTQ's proxy loss no worse than round-to-nearest's on
+    every site, lossless realization; then ``build_runner_from_artifact``
+    serves one request (a 448² image in a PREFILL-token prompt,
+    ``gen_tokens`` tokens), counted, its GEMMs at K = 18943 (``down``) on
+    the TMA ``int8_gemm`` and ``int8_gemv``, its prefill and first steps
+    held against the plain integer products (:func:`against_plain`).
+    Returns the launch counts."""
+    import tempfile
+
+    import torch
+
+    from mquant_tpu_torch.models.qwen2vl import Qwen2VLConfig
+    from mquant_tpu_torch.pipeline import QuantizeConfig, run_pipeline
+    from mquant_tpu_torch.serve.server import build_runner_from_artifact
+
+    base = Qwen2VLConfig.qwen2vl_7b()
+    cfg = dataclasses.replace(base, llm=dataclasses.replace(
+        base.llm, n_layers=depth))
+    q = QuantizeConfig(rotate=True, online_llm_hadamard=True,
+                       online_had_mode="full", llm_split=True, llm_w_bits=4,
+                       act_order=True, visual_w_bits=8, llm_a_bits=8,
+                       visual_a_bits=8, calib_num=PIPE_BATCHES * 16,
+                       nsamples=PIPE_BATCHES, realize_int=True, seed=seed)
+    with torch.no_grad():
+        check_graph_walk(seed, dev)
+    art = tempfile.mkdtemp(prefix="mquant_pipeline_")
+    proxies, realized = [], []
+    try:
+        with torch.no_grad(), gptq_proxies(proxies), \
+                realize_lossless(realized):
+            _, params, _, _, info = run_pipeline(
+                "Qwen2-VL-7B", q, cfg=cfg, artifact_dir=art,
+                image_size=PIPE_IMAGE, device=dev)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner = build_runner_from_artifact(
+            art, device=dev, image_size=ART_IMAGE_SIZE,
+            tokenizer=id_tokenizer(), max_len=PREFILL + gen_tokens)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(art)
+
+    stages = info["stages"]
+    for name, st in stages.items():
+        peak = ("not measured" if st["peak_bytes"] is None
+                else f"{st['peak_bytes'] / 2**30:.2f} GiB")
+        log(f"pipeline: stage {name}: {st['seconds']:.2f} s, peak {peak}; "
+            f"card {card}")
+    rep = info["gptq"]
+    sec = rep["seconds"]
+    log(f"pipeline: GPTQ {rep['sites']} sites at depth {depth}: stage "
+        f"replays + Hessians {sec['hessian']:.2f} s, factorizations "
+        f"{sec['factor']:.2f} s, walks {sec['walk']:.2f} s (the proxy "
+        f"check beside them {proxies[0]['seconds']:.2f} s); RTN fallbacks "
+        f"{len(rep['fallbacks'])}; artifact {info['artifact_bytes']} bytes "
+        f"({info['artifact_bytes'] / 2**30:.2f} GiB); "
+        f"build_runner_from_artifact {t_load:.1f} s; card {card}")
+    if rep["fallbacks"] or any(fb for *_, fb in proxies[1:]):
+        raise AssertionError(f"pipeline: RTN fallbacks {rep['fallbacks']}")
+    sums = {}
+    for site, pg, pr, _ in proxies[1:]:
+        g, r = sums.get(site, (0.0, 0.0))
+        sums[site] = (g + pg, r + pr)
+    worse = [(i, p) for i, p in enumerate(proxies[1:]) if p[1] > p[2]]
+    log("pipeline: GPTQ proxy loss tr(dW^T H dW) summed over layers, GPTQ "
+        "vs round-to-nearest: " + ", ".join(
+            f"{s} {g:.4g} vs {r:.4g} ({g / r:.3f})"
+            for s, (g, r) in sums.items()))
+    if worse or len(proxies) - 1 != rep["sites"]:
+        raise AssertionError(f"pipeline: GPTQ worse than RTN at {worse}")
+    if sum(n for _, n in realized) != rep["sites"]:
+        raise AssertionError(f"pipeline: realized {realized}, GPTQ sites "
+                             f"{rep['sites']}")
+    log(f"pipeline: realization lossless on {rep['sites']} sites (codes = "
+        "round(w / scale), codes x scale = w)")
+
+    K = cfg.llm.intermediate - 1
+    single, _ = artifact_prompts(runner, seed)
+    gen = runner.gen
+    with torch.no_grad():
+        runner.generate(single, max_new_tokens=4)  # warm-up; not counted
+        torch.cuda.synchronize()
+        reset_launches()
+        depths = []
+        with gemm_depths(depths):
+            out, t_req, ttft = timed(lambda mark: runner.generate(
+                single, max_new_tokens=gen_tokens, on_first_token=mark))
+        launches = read_launches("pipeline", PIPE_KERNELS)
+        check_tokens("pipeline", [out], gen_tokens, cfg.llm.vocab)
+        down = sum(1 for n, d, moved in depths
+                   if n == "int8_gemm" and d == K and moved == (n,))
+        if down != depth or launches["int8_gemm_ragged"]:
+            raise AssertionError(f"pipeline: {down} int8_gemm calls at K = "
+                                 f"{K}, expected {depth}; int8_gemm_ragged "
+                                 f"{launches['int8_gemm_ragged']}")
+        (emb,), (pos,) = runner_inputs(runner, [single])
+        pos = torch.from_numpy(pos).to(dev)
+        against_plain("pipeline", gen,
+                      lambda: gen.prefill(emb[None], positions=pos))
+    n_prompt = runner.build_inputs(single)[0].shape[1]
+    log(f"pipeline: the artifact's request ({n_prompt}-token prompt with a "
+        f"448² image, {gen_tokens} tokens) {t_req:.3f} s; TTFT "
+        f"{ttft * 1e3:.1f} ms; decode {(gen_tokens - 1) / (t_req - ttft):.1f}"
+        f" tok/s; launches w4a8_gemv {launches['w4a8_gemv']}, int8_gemm "
+        f"{launches['int8_gemm']} ({down} at K = {K}), int8_gemv "
+        f"{launches['int8_gemv']}, attn_decode {launches['attn_decode']}; "
+        f"card {card}")
+    del gen, runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 PROFILE_STEPS = 16  # decode steps per profiled run
 TOP_ITEMS = 6  # device items printed per phase
 
@@ -2526,6 +2785,7 @@ def main(argv=None) -> int:
     del model
     gc.collect()
     torch.cuda.empty_cache()
+    counts.append(run_pipeline_phase(card, args.seed))
     from mquant_tpu_torch import bench
 
     t0 = time.perf_counter()

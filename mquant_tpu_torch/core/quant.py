@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from .formats import IntFormat, get_format
@@ -23,17 +24,29 @@ class QuantParams(NamedTuple):
     zero_point: Optional[torch.Tensor] = None
 
 
+def _over(x: torch.Tensor, c: float, recip: bool) -> torch.Tensor:
+    """x / c, or x · fl32(1 / c) with ``recip``: the rounding XLA gives a
+    division by a constant inside a jitted JAX function (it multiplies by
+    the reciprocal), as in the JAX package's GPTQ walk."""
+    if recip:
+        return x * float(np.float32(1.0) / np.float32(c))
+    return x / c
+
+
 def scales_from_minmax(xmin: torch.Tensor, xmax: torch.Tensor, fmt: IntFormat,
-                       symmetric: bool = True, eps: float = 1e-8
-                       ) -> QuantParams:
+                       symmetric: bool = True, eps: float = 1e-8,
+                       recip: bool = False) -> QuantParams:
     """(min, max) statistics → (scale, zero_point); the range is widened to
-    include 0 so that zero is exactly representable."""
+    include 0 so that zero is exactly representable. ``recip``: divide by
+    the format's range as a jitted JAX caller does (:func:`_over`)."""
     xmin = torch.clamp(xmin.float(), max=0.0)
     xmax = torch.clamp(xmax.float(), min=0.0)
     if symmetric:
         amax = torch.maximum(xmin.abs(), xmax.abs())
-        return QuantParams(scale=torch.clamp(amax / fmt.qmax, min=eps))
-    scale = torch.clamp((xmax - xmin) / (fmt.qmax - fmt.qmin), min=eps)
+        return QuantParams(scale=torch.clamp(_over(amax, fmt.qmax, recip),
+                                             min=eps))
+    scale = torch.clamp(_over(xmax - xmin, fmt.qmax - fmt.qmin, recip),
+                        min=eps)
     zero_point = torch.clamp(torch.round(fmt.qmin - xmin / scale),
                              fmt.qmin, fmt.qmax)
     return QuantParams(scale=scale, zero_point=zero_point)
@@ -104,14 +117,17 @@ def dynamic_fake_quant(x: torch.Tensor, bits: int = 8, per_token: bool = True,
 def weight_qparams(w: torch.Tensor, fmt: IntFormat, per_channel: bool = True,
                    symmetric: bool = True, mse_clip: bool = False,
                    clip_grid: int = 80, max_shrink: float = 0.8,
-                   norm: float = 2.4, reduce_axes=None) -> QuantParams:
+                   norm: float = 2.4, reduce_axes=None,
+                   recip: bool = False) -> QuantParams:
     """Quantization params of a weight laid out (…, in, out): one scale per
     output channel (``per_channel``; every axis but the last reduced, or
     ``reduce_axes``, e.g. (-2,) for a stacked (L, in, out) weight) or one
     per tensor. ``mse_clip`` runs the MSE grid search over the shrinks
     1 − i·max_shrink/clip_grid, i < clip_grid, with error Σ |fq(w) − w|^norm
     per channel, as one batched computation over the grid (the JAX
-    function's vmap); the first shrink of least error wins."""
+    function's vmap); the first shrink of least error wins. ``recip``:
+    constant divisions round as inside a jitted JAX function
+    (:func:`_over`)."""
     wf = w.float()
     if reduce_axes is not None:
         axis = tuple(reduce_axes)
@@ -123,19 +139,22 @@ def weight_qparams(w: torch.Tensor, fmt: IntFormat, per_channel: bool = True,
         xmin = wf.amin(dim=axis, keepdim=True)
         xmax = wf.amax(dim=axis, keepdim=True)
     if not mse_clip:
-        return scales_from_minmax(xmin, xmax, fmt, symmetric)
+        return scales_from_minmax(xmin, xmax, fmt, symmetric, recip=recip)
 
-    shrinks = 1.0 - (torch.arange(clip_grid, dtype=torch.float32,
-                                  device=wf.device) / clip_grid * max_shrink)
+    shrinks = 1.0 - (_over(torch.arange(clip_grid, dtype=torch.float32,
+                                        device=wf.device), clip_grid, recip)
+                     * max_shrink)
     grid = shrinks.reshape((clip_grid,) + (1,) * wf.ndim)
-    qp = scales_from_minmax(xmin * grid, xmax * grid, fmt, symmetric)
+    qp = scales_from_minmax(xmin * grid, xmax * grid, fmt, symmetric,
+                            recip=recip)
     e = (fake_quantize(wf, qp, fmt) - wf).abs() ** norm  # (grid, …, in, out)
     if axis is None:
         errs = e.reshape(clip_grid, -1).sum(-1)
     else:
         errs = e.sum(dim=tuple(a % wf.ndim + 1 for a in axis), keepdim=True)
     best = shrinks[errs.argmin(dim=0)]
-    return scales_from_minmax(xmin * best, xmax * best, fmt, symmetric)
+    return scales_from_minmax(xmin * best, xmax * best, fmt, symmetric,
+                              recip=recip)
 
 
 def rtn_quantize_weight(w: torch.Tensor, bits: int, per_channel: bool = True,

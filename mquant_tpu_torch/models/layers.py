@@ -7,8 +7,9 @@ activations fake-quantized: quantize → dequantize in x's dtype, static
 scales from ``state`` or dynamic per-token ones) and "real" (integer storage
 ``w_q``/``w_scale``, int8 activations, hand-written int GEMM kernels; a
 site without ``w_q``, such as the ViT of an artifact whose LLM alone was
-realized, takes the fake path, as in the JAX package). The calibration mode
-and output quantizers raise.
+realized, takes the fake path, as in the JAX package) and "calib" (the fake
+path, recording each static site's input into a :class:`Tape`; a static
+site without calibrated scales passes x through). Output quantizers raise.
 
 Forward order inside a site: online Hadamard → RMS split (channel 0 stays
 fp, ``w_col0``) → activation quantize → GEMM → f32 col0 correction → bias.
@@ -25,6 +26,7 @@ import torch
 from ..core.formats import get_format
 from ..core.quant import dynamic_fake_quant, fake_quantize
 from ..kernels.fwht import online_hadamard
+from ..observe import observers as O
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,6 +48,45 @@ class SiteSpec:
     split: bool = False
     out_bits: Optional[int] = None
 
+    def observer_spec(self) -> O.ObserverSpec:
+        return O.ObserverSpec(kind=self.observer,
+                              per_channel=self.a_per_channel,
+                              symmetric=self.a_symmetric)
+
+
+class Tape:
+    """Collects per-site activation stats during a calibration forward:
+    ``stats[name]`` folds each recorded input into the site's fresh
+    ObserverStats; ``samples`` keeps the raw inputs (…, C) flattened to
+    (N, C) when ``collect_samples``. The JAX Tape's ``prev`` stats and
+    token ``mask`` have no caller here (token masks: ROADMAP A6)."""
+
+    def __init__(self, collect_samples: bool = False):
+        self.stats: Dict[str, O.ObserverStats] = {}
+        self.samples: Dict[str, torch.Tensor] = {}
+        self.collect_samples = collect_samples
+
+    def record(self, name: str, x: torch.Tensor, spec: SiteSpec):
+        ospec = spec.observer_spec()
+        st = O.init_stats(ospec, x.shape[-1] if ospec.per_channel else None,
+                          device=x.device)
+        self.stats[name] = O.update(ospec, st, x)
+        if self.collect_samples:
+            self.samples[name] = x.reshape(-1, x.shape[-1])
+
+
+def stack_tapes(tapes: list) -> Optional[tuple]:
+    """Per-layer tapes → (stats, samples) stacked along a leading (L,)
+    axis, the JAX layer scan's output (None for no tapes)."""
+    if not tapes:
+        return None
+    stats = {k: O.ObserverStats(*(torch.stack([t.stats[k][i] for t in tapes])
+                                  for i in range(3)))
+             for k in tapes[0].stats}
+    samples = {k: torch.stack([t.samples[k] for t in tapes])
+               for k in tapes[0].samples}
+    return stats, samples
+
 
 def _online_hadamard(x: torch.Tensor, spec: SiteSpec) -> torch.Tensor:
     """Runtime Hadamard on the activation before quantization: "full" over
@@ -62,9 +103,8 @@ def _online_hadamard(x: torch.Tensor, spec: SiteSpec) -> torch.Tensor:
 
 
 def _check_servable(p: Dict[str, Any], spec: SiteSpec, mode: str):
-    if mode not in ("real", "fake"):
-        raise NotImplementedError(f"mode {mode!r} is not ported (fp, fake "
-                                  "and real are)")
+    if mode not in ("real", "fake", "calib"):
+        raise ValueError(f"unknown mode {mode!r} (fp, calib, fake or real)")
     if spec.out_bits is not None:
         raise NotImplementedError("output quantizers are not ported yet")
     if "w_col0" in p and not spec.split and "w" not in p:
@@ -76,9 +116,9 @@ def _check_servable(p: Dict[str, Any], spec: SiteSpec, mode: str):
 
 def _quantize_act(x: torch.Tensor, spec: SiteSpec, site_state
                   ) -> torch.Tensor:
-    """The fake path's activation quantizer: the site's static
-    QuantParams (x unchanged while the site has none), else dynamic
-    scales."""
+    """The fake and calib paths' activation quantizer: the site's static
+    QuantParams (x unchanged while the site has none: calibration not
+    finalized yet), else dynamic scales."""
     if spec.a_static:
         if site_state is None or site_state.get("act") is None:
             return x
@@ -93,12 +133,14 @@ def _quantize_act(x: torch.Tensor, spec: SiteSpec, site_state
 def qlinear(x: torch.Tensor, p: Dict[str, Any], name: str,
             spec: Optional[SiteSpec] = None,
             state: Optional[Dict[str, Any]] = None,
-            mode: str = "fp") -> torch.Tensor:
+            mode: str = "fp", tape: Optional[Tape] = None) -> torch.Tensor:
     """y = x @ w + b through the site's transform / quant pipeline. Split
     storage (``w_col0`` (…, 1, out) and ``w`` / ``w_q`` over input rows
     1..n−1): with ``spec.split`` channel 0 of the (rotated) input skips the
     quantizer and adds (x0 · w_col0) in f32 after the GEMM; otherwise (fp
-    mode, or a spec without the split) the column rejoins a float ``w``."""
+    mode, or a spec without the split) the column rejoins a float ``w``.
+    ``tape`` records a static site's input as the quantizer sees it (after
+    the Hadamard and the split)."""
     from ..kernels.qmm import quantized_matmul
 
     if spec is None or mode == "fp":
@@ -115,6 +157,8 @@ def qlinear(x: torch.Tensor, p: Dict[str, Any], name: str,
         x0, x = x[..., :1], x[..., 1:]
     elif "w_col0" in p:  # split storage, spec without the split: rejoin
         p = {**p, "w": torch.cat([p["w_col0"], p["w"]], dim=-2)}
+    if tape is not None and spec.a_bits is not None and spec.a_static:
+        tape.record(name, x, spec)
     site_state = None if state is None else state.get(name)
     if mode == "real" and "w_q" in p:
         y = quantized_matmul(x, p, spec, site_state)
@@ -134,7 +178,7 @@ def qlinear(x: torch.Tensor, p: Dict[str, Any], name: str,
 def qlinear_group(x: torch.Tensor, ps: list, names: list,
                   specs: Dict[str, Optional[SiteSpec]],
                   state: Optional[Dict[str, Any]] = None,
-                  mode: str = "fp") -> list:
+                  mode: str = "fp", tape: Optional[Tape] = None) -> list:
     """Several sites sharing ONE input (q/k/v, gate/up). On the real-int path
     the input is quantized once for the group (exact: the sites' static
     scales and dynamic per-token scales see the identical tensor); sites
@@ -154,7 +198,7 @@ def qlinear_group(x: torch.Tensor, ps: list, names: list,
                 and sum(p["w_scale"].shape[-1] for p in ps) == fused0.shape[-1])
     fusable = base_ok and all("w_q" in p and "w_col0" not in p for p in ps)
     if not (one_gemm or fusable):
-        return [qlinear(x, p, n, specs.get(n), state, mode)
+        return [qlinear(x, p, n, specs.get(n), state, mode, tape)
                 for p, n in zip(ps, names)]
 
     site_state = None if state is None else state.get(names[0])

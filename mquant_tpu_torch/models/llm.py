@@ -179,7 +179,7 @@ def _use_fused_tail(dspec, mode: str, T: int, dp: Dict, act,
             and T >= 256 and T % 256 == 0)
 
 
-def _mlp_tail(dspec, mode, g, u, dp, lstate):
+def _mlp_tail(dspec, mode, g, u, dp, lstate, tape=None):
     """swiglu → down-projection. Where :func:`_use_fused_tail` holds, swiglu
     → Hadamard → int8 is one fused kernel and its codes go straight to the
     integer GEMM; otherwise the unfused chain of ``qlinear``."""
@@ -194,7 +194,7 @@ def _mlp_tail(dspec, mode, g, u, dp, lstate):
         if dp.get("b") is not None:
             y = y + dp["b"].to(y.dtype)
         return y
-    return qlinear(L.swiglu(g, u), dp, "llm.down", dspec, lstate, mode)
+    return qlinear(L.swiglu(g, u), dp, "llm.down", dspec, lstate, mode, tape)
 
 
 def _layer_step(cfg: DecoderConfig, specs: Dict[str, SiteSpec], mode: str,
@@ -203,19 +203,21 @@ def _layer_step(cfg: DecoderConfig, specs: Dict[str, SiteSpec], mode: str,
                 cache_pos, cos, sin, prefill_fresh: bool,
                 attn_mask: Optional[torch.Tensor] = None,
                 attn_start: Optional[torch.Tensor] = None,
-                fused_decode: bool = False) -> torch.Tensor:
+                fused_decode: bool = False,
+                tape: Optional[L.Tape] = None) -> torch.Tensor:
     """One decoder layer. ``cache_kv`` = this layer's (k, v) cache views
     (B, S, KVH, hd), written in place at rows [cache_pos, cache_pos + T)
     (``cache_pos`` a 0-d device tensor or a host int). ``fused_decode``: the
     T == 1 cache write and attention are one ``kernels.attn_decode`` call
-    (mask start ≤ col ≤ pos)."""
+    (mask start ≤ col ≤ pos). ``tape`` collects the layer's calibration
+    stats."""
     B, T, _ = h.shape
     hd, H, KV = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
 
     x = L.rms_norm(h, lp["ln1"]["w"], cfg.norm_eps)
     q, k, v = L.qlinear_group(x, [lp["q"], lp["k"], lp["v"]],
                               ["llm.q", "llm.k", "llm.v"], specs, lstate,
-                              mode)
+                              mode, tape)
     q = q.reshape(B, T, H, hd)
     k = k.reshape(B, T, KV, hd)
     v = v.reshape(B, T, KV, hd)
@@ -269,12 +271,13 @@ def _layer_step(cfg: DecoderConfig, specs: Dict[str, SiteSpec], mode: str,
         attn = L.attention(q, k_all.to(q.dtype), v_all.to(q.dtype), mask,
                            causal=causal)
     attn = attn.reshape(B, T, H * hd)
-    h = h + qlinear(attn, lp["o"], "llm.o", specs.get("llm.o"), lstate, mode)
+    h = h + qlinear(attn, lp["o"], "llm.o", specs.get("llm.o"), lstate, mode,
+                    tape)
     x = L.rms_norm(h, lp["ln2"]["w"], cfg.norm_eps)
     g, u = L.qlinear_group(x, [lp["gate"], lp["up"]], ["llm.gate", "llm.up"],
-                           specs, lstate, mode)
+                           specs, lstate, mode, tape)
     return h + _mlp_tail(specs.get("llm.down"), mode, g, u, lp["down"],
-                         lstate)
+                         lstate, tape)
 
 
 def _use_fused_decode_attn(cfg: DecoderConfig, cache: Optional[Dict], T: int,
@@ -310,8 +313,13 @@ def decoder_forward(cfg: DecoderConfig, params: Dict,
                     positions: Optional[torch.Tensor] = None,
                     attn_mask: Optional[torch.Tensor] = None,
                     last_index=None, prefill_fresh: bool = False,
-                    attn_start: Optional[torch.Tensor] = None):
-    """Full decoder forward. Returns (logits, cache).
+                    attn_start: Optional[torch.Tensor] = None,
+                    collect_stats: bool = False,
+                    collect_samples: bool = False):
+    """Full decoder forward. Returns (logits, cache, stats): ``stats`` is
+    None unless ``collect_stats`` (mode "calib"), then (stats, samples),
+    each site's ObserverStats stacked over the layers (leading (L,) axes)
+    and, with ``collect_samples``, each static site's raw inputs (L, N, C).
 
     ``tokens_or_embeds``: (B, T) token ids or (B, T, hidden) embeddings.
     ``positions``: (B, T), or (3, B, T) for M-RoPE; default: the cache
@@ -353,12 +361,17 @@ def decoder_forward(cfg: DecoderConfig, params: Dict,
     if attn_start is not None:  # once per step: the kernel takes it as is
         attn_start = torch.as_tensor(attn_start, device=h.device).to(
             torch.int32).reshape(-1).contiguous()
+    tapes = []
     for li in range(cfg.n_layers):
         lp = layer_views(params["layers"], li)
         lst = None if lstate_all is None else layer_views(lstate_all, li)
         ckv = None if cache is None else (cache["k"][li], cache["v"][li])
+        tape = None
+        if collect_stats:
+            tape = L.Tape(collect_samples)
+            tapes.append(tape)
         h = _layer_step(cfg, specs, mode, h, lp, lst, ckv, pos0, cos, sin,
-                        prefill_fresh, attn_mask, attn_start, fused)
+                        prefill_fresh, attn_mask, attn_start, fused, tape)
 
     if last_index is not None and not isinstance(last_index, torch.Tensor):
         h = h[:, int(last_index):int(last_index) + 1]  # a host index
@@ -377,7 +390,7 @@ def decoder_forward(cfg: DecoderConfig, params: Dict,
     if cache is not None:
         cache = dict(cache)
         cache["pos"] = pos0 + T
-    return logits, cache
+    return logits, cache, L.stack_tapes(tapes)
 
 
 def init_cache(cfg: DecoderConfig, batch: int, max_len: int, dtype=None,

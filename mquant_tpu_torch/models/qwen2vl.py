@@ -10,8 +10,9 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from .llm import DecoderConfig, decoder_forward
-from .vision import MergerConfig, ViTConfig, merger_forward, vit_forward
+from .llm import DecoderConfig, decoder_forward, init_decoder_params
+from .vision import (MergerConfig, ViTConfig, init_merger_params,
+                     init_vit_params, merger_forward, vit_forward)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,6 +85,16 @@ _QWEN2VL_VIT = ViTConfig(width=1280, n_layers=32, n_heads=16, mlp_width=5120,
                          act="quick_gelu", norm_eps=1e-6)
 
 
+def init_qwen2vl_params(cfg: Qwen2VLConfig, gen: torch.Generator,
+                        device="cuda") -> Dict:
+    """Random Qwen2-VL params in the JAX package's layout (its
+    ``init_qwen2vl_params``), drawn from ``gen`` in the order LLM, ViT,
+    merger (other values than JAX's RNG)."""
+    return {"llm": init_decoder_params(cfg.llm, gen, device=device),
+            "vit": init_vit_params(cfg.vit, gen, device=device),
+            "merger": init_merger_params(cfg.merger, gen, device=device)}
+
+
 def splice_image_embeds(text_embeds: torch.Tensor, tokens: torch.Tensor,
                         image_embeds: torch.Tensor, image_token_id: int
                         ) -> torch.Tensor:
@@ -141,25 +152,44 @@ def qwen2vl_forward(cfg: Qwen2VLConfig, params: Dict, tokens: torch.Tensor,
                     state: Optional[Dict] = None, mode: str = "fp",
                     positions: Optional[torch.Tensor] = None,
                     cache: Optional[Dict] = None,
-                    vis_token_mask: Optional[torch.Tensor] = None):
+                    vis_token_mask: Optional[torch.Tensor] = None,
+                    collect_stats: bool = False,
+                    collect_samples: bool = False):
     """End-to-end VLM forward: tokens (B, T), optional patches (B, N·merge²,
     patch_dim) with their grid (B, N·merge², 2) spliced in at the image
-    tokens, M-RoPE ``positions`` (3, B, T). Returns (logits, cache, None):
-    calibration statistics are not collected (ROADMAP A10)."""
+    tokens, M-RoPE ``positions`` (3, B, T). Returns (logits, cache, stats):
+    ``stats`` None unless ``collect_stats``, then (stats, samples) of every
+    subsystem's sites (``vis.*``, ``merger.*``, ``llm.*``)."""
+    stats: Dict = {}
+    samples: Dict = {}
+
+    def add(st):
+        if st is not None:
+            stats.update(st[0] or {})
+            samples.update(st[1] or {})
+
     embeds = params["llm"]["embed"]["w"][tokens].to(cfg.llm.dtype)
     if patches is not None:
-        feats, _ = vit_forward(cfg.vit, params["vit"], patches, specs, state,
-                               mode, grid_hw=grid_hw,
-                               token_mask=vis_token_mask)
-        merged, _ = merger_forward(cfg.merger, params["merger"], feats,
-                                   specs, state, mode,
-                                   token_mask=vis_token_mask)
+        feats, vs = vit_forward(cfg.vit, params["vit"], patches, specs, state,
+                                mode, grid_hw=grid_hw,
+                                token_mask=vis_token_mask,
+                                collect_stats=collect_stats,
+                                collect_samples=collect_samples)
+        add(vs)
+        merged, ms = merger_forward(cfg.merger, params["merger"], feats,
+                                    specs, state, mode,
+                                    token_mask=vis_token_mask,
+                                    collect_stats=collect_stats,
+                                    collect_samples=collect_samples)
+        add(ms)
         embeds = splice_image_embeds(embeds, tokens, merged,
                                      cfg.image_token_id)
-    logits, cache = decoder_forward(cfg.llm, params["llm"], embeds,
-                                    specs=specs, state=state, mode=mode,
-                                    cache=cache, positions=positions)
-    return logits, cache, None
+    logits, cache, ls = decoder_forward(
+        cfg.llm, params["llm"], embeds, specs=specs, state=state, mode=mode,
+        cache=cache, positions=positions, collect_stats=collect_stats,
+        collect_samples=collect_samples)
+    add(ls)
+    return logits, cache, (stats, samples) if collect_stats else None
 
 
 def default_w4a8_specs(visual_w_bits: int = 8, llm_w_bits: int = 4,

@@ -108,13 +108,13 @@ def rot2d_tables(grid_hw: torch.Tensor, head_dim: int, theta: float = 10000.0):
 
 
 def vit_preamble(cfg: ViTConfig, params: Dict, patches: torch.Tensor,
-                 specs=None, state=None, mode: str = "fp",
+                 specs=None, state=None, mode: str = "fp", tape=None,
                  prefix: str = "vis") -> torch.Tensor:
     """The patch-embed linear."""
     specs = specs or {}
     return qlinear(patches.to(cfg.dtype), params["patch_embed"],
                    f"{prefix}.patch_embed", specs.get(f"{prefix}.patch_embed"),
-                   state, mode)
+                   state, mode, tape)
 
 
 def _no_token_mask(token_mask):
@@ -127,13 +127,17 @@ def vit_forward(cfg: ViTConfig, params: Dict, patches: torch.Tensor,
                 specs: Optional[Dict[str, SiteSpec]] = None,
                 state: Optional[Dict] = None, mode: str = "fp",
                 grid_hw: Optional[torch.Tensor] = None, prefix: str = "vis",
-                token_mask: Optional[torch.Tensor] = None):
+                token_mask: Optional[torch.Tensor] = None,
+                collect_stats: bool = False, collect_samples: bool = False):
     """patches (B, T, patch_dim), grid_hw (B, T, 2) → (features (B, T, W),
-    None)."""
+    stats): ``stats`` is None unless ``collect_stats``, then (stats,
+    samples) as ``decoder_forward`` gives them, the blocks' sites stacked
+    over the layers and the patch embed's unstacked."""
     _no_token_mask(token_mask)
     specs = specs or {}
     B, T, _ = patches.shape
-    h = vit_preamble(cfg, params, patches, specs, state, mode, prefix)
+    tape0 = L.Tape(collect_samples) if collect_stats else None
+    h = vit_preamble(cfg, params, patches, specs, state, mode, tape0, prefix)
     cos = sin = None
     if cfg.rotary_2d:
         if grid_hw is None:
@@ -149,25 +153,37 @@ def vit_forward(cfg: ViTConfig, params: Dict, patches: torch.Tensor,
     def site(nm):
         return specs.get(f"{prefix}.{nm}")
 
+    tapes = []
     for li in range(cfg.n_layers):
         bp = layer_views(params["blocks"], li)
         lst = None if lstate_all is None else layer_views(lstate_all, li)
+        tape = None
+        if collect_stats:
+            tape = L.Tape(collect_samples)
+            tapes.append(tape)
         x = _norm(cfg, h, bp["ln1"])
-        q = qlinear(x, bp["q"], f"{prefix}.q", site("q"), lst, mode)
-        k = qlinear(x, bp["k"], f"{prefix}.k", site("k"), lst, mode)
-        v = qlinear(x, bp["v"], f"{prefix}.v", site("v"), lst, mode)
+        q = qlinear(x, bp["q"], f"{prefix}.q", site("q"), lst, mode, tape)
+        k = qlinear(x, bp["k"], f"{prefix}.k", site("k"), lst, mode, tape)
+        v = qlinear(x, bp["v"], f"{prefix}.v", site("v"), lst, mode, tape)
         q = q.reshape(B, T, H, hd)
         k = k.reshape(B, T, H, hd)
         v = v.reshape(B, T, H, hd)
         if cos is not None:
             q, k = L.apply_rope(q, k, cos, sin)
         a = L.attention(q, k, v).reshape(B, T, H * hd)
-        h = h + qlinear(a, bp["o"], f"{prefix}.o", site("o"), lst, mode)
+        h = h + qlinear(a, bp["o"], f"{prefix}.o", site("o"), lst, mode, tape)
         x = _norm(cfg, h, bp["ln2"])
-        x = qlinear(x, bp["fc1"], f"{prefix}.fc1", site("fc1"), lst, mode)
+        x = qlinear(x, bp["fc1"], f"{prefix}.fc1", site("fc1"), lst, mode,
+                    tape)
         x = _act(cfg, x)
-        h = h + qlinear(x, bp["fc2"], f"{prefix}.fc2", site("fc2"), lst, mode)
-    return h, None
+        h = h + qlinear(x, bp["fc2"], f"{prefix}.fc2", site("fc2"), lst, mode,
+                        tape)
+    if not collect_stats:
+        return h, None
+    stats, samples = L.stack_tapes(tapes) or ({}, {})
+    stats.update(tape0.stats)
+    samples.update(tape0.samples)
+    return h, (stats, samples)
 
 
 def patchify_qwen2vl(images: torch.Tensor, patch: int = 14,
@@ -226,11 +242,14 @@ def init_merger_params(cfg: MergerConfig, gen: torch.Generator, dtype=None,
 
 
 def merger_forward(cfg: MergerConfig, params, x: torch.Tensor, specs=None,
-                   state=None, mode="fp", token_mask=None):
+                   state=None, mode="fp", token_mask=None,
+                   collect_stats: bool = False, collect_samples: bool = False):
     """x (B, T, context_dim), merge groups contiguous → ((B, T/merge²,
-    out_dim), None)."""
+    out_dim), stats): None unless ``collect_stats``, then (stats,
+    samples)."""
     _no_token_mask(token_mask)
     specs = specs or {}
+    tape = L.Tape(collect_samples) if collect_stats else None
     g = cfg.merge * cfg.merge
     B, T, D = x.shape
     if cfg.norm_kind == "ln" and params["ln_q"].get("b") is not None:
@@ -240,8 +259,8 @@ def merger_forward(cfg: MergerConfig, params, x: torch.Tensor, specs=None,
         x = L.rms_norm(x, params["ln_q"]["w"], cfg.norm_eps)
     x = x.reshape(B, T // g, g * D)
     x = qlinear(x, params["mlp0"], "merger.mlp0", specs.get("merger.mlp0"),
-                state, mode)
+                state, mode, tape)
     x = torch.nn.functional.gelu(x, approximate="none")
     x = qlinear(x, params["mlp2"], "merger.mlp2", specs.get("merger.mlp2"),
-                state, mode)
-    return x, None
+                state, mode, tape)
+    return x, None if tape is None else (tape.stats, tape.samples)

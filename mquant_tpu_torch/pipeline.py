@@ -1,0 +1,490 @@
+"""The offline PTQ pipeline, Qwen2-VL (counterpart of
+``mquant_tpu/pipeline.py``): random or given weights → fuse / rotate →
+weight quantization (LLM GPTQ or RTN, vision tower and merger RTN, head
+RTN) → static activation calibration (MSQ) → integer realization →
+artifact (``utils.checkpoint.save_artifact``), which
+``serve.server.build_runner_from_artifact`` serves.
+
+One structured :class:`QuantizeConfig` with the JAX package's fields. The
+values this port does not implement raise NotImplementedError naming the
+ROADMAP item that ports them (:func:`check_ported`). Everything runs on the
+card unless the caller passes ``device="cpu"``; ``run_pipeline``'s ``info``
+records each stage's seconds and, on the card, its peak memory.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import logging
+import time
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from .models.layers import SiteSpec
+from .models.llm import LLM_SITES
+from .models.registry import get_family
+from .models.vision import VIT_SITES
+
+log = logging.getLogger("mquant_tpu_torch.pipeline")
+
+# site names per subsystem prefix (the Qwen2-VL family's)
+SUBSYSTEM_SITES = {
+    "vis": VIT_SITES + ("patch_embed",),
+    "merger": ("mlp0", "mlp2"),
+    "llm": LLM_SITES,
+}
+
+
+@dataclasses.dataclass
+class QuantizeConfig:
+    """The JAX package's fields, with its defaults (their meaning there;
+    the reference's flag names). :func:`check_ported` says which values
+    this port implements."""
+
+    rotate: bool = True
+    rotate_mode: str = "hadamard"  # hadamard | random
+    rotate_visual: bool = True
+    rotate_llm: bool = True
+    online_llm_hadamard: bool = True
+    online_had_mode: str = "full"  # full | block (auto: not ported)
+    llm_split: bool = True
+    online_visual_hadamard: bool = False
+    visual_split: bool = False
+    smooth_alpha: float = 0.0
+    visual_w_bits: int = 8
+    llm_w_bits: int = 4
+    visual_w_rtn: bool = True
+    llm_w_rtn: bool = False
+    w_clip: bool = False
+    w_asym: bool = False
+    w_groupsize: Optional[int] = None
+    auto_bits: float = 0.0
+    auto_bits_low: int = 4
+    auto_bits_high: int = 8
+    lm_head_bits: object = 0  # 0 = float head, 4 / 8 = quantized
+    lm_head_gate: float = 1.002
+    act_order: bool = False
+    percdamp: float = 0.01
+    nsamples: int = 128
+    visual_a_bits: int = 8
+    llm_a_bits: int = 8
+    visual_static: bool = True
+    llm_static: bool = True
+    a_asym: bool = False
+    a_groupsize: Optional[int] = None
+    a_clip_ratio: float = 1.0
+    calib_decode_steps: int = 0
+    act_per_tensor: bool = True
+    act_observer: str = "minmax"
+    calib_num: int = 128
+    skip_names: Tuple[str, ...] = ()
+    realize_int: bool = False
+    kv_bits: Optional[int] = None
+    seed: int = 0
+
+
+def check_ported(q: QuantizeConfig):
+    """Raise NotImplementedError, naming its ROADMAP item, for a value of
+    ``q`` that this port does not implement."""
+    unported = [
+        (q.smooth_alpha != 0, "smooth_alpha (transform/smooth.py)", "A10"),
+        (q.auto_bits > 0, "auto_bits (utils/autobits.autobits_specs)", "A10"),
+        (q.lm_head_bits == "auto",
+         "lm_head_bits='auto' (utils/autobits.decide_head_bits)", "A10"),
+        (q.lm_head_bits not in (0, 4, 8, "auto"),
+         f"lm_head_bits={q.lm_head_bits!r}", "A10"),
+        (q.online_had_mode == "auto",
+         "online_had_mode='auto' (_choose_online_had_mode)", "A10"),
+        (not q.visual_w_rtn, "visual GPTQ (gptq/modules.py)", "A10"),
+        (q.kv_bits is not None, "kv_bits (int8 / int4 KV)", "A5"),
+        (q.w_asym, "w_asym (zero-point weight storage)", "A4"),
+        (q.w_groupsize is not None, "w_groupsize (grouped storage)", "A4"),
+        (q.a_asym, "a_asym (shifted int8 activations)", "A4"),
+        (not q.act_per_tensor, "per-channel static activations (a_fold)",
+         "A4"),
+        (q.a_groupsize is not None, "a_groupsize (per-group activations)",
+         "A1"),
+    ]
+    for bad, what, item in unported:
+        if bad:
+            raise NotImplementedError(f"{what} is not ported (ROADMAP "
+                                      f"{item})")
+
+
+def build_specs(q: QuantizeConfig) -> Dict[str, SiteSpec]:
+    """Specs for every quant site of Qwen2-VL (MSQ: per-subsystem
+    settings), the head's where ``lm_head_bits`` is set, ``llm.down`` with
+    the online Hadamard and RMS split, ``vis.fc2`` with the visual ones."""
+    specs: Dict[str, SiteSpec] = {}
+    for prefix, sites in SUBSYSTEM_SITES.items():
+        visual = prefix != "llm"
+        w_bits = q.visual_w_bits if visual else q.llm_w_bits
+        a_bits = q.visual_a_bits if visual else q.llm_a_bits
+        static = q.visual_static if visual else q.llm_static
+        for s in sites:
+            name = f"{prefix}.{s}"
+            if any(sk in name for sk in q.skip_names):
+                continue
+            specs[name] = SiteSpec(
+                w_bits=w_bits or None, a_bits=a_bits or None, a_static=static,
+                a_symmetric=not q.a_asym,
+                a_per_channel=False if q.act_per_tensor else True,
+                a_groupsize=q.a_groupsize, a_clip_ratio=q.a_clip_ratio,
+                observer=q.act_observer)
+    if q.lm_head_bits and q.lm_head_bits != "auto":
+        specs["llm.lm_head"] = SiteSpec(
+            w_bits=int(q.lm_head_bits), a_bits=q.llm_a_bits or None,
+            a_static=q.llm_static, a_symmetric=not q.a_asym,
+            a_per_channel=False if q.act_per_tensor else True,
+            observer=q.act_observer)
+    if ("llm.down" in specs and q.rotate and q.rotate_llm
+            and q.online_llm_hadamard):
+        if q.online_had_mode == "block":
+            specs["llm.down"] = dataclasses.replace(
+                specs["llm.down"], online_had="block", head_dim=128,
+                split=q.llm_split)
+        else:
+            specs["llm.down"] = dataclasses.replace(
+                specs["llm.down"], online_had="full", split=q.llm_split)
+    if "vis.fc2" in specs and q.rotate and q.rotate_visual:
+        if q.online_visual_hadamard or q.visual_split:
+            specs["vis.fc2"] = dataclasses.replace(
+                specs["vis.fc2"],
+                online_had="full" if q.online_visual_hadamard else None,
+                split=q.visual_split)
+    return specs
+
+
+# ---------------------------------------------------------------------------
+# weights and calibration data
+# ---------------------------------------------------------------------------
+
+
+def config_for(model: str, tiny: bool = False):
+    """The Qwen2-VL preset a model name picks (7B unless it names 2B or
+    72B), or the tiny test configuration."""
+    from .models.qwen2vl import Qwen2VLConfig
+
+    if tiny:
+        return Qwen2VLConfig.tiny()
+    key = model.lower().replace("-", "").replace("_", "")
+    presets = {"qwen2vl2b": Qwen2VLConfig.qwen2vl_2b,
+               "qwen2vl72b": Qwen2VLConfig.qwen2vl_72b}
+    return presets.get(key, Qwen2VLConfig.qwen2vl_7b)()
+
+
+def synthetic_calib_batches(cfg, n_batches: int, gen: torch.Generator,
+                            batch: int = 1, text_len: int = 32,
+                            image_size: int = 16, device="cuda"
+                            ) -> List[dict]:
+    """Random multimodal calibration batches of the right shapes, drawn
+    from ``gen``: a normal image (batch, image_size², 3) patchified, its
+    merged image tokens at positions 2.., then text_len − 2 random ids
+    below min(vocab, 1000), the rest token 11."""
+    from .models.vision import patchify_qwen2vl
+
+    out = []
+    for _ in range(n_batches):
+        images = torch.randn((batch, image_size, image_size, 3),
+                             generator=gen, device=gen.device).to(device)
+        patches, grid = patchify_qwen2vl(images, patch=cfg.patch)
+        n_img = patches.shape[1] // 4
+        toks = torch.full((batch, n_img + text_len), 11, dtype=torch.int64)
+        toks[:, 2:2 + n_img] = cfg.image_token_id
+        toks[:, n_img + 2:] = torch.randint(
+            0, min(cfg.llm.vocab, 1000), (batch, text_len - 2),
+            generator=gen, device=gen.device).cpu()
+        out.append({"tokens": toks.to(device), "patches": patches,
+                    "grid_hw": grid})
+    return out
+
+
+def _bound_nsamples(batches: List[dict], nsamples: int) -> List[dict]:
+    """At most ``nsamples`` calibration rows for GPTQ: whole batches plus
+    one row-sliced remainder."""
+    if not nsamples or nsamples <= 0:
+        return batches
+    out, seen = [], 0
+    for b in batches:
+        rows = b["tokens"].shape[0]
+        if seen + rows <= nsamples:
+            out.append(b)
+            seen += rows
+        else:
+            take = nsamples - seen
+            if take > 0:
+                out.append({k: (v[:take] if isinstance(v, torch.Tensor)
+                                and v.ndim >= 1 and v.shape[0] == rows
+                                else v) for k, v in b.items()})
+                seen += take
+        if seen >= nsamples:
+            break
+    return out
+
+
+def embed_batch(cfg, params: Dict, batch: dict) -> torch.Tensor:
+    """Decoder-input embeddings of one batch: the embedding, the float
+    ViT and merger, the splice."""
+    from .models.qwen2vl import splice_image_embeds
+    from .models.vision import merger_forward, vit_forward
+
+    toks = batch["tokens"]
+    embeds = params["llm"]["embed"]["w"][toks].to(cfg.llm.dtype)
+    if batch.get("patches") is None:
+        return embeds
+    feats, _ = vit_forward(cfg.vit, params["vit"], batch["patches"],
+                           grid_hw=batch.get("grid_hw"))
+    merged, _ = merger_forward(cfg.merger, params["merger"], feats)
+    return splice_image_embeds(embeds, toks, merged, cfg.image_token_id)
+
+
+# ---------------------------------------------------------------------------
+# stages
+# ---------------------------------------------------------------------------
+
+
+def _set_in(tree: Dict, path, value) -> Dict:
+    out = dict(tree)
+    out[path[0]] = value if len(path) == 1 else _set_in(tree[path[0]],
+                                                        path[1:], value)
+    return out
+
+
+def quantize_weights(cfg, params: Dict, specs: Dict[str, SiteSpec],
+                     q: QuantizeConfig,
+                     calib_batches: Optional[List[dict]] = None,
+                     report: Optional[Dict] = None) -> tuple:
+    """Weight quantization: the vision tower and merger by RTN, the LLM by
+    GPTQ on the calibration batches' decoder inputs (RTN with
+    ``llm_w_rtn`` or no batches), the head by per-channel RTN. Returns
+    (params, the exact weight grids for realization); ``report`` receives
+    the GPTQ driver's report."""
+    from .core import quant as Q
+    from .core.formats import get_format
+
+    params = dict(params)
+    group_of = {"vis": "vit", "merger": "merger"}
+    for name, spec in specs.items():
+        prefix, site = name.split(".", 1)
+        if prefix == "llm" or spec.w_bits is None:
+            continue
+        group_key = group_of[prefix]
+        if group_key not in params:
+            continue
+        path = ((group_key, "blocks", site) if prefix == "vis"
+                and site in VIT_SITES else (group_key, site))
+        node = params
+        for k in path[:-1]:
+            node = node.get(k, {})
+        src = node.get(path[-1])
+        if not isinstance(src, dict) or src.get("w") is None:
+            continue
+        stacked = src["w"].ndim == 3
+        new_site = dict(src)
+        new_site["w"] = Q.rtn_fake_quant_weight(
+            src["w"], spec.w_bits, mse_clip=q.w_clip, symmetric=not q.w_asym,
+            reduce_axes=(-2,) if stacked else None).to(src["w"].dtype)
+        params = _set_in(params, list(path), new_site)
+
+    wqps = None
+    if specs.get("llm.q", SiteSpec()).w_bits is None:
+        return params, wqps
+    if q.llm_w_rtn or calib_batches is None:
+        from .transform.recipes import rtn_quantize_decoder
+
+        params["llm"], wqps = rtn_quantize_decoder(
+            cfg.llm, params["llm"], specs, mse_clip=q.w_clip,
+            symmetric=not q.w_asym, return_qparams=True)
+        return params, wqps
+    from .gptq.driver import GPTQConfig, gptq_quantize_decoder
+
+    embeds = [embed_batch(cfg, params, b)
+              for b in _bound_nsamples(calib_batches, q.nsamples)]
+    gcfg = GPTQConfig(percdamp=q.percdamp, act_order=q.act_order,
+                      group_size=q.w_groupsize, mse_clip=q.w_clip,
+                      sym=not q.w_asym)
+    # arange RoPE positions for the image tokens too, as the JAX pipeline
+    params["llm"], rep = gptq_quantize_decoder(cfg.llm, params["llm"], embeds,
+                                               specs, gcfg=gcfg)
+    del embeds
+    if rep["fallbacks"]:
+        log.warning(f"GPTQ RTN-fallbacks: {rep['fallbacks']}")
+    if report is not None:
+        report.update(rep)
+    wqps = rep["qparams"]
+    head_spec = specs.get("llm.lm_head")
+    head = params["llm"].get("lm_head")
+    if (head_spec is not None and head_spec.w_bits is not None
+            and isinstance(head, dict) and head.get("w") is not None):
+        fmt = get_format(head_spec.w_bits, signed=not q.w_asym)
+        qp = Q.weight_qparams(head["w"], fmt, per_channel=True,
+                              symmetric=not q.w_asym, mse_clip=q.w_clip)
+        params["llm"] = {**params["llm"], "lm_head": {
+            **head, "w": Q.fake_quantize(head["w"], qp, fmt).to(
+                head["w"].dtype)}}
+        out = head["w"].shape[-1]
+        wqps = {**wqps, "lm_head": (
+            qp.scale.reshape(1, out),
+            None if qp.zero_point is None else qp.zero_point.reshape(1, out))}
+    return params, wqps
+
+
+def calibrate_activations(cfg, params: Dict, specs: Dict[str, SiteSpec],
+                          calib_batches: List[dict],
+                          decode_steps: int = 0) -> Dict:
+    """Static activation calibration over the batches' multimodal forwards
+    (mode "calib"); ``decode_steps`` > 0 also folds that many greedy decode
+    steps per batch into the LLM sites' stats (after an uncounted prefill
+    into a KV cache)."""
+    from .calib.calibrate import calibrate, finalize_state, merge_stats
+    from .models.llm import decoder_forward, init_cache
+    from .models.qwen2vl import qwen2vl_forward
+
+    def fwd(batch, collect_samples=False):
+        logits, _, st = qwen2vl_forward(
+            cfg, params, batch["tokens"], batch.get("patches"),
+            grid_hw=batch.get("grid_hw"), specs=specs, mode="calib",
+            collect_stats=True, collect_samples=collect_samples)
+        return logits, st
+
+    if not decode_steps:
+        return calibrate(fwd, [(b,) for b in calib_batches], specs)
+
+    needs_samples = any(s.observer in ("omse", "ptf") for s in specs.values())
+    running = samples = None
+    for i, b in enumerate(calib_batches):
+        last = i == len(calib_batches) - 1
+        _, (stats, smp) = fwd(b, collect_samples=last and needs_samples)
+        running = merge_stats(specs, running, stats)
+        if last and needs_samples:
+            samples = smp
+        embeds = embed_batch(cfg, params, b)
+        B, T = b["tokens"].shape
+        cache = init_cache(cfg.llm, B, T + decode_steps,
+                           device=embeds.device)
+        logits, cache, _ = decoder_forward(
+            cfg.llm, params["llm"], embeds, specs=specs, mode="calib",
+            cache=cache, prefill_fresh=True)
+        tok = logits[:, -1:].argmax(dim=-1)
+        for _ in range(decode_steps):
+            logits, cache, st2 = decoder_forward(
+                cfg.llm, params["llm"], tok, specs=specs, mode="calib",
+                cache=cache, collect_stats=True)
+            running = merge_stats(specs, running, st2[0])
+            tok = logits[:, -1:].argmax(dim=-1)
+    return finalize_state(specs, running or {}, samples)
+
+
+@contextlib.contextmanager
+def _stage(info: Dict, name: str, device):
+    """Record a stage's seconds (device synchronized at both ends) and, on
+    the card, its peak allocated bytes in ``info["stages"][name]``."""
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    yield
+    if cuda:
+        torch.cuda.synchronize(dev)
+    info.setdefault("stages", {})[name] = {
+        "seconds": time.perf_counter() - t0,
+        "peak_bytes": torch.cuda.max_memory_allocated(dev) if cuda else None}
+
+
+def run_pipeline(model: str, q: QuantizeConfig,
+                 model_dir: Optional[str] = None,
+                 params: Optional[Dict] = None, cfg=None,
+                 calib_batches: Optional[List[dict]] = None,
+                 calib_dataset: Optional[str] = None, tokenizer=None,
+                 artifact_dir: Optional[str] = None, tiny: bool = False,
+                 rotations: Optional[Dict[str, torch.Tensor]] = None,
+                 image_size: int = 16, device="cuda"):
+    """The full PTQ pipeline on ``device``. Without ``params`` the weights
+    are random, drawn from ``q.seed``; without ``calib_batches``,
+    max(1, calib_num // 16) synthetic batches of ``image_size``² images.
+    ``rotations`` ({"vit": Q_v, "llm": Q_l}) replaces the drawn rotations.
+    Returns (cfg, params, state, specs, info); ``info["stages"]`` holds
+    each stage's seconds and peak bytes, ``info["gptq"]`` the GPTQ
+    driver's report."""
+    from .models.qwen2vl import init_qwen2vl_params
+
+    if model_dir:
+        raise NotImplementedError("checkpoint loading (models/loader.py) is "
+                                  "not ported (ROADMAP A12)")
+    if calib_dataset:
+        raise NotImplementedError("calib_batches_from_dataset is not ported "
+                                  "(ROADMAP A13)")
+    check_ported(q)
+    fam = get_family(model)
+    cfg = cfg or config_for(model, tiny)
+    gen = torch.Generator().manual_seed(q.seed)
+    info: Dict = {}
+
+    if params is None:
+        with _stage(info, "init", device):
+            params = init_qwen2vl_params(cfg, gen, device=device)
+        log.info("using random-initialized weights (no model_dir)")
+    specs = build_specs(q)
+    if calib_batches is None:
+        with _stage(info, "calib_batches", device):
+            calib_batches = synthetic_calib_batches(
+                cfg, max(1, q.calib_num // 16), gen,
+                image_size=image_size, device=device)
+
+    if q.rotate:
+        from .transform.vlm_recipes import prepare_vlm
+
+        with _stage(info, "fuse_rotate", device):
+            params, rinfo = prepare_vlm(
+                fam.name, cfg, params, gen, rotate_visual=q.rotate_visual,
+                rotate_llm=q.rotate_llm, mode=q.rotate_mode,
+                online_had_down=q.online_llm_hadamard and q.rotate_llm,
+                online_had_mode=q.online_had_mode,
+                split_down=q.llm_split and q.rotate_llm,
+                online_had_visual=q.online_visual_hadamard,
+                split_visual=q.visual_split, rotations=rotations)
+        info.update(rinfo)
+        pad = getattr(info.get("llm"), "down_pad", 0)
+        if pad:
+            cfg = dataclasses.replace(
+                cfg, llm=dataclasses.replace(cfg.llm, intermediate_pad=pad))
+        log.info(f"fuse+rotate done: {info}")
+
+    info["gptq"] = {}
+    with _stage(info, "weights", device):
+        params, wqps = quantize_weights(cfg, params, specs, q, calib_batches,
+                                        report=info["gptq"])
+    log.info("weight quantization done")
+
+    state = None
+    if q.visual_static or q.llm_static:
+        with _stage(info, "calibrate", device):
+            state = calibrate_activations(cfg, params, specs, calib_batches,
+                                          decode_steps=q.calib_decode_steps)
+        log.info(f"activation calibration done ({len(state)} sites)")
+
+    if q.realize_int:
+        from .transform.recipes import realize_decoder_weights
+
+        with _stage(info, "realize", device):
+            params = {**params, "llm": realize_decoder_weights(
+                params["llm"], specs, qps=wqps, state=state)}
+        log.info("realized int weights for the LLM serving path")
+
+    if artifact_dir:
+        from .utils.checkpoint import config_to_dict, save_artifact
+
+        meta = {"model": model, "config": str(cfg),
+                "config_dict": config_to_dict(cfg),
+                "quantize_config": dataclasses.asdict(q),
+                "rotation": str({k: v for k, v in info.items()
+                                 if k not in ("stages", "gptq")})}
+        with _stage(info, "save", device):
+            info["artifact_bytes"] = save_artifact(artifact_dir, params,
+                                                   state, specs, meta=meta)
+        log.info(f"artifact saved to {artifact_dir}")
+    return cfg, params, state, specs, info

@@ -238,7 +238,7 @@ class Generator:
                                positions=positions, attn_mask=attn_mask,
                                last_index=last_index,
                                prefill_fresh=prefill_fresh,
-                               attn_start=attn_start)
+                               attn_start=attn_start)[:2]
 
     def ensure_capacity(self, n: int):
         """Grow the KV cache length to hold at least ``n`` positions (sticky,

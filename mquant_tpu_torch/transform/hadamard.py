@@ -1,13 +1,13 @@
-"""Hadamard matrices and the reference transform (counterpart of
-``mquant_tpu/transform/hadamard.py`` without its random rotations, which
-need JAX's RNG and wait for the offline pipeline).
+"""Hadamard matrices, the reference transform and the offline pipeline's
+random rotations (counterpart of ``mquant_tpu/transform/hadamard.py``).
 
 Orders: Sylvester doubling for powers of two, Paley I/II over prime and
 prime-power fields, Kronecker products; orders 156 and 172 fall back to a
 seeded random orthogonal block, exactly as in the JAX package. The
 transform: :func:`fwht` (the butterfly), :func:`hadamard_transform` (n =
 K·2^p) and its dense matrix :func:`transform_matrix`, the references that
-the two-matmul kernels are held against.
+the two-matmul kernels are held against. The random rotations draw from an
+explicit ``torch.Generator`` (other values than JAX's ``jax.random``).
 """
 
 from __future__ import annotations
@@ -256,3 +256,38 @@ def transform_matrix(n: int, dtype=np.float64) -> np.ndarray:
     m = n // K
     Hm = hadamard_matrix(m) / math.sqrt(m)
     return np.kron(hadK, Hm).astype(dtype)
+
+
+# ---------------------------------------------------------------------------
+# random rotations
+# ---------------------------------------------------------------------------
+
+
+def random_hadamard_matrix(n: int, gen: torch.Generator, device="cuda"
+                           ) -> torch.Tensor:
+    """Randomized Hadamard H · diag(±1) in float64 on ``device``
+    (orthogonal); the signs are drawn from ``gen`` on its own device."""
+    signs = torch.randint(0, 2, (n,), generator=gen, device=gen.device)
+    signs = (signs * 2 - 1).to(device=device, dtype=torch.float64)
+    H = torch.from_numpy(transform_matrix(n)).to(device)
+    return H * signs[None, :]
+
+
+def random_orthogonal_matrix(n: int, gen: torch.Generator, device="cuda"
+                             ) -> torch.Tensor:
+    """QR of an f32 normal draw in float64, column signs fixed by diag(R)
+    (orthogonal)."""
+    a = torch.randn((n, n), generator=gen, device=gen.device,
+                    dtype=torch.float32).to(device=device, dtype=torch.float64)
+    qmat, r = torch.linalg.qr(a)
+    return qmat * torch.sign(torch.diagonal(r))[None, :]
+
+
+def get_orthogonal_matrix(n: int, mode: str, gen: torch.Generator,
+                          device="cuda") -> torch.Tensor:
+    """mode ∈ {"hadamard", "random"}."""
+    if mode == "hadamard":
+        return random_hadamard_matrix(n, gen, device)
+    if mode == "random":
+        return random_orthogonal_matrix(n, gen, device)
+    raise ValueError(f"unknown rotation mode {mode!r}")

@@ -1,0 +1,191 @@
+"""Whole-VLM transform recipes, the Qwen2-VL branch (counterpart of
+``mquant_tpu/transform/vlm_recipes.py``): the ViT tower's LN → RMSNorm
+fusion and rotation, the merger's ln_q fold and its block-diagonal input
+rotation, and :func:`prepare_vlm`, which runs them with the decoder's
+recipes and rotates the LLM stream into the merger's ``mlp2``.
+
+LN exactness: every producer of a LayerNorm'd stream is mean-centered, so
+LN ≡ affine · RMSNorm; the affine folds into the consumers and the norm
+keeps a unit weight (its bias dropped: the forwards pick LN or RMSNorm by
+the bias's presence). The ViT (a few GB in float64 at full size) is
+transformed as one stacked float64 tree, as in the JAX package; the
+decoder one layer at a time (``transform.recipes``). The other families'
+branches are not ported (ROADMAP A12).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from ..models.vision import MergerConfig, ViTConfig
+from . import fuse as F
+from . import hadamard as H
+from . import rotate as R
+from .recipes import _cast_like, _to_f64
+
+
+def _drop_bias(norm: dict) -> dict:
+    return {"w": torch.ones_like(norm["w"].to(torch.float64))}
+
+
+def fuse_vit(cfg: ViTConfig, params: Dict) -> Dict:
+    """LN → RMSNorm fusion of a residual ViT tower (exact): center the
+    stream's producers (the patch embed, o, fc2), fold ln1 into q, k, v and
+    ln2 into fc1."""
+    p = _to_f64(params)
+    blocks = p["blocks"]
+    p["patch_embed"] = F.center_linear_output(p["patch_embed"])
+    blocks["o"] = F.center_linear_output(blocks["o"])
+    blocks["fc2"] = F.center_linear_output(blocks["fc2"])
+    _, _, qkv = F.fold_norm_into_linears(
+        blocks["ln1"]["w"], blocks["ln1"].get("b"),
+        [blocks["q"], blocks["k"], blocks["v"]])
+    blocks["q"], blocks["k"], blocks["v"] = qkv
+    blocks["ln1"] = _drop_bias(blocks["ln1"])
+    _, _, fc1 = F.fold_norm_into_linears(
+        blocks["ln2"]["w"], blocks["ln2"].get("b"), [blocks["fc1"]])
+    blocks["fc1"] = fc1[0]
+    blocks["ln2"] = _drop_bias(blocks["ln2"])
+    return _cast_like(p, params)
+
+
+def rotate_vit(cfg: ViTConfig, params: Dict,
+               gen: Optional[torch.Generator] = None,
+               mode: str = "hadamard", rotate_ov: bool = True,
+               Q: Optional[torch.Tensor] = None,
+               online_had_fc2: bool = False) -> tuple:
+    """Rotate the (fused) ViT residual stream by Q (drawn from ``gen``
+    unless given). Returns (params, Q, fc2_pad): the stream's consumer (the
+    merger) must be input-rotated by the same Q. ``online_had_fc2`` pads
+    the MLP width to a Hadamard-constructible size and folds the exact
+    Hadamard into fc2's input."""
+    p = _to_f64(params)
+    blocks = p["blocks"]
+    dev = blocks["q"]["w"].device
+    if Q is None:
+        Q = H.get_orthogonal_matrix(cfg.width, mode, gen, device=dev)
+    Q = Q.to(device=dev, dtype=torch.float64)
+    p["patch_embed"] = R.rotate_linear_output(p["patch_embed"], Q)
+    for s in ("q", "k", "v", "fc1"):
+        blocks[s] = R.rotate_linear_input(blocks[s], Q)
+    for s in ("o", "fc2"):
+        blocks[s] = R.rotate_linear_output(blocks[s], Q)
+    if rotate_ov:
+        Qh = torch.from_numpy(H.transform_matrix(cfg.head_dim)).to(dev)
+        blocks["v"], blocks["o"] = R.rotate_ov_per_head(
+            blocks["v"], blocks["o"], cfg.head_dim, Qh)
+    fc2_pad = 0
+    if online_had_fc2:
+        inter = blocks["fc2"]["w"].shape[-2]
+        target = H.auto_pad_size(inter)
+        if target != inter:
+            # padded fc1 columns have zero weight and bias: act(0) = 0
+            blocks["fc1"] = R.pad_linear_output(blocks["fc1"], target)
+            blocks["fc2"] = R.pad_linear_input(blocks["fc2"], target)
+            fc2_pad = target
+        Hm = torch.from_numpy(H.transform_matrix(target)).to(dev)
+        blocks["fc2"] = R.fold_exact_hadamard_input(blocks["fc2"], Hm)
+    return _cast_like(p, params), Q, fc2_pad
+
+
+def split_vit_fc2(params: Dict) -> Dict:
+    """The RMS first-column split of every block's fc2 (pure slicing)."""
+    p = dict(params)
+    blocks = dict(p["blocks"])
+    w = blocks["fc2"]["w"]
+    blocks["fc2"] = {**blocks["fc2"], "w_col0": w[..., :1, :].contiguous(),
+                     "w": w[..., 1:, :].contiguous()}
+    p["blocks"] = blocks
+    return p
+
+
+def rotate_consumer_blockdiag(linear: dict, Q: torch.Tensor,
+                              repeats: int) -> dict:
+    """Input-rotate a consumer whose input is ``repeats`` concatenated
+    stream vectors (the merger's mlp0): fold kron(I_repeats, Qᵀ)."""
+    w = linear["w"].to(torch.float64)
+    *lead, fin, fout = w.shape
+    n = Q.shape[0]
+    if fin != repeats * n:
+        raise ValueError(f"input dim {fin} != {repeats} x {n}")
+    wr = torch.einsum("ij,...rjo->...rio", Q.to(torch.float64).T,
+                      w.reshape(*lead, repeats, n, fout))
+    return {**linear, "w": wr.reshape(*lead, fin, fout)}
+
+
+def fuse_merger(cfg: MergerConfig, params: Dict) -> Dict:
+    """Fold the merger's ln_q block-diagonally into mlp0 (exact once the
+    ViT stream is centered)."""
+    p = _to_f64(params)
+    _, _, mlp0 = F.fold_norm_into_linears_blockdiag(
+        p["ln_q"]["w"], p["ln_q"].get("b"), p["mlp0"],
+        repeats=cfg.merge * cfg.merge)
+    p["mlp0"] = mlp0
+    p["ln_q"] = _drop_bias(p["ln_q"])
+    return _cast_like(p, params)
+
+
+def prepare_vlm(family_name: str, cfg, params: Dict,
+                gen: Optional[torch.Generator] = None, rotate: bool = True,
+                rotate_visual: bool = True, rotate_llm: bool = True,
+                mode: str = "hadamard", online_had_down: bool = True,
+                online_had_mode: str = "full", split_down: bool = False,
+                online_had_visual: bool = False, split_visual: bool = False,
+                rotations: Optional[Dict[str, torch.Tensor]] = None
+                ) -> tuple:
+    """The offline equivalent transforms of a Qwen2-VL model: fuse (LN →
+    RMSNorm everywhere) → rotate the vision stream (Q_v, into the merger's
+    mlp0 block-diagonally) and the LLM stream (Q_l, with the per-head OV
+    rotation, the online Hadamard fold into ``down`` and ``mlp2``'s output)
+    → the RMS split. The rotations are drawn from ``gen`` (Q_v first)
+    unless ``rotations`` gives them as {"vit": Q_v, "llm": Q_l}. Returns
+    (params, info)."""
+    from .recipes import fuse_decoder, rotate_decoder, split_decoder_down
+
+    if family_name != "qwen2vl":
+        raise NotImplementedError(f"{family_name}'s recipe branch is not "
+                                  "ported (ROADMAP A12)")
+    rotations = rotations or {}
+    p = dict(params)
+    info: Dict = {"family": family_name}
+    p["llm"] = fuse_decoder(cfg.llm, p["llm"])
+    p["vit"] = fuse_vit(cfg.vit, p["vit"])
+    p["merger"] = fuse_merger(cfg.merger, p["merger"])
+    if not rotate:
+        return p, info
+
+    if rotate_visual:
+        p["vit"], Q_v, fc2_pad = rotate_vit(
+            cfg.vit, p["vit"], gen, mode, Q=rotations.get("vit"),
+            online_had_fc2=online_had_visual)
+        info["vit_rotated"] = True
+        if online_had_visual:
+            info["vis_online_had"] = True
+            info["vis_fc2_pad"] = fc2_pad
+        if split_visual:
+            p["vit"] = split_vit_fc2(p["vit"])
+            info["vis_split"] = True
+        mlp0 = rotate_consumer_blockdiag(p["merger"]["mlp0"], Q_v,
+                                         cfg.merger.merge ** 2)
+        p["merger"] = {**p["merger"], "mlp0": _cast_like(
+            mlp0, params["merger"]["mlp0"])}
+
+    if not rotate_llm:
+        return p, info
+    Q_l = rotations.get("llm")
+    if Q_l is None:
+        Q_l = H.get_orthogonal_matrix(cfg.llm.hidden, mode, gen,
+                                      device=p["llm"]["embed"]["w"].device)
+    p["llm"], info["llm"] = rotate_decoder(
+        cfg.llm, p["llm"], mode=mode, online_had_down=online_had_down,
+        online_had_mode=online_had_mode, Q=Q_l)
+    mlp2 = R.rotate_linear_output(_to_f64(p["merger"]["mlp2"]),
+                                  Q_l.to(p["merger"]["mlp2"]["w"].device))
+    p["merger"] = {**p["merger"], "mlp2": _cast_like(
+        mlp2, params["merger"]["mlp2"])}
+    if split_down:
+        p["llm"] = split_decoder_down(p["llm"])
+        info["split"] = True
+    return p, info

@@ -329,7 +329,7 @@ def test_tied_embeddings_match_jax():
     pt = interop.to_torch(jax.tree.map(np.asarray, pj), device="cpu")
     toks = np.random.default_rng(0).integers(0, cfg_j.vocab, (1, 9))
     lj, _, _ = JLLM.decoder_forward(cfg_j, pj, jnp.asarray(toks))
-    lt, _ = TLLM.decoder_forward(cfg_t, pt, torch.from_numpy(toks))
+    lt, _, _ = TLLM.decoder_forward(cfg_t, pt, torch.from_numpy(toks))
     np.testing.assert_allclose(lt.numpy(), np.asarray(lj), rtol=0,
                                atol=1e-5 * float(np.abs(lj).max()))
     gen = torch.Generator().manual_seed(0)

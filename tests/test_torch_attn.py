@@ -222,7 +222,7 @@ def test_fused_decode_step_matches_jax(tiny128, monkeypatch):
     lj, cj, _ = JM.decoder_forward(cfg_j, params_j, jnp.asarray(toks),
                                    cache=JM.init_cache(cfg_j, B, S),
                                    prefill_fresh=True)
-    lt, ct = TM.decoder_forward(cfg_t, params_t, torch.from_numpy(toks),
+    lt, ct, _ = TM.decoder_forward(cfg_t, params_t, torch.from_numpy(toks),
                                 cache=TM.init_cache(cfg_t, B, S, device="cpu"),
                                 prefill_fresh=True)
     np.testing.assert_allclose(lt.numpy(), np.asarray(lj), rtol=0, atol=2e-5)
@@ -235,7 +235,7 @@ def test_fused_decode_step_matches_jax(tiny128, monkeypatch):
     kern = TA.KERNELS["attn_decode"]
     monkeypatch.setitem(TA.KERNELS, "attn_decode",
                         lambda *a, **k: calls.append(1) or kern(*a, **k))
-    lt2, ct2 = TM.decoder_forward(cfg_t, params_t, torch.from_numpy(tok),
+    lt2, ct2, _ = TM.decoder_forward(cfg_t, params_t, torch.from_numpy(tok),
                                   cache=ct, attn_start=torch.from_numpy(start))
     assert len(calls) == cfg_t.n_layers and ct2["pos"] == T + 1
     for knob in ("fused", "xla"):

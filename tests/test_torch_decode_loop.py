@@ -48,14 +48,14 @@ def _decode(cfg, params, toks, host: bool, steps=12, start=None):
     decode logits."""
     B, T = toks.shape
     cache = TLLM.init_cache(cfg, B, 48, device="cpu")
-    logits, cache = TLLM.decoder_forward(cfg, params, toks, cache=cache,
+    logits, cache, _ = TLLM.decoder_forward(cfg, params, toks, cache=cache,
                                          prefill_fresh=True)
     if host:
         cache["pos"] = int(cache["pos"])
     tok = logits[:, -1:].argmax(-1)
     out = []
     for _ in range(steps):
-        logits, cache = TLLM.decoder_forward(cfg, params, tok, cache=cache,
+        logits, cache, _ = TLLM.decoder_forward(cfg, params, tok, cache=cache,
                                              attn_start=start)
         assert isinstance(cache["pos"], int) == host
         out.append(logits)

@@ -5,7 +5,6 @@ Tolerances: integer paths (qlinear / qlinear_group in real mode) equal; float
 kernels (Hadamard, norms, rope tables, attention) within a few f32 ulps of
 their magnitude — the two frameworks sum in different orders."""
 
-import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -227,10 +226,26 @@ def test_attention_causal_matches_jax(rng):
 
 
 def test_unported_site_configs_raise(rng):
+    """Output quantizers raise. Calibration mode records the site's input
+    into a Tape (the stats and the sample equal JAX's) and passes x through
+    while the site has no calibrated scales."""
     st = TL.SiteSpec(w_bits=4, a_bits=8, out_bits=8)
     p = TK.quantize_weights_real(torch.randn(8, 4), 4)
     with pytest.raises(NotImplementedError):  # output quantizer
         TL.qlinear(torch.randn(2, 8), p, "s", st, None, "real")
-    with pytest.raises(NotImplementedError):  # calibration mode
-        TL.qlinear(torch.randn(2, 8), p, "s",
-                   dataclasses.replace(st, out_bits=None), None, "calib")
+    x = rng.normal(size=(2, 3, 8)).astype(np.float32)
+    w = rng.normal(size=(8, 4)).astype(np.float32)
+    kw = dict(w_bits=4, a_bits=8, a_static=True)
+    tape_t, tape_j = TL.Tape(collect_samples=True), JL.Tape(
+        collect_samples=True)
+    yt = TL.qlinear(_t(x), {"w": _t(w)}, "s", TL.SiteSpec(**kw), None,
+                    "calib", tape_t)
+    yj = JL.qlinear(jnp.asarray(x), {"w": jnp.asarray(w)}, "s",
+                    JL.SiteSpec(**kw), None, "calib", tape_j)
+    np.testing.assert_allclose(yt.numpy(), np.asarray(yj), **F32_TOL)
+    np.testing.assert_allclose(yt.numpy(), x @ w, **F32_TOL)  # passed through
+    for f in ("min", "max", "n"):
+        np.testing.assert_array_equal(getattr(tape_t.stats["s"], f).numpy(),
+                                      np.asarray(getattr(tape_j.stats["s"], f)))
+    np.testing.assert_array_equal(tape_t.samples["s"].numpy(),
+                                  np.asarray(tape_j.samples["s"]))

@@ -269,17 +269,17 @@ def test_declined_decode_step_takes_the_einsum(on_card, monkeypatch):
     monkeypatch.setitem(TA.KERNELS, "attn_decode",
                         lambda *a, **k: calls.append(1))
     cache = TLLM.init_cache(cfg, 1, 8, device="cpu")
-    _, cache = TLLM.decoder_forward(cfg, params, torch.tensor([[1, 2, 3]]),
+    _, cache, _ = TLLM.decoder_forward(cfg, params, torch.tensor([[1, 2, 3]]),
                                     cache=cache, prefill_fresh=True)
-    out, _ = TLLM.decoder_forward(cfg, params, torch.tensor([[4]]),
+    out, _, _ = TLLM.decoder_forward(cfg, params, torch.tensor([[4]]),
                                   cache=dict(cache))
     assert not calls
     monkeypatch.setattr(TL, "_on_card", lambda t: False)
     monkeypatch.setitem(TA.KERNELS, "attn_decode", TA.attn_decode_ref)
     cache2 = TLLM.init_cache(cfg, 1, 8, device="cpu")
-    _, cache2 = TLLM.decoder_forward(cfg, params, torch.tensor([[1, 2, 3]]),
+    _, cache2, _ = TLLM.decoder_forward(cfg, params, torch.tensor([[1, 2, 3]]),
                                      cache=cache2, prefill_fresh=True)
-    ref, _ = TLLM.decoder_forward(cfg, params, torch.tensor([[4]]),
+    ref, _, _ = TLLM.decoder_forward(cfg, params, torch.tensor([[4]]),
                                   cache=cache2)
     torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
 

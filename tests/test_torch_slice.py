@@ -204,14 +204,14 @@ def test_decoder_prefill_logits_match_jax(shared):
                                     specs=shared["specs_j"],
                                     state=shared["state_j"], mode="real",
                                     positions=jnp.asarray(pos))
-    lt, _ = TLLM.decoder_forward(shared["cfg_t"].llm,
+    lt, _, _ = TLLM.decoder_forward(shared["cfg_t"].llm,
                                  shared["params_t"]["llm"], emb_t,
                                  specs=shared["specs_t"],
                                  state=shared["state_t"], mode="real",
                                  positions=torch.from_numpy(pos))
     assert lt.shape == (1, 20, cfg.llm.vocab)
     _close(lt, lj)
-    last, _ = TLLM.decoder_forward(shared["cfg_t"].llm,
+    last, _, _ = TLLM.decoder_forward(shared["cfg_t"].llm,
                                    shared["params_t"]["llm"], emb_t,
                                    specs=shared["specs_t"],
                                    state=shared["state_t"], mode="real",

@@ -215,7 +215,7 @@ def test_tiny_decoder_full_mode_matches_jax(tiny):
     lj, _, _ = JLLM.decoder_forward(tiny["cfg_j"], tiny["params_j"],
                                     jnp.asarray(toks), specs=tiny["specs_j"],
                                     state=tiny["state_j"], mode="real")
-    lt, _ = TLLM.decoder_forward(tiny["cfg_t"], tiny["params_t"],
+    lt, _, _ = TLLM.decoder_forward(tiny["cfg_t"], tiny["params_t"],
                                  torch.from_numpy(toks), specs=tiny["specs_t"],
                                  state=tiny["state_t"], mode="real")
     assert lt.shape == (2, 13, tiny["cfg_j"].vocab)

@@ -81,7 +81,7 @@ def _jax(tiny, monkeypatch):
 def _port(tiny, monkeypatch):
     codes = []
     _record(TK, codes, tiny["cfg_t"].inter_eff, monkeypatch)
-    lt, _ = TLLM.decoder_forward(
+    lt, _, _ = TLLM.decoder_forward(
         tiny["cfg_t"], tiny["params_t"], torch.from_numpy(tiny["toks"]),
         specs=tiny["specs_t"], state=tiny["state_t"], mode="real")
     return lt.float().numpy(), codes
