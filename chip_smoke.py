@@ -110,6 +110,27 @@ Phases, in order (any failed check raises and the script exits non-zero):
    0) to the same runner built on the in-memory trees, the packed W4 bytes
    equal to path S's, each batch row held against itself alone as the
    ragged batch's rows are.
+   Then, before the artifact's directory goes, the engine (``run_engine_
+   phase``): ``serve.server.build_server_from_artifact(dir, device="cuda",
+   slots=8, max_len=2048, steps_per_block=8, sample_top_k=64, seed=0)``
+   (the CLI's values) on localhost, the pool grown to 1280 rows and
+   poisoned with NaN, a 256-id prefix registered, the admissions and the
+   decode block warmed (``attn_decode`` captured with the (8,) per-row
+   positions), then a burst of 16 concurrent HTTP requests from 16 client
+   threads, counted: 4 image chats (a 448² PNG in an ``image_url`` part,
+   built with ``utils.png`` without PIL) and 12 id completions of 77, 300,
+   513 and 1000 tokens (two 300-token ones behind the prefix), 64 or 128
+   tokens each, 4 sampled (one with a frequency penalty), one streamed and
+   one whose client hangs up after its first chunk. Every request equal to
+   itself sent alone afterwards (greedy tokens; sampled ones by seed; the
+   stream's deltas), the hung-up request cancelled and no slot active,
+   2 prefix hits, it must launch w4a8_gemv, int8_gemv, int8_gemm and
+   attn_decode; one decode block (8 steps, 8 live rows) against the same
+   block with the integer products plain (last-step logits max |d| 0,
+   tokens equal); one JSON line: the burst's seconds and generated tok/s,
+   TTFT and latency p50 / p90 (the server's ``_Pending`` stamps), the
+   block's wall, stream time and device busy (torch.profiler) with the
+   idle share, slot occupancy, graphs, peak GiB, the card.
    Each path's prefill and first 7 decode steps are held against the same
    forward with the integer products through their plain versions (logits
    within the bound, greedy tokens equal), and every attention and tail
@@ -461,24 +482,38 @@ def check_kernels(seed: int) -> dict:
 
 ATTN_RTOL = 1e-2  # attention outputs: max |Δ| ≤ ATTN_RTOL · max |plain|
 KVH, HD, HEADS = 4, 128, 28  # Qwen2-VL-7B's attention widths
-# decode attention (label, B, S, pos, start, main path): the 1024-token
-# request's first and last decode steps and the document request's last, on
-# the bucketed 8192-row cache; the ragged batch's per-row start; per-row pos;
-# a short context where every column weighs ~1/36 of the output (a dropped
-# column or new-token term fails the bound), with host ints by value
+# decode attention (label, B, S, pos, start, main path, NaN tail): the
+# 1024-token request's first and last decode steps and the document
+# request's last, on the bucketed 8192-row cache; the ragged batch's
+# per-row start; per-row pos; the engine's pool step (8 slots at their own
+# positions over its 1280-row buffer, the columns ≥ pos NaN as a reused
+# slot's stale rows may be, ROADMAP C-w1); a short context where every
+# column weighs ~1/36 of the output (a dropped column or new-token term
+# fails the bound), with host ints by value. Other poisoned columns hold
+# finite values that swamp the output if read.
 DECODE_SHAPES = [
-    ("decode pos 40, start 5", 1, 8192, 40, 5, False),
-    ("decode pos 1024", 1, 8192, 1024, None, True),
-    ("decode pos 1151", 1, 8192, 1151, None, True),
-    ("doc decode pos 4223", 1, 8192, 4223, None, True),
-    ("batch 4, per-row start", 4, 8192, 1030, [0, 37, 500, 724], True),
+    ("decode pos 40, start 5", 1, 8192, 40, 5, False, False),
+    ("decode pos 1024", 1, 8192, 1024, None, True, False),
+    ("decode pos 1151", 1, 8192, 1151, None, True, False),
+    ("doc decode pos 4223", 1, 8192, 4223, None, True, False),
+    ("batch 4, per-row start", 4, 8192, 1030, [0, 37, 500, 724], True, False),
     ("batch 4, per-row pos", 4, 8192, [1030, 700, 4223, 1],
-     [0, 37, 500, 0], False),
+     [0, 37, 500, 0], False, False),
+    ("engine 8 slots, per-row pos", 8, 1280,
+     [1127, 78, 301, 514, 1001, 300, 590, 1200], None, True, True),
 ]
 # causal flash prefill (label, T, main path)
 FLASH_SHAPES = [("prefill T 1024", 1024, False),
                 ("prefill T 2048", 2048, False),
                 ("doc prefill T 4096", 4096, True)]
+
+
+def same_bits(a, b) -> bool:
+    """Bit-equal tensors (NaN rows too, which ``torch.equal`` never
+    calls equal)."""
+    import torch
+
+    return torch.equal(a.view(torch.uint8), b.view(torch.uint8))
 
 
 def _attn_err(out, ref, label):
@@ -510,7 +545,7 @@ def check_attention(seed: int) -> dict:
 
     summary = {"attn_decode": new_summary(), "flash_attn_causal": new_summary()}
     scale = HD**-0.5
-    for label, B, S, pos, start, main in DECODE_SHAPES:
+    for label, B, S, pos, start, main, nan_tail in DECODE_SHAPES:
         q, kn, vn = r(B, 1, HEADS, HD), r(B, 1, KVH, HD), r(B, 1, KVH, HD)
         kc, vc = r(B, S, KVH, HD), r(B, S, KVH, HD)
         p = torch.as_tensor(pos, device=dev).reshape(-1).expand(B)
@@ -518,8 +553,9 @@ def check_attention(seed: int) -> dict:
                              device=dev).reshape(-1).expand(B)
         cols = torch.arange(S, device=dev)[None]
         bad = ((cols < st[:, None]) | (cols >= p[:, None]))[..., None, None]
-        kc.masked_fill_(bad, 50.0)  # a read of either swamps the output
-        vc.masked_fill_(bad, 3e4)
+        # a read of either swamps the output (or makes it NaN)
+        kc.masked_fill_(bad, float("nan") if nan_tail else 50.0)
+        vc.masked_fill_(bad, float("nan") if nan_tail else 3e4)
         kc_p, vc_p = kc.clone(), vc.clone()
         pos_a = pos if isinstance(pos, int) else p.to(torch.int32)
         st_a = start if start is None or isinstance(start, int) else \
@@ -528,7 +564,7 @@ def check_attention(seed: int) -> dict:
         ref, _, _ = TA.attn_decode_ref(q, kn, vn, kc_p, vc_p, pos_a, scale,
                                        start=st_a)
         torch.cuda.synchronize()
-        if not (torch.equal(kc, kc_p) and torch.equal(vc, vc_p)):
+        if not (same_bits(kc, kc_p) and same_bits(vc, vc_p)):
             raise AssertionError(f"attn_decode [{label}]: cache rows differ")
         err, ulps, mag = _attn_err(out, ref, f"attn_decode [{label}]")
         # timed calls cycle over cache copies beyond the 50 MB L2, as the 28
@@ -1362,7 +1398,7 @@ def shadow_attention(path: str):
         ref, _, _ = TA.PLAIN["attn_decode"](q, kn, vn, kc_p, vc_p, pos, scale,
                                             start=start)
         out = kd(q, kn, vn, kc, vc, pos, scale, start=start)
-        if not (torch.equal(kc, kc_p) and torch.equal(vc, vc_p)):
+        if not (same_bits(kc, kc_p) and same_bits(vc, vc_p)):
             raise AssertionError(f"{path}: attn_decode cache rows differ")
         held("attn_decode", out[0], ref)
         return out
@@ -1380,8 +1416,8 @@ def shadow_attention(path: str):
         TA.KERNELS["attn_decode"], TF.KERNELS["flash_attn_causal"] = kd, kf
     log(f"{path}: every attention kernel call held against its plain "
         "version on its own inputs: "
-        + ", ".join(f"{k} {n} calls, max |d| {r:.3g} of max |plain|"
-                    for k, (n, r) in worst.items() if n))
+        + (", ".join(f"{k} {n} calls, max |d| {r:.3g} of max |plain|"
+                     for k, (n, r) in worst.items() if n) or "none made"))
 
 
 @contextlib.contextmanager
@@ -2129,7 +2165,7 @@ def id_tokenizer():
     return IdTokenizer()
 
 
-def run_artifact(m: dict, card: str, seed: int) -> dict:
+def run_artifact(m: dict, card: str, seed: int) -> tuple:
     """Phase 4, the artifact: path S's weights written as the pipeline's
     artifact (:func:`artifact_trees`) with ``save_artifact`` to a temporary
     directory, loaded by ``build_runner_from_artifact(dir, "cuda")`` (the
@@ -2141,35 +2177,41 @@ def run_artifact(m: dict, card: str, seed: int) -> dict:
     path S's; each batch row holds against itself alone
     (:func:`batch_rows_alone`); the request's and the batch's prefill and
     first decode steps hold against the integer products' plain versions
-    (:func:`against_plain`, every attention call against its own). Returns
-    the launch counts; profiles the request's inputs and its vision
-    pass."""
+    (:func:`against_plain`, every attention call against its own). Then,
+    before the directory goes, the engine phase (:func:`run_engine_phase`)
+    on the same artifact. Returns the launch counts of the two; profiles
+    the request's inputs and its vision pass."""
     import tempfile
 
+    art = tempfile.mkdtemp(prefix="mquant_artifact_")
+    try:
+        launches = serve_artifact(m, card, seed, art)
+        return launches, run_engine_phase(art, card, seed)
+    finally:
+        shutil.rmtree(art)
+
+
+def serve_artifact(m: dict, card: str, seed: int, art: str) -> dict:
+    """:func:`run_artifact`'s artifact phase in the directory ``art``."""
     import torch
 
+    from mquant_tpu_torch.evaluation.adapter import VLMRunner
     from mquant_tpu_torch.serve.server import build_runner_from_artifact
     from mquant_tpu_torch.utils.checkpoint import save_artifact
-
-    from mquant_tpu_torch.evaluation.adapter import VLMRunner
 
     dev, vcfg = m["dev"], m["vcfg"]
     params, state, specs, meta = artifact_trees(m, seed)
     kw = dict(tokenizer=id_tokenizer(), max_len=PREFILL + GEN_TOKENS)
-    art = tempfile.mkdtemp(prefix="mquant_artifact_")
-    try:
-        t0 = time.perf_counter()
-        nbytes = save_artifact(art, params, state, specs, meta)
-        t_write = time.perf_counter() - t0
-        free = shutil.disk_usage(art).free
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        runner = build_runner_from_artifact(art, device=dev,
-                                            image_size=ART_IMAGE_SIZE, **kw)
-        torch.cuda.synchronize()
-        t_load = time.perf_counter() - t0
-    finally:
-        shutil.rmtree(art)
+    t0 = time.perf_counter()
+    nbytes = save_artifact(art, params, state, specs, meta)
+    t_write = time.perf_counter() - t0
+    free = shutil.disk_usage(art).free
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner = build_runner_from_artifact(art, device=dev,
+                                        image_size=ART_IMAGE_SIZE, **kw)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
     log(f"artifact: wrote {nbytes} bytes ({nbytes / 2**30:.2f} GiB) in "
         f"{t_write:.1f} s ({nbytes / t_write / 2**30:.2f} GiB/s), "
         f"{free / 2**30:.1f} GiB free beside it; build_runner_from_artifact "
@@ -2250,6 +2292,418 @@ def run_artifact(m: dict, card: str, seed: int) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+ENGINE_SLOTS, ENGINE_MAX_LEN, ENGINE_STEPS = 8, 2048, 8  # the CLI's
+ENGINE_TOP_K = 64
+ENGINE_PREFIX = 256  # the registered system prefix, in ids
+ENGINE_TEXT = (77, 300, 513, 1000)  # id prompts, three of each
+ENGINE_IMAGE = 448  # the chat requests' image side
+ENGINE_KERNELS = SLICE_KERNELS
+
+
+def engine_bodies(vocab: int, seed: int):
+    """The burst: 4 image chats (a 448² PNG, built without PIL; one
+    Paeth-filtered, the others unfiltered) and 12 id
+    completions (77, 300, 513 and 1000 tokens, three each; two 300-token
+    prompts start with the registered prefix), max_tokens 64 for 8 and 128
+    for 8, 4 sampled (temperature 0.8, top_p 0.9, a seed; one with
+    frequency_penalty 0.5), one streamed and one streamed whose client
+    hangs up after its first chunk. Returns (prefix, [(kind, body)])."""
+    import base64
+
+    import numpy as np
+
+    from mquant_tpu_torch.utils.png import encode_png
+
+    rng = np.random.default_rng(seed + 14)
+    prefix = rng.integers(1, vocab, ENGINE_PREFIX).tolist()
+    out = []
+    for i in range(4):
+        img = rng.integers(0, 256, (ENGINE_IMAGE, ENGINE_IMAGE, 3),
+                           dtype=np.uint8)
+        # one image Paeth-filtered, as an adaptive encoder writes photos
+        url = ("data:image/png;base64," + base64.b64encode(
+            encode_png(img, 4 if i == 0 else 0)).decode())
+        out.append(("chat", {"messages": [{"role": "user", "content": [
+            {"type": "image_url", "image_url": {"url": url}},
+            {"type": "text", "text": f"describe picture {i} in detail"}]}]}))
+    for n in ENGINE_TEXT:
+        for j in range(3):
+            ids = rng.integers(1, vocab, n).tolist()
+            if n == 300 and j < 2:
+                ids[:ENGINE_PREFIX] = prefix
+            out.append(("text", {"prompt": ids}))
+    for i, (_, b) in enumerate(out):
+        b["max_tokens"] = 64 if i % 2 else 128
+    for i in (1, 5, 9, 13):  # sampled: a chat and three completions
+        out[i][1].update(temperature=0.8, top_p=0.9, seed=1000 + i)
+    out[13][1]["frequency_penalty"] = 0.5
+    out[6][1]["stream"] = True
+    out[10][1]["stream"] = True
+    out[10] = ("hangup", out[10][1])
+    return prefix, out
+
+
+def _http(port: int, kind: str, body: dict):
+    """One request: (status, tokens, seconds); a stream's tokens are its
+    deltas' concatenation; "hangup" closes after the first chunk."""
+    import http.client
+    import socket
+
+    path = "/v1/chat/completions" if kind == "chat" else "/v1/completions"
+    t0 = time.perf_counter()
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    c.request("POST", path, json.dumps(body),
+              {"Content-Type": "application/json"})
+    r = c.getresponse()
+    if kind == "hangup":
+        r.fp.readline()  # the first chunk's size line: decoding has begun
+        c.sock.shutdown(socket.SHUT_RDWR)
+        c.sock.close()
+        return r.status, None, time.perf_counter() - t0
+    data = r.read().decode()
+    c.close()
+    if body.get("stream"):
+        evs = [ln[6:] for ln in data.split("\n") if ln.startswith("data: ")]
+        if evs[-1] != "[DONE]":
+            raise AssertionError(f"engine: stream ended with {evs[-1]!r}")
+        toks = sum((json.loads(e)["choices"][0]["tokens"] for e in evs[:-1]),
+                   [])
+        return r.status, toks, time.perf_counter() - t0
+    out = json.loads(data)
+    if r.status != 200:
+        raise AssertionError(f"engine: HTTP {r.status}: {out}")
+    return r.status, out["choices"][0]["tokens"], time.perf_counter() - t0
+
+
+def _metrics(port: int) -> dict:
+    import http.client
+
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    c.request("GET", "/metrics")
+    text = c.getresponse().read().decode()
+    c.close()
+    return {k: float(v) for k, v in (ln.split() for ln in text.splitlines())}
+
+
+def _pct(xs, q):
+    import numpy as np
+
+    return float(np.percentile(np.asarray(xs), q))
+
+
+def admissions_against_plain(eng) -> list:
+    """On the worker thread: admit the engine's queue with every attention
+    kernel call held against its plain version (:func:`shadow_attention`)
+    and every batched (k ≥ 2 rows) admission prefill held against the same
+    prefill with the integer products through their plain versions
+    (``against_plain``'s rule: logits within the bound, the same first
+    tokens). Returns [((k, Tb), max |d|)] of the batched prefills."""
+    import torch
+
+    held, fwd = [], eng._forward
+
+    def admission(x, cache, **kw):
+        if not (kw.get("prefill_fresh") and x.shape[0] > 1):
+            return fwd(x, cache, **kw)
+        rows_p = {**cache, "k": cache["k"].clone(), "v": cache["v"].clone()}
+        logits, rows = fwd(x, cache, **kw)
+        with plain_kernels(("qmm",)):
+            logits_p = fwd(x, rows_p, **kw)[0]
+        what = (f"engine: batched admission ({x.shape[0]} x {x.shape[1]}) "
+                "logits vs plain qmm")
+        err = check_close(what, logits, logits_p)
+        if not torch.equal(logits.argmax(-1), logits_p.argmax(-1)):
+            raise AssertionError(f"{what}: first tokens differ")
+        held.append((tuple(x.shape[:2]), err))
+        return logits, rows
+
+    eng._forward = admission
+    try:
+        with torch.no_grad(), shadow_attention("engine admissions"):
+            eng._admit()
+    finally:
+        del eng._forward  # the class's method again
+    if not held:
+        raise AssertionError("engine: no batched admission was held")
+    return held
+
+
+def block_against_plain(eng, prompts) -> dict:
+    """On the worker thread: the prompts admitted as
+    :func:`admissions_against_plain` holds them, then one decode block of
+    the pool (the captured graph, ENGINE_STEPS replays) held against the
+    same block run eagerly from the same state with the integer products
+    through their plain versions (``against_plain``'s rule): last-step
+    logits max |d| 0, tokens equal; every attention kernel call of the
+    eager block (``attn_decode`` at the pool's shape: per-row positions,
+    the buffer's NaN tail) held against its plain version. Then the
+    block's wall (CUDA-synchronized, best of 3) and device busy time under
+    torch.profiler. The requests are cancelled after."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mquant_tpu_torch.serve.engine import _Block
+
+    rids = [eng.submit(p, max_new_tokens=128) for p in prompts]
+    admitted = admissions_against_plain(eng)
+    eng.step_block()  # a first block
+    live, ints, floats = eng._block_inputs()
+    if len(live) != len(prompts):
+        raise AssertionError("engine: block check rows not live")
+    snap = {k: eng.cache[k].clone() for k in ("k", "v", "pos")}
+    counts = eng.tok_counts.clone()
+    blk = eng._block(False)
+    blk.load(ints, floats)
+    blk.graph(eng.steps_per_block)
+    out_g, _, _ = blk.read()
+    logits_g = blk.logits.clone()
+    ref = _Block(eng, eng.steps_per_block, False)
+    ref.graph.graph = None  # the step runs eagerly
+    for k, v in snap.items():
+        eng.cache[k].copy_(v)
+    eng.tok_counts.copy_(counts)
+    with plain_kernels(("qmm",)), shadow_attention("engine block"):
+        ref.load(ints, floats)
+        ref.graph(eng.steps_per_block)
+        out_p, _, _ = ref.read()
+    err = float((logits_g.float() - ref.logits.float()).abs().max())
+    if err != 0 or not (out_g == out_p).all():
+        raise AssertionError(f"engine: decode block vs plain qmm: logits "
+                             f"max |d| {err}, tokens equal "
+                             f"{bool((out_g == out_p).all())}")
+    del ref, snap
+
+    events = []
+
+    def one_block():  # as the engine's: inputs in, replays, outputs read
+        blk.load(ints, floats)
+        if events is not None and torch.cuda.is_available():
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            blk.graph(eng.steps_per_block)
+            ev[1].record()
+            events.append(ev)
+        else:
+            blk.graph(eng.steps_per_block)
+        blk.read()
+
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_block()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    stream = min((a.elapsed_time(b) for a, b in events), default=None)
+    events = None
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        one_block()
+    items = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                    for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA
+                    and e.self_device_time_total > 0), reverse=True)
+    busy = sum(ms for ms, _, _ in items)
+    for ms, n, key in items[:TOP_ITEMS]:
+        log(f"engine: block device item {ms:8.3f} ms {n:6d}x  {key[:90]}")
+    for r in rids:
+        eng.cancel(r)
+    eng.step_block()
+    for r in rids:
+        eng.release(r)
+    wall = min(walls)
+    return {"rows": len(prompts), "logits_max_abs_d": err,
+            "admissions": admitted, "wall_ms": wall,
+            "stream_ms": stream, "busy_ms": busy if busy > 0 else None,
+            "idle_share": 1 - busy / wall if busy > 0 else None}
+
+
+def run_engine_phase(art: str, card: str, seed: int, dev: str = "cuda"
+                     ) -> dict:
+    """Phase 4, the engine: the artifact served over HTTP on localhost by
+    ``build_server_from_artifact(art, device="cuda", slots=8,
+    max_len=2048, steps_per_block=8, sample_top_k=64, seed=0)`` (the CLI's
+    values), the pool grown to the burst's bucket, every KV row poisoned
+    with NaN, one 256-id prefix registered and the admissions and block
+    warmed; then the 16-request burst of :func:`engine_bodies` from 16
+    client threads, counted. Checks: every greedy request equal to itself
+    sent alone, every sampled one replayed alone by its seed, the stream's
+    deltas equal to the request's response, no active slot and one
+    cancellation after the hang-up, two prefix hits; one decode block
+    against plain qmm (:func:`block_against_plain`). Prints one JSON line
+    of the phase's numbers. Returns the launch counts. Rehearse on the CPU
+    with ``dev="cpu"`` on a tiny artifact (the cuda calls stubbed)."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from mquant_tpu_torch.kernels import attn_decode
+    from mquant_tpu_torch.serve.generate import bucket_len
+    from mquant_tpu_torch.serve.server import build_server_from_artifact
+
+    t0 = time.perf_counter()
+    srv = build_server_from_artifact(
+        art, device=dev, slots=ENGINE_SLOTS, max_len=ENGINE_MAX_LEN,
+        steps_per_block=ENGINE_STEPS, sample_top_k=ENGINE_TOP_K, seed=0,
+        tokenizer=id_tokenizer(), image_size=ART_IMAGE_SIZE)
+    try:
+        worker, eng = srv.worker, srv.worker.engine
+        vocab = eng.cfg.vocab
+        prefix, bodies = engine_bodies(vocab, seed)
+        if eng.device.type != dev or eng.mode != "real":
+            raise AssertionError(f"engine: on {eng.device}, {eng.mode}")
+        # the burst's KV rows (the engine's own rule), so no growth and no
+        # new capture happens inside it
+        need = max(max(n + 128, bucket_len(n, 16)) for n in ENGINE_TEXT)
+        seen = []  # attn_decode calls at capture: their pos's shape
+        kern = attn_decode.KERNELS["attn_decode"]
+
+        def spy(q, k_new, v_new, kc, vc, pos, *a, **kw):
+            seen.append(tuple(pos.shape) if torch.is_tensor(pos) else ())
+            return kern(q, k_new, v_new, kc, vc, pos, *a, **kw)
+
+        def setup(e):
+            e._grow(need)
+            for nm in ("k", "v"):
+                e.cache[nm].fill_(float("nan"))
+            e.register_prefix(prefix)
+            attn_decode.KERNELS["attn_decode"] = spy
+            try:
+                e.warmup(prompt_lens=ENGINE_TEXT)
+                e.warmup(prompt_lens=(300,), embeds=True,
+                         with_positions=True)
+            finally:
+                attn_decode.KERNELS["attn_decode"] = kern
+            torch.cuda.synchronize()
+            return e._cache_S()
+
+        S = worker.call(setup)
+        if dev == "cuda" and (not seen or any(sh != (ENGINE_SLOTS,)
+                                              for sh in seen)):
+            raise AssertionError(f"engine: attn_decode positions {seen}")
+        t_setup = time.perf_counter() - t0
+        log(f"engine: server up, pool of {ENGINE_SLOTS} slots x {S} rows "
+            f"(NaN-poisoned), prefix of {ENGINE_PREFIX} ids registered, "
+            f"admissions and the block warmed in {t_setup:.1f} s "
+            f"(attn_decode captured with pos of shape {seen[:1]})")
+        pendings = []  # every request's _Pending, for its timestamps
+        submit, lazy = worker.submit, worker.submit_lazy
+
+        def recorded(fn):
+            def wrap(*a, **k):
+                p = fn(*a, **k)
+                pendings.append(p)
+                return p
+            return wrap
+
+        worker.submit, worker.submit_lazy = recorded(submit), recorded(lazy)
+        occ, stop = [], threading.Event()
+
+        def watch():
+            while not stop.wait(0.02):
+                occ.append(worker.stats()["active"])
+
+        results = [None] * len(bodies)
+
+        def client(i):
+            results[i] = _http(srv.port, *bodies[i])
+
+        torch.cuda.synchronize()
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(bodies))]
+        mon = threading.Thread(target=watch)
+        mon.start()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+            if t.is_alive():
+                raise AssertionError("engine: a client did not finish")
+        for _ in range(500):  # the hung-up stream's cancellation
+            if worker.stats()["inflight"] == 0:
+                break
+            time.sleep(0.01)
+        torch.cuda.synchronize()
+        t_burst = time.perf_counter() - t0
+        stop.set()
+        mon.join(10)
+        worker.submit, worker.submit_lazy = submit, lazy
+        launches = read_launches("engine", ENGINE_KERNELS)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        met = _metrics(srv.port)
+        if met["mquant_active"] != 0 or met["mquant_cancelled_total"] != 1:
+            raise AssertionError(f"engine: after the burst active "
+                                 f"{met['mquant_active']}, cancelled "
+                                 f"{met['mquant_cancelled_total']}")
+        if met["mquant_prefix_hits"] != 2:
+            raise AssertionError(f"engine: prefix hits "
+                                 f"{met['mquant_prefix_hits']}")
+        done = [p for p in pendings if p.t_done is not None
+                and p.error is None and not p.cancelled]
+        n_tok = sum(len(p.tokens) for p in done)
+        ttft = [p.t_first - p.t_submit for p in done if p.t_first]
+        lat = [p.t_done - p.t_submit for p in done]
+        # each request again, alone: greedy ones equal, sampled ones replay
+        same = 0
+        for i, (kind, body) in enumerate(bodies):
+            st, toks, _ = results[i]
+            if st != 200:
+                raise AssertionError(f"engine: request {i}: HTTP {st}")
+            if kind == "hangup":
+                continue
+            check_tokens(f"engine request {i}", [toks], body["max_tokens"],
+                         vocab)
+            alone = _http(srv.port, kind, {k: v for k, v in body.items()
+                                           if k != "stream"})[1]
+            if alone != toks:
+                d = next(j for j, (a, b) in enumerate(zip(alone, toks))
+                         if a != b)
+                t = body.get("temperature", 0)
+                raise AssertionError(f"engine: request {i} ({kind}, "
+                                     f"temperature {t}) differs from itself "
+                                     f"alone at token {d}")
+            same += 1
+        log(f"engine: {same} requests equal to themselves sent alone "
+            f"(greedy tokens; sampled ones replayed by seed; the stream's "
+            f"deltas equal to its response); 1 hung-up stream cancelled, "
+            f"slots freed; prefix hits 2")
+        rng = np.random.default_rng(seed + 15)
+        blk = worker.call(lambda e: block_against_plain(
+            e, [rng.integers(1, vocab, n) for n in (77, 300, 513, 1000, 40,
+                                                    200, 600, 120)]))
+        log(f"engine: batched admissions (k, Tb) vs plain qmm: "
+            + ", ".join(f"{kt} max |d| {e:.3g}" for kt, e in
+                        blk["admissions"]) + "; first tokens equal")
+        log(f"engine: one decode block ({ENGINE_STEPS} steps, "
+            f"{blk['rows']} live rows) vs plain qmm: last-step logits max "
+            f"|d| {blk['logits_max_abs_d']}, tokens equal")
+        stats = worker.stats()
+        line = {"engine_phase": {
+            "requests": len(bodies), "burst_s": t_burst,
+            "generated_tokens": n_tok, "tok_per_s": n_tok / t_burst,
+            "ttft_p50_s": _pct(ttft, 50), "ttft_p90_s": _pct(ttft, 90),
+            "latency_p50_s": _pct(lat, 50), "latency_p90_s": _pct(lat, 90),
+            "block_steps": ENGINE_STEPS, "block_wall_ms": blk["wall_ms"],
+            "block_stream_ms": blk["stream_ms"],
+            "block_busy_ms": blk["busy_ms"],
+            "block_idle_share": blk["idle_share"],
+            "occupancy_mean": float(np.mean(occ)) / ENGINE_SLOTS,
+            "occupancy_max": max(occ) / ENGINE_SLOTS,
+            "graphs": stats["graphs"], "peak_gib": peak,
+            "setup_s": t_setup, "card": card}}
+        log(json.dumps(line))
+        return launches
+    finally:
+        srv.shutdown()
+        del srv
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def run_document(m: dict, card: str) -> dict:
@@ -2778,7 +3232,7 @@ def main(argv=None) -> int:
     # phases 4 and 5: each path of the main path, then its profile
     model = build_model(args.seed)
     counts += [run_slice(model, card), run_full(model, card),
-               run_split(model, card), run_artifact(model, card, args.seed),
+               run_split(model, card), *run_artifact(model, card, args.seed),
                run_document(model, card), run_batch(model, card)]
 
     # phase 6: the bench (W4A8 against bf16 at depth 28), its JSON printed

@@ -4,10 +4,10 @@ a (quantized) Qwen2-VL and a tokenizer behind ``generate(prompt)`` → text.
 A request goes through the family's chat template, the aspect-ratio bucket
 of each image, one vision pass per image (ViT → merger) spliced into the
 token embeddings at the image tokens, M-RoPE positions, and the prefill and
-greedy decode loop of ``serve.generate.Generator``. The tokenizer is
-injectable; :class:`ByteTokenizer` needs no assets. The continuous-batching
-engine's entry points (``engine_request``, ``serve_engine``,
-``engine_server``) wait for the engine (ROADMAP A11).
+greedy decode loop of ``serve.generate.Generator``, or the
+continuous-batching ``serve.engine.ServingEngine`` (``engine_request``,
+``serve_engine``, ``engine_server``). The tokenizer is injectable;
+:class:`ByteTokenizer` needs no assets.
 """
 
 from __future__ import annotations
@@ -183,6 +183,75 @@ class VLMRunner:
                 break
             out.append(t)
         return self.tok.decode(out)
+
+
+    @torch.no_grad()
+    def engine_request(self, prompt: Dict) -> Dict:
+        """One prompt → ``ServingEngine.submit`` kwargs: the spliced embeds
+        (T, hidden) as a tensor on the runner's device, the M-RoPE positions
+        (3, T) and the prompt's token ids (speculation's draft history,
+        prefix matching, penalties). It runs the vision tower: callers with
+        a scheduler thread (``serve.server``) call it there."""
+        toks, encoded = self.build_inputs(prompt)
+        emb, pos = self._embeds(toks, encoded)
+        return {"tokens_or_embeds": emb[0], "positions": pos[:, 0],
+                "draft_ids": toks.cpu().numpy().reshape(-1)}
+
+    def new_engine(self, slots: int, max_len: int, **engine_kw):
+        """A ``ServingEngine`` over this runner's decoder: its quantization
+        state, the ``Generator``'s packed weights (shared, not copied) and
+        the tokenizer's eos."""
+        from ..serve.engine import ServingEngine
+
+        eos = getattr(self.tok, "eos_id", -1)
+        return ServingEngine(self.cfg.llm, self.gen.params, specs=self.specs,
+                             state=self.state, mode=self.mode, slots=slots,
+                             max_len=max_len,
+                             eos_id=eos if eos >= 0 else None, **engine_kw)
+
+    @torch.no_grad()
+    def serve_engine(self, prompts, max_new_tokens: Optional[int] = None,
+                     engine=None, slots: int = 4, steps_per_block: int = 8,
+                     spec_k: int = 0, admit_chunk: int = 0):
+        """Serve prompts through the continuous-batching ``ServingEngine``:
+        each prompt's vision pass and splice here, then one pool request
+        each with its M-RoPE positions. ``engine=`` reuses a warm engine
+        (its graphs and prefix cache). Returns decoded strings in prompt
+        order."""
+        from ..serve.generate import bucket_len
+
+        max_new = max_new_tokens or self.max_new_tokens
+        reqs = [self.engine_request(p) for p in prompts]
+        if engine is None:
+            tmax = max(int(r["tokens_or_embeds"].shape[0]) for r in reqs)
+            # whole-prompt admission writes the padded prompt bucket;
+            # speculation overhangs by spec_k rows
+            engine = self.new_engine(
+                slots, bucket_len(bucket_len(tmax, 16) + max_new + spec_k),
+                steps_per_block=steps_per_block, spec_k=spec_k,
+                admit_chunk=admit_chunk)
+        rids = [engine.submit(max_new_tokens=max_new, **r) for r in reqs]
+        outs = engine.run()
+        texts = [self.tok.decode(outs[r]) for r in rids]
+        for r in rids:  # warm engines are reused across batches
+            engine.release(r)
+        return texts
+
+    def engine_server(self, max_len: int = 1024, slots: int = 4,
+                      max_new_tokens: Optional[int] = None, **engine_kw):
+        """A list → list batch function backed by ONE warm engine (graphs
+        and prefix cache reused across calls); ``batch_fn.engine`` exposes
+        it."""
+        from ..serve.generate import bucket_len
+
+        eng = self.new_engine(slots, bucket_len(max_len), **engine_kw)
+
+        def batch_fn(prompts, mnt=None):
+            return self.serve_engine(
+                prompts, max_new_tokens=mnt or max_new_tokens, engine=eng)
+
+        batch_fn.engine = eng
+        return batch_fn
 
 
 def _embed_with_quant(fam, cfg, params, batch, specs, state, mode):

@@ -77,7 +77,7 @@ def attn_decode_ref(q, k_new, v_new, k_cache, v_cache, pos, scale: float,
     """Plain version of :func:`attn_decode`, with the JAX kernel's math: f32
     scores over columns start ≤ col < pos, the new token as a separate
     softmax term, probabilities rounded to the cache dtype before P·V, f32
-    accumulation. Returns (attn (B, 1, H, hd), k_cache, v_cache) with the
+    accumulation; no value outside the columns read reaches the output. Returns (attn (B, 1, H, hd), k_cache, v_cache) with the
     caches written in place at row ``pos`` of each batch row."""
     B, H, hd, S, KVH = _check_shapes(q, k_new, v_new, k_cache, v_cache)
     G = H // KVH
@@ -98,7 +98,11 @@ def attn_decode_ref(q, k_new, v_new, k_cache, v_cache, pos, scale: float,
     denom = e.sum(-1, keepdim=True) + en
     probs = (e / denom).to(v_cache.dtype).float()
     pnew = (en / denom).to(v_cache.dtype).float()
-    out = torch.einsum("bkgs,bskd->bkgd", probs, v_cache.float())
+    # V's columns outside the mask weigh 0 but are zeroed too, so a NaN
+    # stale tail stays out (0 · NaN is NaN) as it does in the kernel,
+    # which never reads them
+    v = v_cache.float().masked_fill(~valid[:, :, None, None], 0.0)
+    out = torch.einsum("bkgs,bskd->bkgd", probs, v)
     out = out + pnew * vn.float()
     rows = torch.arange(B, device=dev)
     k_cache[rows, p] = kn[:, :, 0]

@@ -7,15 +7,19 @@ takes each layer's view ``w[l]``, which costs nothing; the W4 GEMV kernel
 reads such a view as it reads a per-layer matrix.
 
 The KV cache is a dict {"k", "v": (L, B, S, KVH, hd), "pos": 0-d int32
-tensor, "rope_delta": (B,) optional}. Unlike the JAX version it is updated
-IN PLACE (one row block per layer and step) to avoid copying the cache.
-``pos`` lives on the cache's device, as JAX's does. On the card the
-positions, the cache write (a scatter at pos) and the decode mask
-(col ≤ pos over the whole cache, JAX's formulation) derive from it with no
-host read, so a decode step can be captured in a CUDA graph
-(``serve.generate``). A host int ``pos``, or one in a CPU cache, is read on
-the host and the written rows are sliced, as before the position moved to
-the device (the einsum's f32 sums then keep their order).
+tensor or (B,) per row, "rope_delta": (B,) optional}. Unlike the JAX
+version it is updated IN PLACE (one row block per layer and step) to avoid
+copying the cache. ``pos`` lives on the cache's device, as JAX's does. On
+the card the positions, the cache write (a scatter at pos) and the decode
+mask (col ≤ pos over the whole cache, JAX's formulation) derive from it with
+no host read, so a decode step can be captured in a CUDA graph
+(``serve.generate``). A host int ``pos``, or a 0-d one in a CPU cache, is
+read on the host and the written rows are sliced, as before the position
+moved to the device (the einsum's f32 sums then keep their order). A (B,)
+``pos`` (the slot engine's, ``serve.engine``) is one write offset per row
+on any device: the rows pos_b + t are scattered and the mask is
+col ≤ pos_b + t over the whole cache, as JAX's vmapped write and per-row
+mask.
 """
 
 from __future__ import annotations
@@ -207,10 +211,10 @@ def _layer_step(cfg: DecoderConfig, specs: Dict[str, SiteSpec], mode: str,
                 tape: Optional[L.Tape] = None) -> torch.Tensor:
     """One decoder layer. ``cache_kv`` = this layer's (k, v) cache views
     (B, S, KVH, hd), written in place at rows [cache_pos, cache_pos + T)
-    (``cache_pos`` a 0-d device tensor or a host int). ``fused_decode``: the
-    T == 1 cache write and attention are one ``kernels.attn_decode`` call
-    (mask start ≤ col ≤ pos). ``tape`` collects the layer's calibration
-    stats."""
+    (``cache_pos`` a 0-d device tensor, a host int, or a (B,) tensor: one
+    offset per row). ``fused_decode``: the T == 1 cache write and attention
+    are one ``kernels.attn_decode`` call (mask start ≤ col ≤ pos).
+    ``tape`` collects the layer's calibration stats."""
     B, T, _ = h.shape
     hd, H, KV = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
 
@@ -237,9 +241,20 @@ def _layer_step(cfg: DecoderConfig, specs: Dict[str, SiteSpec], mode: str,
             k_all, v_all = k, v
         else:
             ck, cv = cache_kv
-            host = not (isinstance(cache_pos, torch.Tensor)
-                        and L._on_card(cache_pos))
-            if host:  # a host int, or a position in host memory
+            per_row = (isinstance(cache_pos, torch.Tensor)
+                       and cache_pos.ndim == 1)
+            host = not per_row and not (isinstance(cache_pos, torch.Tensor)
+                                        and L._on_card(cache_pos))
+            if per_row:
+                # rows start_b + arange(T), start_b = pos_b clamped so the
+                # window fits, as JAX's vmapped dynamic_update_slice clamps
+                S = ck.shape[1]
+                start = cache_pos.to(torch.long).clamp(0, S - T)
+                rows = (start[:, None] + torch.arange(T, device=h.device)
+                        )[:, :, None, None].expand(B, T, KV, hd)
+                ck.scatter_(1, rows, k.to(ck.dtype))
+                cv.scatter_(1, rows, v.to(cv.dtype))
+            elif host:  # a host int, or a position in host memory
                 cache_pos = int(cache_pos)
                 ck[:, cache_pos:cache_pos + T] = k.to(ck.dtype)
                 cv[:, cache_pos:cache_pos + T] = v.to(cv.dtype)
@@ -253,6 +268,22 @@ def _layer_step(cfg: DecoderConfig, specs: Dict[str, SiteSpec], mode: str,
                 k_all, v_all, causal = k, v, attn_mask is None
             elif attn_mask is not None:
                 k_all, v_all = ck, cv
+            elif per_row:
+                # the (B, 1, T, S) mask col ≤ pos_b + t over the whole
+                # cache (JAX's); V's columns no row reads (≥ pos_b + T) are
+                # zeroed, so a stale tail of any value (C-w1) adds an exact
+                # 0 · 0 where the einsum's masked probabilities are 0
+                S = ck.shape[1]
+                cols = torch.arange(S, device=h.device)
+                rows = (cache_pos.to(torch.long)[:, None]
+                        + torch.arange(T, device=h.device))  # (B, T)
+                mask = (cols[None, None] <= rows[:, :, None])[:, None]
+                if attn_start is not None:  # exclude left-pad columns
+                    mask = mask & (cols[None, None, None] >=
+                                   attn_start.reshape(-1, 1, 1, 1))
+                unread = cols[None] > rows[:, -1:]  # (B, S)
+                k_all = ck
+                v_all = cv.masked_fill(unread[:, :, None, None], 0)
             else:
                 # rows ≥ pos + T hold stale or unwritten KV: the mask
                 # col ≤ pos + t keeps them out, over the whole cache for a
@@ -347,7 +378,11 @@ def decoder_forward(cfg: DecoderConfig, params: Dict,
     pos0 = cache["pos"] if cache is not None else 0
 
     if positions is None:
-        positions = (pos0 + torch.arange(T, device=h.device))[None].expand(B, T)
+        steps = torch.arange(T, device=h.device)
+        if isinstance(pos0, torch.Tensor) and pos0.ndim == 1:  # per row
+            positions = pos0[:, None] + steps[None]
+        else:
+            positions = (pos0 + steps)[None].expand(B, T)
         if cache is not None and "rope_delta" in cache:
             positions = positions + cache["rope_delta"][:, None]
     cos, sin = rope_tables(cfg, positions, torch.float32)
@@ -394,10 +429,13 @@ def decoder_forward(cfg: DecoderConfig, params: Dict,
 
 
 def init_cache(cfg: DecoderConfig, batch: int, max_len: int, dtype=None,
-               device="cuda") -> Dict:
+               device="cuda", quantized=False) -> Dict:
     """bf16 (or ``dtype``) KV cache on the card unless ``device`` says
-    otherwise, its ``pos`` a 0-d int32 tensor there; int8 / int4 KV are not
-    ported yet."""
+    otherwise, its ``pos`` a 0-d int32 tensor there. ``quantized`` (int8 /
+    int4 KV) is not ported and raises."""
+    if quantized:
+        raise NotImplementedError("quantized KV caches are not ported "
+                                  "(ROADMAP A5)")
     dtype = dtype or cfg.dtype
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),

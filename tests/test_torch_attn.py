@@ -103,6 +103,24 @@ def test_attn_decode_ref_matches_jax(dtype, perrow):
     np.testing.assert_array_equal(ot.float().numpy(), clean.float().numpy())
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_attn_decode_ref_ignores_a_nan_tail(dtype):
+    """NaN in every column outside [start, pos) (a slot pool's stale rows,
+    ROADMAP C-w1) leaves the plain version's output equal to the clean
+    cache's: masked scores and unread V columns both stay out."""
+    q, kn, vn, kc, vc = (_t(a) for a in _decode_inputs(
+        np.random.default_rng(13), dtype, B=3))
+    pos, start = torch.tensor([37, 63, 5]), torch.tensor([5, 0, 0])
+    cols = torch.arange(kc.shape[1])[None]
+    bad = ((cols < start[:, None]) | (cols >= pos[:, None]))[..., None, None]
+    out, _, _ = TA.attn_decode_ref(q, kn, vn, kc.masked_fill(bad, np.nan),
+                                   vc.masked_fill(bad, np.nan), pos,
+                                   128**-0.5, start=start)
+    clean, _, _ = TA.attn_decode_ref(q, kn, vn, kc.clone(), vc.clone(), pos,
+                                     128**-0.5, start=start)
+    assert torch.equal(out, clean)
+
+
 def test_attn_decode_ref_new_token_only():
     """pos == start: the output is the new token's v (softmax of one term)."""
     rng = np.random.default_rng(12)

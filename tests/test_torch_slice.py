@@ -303,13 +303,13 @@ def test_interop_converts_exactly(rng):
 
 def test_port_imports_no_jax():
     """Importing every module of the port pulls in no JAX, nothing of the
-    JAX package, and none of flax, msgpack, safetensors and ml_dtypes
-    (the card has none of them)."""
+    JAX package, and none of flax, msgpack, safetensors, ml_dtypes, PIL and
+    transformers (the card has none of them)."""
     code = ("import sys, importlib, pkgutil, mquant_tpu_torch as m\n"
             "for i in pkgutil.walk_packages(m.__path__, m.__name__ + '.'):\n"
             "    importlib.import_module(i.name)\n"
             "roots = ('jax', 'jaxlib', 'flax', 'msgpack', 'safetensors', "
-            "'ml_dtypes')\n"
+            "'ml_dtypes', 'PIL', 'transformers')\n"
             "bad = [k for k in sys.modules if k.split('.')[0] in roots "
             "or k.startswith('mquant_tpu.')]\n"
             "assert not bad, bad\n")
