@@ -26,7 +26,11 @@ Phases, in order (any failed check raises and the script exits non-zero):
    main-path shapes; the ragged kernel also timed at each TMA shape beside
    the TMA kernel; the document path's 4096-row
    products; the prefill probe's W8 products; the W4 GEMV at 1, 4, 8 and 32
-   token rows); the attention
+   token rows; the int8 GEMV at the engine's 8 rows of path S's `down`
+   (main path), at 32 rows, the int8 lm_head at 8 rows, the decode
+   lm_heads of InternVL2-8B and MiniCPM-V-2.6 at 1 and 8 rows and K tails
+   at N % 16 = 8, N odd and N % 16 = 0 with x rows off 4-byte alignment,
+   its f32 output bit-equal too); the attention
    kernels' written cache rows bit-equal and outputs within 1e-2 of the
    plain version's largest magnitude, with cache columns outside [start,
    pos) poisoned; the fused swiglu → Hadamard → int8 tail's codes within ±1
@@ -127,10 +131,18 @@ Phases, in order (any failed check raises and the script exits non-zero):
    2 prefix hits, it must launch w4a8_gemv, int8_gemv, int8_gemm and
    attn_decode; one decode block (8 steps, 8 live rows) against the same
    block with the integer products plain (last-step logits max |d| 0,
-   tokens equal); one JSON line: the burst's seconds and generated tok/s,
-   TTFT and latency p50 / p90 (the server's ``_Pending`` stamps), the
-   block's wall, stream time and device busy (torch.profiler) with the
-   idle share, slot occupancy, graphs, peak GiB, the card.
+   tokens equal; its ``int8_gemv`` items: ms and calls); each product and
+   reduction of a decoder layer, the head and the logprob at a speculative
+   verify window of 4 × 8 rows against 4 calls at 8 rows (bits equal or
+   not; the integer products must be equal: ``verify_sites``, ROADMAP
+   C-w18); then the burst's greedy id completions again, at once, on a
+   ``--spec_k 3`` server over the same runner (a pool of the same shape,
+   the prefix registered): every token equal to the burst's, the pass's
+   seconds, tok/s and acceptance; one JSON line: the burst's seconds and
+   generated tok/s, TTFT and latency p50 / p90 (the server's ``_Pending``
+   stamps), the block's wall, stream time and device busy
+   (torch.profiler) with the idle share, slot occupancy, graphs, peak GiB,
+   the speculative pass's numbers, the card.
    Each path's prefill and first 7 decode steps are held against the same
    forward with the integer products through their plain versions (logits
    within the bound, greedy tokens equal), and every attention and tail
@@ -229,6 +241,8 @@ KERNEL_SHAPES = [
     ("int8_gemm", "merger mlp0", 256, 5120, 5120, False),
     ("int8_gemm", "merger mlp2", 256, 5120, 3584, False),
     ("int8_gemv", "S decode down", 1, 18943, 3584, False),
+    # the engine's pool step: path S's `down` at 8 slots
+    ("int8_gemv", "engine S down, 8 rows", 8, 18943, 3584, False),
     ("int8_gemm", "S prefill down", 1024, 18943, 3584, False),
     # the prefill probe's W8 products (s8mm): q, k / v, fused q|k|v, g / u,
     # fused gate|up, down
@@ -272,6 +286,21 @@ EDGE_SHAPES = [
     ("int8_gemm", "ragged K W8, N odd", 77, 1001, 1003, False),
     ("int8_gemm", "W4 (K/2) % 16 = 4", 77, 1000, 1024, True),
 ]
+# the int8 GEMV off the main path, inside its contract (any K and N, M <=
+# 32): `down` at the last n8 tile, the int8 lm_head of an 8-slot engine on
+# an lm_head_bits=8 artifact, the decode lm_heads of InternVL2-8B (N odd)
+# and MiniCPM-V-2.6 (N = 2 mod 16: the producer's word loads), K tails at
+# N % 16 = 8 (cp.async), N odd and N % 16 = 0 with x rows 1 byte off
+# alignment
+I8_GEMV_SHAPES = [
+    ("int8_gemv", "S down, 32 rows", 32, 18943, 3584, False),
+    ("int8_gemv", "lm_head, 8 rows", 8, 3584, 152064, False),
+    ("int8_gemv", "InternVL2-8B lm_head", 1, 4096, 92553, False),
+    ("int8_gemv", "InternVL2-8B lm_head, 8 rows", 8, 4096, 92553, False),
+    ("int8_gemv", "MiniCPM-V-2.6 lm_head", 1, 3584, 151666, False),
+    ("int8_gemv", "MiniCPM-V-2.6 lm_head, 8 rows", 8, 3584, 151666, False),
+] + [("int8_gemv", f"K tail, unaligned x, {m} rows", m, k, n, False)
+     for m in (3, 5) for k, n in ((1001, 1000), (1001, 1003), (3584, 1024))]
 # the ragged kernel's main-path shapes: the full-logit lm_head (calibration,
 # scoring, speculative verification: decoder_forward with every position's
 # logits) over a 1024-token prompt at the published vocabularies, N % 16 != 0
@@ -356,7 +385,7 @@ def check_kernels(seed: int) -> dict:
     rows_sum = new_summary()
     for name, label, M, K, N, packed in (KERNEL_SHAPES + DOC_GEMM_SHAPES
                                          + ROWS_SHAPES + EDGE_SHAPES
-                                         + RAGGED_SHAPES):
+                                         + I8_GEMV_SHAPES + RAGGED_SHAPES):
         main = (name, label, M, K, N, packed) in KERNEL_SHAPES + RAGGED_SHAPES
         rows = K // 2 if packed else K
         x = torch.randint(-127, 128, (M, K), generator=g, device=dev,
@@ -380,6 +409,9 @@ def check_kernels(seed: int) -> dict:
         if name.startswith("int8_gemm") and K % 16:
             xk = torch.empty((M, -(-K // 16) * 16), dtype=torch.int8,
                              device=dev)[:, :K].copy_(x)
+        if "unaligned x" in label:  # rows 1 byte off 4-byte alignment
+            xk = torch.empty((M * K + 1,), dtype=torch.int8,
+                             device=dev)[1:].view(M, K).copy_(x)
         before = qmm.LAUNCHES[name]
         acc_k = kern(xk, xs, w, ws, torch.int32, **extra)
         if qmm.LAUNCHES[name] != before + 1:
@@ -399,6 +431,10 @@ def check_kernels(seed: int) -> dict:
                                  f"the plain version's by up to {ulps} ulp "
                                  f"(max abs {err})")
         del y_p
+        if name == "int8_gemv" and not torch.equal(
+                kern(xk, xs, w, ws, torch.float32),
+                plain(x, xs, w, ws, torch.float32)):
+            raise AssertionError(f"{name} [{label}]: f32 output differs")
         # timed calls cycle over weight copies that together exceed the
         # 50 MB L2, so each call streams its weight from HBM as decode does
         wbytes = rows * N
@@ -1107,25 +1143,38 @@ HOPPER_SASS = {"gemm_tma_kernel": ("IGMMA", "UTMALDG"),
                "fwht_tc_kernel": ("HGMMA", "UBLKCP")}
 
 
+# gemv_tc_kernel's copy by its W load path (GemvWLoad, the fourth template
+# argument): a TMA box, 8-byte cp.async, or none (words the producer's lanes
+# load and store themselves)
+GEMV_COPY = {"0": "UTMALDG", "1": "LDGSTS", "2": None}
+
+
 def sass_hopper_kernels(funcs: dict) -> None:
     """Phase 2: counts of the tensor-core product and the shared-memory copy
     instructions (and TMA / bulk copies: ``UTMALDG``, ``UBLKCP``) in each
     instantiation of the tensor-core kernels; fails if one lacks its product
-    or its copy, so that a CUDA-core kernel cannot pass for them."""
-    for kern, (mma, cp) in HOPPER_SASS.items():
+    or its copy, so that a CUDA-core kernel cannot pass for them. The
+    tensor-core GEMV's copy follows its W load path (GEMV_COPY)."""
+    for kern, (mma, cp_all) in HOPPER_SASS.items():
         hits = {k: v for k, v in funcs.items() if kern in k}
         if not hits:
             raise AssertionError(f"sass: {kern} not found in the library")
         for fn, code in sorted(hits.items()):
+            cp = cp_all
+            wl = re.search(r"gemv_tc_kernelILi\d+ELb[01]ELi\d+ELi(\d)E", fn)
+            if wl:
+                cp = GEMV_COPY[wl.group(1)]
             op = lambda name: sum(  # noqa: E731 (a predicate may lead)
                 bool(re.match(rf"(@!?U?P\w+\s+)?({name})\b", i))
                 for i in code)
-            n_mma, n_cp = op(mma), op(cp)
+            n_mma = op(mma)
+            n_cp = op(cp) if cp else None
             extra = "".join(f", {c} {op(c)}" for c in ("UTMALDG", "UBLKCP",
                                                        "LDGSTS")
-                            if c not in cp.split("|"))
-            log(f"sass: {fn}: {len(code)} instructions, {mma} {n_mma}, {cp} "
-                f"{n_cp}{extra}")
+                            if c not in (cp or "").split("|"))
+            log(f"sass: {fn}: {len(code)} instructions, {mma} {n_mma}, "
+                + (f"{cp} {n_cp}" if cp else "W by the producer's words")
+                + extra)
             if n_mma == 0 or n_cp == 0:
                 raise AssertionError(f"sass: {fn} has no {mma} or no {cp}")
 
@@ -2508,6 +2557,14 @@ def block_against_plain(eng, prompts) -> dict:
     busy = sum(ms for ms, _, _ in items)
     for ms, n, key in items[:TOP_ITEMS]:
         log(f"engine: block device item {ms:8.3f} ms {n:6d}x  {key[:90]}")
+    # int8_gemv: the tensor-core GEMV's int8 instantiations (GemvUnpack kI8
+    # = 5, its third template argument)
+    i8 = [(ms, n) for ms, n, key in items
+          if re.search(r"gemv_tc_kernel<\d+, (true|false), 5, \d+>", key)]
+    i8_ms, i8_n = sum(ms for ms, _ in i8), sum(n for _, n in i8)
+    if i8_n:
+        log(f"engine: block int8_gemv {i8_ms:.3f} ms over {i8_n} calls, "
+            f"{1e3 * i8_ms / i8_n:.1f} us a call (M = {ENGINE_SLOTS})")
     for r in rids:
         eng.cancel(r)
     eng.step_block()
@@ -2516,8 +2573,174 @@ def block_against_plain(eng, prompts) -> dict:
     wall = min(walls)
     return {"rows": len(prompts), "logits_max_abs_d": err,
             "admissions": admitted, "wall_ms": wall,
+            "int8_gemv_ms": i8_ms, "int8_gemv_calls": i8_n,
             "stream_ms": stream, "busy_ms": busy if busy > 0 else None,
             "idle_share": 1 - busy / wall if busy > 0 else None}
+
+
+ENGINE_SPEC_K = 3  # the speculative pass's draft length
+
+
+def verify_sites(eng) -> list:
+    """On the worker thread, ROADMAP C-w18: each product or reduction of a
+    decoder layer (layer 0 of the served weights), of the head and of the
+    logprob at a speculative verify window of ENGINE_SPEC_K + 1 rows per
+    slot ((k + 1) · B rows, random bf16 inputs at the site's width) against
+    the same call on each window row's B rows apart, concatenated: whether
+    the bits agree. The integer products alone (``quantized_matmul_pre`` on
+    the site's int8 codes: exact in int32, per-element epilogue) must agree;
+    the others are what ``layers.per_step`` runs on each step's rows.
+    Returns [(site, rows, equal)]."""
+    import torch
+
+    from mquant_tpu_torch.kernels import qmm
+    from mquant_tpu_torch.models import layers as L
+    from mquant_tpu_torch.models.llm import layer_views
+
+    B, T = eng.slots, ENGINE_SPEC_K + 1
+    g = torch.Generator(device=eng.device).manual_seed(15)
+    lp = layer_views(eng.params["layers"], 0)
+    lst = layer_views({k: v for k, v in eng.state.items()
+                       if k.startswith("llm.") and k != "llm.lm_head"}, 0)
+    specs = eng.specs
+
+    def xin(C):
+        return torch.randn((B, T, C), generator=g, device=eng.device
+                           ).to(torch.bfloat16)
+
+    def codes(C):
+        return torch.randint(-127, 128, (B, T, C), generator=g,
+                             device=eng.device, dtype=torch.int8)
+
+    H, I = eng.cfg.hidden, lp["down"]["w_q"].shape[0]
+    dspec = specs["llm.down"]
+    sites = [
+        ("rms_norm (ln1)", xin(H),
+         lambda x: L.rms_norm(x, lp["ln1"]["w"], eng.cfg.norm_eps)),
+        ("q|k|v site (W4, one product)", xin(H),
+         lambda x: torch.cat(L.qlinear_group(
+             x, [lp["q"], lp["k"], lp["v"]], ["llm.q", "llm.k", "llm.v"],
+             specs, lst, "real"), dim=-1)),
+        ("o site", xin(eng.cfg.n_heads * eng.cfg.head_dim),
+         lambda x: L.qlinear(x, lp["o"], "llm.o", specs.get("llm.o"), lst,
+                             "real")),
+        ("gate|up site", xin(H),
+         lambda x: torch.cat(L.qlinear_group(
+             x, [lp["gate"], lp["up"]], ["llm.gate", "llm.up"], specs, lst,
+             "real"), dim=-1)),
+        ("down site (Hadamard, split, int8)", xin(eng.cfg.inter_eff),
+         lambda x: L.qlinear(x, lp["down"], "llm.down", dspec, lst, "real")),
+        ("head", xin(H),
+         lambda x: L.qlinear(x, eng.params["lm_head"], "llm.lm_head",
+                             specs.get("llm.lm_head"), eng.state, "real")),
+        ("logsumexp (f32, vocabulary)",
+         torch.randn((B, T, eng.cfg.vocab), generator=g, device=eng.device),
+         lambda x: torch.logsumexp(x.float(), dim=-1)),
+    ]
+    if dspec.online_had is not None:
+        sites.append(("down: online Hadamard", xin(eng.cfg.inter_eff),
+                      lambda x: L._online_hadamard(x, dspec)))
+    if "w_col0" in lp["down"]:
+        sites.append(("down: split column (f32)", xin(1),
+                      lambda x: x.float() @ lp["down"]["w_col0"].float()))
+    pw = lambda n: lp[n].get("w_q_fused", lp[n].get("w_q"))  # noqa: E731
+    ints = [(f"int product q|k|v (K {H})", codes(H),
+             {"w_q": pw("q"), "w_scale": lp["q"].get("w_scale_fused",
+                                                     lp["q"]["w_scale"])}),
+            (f"int product gate|up (K {H})", codes(H),
+             {"w_q": pw("gate"), "w_scale": lp["gate"].get(
+                 "w_scale_fused", lp["gate"]["w_scale"])}),
+            (f"int product down (K {I})", codes(I), lp["down"])]
+    for name, x, p in ints:
+        ws = torch.full((B * T,), 0.01, device=eng.device)
+        sites.append((name, x, lambda c, p=p, ws=ws: qmm.quantized_matmul_pre(
+            c, ws[:c.shape[0] * c.shape[1]], p, torch.bfloat16)))
+    out = []
+    for name, x, fn in sites:
+        full = fn(x)
+        steps = torch.cat([fn(x[:, j:j + 1].contiguous()) for j in range(T)],
+                          dim=1)
+        eq = torch.equal(full, steps)
+        out.append((name, B * T, eq))
+        log(f"engine: verify site {name:36s} {B * T} rows vs {T} x {B}: "
+            + ("bit-equal" if eq else "differs"))
+        if name.startswith("int product") and not eq:
+            raise AssertionError(f"engine: {name} at {B * T} rows differs "
+                                 f"from {T} calls at {B} rows")
+    return out
+
+
+def spec_pass(srv, bodies, results, prefix, need) -> dict:
+    """After the burst: its greedy id completions again, sent at once over
+    HTTP to a server of the CLI's ``--spec_k`` configuration on the same
+    runner (``spec_k=ENGINE_SPEC_K``, ``sample_top_k=0``: sampling and
+    speculation are exclusive), its pool of the burst's shape with the same
+    prefix registered: every token equal to the burst's (ROADMAP C-w18).
+    Returns the pass's seconds, tokens per second and acceptance (tokens
+    emitted per live row and round)."""
+    import threading
+
+    import torch
+
+    from mquant_tpu_torch.serve.server import InferenceServer
+
+    picks = [i for i, (kind, b) in enumerate(bodies)
+             if kind == "text" and not b.get("temperature")]
+    spec = InferenceServer.for_vlm(
+        srv.vlm_runner, slots=ENGINE_SLOTS, max_len=ENGINE_MAX_LEN,
+        steps_per_block=ENGINE_STEPS, spec_k=ENGINE_SPEC_K, sample_top_k=0,
+        seed=0)
+    try:
+        def setup(e):
+            e._grow(need)
+            for nm in ("k", "v"):
+                e.cache[nm].fill_(float("nan"))
+            e.register_prefix(prefix)
+            e.warmup(prompt_lens=ENGINE_TEXT)
+            torch.cuda.synchronize()
+            return e._cache_S()
+
+        S = spec.worker.call(setup)
+        if S != srv.worker.call(lambda e: e._cache_S()):
+            raise AssertionError(f"engine spec_k: pool of {S} rows")
+        got = [None] * len(picks)
+
+        def client(j):
+            body = {k: v for k, v in bodies[picks[j]][1].items()
+                    if k != "stream"}
+            got[j] = _http(spec.port, "text", body)
+
+        threads = [threading.Thread(target=client, args=(j,))
+                   for j in range(len(picks))]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+            if t.is_alive():
+                raise AssertionError("engine spec_k: a client did not finish")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_tok = 0
+        for j, i in enumerate(picks):
+            toks, want = got[j][1], results[i][1]
+            if toks != want:
+                d = next((k for k, (a, b) in enumerate(zip(toks, want))
+                          if a != b), min(len(toks), len(want)))
+                raise AssertionError(f"engine spec_k={ENGINE_SPEC_K}: request "
+                                     f"{i} differs from the burst at token "
+                                     f"{d}")
+            n_tok += len(toks)
+        acc = spec.worker.stats()["spec_accept_per_round"]
+        log(f"engine: spec_k={ENGINE_SPEC_K} pass: {len(picks)} greedy id "
+            f"requests, every token equal to the burst's; {n_tok} tokens in "
+            f"{wall:.3f} s ({n_tok / wall:.2f} tok/s), {acc:.3f} tokens a "
+            "live row and round")
+        return {"spec_requests": len(picks), "spec_s": wall,
+                "spec_tok_per_s": n_tok / wall, "spec_accept_per_round": acc}
+    finally:
+        spec.shutdown()
 
 
 def run_engine_phase(art: str, card: str, seed: int, dev: str = "cuda"
@@ -2683,6 +2906,8 @@ def run_engine_phase(art: str, card: str, seed: int, dev: str = "cuda"
         log(f"engine: one decode block ({ENGINE_STEPS} steps, "
             f"{blk['rows']} live rows) vs plain qmm: last-step logits max "
             f"|d| {blk['logits_max_abs_d']}, tokens equal")
+        worker.call(verify_sites)
+        sp = spec_pass(srv, bodies, results, prefix, need)
         stats = worker.stats()
         line = {"engine_phase": {
             "requests": len(bodies), "burst_s": t_burst,
@@ -2696,7 +2921,9 @@ def run_engine_phase(art: str, card: str, seed: int, dev: str = "cuda"
             "occupancy_mean": float(np.mean(occ)) / ENGINE_SLOTS,
             "occupancy_max": max(occ) / ENGINE_SLOTS,
             "graphs": stats["graphs"], "peak_gib": peak,
-            "setup_s": t_setup, "card": card}}
+            "setup_s": t_setup, "int8_gemv_block_ms": blk["int8_gemv_ms"],
+            "int8_gemv_block_calls": blk["int8_gemv_calls"], **sp,
+            "card": card}}
         log(json.dumps(line))
         return launches
     finally:
@@ -3113,20 +3340,22 @@ def attention_events(store: list):
 
 
 # device kernels of the decode GEMVs and attention, by the profiler's names
-STEP_DEVICE_OPS = {"w4a8_gemv": ("gemv_tc_kernel",),
-                   "attn_decode": ("decode_attn_kernel",)}
+# (the tensor-core GEMV's unpack argument: 4 the W4 one, 5 the int8 one)
+STEP_DEVICE_OPS = {"w4a8_gemv": r"gemv_tc_kernel<\d+, \w+, 4, ",
+                   "int8_gemv": r"gemv_tc_kernel<\d+, \w+, 5, ",
+                   "attn_decode": r"decode_attn_kernel"}
 
 
 def log_step_launches(items, calls: dict) -> None:
     """Phase 5: device operations per decode step (the profiler's kernels
     and memsets), the wrappers' calls per step, and the device launches per
-    W4 GEMV and per attention call (one each: the kernels launch nothing
-    else; the int8 GEMV's memset and epilogue kernel stay)."""
+    GEMV and per attention call (one each: the kernels launch nothing
+    else, no memset and no second kernel)."""
     ops = sum(n for _, n, _ in items)
     memsets = sum(n for _, n, key in items if "memset" in key.lower())
     per_call = {}
-    for w, keys in STEP_DEVICE_OPS.items():
-        dev = sum(n for _, n, key in items if any(k in key for k in keys))
+    for w, pat in STEP_DEVICE_OPS.items():
+        dev = sum(n for _, n, key in items if re.search(pat, key))
         if calls.get(w):
             per_call[w] = round(dev / calls[w], 3)
     log(f"profile:   launches per step: {ops:.1f} device operations "

@@ -30,8 +30,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # x, w, xs, ws, out, M, K, N, splits, rows per split, out_kind, stream
     "mq_w4a8_gemv": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # x, w, xs, ws, acc, out, M, K, N, splits, out_kind, stream
-    "mq_int8_gemv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, w, xs, ws, out, M, K, N, splits, rows per split, out_kind, stream
+    "mq_int8_gemv": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, ldx, w, xs, ws, out, M, K, N, w4, out_kind, tokens per block, stream
     "mq_int8_gemm": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # the same arguments (any N)

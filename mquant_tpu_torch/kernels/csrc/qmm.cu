@@ -12,7 +12,10 @@
 //                M <= 32, the K splits of a channel tile meet through a
 //                thread block cluster's distributed shared memory.
 // K2  int8_gemv  replaces qmm.py::_qmm_pallas_gemv (_gemv_kernel): the same
-//                GEMV on int8 (K, N) weights (the int8 lm_head).
+//                GEMV on int8 (K, N) weights (the int8 lm_head, the RMS
+//                split's K = 18943 `down`, the engine's 8-row pool step):
+//                K1's one launch with the int8 bytes as the A fragments, W
+//                read once for any M <= 32, any K and any N.
 // K3  int8_gemm  replaces the M>32 branch of qmm.py::_qmm_pallas_w4
 //                (_qmm_w4_kernel with its k accumulator) and the XLA s8 dots
 //                it stood beside: int8 x int8 -> int32 GEMM on W4 packed or
@@ -38,15 +41,14 @@
 //
 // What bounds them on an H100. The GEMVs stream the weight once per call:
 // 0.5 B per weight (K1) or 1 B (K2) against ~3.35 TB/s of HBM; the x rows
-// are a few KB and stay in L1/L2. K1 reads each weight byte once by TMA and
-// puts the products on the tensor cores (mma.sync with the token rows as
-// the n8 side), so neither the integer pipe nor M moves the byte count;
-// narrow-N sites (N = 3584) split K across the blocks of a cluster so every
-// SM has a slice of the stream; K13 is K1 with another unpack. K2 reads
-// each byte with 16-byte loads (a warp covers 512 contiguous bytes of a
-// row), spends the arithmetic on __dp4a (4 int8 MACs per instruction), and
-// meets its K splits in an int32 workspace through atomicAdd (exact, any
-// order).
+// are a few KB and stay in L1/L2. K1 and K2 read each weight byte once (a
+// TMA box where W's rows are a TMA stride, else 8-byte cp.async or words
+// the producer's lanes shift into place) and put the products on the
+// tensor cores (mma.sync with the token rows as the n8 side), so neither
+// the integer pipe nor M moves the byte count; narrow-N sites (N = 3584)
+// split K across the blocks of a cluster so every SM has a slice of the
+// stream, and the splits meet in distributed shared memory (no workspace,
+// no atomics); K13 is K1 with another unpack.
 // The GEMM at prefill (M = 1024) is bound by int8 tensor-core throughput.
 // K3's main kernel is Hopper-native (gemm_tma_kernel): TMA loads of x and
 // the raw W tile through an mbarrier ring, wgmma with W^T built in
@@ -65,12 +67,12 @@
 // Any K (K2 and K3 on int8 weights; K3 on packed W4 with K even): the RMS
 // split stores 18943 int8 rows of `down`, as the JAX package writes them. The
 // TMA GEMM leaves the K tail to TMA's zero fill (above). In the GEMVs the
-// TAIL instantiations predicate and zero-fill the last row group and k step,
-// and read activation rows that are not 4-byte aligned as aligned words
-// shifted into place, so the int32 sums stay exact and no byte outside a
-// tensor is read. The host picks them only for such shapes: aligned shapes
-// run the plain vector loads (predicates cost an aligned GEMM ~15% on the
-// card).
+// weight's rows past K are zero-filled in the ring, and the TAIL
+// instantiations read activation rows that are not 4-byte aligned (a K that
+// is no multiple of 4, an unaligned base) as aligned words shifted into
+// place, zero past the last row, so the int32 sums stay exact and no byte
+// outside a tensor is read. The host picks them only for such shapes:
+// aligned shapes run the plain word loads.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -140,20 +142,25 @@ __device__ __forceinline__ uint32_t load4_tail(const int8_t* base, int c,
 }
 
 // ---------------------------------------------------------------------------
-// K1 / K2: GEMV, M <= 32
+// K1 / K2 / K13: the GEMVs' unpacks, M <= 32
 // ---------------------------------------------------------------------------
 
-constexpr int GV_TX = 8;     // threads along N, 16 columns each
-constexpr int GV_TY = 32;    // K slices inside a block, 4 rows each step
-constexpr int GV_BN = GV_TX * 16;
-
-// The unpacks of the W4 tensor-core GEMV (gemv_tc_kernel's template
-// parameter U): kSigned, the served one (unpack_signed: eight word
+// The unpacks of the tensor-core GEMV (gemv_tc_kernel's template
+// parameter U): kSigned, the served W4 one (unpack_signed: eight word
 // operations for 8 nibbles); kP1 .. kP3 (K13), the probe's three, byte by
-// byte (unpack_probe); kP0 (K13), none: x[m, :K/2] . int8(packed bytes). The
-// P values are the probe's variant numbers, which chip_smoke.py's SASS
-// report looks for in the template arguments.
-enum GemvUnpack { kP0 = 0, kP1 = 1, kP2 = 2, kP3 = 3, kSigned = 4 };
+// byte (unpack_probe); kP0 (K13), none: x[m, :K/2] . int8(packed bytes);
+// kI8 (K2), none on int8 weights: x[m, :K] . W over all K rows. The P
+// values are the probe's variant numbers, which chip_smoke.py's SASS report
+// looks for in the template arguments.
+enum GemvUnpack { kP0 = 0, kP1 = 1, kP2 = 2, kP3 = 3, kSigned = 4, kI8 = 5 };
+
+// How the GEMV's producer warp fills a stage of W (template parameter WL):
+// one TMA box where W's rows are a legal TMA stride (N % 16 == 0, a 16-byte
+// aligned base); 8-byte cp.async per lane where they are 8-byte aligned
+// (N % 8 == 0); otherwise its 32 lanes write the tile from aligned words
+// shifted into place (load_gemv_words / store_gemv_words), any N and any
+// base.
+enum GemvWLoad { kTmaW = 0, kCpAsyncW = 1, kThreadW = 2 };
 
 // The signed nibbles of the 4 packed bytes of w as the probe's three unpacks
 // compute them (w4_unpack_tune.py:52-69), each byte alone; lo / hi receive
@@ -193,99 +200,6 @@ __device__ __forceinline__ void unpack_w4(uint32_t w, uint32_t& lo,
     unpack_signed(w, lo, hi);
   else
     unpack_probe<U>(w, lo, hi);
-}
-
-// K2 on int8 weights w (K, N)
-template <int MC, bool TAIL>
-__global__ void __launch_bounds__(GV_TX* GV_TY)
-    gemv_kernel(const int8_t* __restrict__ x, int M, int K,
-                const int8_t* __restrict__ w, int N, int rows_per_split,
-                int* __restrict__ acc_out) {
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int warp = (ty * GV_TX + tx) >> 5, lane = (ty * GV_TX + tx) & 31;
-  const int col0 = blockIdx.x * GV_BN + tx * 16;
-  const int r_begin = blockIdx.y * rows_per_split;
-  const int r_end = min(K, r_begin + rows_per_split);
-  __shared__ int red[GV_TY / 4][MC][GV_BN];
-
-  for (int m0 = 0; m0 < M; m0 += MC) {
-    int acc[MC][16];
-#pragma unroll
-    for (int mi = 0; mi < MC; ++mi) {
-#pragma unroll
-      for (int c = 0; c < 16; ++c) acc[mi][c] = 0;
-    }
-    if (col0 < N) {
-      for (int r = r_begin + ty * 4; r < r_end; r += GV_TY * 4) {
-        // TAIL: rows past r_end (the last group of a K that is no multiple
-        // of 4) read as zero weights and zero activations
-        uint4 v[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          v[i] = !TAIL || r + i < r_end
-                     ? *reinterpret_cast<const uint4*>(w + (long)(r + i) * N +
-                                                       col0)
-                     : make_uint4(0, 0, 0, 0);
-        int xw[MC];
-#pragma unroll
-        for (int mi = 0; mi < MC; ++mi) {
-          const bool live = m0 + mi < M;
-          const int8_t* xr = x + (long)(m0 + mi) * K;
-          if (TAIL)
-            xw[mi] = live ? (int)load4_tail(xr, r, r_end) : 0;
-          else
-            xw[mi] = live ? *reinterpret_cast<const int*>(xr + r) : 0;
-        }
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          uint32_t rows[4], cols[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const uint4 q = v[i];
-            rows[i] = c == 0 ? q.x : c == 1 ? q.y : c == 2 ? q.z : q.w;
-          }
-          transpose4x4(rows, cols);
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-#pragma unroll
-            for (int mi = 0; mi < MC; ++mi)
-              acc[mi][c * 4 + j] =
-                  __dp4a((int)cols[j], xw[mi], acc[mi][c * 4 + j]);
-        }
-      }
-    }
-    // reduce the 32 K slices: 4 per warp through shuffles, 8 warps in smem
-#pragma unroll
-    for (int mi = 0; mi < MC; ++mi) {
-#pragma unroll
-      for (int c = 0; c < 16; ++c) {
-        int s = acc[mi][c];
-        s += __shfl_down_sync(0xffffffffu, s, 16);
-        s += __shfl_down_sync(0xffffffffu, s, 8);
-        if (lane < 8) red[warp][mi][lane * 16 + c] = s;
-      }
-    }
-    __syncthreads();
-    for (int idx = ty * GV_TX + tx; idx < MC * GV_BN; idx += GV_TX * GV_TY) {
-      const int mi = idx / GV_BN, cc = idx % GV_BN;
-      const int n = blockIdx.x * GV_BN + cc;
-      int s = 0;
-#pragma unroll
-      for (int wi = 0; wi < GV_TY / 4; ++wi) s += red[wi][mi][cc];
-      if (m0 + mi < M && n < N) atomicAdd(acc_out + (long)(m0 + mi) * N + n, s);
-    }
-    __syncthreads();
-  }
-}
-
-__global__ void epilogue_kernel(const int* __restrict__ acc, int M, int N,
-                                const float* __restrict__ xs,
-                                const float* __restrict__ wsc, void* out,
-                                int out_kind) {
-  const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long)M * N) return;
-  const int m = idx / N, n = idx % N;
-  store_out(out, out_kind, idx, acc[idx], xs[m], wsc[n]);
 }
 
 // d (16 x 8 s32) += a (16 x 32 s8) . b (32 x 8 s8), mma.sync
@@ -793,42 +707,49 @@ int launch_gemm(const void* x, int ldx, int xcols, int hoff, const void* w,
 }
 
 // ---------------------------------------------------------------------------
-// K1 on Hopper: one launch, tensor cores, W read once for any M <= 32
+// K1 / K2 on Hopper: one launch, tensor cores, W read once for any M <= 32
 // ---------------------------------------------------------------------------
 //
 // out^T (channels x tokens) = W^T x^T on mma.sync.m16n8k32 s8, the operands
 // swapped as in gemm_tma_kernel: the channels are the 16-row A side, the
 // tokens the n8 side, so M <= 8 is one n8 tile and M <= 32 four, and every
-// packed W byte is read from HBM and unpacked once whatever M is (the
-// dp4a GEMV streams W once per 4 token rows).
-// Block: 128 channels x one K split of `rps` packed rows. Two groups of 4
-// consumer warps take the even and the odd stages; in a group, warp w owns
-// 32 channels (two m16 tiles: thread (g, t) holds channels 4c..4c+3,
-// c = 8w + g, as rows g / g+8 of tile 0 and tile 1); warp 8 is the TMA
-// producer. A stage is one TMA box of 32 packed rows x 128 channels (4 KB,
-// 128-byte swizzle), TV_STAGES in flight. Per stage a consumer warp
-// loads its 4x4-byte quads, unpacks the signed nibbles (no 8*sum(x)
-// correction) and transposes them with prmt into the A fragments of the low
-// plane (W rows r) and the high plane (W rows K/2 + r); the B fragments are
-// words of x rows (K-contiguous), x columns [r, r+32) and [K/2 + r, ...),
-// loaded from global memory (L1 / L2) one stage ahead.
+// W byte is read from HBM (and, for W4, unpacked) once whatever M is.
+// Block: 128 channels x one K split of `rps` weight rows (K/2 packed rows
+// of a W4 weight, K int8 rows for K2). Two groups of 4 consumer warps take
+// the even and the odd stages; in a group, warp w owns 32 channels (two
+// m16 tiles: thread (g, t) holds channels 4c..4c+3, c = 8w + g, as rows
+// g / g+8 of tile 0 and tile 1); warp 8 is the producer. A stage is 32
+// weight rows x 128 channels (4 KB, 128-byte swizzle), TV_STAGES in flight:
+// one TMA box, or for K2 where W's rows are no TMA stride 8-byte cp.async
+// (N % 8 == 0) or words written by the producer's lanes (any N, any base;
+// GemvWLoad), zero past the weight's rows and N. Per stage a consumer warp
+// loads its 4x4-byte quads and transposes them with prmt into A fragments:
+// W4 unpacks the signed nibbles first (no 8*sum(x) correction) into the low
+// plane (W rows r) and the high plane (W rows K/2 + r); K2's int8 bytes are
+// the fragments as they are (kI8, as P0's packed bytes). The B fragments are
+// words of x rows (K-contiguous, row stride K), x columns [r, r+32) and for
+// W4 [K/2 + r, ...), loaded from global memory (L1 / L2) one stage ahead,
+// zero past the split's rows (which a stage may hold) and for tokens >= M.
 // The K splits of one channel tile form a thread block cluster (grid.x =
 // splits = cluster size <= 8). Each block leaves its int32 partial tile in
 // its own shared memory (over the drained stage ring); after a cluster
 // barrier every block sums its share of the tile over the cluster's blocks
-// through distributed shared memory, applies the epilogue and stores. No
-// workspace, memset, atomics or second kernel: one launch, graph-capturable
-// (one split launches without a cluster). Splits are whole 32-row stages;
-// rows past K/2 are zero-filled by TMA and meet zero x words. At M = 1
-// the served unpack takes the product on __dp4a instead (dp4a_row: W
-// straight into registers, no TMA): at one token row the card streams W
-// faster that way (PERF.md, Findings), and the K splits still meet through
-// the cluster, in the one launch. The unpack is the template parameter U
-// (GemvUnpack): the served kSigned, or one of the probe's P0-P3 (K13), which
-// stay on the tensor cores at every M <= 8 and change nothing else but the
-// A fragments' arithmetic (P0 skips the high plane's x words and products).
-// Contract (w4_gemv_map checks it): M <= 32 (K13: 8), K even, N % 16 == 0,
-// W 16-byte aligned (TMA's row stride), rps % 32 == 0.
+// through distributed shared memory in rank order, applies store_out's
+// epilogue and stores (4 channels at once where N % 4 == 0, else channel by
+// channel). No workspace, memset, atomics or second kernel: one launch,
+// graph-capturable (one split launches without a cluster). Splits are
+// whole 32-row stages. At M = 1 the served W4 unpack takes the product on
+// __dp4a instead (dp4a_row: W straight into registers, no TMA): at one
+// token row the card streams packed W faster that way (PERF.md, Findings),
+// and the K splits still meet through the cluster, in the one launch. The
+// unpack is the template parameter U (GemvUnpack): the served kSigned,
+// K2's kI8, or one of the probe's P0-P3 (K13), which stay on the tensor
+// cores at every M <= 8 and change nothing else but the A fragments'
+// arithmetic (P0 skips the high plane's x words and products).
+// Contracts: W4 (w4_gemv_map): M <= 32 (K13: 8), K even, N % 16 == 0, W
+// 16-byte aligned (TMA's row stride), rps % 32 == 0. K2 (mq_int8_gemv):
+// M <= 32, any K >= 1 and N >= 1, any alignment of W and x (x's rows
+// contiguous at stride K), rps % 32 == 0.
 
 constexpr int TV_BN = 128;               // channels per block
 constexpr int TV_BR = 32;                // packed rows per stage: one k32 step
@@ -870,6 +791,61 @@ __device__ __forceinline__ void load_x_frags(const int8_t* x, int M, int K,
   }
 }
 
+// The W tile of one stage written by the producer warp's lanes, where W's
+// rows lie at a stride neither a TMA box nor 8-byte copies address (N % 8
+// != 0, or an unaligned base): rows r0 .. r0 + 31 x channels ch0 .. ch0 +
+// 127 of the (R, N) int8 matrix w, zero past R rows and N channels. Lane l
+// owns bytes 4l .. 4l + 3 of every row, so one warp instruction reads a
+// row's 128 bytes: the aligned word that starts sh = (row address) % 4
+// bytes before the lane's chunk, shifted into place with the next lane's
+// word, which lane 31 loads itself. load_gemv_words loads a stage's 32
+// words a lane (33 in lane 31) before any is used, so their latencies
+// overlap, and before the slot is free; store_gemv_words shifts them into
+// place. A
+// word is read only where it holds a byte of the row's tile below column
+// N, so no page outside the tensor's bytes is touched. The chunk goes into
+// the swizzled tile (16-byte chunk j of row r at chunk j ^ (r % 8)).
+struct GemvWords {
+  uint32_t v[32], e[32];
+};
+
+__device__ __forceinline__ void load_gemv_words(GemvWords& h,
+                                                const int8_t* __restrict__ w,
+                                                int R, int N, int r0, int ch0,
+                                                int lane) {
+  const int c = ch0 + 4 * lane;
+  const int tail = min(N, ch0 + 128) - c;  // bytes of the tile from c on
+  const int8_t* p = w + (long)r0 * N + c;
+#pragma unroll
+  for (int i = 0; i < 32; ++i, p += N) {
+    const int sh = (int)(reinterpret_cast<uintptr_t>(p) & 3);
+    const uint32_t* a = reinterpret_cast<const uint32_t*>(p - sh);
+    const bool live = r0 + i < R;
+    h.v[i] = live && tail + sh > 0 ? __ldg(a) : 0u;
+    h.e[i] = lane == 31 && live && tail + sh > 4 ? __ldg(a + 1) : 0u;
+  }
+}
+
+__device__ __forceinline__ void store_gemv_words(uint8_t* st,
+                                                 const GemvWords& h,
+                                                 const int8_t* __restrict__ w,
+                                                 int N, int r0, int ch0,
+                                                 int lane) {
+  const int c = ch0 + 4 * lane;
+  const int nv = N - c;  // the chunk's channels below N
+  const uint32_t keep = nv >= 4 ? ~0u : nv <= 0 ? 0u : (1u << (8 * nv)) - 1u;
+  const int8_t* p = w + (long)r0 * N + c;
+#pragma unroll
+  for (int i = 0; i < 32; ++i, p += N) {
+    const uint32_t sh = (uint32_t)(reinterpret_cast<uintptr_t>(p) & 3);
+    uint32_t nxt = __shfl_down_sync(0xffffffffu, h.v[i], 1);
+    if (lane == 31) nxt = h.e[i];
+    *reinterpret_cast<uint32_t*>(st + i * 128 + (((lane >> 2) ^ (i & 7)) << 4) +
+                                 ((lane & 3) << 2)) =
+        __funnelshift_r(h.v[i], nxt, 8 * sh) & keep;
+  }
+}
+
 // the epilogue of 4 neighbouring channels n0..n0+3 of token m
 __device__ __forceinline__ void store_out4(void* out, int out_kind, long idx,
                                            int4 v, float x,
@@ -894,6 +870,25 @@ __device__ __forceinline__ void store_out4(void* out, int out_kind, long idx,
     u.y = *reinterpret_cast<uint32_t*>(&p1);
     *reinterpret_cast<uint2*>(reinterpret_cast<__nv_bfloat16*>(out) + idx) = u;
   }
+}
+
+// the epilogue of channels n0..n0+3 of token m, n0 < N: one vector store
+// where N % 4 == 0 (every group of 4 inside N, 16-byte aligned rows), else
+// each channel below N alone
+__device__ __forceinline__ void store_out_any(void* out, int out_kind, int N,
+                                              long idx, int4 v, float x,
+                                              const float* __restrict__ wsc,
+                                              int n0) {
+  if ((N & 3) == 0) {
+    store_out4(out, out_kind, idx, v, x, wsc, n0);
+    return;
+  }
+  const int a[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    if (n0 + q < N)
+      store_out(out, out_kind, idx + q, a[q], x,
+                out_kind == 2 ? 0.f : wsc[n0 + q]);
 }
 
 // One token row (M = 1, the decode step), where the bytes alone set the
@@ -970,7 +965,7 @@ __device__ __forceinline__ void dp4a_row(const int8_t* __restrict__ x, int K,
   }
 }
 
-template <int NB, bool TAIL, int U>
+template <int NB, bool TAIL, int U, int WL>
 __global__ void __launch_bounds__(TV_THREADS)
     gemv_tc_kernel(const __grid_constant__ CUtensorMap wmap,
                    const int8_t* __restrict__ w, const int8_t* __restrict__ x,
@@ -982,7 +977,7 @@ __global__ void __launch_bounds__(TV_THREADS)
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + TV_STAGES * TV_STAGE);
   uint64_t* empty = full + TV_STAGES;
-  const int R = K / 2;
+  const int R = U == kI8 ? K : K / 2;  // weight rows
   const int r_begin = blockIdx.x * rps;
   const int r_end = min(R, r_begin + rps);
   const int steps = max(0, (r_end - r_begin + TV_BR - 1) / TV_BR);
@@ -994,7 +989,8 @@ __global__ void __launch_bounds__(TV_THREADS)
 
   if (threadIdx.x == 0) {
     for (int i = 0; i < TV_STAGES; ++i) {
-      hopper::mbar_init(&full[i], 1);
+      // TMA: the expect-tx arrival; the other loads: one per producer lane
+      hopper::mbar_init(&full[i], WL == kTmaW ? 1 : 32);
       hopper::mbar_init(&empty[i], 4);  // one arrival per warp of a group
     }
     hopper::mbar_fence_init();
@@ -1009,15 +1005,16 @@ __global__ void __launch_bounds__(TV_THREADS)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[j][nb][e] = 0;
 
-  constexpr bool kHi = U != kP0;  // the high plane's products
+  // the high plane's products (W4 only)
+  constexpr bool kHi = U != kP0 && U != kI8;
   // one token row of the served unpack: dp4a_row, no TMA (the probe's
   // unpacks stay on the tensor cores at every M)
   if (U == kSigned && NB == 1 && M == 1) {
     if (warp < 8)
       dp4a_row<TAIL>(x, K, w, N, ch0, r_begin, r_end,
                      reinterpret_cast<int*>(smem));
-  } else if (warp == 8) {  // producer: one thread keeps the ring full
-    if (lane == 0) {
+  } else if (warp == 8) {  // producer: keeps the ring full
+    if (WL == kTmaW && lane == 0) {  // one thread issues the TMA boxes
       hopper::prefetch_map(&wmap);
       const uint64_t once = hopper::policy_evict_first();
       for (int s = 0; s < steps; ++s) {
@@ -1026,6 +1023,33 @@ __global__ void __launch_bounds__(TV_THREADS)
         hopper::mbar_arrive_expect_tx(&full[slot], TV_STAGE);
         hopper::tma_load_2d(smem + slot * TV_STAGE, &wmap, &full[slot], ch0,
                             r_begin + s * TV_BR, once);
+      }
+    } else if (WL != kTmaW) {
+      for (int s = 0; s < steps; ++s) {
+        const int slot = s % TV_STAGES;
+        uint8_t* st = smem + slot * TV_STAGE;
+        const int r0 = r_begin + s * TV_BR;
+        if constexpr (WL == kCpAsyncW) {
+          hopper::mbar_wait(&empty[slot], ((s / TV_STAGES) & 1) ^ 1);
+          // 512 pieces of 8 bytes: a warp instruction covers two rows
+#pragma unroll 4
+          for (int i = 0; i < TV_STAGE / 8 / 32; ++i) {
+            const int p = lane + 32 * i, r = p >> 4, cb = (p & 15) * 8;
+            const int gr = r0 + r, col = ch0 + cb;
+            const bool live = gr < R && col < N;
+            hopper::cp_async8_zfill(
+                st + r * 128 + (((cb >> 4) ^ (r & 7)) << 4) + (cb & 15),
+                live ? w + (long)gr * N + col : w, live);
+          }
+          hopper::cp_async_mbar_arrive(&full[slot]);
+        } else {
+          // the stage's words are loaded before the slot is free
+          GemvWords h;
+          load_gemv_words(h, w, R, N, r0, ch0, lane);
+          hopper::mbar_wait(&empty[slot], ((s / TV_STAGES) & 1) ^ 1);
+          store_gemv_words(st, h, w, N, r0, ch0, lane);
+          hopper::mbar_arrive(&full[slot]);
+        }
       }
     }
   } else {
@@ -1055,7 +1079,7 @@ __global__ void __launch_bounds__(TV_THREADS)
             unpack_w4<U>(rows[q][i], lo[q][i], hi[q][i]);
         frags_from_rows(lo, alo[0], alo[1]);
         frags_from_rows(hi, ahi[0], ahi[1]);
-      } else {  // P0: the packed bytes are the low plane's A fragments
+      } else {  // P0, int8: the bytes are the A fragments as they are
         frags_from_rows(rows, alo[0], alo[1]);
       }
 #pragma unroll
@@ -1122,13 +1146,13 @@ __global__ void __launch_bounds__(TV_THREADS)
     }
     const int m = i / (TV_BN / 4), n0 = ch0 + 4 * (i % (TV_BN / 4));
     if (m < M && n0 < N)
-      store_out4(out, out_kind, (long)m * N + n0, sum,
-                 out_kind == 2 ? 0.f : xs[m], wsc, n0);
+      store_out_any(out, out_kind, N, (long)m * N + n0, sum,
+                    out_kind == 2 ? 0.f : xs[m], wsc, n0);
   }
   cl.sync();  // no block leaves while another still reads its tile
 }
 
-template <int NB, bool TAIL, int U>
+template <int NB, bool TAIL, int U, int WL = kTmaW>
 int launch_gemv_tc(const CUtensorMap& wmap, const void* w, const void* x,
                    const void* xs, const void* wsc, void* out, int M, int K,
                    int N, int splits, int rps, int out_kind,
@@ -1147,7 +1171,7 @@ int launch_gemv_tc(const CUtensorMap& wmap, const void* w, const void* x,
   // one split: no cluster (the cluster barrier then spans the block alone)
   cfg.numAttrs = splits > 1 ? 1 : 0;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, gemv_tc_kernel<NB, TAIL, U>, wmap, (const int8_t*)w,
+      &cfg, gemv_tc_kernel<NB, TAIL, U, WL>, wmap, (const int8_t*)w,
       (const int8_t*)x, M, K, N, rps, (const float*)xs, (const float*)wsc,
       out, out_kind);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
@@ -1224,41 +1248,26 @@ int w4_gemv_map(CUtensorMap* wmap, const void* w, int M, int max_m, int K,
   return gemv_wmap(wmap, w, K / 2, N);
 }
 
-template <int MC, bool TAIL>
-void gemv(dim3 grid, dim3 block, cudaStream_t stream, const void* x, int M,
-          int K, const void* w, int N, int rps, void* acc) {
-  gemv_kernel<MC, TAIL><<<grid, block, 0, stream>>>(
-      (const int8_t*)x, M, K, (const int8_t*)w, N, rps, (int*)acc);
-}
-
-// K2: the int32 sums into `acc` (zeroed first), then the epilogue kernel
-// unless out_kind is 2
-int launch_gemv(const void* x, const void* w, const void* xs, const void* wsc,
-                void* acc, void* out, int M, int K, int N, int splits,
-                int out_kind, cudaStream_t stream) {
-  // the predicated K tail only where rows or x words are not 4-aligned
-  const bool tail = K % 4 || reinterpret_cast<uintptr_t>(x) % 4;
-  // rows per split: a multiple of 4 that covers K in `splits` pieces
-  int rps = (K + splits - 1) / splits;
-  rps = (rps + 3) / 4 * 4;
-  const int grid_y = (K + rps - 1) / rps;
-  cudaMemsetAsync(acc, 0, sizeof(int) * (size_t)M * N, stream);
-  dim3 grid((N + GV_BN - 1) / GV_BN, grid_y), block(GV_TX, GV_TY);
-  if (M == 1 && tail)
-    gemv<1, true>(grid, block, stream, x, M, K, w, N, rps, acc);
-  else if (M == 1)
-    gemv<1, false>(grid, block, stream, x, M, K, w, N, rps, acc);
-  else if (tail)
-    gemv<4, true>(grid, block, stream, x, M, K, w, N, rps, acc);
-  else
-    gemv<4, false>(grid, block, stream, x, M, K, w, N, rps, acc);
-  if (out_kind != 2) {
-    const long total = (long)M * N;
-    epilogue_kernel<<<(total + 255) / 256, 256, 0, stream>>>(
-        (const int*)acc, M, N, (const float*)xs, (const float*)wsc, out,
-        out_kind);
+// K2's token tiles (1-4 n8 tiles of M <= 32 rows) for one W load path
+template <int WL, bool TAIL>
+int launch_i8_gemv(const CUtensorMap& wmap, const void* w, const void* x,
+                   const void* xs, const void* wsc, void* out, int M, int K,
+                   int N, int splits, int rps, int out_kind,
+                   cudaStream_t st) {
+  switch ((M + 7) / 8) {
+    case 1:
+      return launch_gemv_tc<1, TAIL, kI8, WL>(wmap, w, x, xs, wsc, out, M, K,
+                                             N, splits, rps, out_kind, st);
+    case 2:
+      return launch_gemv_tc<2, TAIL, kI8, WL>(wmap, w, x, xs, wsc, out, M, K,
+                                             N, splits, rps, out_kind, st);
+    case 3:
+      return launch_gemv_tc<3, TAIL, kI8, WL>(wmap, w, x, xs, wsc, out, M, K,
+                                             N, splits, rps, out_kind, st);
+    default:
+      return launch_gemv_tc<4, TAIL, kI8, WL>(wmap, w, x, xs, wsc, out, M, K,
+                                             N, splits, rps, out_kind, st);
   }
-  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -1548,11 +1557,43 @@ int mq_w4a8_gemv(const void* x, const void* w, const void* xs, const void* wsc,
                                         splits, rps, out_kind, st);
 }
 
+// y (M, N) = epilogue(x (M, K) . W (K, N)) for int8 W, or the int32
+// accumulator for out_kind 2, in one launch of gemv_tc_kernel<NB, TAIL,
+// kI8, WL>: `splits` blocks of `rps` rows (a cluster) per 128 channels.
+// Needs 1 <= M <= 32, K >= 1, N >= 1 (qmm.int8_gemv_supports) and plan_ok
+// over K rows; x's rows contiguous at stride K, any alignment. W by TMA
+// where N % 16 == 0 and w is 16-byte aligned, by 8-byte cp.async where
+// N % 8 == 0 and w is 8-byte aligned, by the producer's lanes otherwise
+// (any N, any alignment).
 int mq_int8_gemv(const void* x, const void* w, const void* xs, const void* wsc,
-                 void* acc, void* out, int M, int K, int N, int splits,
+                 void* out, int M, int K, int N, int splits, int rps,
                  int out_kind, void* stream) {
-  return launch_gemv(x, w, xs, wsc, acc, out, M, K, N, splits, out_kind,
-                     (cudaStream_t)stream);
+  if (M < 1 || M > 32 || K < 1 || N < 1 || !plan_ok(K, splits, rps))
+    return (int)cudaErrorInvalidValue;
+  const uintptr_t wa = reinterpret_cast<uintptr_t>(w);
+  const int wl = N % 16 == 0 && wa % 16 == 0 ? kTmaW
+                 : N % 8 == 0 && wa % 8 == 0 ? kCpAsyncW
+                                             : kThreadW;
+  CUtensorMap wmap = {};
+  if (wl == kTmaW) {
+    const int err = gemv_wmap(&wmap, w, K, N);
+    if (err) return err;
+  }
+  const cudaStream_t st = (cudaStream_t)stream;
+  // the other load paths (no shape of the main path) read x through the
+  // predicated loads only: one instantiation each
+  if (wl == kCpAsyncW)
+    return launch_i8_gemv<kCpAsyncW, true>(wmap, w, x, xs, wsc, out, M, K, N,
+                                           splits, rps, out_kind, st);
+  if (wl == kThreadW)
+    return launch_i8_gemv<kThreadW, true>(wmap, w, x, xs, wsc, out, M, K, N,
+                                          splits, rps, out_kind, st);
+  // x words read as aligned words only where every one is 4-byte aligned
+  const bool tail = K % 4 || reinterpret_cast<uintptr_t>(x) % 4;
+  return tail ? launch_i8_gemv<kTmaW, true>(wmap, w, x, xs, wsc, out, M, K, N,
+                                            splits, rps, out_kind, st)
+              : launch_i8_gemv<kTmaW, false>(wmap, w, x, xs, wsc, out, M, K,
+                                             N, splits, rps, out_kind, st);
 }
 
 // acc (M, N) int32 = x (M, K) . W4 packed (K/2, N) by the unpack `variant`

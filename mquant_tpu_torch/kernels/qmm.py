@@ -17,8 +17,12 @@ Three hand-written CUDA kernels (``csrc/qmm.cu``) carry the int8 compute:
     same kernel streams W into registers for ``__dp4a``, which the card
     runs faster there), the K splits of a channel tile meet in a thread
     block cluster (:func:`_gemv_plan`).
-  * :func:`int8_gemv` — int8-weight GEMV, M ≤ 32 (the int8 lm_head);
-    replaces ``_qmm_pallas_gemv``.
+  * :func:`int8_gemv` — int8-weight GEMV, M ≤ 32, any K and N (the int8
+    lm_head, the RMS split's K = 18943 ``down``); replaces
+    ``_qmm_pallas_gemv``. :func:`w4a8_gemv`'s one launch with the int8
+    bytes as the tensor cores' operands: W read once for any M ≤ 32, its
+    stages loaded by TMA, 8-byte cp.async or the producer's lanes as N and
+    the weight's alignment allow (:func:`int8_gemv_supports`).
   * :func:`int8_gemm` — int8 GEMM, M > 32, W4 packed or W8 (prefill, ViT,
     merger, the RMS split's K = 18943 ``down``, full-logit lm_heads);
     replaces ``_qmm_pallas_w4``'s M > 32 branch and the XLA s8 dots beside
@@ -356,14 +360,6 @@ def _raise_on_status(name: str, status: int):
         raise RuntimeError(f"{name}: CUDA error {status}")
 
 
-def _gemv_splits(device: torch.device, n_col_blocks: int, rows: int) -> int:
-    """K splits so that the grid gives every SM about two blocks, with at
-    least one full 128-row step per block."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    want = -(-2 * sms // n_col_blocks)
-    return max(1, min(want, rows // 128))
-
-
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -387,11 +383,22 @@ def _check_gemv(name: str, M: int, K: int, N: int, w: torch.Tensor) -> None:
                          f"M={M}, K={K}, N={N}")
 
 
+def int8_gemv_supports(M: int, K: int, N: int) -> bool:
+    """The contract of the int8 GEMV kernel (``mq_int8_gemv``): 1 ≤ M ≤ 32
+    token rows, any K ≥ 1 and any N ≥ 1, x's rows contiguous (stride K) at
+    any alignment. Any weight alignment: the kernel streams W by TMA where
+    N % 16 == 0 and the weight is 16-byte aligned, by 8-byte cp.async where
+    N % 8 == 0 and it is 8-byte aligned, and by its producer warp's word
+    loads otherwise, so no shape of an int8 site at M ≤ 32 is refused."""
+    return 1 <= M <= GEMV_MAX_M and K >= 1 and N >= 1
+
+
 def _gemv_plan(K: int, N: int, sms: int, packed: bool = True) -> tuple:
     """(channel tiles, K splits, rows per split) of the one-launch
     tensor-core GEMVs over the weight's rows (K/2 packed rows of the W4
-    GEMV, K int8 rows of :func:`w8_bf16_gemv`): the splits of a tile form
-    one cluster (≤ GEMV_MAX_CLUSTER blocks) and take whole 32-row steps, so
+    GEMV, K int8 rows of :func:`int8_gemv` and :func:`w8_bf16_gemv`): the
+    splits of a tile form one cluster (≤ GEMV_MAX_CLUSTER blocks) and take
+    whole 32-row steps, so
     that the grid gives every SM about two blocks; the last split may be
     shorter, none is empty. The plan does not depend on M: every token row
     meets each W byte in the same block."""
@@ -401,32 +408,6 @@ def _gemv_plan(K: int, N: int, sms: int, packed: bool = True) -> tuple:
     splits = max(1, min(GEMV_MAX_CLUSTER, -(-2 * sms // tiles), steps))
     rps = -(-steps // splits) * GEMV_STEP_ROWS
     return tiles, -(-R // rps), rps
-
-
-def _launch_gemv(name, entry, xq, x_scale, w, w_scale, out_dtype):
-    M, K, N = _check_args(name, xq, x_scale, w, w_scale, out_dtype, False,
-                          max_m=GEMV_MAX_M)
-    if xq.device.type == "cpu":
-        return int8_gemv_ref(xq, x_scale, w, w_scale, out_dtype)
-    if xq.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {xq.device}")
-    if N % 16:
-        raise ValueError(f"{name}: needs N % 16 == 0, got N={N}")
-    from ._build import load
-
-    lib = load()
-    acc = torch.empty((M, N), dtype=torch.int32, device=xq.device)
-    out = acc if out_dtype == torch.int32 else torch.empty(
-        (M, N), dtype=out_dtype, device=xq.device)
-    splits = _gemv_splits(xq.device, -(-N // 128), K)
-    stream = torch.cuda.current_stream(xq.device).cuda_stream
-    status = getattr(lib, entry)(
-        xq.data_ptr(), w.data_ptr(), x_scale.data_ptr(), w_scale.data_ptr(),
-        acc.data_ptr(), out.data_ptr(), M, K, N, splits,
-        _OUT_KIND[out_dtype], stream)
-    LAUNCHES[name] += 1
-    _raise_on_status(name, status)
-    return out
 
 
 def _variant(variant: int) -> None:
@@ -554,10 +535,34 @@ def w4a8_gemv(xq, x_scale, w_packed, w_scale, out_dtype=torch.bfloat16):
 
 
 def int8_gemv(xq, x_scale, w, w_scale, out_dtype=torch.bfloat16):
-    """The same GEMV on int8 weights (K, N), any K (the RMS split's 18943
-    rows of ``down``); CUDA kernel ``mq_int8_gemv``."""
-    return _launch_gemv("int8_gemv", "mq_int8_gemv", xq, x_scale, w, w_scale,
-                        out_dtype)
+    """y (M, N) = ((x·W) · x_scale) · w_scale for int8 x (M ≤ 32, K) and
+    int8 W (K, N), any K and N (the RMS split's 18943 rows of ``down``, the
+    published lm_heads' vocabularies); CUDA kernel ``mq_int8_gemv``, one
+    launch on :func:`_gemv_plan` over K rows (no workspace, memset or
+    atomics: ``out_dtype=torch.int32`` is the accumulator itself). On CUDA:
+    :func:`int8_gemv_supports`."""
+    name = "int8_gemv"
+    M, K, N = _check_args(name, xq, x_scale, w, w_scale, out_dtype, False,
+                          max_m=GEMV_MAX_M)
+    if xq.device.type == "cpu":
+        return int8_gemv_ref(xq, x_scale, w, w_scale, out_dtype)
+    if xq.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {xq.device}")
+    if not int8_gemv_supports(M, K, N):
+        raise ValueError(f"{name}: needs 1 <= M <= {GEMV_MAX_M}, K >= 1 and "
+                         f"N >= 1, got M={M}, K={K}, N={N}")
+    from ._build import load
+
+    _, splits, rps = _gemv_plan(K, N, _sm_count(xq.device.index),
+                                packed=False)
+    out = torch.empty((M, N), dtype=out_dtype, device=xq.device)
+    stream = torch.cuda.current_stream(xq.device).cuda_stream
+    status = load().mq_int8_gemv(
+        xq.data_ptr(), w.data_ptr(), x_scale.data_ptr(), w_scale.data_ptr(),
+        out.data_ptr(), M, K, N, splits, rps, _OUT_KIND[out_dtype], stream)
+    LAUNCHES[name] += 1
+    _raise_on_status(name, status)
+    return out
 
 
 def tma_supports(K: int, N: int, packed: bool) -> bool:
@@ -741,8 +746,9 @@ def quantized_matmul_pre(xq: torch.Tensor, x_scale, p: Dict[str, Any],
 
     Routing (the serving configuration of the JAX function): packed W4 with
     ≤ 32 tokens → :func:`w4a8_gemv`; int8 weights with ≤ 32 tokens →
-    :func:`int8_gemv`; more tokens → :func:`int8_gemm` (W4 packed or W8),
-    each looked up in ``KERNELS`` at call time."""
+    :func:`int8_gemv` (any K and N, :func:`int8_gemv_supports`); more
+    tokens → :func:`int8_gemm` (W4 packed or W8), each looked up in
+    ``KERNELS`` at call time."""
     if (p.get("a_perm") is not None or p["w_scale"].ndim == 2
             or p.get("w_zp") is not None or x_zp is not None
             or a_groupsize is not None):

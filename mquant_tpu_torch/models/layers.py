@@ -130,28 +130,47 @@ def _quantize_act(x: torch.Tensor, spec: SiteSpec, site_state
                               groupsize=spec.a_groupsize)
 
 
+def per_step(fn, x: torch.Tensor, verify: bool = False) -> torch.Tensor:
+    """fn(x) for x (B, T, ...). With ``verify`` (x a speculative verify
+    window, ``models.llm.decoder_forward``), fn of each step's rows
+    x[:, j:j+1] apart, concatenated along T: fn then meets the (B, 1, ...)
+    rows of the decode step that makes window row j, so a product or a row
+    reduction whose rounding depends on its row count (cuBLAS picks its
+    kernel by M, a reduction its split by the number of rows) gives row j
+    that step's bits."""
+    if not verify or x.shape[1] == 1:
+        return fn(x)
+    return torch.cat([fn(x[:, j:j + 1].contiguous())
+                      for j in range(x.shape[1])], dim=1)
+
+
 def qlinear(x: torch.Tensor, p: Dict[str, Any], name: str,
             spec: Optional[SiteSpec] = None,
             state: Optional[Dict[str, Any]] = None,
-            mode: str = "fp", tape: Optional[Tape] = None) -> torch.Tensor:
+            mode: str = "fp", tape: Optional[Tape] = None,
+            verify: bool = False) -> torch.Tensor:
     """y = x @ w + b through the site's transform / quant pipeline. Split
     storage (``w_col0`` (…, 1, out) and ``w`` / ``w_q`` over input rows
     1..n−1): with ``spec.split`` channel 0 of the (rotated) input skips the
     quantizer and adds (x0 · w_col0) in f32 after the GEMM; otherwise (fp
     mode, or a spec without the split) the column rejoins a float ``w``.
     ``tape`` records a static site's input as the quantizer sees it (after
-    the Hadamard and the split)."""
+    the Hadamard and the split). ``verify``: x (B, T, in) is a speculative
+    verify window; the float products (the weight's, the online Hadamard's,
+    the split column's) run on each step's rows apart (:func:`per_step`),
+    the integer product on the whole window (exact)."""
     from ..kernels.qmm import quantized_matmul
 
     if spec is None or mode == "fp":
         w = p["w"]
         if "w_col0" in p:  # split storage in fp mode: recombine
             w = torch.cat([p["w_col0"], w], dim=-2)
-        y = x @ w.to(x.dtype)
+        w = w.to(x.dtype)
+        y = per_step(lambda t: t @ w, x, verify)
         return y + p["b"].to(x.dtype) if p.get("b") is not None else y
     _check_servable(p, spec, mode)
     if spec.online_had is not None:
-        x = _online_hadamard(x, spec)
+        x = per_step(lambda t: _online_hadamard(t, spec), x, verify)
     x0 = None
     if "w_col0" in p and spec.split:  # RMS split: channel 0 stays fp
         x0, x = x[..., :1], x[..., 1:]
@@ -167,9 +186,11 @@ def qlinear(x: torch.Tensor, p: Dict[str, Any], name: str,
             raise ValueError(f"{name}: mode {mode!r} needs float weights "
                              "'w' (integer storage is served in real mode)")
         xq = x if spec.a_bits is None else _quantize_act(x, spec, site_state)
-        y = xq @ p["w"].to(xq.dtype)
+        w = p["w"].to(xq.dtype)
+        y = per_step(lambda t: t @ w, xq, verify)
     if x0 is not None:
-        y = y + (x0.float() @ p["w_col0"].float()).to(y.dtype)
+        c0 = p["w_col0"].float()
+        y = y + per_step(lambda t: t.float() @ c0, x0, verify).to(y.dtype)
     if p.get("b") is not None:
         y = y + p["b"].to(y.dtype)
     return y
@@ -178,12 +199,13 @@ def qlinear(x: torch.Tensor, p: Dict[str, Any], name: str,
 def qlinear_group(x: torch.Tensor, ps: list, names: list,
                   specs: Dict[str, Optional[SiteSpec]],
                   state: Optional[Dict[str, Any]] = None,
-                  mode: str = "fp", tape: Optional[Tape] = None) -> list:
+                  mode: str = "fp", tape: Optional[Tape] = None,
+                  verify: bool = False) -> list:
     """Several sites sharing ONE input (q/k/v, gate/up). On the real-int path
     the input is quantized once for the group (exact: the sites' static
     scales and dynamic per-token scales see the identical tensor); sites
     fused by ``pack_w4_sites`` run as ONE GEMM whose output is sliced apart
-    by each member's ``w_scale`` width."""
+    by each member's ``w_scale`` width. ``verify`` as in :func:`qlinear`."""
     from ..kernels.qmm import _act_int8, quantized_matmul_pre
 
     sp = [specs.get(n) for n in names]
@@ -198,7 +220,7 @@ def qlinear_group(x: torch.Tensor, ps: list, names: list,
                 and sum(p["w_scale"].shape[-1] for p in ps) == fused0.shape[-1])
     fusable = base_ok and all("w_q" in p and "w_col0" not in p for p in ps)
     if not (one_gemm or fusable):
-        return [qlinear(x, p, n, specs.get(n), state, mode, tape)
+        return [qlinear(x, p, n, specs.get(n), state, mode, tape, verify)
                 for p, n in zip(ps, names)]
 
     site_state = None if state is None else state.get(names[0])

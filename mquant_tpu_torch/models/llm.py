@@ -183,13 +183,15 @@ def _use_fused_tail(dspec, mode: str, T: int, dp: Dict, act,
             and T >= 256 and T % 256 == 0)
 
 
-def _mlp_tail(dspec, mode, g, u, dp, lstate, tape=None):
+def _mlp_tail(dspec, mode, g, u, dp, lstate, tape=None, verify=False):
     """swiglu → down-projection. Where :func:`_use_fused_tail` holds, swiglu
     → Hadamard → int8 is one fused kernel and its codes go straight to the
-    integer GEMM; otherwise the unfused chain of ``qlinear``."""
+    integer GEMM; otherwise the unfused chain of ``qlinear``. A verify
+    window routes as its one-row decode steps do."""
     dstate = None if lstate is None else lstate.get("llm.down")
     act = None if dstate is None else dstate.get("act")
-    if _use_fused_tail(dspec, mode, g.shape[-2], dp, act, g):
+    if _use_fused_tail(dspec, mode, 1 if verify else g.shape[-2], dp, act,
+                       g):
         from ..kernels import fwht
         from ..kernels.qmm import quantized_matmul_pre
 
@@ -198,7 +200,8 @@ def _mlp_tail(dspec, mode, g, u, dp, lstate, tape=None):
         if dp.get("b") is not None:
             y = y + dp["b"].to(y.dtype)
         return y
-    return qlinear(L.swiglu(g, u), dp, "llm.down", dspec, lstate, mode, tape)
+    return qlinear(L.swiglu(g, u), dp, "llm.down", dspec, lstate, mode, tape,
+                   verify)
 
 
 def _layer_step(cfg: DecoderConfig, specs: Dict[str, SiteSpec], mode: str,
@@ -208,25 +211,62 @@ def _layer_step(cfg: DecoderConfig, specs: Dict[str, SiteSpec], mode: str,
                 attn_mask: Optional[torch.Tensor] = None,
                 attn_start: Optional[torch.Tensor] = None,
                 fused_decode: bool = False,
-                tape: Optional[L.Tape] = None) -> torch.Tensor:
+                tape: Optional[L.Tape] = None,
+                verify: bool = False) -> torch.Tensor:
     """One decoder layer. ``cache_kv`` = this layer's (k, v) cache views
     (B, S, KVH, hd), written in place at rows [cache_pos, cache_pos + T)
     (``cache_pos`` a 0-d device tensor, a host int, or a (B,) tensor: one
     offset per row). ``fused_decode``: the T == 1 cache write and attention
     are one ``kernels.attn_decode`` call (mask start ≤ col ≤ pos).
-    ``tape`` collects the layer's calibration stats."""
+    ``tape`` collects the layer's calibration stats. ``verify``: the T rows
+    are a speculative verify window, run as T decode steps would run them
+    (:func:`decoder_forward`)."""
     B, T, _ = h.shape
     hd, H, KV = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
 
-    x = L.rms_norm(h, lp["ln1"]["w"], cfg.norm_eps)
+    x = L.per_step(lambda t: L.rms_norm(t, lp["ln1"]["w"], cfg.norm_eps), h,
+                   verify)
     q, k, v = L.qlinear_group(x, [lp["q"], lp["k"], lp["v"]],
                               ["llm.q", "llm.k", "llm.v"], specs, lstate,
-                              mode, tape)
+                              mode, tape, verify)
     q = q.reshape(B, T, H, hd)
     k = k.reshape(B, T, KV, hd)
     v = v.reshape(B, T, KV, hd)
     q, k = L.apply_rope(q, k, cos, sin)
 
+    def attend(q, k, v, pos):
+        return _attend(cfg, q, k, v, cache_kv, pos, prefill_fresh, attn_mask,
+                       attn_start, fused_decode)
+
+    if verify and T > 1:
+        # one query row at a time, each at its own position: the cache
+        # writes and attention reads of T decode steps
+        attn = torch.cat([attend(q[:, j:j + 1].contiguous(),
+                                 k[:, j:j + 1].contiguous(),
+                                 v[:, j:j + 1].contiguous(), cache_pos + j)
+                          for j in range(T)], dim=1)
+    else:
+        attn = attend(q, k, v, cache_pos)
+    attn = attn.reshape(B, T, H * hd)
+    h = h + qlinear(attn, lp["o"], "llm.o", specs.get("llm.o"), lstate, mode,
+                    tape, verify)
+    x = L.per_step(lambda t: L.rms_norm(t, lp["ln2"]["w"], cfg.norm_eps), h,
+                   verify)
+    g, u = L.qlinear_group(x, [lp["gate"], lp["up"]], ["llm.gate", "llm.up"],
+                           specs, lstate, mode, tape, verify)
+    return h + _mlp_tail(specs.get("llm.down"), mode, g, u, lp["down"],
+                         lstate, tape, verify)
+
+
+def _attend(cfg: DecoderConfig, q, k, v, cache_kv, cache_pos,
+            prefill_fresh: bool, attn_mask, attn_start,
+            fused_decode: bool) -> torch.Tensor:
+    """The attention of one layer (q (B, T, H, hd), k / v (B, T, KVH, hd)
+    post-rope): the cache write at rows [cache_pos, cache_pos + T) and the
+    read, by ``kernels.attn_decode`` where ``fused_decode``, else the
+    einsum under the mask :func:`_layer_step` describes."""
+    B, T = q.shape[:2]
+    hd, KV = cfg.head_dim, cfg.n_kv_heads
     mask = attn_mask
     causal = cache_kv is None and attn_mask is None
     if fused_decode:
@@ -250,7 +290,7 @@ def _layer_step(cfg: DecoderConfig, specs: Dict[str, SiteSpec], mode: str,
                 # window fits, as JAX's vmapped dynamic_update_slice clamps
                 S = ck.shape[1]
                 start = cache_pos.to(torch.long).clamp(0, S - T)
-                rows = (start[:, None] + torch.arange(T, device=h.device)
+                rows = (start[:, None] + torch.arange(T, device=q.device)
                         )[:, :, None, None].expand(B, T, KV, hd)
                 ck.scatter_(1, rows, k.to(ck.dtype))
                 cv.scatter_(1, rows, v.to(cv.dtype))
@@ -259,7 +299,7 @@ def _layer_step(cfg: DecoderConfig, specs: Dict[str, SiteSpec], mode: str,
                 ck[:, cache_pos:cache_pos + T] = k.to(ck.dtype)
                 cv[:, cache_pos:cache_pos + T] = v.to(cv.dtype)
             else:  # rows pos + arange(T), scattered on the device
-                rows = cache_pos + torch.arange(T, device=h.device)
+                rows = cache_pos + torch.arange(T, device=q.device)
                 ck.index_copy_(1, rows, k.to(ck.dtype))
                 cv.index_copy_(1, rows, v.to(cv.dtype))
             if prefill_fresh:
@@ -274,9 +314,9 @@ def _layer_step(cfg: DecoderConfig, specs: Dict[str, SiteSpec], mode: str,
                 # zeroed, so a stale tail of any value (C-w1) adds an exact
                 # 0 · 0 where the einsum's masked probabilities are 0
                 S = ck.shape[1]
-                cols = torch.arange(S, device=h.device)
+                cols = torch.arange(S, device=q.device)
                 rows = (cache_pos.to(torch.long)[:, None]
-                        + torch.arange(T, device=h.device))  # (B, T)
+                        + torch.arange(T, device=q.device))  # (B, T)
                 mask = (cols[None, None] <= rows[:, :, None])[:, None]
                 if attn_start is not None:  # exclude left-pad columns
                     mask = mask & (cols[None, None, None] >=
@@ -293,22 +333,15 @@ def _layer_step(cfg: DecoderConfig, specs: Dict[str, SiteSpec], mode: str,
                 # the prefix's length, so their f32 order)
                 S = cache_pos + T if host else ck.shape[1]
                 k_all, v_all = ck[:, :S], cv[:, :S]
-                rows = cache_pos + torch.arange(T, device=h.device)[:, None]
-                cols = torch.arange(S, device=h.device)[None, :]
+                rows = cache_pos + torch.arange(T, device=q.device)[:, None]
+                cols = torch.arange(S, device=q.device)[None, :]
                 mask = (cols <= rows)[None, None]
                 if attn_start is not None:  # exclude left-pad columns
                     mask = mask & (cols[None, None] >=
                                    attn_start.reshape(-1, 1, 1, 1))
         attn = L.attention(q, k_all.to(q.dtype), v_all.to(q.dtype), mask,
                            causal=causal)
-    attn = attn.reshape(B, T, H * hd)
-    h = h + qlinear(attn, lp["o"], "llm.o", specs.get("llm.o"), lstate, mode,
-                    tape)
-    x = L.rms_norm(h, lp["ln2"]["w"], cfg.norm_eps)
-    g, u = L.qlinear_group(x, [lp["gate"], lp["up"]], ["llm.gate", "llm.up"],
-                           specs, lstate, mode, tape)
-    return h + _mlp_tail(specs.get("llm.down"), mode, g, u, lp["down"],
-                         lstate, tape)
+    return attn
 
 
 def _use_fused_decode_attn(cfg: DecoderConfig, cache: Optional[Dict], T: int,
@@ -346,7 +379,7 @@ def decoder_forward(cfg: DecoderConfig, params: Dict,
                     last_index=None, prefill_fresh: bool = False,
                     attn_start: Optional[torch.Tensor] = None,
                     collect_stats: bool = False,
-                    collect_samples: bool = False):
+                    collect_samples: bool = False, verify: bool = False):
     """Full decoder forward. Returns (logits, cache, stats): ``stats`` is
     None unless ``collect_stats`` (mode "calib"), then (stats, samples),
     each site's ObserverStats stacked over the layers (leading (L,) axes)
@@ -367,6 +400,15 @@ def decoder_forward(cfg: DecoderConfig, params: Dict,
     (left-padded ragged batches: pad columns hold garbage K/V); composes with
     the derived causal mask, and goes to the fused decode kernel as its
     ``start``.
+    ``verify``: the T tokens are a speculative verify window at the cache
+    position (``serve.speculative``, ``serve.engine``): row j gets the
+    logits that the decode step at position pos + j gives, bit for bit.
+    Attention takes the decode step's route (``attn_decode`` where it would
+    for T = 1) one query row at a time at position pos + j; every product
+    and row reduction whose rounding may depend on its row count (the norms,
+    the float products, the online Hadamard's, the head) runs on each
+    step's B rows apart (``layers.per_step``); the integer products, exact
+    in int32 with a per-element epilogue, take the whole window in one call.
     The cache (if given) is updated in place and returned with ``pos``
     advanced by T."""
     specs = specs or {}
@@ -392,7 +434,8 @@ def decoder_forward(cfg: DecoderConfig, params: Dict,
     if state:
         lstate_all = {k: v for k, v in state.items() if k in layer_names} or None
 
-    fused = _use_fused_decode_attn(cfg, cache, T, prefill_fresh, attn_mask)
+    fused = _use_fused_decode_attn(cfg, cache, 1 if verify else T,
+                                   prefill_fresh, attn_mask)
     if attn_start is not None:  # once per step: the kernel takes it as is
         attn_start = torch.as_tensor(attn_start, device=h.device).to(
             torch.int32).reshape(-1).contiguous()
@@ -406,7 +449,8 @@ def decoder_forward(cfg: DecoderConfig, params: Dict,
             tape = L.Tape(collect_samples)
             tapes.append(tape)
         h = _layer_step(cfg, specs, mode, h, lp, lst, ckv, pos0, cos, sin,
-                        prefill_fresh, attn_mask, attn_start, fused, tape)
+                        prefill_fresh, attn_mask, attn_start, fused, tape,
+                        verify)
 
     if last_index is not None and not isinstance(last_index, torch.Tensor):
         h = h[:, int(last_index):int(last_index) + 1]  # a host index
@@ -416,12 +460,14 @@ def decoder_forward(cfg: DecoderConfig, params: Dict,
             h = torch.take_along_dim(h, li[:, None, None], dim=1)
         else:
             h = h.index_select(1, li.reshape(1))
-    h = L.rms_norm(h, params["ln_f"]["w"], cfg.norm_eps)
+    h = L.per_step(lambda t: L.rms_norm(t, params["ln_f"]["w"],
+                                        cfg.norm_eps), h, verify)
     if cfg.tie_embeddings:
-        logits = h @ params["embed"]["w"].T.to(h.dtype)
+        emb = params["embed"]["w"].T.to(h.dtype)
+        logits = L.per_step(lambda t: t @ emb, h, verify)
     else:
         logits = qlinear(h, params["lm_head"], "llm.lm_head",
-                         specs.get("llm.lm_head"), state, mode)
+                         specs.get("llm.lm_head"), state, mode, verify=verify)
     if cache is not None:
         cache = dict(cache)
         cache["pos"] = pos0 + T

@@ -29,10 +29,10 @@ The design is the JAX engine's, in PyTorch's idiom:
     per-row temperature / top-p, presence and frequency penalties over the
     pool's (B, V) token counts on the device, noise keyed by each request's
     seed and emitted index. ``spec_k > 0`` runs batched self-speculative
-    rounds instead (``serve.speculative``): greedy under the verify
-    forward's rounding, which on the card is not the decode step's (the
-    einsum attention against ``attn_decode``), so near-tied tokens can
-    differ from ``spec_k = 0`` (ROADMAP C-w18).
+    rounds instead (``serve.speculative``): the verify forward gives each
+    window row the decode step's logits (``decoder_forward``'s
+    ``verify``), so the tokens and logprobs are those of ``spec_k = 0`` on
+    a pool of the same shape; only the number of forwards changes.
 
 Not ported: quantized KV (``kv_quant``, ROADMAP A5), dynamic NTK and
 ``ntk_alpha != 1`` (A5 / A12); they raise. JAX's in-block W4 re-storage
@@ -82,6 +82,14 @@ class _Admitting:
     slot: int
     row: Dict  # B = 1 cache at the pool's length, pos = tokens so far
     cursor: int  # next prompt index to feed
+
+
+def _logprob(last: torch.Tensor, tok: torch.Tensor) -> torch.Tensor:
+    """The logprob of ``tok`` (B,) under the raw model distribution of the
+    (B, V) logits ``last``, in f32."""
+    l32 = last.float()
+    return l32.gather(-1, tok[:, None].long())[:, 0] - torch.logsumexp(
+        l32, dim=-1)
 
 
 class _Block:
@@ -148,10 +156,7 @@ class _Block:
         else:
             nxt = last.argmax(dim=-1).to(torch.int32)
         nxt = torch.where(active, nxt, torch.zeros_like(nxt))
-        # the emitted token's logprob under the raw model distribution
-        l32 = last.float()
-        lp = (l32.gather(-1, nxt[:, None].long())[:, 0]
-              - torch.logsumexp(l32, dim=-1))
+        lp = _logprob(last, nxt)
         cache["pos"].copy_(torch.where(active, new["pos"], cache["pos"]))
         if self.logits is None:
             self.logits = torch.empty_like(last)
@@ -164,14 +169,16 @@ class _Block:
 
     def _round(self):
         """One batched speculative round: per-row n-gram draft, one (B, k+1)
-        verify forward, per-row acceptance m ∈ [0, k+1] (0 for done rows)
-        and ``pos`` rolled back to pos + m."""
+        verify forward (``verify``: window row j gets the decode step's
+        logits at pos + j), per-row acceptance m ∈ [0, k+1] (0 for done
+        rows) and ``pos`` rolled back to pos + m: a round emits the greedy
+        step's tokens and logprobs."""
         eng, cache, k = self.eng, self.eng.cache, self.eng.spec_k
         budget = self.ints[:, 3].to(torch.int32)
         draft = ngram_propose(eng.hist, eng.hist_len, k)  # (B, k)
         window = torch.cat([self.tok, draft.long()], dim=1)  # (B, k+1)
         pos0 = cache["pos"].clone()
-        logits, _ = eng._forward(window, cache)
+        logits, _ = eng._forward(window, cache, verify=True)
         g = logits.argmax(dim=-1).to(torch.int32)  # (B, k+1)
         agree = torch.cumprod((draft == g[:, :-1]).to(torch.int32), dim=1)
         m = 1 + agree.sum(dim=1, dtype=torch.int32)
@@ -186,9 +193,10 @@ class _Block:
         m = torch.minimum(m, budget - self.cnt)
         m = torch.where(self.done, torch.zeros_like(m), m)
         self.done |= done_new | (self.cnt + m >= budget)
-        l32 = logits.float()
-        glp = (l32.gather(-1, g[..., None].long())[..., 0]
-               - torch.logsumexp(l32, dim=-1))
+        # each row's logsumexp over its own (B, V) logits, as the step's:
+        # a reduction over (B, k+1) rows may split the vocabulary otherwise
+        glp = torch.stack([_logprob(logits[:, j], g[:, j])
+                           for j in range(k + 1)], dim=1)
 
         def put(buf, vals, at):  # JAX's clamped per-row dynamic_update_slice
             at = at.to(torch.long).clamp(0, buf.shape[1] - (k + 1))
@@ -277,11 +285,12 @@ class ServingEngine:
         self.spec_row_rounds = 0
 
     def _forward(self, x, cache, positions=None, last_index=None,
-                 prefill_fresh=False):
+                 prefill_fresh=False, verify=False):
         return decoder_forward(self.cfg, self.params, x, specs=self.specs,
                                state=self.state, mode=self.mode, cache=cache,
                                positions=positions, last_index=last_index,
-                               prefill_fresh=prefill_fresh)[:2]
+                               prefill_fresh=prefill_fresh,
+                               verify=verify)[:2]
 
     # -- public API ---------------------------------------------------------
 

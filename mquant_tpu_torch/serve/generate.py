@@ -232,13 +232,14 @@ class Generator:
         self._loops = {}  # (B, max_len, eos_id, ragged) → DecodeLoop
 
     def _forward(self, x, cache, positions=None, last_index=None,
-                 prefill_fresh=False, attn_mask=None, attn_start=None):
+                 prefill_fresh=False, attn_mask=None, attn_start=None,
+                 verify=False):
         return decoder_forward(self.cfg, self.params, x, specs=self.specs,
                                state=self.state, mode=self.mode, cache=cache,
                                positions=positions, attn_mask=attn_mask,
                                last_index=last_index,
                                prefill_fresh=prefill_fresh,
-                               attn_start=attn_start)[:2]
+                               attn_start=attn_start, verify=verify)[:2]
 
     def ensure_capacity(self, n: int):
         """Grow the KV cache length to hold at least ``n`` positions (sticky,

@@ -809,8 +809,8 @@ def main(argv=None):
                    help="quantized KV cache (not ported: ROADMAP A5)")
     p.add_argument("--spec_k", type=int, default=0,
                    help="n-gram draft length of self-speculative rounds "
-                        "(greedy only; on the card a near-tied token can "
-                        "differ from --spec_k 0, ROADMAP C-w18)")
+                        "(greedy only: the --spec_k 0 tokens in fewer "
+                        "forwards)")
     p.add_argument("--steps_per_block", type=int, default=8)
     p.add_argument("--sample_top_k", type=int, default=64,
                    help="top-k cap for sampled requests (0 = greedy-only "
@@ -818,7 +818,9 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
     if args.spec_k:
-        args.sample_top_k = 0  # speculation is greedy only (ROADMAP C-w18)
+        # sampling and speculation are mutually exclusive, as in the JAX
+        # engine (ServingEngine raises on both)
+        args.sample_top_k = 0
 
     tokenizer = (_load_tokenizer(args.tokenizer_dir) if args.tokenizer_dir
                  else None)

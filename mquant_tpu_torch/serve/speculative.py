@@ -6,13 +6,13 @@ occurrence of the current n-gram suffix in the token history (prompt
 lookup); one forward verifies ``[next_tok, d_1..d_k]`` at the cache
 position P, the draft is accepted while it equals the greedy argmax, and
 ``pos`` rolls back to P + m so only the accepted tokens' KV rows count. The
-output is the greedy decode of the verify forward, whatever the drafts. On
-the CPU that is exactly the plain greedy decode. On the card it is not
-always: the verify (T = k + 1) takes the einsum attention and the decode
-step the ``attn_decode`` kernel, which round otherwise, so a token can
-differ where two logits lie within that rounding (ROADMAP C-w18). The
-engine's batched rounds (``serve.engine``) use :func:`ngram_propose` per
-slot.
+verify forward (``decoder_forward(..., verify=True)``) gives window row j
+the logits of the decode step at P + j, bit for bit (the decode step's
+attention route one query row at a time, its row counts for every product
+whose rounding depends on them), so the output is the plain greedy decode
+over a cache of the same length, on the CPU and on the card, whatever the
+drafts. The engine's batched rounds (``serve.engine``) use
+:func:`ngram_propose` per slot.
 
 Rollback correctness: after the verify, rows P..P+k hold the KV of
 [next_tok, d_1..d_k]; the accepted context is [next_tok, g_0..g_{m-2}] and
@@ -66,9 +66,9 @@ def speculative_generate(gen: Generator, tokens: torch.Tensor,
                          eos_id: Optional[int] = None,
                          return_stats: bool = False):
     """Greedy generation by self-speculative decoding, B = 1: the plain
-    greedy decode (``Generator.generate_on_device``) on the CPU, and on the
-    card up to the verify's rounding (module docstring, ROADMAP C-w18); the
-    drafts only change how many forwards it takes. The loop runs on the host with one
+    greedy decode (``Generator.generate_on_device`` at the same cache
+    length; module docstring); the drafts only change how many forwards it
+    takes. The loop runs on the host with one
     read of the accepted count a round. Returns a (n,) int32 array of
     tokens cut before eos, plus ``{"iters", "accepted_per_iter"}`` with
     ``return_stats``. (JAX's ``force_accept``, a measuring instrument of
@@ -98,7 +98,7 @@ def speculative_generate(gen: Generator, tokens: torch.Tensor,
         window = torch.cat([torch.tensor([nxt], dtype=torch.int32,
                                          device=dev), draft])[None]
         pos0 = cache["pos"]
-        logits, cache = gen._forward(window, cache)
+        logits, cache = gen._forward(window, cache, verify=True)
         g = logits[0].argmax(dim=-1).to(torch.int32)  # (k+1,)
         agree = torch.cumprod((draft == g[:-1]).to(torch.int32), dim=0)
         m = 1 + int(agree.sum())

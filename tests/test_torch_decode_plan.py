@@ -1,9 +1,10 @@
 """The launch plans of the two one-launch decode kernels, and the algebra
 their blocks carry out, on the CPU (the kernels run only on the card).
 
-* ``qmm._gemv_plan``: the W4 GEMV's channel tiles and K splits (one thread
-  block cluster of at most 8 per tile) cover every packed row exactly once,
-  in whole 32-row steps, and give every SM a block at the decode shapes.
+* ``qmm._gemv_plan``: the GEMVs' channel tiles and K splits (one thread
+  block cluster of at most 8 per tile) cover every packed row (W4) or int8
+  row (``int8_gemv``, ``w8_bf16_gemv``) exactly once, in whole 32-row
+  steps, and give every SM a block at the decode shapes.
 * ``attn_decode._plan`` / ``_split_ranges``: the decode attention's column
   splits cover [start, pos) exactly once (empty splits where the row is
   short, pos == start or pos == 1) and give every SM a block at the main
@@ -60,10 +61,14 @@ def test_gemv_plan_covers_every_packed_row_once(K, N):
     assert (seen == 1).all()
 
 
-# w8_bf16_gemv's plan over K int8 rows: gemv_bench's shape, N % 16 == 8
-# at the split's K, a K tail, a K below one step
+# the plan over K int8 rows (w8_bf16_gemv's and int8_gemv's): gemv_bench's
+# shape, N % 16 == 8 at the split's K, a K tail, a K below one step; the RMS
+# split's `down` (K = 18943), the int8 lm_head, the published lm_heads of
+# N = 92553 and 151666, N odd, one row
 @pytest.mark.parametrize("K,N", [(3584, 19968), (18944, 3592), (2051, 136),
-                                 (5, 8)])
+                                 (5, 8), (18943, 3584), (3584, 152064),
+                                 (4096, 92553), (3584, 151666), (1001, 1003),
+                                 (1, 1)])
 def test_gemv_plan_covers_every_int8_row_once(K, N):
     tiles, splits, rps = TK._gemv_plan(K, N, SMS, packed=False)
     assert tiles * TK.GEMV_TILE_N >= N > (tiles - 1) * TK.GEMV_TILE_N

@@ -123,6 +123,66 @@ def test_gemm_route_on_card_by_predicate(K, N, packed, ok):
     assert qmm.ragged_supports(K, N, packed) is (not packed or K % 2 == 0)
 
 
+# the int8 GEMV takes every int8 site at M <= 32: any K and N (the
+# published lm_heads' N = 92553 / 151666, N % 16 = 8, N odd, K tails)
+_I8_GEMV_KN = [(4096, 92553), (3584, 151666), (1001, 1000), (1001, 1003),
+               (18943, 3584), (3584, 152064), (1, 1)]
+
+
+@pytest.mark.parametrize("K,N", _I8_GEMV_KN)
+def test_int8_gemv_supports(K, N):
+    for M in range(1, 33):
+        assert qmm.int8_gemv_supports(M, K, N)
+    assert not qmm.int8_gemv_supports(33, K, N)
+    assert not qmm.int8_gemv_supports(0, K, N)
+    assert not qmm.int8_gemv_supports(1, 0, N)
+    assert not qmm.int8_gemv_supports(1, K, 0)
+
+
+# the route depends on M and the packing only: the published heads' N at a
+# short K (the plain version's float64 product stays small)
+@pytest.mark.parametrize("K,N", [(64, 92553), (64, 151666), (1001, 1000),
+                                 (1001, 1003), (18943, 16), (1, 1)])
+def test_quantized_matmul_pre_routes_int8_rows_to_the_gemv(K, N,
+                                                           monkeypatch):
+    """``quantized_matmul_pre`` sends every int8 site of M <= 32 rows to
+    ``int8_gemv`` (whose contract takes any N, so the route raises on none)
+    and M = 33 to ``int8_gemm``; the wrapper's plain version on the CPU."""
+    rng = np.random.default_rng(K + N)
+    w = torch.from_numpy(rng.integers(-127, 128, (K, N)).astype(np.int8))
+    ws = torch.from_numpy(rng.uniform(1e-3, 1e-2, N).astype(np.float32))
+    calls = []
+    for name in ("int8_gemv", "int8_gemm"):
+        fn = qmm.KERNELS[name]
+        monkeypatch.setitem(qmm.KERNELS, name,
+                            lambda *a, _f=fn, _n=name, **k:
+                            calls.append(_n) or _f(*a, **k))
+    for M in (1, 8, 17, 32, 33):
+        x = torch.from_numpy(rng.integers(-127, 128, (M, K)).astype(np.int8))
+        xs = torch.from_numpy(rng.uniform(0.01, 0.1, M).astype(np.float32))
+        calls.clear()
+        y = qmm.quantized_matmul_pre(x, xs[:, None], {"w_q": w,
+                                                      "w_scale": ws},
+                                     torch.bfloat16)
+        assert calls == ["int8_gemv" if M <= 32 else "int8_gemm"]
+        assert torch.equal(y, qmm.int8_gemv_ref(x, xs, w, ws))
+
+
+def test_int8_gemv_raises_on_rows_and_devices():
+    """The wrapper raises on M > 32 (any device) and on a device that is
+    neither the CPU nor CUDA (the meta device: no data, no kernel)."""
+    x = torch.zeros((33, 64), dtype=torch.int8)
+    with pytest.raises(ValueError, match="M=33"):
+        qmm.int8_gemv(x, torch.ones(33), torch.zeros((64, 8), dtype=torch.int8),
+                      torch.ones(8))
+    meta = dict(device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        qmm.int8_gemv(torch.zeros((2, 64), dtype=torch.int8, **meta),
+                      torch.ones(2, **meta),
+                      torch.zeros((64, 8), dtype=torch.int8, **meta),
+                      torch.ones(8, **meta))
+
+
 @pytest.mark.parametrize("K", [1000, 1002, 64])
 def test_w4_planes_layout(K):
     """The ragged GEMM's x for packed W4 with (K/2) % 16 != 0: the low plane
