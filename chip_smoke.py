@@ -190,7 +190,7 @@ Phases, in order (any failed check raises and the script exits non-zero):
    stream ms (CUDA events) and its device busy ms under torch.profiler.
    Then, with the model above freed, the pipeline (``run_pipeline_phase``):
    the port's ``run_pipeline`` quantizes Qwen2-VL-7B (published widths,
-   depth 28, seeded random weights) in the reference's headline W4A8
+   depth PIPE_DEPTH = 4, seeded random weights) in the reference's headline W4A8
    configuration (rotations, full online Hadamard before ``down``, RMS
    split, GPTQ W4 with act_order on 32 synthetic batches of a 448² image
    and 32 text tokens, RTN W8 vision tower and merger, static int8
@@ -200,9 +200,26 @@ Phases, in order (any failed check raises and the script exits non-zero):
    site, lossless realization, the walk's CUDA-graph blocks bit-equal to
    the eager walk; the artifact loaded by ``build_runner_from_artifact``
    serves one 448² image request (1024-token prompt, 128 tokens), counted
-   (``down`` at K = 18943 on the TMA GEMM, 28 calls) and held against the
-   plain integer products (``against_plain``). Then the evaluation harness
-   on that runner (``run_eval_phase``, counted): MMBench (circular), MME
+   (``down`` at K = 18943 on the TMA GEMM, a call a layer) and held against
+   the plain integer products (``against_plain``).
+   Then the offline pipeline from an HF checkpoint
+   (``run_checkpoint_phase``), at depth 28: seeded random bf16 weights
+   written as a sharded HF checkpoint (HF names, the fused visual qkv, the
+   conv3d patch embed, an index) by ``models.loader.save_qwen2vl_hf`` with
+   the port's safetensors writer (bytes, seconds, free disk);
+   ``run_pipeline(model_dir=...)`` with SmoothQuant (alpha 0.5), the
+   online-Hadamard gate, the head gate, auto bits (5.0), visual GPTQ (patch
+   embed, 32 blocks, merger) and the LLM's GPTQ W4 with act_order,
+   realized, with an artifact: the loaded tree equal leaf for leaf to the
+   drawn one (digests printed), each stage's seconds and peak memory, the
+   Hadamard pick and its errors, the head pick and its ratios, the
+   allocation report, both GPTQ reports (no RTN fallback); the params and
+   state exported as safetensors and read back onto the card with
+   ``import_safetensors`` (every leaf equal; bytes and seconds); one 448²
+   image request served from the artifact, counted (it must launch
+   int8_gemm, int8_gemv, attn_decode and, where a layer site is W4,
+   w4a8_gemv) and held against the plain integer products. Then the
+   evaluation harness on that runner (``run_eval_phase``, counted): MMBench (circular), MME
    and DocVQA TSVs the phase writes with PNG images at 448² and 224×448,
    and SyntheticVQA, through ``evaluation.eval.eval_dataset`` single and
    through ``engine_server(slots=8)``, 16 tokens a row: metrics finite and
@@ -211,7 +228,14 @@ Phases, in order (any failed check raises and the script exits non-zero):
    misses; rows/s and tok/s single against batched; then
    ``run_pipeline(calib_dataset=<the MCQ TSV>)`` at 7B widths cut to 4
    layers through GPTQ (no RTN fallback). Random weights: no accuracy is
-   claimed.
+   claimed. Last, GPTQ at 7B widths and STREAM_DEPTH = 4 layers resident,
+   with ``stream_from_host`` and with ``realize_on_device`` too
+   (``run_stream_check``): weights bit-equal, realized codes equal to the
+   post-hoc realization, lower device peaks; and ``python -m
+   mquant_tpu_torch.quant_vlm --tiny`` on the card with every flag of
+   those options, ``--model_dir`` (a tiny checkpoint the phase writes) and
+   ``--export_safetensors`` (``run_cli_check``). Each directory is deleted
+   as soon as it has been read.
 5. profile: wall time (best of 3) and, under ``torch.profiler``, device
    busy time, idle share and the largest device items of the vision tower,
    the 1024-token prefill and a decode step (block Hadamard, then path F's,
@@ -3662,6 +3686,8 @@ def run_storage_phase(m: dict, card: str) -> list:
 PIPE_BATCHES = 32  # calibration batches (the reference calibrates on 128)
 PIPE_IMAGE = 448  # their images: 1024 patches, 256 image tokens, + 32 text
 PIPE_KERNELS = SLICE_KERNELS
+PIPE_DEPTH = 4  # the synthetic pipeline phase's LLM layers (the checkpoint
+# phase runs the pipeline at depth 28)
 
 
 @contextlib.contextmanager
@@ -3771,9 +3797,8 @@ def check_graph_walk(seed: int, dev: str = "cuda") -> None:
         "walk at (3584, 3584) and (18943, 1024), act_order")
 
 
-def run_pipeline_phase(card: str, seed: int, depth: int = 28,
-                       dev: str = "cuda", gen_tokens: int = GEN_TOKENS
-                       ) -> dict:
+def run_pipeline_phase(card: str, seed: int, depth: int = PIPE_DEPTH,
+                       dev: str = "cuda", gen_tokens: int = GEN_TOKENS) -> list:
     """Phase 4, the pipeline: the port's ``run_pipeline`` quantizes
     Qwen2-VL-7B (published widths, ``depth`` LLM layers, seeded random
     weights) in the reference's headline W4A8 configuration (full online
@@ -3787,10 +3812,8 @@ def run_pipeline_phase(card: str, seed: int, depth: int = 28,
     serves one request (a 448² image in a PREFILL-token prompt,
     ``gen_tokens`` tokens), counted, its GEMMs at K = 18943 (``down``) on
     the TMA ``int8_gemm`` and ``int8_gemv``, its prefill and first steps
-    held against the plain integer products (:func:`against_plain`). Then,
-    before the artifact's directory goes, the evaluation phase on the same
-    runner (:func:`run_eval_phase`). Returns the launch counts of the
-    request and of the evaluation."""
+    held against the plain integer products (:func:`against_plain`).
+    Returns the launch counts of the request."""
     import tempfile
 
     import torch
@@ -3903,6 +3926,261 @@ def _pipeline_phase(card, seed, depth, dev, gen_tokens, cfg, q, art):
         f"{launches['int8_gemm']} ({down} at K = {K}), int8_gemv "
         f"{launches['int8_gemv']}, attn_decode {launches['attn_decode']}; "
         f"card {card}")
+    del gen, runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    return [launches]
+
+
+CKPT_SHARD_BYTES = 5 * 2**30  # the HF checkpoint's shards (HF's 5 GB)
+CKPT_BATCHES = 16  # the checkpoint pipeline's calibration batches (a 448²
+# image each; 1/8 of the reference's 128, half the synthetic phase's, to
+# keep the script within its time: its stage seconds are at this size)
+STREAM_DEPTH = 4  # the host-streaming GPTQ check's decoder layers
+STREAM_BATCHES = 8  # its decoder-input batches of STREAM_TOKENS tokens
+STREAM_TOKENS = 512
+
+
+def tree_digest(tree) -> str:
+    """A digest of a params tree, position- and bit-sensitive: per leaf (in
+    sorted path order) the int64 sum of its 16-/32-bit patterns times
+    their positions mod 8191 plus one, hashed with the paths, shapes and
+    dtypes. None leaves and absent keys count alike."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+
+    def walk(t, path):
+        if t is None:
+            return
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], f"{path}/{k}")
+            return
+        bits = {2: torch.int16, 4: torch.int32, 1: torch.int8}[
+            t.element_size()]
+        flat = t.detach().reshape(-1).view(bits)
+        acc = torch.zeros((), dtype=torch.int64, device=t.device)
+        for i in range(0, flat.numel(), 1 << 26):
+            c = flat[i:i + (1 << 26)].long()
+            w = torch.arange(i, i + c.numel(), device=t.device) % 8191 + 1
+            acc += (c * w).sum()
+        h.update(f"{path}:{tuple(t.shape)}:{t.dtype}:{int(acc)};".encode())
+
+    walk(tree, "")
+    return h.hexdigest()[:16]
+
+
+def same_tree(what: str, a, b, path: str = "") -> int:
+    """Leaf-for-leaf torch.equal of two trees (a None leaf and an absent
+    key alike); returns the leaves compared."""
+    import torch
+
+    if isinstance(a, dict) or isinstance(b, dict):
+        a, b = a or {}, b or {}
+        return sum(same_tree(what, a.get(k), b.get(k), f"{path}/{k}")
+                   for k in sorted(set(a) | set(b)))
+    if isinstance(a, tuple) or isinstance(b, tuple):
+        if type(a) is not type(b):
+            raise AssertionError(f"{what}: {path}: {type(a)} vs {type(b)}")
+        return sum(same_tree(what, x, y, f"{path}.{f}")
+                   for x, y, f in zip(a, b, a._fields))
+    if a is None or b is None:
+        if a is not b:
+            raise AssertionError(f"{what}: {path}: one side is None")
+        return 0
+    if a.dtype != b.dtype or not torch.equal(a, b.to(a.device)):
+        raise AssertionError(f"{what}: {path} differs")
+    return 1
+
+
+def free_gib(path: str) -> str:
+    return f"{shutil.disk_usage(path).free / 2**30:.1f} GiB free"
+
+
+def run_checkpoint_phase(card: str, seed: int, depth: int = 28,
+                         dev: str = "cuda", gen_tokens: int = GEN_TOKENS
+                         ) -> list:
+    """Phase 4, the offline pipeline from an HF checkpoint: Qwen2-VL-7B's
+    published widths at ``depth`` LLM layers, seeded random bf16 weights
+    written by ``models.loader.save_qwen2vl_hf`` as a sharded HF checkpoint
+    (HF names, the fused visual qkv, the (out, C, T, ph, pw) conv, an
+    index) with the port's safetensors writer; ``run_pipeline(model_dir=)``
+    with SmoothQuant (alpha 0.5), the online-Hadamard gate, the head gate,
+    auto bits (5.0 average), visual GPTQ and the LLM's GPTQ W4 with
+    act_order on CKPT_BATCHES synthetic batches of a PIPE_IMAGE² image,
+    realized, with an artifact. Checks: the loaded tree equal leaf for leaf
+    to the drawn one (their digests printed), no RTN fallback in either
+    GPTQ; prints each stage's seconds and peak memory, the gates' picks
+    and numbers, the allocation report. Then the export
+    (``export_safetensors`` of params and state) read back with
+    ``import_safetensors``, every leaf equal; one request (a 448² image in
+    a PREFILL-token prompt, ``gen_tokens`` tokens) served from the artifact
+    through ``build_runner_from_artifact``, counted per kernel and held
+    against the plain integer products; the evaluation phase on the same
+    runner (:func:`run_eval_phase`); and at STREAM_DEPTH layers GPTQ with
+    ``stream_from_host`` and with ``realize_on_device`` too against the
+    resident run: codes bit-equal, a lower device peak. Each directory is
+    deleted as soon as it has been read. Returns the launch counts of the
+    request and of the evaluation."""
+    import tempfile
+
+    import torch
+
+    from mquant_tpu_torch.models.loader import save_qwen2vl_hf
+    from mquant_tpu_torch.models.qwen2vl import (Qwen2VLConfig,
+                                                 init_qwen2vl_params)
+    from mquant_tpu_torch.pipeline import QuantizeConfig
+
+    base = Qwen2VLConfig.qwen2vl_7b()
+    cfg = dataclasses.replace(base, llm=dataclasses.replace(
+        base.llm, n_layers=depth))
+    root = tempfile.mkdtemp(prefix="mquant_ckpt_")
+    try:
+        ckpt = os.path.join(root, "hf")
+        g = torch.Generator(device=dev).manual_seed(seed + 101)
+        with torch.no_grad():
+            drawn = init_qwen2vl_params(cfg, g, device=dev)
+        drawn["vit"]["patch_embed"]["b"] = None  # HF's conv has no bias
+        torch.cuda.synchronize()
+        log(f"checkpoint: {root}: {free_gib(root)} before the write")
+        t0 = time.perf_counter()
+        n = save_qwen2vl_hf(cfg, drawn, ckpt, max_shard_bytes=CKPT_SHARD_BYTES)
+        dt = time.perf_counter() - t0
+        shards = len([f for f in os.listdir(ckpt) if f.endswith(".safetensors")])
+        log(f"checkpoint: Qwen2-VL-7B widths, depth {depth}, bf16: {n} bytes "
+            f"in {shards} shards written in {dt:.2f} s ({n / dt / 1e9:.2f} "
+            f"GB/s, from the card through the host; page cache warm); "
+            f"{free_gib(root)}; card {card}")
+        digest = tree_digest(drawn)
+        q = QuantizeConfig(rotate=True, online_llm_hadamard=True,
+                           online_had_mode="auto", llm_split=True,
+                           smooth_alpha=0.5, lm_head_bits="auto",
+                           auto_bits=5.0, visual_w_rtn=False, llm_w_bits=4,
+                           act_order=True, visual_w_bits=8, llm_a_bits=8,
+                           visual_a_bits=8, calib_num=CKPT_BATCHES * 16,
+                           nsamples=CKPT_BATCHES, realize_int=True,
+                           seed=seed)
+        return _checkpoint_phase(card, seed, cfg, q, root, ckpt, drawn,
+                                 digest, dev, gen_tokens)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _checkpoint_phase(card, seed, cfg, q, root, ckpt, drawn, digest, dev,
+                      gen_tokens):
+    import torch
+
+    from mquant_tpu_torch.models import loader
+    from mquant_tpu_torch.pipeline import run_pipeline
+    from mquant_tpu_torch.serve.server import build_runner_from_artifact
+    from mquant_tpu_torch.utils.autobits import (allocation_report,
+                                                 site_weight_elems)
+
+    saved_load = loader.load_model
+    seen = {}
+
+    def load_and_check(*a, **kw):
+        # the loaded tree against the drawn one before the pipeline moves on
+        tree = saved_load(*a, **kw)
+        torch.cuda.synchronize()
+        seen["digest"] = tree_digest(tree)
+        seen["leaves"] = same_tree("checkpoint: loaded vs drawn", drawn,
+                                   tree)
+        drawn.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        return tree
+
+    art = os.path.join(root, "artifact")
+    loader.load_model = load_and_check
+    try:
+        with torch.no_grad():
+            _, params, state, specs, info = run_pipeline(
+                "Qwen2-VL-7B", q, cfg=cfg, model_dir=ckpt, artifact_dir=art,
+                image_size=PIPE_IMAGE, device=dev)
+    finally:
+        loader.load_model = saved_load
+    shutil.rmtree(ckpt)
+    if seen.get("digest") != digest:
+        raise AssertionError(f"checkpoint: loaded digest {seen.get('digest')}"
+                             f" vs drawn {digest}")
+    log(f"checkpoint: the loaded tree equal to the drawn weights after the "
+        f"surgery: {seen['leaves']} leaves torch.equal, digest {digest} both;"
+        f" card {card}")
+    for name, st in info["stages"].items():
+        peak = ("not measured" if st["peak_bytes"] is None
+                else f"{st['peak_bytes'] / 2**30:.2f} GiB")
+        log(f"checkpoint pipeline: stage {name}: {st['seconds']:.2f} s, peak "
+            f"{peak} (calibration {q.nsamples} of the reference's 128 "
+            f"batches); card {card}")
+    had = info["online_had_auto"]
+    log(f"checkpoint pipeline: online-Hadamard gate picked {had['picked']}: "
+        "relative down-output errors " + ", ".join(
+            f"{k} {v:.6g}" for k, v in had.items() if k != "picked")
+        + f"; card {card}")
+    r = info["lm_head_ratios"]
+    log(f"checkpoint pipeline: head gate picked W{info['lm_head_bits']}: "
+        f"head-only perplexity ratios W4 {r[4]:.6f}, W8 {r[8]:.6f} (gate "
+        f"{q.lm_head_gate}); card {card}")
+    log(f"checkpoint pipeline: auto-bits allocation (target 5.0; card "
+        f"{card}):\n" +
+        allocation_report(info["autobits_sens"],
+                          site_weight_elems(params, specs), info["autobits"]))
+    rep, vrep = info["gptq"], info["vis_gptq"]
+    sec = rep["seconds"]
+    log(f"checkpoint pipeline: visual GPTQ {vrep['sites']} sites (patch "
+        f"embed, {cfg.vit.n_layers} blocks, merger) on {q.nsamples} of the "
+        f"reference's 128 calibration batches, RTN fallbacks "
+        f"{len(vrep['fallbacks'])}; LLM GPTQ {rep['sites']} sites: stage "
+        f"replays + Hessians {sec['hessian']:.2f} s, factorizations "
+        f"{sec['factor']:.2f} s, walks {sec['walk']:.2f} s, RTN fallbacks "
+        f"{len(rep['fallbacks'])}; artifact {info['artifact_bytes']} bytes; "
+        f"card {card}")
+    want_vis = 1 + 6 * cfg.vit.n_layers + 2
+    if (rep["fallbacks"] or vrep["fallbacks"] or vrep["sites"] != want_vis
+            or rep["sites"] != 7 * cfg.llm.n_layers):
+        raise AssertionError(f"checkpoint pipeline: GPTQ sites {rep['sites']}"
+                             f" / {vrep['sites']}, RTN fallbacks "
+                             f"{rep['fallbacks']} / {vrep['fallbacks']}")
+    run_export(card, root, cfg, params, state, dev)
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    runner = build_runner_from_artifact(
+        art, device=dev, image_size=ART_IMAGE_SIZE, tokenizer=id_tokenizer(),
+        max_len=PREFILL + gen_tokens)
+    shutil.rmtree(art)
+    bits = {s: specs[f"llm.{s}"].w_bits for s in ("q", "k", "v", "o", "gate",
+                                                   "up", "down", "lm_head")}
+    # decode: packed W4 layer sites on w4a8_gemv; W8 sites, the split
+    # (odd-row) down and the head (its codes one a byte) on int8_gemv
+    needed = {"int8_gemm", "int8_gemv", "attn_decode"}
+    if any(bits[s] == 4 for s in ("q", "k", "v", "o", "gate", "up")):
+        needed.add("w4a8_gemv")
+    single, _ = artifact_prompts(runner, seed)
+    gen = runner.gen
+    with torch.no_grad():
+        runner.generate(single, max_new_tokens=4)  # warm-up; not counted
+        torch.cuda.synchronize()
+        reset_launches()
+        out, t_req, ttft = timed(lambda mark: runner.generate(
+            single, max_new_tokens=gen_tokens, on_first_token=mark))
+        launches = read_launches("checkpoint request", sorted(needed))
+        check_tokens("checkpoint request", [out], gen_tokens, cfg.llm.vocab)
+        (emb,), (pos,) = runner_inputs(runner, [single])
+        pos = torch.from_numpy(pos).to(dev)
+        against_plain("checkpoint request", gen,
+                      lambda: gen.prefill(emb[None], positions=pos))
+    log(f"checkpoint request: the artifact's request (448² image, "
+        f"{runner.build_inputs(single)[0].shape[1]}-token prompt, "
+        f"{gen_tokens} tokens; LLM weight bits {bits}) {t_req:.3f} s; TTFT "
+        f"{ttft * 1e3:.1f} ms; decode {(gen_tokens - 1) / (t_req - ttft):.1f}"
+        f" tok/s; launches " + ", ".join(
+            f"{k} {launches[k]}" for k in sorted(needed)) + f"; card {card}")
     del gen
     t0 = time.perf_counter()
     eval_launches = run_eval_phase(runner, card, seed, info, dev)
@@ -3910,7 +4188,183 @@ def _pipeline_phase(card, seed, depth, dev, gen_tokens, cfg, q, art):
     del runner
     gc.collect()
     torch.cuda.empty_cache()
+    run_stream_check(card, seed, dev)
+    run_cli_check(card, root, dev)
     return [launches, eval_launches]
+
+
+CLI_FLAGS = ("--rotate", "--online_llm_hadamard", "--llm_split",
+             "--act_order", "--calib_num", "32", "--nsamples", "8",
+             "--smooth_alpha", "0.5", "--fp32_had", "--online_had_mode",
+             "auto", "--lm_head_bits", "auto", "--lm_head_gate", "1.002",
+             "--auto_bits", "5", "--auto_bits_low", "4", "--auto_bits_high",
+             "8", "--visual_w_gptq", "--visual_static", "--llm_static",
+             "--realize_int")
+
+
+def run_cli_check(card: str, root: str, dev: str = "cuda") -> None:
+    """``python -m mquant_tpu_torch.quant_vlm`` on ``dev`` with every flag
+    of the pipeline's options (CLI_FLAGS), ``--model_dir`` a tiny HF
+    checkpoint written by ``save_qwen2vl_hf``, ``--tiny``, an artifact,
+    ``--export_safetensors`` and ``--log_file``: exit 0, no RTN fallback,
+    the gates' picks in the summary, the export read back onto the card by
+    ``import_safetensors``."""
+    import torch
+
+    from mquant_tpu_torch.models.loader import save_qwen2vl_hf
+    from mquant_tpu_torch.models.qwen2vl import (Qwen2VLConfig,
+                                                 init_qwen2vl_params)
+    from mquant_tpu_torch.utils.checkpoint import import_safetensors
+
+    cfg = Qwen2VLConfig.tiny()
+    ckpt, exp = os.path.join(root, "tiny_hf"), os.path.join(root, "tiny_exp")
+    save_qwen2vl_hf(cfg, init_qwen2vl_params(
+        cfg, torch.Generator().manual_seed(7), device="cpu"), ckpt)
+    log_file = os.path.join(root, "tiny_log", "quant_vlm.log")
+    cmd = [sys.executable, "-m", "mquant_tpu_torch.quant_vlm", "--tiny",
+           "--device", dev, "--model_dir", ckpt, *CLI_FLAGS, "--artifact",
+           os.path.join(root, "tiny_art"), "--export_safetensors", exp,
+           "--log_file", log_file]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    dt = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"quant_vlm CLI: exit {res.returncode}: "
+                             f"{res.stderr[-3000:]}")
+    summary = json.loads(res.stdout.strip().splitlines()[-1])
+    params, md = import_safetensors(os.path.join(exp, "params.safetensors"),
+                                    device=dev)
+    if (summary["gptq_fallbacks"] or summary["visual_gptq_fallbacks"]
+            or summary["visual_gptq_sites"] != 15 or md["model"] != (
+                "Qwen2-VL-7B") or "load" not in summary["stages"]
+            or "pipeline done" not in open(log_file).read()):
+        raise AssertionError(f"quant_vlm CLI: summary {summary}, metadata "
+                             f"{md}")
+    log(f"quant_vlm CLI on {summary['device']}: --tiny --model_dir (an HF "
+        f"checkpoint of save_qwen2vl_hf) with {' '.join(CLI_FLAGS)} "
+        f"--export_safetensors: exit 0 in {dt:.1f} s (the process's start "
+        f"included); Hadamard pick {summary['online_had_auto']['picked']}, "
+        f"head W{summary['lm_head_bits']}, {len(summary['autobits'])} sites "
+        f"allocated, GPTQ {summary['gptq_sites']} + visual "
+        f"{summary['visual_gptq_sites']} sites, no RTN fallback; the export "
+        f"({summary['export_bytes']} bytes) read back onto the card, "
+        f"{len(params['llm']['layers'])} layer sites; card {card}")
+
+
+def run_export(card: str, root: str, cfg, params, state, dev: str) -> None:
+    """``export_safetensors`` of the pipeline's params and state (the CLI's
+    ``--export_safetensors`` files), then ``import_safetensors`` back onto
+    the card: every leaf equal. Prints bytes and seconds; deletes the
+    files."""
+    import torch
+
+    from mquant_tpu_torch.utils import checkpoint as CK
+
+    exp = os.path.join(root, "export")
+    os.makedirs(exp)
+    meta = {"model": "Qwen2-VL-7B",
+            "config": json.dumps(CK.config_to_dict(cfg))}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = CK.export_safetensors(params, os.path.join(exp, "params.safetensors"),
+                              extra_meta=meta)
+    n += CK.export_safetensors(state, os.path.join(exp, "state.safetensors"))
+    t_w = time.perf_counter() - t0
+    log(f"export: {free_gib(root)} after the write")
+    t0 = time.perf_counter()
+    back, md = CK.import_safetensors(os.path.join(exp, "params.safetensors"),
+                                     device=dev)
+    back_st, _ = CK.import_safetensors(os.path.join(exp, "state.safetensors"),
+                                       device=dev)
+    torch.cuda.synchronize()
+    t_r = time.perf_counter() - t0
+    shutil.rmtree(exp)
+    leaves = same_tree("export: params read back", params, back)
+    leaves += same_tree("export: state read back", state, back_st)
+    if md != meta:
+        raise AssertionError(f"export: metadata {md}")
+    log(f"export: params + state {n} bytes written in {t_w:.2f} s "
+        f"({n / t_w / 1e9:.2f} GB/s) and read back onto the card in "
+        f"{t_r:.2f} s ({n / t_r / 1e9:.2f} GB/s; page cache warm): "
+        f"{leaves} leaves equal; card {card}")
+    del back, back_st
+
+
+def run_stream_check(card: str, seed: int, dev: str = "cuda") -> None:
+    """``gptq_quantize_decoder`` at Qwen2-VL-7B widths and STREAM_DEPTH
+    layers (seeded bf16 weights, the headline W4 specs with the full online
+    Hadamard before ``down``, act_order) on STREAM_BATCHES random decoder
+    inputs: resident on the card, then with the layers in pinned host
+    memory (``stream_from_host``), then with ``realize_on_device`` too.
+    The streamed weights bit-equal to the resident ones, the realized codes
+    and scales equal to ``realize_decoder_weights`` on the resident run's
+    grids, each streamed peak of device memory below the resident one."""
+    import torch
+
+    from mquant_tpu_torch.gptq.driver import GPTQConfig, gptq_quantize_decoder
+    from mquant_tpu_torch.models.llm import LLM_SITES, init_decoder_params
+    from mquant_tpu_torch.models.qwen2vl import Qwen2VLConfig
+    from mquant_tpu_torch.pipeline import QuantizeConfig, build_specs
+    from mquant_tpu_torch.transform.recipes import realize_decoder_weights
+
+    lcfg = dataclasses.replace(Qwen2VLConfig.qwen2vl_7b().llm,
+                               n_layers=STREAM_DEPTH)
+    g = torch.Generator(device=dev).manual_seed(seed + 202)
+    with torch.no_grad():
+        params = init_decoder_params(lcfg, g, device=dev)
+        embeds = [torch.randn((1, STREAM_TOKENS, lcfg.hidden), generator=g,
+                              device=dev).to(lcfg.dtype)
+                  for _ in range(STREAM_BATCHES)]
+    specs = build_specs(QuantizeConfig(online_had_mode="full",
+                                       llm_split=False))
+    gcfg = GPTQConfig(act_order=True)
+
+    def host(tree):
+        if isinstance(tree, dict):
+            return {k: host(v) for k, v in tree.items()}
+        return None if tree is None else tree.cpu().pin_memory()
+
+    def run(p, **kw):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = gptq_quantize_decoder(lcfg, p, embeds, specs, gcfg=gcfg,
+                                        **kw)
+        torch.cuda.synchronize()
+        return (out, time.perf_counter() - t0,
+                torch.cuda.max_memory_allocated())
+
+    (res, rep), t_res, pk_res = run(params)
+    host_params = {**params, "layers": host(params["layers"])}
+    del params
+    (st, _), t_st, pk_st = run(host_params, stream_from_host=True)
+    for s in LLM_SITES:
+        if not torch.equal(st["layers"][s]["w"], res["layers"][s]["w"].cpu()):
+            raise AssertionError(f"stream check: streamed llm.{s} differs "
+                                 "from the resident run")
+    del st
+    (rt, _), t_rt, pk_rt = run(host_params, stream_from_host=True,
+                               realize_on_device=True)
+    ref = realize_decoder_weights(res, specs, qps=rep["qparams"])
+    for s in LLM_SITES:
+        for k in ("w_q", "w_scale"):
+            if not torch.equal(rt["layers"][s][k], ref["layers"][s][k]):
+                raise AssertionError(f"stream check: realized llm.{s}.{k} "
+                                     "differs from the post-hoc realization")
+    if not (pk_st < pk_res and pk_rt < pk_res):
+        raise AssertionError(f"stream check: device peaks resident {pk_res}, "
+                             f"streamed {pk_st}, realized {pk_rt}")
+    log(f"stream check: GPTQ at 7B widths, depth {STREAM_DEPTH}, "
+        f"{STREAM_BATCHES} x {STREAM_TOKENS} tokens, act_order (the "
+        f"embedding and head on the card in every run): resident "
+        f"{t_res:.2f} s, device peak {pk_res / 2**30:.2f} GiB; "
+        f"stream_from_host {t_st:.2f} s, peak {pk_st / 2**30:.2f} GiB, "
+        f"weights bit-equal; + realize_on_device {t_rt:.2f} s, peak "
+        f"{pk_rt / 2**30:.2f} GiB, codes and scales equal to the post-hoc "
+        f"realization; card {card}")
 
 
 GOLDEN_KERNELS = SLICE_KERNELS
@@ -4411,7 +4865,12 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     counts += run_pipeline_phase(card, args.seed)
-    log(f"pipeline + eval phases: {time.perf_counter() - t0:.1f} s; "
+    log(f"pipeline phase: {time.perf_counter() - t0:.1f} s; card {card}")
+    # the offline pipeline from an HF checkpoint at depth 28, with the
+    # evaluation phase on its runner
+    t0 = time.perf_counter()
+    counts += run_checkpoint_phase(card, args.seed)
+    log(f"checkpoint + eval phases: {time.perf_counter() - t0:.1f} s; "
         f"card {card}")
     from mquant_tpu_torch import bench
 

@@ -24,12 +24,13 @@ def array_to_torch(a, device="cuda", dtype: Optional[torch.dtype] = None
                    ) -> torch.Tensor:
     """One array → tensor, exactly (then cast to ``dtype`` if given)."""
     a = np.asarray(a)
+    # ascontiguousarray makes a 0-d array 1-d: the shape is restored below
     if a.dtype.name == "bfloat16":
         bits = np.ascontiguousarray(a).view(np.int16)
         t = torch.from_numpy(bits.copy()).view(torch.bfloat16)
     else:
         t = torch.from_numpy(np.ascontiguousarray(a).copy())
-    t = t.to(device)
+    t = t.reshape(a.shape).to(device)
     return t if dtype is None else t.to(dtype)
 
 

@@ -1,15 +1,17 @@
 """The offline PTQ pipeline, Qwen2-VL (counterpart of
-``mquant_tpu/pipeline.py``): random or given weights → fuse / rotate →
-weight quantization (LLM GPTQ or RTN, vision tower and merger RTN, head
+``mquant_tpu/pipeline.py``): an HF checkpoint, random or given weights →
+SmoothQuant migration → the online-Hadamard gate → fuse / rotate → the
+lm_head width gate → sensitivity-based mixed bits → weight quantization
+(LLM GPTQ or RTN, vision tower, patch embed and merger GPTQ or RTN, head
 RTN) → static activation calibration (MSQ) → integer realization →
 artifact (``utils.checkpoint.save_artifact``), which
 ``serve.server.build_runner_from_artifact`` serves.
 
-One structured :class:`QuantizeConfig` with the JAX package's fields. The
-values this port does not implement raise NotImplementedError naming the
-ROADMAP item that ports them (:func:`check_ported`). Everything runs on the
-card unless the caller passes ``device="cpu"``; ``run_pipeline``'s ``info``
-records each stage's seconds and, on the card, its peak memory.
+One structured :class:`QuantizeConfig` with the JAX package's fields.
+Everything runs on the card unless the caller passes ``device="cpu"``;
+``run_pipeline``'s ``info`` records each stage's seconds and, on the card,
+its peak memory. The other model families raise naming ROADMAP A12
+(:func:`check_ported`, ``models.registry.get_family``).
 """
 
 from __future__ import annotations
@@ -48,7 +50,8 @@ class QuantizeConfig:
     rotate_visual: bool = True
     rotate_llm: bool = True
     online_llm_hadamard: bool = True
-    online_had_mode: str = "full"  # full | block (auto: not ported)
+    online_had_mode: str = "full"  # full | block | auto (the calib-time
+    # gate, _choose_online_had_mode)
     llm_split: bool = True
     online_visual_hadamard: bool = False
     visual_split: bool = False
@@ -63,7 +66,8 @@ class QuantizeConfig:
     auto_bits: float = 0.0
     auto_bits_low: int = 4
     auto_bits_high: int = 8
-    lm_head_bits: object = 0  # 0 = float head, 4 / 8 = quantized
+    lm_head_bits: object = 0  # 0 = float head, 4 / 8 = quantized, "auto" =
+    # the head gate (utils.autobits.decide_head_bits) under lm_head_gate
     lm_head_gate: float = 1.002
     act_order: bool = False
     percdamp: float = 0.01
@@ -85,24 +89,19 @@ class QuantizeConfig:
     seed: int = 0
 
 
-def check_ported(q: QuantizeConfig):
-    """Raise NotImplementedError, naming its ROADMAP item, for a value of
-    ``q`` that this port does not implement."""
-    unported = [
-        (q.smooth_alpha != 0, "smooth_alpha (transform/smooth.py)", "A10"),
-        (q.auto_bits > 0, "auto_bits (utils/autobits.autobits_specs)", "A10"),
-        (q.lm_head_bits == "auto",
-         "lm_head_bits='auto' (utils/autobits.decide_head_bits)", "A10"),
-        (q.lm_head_bits not in (0, 4, 8, "auto"),
-         f"lm_head_bits={q.lm_head_bits!r}", "A10"),
-        (q.online_had_mode == "auto",
-         "online_had_mode='auto' (_choose_online_had_mode)", "A10"),
-        (not q.visual_w_rtn, "visual GPTQ (gptq/modules.py)", "A10"),
-    ]
-    for bad, what, item in unported:
-        if bad:
-            raise NotImplementedError(f"{what} is not ported (ROADMAP "
-                                      f"{item})")
+def check_ported(q: QuantizeConfig, family: str = "qwen2vl"):
+    """Raise for a value of ``q`` this port does not implement: visual
+    GPTQ of the other families' projectors (the resampler, InternVL's
+    mlp1, GLM-4V's GLU) needs their forwards (ROADMAP A12)."""
+    if q.lm_head_bits not in (0, 4, 8, "auto"):
+        raise ValueError(f"lm_head_bits={q.lm_head_bits!r}: 0, 4, 8 or "
+                         "'auto'")
+    if q.online_had_mode not in ("full", "block", "auto"):
+        raise ValueError(f"online_had_mode={q.online_had_mode!r}")
+    if family != "qwen2vl" and not q.visual_w_rtn:
+        raise NotImplementedError(
+            f"visual GPTQ of the {family} projector (gptq_quantize_resampler"
+            " / _mlp1 / _glu) is not ported (ROADMAP A12)")
 
 
 def build_specs(q: QuantizeConfig) -> Dict[str, SiteSpec]:
@@ -126,11 +125,7 @@ def build_specs(q: QuantizeConfig) -> Dict[str, SiteSpec]:
                 a_groupsize=q.a_groupsize, a_clip_ratio=q.a_clip_ratio,
                 observer=q.act_observer)
     if q.lm_head_bits and q.lm_head_bits != "auto":
-        specs["llm.lm_head"] = SiteSpec(
-            w_bits=int(q.lm_head_bits), a_bits=q.llm_a_bits or None,
-            a_static=q.llm_static, a_symmetric=not q.a_asym,
-            a_per_channel=False if q.act_per_tensor else True,
-            observer=q.act_observer)
+        specs["llm.lm_head"] = head_spec(q, int(q.lm_head_bits))
     if ("llm.down" in specs and q.rotate and q.rotate_llm
             and q.online_llm_hadamard):
         if q.online_had_mode == "block":
@@ -244,23 +239,16 @@ def _set_in(tree: Dict, path, value) -> Dict:
     return out
 
 
-def quantize_weights(cfg, params: Dict, specs: Dict[str, SiteSpec],
-                     q: QuantizeConfig,
-                     calib_batches: Optional[List[dict]] = None,
-                     report: Optional[Dict] = None) -> tuple:
-    """Weight quantization: the vision tower and merger by RTN, the LLM by
-    GPTQ on the calibration batches' decoder inputs (RTN with
-    ``llm_w_rtn`` or no batches), the head by per-channel RTN. Returns
-    (params, the exact weight grids for realization); ``report`` receives
-    the GPTQ driver's report."""
+def _rtn_visual(params: Dict, specs: Dict[str, SiteSpec], q: QuantizeConfig,
+                done: set) -> Dict:
+    """Round-to-nearest for every vision tower / merger site with weight
+    bits that is not in ``done`` (the GPTQ'd sites)."""
     from .core import quant as Q
-    from .core.formats import get_format
 
-    params = dict(params)
     group_of = {"vis": "vit", "merger": "merger"}
     for name, spec in specs.items():
         prefix, site = name.split(".", 1)
-        if prefix == "llm" or spec.w_bits is None:
+        if prefix == "llm" or spec.w_bits is None or name in done:
             continue
         group_key = group_of[prefix]
         if group_key not in params:
@@ -279,6 +267,79 @@ def quantize_weights(cfg, params: Dict, specs: Dict[str, SiteSpec],
             src["w"], spec.w_bits, mse_clip=q.w_clip, symmetric=not q.w_asym,
             reduce_axes=(-2,) if stacked else None).to(src["w"].dtype)
         params = _set_in(params, list(path), new_site)
+    return params
+
+
+def _gptq_visual(cfg, params: Dict, specs: Dict[str, SiteSpec],
+                 q: QuantizeConfig, calib_batches: List[dict],
+                 report: Dict) -> tuple:
+    """Visual GPTQ, stage by stage: the patch embed on the raw patches,
+    the ViT blocks on the quantized patch embed's output, the merger on
+    the quantized tower's features. Returns (params, the GPTQ'd site
+    names); ``report`` gets "fallbacks" and "sites"."""
+    from .gptq import modules as GM
+    from .gptq.driver import GPTQConfig, gptq_quantize_vit
+    from .models.vision import vit_forward, vit_preamble
+
+    gcfg = GPTQConfig(percdamp=q.percdamp, act_order=q.act_order,
+                      group_size=q.w_groupsize, mse_clip=q.w_clip,
+                      sym=not q.w_asym)
+    report.update(fallbacks=[], sites=0)
+    batches = _bound_nsamples(
+        [b for b in calib_batches if b.get("patches") is not None],
+        q.nsamples)
+    done: set = set()
+    if specs.get("vis.patch_embed") is not None:
+        params, report = GM.gptq_quantize_patch_embed(
+            cfg, params, [b["patches"].to(cfg.vit.dtype) for b in batches],
+            specs, gcfg, report)
+        done.add("vis.patch_embed")
+    feats = [vit_preamble(cfg.vit, params["vit"], b["patches"])
+             for b in batches]
+    if feats:
+        params = dict(params)
+        params["vit"], vrep = gptq_quantize_vit(
+            cfg.vit, params["vit"], feats, specs,
+            grids=([b.get("grid_hw") for b in batches]
+                   if cfg.vit.rotary_2d else None), gcfg=gcfg)
+        report["fallbacks"] += vrep["fallbacks"]
+        report["sites"] += vrep["sites"]
+        done |= {f"vis.{s}" for s in VIT_SITES}
+    del feats
+    if "merger" in params:
+        tower = [vit_forward(cfg.vit, params["vit"], b["patches"],
+                             grid_hw=b.get("grid_hw"))[0] for b in batches]
+        params, report = GM.gptq_quantize_merger(cfg, params, tower, specs,
+                                                 gcfg, report)
+        done |= {"merger.mlp0", "merger.mlp2"}
+    if report["fallbacks"]:
+        log.warning(f"visual GPTQ RTN-fallbacks: {report['fallbacks']}")
+    return params, done
+
+
+def quantize_weights(cfg, params: Dict, specs: Dict[str, SiteSpec],
+                     q: QuantizeConfig,
+                     calib_batches: Optional[List[dict]] = None,
+                     report: Optional[Dict] = None,
+                     vis_report: Optional[Dict] = None) -> tuple:
+    """Weight quantization: the vision tower, patch embed and merger by
+    GPTQ (``visual_w_rtn`` off, with batches) or RTN, the LLM by GPTQ on
+    the calibration batches' decoder inputs (RTN with ``llm_w_rtn`` or no
+    batches), the head by per-channel RTN. Returns (params, the exact
+    weight grids for realization); ``report`` receives the LLM GPTQ
+    driver's report, ``vis_report`` the visual GPTQ's."""
+    from .core import quant as Q
+    from .core.formats import get_format
+
+    params = dict(params)
+    done: set = set()
+    if (not q.visual_w_rtn and calib_batches
+            and specs.get("vis.q", SiteSpec()).w_bits is not None
+            and "vit" in params):
+        params, done = _gptq_visual(cfg, params, specs, q, calib_batches,
+                                    vis_report if vis_report is not None
+                                    else {})
+    params = _rtn_visual(params, specs, q, done)
 
     wqps = None
     if specs.get("llm.q", SiteSpec()).w_bits is None:
@@ -369,6 +430,71 @@ def calibrate_activations(cfg, params: Dict, specs: Dict[str, SiteSpec],
     return finalize_state(specs, running or {}, samples)
 
 
+def _choose_online_had_mode(cfg, params: Dict, batch: dict,
+                            max_tokens: int = 128) -> tuple:
+    """The calibration-time gate of ``online_had_mode="auto"``: the first
+    ``max_tokens`` raw ``down`` inputs of each layer on one batch, scored
+    for each candidate transform (full: the padded Kronecker Hadamard over
+    the intermediate; block: I ⊗ H₁₂₈) by the error it leaves on the
+    ``down`` output under the serving quantization: per-layer static
+    per-tensor int8 activations × per-channel symmetric int4 weights with
+    the transform folded in, ‖(xH)·q(HᵀW) − xW‖² over ‖xW‖², summed over
+    the layers. Neither candidate dominates: spikes correlated within one
+    128-block defeat block mode; a dense single block defeats the full
+    transform. Returns (pick, {mode: error}).
+
+    The products are f32 (TF32 must be off on the card). As in the JAX
+    function, the full candidate pads the intermediate by
+    ``auto_pad_size(I)`` zero columns (its size, not the difference), and
+    divides by 127 and 7 as its jitted body does (times the reciprocals)."""
+    from .core.quant import _over
+    from .kernels.fwht import online_hadamard
+    from .models.qwen2vl import qwen2vl_forward
+    from .transform.hadamard import auto_pad_size
+
+    assert not torch.backends.cuda.matmul.allow_tf32, (
+        "the online-Hadamard gate needs f32 products: TF32 is on")
+    probe = {"llm.down": SiteSpec(a_bits=8, a_static=True)}
+    _, _, st = qwen2vl_forward(cfg, params, batch["tokens"],
+                               batch.get("patches"),
+                               grid_hw=batch.get("grid_hw"), specs=probe,
+                               mode="fake", collect_stats=True,
+                               collect_samples=True)
+    x_all = st[1]["llm.down"]  # (L, N, I) raw down inputs
+    x_all = x_all[:, :max_tokens].float()
+    I = x_all.shape[-1]
+    w_all = params["llm"]["layers"]["down"]["w"]  # (L, I, H)
+    pad = auto_pad_size(I)
+
+    def q_err(xt, wt, y0):
+        sa = _over(torch.clamp(xt.abs().max(), min=1e-8), 127.0, True)
+        xq = torch.clamp(torch.round(xt / sa), -127, 127) * sa
+        sw = _over(torch.clamp(wt.abs().amax(dim=0, keepdim=True),
+                               min=1e-8), 7.0, True)
+        wq = torch.clamp(torch.round(wt / sw), -7, 7) * sw
+        return float(((xq @ wq - y0) ** 2).sum())
+
+    sums: Dict[str, float] = {}
+    ref_sum = 0.0
+    for li in range(x_all.shape[0]):  # a layer at a time: f32 copies
+        x, w = x_all[li], w_all[li].float()
+        y0 = x @ w
+        ref_sum += float((y0 * y0).sum())
+        xf = torch.nn.functional.pad(x, (0, pad)) if pad else x
+        wf = torch.nn.functional.pad(w, (0, 0, 0, pad)) if pad else w
+        e = {"full": q_err(online_hadamard(xf), online_hadamard(wf.T).T, y0)}
+        if I % 128 == 0:
+            N, H = x.shape[0], w.shape[1]
+            xb = online_hadamard(x.reshape(N, I // 128, 128)).reshape(N, I)
+            wb = online_hadamard(
+                w.T.reshape(H, I // 128, 128)).reshape(H, I).T
+            e["block"] = q_err(xb, wb, y0)
+        for k, v in e.items():
+            sums[k] = sums.get(k, 0.0) + v
+    errs = {k: v / max(ref_sum, 1e-12) for k, v in sums.items()}
+    return min(errs, key=errs.get), errs
+
+
 @contextlib.contextmanager
 def _stage(info: Dict, name: str, device):
     """Record a stage's seconds (device synchronized at both ends) and, on
@@ -387,6 +513,20 @@ def _stage(info: Dict, name: str, device):
         "peak_bytes": torch.cuda.max_memory_allocated(dev) if cuda else None}
 
 
+# info keys that are reports, not rotation metadata (the artifact's
+# meta["rotation"] string leaves them out; meta["autobits"] holds the bits)
+_REPORT_KEYS = ("stages", "gptq", "vis_gptq", "autobits", "autobits_sens",
+                "lm_head_ratios")
+
+
+def head_spec(q: QuantizeConfig, bits: int) -> SiteSpec:
+    """The lm_head's spec at ``bits`` (the LLM's activation settings)."""
+    return SiteSpec(w_bits=bits, a_bits=q.llm_a_bits or None,
+                    a_static=q.llm_static, a_symmetric=not q.a_asym,
+                    a_per_channel=False if q.act_per_tensor else True,
+                    observer=q.act_observer)
+
+
 def run_pipeline(model: str, q: QuantizeConfig,
                  model_dir: Optional[str] = None,
                  params: Optional[Dict] = None, cfg=None,
@@ -396,27 +536,38 @@ def run_pipeline(model: str, q: QuantizeConfig,
                  rotations: Optional[Dict[str, torch.Tensor]] = None,
                  image_size: int = 16, device="cuda"):
     """The full PTQ pipeline on ``device``. Without ``params`` the weights
-    are random, drawn from ``q.seed``; without ``calib_batches``, the first
-    ``q.calib_num`` rows of the eval dataset ``calib_dataset`` (a name or
-    TSV path for ``evaluation.eval.build_dataset``) through a ``VLMRunner``
-    on the float params with ``tokenizer``, or else max(1, calib_num // 16)
-    synthetic batches of ``image_size``² images.
-    ``rotations`` ({"vit": Q_v, "llm": Q_l}) replaces the drawn rotations.
+    are the HF checkpoint in ``model_dir`` (``models.loader.load_model``,
+    every leaf in ``cfg.llm.dtype``) or else random, drawn from ``q.seed``;
+    without ``calib_batches``, the first ``q.calib_num`` rows of the eval
+    dataset ``calib_dataset`` (a name or TSV path for
+    ``evaluation.eval.build_dataset``) through a ``VLMRunner`` on the float
+    params with ``tokenizer``, or else max(1, calib_num // 16) synthetic
+    batches of ``image_size``² images. ``rotations`` ({"vit": Q_v, "llm":
+    Q_l}) replaces the drawn rotations. The gates (smoothing's amax, the
+    online-Hadamard pick, the head pick, the sensitivities) read the first
+    calibration batch or, for smoothing, all of them.
     Returns (cfg, params, state, specs, info); ``info["stages"]`` holds
-    each stage's seconds and peak bytes, ``info["gptq"]`` the GPTQ
-    driver's report."""
+    each stage's seconds and peak bytes, ``info["gptq"]`` the LLM GPTQ
+    driver's report, ``info["vis_gptq"]`` the visual GPTQ's; the gates add
+    "smooth_alpha", "online_had_auto" ({"picked", "full", "block"}),
+    "lm_head_bits" with "lm_head_ratios" ({4: ratio, 8: ratio}), and
+    "autobits" (site → bits) with "autobits_sens" (site → sensitivity)."""
     from .models.qwen2vl import init_qwen2vl_params
 
-    if model_dir:
-        raise NotImplementedError("checkpoint loading (models/loader.py) is "
-                                  "not ported (ROADMAP A12)")
-    check_ported(q)
     fam = get_family(model)
+    check_ported(q, fam.name)
     cfg = cfg or config_for(model, tiny)
     gen = torch.Generator().manual_seed(q.seed)
     info: Dict = {}
 
-    if params is None:
+    if params is None and model_dir:
+        from .models.loader import load_model
+
+        with _stage(info, "load", device):
+            params = load_model(fam.name, cfg, model_dir, dtype=cfg.llm.dtype,
+                                device=device)
+        log.info(f"loaded checkpoint from {model_dir}")
+    elif params is None:
         with _stage(info, "init", device):
             params = init_qwen2vl_params(cfg, gen, device=device)
         log.info("using random-initialized weights (no model_dir)")
@@ -440,6 +591,30 @@ def run_pipeline(model: str, q: QuantizeConfig,
                 cfg, max(1, q.calib_num // 16), gen,
                 image_size=image_size, device=device)
 
+    if q.smooth_alpha > 0:
+        # migration precedes rotation (rotation mixes channels)
+        from .transform.smooth import collect_llm_channel_amax, smooth_decoder
+
+        with _stage(info, "smooth", device):
+            amax = collect_llm_channel_amax(cfg, params, calib_batches)
+            params = {**params, "llm": smooth_decoder(params["llm"], amax,
+                                                      q.smooth_alpha)}
+        info["smooth_alpha"] = q.smooth_alpha
+        log.info(f"smoothquant migration applied (alpha={q.smooth_alpha})")
+
+    if q.online_had_mode == "auto":
+        # after smoothing, before the rotation folds the chosen H into down
+        pick = "full"
+        if q.rotate and q.rotate_llm and q.online_llm_hadamard:
+            with _stage(info, "had_gate", device):
+                pick, errs = _choose_online_had_mode(cfg, params,
+                                                     calib_batches[0])
+            info["online_had_auto"] = {"picked": pick, **errs}
+            log.info(f"online-Hadamard auto-select: {pick} (int8 MSE "
+                     f"{errs})")
+        q = dataclasses.replace(q, online_had_mode=pick)
+        specs = build_specs(q)
+
     if q.rotate:
         from .transform.vlm_recipes import prepare_vlm
 
@@ -459,10 +634,41 @@ def run_pipeline(model: str, q: QuantizeConfig,
                 cfg, llm=dataclasses.replace(cfg.llm, intermediate_pad=pad))
         log.info(f"fuse+rotate done: {info}")
 
-    info["gptq"] = {}
+    if q.lm_head_bits == "auto":
+        # after rotation: the head is rotated
+        from .utils.autobits import decide_head_bits
+
+        with _stage(info, "head_gate", device):
+            pick, ratios = decide_head_bits(cfg, params, specs,
+                                            calib_batches[0],
+                                            gate=q.lm_head_gate)
+        specs["llm.lm_head"] = head_spec(q, pick)
+        info["lm_head_bits"] = pick
+        info["lm_head_ratios"] = ratios
+        log.info("lm_head gate: W4 ppl ratio %.5f, int8 %.5f (gate %.4f) "
+                 "→ %d-bit head", ratios[4], ratios[8], q.lm_head_gate, pick)
+
+    if q.auto_bits > 0:
+        # sensitivities of the transformed model; the returned specs drive
+        # GPTQ, calibration and realization
+        from .utils.autobits import (allocation_report, autobits_specs,
+                                     site_weight_elems)
+
+        with _stage(info, "autobits", device):
+            specs, sens, bits = autobits_specs(
+                cfg, params, specs, calib_batches[0], q.auto_bits,
+                low=q.auto_bits_low, high=q.auto_bits_high)
+        info["autobits"] = bits
+        info["autobits_sens"] = sens
+        log.info("auto-bits allocation (target avg %.2f):\n%s", q.auto_bits,
+                 allocation_report(sens, site_weight_elems(params, specs),
+                                   bits))
+
+    info["gptq"], info["vis_gptq"] = {}, {}
     with _stage(info, "weights", device):
         params, wqps = quantize_weights(cfg, params, specs, q, calib_batches,
-                                        report=info["gptq"])
+                                        report=info["gptq"],
+                                        vis_report=info["vis_gptq"])
     log.info("weight quantization done")
 
     state = None
@@ -487,7 +693,9 @@ def run_pipeline(model: str, q: QuantizeConfig,
                 "config_dict": config_to_dict(cfg),
                 "quantize_config": dataclasses.asdict(q),
                 "rotation": str({k: v for k, v in info.items()
-                                 if k not in ("stages", "gptq")})}
+                                 if k not in _REPORT_KEYS})}
+        if "autobits" in info:
+            meta["autobits"] = info["autobits"]
         with _stage(info, "save", device):
             info["artifact_bytes"] = save_artifact(artifact_dir, params,
                                                    state, specs, meta=meta)

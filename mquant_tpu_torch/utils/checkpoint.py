@@ -14,6 +14,12 @@ The msgpack files are flax's format, read and written by
 config as :func:`config_to_dict` encodes it; :func:`config_from_dict` maps it
 onto the port's dataclasses and refuses a field the port does not
 implement at the value given.
+
+:func:`export_safetensors` / :func:`import_safetensors` write and read a
+params or state tree as one ``.safetensors`` file (the JAX module's
+interop, byte for byte): tensors under their "/"-joined paths, the tree's
+structure (dicts, QuantParams / ObserverStats named tuples, None slots) in
+the metadata key ``mquant_structure``.
 """
 
 from __future__ import annotations
@@ -207,3 +213,92 @@ def config_from_dict(d: Dict) -> Any:
         return v
 
     return dec(d)
+
+
+# ---------------------------------------------------------------------------
+# safetensors interop
+# ---------------------------------------------------------------------------
+
+
+def _st_flatten(tree, prefix: str, out: Dict, meta: Dict):
+    """Tensors of ``tree`` under "/"-joined paths into ``out``; each node's
+    kind ("dict", "none", "nt:<class>") under its path into ``meta``."""
+    if tree is None:
+        meta[prefix] = "none"
+        return
+    if isinstance(tree, dict):
+        meta[prefix] = "dict"
+        for k, v in tree.items():
+            assert "/" not in str(k), k
+            _st_flatten(v, f"{prefix}/{k}" if prefix else str(k), out, meta)
+        return
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        meta[prefix] = f"nt:{type(tree).__name__}"
+        for k, v in tree._asdict().items():
+            _st_flatten(v, f"{prefix}/{k}", out, meta)
+        return
+    out[prefix] = tree if isinstance(tree, torch.Tensor) else torch.as_tensor(
+        tree)
+
+
+def _nt_class(name: str):
+    from ..observe.observers import ObserverStats
+
+    return {"QuantParams": QuantParams, "ObserverStats": ObserverStats}[name]
+
+
+def export_safetensors(tree: Dict, path: str,
+                       extra_meta: Optional[Dict] = None) -> int:
+    """Write a params / state tree (tensors on any device) as one
+    .safetensors file, bf16 stored as BF16; returns its bytes."""
+    from . import safetensors as st
+
+    out: Dict[str, torch.Tensor] = {}
+    meta: Dict[str, str] = {}
+    _st_flatten(tree, "", out, meta)
+    md = {"mquant_structure": json.dumps(meta)}
+    if extra_meta:
+        md.update({k: str(v) for k, v in extra_meta.items()})
+    return st.save_file(out, path, metadata=md)
+
+
+def import_safetensors(path: str, device="cuda") -> Tuple[Dict, Dict]:
+    """Inverse of :func:`export_safetensors` → (tree on ``device``, the
+    metadata without ``mquant_structure``); named tuples are rebuilt
+    bottom-up as the port's classes."""
+    from . import safetensors as st
+
+    with st.SafeOpen(path) as f:
+        md = dict(f.metadata() or {})
+        flat = {k: f.get_tensor(k, device=device) for k in f.keys()}
+    meta = json.loads(md.pop("mquant_structure"))
+    root: Dict = {}
+
+    def set_path(key: str, val):
+        parts = key.split("/") if key else []
+        cur = root
+        for p in parts[:-1]:
+            cur = cur.setdefault(p, {})
+        if parts:
+            cur[parts[-1]] = val
+
+    for k, v in flat.items():
+        set_path(k, v)
+    for k, kind in meta.items():
+        if kind == "none":
+            set_path(k, None)
+    for k, kind in sorted(meta.items(), key=lambda kv: -kv[0].count("/")):
+        if not kind.startswith("nt:"):
+            continue
+        cls = _nt_class(kind[3:])
+        parts = k.split("/") if k else []
+        cur = root
+        for p in parts[:-1]:
+            cur = cur[p]
+        node = cur[parts[-1]] if parts else root
+        nt = cls(**{f: node.get(f) for f in cls._fields})
+        if parts:
+            cur[parts[-1]] = nt
+        else:
+            root = nt
+    return root, md

@@ -208,23 +208,35 @@ UNPORTED = [dict(smooth_alpha=0.5), dict(auto_bits=4.5),
 @pytest.mark.parametrize("kw", UNPORTED + ["model_dir", "calib_dataset",
                                            "family"])
 def test_unported_options_raise(kw, tmp_path, monkeypatch):
-    """Each unported option raises naming its ROADMAP item. ``calib_dataset``
-    is ported (A13): a dataset that is not there raises FileNotFoundError
-    naming where it was looked for (tests/test_torch_pipeline_dataset.py
-    holds the route)."""
+    """What the port leaves unported raises naming its ROADMAP item: the
+    other model families (A12), and visual GPTQ of their projectors. The
+    pipeline options these parameters name are ported for Qwen2-VL
+    (``check_ported`` passes them; ``tests/test_torch_gates.py`` and
+    ``tests/test_torch_pipeline_options.py`` hold them against JAX), and
+    each still raises A12 for another family. ``model_dir`` is ported: a
+    directory without a checkpoint raises FileNotFoundError naming it.
+    ``calib_dataset`` is ported (A13): a dataset that is not there raises
+    FileNotFoundError naming where it was looked for
+    (tests/test_torch_pipeline_dataset.py holds the route)."""
     q = TP.QuantizeConfig(**kw) if isinstance(kw, dict) else TP.QuantizeConfig()
-    extra = {}
     if kw == "model_dir":
-        extra = dict(model_dir="/nonexistent")
-    elif kw == "calib_dataset":
+        with pytest.raises(FileNotFoundError, match="nonexistent"):
+            TP.run_pipeline("qwen2vl", q, model_dir="/nonexistent",
+                            tiny=True, device="cpu")
+        return
+    if kw == "calib_dataset":
         monkeypatch.setenv("LMUData", str(tmp_path))
         with pytest.raises(FileNotFoundError, match=str(tmp_path)):
             TP.run_pipeline("qwen2vl", q, calib_dataset="MME", tiny=True,
                             device="cpu")
         return
-    model = "InternVL2-8B" if kw == "family" else "qwen2vl"
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        TP.run_pipeline(model, q, tiny=True, device="cpu", **extra)
+    if isinstance(kw, dict):
+        TP.check_ported(q)  # ported for Qwen2-VL
+        if not q.visual_w_rtn:
+            with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+                TP.check_ported(q, "internvl")
+    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+        TP.run_pipeline("InternVL2-8B", q, tiny=True, device="cpu")
 
 
 def test_cli_tiny_serves(tmp_path):

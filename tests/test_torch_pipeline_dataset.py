@@ -9,8 +9,8 @@ rotations and TSV: the RTN artifacts are equal leaf by leaf, with
 within one bf16 ulp, static activation scales within rel 1e-5). GPTQ with
 ``act_order`` on those batches runs in the port without an RTN fallback.
 The CLI (``python -m mquant_tpu_torch.quant_vlm``) calibrates on a dataset,
-evaluates with the engine and a judge artifact, and refuses the unported
-``--export_safetensors`` (``--k_bits`` runs).
+evaluates with the engine and a judge artifact, and runs ``--k_bits`` and
+``--export_safetensors`` (A9).
 """
 
 import base64
@@ -156,11 +156,19 @@ def test_cli_calibrates_and_evaluates(tsv, tmp_path):
 
 @pytest.mark.parametrize("flag,item", [(["--k_bits", "8"], None),
                                        (["--export_safetensors", "x"], "A9")])
-def test_cli_unported_flags_raise(flag, item):
-    """``--export_safetensors`` raises naming its ROADMAP item; ``--k_bits``
-    is ported: the pipeline runs and records it."""
+def test_cli_unported_flags_raise(flag, item, tmp_path):
+    """Both flags are ported: ``--k_bits`` runs and the pipeline records
+    it; ``--export_safetensors DIR`` (ROADMAP A9) writes
+    params.safetensors and state.safetensors into DIR (here under the
+    test's directory) and the summary their bytes."""
+    if item == "A9":
+        flag = [flag[0], str(tmp_path / flag[1])]
     res = _cli(*flag, timeout=120)
+    assert res.returncode == 0, res.stderr[-3000:]
     if item is None:
-        assert res.returncode == 0, res.stderr[-3000:]
         return
-    assert res.returncode != 0 and f"ROADMAP {item}" in res.stderr
+    summary = json.loads(res.stdout.strip().splitlines()[-1])
+    files = [tmp_path / "x" / f for f in ("params.safetensors",
+                                          "state.safetensors")]
+    assert all(f.exists() for f in files)
+    assert summary["export_bytes"] == sum(f.stat().st_size for f in files)

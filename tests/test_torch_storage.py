@@ -444,7 +444,7 @@ def test_grouped_route_ahead_equals_at_call(storage, kw, grouped):
     dict(a_groupsize=32)])
 def test_check_ported_takes_storage_values(kw):
     """Every A4, A1 and A5 value of the QuantizeConfig passes
-    ``check_ported`` (A10's still raise, ``test_torch_pipeline.py``)."""
+    ``check_ported`` (what still raises: ``test_torch_pipeline.py``)."""
     TP.check_ported(TP.QuantizeConfig(**kw))
 
 
