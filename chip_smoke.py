@@ -24,7 +24,10 @@ Phases, in order (any failed check raises and the script exits non-zero):
    outside: ragged N, W4 with (K/2) % 16 != 0 and the full-logit lm_heads
    of InternVL2-8B (N = 92553) and MiniCPM-V-2.6 (N = 151666), its
    main-path shapes; the ragged kernel also timed at each TMA shape beside
-   the TMA kernel; the document path's 4096-row
+   the TMA kernel; InternVL2-8B's products (the W4 GEMV at 1 and 8 rows,
+   the split ``down`` at K = 14335 on the int8 GEMV and GEMM, the T = 1024
+   prefill, the ViT's and mlp1's W8 products) and its decode attention at
+   G = 4, summed apart; the document path's 4096-row
    products; the prefill probe's W8 products; the W4 GEMV at 1, 4, 8 and 32
    token rows; the int8 GEMV at the engine's 8 rows of path S's `down`
    (main path), at 32 rows, the int8 lm_head at 8 rows, the decode
@@ -202,8 +205,29 @@ Phases, in order (any failed check raises and the script exits non-zero):
    serves one 448² image request (1024-token prompt, 128 tokens), counted
    (``down`` at K = 18943 on the TMA GEMM, a call a layer) and held against
    the plain integer products (``against_plain``).
+   Then InternVL2-8B (``run_internvl_phase``): ``run_pipeline("InternVL2-8B")``
+   at the published widths (InternViT 24 layers with learned positions and
+   LayerScale, pixel shuffle + mlp1, the InternLM2 decoder at depth 32:
+   GQA 32 / 8, intermediate 14336 = 28 · 512, vocabulary 92553), seeded
+   random weights drawn on the card, the headline W4A8 flags (the full
+   online Hadamard hadK₂₈ ⊗ H₅₁₂ before ``down``, RMS split, GPTQ W4 with
+   act_order on 8 synthetic batches of a 448² image, 1/16 of the
+   reference's 128, RTN W8 ViT and mlp1) with an int8 lm_head, realized,
+   into a temporary artifact: stage seconds and peaks, no RTN fallback,
+   GPTQ's proxy loss no worse than round-to-nearest's, lossless
+   realization; served by ``build_runner_from_artifact``: one request (a
+   448² image in a 1024-token prompt, 128 tokens), counted (``down`` at
+   K = 14335 on the TMA ``int8_gemm`` a layer; ``int8_gemv`` for ``down``
+   and the head at N = 92553 every step), held against the plain integer
+   products (logits max |d| 0, tokens equal), its graph decode loop
+   against the eager loop (the step's wall, stream and busy ms); a
+   ``ServingEngine`` burst of 4 id prompts (77, 300, 513, 1000 ids, 16
+   tokens each), counted, each equal to itself sent alone; ``python -m
+   mquant_tpu_torch.quant_vlm --model InternVL2-8B --tiny`` on the card
+   with the headline flags and visual GPTQ (exit 0, no RTN fallback).
    Then the offline pipeline from an HF checkpoint
-   (``run_checkpoint_phase``), at depth 28: seeded random bf16 weights
+   (``run_checkpoint_phase``), at depth CKPT_DEPTH = 14 (28 until the
+   InternVL phase came): seeded random bf16 weights
    written as a sharded HF checkpoint (HF names, the fused visual qkv, the
    conv3d patch embed, an index) by ``models.loader.save_qwen2vl_hf`` with
    the port's safetensors writer (bytes, seconds, free disk);
@@ -376,6 +400,33 @@ RAGGED_SHAPES = [
     ("int8_gemm", "InternVL2-8B lm_head", 1024, 4096, 92553, False),
     ("int8_gemm", "MiniCPM-V-2.6 lm_head", 1024, 3584, 151666, False),
 ]
+# InternVL2-8B's shapes (hidden 4096, GQA 32 / 8, intermediate 14336 =
+# 28 · 512, vocab 92553): the W4 decode products at 1 and 8 rows (the
+# engine's), the split `down` at K = 14335 on the int8 GEMV, the prefill
+# products at T = 1024 (the split `down`'s x in rows padded to 16 bytes),
+# block mode's W4 `down` at K = 14336, and the ViT's (K = 1024) and mlp1's
+# (K = 4096) products at W8. Held and timed in phase 3, summed apart from
+# the 7B rows (the InternVL phase's own numbers are its request's)
+IVL_SHAPES = [
+    *[(k, f"IVL {site}, {m} rows", m, kk, n, packed)
+      for m in (1, 8)
+      for k, site, kk, n, packed in (
+          ("w4a8_gemv", "decode q|k|v", 4096, 6144, True),
+          ("w4a8_gemv", "decode o", 4096, 4096, True),
+          ("w4a8_gemv", "decode gate|up", 4096, 28672, True),
+          ("w4a8_gemv", "block decode down", 14336, 4096, True),
+          ("int8_gemv", "S decode down", 14335, 4096, False))],
+    ("int8_gemm", "IVL prefill q|k|v", 1024, 4096, 6144, True),
+    ("int8_gemm", "IVL prefill o", 1024, 4096, 4096, True),
+    ("int8_gemm", "IVL prefill gate|up", 1024, 4096, 28672, True),
+    ("int8_gemm", "IVL S prefill down", 1024, 14335, 4096, False),
+    ("int8_gemm", "IVL block prefill down", 1024, 14336, 4096, True),
+    ("int8_gemm", "IVL vit q|k|v", 1024, 1024, 3072, False),
+    ("int8_gemm", "IVL vit o", 1024, 1024, 1024, False),
+    ("int8_gemm", "IVL vit fc1", 1024, 1024, 4096, False),
+    ("int8_gemm", "IVL vit fc2", 1024, 4096, 1024, False),
+    ("int8_gemm", "IVL mlp1 fc1 / fc2", 256, 4096, 4096, False),
+]
 REPLACES = {
     "w4a8_gemv": "mquant_tpu/kernels/qmm.py:869",
     "int8_gemv": "mquant_tpu/kernels/qmm.py:637",
@@ -456,9 +507,11 @@ def check_kernels(seed: int) -> dict:
     summary = {k: new_summary() for k in ("w4a8_gemv", "int8_gemv",
                                           "int8_gemm", "int8_gemm_ragged")}
     rows_sum = new_summary()
+    ivl_sum = {k: new_summary() for k in summary}
     for name, label, M, K, N, packed in (KERNEL_SHAPES + DOC_GEMM_SHAPES
                                          + ROWS_SHAPES + EDGE_SHAPES
-                                         + I8_GEMV_SHAPES + RAGGED_SHAPES):
+                                         + I8_GEMV_SHAPES + RAGGED_SHAPES
+                                         + IVL_SHAPES):
         main = (name, label, M, K, N, packed) in KERNEL_SHAPES + RAGGED_SHAPES
         rows = K // 2 if packed else K
         x = torch.randint(-127, 128, (M, K), generator=g, device=dev,
@@ -574,11 +627,18 @@ def check_kernels(seed: int) -> dict:
             add_main(s, ms, pms, bms, by, lms)
         elif (name, label, M, K, N, packed) in ROWS_SHAPES:
             add_main(rows_sum, ms, pms, bms, by, lms)
+        elif label.startswith("IVL"):
+            add_main(ivl_sum[name], ms, pms, bms, by, lms)
         del x, xk, w, ws_cold, acc_k, y_k
         torch.cuda.empty_cache()
     log(f"kernel w4a8_gemv at 4 / 8 / 32 rows (gate|up, down): {rows_sum['ms']:.4f} "
         f"ms summed, plain {rows_sum['plain_ms']:.4f} ms, bound "
         f"{rows_sum['bound_ms']:.4f} ms")
+    for name, s in ivl_sum.items():
+        if s["shapes"]:
+            log(f"kernel {name} at InternVL2-8B's {s['shapes']} shapes: "
+                f"{s['ms']:.4f} ms summed, plain {s['plain_ms']:.4f} ms, "
+                f"bound {s['bound_ms']:.4f} ms")
     for name, s in summary.items():
         if 0 < s["lib_shapes"] < s["shapes"]:
             log(f"kernel {name}: library {s['library_ms']:.4f} ms summed over "
@@ -756,6 +816,16 @@ DECODE_SHAPES = [
     ("engine 8 slots, per-row pos", 8, 1280,
      [1127, 78, 301, 514, 1001, 300, 590, 1200], None, True, True),
 ]
+# InternVL2-8B's decode attention (32 query heads over 8 KV heads, G = 4;
+# hd 128): the request's first and last steps and the engine burst's 4
+# slots at their own positions, held and timed apart from the 7B rows
+IVL_DECODE_SHAPES = [
+    ("IVL decode pos 1024, G 4", 1, 8192, 1024, None, False, False),
+    ("IVL decode pos 1151, G 4", 1, 8192, 1151, None, False, False),
+    ("IVL engine 4 slots, G 4", 4, 1280, [92, 315, 528, 1015], None, False,
+     True),
+]
+IVL_HEADS, IVL_KVH = 32, 8
 # causal flash prefill (label, T, main path)
 FLASH_SHAPES = [("prefill T 1024", 1024, False),
                 ("prefill T 2048", 2048, False),
@@ -798,10 +868,14 @@ def check_attention(seed: int) -> dict:
         return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
 
     summary = {"attn_decode": new_summary(), "flash_attn_causal": new_summary()}
+    ivl_sum = new_summary()
     scale = HD**-0.5
-    for label, B, S, pos, start, main, nan_tail in DECODE_SHAPES:
-        q, kn, vn = r(B, 1, HEADS, HD), r(B, 1, KVH, HD), r(B, 1, KVH, HD)
-        kc, vc = r(B, S, KVH, HD), r(B, S, KVH, HD)
+    for label, B, S, pos, start, main, nan_tail in (DECODE_SHAPES
+                                                    + IVL_DECODE_SHAPES):
+        heads, kvh = ((IVL_HEADS, IVL_KVH) if label.startswith("IVL")
+                      else (HEADS, KVH))
+        q, kn, vn = r(B, 1, heads, HD), r(B, 1, kvh, HD), r(B, 1, kvh, HD)
+        kc, vc = r(B, S, kvh, HD), r(B, S, kvh, HD)
         p = torch.as_tensor(pos, device=dev).reshape(-1).expand(B)
         st = torch.as_tensor(0 if start is None else start,
                              device=dev).reshape(-1).expand(B)
@@ -854,9 +928,9 @@ def check_attention(seed: int) -> dict:
                 caches[i % n_copy][1].transpose(1, 2), attn_mask=amask,
                 scale=scale, enable_gqa=True), 20)
         cols_read = int((p - st).clamp(min=0).sum())
-        nbytes = (2 * cols_read * KVH * HD * 2 + 2 * B * HEADS * HD * 2
-                  + 4 * B * KVH * HD * 2)
-        bms, by = bound(nbytes, 4 * HEADS * HD * (cols_read + B), BF16_FLOPS)
+        nbytes = (2 * cols_read * kvh * HD * 2 + 2 * B * heads * HD * 2
+                  + 4 * B * kvh * HD * 2)
+        bms, by = bound(nbytes, 4 * heads * HD * (cols_read + B), BF16_FLOPS)
         log(f"kernel attn_decode {label:24s} B={B} S={S}: cache rows equal, "
             f"max |d| {err:.3g} ({ulps:.2f} bf16 ulp at max |ref| {mag:.3g}); "
             f"{ms:.4f} ms vs plain {pms:.4f} ms, {sdpa_txt} {lms:.4f} ms"
@@ -866,7 +940,13 @@ def check_attention(seed: int) -> dict:
         s["max_abs_err"] = max(s["max_abs_err"], err)
         if main:
             add_main(s, ms, pms, bms, by, lms)
+        elif label.startswith("IVL"):
+            add_main(ivl_sum, ms, pms, bms, by, lms)
         del q, kn, vn, kc, vc, kc_p, vc_p, caches, out, ref
+    log(f"kernel attn_decode at InternVL2-8B's {ivl_sum['shapes']} shapes "
+        f"(G = 4): {ivl_sum['ms']:.4f} ms summed, plain "
+        f"{ivl_sum['plain_ms']:.4f} ms, SDPA {ivl_sum['library_ms']:.4f} ms, "
+        f"bound {ivl_sum['bound_ms']:.4f} ms")
     for label, T, main in FLASH_SHAPES:
         q, k, v = r(1, T, HEADS, HD), r(1, T, KVH, HD), r(1, T, KVH, HD)
         out = TF.flash_attention_causal(q, k, v, scale)
@@ -3687,7 +3767,7 @@ PIPE_BATCHES = 32  # calibration batches (the reference calibrates on 128)
 PIPE_IMAGE = 448  # their images: 1024 patches, 256 image tokens, + 32 text
 PIPE_KERNELS = SLICE_KERNELS
 PIPE_DEPTH = 4  # the synthetic pipeline phase's LLM layers (the checkpoint
-# phase runs the pipeline at depth 28)
+# phase runs the pipeline at CKPT_DEPTH)
 
 
 @contextlib.contextmanager
@@ -3933,6 +4013,8 @@ def _pipeline_phase(card, seed, depth, dev, gen_tokens, cfg, q, art):
 
 
 CKPT_SHARD_BYTES = 5 * 2**30  # the HF checkpoint's shards (HF's 5 GB)
+CKPT_DEPTH = 14  # the checkpoint phase's LLM layers: 28 until the
+# InternVL phase took its time (the evaluation phase runs on its runner)
 CKPT_BATCHES = 16  # the checkpoint pipeline's calibration batches (a 448²
 # image each; 1/8 of the reference's 128, half the synthetic phase's, to
 # keep the script within its time: its stage seconds are at this size)
@@ -4000,7 +4082,7 @@ def free_gib(path: str) -> str:
     return f"{shutil.disk_usage(path).free / 2**30:.1f} GiB free"
 
 
-def run_checkpoint_phase(card: str, seed: int, depth: int = 28,
+def run_checkpoint_phase(card: str, seed: int, depth: int = CKPT_DEPTH,
                          dev: str = "cuda", gen_tokens: int = GEN_TOKENS
                          ) -> list:
     """Phase 4, the offline pipeline from an HF checkpoint: Qwen2-VL-7B's
@@ -4416,6 +4498,259 @@ def run_golden(card: str, dev: str = "cuda") -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     return read_launches("golden", GOLDEN_KERNELS)
+
+
+IVL_BATCHES = 8  # calibration batches of a 448² image (1024 patches → 256
+# image tokens, + 32 text): 1/16 of the reference's 128, to keep the script
+# within its time; the phase's stage seconds are at this size
+IVL_IMAGE = 448
+IVL_KERNELS = SLICE_KERNELS
+IVL_BURST = (77, 300, 513, 1000)  # the engine burst's id prompts
+IVL_BURST_TOKENS = 16
+
+
+def run_internvl_phase(card: str, seed: int, dev: str = "cuda",
+                       gen_tokens: int = GEN_TOKENS, cfg=None) -> list:
+    """Phase 4, InternVL2-8B: the port's ``run_pipeline("InternVL2-8B")``
+    at the published widths (LLM depth 32 and ViT depth 24 uncut, seeded
+    random weights drawn on the card) in the reference's headline W4A8
+    configuration (rotations, full online Hadamard hadK₂₈ ⊗ H₅₁₂ before
+    ``down``, RMS split, GPTQ W4 with act_order on IVL_BATCHES synthetic
+    batches of an IVL_IMAGE² image and 32 text tokens, RTN W8 ViT and mlp1,
+    static per-tensor int8 activations, ``realize_int``) plus an int8
+    lm_head (the head at N = 92553 on ``int8_gemv``'s word producer), into
+    a temporary artifact: stage seconds and peaks, no RTN fallback, GPTQ's
+    proxy loss no worse than round-to-nearest's, lossless realization. The
+    artifact served by ``build_runner_from_artifact``: one request (a 448²
+    image in a PREFILL-token prompt, ``gen_tokens`` greedy tokens), counted
+    (``down`` at K = 14335 on the TMA ``int8_gemm``, a call a layer), held
+    against the plain integer products (logits max |d| 0, tokens equal),
+    its graph decode loop against the eager loop; then a ServingEngine
+    burst of IVL_BURST id prompts, IVL_BURST_TOKENS tokens each, counted,
+    each greedy request equal to itself sent alone; last, ``quant_vlm
+    --model InternVL2-8B --tiny`` on the card (:func:`internvl_cli`).
+    Returns the launch
+    counts of the request and of the burst. ``cfg`` replaces the published
+    configuration (a CPU rehearsal at small widths)."""
+    import tempfile
+
+    import torch
+
+    from mquant_tpu_torch.models.internvl import InternVLConfig
+    from mquant_tpu_torch.pipeline import QuantizeConfig
+
+    cfg = cfg or InternVLConfig.internvl2_8b()
+    q = QuantizeConfig(rotate=True, online_llm_hadamard=True,
+                       online_had_mode="full", llm_split=True, llm_w_bits=4,
+                       act_order=True, visual_w_bits=8, llm_a_bits=8,
+                       visual_a_bits=8, lm_head_bits=8,
+                       calib_num=IVL_BATCHES * 16, nsamples=IVL_BATCHES,
+                       realize_int=True, seed=seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    art = tempfile.mkdtemp(prefix="mquant_internvl_")
+    try:
+        return _internvl_phase(card, seed, dev, gen_tokens, cfg, q, art)
+    finally:
+        shutil.rmtree(art)
+
+
+def _internvl_phase(card, seed, dev, gen_tokens, cfg, q, art):
+    import torch
+
+    from mquant_tpu_torch.pipeline import run_pipeline
+    from mquant_tpu_torch.serve.server import build_runner_from_artifact
+
+    calib = (f"{IVL_BATCHES} calibration batches of a {IVL_IMAGE}² image, "
+             "1/16 of the reference's 128")
+    depth = cfg.llm.n_layers
+    proxies, realized = [], []
+    with torch.no_grad(), gptq_proxies(proxies), realize_lossless(realized):
+        _, params, _, specs, info = run_pipeline(
+            "InternVL2-8B", q, cfg=cfg, artifact_dir=art,
+            image_size=IVL_IMAGE, device=dev)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    if specs["llm.down"].online_had != "full" or not specs["llm.down"].split:
+        raise AssertionError(f"internvl: llm.down {specs['llm.down']}")
+    pad = info["llm"].down_pad
+    for name, st in info["stages"].items():
+        peak = ("not measured" if st["peak_bytes"] is None
+                else f"{st['peak_bytes'] / 2**30:.2f} GiB")
+        log(f"internvl: stage {name}: {st['seconds']:.2f} s, peak {peak} "
+            f"({calib}); card {card}")
+    rep = info["gptq"]
+    sec = rep["seconds"]
+    log(f"internvl: GPTQ {rep['sites']} sites at depth {depth}: stage "
+        f"replays + Hessians {sec['hessian']:.2f} s, factorizations "
+        f"{sec['factor']:.2f} s, walks {sec['walk']:.2f} s ({calib}); RTN "
+        f"fallbacks {len(rep['fallbacks'])}; full online Hadamard over "
+        f"{cfg.llm.intermediate} (pad {pad}); artifact "
+        f"{info['artifact_bytes']} bytes "
+        f"({info['artifact_bytes'] / 2**30:.2f} GiB); card {card}")
+    if rep["fallbacks"] or any(fb for *_, fb in proxies[1:]):
+        raise AssertionError(f"internvl: RTN fallbacks {rep['fallbacks']}")
+    if rep["sites"] != 7 * depth or len(proxies) - 1 != rep["sites"]:
+        raise AssertionError(f"internvl: {rep['sites']} GPTQ sites, "
+                             f"{len(proxies) - 1} proxies, depth {depth}")
+    worse = [(i, p) for i, p in enumerate(proxies[1:]) if p[1] > p[2]]
+    if worse:
+        raise AssertionError(f"internvl: GPTQ worse than RTN at {worse}")
+    if sum(n for _, n in realized) != rep["sites"]:
+        raise AssertionError(f"internvl: realized {realized}, GPTQ sites "
+                             f"{rep['sites']}")
+    sums = {}
+    for site, pg, pr, _ in proxies[1:]:
+        g, r = sums.get(site, (0.0, 0.0))
+        sums[site] = (g + pg, r + pr)
+    log("internvl: GPTQ proxy loss tr(dW^T H dW) summed over layers, GPTQ "
+        "vs round-to-nearest: " + ", ".join(
+            f"{s} {g:.4g} vs {r:.4g} ({g / r:.3f})"
+            for s, (g, r) in sums.items()) + f"; realization lossless on "
+        f"{rep['sites']} sites")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner = build_runner_from_artifact(
+        art, device=dev, image_size=ART_IMAGE_SIZE,
+        tokenizer=id_tokenizer(), max_len=PREFILL + gen_tokens)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    if runner.fam.name != "internvl" or runner.mode != "real":
+        raise AssertionError(f"internvl: runner {runner.fam.name}, "
+                             f"{runner.mode}")
+    gen = runner.gen
+    K = cfg.llm.intermediate - 1
+    single, _ = artifact_prompts(runner, seed)
+    n_prompt = runner.build_inputs(single)[0].shape[1]
+    with torch.no_grad():
+        runner.generate(single, max_new_tokens=4)  # warm-up; not counted
+        torch.cuda.synchronize()
+        reset_launches()
+        depths = []
+        with gemm_depths(depths):
+            out, t_req, ttft = timed(lambda mark: runner.generate(
+                single, max_new_tokens=gen_tokens, on_first_token=mark))
+        launches = read_launches("internvl", IVL_KERNELS)
+        check_tokens("internvl", [out], gen_tokens, cfg.llm.vocab)
+        # the prefill's `down` on the TMA GEMM, a call a layer
+        down = sum(1 for n, d, moved in depths
+                   if n == "int8_gemm" and d == K and moved == (n,))
+        if down != depth or launches["int8_gemm_ragged"]:
+            raise AssertionError(f"internvl: {down} int8_gemm calls at K = "
+                                 f"{K}, expected {depth}; int8_gemm_ragged "
+                                 f"{launches['int8_gemm_ragged']}")
+        # the int8 GEMV: `down` a layer and the head a decode step, and the
+        # head of the prefill's last row
+        want = (depth + 1) * (gen_tokens - 1) + 1
+        if launches["int8_gemv"] != want:
+            raise AssertionError(f"internvl: int8_gemv launched "
+                                 f"{launches['int8_gemv']} times, expected "
+                                 f"{want}")
+        log(f"internvl: the artifact's request ({n_prompt}-token prompt "
+            f"with a 448² image, {gen_tokens} tokens) {t_req:.3f} s; TTFT "
+            f"{ttft * 1e3:.1f} ms; decode "
+            f"{(gen_tokens - 1) / (t_req - ttft):.1f} tok/s; "
+            f"build_runner_from_artifact {t_load:.1f} s; launches "
+            + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
+            + f" ({down} int8_gemm at K = {K}; int8_gemv: `down` at K = "
+            f"{K} and the head at N = {cfg.llm.vocab}); card {card}")
+        (emb,), (pos,) = runner_inputs(runner, [single])
+        if pos is not None:
+            raise AssertionError("internvl: M-RoPE positions on a 1-D "
+                                 "RoPE family")
+        against_plain("internvl", gen, lambda: gen.prefill(emb[None]),
+                      exact=True)
+        gen.ensure_capacity(n_prompt + GEN_TOKENS)
+        g = torch.Generator(device=dev).manual_seed(seed + 19)
+        step_ms = graph_decode("internvl", gen, emb[None],
+                               {"g": g, "dev": dev}, card)
+        burst = internvl_burst(runner, card, seed, dev)
+    log(f"internvl: graph step {step_ms:.3f} ms; card {card}")
+    del gen, runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    internvl_cli(card, art, dev)
+    return [launches, burst]
+
+
+def internvl_cli(card: str, root: str, dev: str) -> None:
+    """``python -m mquant_tpu_torch.quant_vlm --model InternVL2-8B --tiny``
+    on ``dev`` with the headline flags and visual GPTQ (patch embed, ViT,
+    mlp1), an artifact under ``root``: exit 0, no RTN fallback, 14 + 15
+    GPTQ sites."""
+    out = os.path.join(root, "tiny_cli")
+    cmd = [sys.executable, "-m", "mquant_tpu_torch.quant_vlm", "--model",
+           "InternVL2-8B", "--tiny", "--device", dev, "--rotate",
+           "--online_llm_hadamard", "--llm_split", "--act_order",
+           "--visual_w_gptq", "--calib_num", "32", "--nsamples", "8",
+           "--realize_int", "--artifact", out]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    dt = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"quant_vlm --model InternVL2-8B: exit "
+                             f"{res.returncode}: {res.stderr[-3000:]}")
+    summary = json.loads(res.stdout.strip().splitlines()[-1])
+    if (summary["gptq_fallbacks"] or summary["visual_gptq_fallbacks"]
+            or summary["gptq_sites"] != 14
+            or summary["visual_gptq_sites"] != 15):
+        raise AssertionError(f"quant_vlm --model InternVL2-8B: {summary}")
+    log(f"quant_vlm CLI on {summary['device']}: --model InternVL2-8B --tiny "
+        f"{' '.join(cmd[8:-2])}: exit 0 in {dt:.1f} s (the process's start "
+        f"included), GPTQ {summary['gptq_sites']} + visual "
+        f"{summary['visual_gptq_sites']} sites, no RTN fallback; card {card}")
+
+
+def internvl_burst(runner, card: str, seed: int, dev: str) -> dict:
+    """The ServingEngine over the runner's decoder: the IVL_BURST id
+    prompts at once (IVL_BURST_TOKENS greedy tokens each), counted, then
+    each prompt alone on the same engine; tokens equal. Returns the
+    burst's launch counts."""
+    import numpy as np
+    import torch
+
+    from mquant_tpu_torch.serve.generate import bucket_len
+
+    rng = np.random.default_rng(seed + 23)
+    vocab = runner.cfg.llm.vocab
+    prompts = [rng.integers(1, vocab, n) for n in IVL_BURST]
+    eng = runner.new_engine(len(prompts), bucket_len(
+        bucket_len(max(IVL_BURST), 16) + IVL_BURST_TOKENS))
+    # warm: the admissions' and the block's graphs are made outside the
+    # counted burst
+    eng.warmup(prompt_lens=IVL_BURST)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    rids = [eng.submit(p, max_new_tokens=IVL_BURST_TOKENS) for p in prompts]
+    outs = eng.run()
+    torch.cuda.synchronize()
+    t_burst = time.perf_counter() - t0
+    launches = read_launches("internvl engine", IVL_KERNELS)
+    toks = [list(outs[r]) for r in rids]
+    for r in rids:
+        eng.release(r)
+    for i, (p, t) in enumerate(zip(prompts, toks)):
+        check_tokens(f"internvl engine request {i}", [t], IVL_BURST_TOKENS,
+                     vocab)
+        rid = eng.submit(p, max_new_tokens=IVL_BURST_TOKENS)
+        alone = list(eng.run()[rid])
+        eng.release(rid)
+        if alone != t:
+            d = next(j for j, (a, b) in enumerate(zip(alone, t)) if a != b)
+            raise AssertionError(f"internvl engine: request {i} "
+                                 f"({len(p)} ids) differs from itself alone "
+                                 f"at token {d}")
+    n_tok = len(prompts) * IVL_BURST_TOKENS
+    log(f"internvl engine: {len(prompts)} id prompts of {IVL_BURST} ids, "
+        f"{IVL_BURST_TOKENS} greedy tokens each, in {t_burst:.3f} s "
+        f"({n_tok / t_burst:.1f} tok/s, admissions included); each equal to "
+        f"itself sent alone; launches "
+        + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
+        + f"; card {card}")
+    return launches
 
 
 EVAL_TOKENS = 16  # new tokens per eval row
@@ -4866,7 +5201,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     counts += run_pipeline_phase(card, args.seed)
     log(f"pipeline phase: {time.perf_counter() - t0:.1f} s; card {card}")
-    # the offline pipeline from an HF checkpoint at depth 28, with the
+    # InternVL2-8B at its published widths: quantized, then served
+    t0 = time.perf_counter()
+    counts += run_internvl_phase(card, args.seed)
+    log(f"internvl phase: {time.perf_counter() - t0:.1f} s; card {card}")
+    # the offline pipeline from an HF checkpoint at CKPT_DEPTH, with the
     # evaluation phase on its runner
     t0 = time.perf_counter()
     counts += run_checkpoint_phase(card, args.seed)

@@ -1,12 +1,15 @@
 """Model → eval adapter (counterpart of ``mquant_tpu/evaluation/adapter.py``):
-a (quantized) Qwen2-VL and a tokenizer behind ``generate(prompt)`` → text.
+a (quantized) Qwen2-VL or InternVL2 and a tokenizer behind
+``generate(prompt)`` → text.
 
 A request goes through the family's chat template, the aspect-ratio bucket
-of each image, one vision pass per image (ViT → merger) spliced into the
-token embeddings at the image tokens, M-RoPE positions, and the prefill and
-greedy decode loop of ``serve.generate.Generator``, or the
-continuous-batching ``serve.engine.ServingEngine`` (``engine_request``,
-``serve_engine``, ``engine_server``). The tokenizer is injectable;
+of each image, one vision pass per image (ViT → merger, or ViT → pixel
+shuffle → mlp1) spliced into the token embeddings at the image tokens, the
+positions (Qwen2-VL's M-RoPE planes; InternVL2's 1-D arange, left to the
+decoder), and the prefill and greedy decode loop of
+``serve.generate.Generator``, or the continuous-batching
+``serve.engine.ServingEngine`` (``engine_request``, ``serve_engine``,
+``engine_server``). The tokenizer is injectable;
 :class:`ByteTokenizer` needs no assets.
 """
 
@@ -35,11 +38,12 @@ class ByteTokenizer:
 
 
 class VLMRunner:
-    """Drives a (possibly quantized) Qwen2-VL end to end. The images are
-    resized into ``bucket_spec``'s buckets (default: the 1×1, 1×2, 2×1 and
-    2×2 multiples of ``image_size``, itself 4 patches by default). The
-    Generator holds the LLM in its serving layout (W4 packed in real mode);
-    the runner keeps that copy and not the one it was given. Padding the
+    """Drives a (possibly quantized) Qwen2-VL or InternVL2 end to end. The
+    images are resized into ``bucket_spec``'s buckets (default: the 1×1,
+    1×2, 2×1 and 2×2 multiples of ``image_size``, itself 4 patches by
+    default). The Generator holds the LLM in its serving layout (W4 packed
+    in real mode); the runner keeps that copy and not the one it was
+    given. Padding the
     patch sequences to one bucket (``pad_to_max``) is not ported (ROADMAP
     A6). ``kv_quant`` (True / 8 or 4) gives the Generator, and the engine
     of :meth:`serve_engine`, an int8 / int4 KV cache."""
@@ -81,14 +85,19 @@ class VLMRunner:
 
     def _encode_image(self, image: Optional[np.ndarray]):
         """image (H, W, 3 in [0, 1] or uint8) → (patches, extra,
-        n_img_tokens): the bucket of the closest aspect ratio."""
+        n_img_tokens): the bucket of the closest aspect ratio; ``extra``
+        holds Qwen2-VL's ``grid_hw`` and M-RoPE grid, or InternVL2's patch
+        ``grid`` (gh, gw)."""
         if image is None:
             return None, {}, 0
         from ..models.buckets import prepare_image
-        from ..models.vision import patchify_qwen2vl
+        from ..models.vision import patchify_2d, patchify_qwen2vl
 
         img, (gh, gw), _ = prepare_image(np.asarray(image), self.buckets)
         img = torch.from_numpy(img)[None].to(self.device)
+        if self.fam.name == "internvl":
+            patches, _ = patchify_2d(img, self.cfg.patch)
+            return patches, {"grid": (gh, gw)}, (gh // 2) * (gw // 2)
         patches, grid = patchify_qwen2vl(img, patch=self.cfg.patch)
         return patches, {"grid_hw": grid, "mrope_grid": (1, gh, gw)}, \
             gh * gw // 4
@@ -126,7 +135,8 @@ class VLMRunner:
 
     def _embeds(self, toks, encoded):
         """(spliced embeddings (1, T, hidden), M-RoPE positions (3, 1, T)
-        as numpy from the images' grids)."""
+        as numpy from the images' grids, or None for a family with 1-D
+        positions)."""
         from ..models.qwen2vl import mrope_positions
 
         grids = [g for g in (e.pop("mrope_grid", None) for _, e, _ in encoded)
@@ -134,6 +144,8 @@ class VLMRunner:
         emb = _embed_with_quant(self.fam, self.cfg, self.params,
                                 {"tokens": toks, "images": encoded},
                                 self.specs, self.state, self.mode)
+        if self.fam.name != "qwen2vl":
+            return emb, None
         pos = mrope_positions(toks.cpu().numpy(), self.cfg.image_token_id,
                               grid_thw=grids or None)
         return emb, pos
@@ -145,7 +157,7 @@ class VLMRunner:
         """Several prompts (other lengths, images or none) in ONE ragged
         batch: per-prompt vision passes and splice, then the left-padded
         batch decode (``Generator.generate_batch``) with each row's M-RoPE
-        positions. Returns the decoded strings."""
+        positions (none for 1-D positions). Returns the decoded strings."""
         max_new = max_new_tokens or self.max_new_tokens
         embeds, positions = [], []
         for p in prompts:
@@ -155,9 +167,9 @@ class VLMRunner:
         self.gen.ensure_capacity(max(int(e.shape[0]) for e in embeds)
                                  + max_new)
         eos = getattr(self.tok, "eos_id", -1)
-        outs = self.gen.generate_batch(embeds, max_new_tokens=max_new,
-                                       eos_id=eos if eos >= 0 else None,
-                                       positions=positions)
+        outs = self.gen.generate_batch(
+            embeds, max_new_tokens=max_new, eos_id=eos if eos >= 0 else None,
+            positions=None if positions[0] is None else positions)
         return [self.tok.decode(o) for o in outs]
 
     @torch.no_grad()
@@ -170,8 +182,8 @@ class VLMRunner:
         max_new = max_new_tokens or self.max_new_tokens
         toks, encoded = self.build_inputs(prompt)
         embeds, pos = self._embeds(toks, encoded)
-        positions = (torch.from_numpy(pos).to(self.device) if encoded
-                     else None)
+        positions = (torch.from_numpy(pos).to(self.device)
+                     if encoded and pos is not None else None)
         eos = getattr(self.tok, "eos_id", -1)
         # the cache holds the (bucket-padded) prompt and every new token
         self.gen.ensure_capacity(toks.shape[1] + max_new)
@@ -190,12 +202,13 @@ class VLMRunner:
     def engine_request(self, prompt: Dict) -> Dict:
         """One prompt → ``ServingEngine.submit`` kwargs: the spliced embeds
         (T, hidden) as a tensor on the runner's device, the M-RoPE positions
-        (3, T) and the prompt's token ids (speculation's draft history,
-        prefix matching, penalties). It runs the vision tower: callers with
+        (3, T) (None for 1-D positions) and the prompt's token ids
+        (speculation's draft history, prefix matching, penalties). It runs the vision tower: callers with
         a scheduler thread (``serve.server``) call it there."""
         toks, encoded = self.build_inputs(prompt)
         emb, pos = self._embeds(toks, encoded)
-        return {"tokens_or_embeds": emb[0], "positions": pos[:, 0],
+        return {"tokens_or_embeds": emb[0],
+                "positions": None if pos is None else pos[:, 0],
                 "draft_ids": toks.cpu().numpy().reshape(-1)}
 
     def new_engine(self, slots: int, max_len: int, **engine_kw):
@@ -277,12 +290,22 @@ def _embed_with_quant(fam, cfg, params, batch, specs, state, mode):
 
 def _image_features(fam, cfg, params, patches, extra, specs, state, mode,
                     n_img=None):
-    """One image's merged features (B, N_i, hidden), trimmed to its
-    ``n_img`` image tokens (Qwen2-VL's ViT → merger; ``get_family``
-    refuses the other families)."""
+    """One image's projected features (B, N_i, hidden), trimmed to its
+    ``n_img`` image tokens (Qwen2-VL's ViT → merger, InternVL2's ViT →
+    pixel shuffle → mlp1; ``get_family`` refuses the other families)."""
     from ..models.vision import merger_forward, vit_forward
 
     vmask = extra.get("vis_token_mask")
+    if fam.name == "internvl":
+        from ..models.internvl import image_features
+
+        if vmask is not None:
+            raise NotImplementedError("vision token masks (padded patch "
+                                      "sequences) are not ported (ROADMAP "
+                                      "A6)")
+        img, _ = image_features(cfg, params, patches, extra["grid"], specs,
+                                state, mode)
+        return img if n_img is None else img[:, :n_img]
     feats, _ = vit_forward(cfg.vit, params["vit"], patches, specs, state,
                            mode, grid_hw=extra.get("grid_hw"),
                            token_mask=vmask)
@@ -302,8 +325,8 @@ def calib_batches_from_dataset(runner: VLMRunner, dataset, n: int):
     (``VLMRunner.build_inputs``), so the calibration distribution matches
     what serving sees. A multi-image row calibrates on its first image (the
     batch carries one ``patches``). Returns pipeline batches {"tokens" (1,
-    T), "patches" (1, N, patch_dim) or None, "grid_hw"}; rows differ in T
-    and in their image's bucket."""
+    T), "patches" (1, N, patch_dim) or None, and the family's extras:
+    "grid_hw" or "grid"}; rows differ in T and in their image's bucket."""
     out = []
     for i in range(min(n, len(dataset))):
         prompt = dataset.build_prompt(i)

@@ -341,7 +341,10 @@ def make_vit_stage_fn(cfg, specs: Dict[str, SiteSpec], stage: str,
         a = L.attention(q, k, v).reshape(B, T, H * hd)
         if stage == "o":
             return a
-        h2 = h + qlinear(a, bp["o"], f"{prefix}.o", site("o"), None, "fake")
+        a = qlinear(a, bp["o"], f"{prefix}.o", site("o"), None, "fake")
+        if cfg.layerscale and "ls1" in bp:
+            a = a * bp["ls1"]["w"].to(a.dtype)
+        h2 = h + a
         x2 = _norm(cfg, h2, bp["ln2"])
         if stage == "fc1":
             return x2
@@ -352,8 +355,10 @@ def make_vit_stage_fn(cfg, specs: Dict[str, SiteSpec], stage: str,
             if fspec is not None and fspec.online_had is not None:
                 y = L._online_hadamard(y, fspec)
             return y
-        return h2 + qlinear(y, bp["fc2"], f"{prefix}.fc2", fspec, None,
-                            "fake")
+        y = qlinear(y, bp["fc2"], f"{prefix}.fc2", fspec, None, "fake")
+        if cfg.layerscale and "ls2" in bp:
+            y = y * bp["ls2"]["w"].to(y.dtype)
+        return h2 + y
 
     return f
 

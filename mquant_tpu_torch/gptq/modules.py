@@ -1,5 +1,5 @@
-"""GPTQ for the Qwen2-VL merger and the patch embed (counterpart of
-``mquant_tpu/gptq/modules.py``).
+"""GPTQ for the cross-modal modules (the Qwen2-VL merger, InternVL2's
+mlp1) and the patch embed (counterpart of ``mquant_tpu/gptq/modules.py``).
 
 A module's inputs are captured by its own forward: a "capture spec" (weight
 bits off, activation bits set and static, no finalized state) makes every
@@ -8,8 +8,8 @@ bits off, activation bits set and static, no finalized state) makes every
 Stages run in dependency order, each capture re-running the forward with
 the stages before it already quantized. The patch embed is a linear over
 flattened patch pixels, so its Hessian is over the raw patches. The
-resampler, InternVL ``mlp1`` and GLM-4V GLU projectors need the other
-families' forwards (ROADMAP A12).
+resampler and GLM-4V GLU projectors need the other families' forwards
+(ROADMAP A12b, A12c).
 """
 
 from __future__ import annotations
@@ -120,6 +120,26 @@ def gptq_quantize_merger(cfg, params: Dict, feat_batches: List[torch.Tensor],
     paths = {"merger.mlp0": ("merger", "mlp0"),
              "merger.mlp2": ("merger", "mlp2")}
     return gptq_quantize_module(params, cap, feat_batches, stages, paths,
+                                specs, gcfg, report)
+
+
+def gptq_quantize_mlp1(cfg, params: Dict,
+                       shuffled_batches: List[torch.Tensor],
+                       specs: Dict[str, SiteSpec], gcfg=GPTQConfig(),
+                       report=None) -> tuple:
+    """InternVL's mlp1, [fc1] → [fc2], on the quantized tower's
+    pixel-shuffled features."""
+    from ..models.projectors import mlp1_forward
+
+    def cap(p, cspecs, x):
+        _, st = mlp1_forward(cfg.mlp1, p["proj"], x, specs=cspecs,
+                             mode="calib", collect_stats=True,
+                             collect_samples=True)
+        return _samples_from(st)
+
+    stages = [["proj.fc1"], ["proj.fc2"]]
+    paths = {"proj.fc1": ("proj", "fc1"), "proj.fc2": ("proj", "fc2")}
+    return gptq_quantize_module(params, cap, shuffled_batches, stages, paths,
                                 specs, gcfg, report)
 
 

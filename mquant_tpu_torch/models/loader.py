@@ -1,4 +1,4 @@
-"""HF checkpoint loading for Qwen2-VL (counterpart of
+"""HF checkpoint loading for Qwen2-VL and InternVL2 (counterpart of
 ``mquant_tpu/models/loader.py``): safetensors (sharded with an index, or
 one file) or ``pytorch_model.bin`` → the port's stacked parameter tree,
 with the JAX loader's weight surgery at load time.
@@ -10,13 +10,19 @@ two visual ones (``model.visual.``, ``visual.``); the visual fused
 ``attn.qkv`` split into contiguous thirds; the conv3d patch embed (out, C,
 T, ph, pw) permuted to (ph, pw, T, C, out), the patchify order, and
 flattened; a tied head (no ``lm_head.weight``) untied as ``embed.T``.
+InternVL2 (:func:`load_internvl`): InternLM2's ``wqkv``, interleaved by GQA
+group as (KV, G + 2, hd, hidden), split into contiguous q / k / v; the
+vision ``attn.qkv`` split into thirds; the conv patch embed (out, C, ph,
+pw) permuted to :func:`~mquant_tpu_torch.models.vision.patchify_2d`'s
+(ph, pw, C) order and flattened; the cls row of the position table
+dropped; ``mlp1`` = [LayerNorm, fc1, GELU, fc2].
 
 Safetensors shards are read with the port's own reader
 (:mod:`mquant_tpu_torch.utils.safetensors`), a tensor at a time from a
 mapping of the file. Each leaf is cast to ``dtype`` as it is written into
 its stacked tensor on ``device`` (f32, the JAX loader's host dtype, when
 ``dtype`` is None), so no float32 copy of the whole model is ever made.
-The other families' loaders are not ported (ROADMAP A12).
+The other families' loaders are not ported (ROADMAP A12b, A12c).
 :func:`save_qwen2vl_hf` is the inverse: a tree in the port's layout
 written as a sharded HF checkpoint (HF names, the fused ``attn.qkv``, the
 conv3d patch embed) with the port's writer.
@@ -314,7 +320,80 @@ def save_qwen2vl_hf(cfg, params: Dict, out_dir: str,
     return written
 
 
-_UNPORTED = ("qwenvl", "internvl", "minicpmv", "glm4v")
+def load_internvl(cfg, model_dir: str, dtype=torch.float32,
+                  device="cuda") -> Dict:
+    """HF InternVL2 (InternViT + InternLM2) → params on ``device`` in
+    ``dtype``."""
+    ts = TensorStore(model_dir)
+    lcfg, vcfg = cfg.llm, cfg.vit
+    H, KV, hd, Hd = (lcfg.n_heads, lcfg.n_kv_heads, lcfg.head_dim,
+                     lcfg.hidden)
+    G = H // KV  # queries per kv group
+    leaf = lambda t: _leaf(t, dtype, device)  # noqa: E731
+
+    layers = []
+    for i in range(lcfg.n_layers):
+        b = f"language_model.model.layers.{i}."
+        w3 = ts.get(b + "attention.wqkv.weight").reshape(KV, G + 2, hd, Hd)
+        layers.append({
+            "ln1": ts.norm(b + "attention_norm"),
+            "q": {"w": w3[:, :G].reshape(H * hd, Hd).T, "b": None},
+            "k": {"w": w3[:, G].reshape(KV * hd, Hd).T, "b": None},
+            "v": {"w": w3[:, G + 1].reshape(KV * hd, Hd).T, "b": None},
+            "o": {"w": ts.get(b + "attention.wo.weight").T, "b": None},
+            "ln2": ts.norm(b + "ffn_norm"),
+            "gate": {"w": ts.get(b + "feed_forward.w1.weight").T, "b": None},
+            "up": {"w": ts.get(b + "feed_forward.w3.weight").T, "b": None},
+            "down": {"w": ts.get(b + "feed_forward.w2.weight").T, "b": None},
+        })
+    llm = {"embed": {"w": leaf(ts.get(
+               "language_model.model.tok_embeddings.weight"))},
+           "layers": _stack(layers, dtype, device),
+           "ln_f": {k: leaf(v) for k, v in ts.norm(
+               "language_model.model.norm").items()},
+           "lm_head": {"w": leaf(ts.get("language_model.output.weight").T),
+                       "b": None}}
+    del layers
+
+    vp = "vision_model."
+    blocks = []
+    for i in range(vcfg.n_layers):
+        b = f"{vp}encoder.layers.{i}."
+        qw, kw, vw = _split_cols(ts.get(b + "attn.qkv.weight"),
+                                 [vcfg.width] * 3)
+        qb, kb, vb = torch.chunk(ts.get(b + "attn.qkv.bias"), 3)
+        blocks.append({
+            "ln1": ts.norm(b + "norm1"),
+            "q": {"w": qw, "b": qb}, "k": {"w": kw, "b": kb},
+            "v": {"w": vw, "b": vb},
+            "o": ts.lin(b + "attn.proj"),
+            "ls1": {"w": ts.get(b + "ls1")},
+            "ln2": ts.norm(b + "norm2"),
+            "fc1": ts.lin(b + "mlp.fc1"),
+            "fc2": ts.lin(b + "mlp.fc2"),
+            "ls2": {"w": ts.get(b + "ls2")},
+        })
+    conv = ts.get(vp + "embeddings.patch_embedding.weight")  # (out, C, p, p)
+    w_pe = conv.permute(2, 3, 1, 0).reshape(-1, conv.shape[0])
+    vit = {"patch_embed": {
+               "w": leaf(w_pe),
+               "b": leaf(ts.get(vp + "embeddings.patch_embedding.bias"))},
+           "pos_embed": {"w": leaf(ts.get(
+               vp + "embeddings.position_embedding")[0, 1:])},
+           "blocks": _stack(blocks, dtype, device)}
+    del blocks
+
+    def lin(name):
+        return {k: leaf(v) for k, v in ts.lin(name).items()}
+
+    proj = {"ln": {k: leaf(v) for k, v in ts.norm("mlp1.0").items()},
+            "fc1": lin("mlp1.1"), "fc2": lin("mlp1.3")}
+    ts.close()
+    return {"llm": llm, "vit": vit, "proj": proj}
+
+
+LOADERS = {"qwen2vl": load_qwen2vl, "internvl": load_internvl}
+_UNPORTED = {"qwenvl": "A12c", "minicpmv": "A12c", "glm4v": "A12b"}
 
 
 def load_model(family_name: str, cfg, model_dir: str, dtype=None,
@@ -324,8 +403,9 @@ def load_model(family_name: str, cfg, model_dir: str, dtype=None,
     loader's numpy tree)."""
     if family_name in _UNPORTED:
         raise NotImplementedError(f"the {family_name} checkpoint loader is "
-                                  "not ported (ROADMAP A12)")
-    if family_name != "qwen2vl":
+                                  f"not ported (ROADMAP A12, "
+                                  f"{_UNPORTED[family_name]})")
+    if family_name not in LOADERS:
         raise KeyError(f"unknown model family {family_name!r}")
-    return load_qwen2vl(cfg, model_dir, dtype=dtype or torch.float32,
-                        device=device)
+    return LOADERS[family_name](cfg, model_dir, dtype=dtype or torch.float32,
+                                device=device)

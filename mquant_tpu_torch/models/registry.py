@@ -1,6 +1,6 @@
 """Model registry (counterpart of ``mquant_tpu/models/registry.py``): the
-Qwen2-VL family. The JAX package's other families (Qwen-VL, InternVL2,
-MiniCPM-V, GLM-4V) are not ported yet (ROADMAP A12) and raise."""
+Qwen2-VL and InternVL2 families. The JAX package's other families (GLM-4V:
+ROADMAP A12b; Qwen-VL and MiniCPM-V: A12c) are not ported yet and raise."""
 
 from __future__ import annotations
 
@@ -8,40 +8,56 @@ from typing import Any, Callable, NamedTuple
 
 
 class ModelFamily(NamedTuple):
-    name: str  # picks the chat template
+    name: str  # picks the chat template and the family's branches
+    config_fn: Callable[[], Any]  # the preset a model name picks
     tiny_fn: Callable[[], Any]  # the CPU-testable miniature config
-    init_fn: Callable  # (cfg, torch.Generator, device=...) → random params
+    # (cfg, torch.Generator, device=...) → random params: drawn on the
+    # generator's device, placed on ``device`` (a CPU generator gives the
+    # same values whichever device they end on)
+    init_fn: Callable
+    # (cfg, params, tokens, patches, **batch extras, specs=, state=, mode=,
+    #  positions=, cache=, collect_stats=, collect_samples=)
+    #  → (logits, cache, stats)
+    forward_fn: Callable
+    subsystems: tuple  # site prefixes, the LLM's last
 
 
-_UNPORTED = (("qwenvl", "qwenvl"), ("qwen-vl", "qwenvl"),
-             ("internvl", "internvl"), ("minicpm", "minicpmv"),
-             ("glm", "glm4v"))
-
-
-def _to(tree, device):
-    if isinstance(tree, dict):
-        return {k: _to(v, device) for k, v in tree.items()}
-    return tree if tree is None else tree.to(device)
-
-
-def _init_qwen2vl(cfg, gen, device="cuda"):
-    """Random params drawn from ``gen`` on its device (a CPU generator
-    gives the same values for every device), then moved to ``device``."""
-    from .qwen2vl import init_qwen2vl_params
-
-    return _to(init_qwen2vl_params(cfg, gen, device=gen.device), device)
+_UNPORTED = (("qwenvl", "qwenvl", "A12c"), ("qwen-vl", "qwenvl", "A12c"),
+             ("minicpm", "minicpmv", "A12c"), ("glm", "glm4v", "A12b"))
 
 
 def get_family(name: str) -> ModelFamily:
     """The family of a model name (the JAX function's matching: case, "-"
-    and "_" ignored)."""
+    and "_" ignored; an unnamed size takes the family's default preset)."""
     key = name.lower().replace("-", "").replace("_", "")
     if "qwen2vl" in key:
-        from .qwen2vl import Qwen2VLConfig
+        from .qwen2vl import (Qwen2VLConfig, init_qwen2vl_params,
+                              qwen2vl_forward)
 
-        return ModelFamily("qwen2vl", Qwen2VLConfig.tiny, _init_qwen2vl)
-    for pat, fam in _UNPORTED:
+        presets = {"qwen2vl2b": Qwen2VLConfig.qwen2vl_2b,
+                   "qwen2vl7b": Qwen2VLConfig.qwen2vl_7b,
+                   "qwen2vl72b": Qwen2VLConfig.qwen2vl_72b}
+        return ModelFamily("qwen2vl",
+                           presets.get(key, Qwen2VLConfig.qwen2vl_7b),
+                           Qwen2VLConfig.tiny, init_qwen2vl_params,
+                           qwen2vl_forward, ("vis", "merger", "llm"))
+    if "internvl" in key:
+        from .internvl import (InternVLConfig, init_internvl_params,
+                               internvl_forward)
+
+        return ModelFamily("internvl", InternVLConfig.internvl2_8b,
+                           InternVLConfig.tiny, init_internvl_params,
+                           internvl_forward, ("vis", "proj", "llm"))
+    for pat, fam, item in _UNPORTED:
         if pat in key:
             raise NotImplementedError(f"model family {fam} is not ported "
-                                      "(ROADMAP A12)")
+                                      f"(ROADMAP A12, {item})")
     raise ValueError(f"unknown model family {name!r}")
+
+
+def family_of(cfg) -> ModelFamily:
+    """The family of a model config, by its class."""
+    from .internvl import InternVLConfig
+
+    return get_family("internvl" if isinstance(cfg, InternVLConfig)
+                      else "qwen2vl")

@@ -1,15 +1,17 @@
 """Vision transformer tower + Qwen2-VL merger (counterpart of
-``mquant_tpu/models/vision.py``, the Qwen2-VL configuration).
+``mquant_tpu/models/vision.py``): Qwen2-VL's ViT (2-D rotary) and
+InternViT (learned position embeddings, LayerScale).
 
 Blocks are stacked (L, ...) like the decoder and walked with per-layer views.
 The patch-embed "conv" (kernel == stride) is a linear over flattened patch
-pixels (:func:`patchify_qwen2vl` + ``qlinear``, the ``vis.patch_embed``
-site). Every site runs in the modes ``qlinear`` ports: realized int8
-storage in "real" mode, float weights with fake-quantized activations in
-"fake" mode (or in "real" mode where the pipeline realized the LLM alone),
-``vis.fc2`` with its online Hadamard over the MLP width and its RMS split
-where the specs set them. Validity masks of padded patch sequences
-(``token_mask``) are not ported (ROADMAP A6).
+pixels (:func:`patchify_qwen2vl` / :func:`patchify_2d` + ``qlinear``, the
+``vis.patch_embed`` site). Every site runs in the modes ``qlinear``
+ports: realized int8 storage in "real" mode, float weights with
+fake-quantized activations in "fake" mode (or in "real" mode where the
+pipeline realized the LLM alone), ``vis.fc2`` with its online Hadamard
+over the MLP width and its RMS split where the specs set them. Validity masks of padded patch sequences
+(``token_mask``) are not ported (ROADMAP A6), nor the resampler families'
+``ln_pre`` / ``ln_post`` (ROADMAP A12c).
 """
 
 from __future__ import annotations
@@ -33,9 +35,11 @@ class ViTConfig:
     n_heads: int
     mlp_width: int
     patch_dim: int  # flattened patch pixel count (e.g. 2*14*14*3)
+    n_pos: int = 0  # learned position embeddings (0 = none)
     norm_kind: str = "ln"  # "ln" pre-fusion, "rmsn" post-fusion
     act: str = "gelu"  # gelu | quick_gelu
     rotary_2d: bool = False  # Qwen2-VL vision rotary
+    layerscale: bool = False  # InternViT ls1 / ls2 (folded away by fusion)
     norm_eps: float = 1e-6
     head_dim: int = 0
     dtype: Any = torch.bfloat16
@@ -48,11 +52,11 @@ class ViTConfig:
 def init_vit_params(cfg: ViTConfig, gen: torch.Generator, dtype=None,
                     device="cuda") -> Dict:
     """Random ViT params in the JAX package's stacked layout (its
-    ``init_vit_params`` for a config without learned positions,
-    layerscale or ln_pre / ln_post, with q/k/v biases, as Qwen2-VL's):
-    N(0, 1/fan_in) weights drawn on ``gen``'s device
+    ``init_vit_params`` for a config without ln_pre / ln_post, with q/k/v
+    biases): N(0, 1/fan_in) weights drawn on ``gen``'s device
     (``models.layers.normal_init``), zero biases, unit norms (with a zero
-    bias for LayerNorm)."""
+    bias for LayerNorm); with ``layerscale`` ls1 / ls2 of 0.1, with
+    ``n_pos`` N(0, 0.02²) position embeddings drawn after the blocks."""
     dtype = dtype or cfg.dtype
     Lx, W, M = cfg.n_layers, cfg.width, cfg.mlp_width
     hd, H = cfg.head_dim, cfg.n_heads
@@ -74,7 +78,13 @@ def init_vit_params(cfg: ViTConfig, gen: torch.Generator, dtype=None,
     blocks.update(q=site(W, H * hd), k=site(W, H * hd), v=site(W, H * hd),
                   o=site(H * hd, W), ln2=norm(), fc1=site(W, M),
                   fc2=site(M, W))
-    return {"patch_embed": patch, "blocks": blocks}
+    p = {"patch_embed": patch, "blocks": blocks}
+    if cfg.layerscale:
+        blocks["ls1"] = {"w": torch.full((Lx, W), 0.1, **kw)}
+        blocks["ls2"] = {"w": torch.full((Lx, W), 0.1, **kw)}
+    if cfg.n_pos:
+        p["pos_embed"] = {"w": L.normal_init(gen, (cfg.n_pos, W), 0.02, **kw)}
+    return p
 
 
 def _norm(cfg: ViTConfig, x, nparams):
@@ -110,11 +120,15 @@ def rot2d_tables(grid_hw: torch.Tensor, head_dim: int, theta: float = 10000.0):
 def vit_preamble(cfg: ViTConfig, params: Dict, patches: torch.Tensor,
                  specs=None, state=None, mode: str = "fp", tape=None,
                  prefix: str = "vis") -> torch.Tensor:
-    """The patch-embed linear."""
+    """The patch-embed linear, plus the first T learned position
+    embeddings where the tower has them."""
     specs = specs or {}
-    return qlinear(patches.to(cfg.dtype), params["patch_embed"],
-                   f"{prefix}.patch_embed", specs.get(f"{prefix}.patch_embed"),
-                   state, mode, tape)
+    h = qlinear(patches.to(cfg.dtype), params["patch_embed"],
+                f"{prefix}.patch_embed", specs.get(f"{prefix}.patch_embed"),
+                state, mode, tape)
+    if cfg.n_pos and "pos_embed" in params:
+        h = h + params["pos_embed"]["w"][None, :h.shape[1]].to(h.dtype)
+    return h
 
 
 def _no_token_mask(token_mask):
@@ -171,19 +185,39 @@ def vit_forward(cfg: ViTConfig, params: Dict, patches: torch.Tensor,
         if cos is not None:
             q, k = L.apply_rope(q, k, cos, sin)
         a = L.attention(q, k, v).reshape(B, T, H * hd)
-        h = h + qlinear(a, bp["o"], f"{prefix}.o", site("o"), lst, mode, tape)
+        a = qlinear(a, bp["o"], f"{prefix}.o", site("o"), lst, mode, tape)
+        if cfg.layerscale and "ls1" in bp:
+            a = a * bp["ls1"]["w"].to(a.dtype)
+        h = h + a
         x = _norm(cfg, h, bp["ln2"])
         x = qlinear(x, bp["fc1"], f"{prefix}.fc1", site("fc1"), lst, mode,
                     tape)
         x = _act(cfg, x)
-        h = h + qlinear(x, bp["fc2"], f"{prefix}.fc2", site("fc2"), lst, mode,
-                        tape)
+        x = qlinear(x, bp["fc2"], f"{prefix}.fc2", site("fc2"), lst, mode,
+                    tape)
+        if cfg.layerscale and "ls2" in bp:
+            x = x * bp["ls2"]["w"].to(x.dtype)
+        h = h + x
     if not collect_stats:
         return h, None
     stats, samples = L.stack_tapes(tapes) or ({}, {})
     stats.update(tape0.stats)
     samples.update(tape0.samples)
     return h, (stats, samples)
+
+
+def patchify_2d(images: torch.Tensor, patch: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """images (B, H, W, C) → ((B, T, patch²·C) patches in row-major grid
+    order, (B, T, 2) grid coords): a stride = kernel conv's im2col."""
+    B, H, W, C = images.shape
+    gh, gw = H // patch, W // patch
+    x = images.reshape(B, gh, patch, gw, patch, C).permute(0, 1, 3, 2, 4, 5)
+    x = x.reshape(B, gh * gw, patch * patch * C)
+    rows = torch.arange(gh, device=images.device)[:, None].expand(gh, gw)
+    cols = torch.arange(gw, device=images.device)[None, :].expand(gh, gw)
+    grid = torch.stack([rows, cols], -1).reshape(1, gh * gw, 2)
+    return x, grid.to(torch.int32).expand(B, gh * gw, 2)
 
 
 def patchify_qwen2vl(images: torch.Tensor, patch: int = 14,

@@ -1,17 +1,19 @@
-"""The offline PTQ pipeline, Qwen2-VL (counterpart of
+"""The offline PTQ pipeline, Qwen2-VL and InternVL2 (counterpart of
 ``mquant_tpu/pipeline.py``): an HF checkpoint, random or given weights →
 SmoothQuant migration → the online-Hadamard gate → fuse / rotate → the
 lm_head width gate → sensitivity-based mixed bits → weight quantization
-(LLM GPTQ or RTN, vision tower, patch embed and merger GPTQ or RTN, head
-RTN) → static activation calibration (MSQ) → integer realization →
+(LLM GPTQ or RTN, vision tower, patch embed and merger / mlp1 GPTQ or RTN,
+head RTN) → static activation calibration (MSQ) → integer realization →
 artifact (``utils.checkpoint.save_artifact``), which
 ``serve.server.build_runner_from_artifact`` serves.
 
 One structured :class:`QuantizeConfig` with the JAX package's fields.
 Everything runs on the card unless the caller passes ``device="cpu"``;
 ``run_pipeline``'s ``info`` records each stage's seconds and, on the card,
-its peak memory. The other model families raise naming ROADMAP A12
-(:func:`check_ported`, ``models.registry.get_family``).
+its peak memory. The stages take the family from the model config
+(``models.registry.family_of``) and run its forward on a batch's
+{"tokens", "patches", extras} (:func:`batch_forward`). The other model
+families raise naming ROADMAP A12 (``models.registry.get_family``).
 """
 
 from __future__ import annotations
@@ -26,17 +28,21 @@ import torch
 
 from .models.layers import SiteSpec
 from .models.llm import LLM_SITES
-from .models.registry import get_family
+from .models.registry import family_of, get_family
 from .models.vision import VIT_SITES
 
 log = logging.getLogger("mquant_tpu_torch.pipeline")
 
-# site names per subsystem prefix (the Qwen2-VL family's)
+# site names per subsystem prefix (a superset: a family's forward never
+# reaches the sites it lacks, as GLM-4V's proj sites for InternVL2)
 SUBSYSTEM_SITES = {
     "vis": VIT_SITES + ("patch_embed",),
     "merger": ("mlp0", "mlp2"),
+    "proj": ("fc1", "fc2", "conv", "linear_proj", "gate", "h_to_4h",
+             "4h_to_h"),
     "llm": LLM_SITES,
 }
+QWEN2VL_SUBSYSTEMS = ("vis", "merger", "llm")
 
 
 @dataclasses.dataclass
@@ -91,25 +97,29 @@ class QuantizeConfig:
 
 def check_ported(q: QuantizeConfig, family: str = "qwen2vl"):
     """Raise for a value of ``q`` this port does not implement: visual
-    GPTQ of the other families' projectors (the resampler, InternVL's
-    mlp1, GLM-4V's GLU) needs their forwards (ROADMAP A12)."""
+    GPTQ of the other families' projectors (the resampler, GLM-4V's GLU)
+    needs their forwards (ROADMAP A12)."""
     if q.lm_head_bits not in (0, 4, 8, "auto"):
         raise ValueError(f"lm_head_bits={q.lm_head_bits!r}: 0, 4, 8 or "
                          "'auto'")
     if q.online_had_mode not in ("full", "block", "auto"):
         raise ValueError(f"online_had_mode={q.online_had_mode!r}")
-    if family != "qwen2vl" and not q.visual_w_rtn:
+    if family not in ("qwen2vl", "internvl") and not q.visual_w_rtn:
         raise NotImplementedError(
             f"visual GPTQ of the {family} projector (gptq_quantize_resampler"
-            " / _mlp1 / _glu) is not ported (ROADMAP A12)")
+            " / _glu) is not ported (ROADMAP A12)")
 
 
-def build_specs(q: QuantizeConfig) -> Dict[str, SiteSpec]:
-    """Specs for every quant site of Qwen2-VL (MSQ: per-subsystem
-    settings), the head's where ``lm_head_bits`` is set, ``llm.down`` with
-    the online Hadamard and RMS split, ``vis.fc2`` with the visual ones."""
+def build_specs(q: QuantizeConfig,
+                subsystems: tuple = QWEN2VL_SUBSYSTEMS
+                ) -> Dict[str, SiteSpec]:
+    """Specs for every quant site of a family's ``subsystems`` (MSQ:
+    per-subsystem settings; Qwen2-VL's by default), the head's where
+    ``lm_head_bits`` is set, ``llm.down`` with the online Hadamard and RMS
+    split, ``vis.fc2`` with the visual ones."""
     specs: Dict[str, SiteSpec] = {}
-    for prefix, sites in SUBSYSTEM_SITES.items():
+    for prefix in subsystems:
+        sites = SUBSYSTEM_SITES[prefix]
         visual = prefix != "llm"
         w_bits = q.visual_w_bits if visual else q.llm_w_bits
         a_bits = q.visual_a_bits if visual else q.llm_a_bits
@@ -149,43 +159,48 @@ def build_specs(q: QuantizeConfig) -> Dict[str, SiteSpec]:
 # ---------------------------------------------------------------------------
 
 
-def config_for(model: str, tiny: bool = False):
-    """The Qwen2-VL preset a model name picks (7B unless it names 2B or
-    72B), or the tiny test configuration."""
-    from .models.qwen2vl import Qwen2VLConfig
-
-    if tiny:
-        return Qwen2VLConfig.tiny()
-    key = model.lower().replace("-", "").replace("_", "")
-    presets = {"qwen2vl2b": Qwen2VLConfig.qwen2vl_2b,
-               "qwen2vl72b": Qwen2VLConfig.qwen2vl_72b}
-    return presets.get(key, Qwen2VLConfig.qwen2vl_7b)()
-
-
 def synthetic_calib_batches(cfg, n_batches: int, gen: torch.Generator,
                             batch: int = 1, text_len: int = 32,
                             image_size: int = 16, device="cuda"
                             ) -> List[dict]:
     """Random multimodal calibration batches of the right shapes, drawn
     from ``gen``: a normal image (batch, image_size², 3) patchified, its
-    merged image tokens at positions 2.., then text_len − 2 random ids
-    below min(vocab, 1000), the rest token 11."""
-    from .models.vision import patchify_qwen2vl
+    image tokens (one per 2 × 2 patches) at positions 2.., then
+    text_len − 2 random ids below min(vocab, 1000), the rest token 11.
+    The batch's extras are the family's: Qwen2-VL's ``grid_hw``,
+    InternVL2's ``grid`` (gh, gw)."""
+    from .models.vision import patchify_2d, patchify_qwen2vl
 
+    internvl = family_of(cfg).name == "internvl"
     out = []
     for _ in range(n_batches):
         images = torch.randn((batch, image_size, image_size, 3),
                              generator=gen, device=gen.device).to(device)
-        patches, grid = patchify_qwen2vl(images, patch=cfg.patch)
-        n_img = patches.shape[1] // 4
+        if internvl:
+            patches, _ = patchify_2d(images, cfg.patch)
+            gh = gw = image_size // cfg.patch
+            n_img = (gh // 2) * (gw // 2)
+            extra = {"grid": (gh, gw)}
+        else:
+            patches, grid = patchify_qwen2vl(images, patch=cfg.patch)
+            n_img = patches.shape[1] // 4
+            extra = {"grid_hw": grid}
         toks = torch.full((batch, n_img + text_len), 11, dtype=torch.int64)
         toks[:, 2:2 + n_img] = cfg.image_token_id
         toks[:, n_img + 2:] = torch.randint(
             0, min(cfg.llm.vocab, 1000), (batch, text_len - 2),
             generator=gen, device=gen.device).cpu()
-        out.append({"tokens": toks.to(device), "patches": patches,
-                    "grid_hw": grid})
+        out.append({"tokens": toks.to(device), "patches": patches, **extra})
     return out
+
+
+def batch_forward(cfg, params: Dict, batch: dict, **kw):
+    """The family's forward on one batch {"tokens", "patches", extras}:
+    (logits, cache, stats)."""
+    extras = {k: v for k, v in batch.items() if k not in ("tokens",
+                                                          "patches")}
+    return family_of(cfg).forward_fn(cfg, params, batch["tokens"],
+                                     batch.get("patches"), **extras, **kw)
 
 
 def _bound_nsamples(batches: List[dict], nsamples: int) -> List[dict]:
@@ -213,7 +228,8 @@ def _bound_nsamples(batches: List[dict], nsamples: int) -> List[dict]:
 
 def embed_batch(cfg, params: Dict, batch: dict) -> torch.Tensor:
     """Decoder-input embeddings of one batch: the embedding, the float
-    ViT and merger, the splice."""
+    ViT and projector (the merger, or pixel shuffle + mlp1), the
+    splice."""
     from .models.qwen2vl import splice_image_embeds
     from .models.vision import merger_forward, vit_forward
 
@@ -221,10 +237,15 @@ def embed_batch(cfg, params: Dict, batch: dict) -> torch.Tensor:
     embeds = params["llm"]["embed"]["w"][toks].to(cfg.llm.dtype)
     if batch.get("patches") is None:
         return embeds
-    feats, _ = vit_forward(cfg.vit, params["vit"], batch["patches"],
-                           grid_hw=batch.get("grid_hw"))
-    merged, _ = merger_forward(cfg.merger, params["merger"], feats)
-    return splice_image_embeds(embeds, toks, merged, cfg.image_token_id)
+    if family_of(cfg).name == "internvl":
+        from .models.internvl import image_features
+
+        img, _ = image_features(cfg, params, batch["patches"], batch["grid"])
+    else:
+        feats, _ = vit_forward(cfg.vit, params["vit"], batch["patches"],
+                               grid_hw=batch.get("grid_hw"))
+        img, _ = merger_forward(cfg.merger, params["merger"], feats)
+    return splice_image_embeds(embeds, toks, img, cfg.image_token_id)
 
 
 # ---------------------------------------------------------------------------
@@ -241,11 +262,11 @@ def _set_in(tree: Dict, path, value) -> Dict:
 
 def _rtn_visual(params: Dict, specs: Dict[str, SiteSpec], q: QuantizeConfig,
                 done: set) -> Dict:
-    """Round-to-nearest for every vision tower / merger site with weight
-    bits that is not in ``done`` (the GPTQ'd sites)."""
+    """Round-to-nearest for every vision tower / projector site with
+    weight bits that is not in ``done`` (the GPTQ'd sites)."""
     from .core import quant as Q
 
-    group_of = {"vis": "vit", "merger": "merger"}
+    group_of = {"vis": "vit", "merger": "merger", "proj": "proj"}
     for name, spec in specs.items():
         prefix, site = name.split(".", 1)
         if prefix == "llm" or spec.w_bits is None or name in done:
@@ -274,9 +295,10 @@ def _gptq_visual(cfg, params: Dict, specs: Dict[str, SiteSpec],
                  q: QuantizeConfig, calib_batches: List[dict],
                  report: Dict) -> tuple:
     """Visual GPTQ, stage by stage: the patch embed on the raw patches,
-    the ViT blocks on the quantized patch embed's output, the merger on
-    the quantized tower's features. Returns (params, the GPTQ'd site
-    names); ``report`` gets "fallbacks" and "sites"."""
+    the ViT blocks on the quantized patch embed's output, the merger (or
+    mlp1, on the pixel-shuffled features) on the quantized tower's
+    features. Returns (params, the GPTQ'd site names); ``report`` gets
+    "fallbacks" and "sites"."""
     from .gptq import modules as GM
     from .gptq.driver import GPTQConfig, gptq_quantize_vit
     from .models.vision import vit_forward, vit_preamble
@@ -306,12 +328,22 @@ def _gptq_visual(cfg, params: Dict, specs: Dict[str, SiteSpec],
         report["sites"] += vrep["sites"]
         done |= {f"vis.{s}" for s in VIT_SITES}
     del feats
-    if "merger" in params:
+    group = "proj" if family_of(cfg).name == "internvl" else "merger"
+    if group in params:
         tower = [vit_forward(cfg.vit, params["vit"], b["patches"],
                              grid_hw=b.get("grid_hw"))[0] for b in batches]
-        params, report = GM.gptq_quantize_merger(cfg, params, tower, specs,
-                                                 gcfg, report)
-        done |= {"merger.mlp0", "merger.mlp2"}
+        if group == "proj":  # mlp1 on the pixel-shuffled features
+            from .models.projectors import pixel_shuffle
+
+            tower = [pixel_shuffle(t, *b["grid"])
+                     for t, b in zip(tower, batches)]
+            params, report = GM.gptq_quantize_mlp1(cfg, params, tower, specs,
+                                                   gcfg, report)
+            done |= {"proj.fc1", "proj.fc2"}
+        else:
+            params, report = GM.gptq_quantize_merger(cfg, params, tower,
+                                                     specs, gcfg, report)
+            done |= {"merger.mlp0", "merger.mlp2"}
     if report["fallbacks"]:
         log.warning(f"visual GPTQ RTN-fallbacks: {report['fallbacks']}")
     return params, done
@@ -322,7 +354,7 @@ def quantize_weights(cfg, params: Dict, specs: Dict[str, SiteSpec],
                      calib_batches: Optional[List[dict]] = None,
                      report: Optional[Dict] = None,
                      vis_report: Optional[Dict] = None) -> tuple:
-    """Weight quantization: the vision tower, patch embed and merger by
+    """Weight quantization: the vision tower, patch embed and projector by
     GPTQ (``visual_w_rtn`` off, with batches) or RTN, the LLM by GPTQ on
     the calibration batches' decoder inputs (RTN with ``llm_w_rtn`` or no
     batches), the head by per-channel RTN. Returns (params, the exact
@@ -393,13 +425,11 @@ def calibrate_activations(cfg, params: Dict, specs: Dict[str, SiteSpec],
     into a KV cache)."""
     from .calib.calibrate import calibrate, finalize_state, merge_stats
     from .models.llm import decoder_forward, init_cache
-    from .models.qwen2vl import qwen2vl_forward
 
     def fwd(batch, collect_samples=False):
-        logits, _, st = qwen2vl_forward(
-            cfg, params, batch["tokens"], batch.get("patches"),
-            grid_hw=batch.get("grid_hw"), specs=specs, mode="calib",
-            collect_stats=True, collect_samples=collect_samples)
+        logits, _, st = batch_forward(cfg, params, batch, specs=specs,
+                                      mode="calib", collect_stats=True,
+                                      collect_samples=collect_samples)
         return logits, st
 
     if not decode_steps:
@@ -449,17 +479,13 @@ def _choose_online_had_mode(cfg, params: Dict, batch: dict,
     divides by 127 and 7 as its jitted body does (times the reciprocals)."""
     from .core.quant import _over
     from .kernels.fwht import online_hadamard
-    from .models.qwen2vl import qwen2vl_forward
     from .transform.hadamard import auto_pad_size
 
     assert not torch.backends.cuda.matmul.allow_tf32, (
         "the online-Hadamard gate needs f32 products: TF32 is on")
     probe = {"llm.down": SiteSpec(a_bits=8, a_static=True)}
-    _, _, st = qwen2vl_forward(cfg, params, batch["tokens"],
-                               batch.get("patches"),
-                               grid_hw=batch.get("grid_hw"), specs=probe,
-                               mode="fake", collect_stats=True,
-                               collect_samples=True)
+    _, _, st = batch_forward(cfg, params, batch, specs=probe, mode="fake",
+                             collect_stats=True, collect_samples=True)
     x_all = st[1]["llm.down"]  # (L, N, I) raw down inputs
     x_all = x_all[:, :max_tokens].float()
     I = x_all.shape[-1]
@@ -552,11 +578,9 @@ def run_pipeline(model: str, q: QuantizeConfig,
     "smooth_alpha", "online_had_auto" ({"picked", "full", "block"}),
     "lm_head_bits" with "lm_head_ratios" ({4: ratio, 8: ratio}), and
     "autobits" (site → bits) with "autobits_sens" (site → sensitivity)."""
-    from .models.qwen2vl import init_qwen2vl_params
-
     fam = get_family(model)
     check_ported(q, fam.name)
-    cfg = cfg or config_for(model, tiny)
+    cfg = cfg or (fam.tiny_fn() if tiny else fam.config_fn())
     gen = torch.Generator().manual_seed(q.seed)
     info: Dict = {}
 
@@ -569,9 +593,9 @@ def run_pipeline(model: str, q: QuantizeConfig,
         log.info(f"loaded checkpoint from {model_dir}")
     elif params is None:
         with _stage(info, "init", device):
-            params = init_qwen2vl_params(cfg, gen, device=device)
+            params = fam.init_fn(cfg, gen, device=device)
         log.info("using random-initialized weights (no model_dir)")
-    specs = build_specs(q)
+    specs = build_specs(q, fam.subsystems)
     if calib_batches is None and calib_dataset:
         # real prompts through the serving input construction, built
         # before any transform (batch content does not depend on weights)
@@ -613,7 +637,7 @@ def run_pipeline(model: str, q: QuantizeConfig,
             log.info(f"online-Hadamard auto-select: {pick} (int8 MSE "
                      f"{errs})")
         q = dataclasses.replace(q, online_had_mode=pick)
-        specs = build_specs(q)
+        specs = build_specs(q, fam.subsystems)
 
     if q.rotate:
         from .transform.vlm_recipes import prepare_vlm

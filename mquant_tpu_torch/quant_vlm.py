@@ -1,5 +1,5 @@
-"""Quantize a Qwen2-VL model with the port's pipeline, write its artifact
-and evaluate it (counterpart of ``exam/quant_vlm.py``).
+"""Quantize a Qwen2-VL or InternVL2 model with the port's pipeline, write
+its artifact and evaluate it (counterpart of ``exam/quant_vlm.py``).
 
 On the card unless ``--device cpu``. Without checkpoints the weights are
 random, drawn from ``--seed``, and the calibration data synthetic:
@@ -12,6 +12,9 @@ headline W4A8 configuration on Qwen2-VL-7B:
       --llm_w_bits 4 --llm_a_bits 8 --visual_w_bits 8 --visual_a_bits 8 \\
       --calib_num 512 --nsamples 32 --calib_image_size 448 \\
       --realize_int --artifact out/qwen2vl7b_w4a8
+
+and on InternVL2-8B (``--model InternVL2-8B``: InternViT, pixel shuffle +
+mlp1, the InternLM2 decoder) with the same flags.
 
 ``--calib_dataset NAME_OR_TSV`` calibrates on the first ``--calib_num``
 rows of an eval dataset instead (through the serving input construction).
@@ -32,7 +35,7 @@ CLI's (``--w_asym``, ``--w_groupsize``, ``--a_asym``, ``--a_groupsize``,
 ``--a_clip_ratio``, ``--act_per_tensor``, plus ``--act_per_channel`` to turn
 it off), and ``--k_bits`` / ``--v_bits`` 8 or 4 give the evaluation's runner
 an int8 / int4 KV cache. So are the pipeline's options: ``--model_dir`` (an
-HF Qwen2-VL checkpoint: sharded or single safetensors, or
+HF Qwen2-VL or InternVL2 checkpoint: sharded or single safetensors, or
 ``pytorch_model.bin``; its tokenizer through ``transformers`` where that is
 installed, else the byte tokenizer), ``--smooth_alpha``,
 ``--online_had_mode auto``, ``--lm_head_bits auto`` with
@@ -65,7 +68,7 @@ import sys
 def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--model", default="Qwen2-VL-7B",
-                   help="Qwen2-VL-{2B,7B,72B}")
+                   help="Qwen2-VL-{2B,7B,72B} or InternVL2-8B")
     p.add_argument("--tiny", action="store_true", help="tiny config")
     p.add_argument("--model_dir", default=None,
                    help="HF checkpoint dir (omitted: random weights)")

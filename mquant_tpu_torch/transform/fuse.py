@@ -68,3 +68,10 @@ def center_linear_output(linear: dict) -> dict:
         b = _f64(linear["b"])
         new["b"] = b - b.mean()
     return new
+
+
+def center_embedding(embed_w: torch.Tensor) -> torch.Tensor:
+    """Each embedding row minus its mean: a position table added to a
+    centered stream keeps it zero-mean."""
+    e = _f64(embed_w)
+    return e - e.mean(dim=-1, keepdim=True)

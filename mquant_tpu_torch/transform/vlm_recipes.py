@@ -1,8 +1,10 @@
-"""Whole-VLM transform recipes, the Qwen2-VL branch (counterpart of
-``mquant_tpu/transform/vlm_recipes.py``): the ViT tower's LN → RMSNorm
-fusion and rotation, the merger's ln_q fold and its block-diagonal input
-rotation, and :func:`prepare_vlm`, which runs them with the decoder's
-recipes and rotates the LLM stream into the merger's ``mlp2``.
+"""Whole-VLM transform recipes, the Qwen2-VL and InternVL2 branches
+(counterpart of ``mquant_tpu/transform/vlm_recipes.py``): the ViT tower's
+LayerScale fold, LN → RMSNorm fusion and rotation, the merger's ln_q fold
+and mlp1's ln fold with their block-diagonal input rotations, and
+:func:`prepare_vlm`, which runs them with the decoder's recipes and rotates
+the LLM stream into the projector's last linear (``merger.mlp2`` /
+``proj.fc2``).
 
 LN exactness: every producer of a LayerNorm'd stream is mean-centered, so
 LN ≡ affine · RMSNorm; the affine folds into the consumers and the norm
@@ -10,13 +12,14 @@ keeps a unit weight (its bias dropped: the forwards pick LN or RMSNorm by
 the bias's presence). The ViT (a few GB in float64 at full size) is
 transformed as one stacked float64 tree, as in the JAX package; the
 decoder one layer at a time (``transform.recipes``). The other families'
-branches are not ported (ROADMAP A12).
+branches are not ported (ROADMAP A12b, A12c).
 """
 
 from __future__ import annotations
 
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from ..models.vision import MergerConfig, ViTConfig
@@ -31,12 +34,20 @@ def _drop_bias(norm: dict) -> dict:
 
 
 def fuse_vit(cfg: ViTConfig, params: Dict) -> Dict:
-    """LN → RMSNorm fusion of a residual ViT tower (exact): center the
-    stream's producers (the patch embed, o, fc2), fold ln1 into q, k, v and
-    ln2 into fc1."""
+    """LN → RMSNorm fusion of a residual ViT tower (exact): fold LayerScale
+    ls1 / ls2 into o / fc2 (left as unit weights), center the stream's
+    producers (the patch embed and its position table, o, fc2), fold ln1
+    into q, k, v and ln2 into fc1."""
     p = _to_f64(params)
     blocks = p["blocks"]
+    if "ls1" in blocks:
+        blocks["o"] = _fold_ls(blocks["o"], blocks["ls1"]["w"])
+        blocks["fc2"] = _fold_ls(blocks["fc2"], blocks["ls2"]["w"])
+        blocks["ls1"] = {"w": torch.ones_like(blocks["ls1"]["w"])}
+        blocks["ls2"] = {"w": torch.ones_like(blocks["ls2"]["w"])}
     p["patch_embed"] = F.center_linear_output(p["patch_embed"])
+    if "pos_embed" in p:
+        p["pos_embed"] = {"w": F.center_embedding(p["pos_embed"]["w"])}
     blocks["o"] = F.center_linear_output(blocks["o"])
     blocks["fc2"] = F.center_linear_output(blocks["fc2"])
     _, _, qkv = F.fold_norm_into_linears(
@@ -49,6 +60,14 @@ def fuse_vit(cfg: ViTConfig, params: Dict) -> Dict:
     blocks["fc1"] = fc1[0]
     blocks["ln2"] = _drop_bias(blocks["ln2"])
     return _cast_like(p, params)
+
+
+def _fold_ls(linear: dict, g: torch.Tensor) -> dict:
+    """A LayerScale gain g (L, out) folded into its producer's columns."""
+    new = {**linear, "w": linear["w"] * g[..., None, :]}
+    if linear.get("b") is not None:
+        new["b"] = linear["b"] * g
+    return new
 
 
 def rotate_vit(cfg: ViTConfig, params: Dict,
@@ -68,6 +87,13 @@ def rotate_vit(cfg: ViTConfig, params: Dict,
         Q = H.get_orthogonal_matrix(cfg.width, mode, gen, device=dev)
     Q = Q.to(device=dev, dtype=torch.float64)
     p["patch_embed"] = R.rotate_linear_output(p["patch_embed"], Q)
+    if "pos_embed" in p:
+        # on the host with numpy's einsum, the JAX recipe's own product:
+        # each centered row's component along the Hadamard's constant
+        # column is a rounding residue, which then rounds as JAX's does
+        e = p["pos_embed"]["w"]
+        p["pos_embed"] = {"w": torch.from_numpy(np.einsum(
+            "vh,hj->vj", e.cpu().numpy(), Q.cpu().numpy())).to(e.device)}
     for s in ("q", "k", "v", "fc1"):
         blocks[s] = R.rotate_linear_input(blocks[s], Q)
     for s in ("o", "fc2"):
@@ -104,7 +130,8 @@ def split_vit_fc2(params: Dict) -> Dict:
 def rotate_consumer_blockdiag(linear: dict, Q: torch.Tensor,
                               repeats: int) -> dict:
     """Input-rotate a consumer whose input is ``repeats`` concatenated
-    stream vectors (the merger's mlp0): fold kron(I_repeats, Qᵀ)."""
+    stream vectors (the merger's mlp0, mlp1's fc1): fold kron(I_repeats,
+    Qᵀ)."""
     w = linear["w"].to(torch.float64)
     *lead, fin, fout = w.shape
     n = Q.shape[0]
@@ -127,6 +154,24 @@ def fuse_merger(cfg: MergerConfig, params: Dict) -> Dict:
     return _cast_like(p, params)
 
 
+def fuse_mlp1(params: Dict) -> Dict:
+    """Fold mlp1's LayerNorm into fc1 as one norm over the whole
+    concatenated input (its span: the downsample² pixel-shuffled stream
+    vectors together). Exact only where that input is zero-mean, which
+    centering each stream vector does not make it: approximate, as the JAX
+    package's recipe."""
+    p = _to_f64(params)
+    _, _, fc1 = F.fold_norm_into_linears(p["ln"]["w"], p["ln"].get("b"),
+                                         [p["fc1"]])
+    p["fc1"] = fc1[0]
+    p["ln"] = _drop_bias(p["ln"])
+    return _cast_like(p, params)
+
+
+# the projector site that writes the LLM stream, per family
+_PRODUCER = {"qwen2vl": ("merger", "mlp2"), "internvl": ("proj", "fc2")}
+
+
 def prepare_vlm(family_name: str, cfg, params: Dict,
                 gen: Optional[torch.Generator] = None, rotate: bool = True,
                 rotate_visual: bool = True, rotate_llm: bool = True,
@@ -135,16 +180,17 @@ def prepare_vlm(family_name: str, cfg, params: Dict,
                 online_had_visual: bool = False, split_visual: bool = False,
                 rotations: Optional[Dict[str, torch.Tensor]] = None
                 ) -> tuple:
-    """The offline equivalent transforms of a Qwen2-VL model: fuse (LN →
-    RMSNorm everywhere) → rotate the vision stream (Q_v, into the merger's
-    mlp0 block-diagonally) and the LLM stream (Q_l, with the per-head OV
-    rotation, the online Hadamard fold into ``down`` and ``mlp2``'s output)
-    → the RMS split. The rotations are drawn from ``gen`` (Q_v first)
+    """The offline equivalent transforms of a Qwen2-VL or InternVL2 model:
+    fuse (LN → RMSNorm everywhere, LayerScale folded) → rotate the vision
+    stream (Q_v, into the merger's mlp0 / mlp1's fc1 block-diagonally) and
+    the LLM stream (Q_l, with the per-head OV rotation, the online Hadamard
+    fold into ``down`` and the projector's last linear's output) → the RMS
+    split. The rotations are drawn from ``gen`` (Q_v first)
     unless ``rotations`` gives them as {"vit": Q_v, "llm": Q_l}. Returns
     (params, info)."""
     from .recipes import fuse_decoder, rotate_decoder, split_decoder_down
 
-    if family_name != "qwen2vl":
+    if family_name not in _PRODUCER:
         raise NotImplementedError(f"{family_name}'s recipe branch is not "
                                   "ported (ROADMAP A12)")
     rotations = rotations or {}
@@ -152,7 +198,10 @@ def prepare_vlm(family_name: str, cfg, params: Dict,
     info: Dict = {"family": family_name}
     p["llm"] = fuse_decoder(cfg.llm, p["llm"])
     p["vit"] = fuse_vit(cfg.vit, p["vit"])
-    p["merger"] = fuse_merger(cfg.merger, p["merger"])
+    if family_name == "qwen2vl":
+        p["merger"] = fuse_merger(cfg.merger, p["merger"])
+    else:
+        p["proj"] = fuse_mlp1(p["proj"])
     if not rotate:
         return p, info
 
@@ -167,10 +216,11 @@ def prepare_vlm(family_name: str, cfg, params: Dict,
         if split_visual:
             p["vit"] = split_vit_fc2(p["vit"])
             info["vis_split"] = True
-        mlp0 = rotate_consumer_blockdiag(p["merger"]["mlp0"], Q_v,
-                                         cfg.merger.merge ** 2)
-        p["merger"] = {**p["merger"], "mlp0": _cast_like(
-            mlp0, params["merger"]["mlp0"])}
+        grp, site, repeats = (("merger", "mlp0", cfg.merger.merge ** 2)
+                              if family_name == "qwen2vl"
+                              else ("proj", "fc1", cfg.mlp1.downsample ** 2))
+        lin = rotate_consumer_blockdiag(p[grp][site], Q_v, repeats)
+        p[grp] = {**p[grp], site: _cast_like(lin, params[grp][site])}
 
     if not rotate_llm:
         return p, info
@@ -181,10 +231,10 @@ def prepare_vlm(family_name: str, cfg, params: Dict,
     p["llm"], info["llm"] = rotate_decoder(
         cfg.llm, p["llm"], mode=mode, online_had_down=online_had_down,
         online_had_mode=online_had_mode, Q=Q_l)
-    mlp2 = R.rotate_linear_output(_to_f64(p["merger"]["mlp2"]),
-                                  Q_l.to(p["merger"]["mlp2"]["w"].device))
-    p["merger"] = {**p["merger"], "mlp2": _cast_like(
-        mlp2, params["merger"]["mlp2"])}
+    grp, site = _PRODUCER[family_name]
+    lin = R.rotate_linear_output(_to_f64(p[grp][site]),
+                                 Q_l.to(p[grp][site]["w"].device))
+    p[grp] = {**p[grp], site: _cast_like(lin, params[grp][site])}
     if split_down:
         p["llm"] = split_decoder_down(p["llm"])
         info["split"] = True

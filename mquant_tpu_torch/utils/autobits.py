@@ -98,15 +98,12 @@ def _rtn(bits: int):
 
 
 def _fake_forward(cfg, batch: dict, specs: Dict):
-    from ..models.qwen2vl import qwen2vl_forward
+    from ..pipeline import batch_forward
 
     tspecs = transform_only_specs(specs)
 
     def run(p):
-        out, _, _ = qwen2vl_forward(cfg, p, batch["tokens"],
-                                    batch.get("patches"),
-                                    grid_hw=batch.get("grid_hw"),
-                                    specs=tspecs, mode="fake")
+        out, _, _ = batch_forward(cfg, p, batch, specs=tspecs, mode="fake")
         return out
 
     return run

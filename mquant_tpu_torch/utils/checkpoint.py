@@ -125,25 +125,27 @@ def load_artifact(path: str, dtype: Optional[torch.dtype] = None,
 # Fields of the JAX package's configs that the port's dataclasses lack: the
 # one value the port implements, and the ROADMAP item that ports the rest
 _UNPORTED = {
-    "DecoderConfig": {"rope_interleaved": (False, "A12")},
-    "ViTConfig": {"n_pos": (0, "A12"), "layerscale": (False, "A12"),
-                  "qkv_bias": (True, "A12"), "pre_norm": (False, "A12"),
-                  "post_norm": (False, "A12")},
+    "DecoderConfig": {"rope_interleaved": (False, "A12b")},
+    "ViTConfig": {"qkv_bias": (True, "A12"), "pre_norm": (False, "A12c"),
+                  "post_norm": (False, "A12c")},
 }
 # fields the port's dataclasses have, with the values the port implements
-_PORTED_VALUES = {("ViTConfig", "act"): (("gelu", "quick_gelu"), "A12")}
+_PORTED_VALUES = {("ViTConfig", "act"): (("gelu", "quick_gelu"), "A12c")}
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
 
 
 def _config_classes() -> Dict[str, type]:
     from ..models.buckets import BucketSpec
+    from ..models.internvl import InternVLConfig
     from ..models.llm import DecoderConfig
+    from ..models.projectors import Mlp1Config
     from ..models.qwen2vl import Qwen2VLConfig
     from ..models.vision import MergerConfig, ViTConfig
 
-    return {c.__name__: c for c in (Qwen2VLConfig, DecoderConfig, ViTConfig,
-                                    MergerConfig, BucketSpec)}
+    return {c.__name__: c for c in (Qwen2VLConfig, InternVLConfig,
+                                    DecoderConfig, ViTConfig, MergerConfig,
+                                    Mlp1Config, BucketSpec)}
 
 
 def config_to_dict(cfg) -> Dict:

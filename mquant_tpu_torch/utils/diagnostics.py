@@ -69,13 +69,11 @@ def quant_error_report(cfg, params_fp: Dict, params_q: Dict, batch: dict,
                        ) -> Dict[str, float]:
     """‖y − y_fp‖ / ‖y_fp‖ of the logits with quantization on for the
     vision sites only, the LLM sites only, and all."""
-    from ..models.qwen2vl import qwen2vl_forward
+    from ..pipeline import batch_forward
 
     def run(p, sp, mode):
-        out, _, _ = qwen2vl_forward(cfg, p, batch["tokens"],
-                                    batch.get("patches"),
-                                    grid_hw=batch.get("grid_hw"), specs=sp,
-                                    state=state, mode=mode)
+        out, _, _ = batch_forward(cfg, p, batch, specs=sp, state=state,
+                                  mode=mode)
         return out
 
     ref = run(params_fp, None, "fp")

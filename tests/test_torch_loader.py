@@ -190,7 +190,7 @@ def test_vision_and_merger_match_hf(ckpts):
 
 
 def test_other_families_raise_a12(tmp_path):
-    for fam in ("qwenvl", "internvl", "minicpmv", "glm4v"):
+    for fam in ("qwenvl", "minicpmv", "glm4v"):
         with pytest.raises(NotImplementedError, match="A12"):
             TL.load_model(fam, None, str(tmp_path), device="cpu")
     with pytest.raises(FileNotFoundError):

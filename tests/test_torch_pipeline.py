@@ -212,8 +212,9 @@ def test_unported_options_raise(kw, tmp_path, monkeypatch):
     other model families (A12), and visual GPTQ of their projectors. The
     pipeline options these parameters name are ported for Qwen2-VL
     (``check_ported`` passes them; ``tests/test_torch_gates.py`` and
-    ``tests/test_torch_pipeline_options.py`` hold them against JAX), and
-    each still raises A12 for another family. ``model_dir`` is ported: a
+    ``tests/test_torch_pipeline_options.py`` hold them against JAX) and
+    InternVL2 (``tests/test_torch_internvl_pipeline.py``), and each still
+    raises A12 for another family (GLM-4V). ``model_dir`` is ported: a
     directory without a checkpoint raises FileNotFoundError naming it.
     ``calib_dataset`` is ported (A13): a dataset that is not there raises
     FileNotFoundError naming where it was looked for
@@ -233,10 +234,11 @@ def test_unported_options_raise(kw, tmp_path, monkeypatch):
     if isinstance(kw, dict):
         TP.check_ported(q)  # ported for Qwen2-VL
         if not q.visual_w_rtn:
+            TP.check_ported(q, "internvl")  # mlp1's GPTQ: ported
             with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-                TP.check_ported(q, "internvl")
+                TP.check_ported(q, "glm4v")
     with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        TP.run_pipeline("InternVL2-8B", q, tiny=True, device="cpu")
+        TP.run_pipeline("GLM-4V-9B", q, tiny=True, device="cpu")
 
 
 def test_cli_tiny_serves(tmp_path):

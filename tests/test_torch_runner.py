@@ -320,7 +320,7 @@ def test_runner_refusals(artifacts):
     for kvq in (True, 4):  # quantized KV caches: ported
         assert VLMRunner("qwen2vl", cfg, pt, kv_quant=kvq).gen.kv_quant == kvq
     with pytest.raises(NotImplementedError, match="A12"):
-        VLMRunner("internvl", cfg, pt)
+        VLMRunner("glm4v", cfg, pt)
 
 
 # ---------------------------------------------------------------------------
@@ -366,8 +366,8 @@ def test_registry_matches_jax(name):
     assert t_family(name).name == j_family(name).name == "qwen2vl"
 
 
-@pytest.mark.parametrize("name", ["Qwen-VL-Chat", "InternVL2-8B",
-                                  "MiniCPM-V-2_6", "GLM-4V-9B"])
+@pytest.mark.parametrize("name", ["Qwen-VL-Chat", "MiniCPM-V-2_6",
+                                  "GLM-4V-9B"])
 def test_registry_refuses_other_families(name):
     assert j_family(name).name
     with pytest.raises(NotImplementedError, match="A12"):

@@ -283,7 +283,7 @@ def test_prepare_vlm_invariance(vlm):
 
 def test_other_families_raise(vlm):
     with pytest.raises(NotImplementedError, match="A12"):
-        TVR.prepare_vlm("internvl", vlm["cfg_t"], vlm["pt"])
+        TVR.prepare_vlm("glm4v", vlm["cfg_t"], vlm["pt"])
 
 
 def test_random_rotations_orthogonal():
