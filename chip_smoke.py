@@ -27,9 +27,11 @@ Phases, in order (any failed check raises and the script exits non-zero):
    the TMA kernel; InternVL2-8B's products (the W4 GEMV at 1 and 8 rows,
    the split ``down`` at K = 14335 on the int8 GEMV and GEMM, the T = 1024
    prefill, the ViT's and mlp1's W8 products) and its decode attention at
-   G = 4, summed apart; the document path's 4096-row
-   products; the prefill probe's W8 products; the W4 GEMV at 1, 4, 8 and 32
-   token rows; the int8 GEMV at the engine's 8 rows of path S's `down`
+   G = 4, summed apart; GLM-4V-9B's decode attention at G = 16 (one
+   request's first and last steps and the engine's 8 rows over a 1280-row
+   cache whose columns ≥ pos are NaN), summed apart; the document path's
+   4096-row products; the prefill probe's W8 products; the W4 GEMV at 1, 4, 8
+   and 32 token rows; the int8 GEMV at the engine's 8 rows of path S's `down`
    (main path), at 32 rows, the int8 lm_head at 8 rows, the decode
    lm_heads of InternVL2-8B and MiniCPM-V-2.6 at 1 and 8 rows and K tails
    at N % 16 = 8, N odd and N % 16 = 0 with x rows off 4-byte alignment,
@@ -39,7 +41,9 @@ Phases, in order (any failed check raises and the script exits non-zero):
    pos) poisoned; the fused swiglu → Hadamard → int8 tail's codes within ±1
    with at most 1% of them differing (the fraction printed; bf16 and f32
    rows, g and u as the halves of one gate|up row, a token count that is no
-   multiple of the persistent grid); device time per
+   multiple of the persistent grid, GLM-4V-9B's padded n = 13824 with
+   K = 108, where ``had_quant`` and ``fwht_two_matmul`` are held too);
+   device time per
    call of kernel, plain version and, where one exists, the one PyTorch call
    that computes the same function (``torch._int_mm``; SDPA, over only the
    cache columns the kernel reads where start and pos are one value, masked
@@ -207,7 +211,8 @@ Phases, in order (any failed check raises and the script exits non-zero):
    the plain integer products (``against_plain``).
    Then InternVL2-8B (``run_internvl_phase``): ``run_pipeline("InternVL2-8B")``
    at the published widths (InternViT 24 layers with learned positions and
-   LayerScale, pixel shuffle + mlp1, the InternLM2 decoder at depth 32:
+   LayerScale, pixel shuffle + mlp1, the InternLM2 decoder cut to
+   IVL_DEPTH = 8 of its 32 layers since the GLM-4V phase came:
    GQA 32 / 8, intermediate 14336 = 28 · 512, vocabulary 92553), seeded
    random weights drawn on the card, the headline W4A8 flags (the full
    online Hadamard hadK₂₈ ⊗ H₅₁₂ before ``down``, RMS split, GPTQ W4 with
@@ -225,12 +230,24 @@ Phases, in order (any failed check raises and the script exits non-zero):
    tokens each), counted, each equal to itself sent alone; ``python -m
    mquant_tpu_torch.quant_vlm --model InternVL2-8B --tiny`` on the card
    with the headline flags and visual GPTQ (exit 0, no RTN fallback).
+   Then GLM-4V-9B (``run_glm4v_phase``) the same way (``family_phase``):
+   the published widths (the EVA2CLIP tower, 63 layers × 1792, neither
+   fused nor rotated; the GLU projector with boi / eoi; ChatGLM at depth
+   40, MQA 32 / 2 heads, half-width interleaved rotary, intermediate 13696
+   padded to 13824 = 108 · 128 by the full online Hadamard, vocabulary
+   151552), 13.9 B seeded random bf16 weights drawn on the card; the
+   request's decode steps must launch ``attn_decode`` at G = 16 a layer
+   (40 a step, none on the einsum), ``int8_gemv`` for ``down`` at
+   K = 13823 and the head at N = 151552; the launches a decode step
+   printed; ``quant_vlm --model GLM-4V-9B --tiny`` on the card with
+   visual GPTQ (the GLU projector's five sites included).
    Then the offline pipeline from an HF checkpoint
-   (``run_checkpoint_phase``), at depth CKPT_DEPTH = 14 (28 until the
-   InternVL phase came): seeded random bf16 weights
-   written as a sharded HF checkpoint (HF names, the fused visual qkv, the
-   conv3d patch embed, an index) by ``models.loader.save_qwen2vl_hf`` with
-   the port's safetensors writer (bytes, seconds, free disk);
+   (``run_checkpoint_phase``), at depth CKPT_DEPTH = 4 (28 until the
+   InternVL phase came, 14 until the GLM-4V phase did): seeded random
+   bf16 weights written as a sharded HF checkpoint (HF names, the fused
+   visual qkv, the conv3d patch embed, an index) by
+   ``models.loader.save_qwen2vl_hf`` with the port's safetensors writer
+   (bytes, seconds, free disk);
    ``run_pipeline(model_dir=...)`` with SmoothQuant (alpha 0.5), the
    online-Hadamard gate, the head gate, auto bits (5.0), visual GPTQ (patch
    embed, 32 blocks, merger) and the LLM's GPTQ W4 with act_order,
@@ -825,7 +842,17 @@ IVL_DECODE_SHAPES = [
     ("IVL engine 4 slots, G 4", 4, 1280, [92, 315, 528, 1015], None, False,
      True),
 ]
-IVL_HEADS, IVL_KVH = 32, 8
+# GLM-4V-9B's (32 query heads over 2 KV heads, G = 16, the kernel's
+# widest): the request's first and last steps over its 1280-row bucket and
+# the engine's 8-slot pool step, every column ≥ pos NaN
+GLM_DECODE_SHAPES = [
+    ("GLM decode pos 1024, G 16", 1, 1280, 1024, None, False, True),
+    ("GLM decode pos 1151, G 16", 1, 1280, 1151, None, False, True),
+    ("GLM engine 8 slots, G 16", 8, 1280,
+     [1127, 78, 301, 514, 1001, 300, 590, 1200], None, False, True),
+]
+# (query heads, KV heads) of the shapes a label's first word names
+ATTN_HEADS = {"IVL": (32, 8), "GLM": (32, 2)}
 # causal flash prefill (label, T, main path)
 FLASH_SHAPES = [("prefill T 1024", 1024, False),
                 ("prefill T 2048", 2048, False),
@@ -868,12 +895,11 @@ def check_attention(seed: int) -> dict:
         return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
 
     summary = {"attn_decode": new_summary(), "flash_attn_causal": new_summary()}
-    ivl_sum = new_summary()
+    apart = {k: new_summary() for k in ATTN_HEADS}  # summed apart
     scale = HD**-0.5
-    for label, B, S, pos, start, main, nan_tail in (DECODE_SHAPES
-                                                    + IVL_DECODE_SHAPES):
-        heads, kvh = ((IVL_HEADS, IVL_KVH) if label.startswith("IVL")
-                      else (HEADS, KVH))
+    for label, B, S, pos, start, main, nan_tail in (
+            DECODE_SHAPES + IVL_DECODE_SHAPES + GLM_DECODE_SHAPES):
+        heads, kvh = ATTN_HEADS.get(label.split()[0], (HEADS, KVH))
         q, kn, vn = r(B, 1, heads, HD), r(B, 1, kvh, HD), r(B, 1, kvh, HD)
         kc, vc = r(B, S, kvh, HD), r(B, S, kvh, HD)
         p = torch.as_tensor(pos, device=dev).reshape(-1).expand(B)
@@ -940,13 +966,16 @@ def check_attention(seed: int) -> dict:
         s["max_abs_err"] = max(s["max_abs_err"], err)
         if main:
             add_main(s, ms, pms, bms, by, lms)
-        elif label.startswith("IVL"):
-            add_main(ivl_sum, ms, pms, bms, by, lms)
+        elif label.split()[0] in apart:
+            add_main(apart[label.split()[0]], ms, pms, bms, by, lms)
         del q, kn, vn, kc, vc, kc_p, vc_p, caches, out, ref
-    log(f"kernel attn_decode at InternVL2-8B's {ivl_sum['shapes']} shapes "
-        f"(G = 4): {ivl_sum['ms']:.4f} ms summed, plain "
-        f"{ivl_sum['plain_ms']:.4f} ms, SDPA {ivl_sum['library_ms']:.4f} ms, "
-        f"bound {ivl_sum['bound_ms']:.4f} ms")
+    for key, model in (("IVL", "InternVL2-8B"), ("GLM", "GLM-4V-9B")):
+        a = apart[key]
+        heads, kvh = ATTN_HEADS[key]
+        log(f"kernel attn_decode at {model}'s {a['shapes']} shapes (G = "
+            f"{heads // kvh}): {a['ms']:.4f} ms summed, plain "
+            f"{a['plain_ms']:.4f} ms, SDPA {a['library_ms']:.4f} ms, bound "
+            f"{a['bound_ms']:.4f} ms")
     for label, T, main in FLASH_SHAPES:
         q, k, v = r(1, T, HEADS, HD), r(1, T, KVH, HD), r(1, T, KVH, HD)
         out = TF.flash_attention_causal(q, k, v, scale)
@@ -1023,12 +1052,16 @@ TAIL_N, TAIL_SCALE = 18944, 0.05  # Qwen2-VL-7B's intermediate = 148 · 128
 # one gate|up row): path F's 1024-token prefill, the shortest prefill that
 # takes it, a few rows, one token past a block per SM (132 blocks: one
 # takes two), the served halves, f32 rows
-TAIL_SHAPES = [("F prefill T 1024", 1024, True, False, False),
-               ("T 256", 256, False, False, False),
-               ("T 5", 5, False, False, False),
-               ("T 133", 133, False, False, False),
-               ("T 1024, gate|up halves", 1024, False, False, True),
-               ("T 1024, f32 g, u", 1024, False, True, False)]
+# (label, T, main path, f32 rows, g / u as halves of one row, n): path F's
+# prefill, edges, and GLM-4V-9B's padded intermediate 13824 = 108 · 128 (a
+# hadK no served model reaches the kernel with)
+TAIL_SHAPES = [("F prefill T 1024", 1024, True, False, False, TAIL_N),
+               ("T 256", 256, False, False, False, TAIL_N),
+               ("T 5", 5, False, False, False, TAIL_N),
+               ("T 133", 133, False, False, False, TAIL_N),
+               ("T 1024, gate|up halves", 1024, False, False, True, TAIL_N),
+               ("T 1024, f32 g, u", 1024, False, True, False, TAIL_N),
+               ("GLM T 1024, K 108", 1024, False, False, False, 13824)]
 TAIL_MAX_FRAC = 0.01  # at most 1% of the codes one step off the plain's
 
 
@@ -1056,17 +1089,16 @@ def check_tail(seed: int) -> dict:
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed + 2)
     s = torch.tensor(TAIL_SCALE, device=dev)
-    K = fwht._factors(TAIL_N)[2]
     summary = new_summary()
-    for label, T, main, f32, halves in TAIL_SHAPES:
+    for label, T, main, f32, halves, n in TAIL_SHAPES:
+        K = fwht._factors(n)[2]
         dt = torch.float32 if f32 else torch.bfloat16
         # two input copies: 155 MB at T = 1024 in bf16, beyond the 50 MB L2
         ins = []
         for _ in range(2):
-            gu = torch.randn((T, 2 * TAIL_N), generator=g, device=dev).to(dt)
-            ins.append([gu[:, :TAIL_N], gu[:, TAIL_N:]] if halves else
-                       [gu[:, :TAIL_N].contiguous(),
-                        gu[:, TAIL_N:].contiguous()])
+            gu = torch.randn((T, 2 * n), generator=g, device=dev).to(dt)
+            ins.append([gu[:, :n], gu[:, n:]] if halves else
+                       [gu[:, :n].contiguous(), gu[:, n:].contiguous()])
             del gu
         q = fwht.fused_swiglu_had_quant(*ins[0], s)
         ref = fwht.fused_swiglu_had_quant_ref(*ins[0], s)
@@ -1076,10 +1108,9 @@ def check_tail(seed: int) -> dict:
                      20)
         pms = cuda_ms(lambda i: fwht.fused_swiglu_had_quant_ref(
             *ins[i % 2], s), 4, reps=3)
-        nbytes = 2 * ins[0][0].element_size() * T * TAIL_N + T * TAIL_N
-        bms, by = bound(nbytes, 2 * T * TAIL_N * (K + TAIL_N // K),
-                        BF16_FLOPS)
-        log(f"kernel fused_swiglu_had_quant {label:22s} n={TAIL_N}: codes "
+        nbytes = 2 * ins[0][0].element_size() * T * n + T * n
+        bms, by = bound(nbytes, 2 * T * n * (K + n // K), BF16_FLOPS)
+        log(f"kernel fused_swiglu_had_quant {label:22s} n={n}: codes "
             f"within {worst}, {frac:.6f} of them differ; {ms:.4f} ms vs "
             f"plain {pms:.4f} ms, library none, bound {bms:.4f} ms ({by}); "
             f"{nbytes / ms / 1e6:.1f} GB/s")
@@ -1117,6 +1148,9 @@ PROBE_SHAPES = [
     ("fwht_two_matmul", "pow2, f32", 64, 4096, True, False),
     ("fwht_two_matmul", "K 1", 133, 128, False, False),
     ("fwht_two_matmul", "K 156, f32", 64, 19968, True, False),
+    # GLM-4V-9B's padded intermediate 13824 = 108 · 128
+    ("had_quant", "GLM K 108", 1024, 13824, False, False),
+    ("fwht_two_matmul", "GLM K 108", 1024, 13824, False, False),
 ]
 
 
@@ -4013,8 +4047,9 @@ def _pipeline_phase(card, seed, depth, dev, gen_tokens, cfg, q, art):
 
 
 CKPT_SHARD_BYTES = 5 * 2**30  # the HF checkpoint's shards (HF's 5 GB)
-CKPT_DEPTH = 14  # the checkpoint phase's LLM layers: 28 until the
-# InternVL phase took its time (the evaluation phase runs on its runner)
+CKPT_DEPTH = 4  # the checkpoint phase's LLM layers: 28 until the InternVL
+# phase took its time, 14 until the GLM-4V phase did (the evaluation phase
+# runs on its runner)
 CKPT_BATCHES = 16  # the checkpoint pipeline's calibration batches (a 448²
 # image each; 1/8 of the reference's 128, half the synthetic phase's, to
 # keep the script within its time: its stage seconds are at this size)
@@ -4500,111 +4535,197 @@ def run_golden(card: str, dev: str = "cuda") -> dict:
     return read_launches("golden", GOLDEN_KERNELS)
 
 
-IVL_BATCHES = 8  # calibration batches of a 448² image (1024 patches → 256
-# image tokens, + 32 text): 1/16 of the reference's 128, to keep the script
-# within its time; the phase's stage seconds are at this size
-IVL_IMAGE = 448
-IVL_KERNELS = SLICE_KERNELS
-IVL_BURST = (77, 300, 513, 1000)  # the engine burst's id prompts
-IVL_BURST_TOKENS = 16
+FAMILY_BATCHES = 8  # calibration batches of a 448² image (1024 patches →
+# 256 image tokens, GLM-4V's boi and eoi too, + 32 text): 1/16 of the
+# reference's 128, to keep the script within its time; the phases' stage
+# seconds are at this size
+FAMILY_IMAGE = 448
+FAMILY_KERNELS = SLICE_KERNELS
+FAMILY_BURST = (77, 300, 513, 1000)  # the engine burst's id prompts
+FAMILY_BURST_TOKENS = 16
+IVL_DEPTH = 8  # InternVL2-8B's LLM layers: 32 (uncut) until the GLM-4V
+# phase took its time
+
+
+def headline_w4a8(seed: int):
+    """The reference's headline W4A8 flags (``exam/quant_vlm.py``'s
+    docstring: rotations, full online Hadamard before ``down``, RMS split,
+    GPTQ W4 with act_order, RTN W8 vision tower and projector, static
+    per-tensor int8 activations, ``realize_int``) with an int8 lm_head, on
+    FAMILY_BATCHES calibration batches."""
+    from mquant_tpu_torch.pipeline import QuantizeConfig
+
+    return QuantizeConfig(rotate=True, online_llm_hadamard=True,
+                          online_had_mode="full", llm_split=True,
+                          llm_w_bits=4, act_order=True, visual_w_bits=8,
+                          llm_a_bits=8, visual_a_bits=8, lm_head_bits=8,
+                          calib_num=FAMILY_BATCHES * 16,
+                          nsamples=FAMILY_BATCHES, realize_int=True,
+                          seed=seed)
 
 
 def run_internvl_phase(card: str, seed: int, dev: str = "cuda",
                        gen_tokens: int = GEN_TOKENS, cfg=None) -> list:
     """Phase 4, InternVL2-8B: the port's ``run_pipeline("InternVL2-8B")``
-    at the published widths (LLM depth 32 and ViT depth 24 uncut, seeded
-    random weights drawn on the card) in the reference's headline W4A8
-    configuration (rotations, full online Hadamard hadK₂₈ ⊗ H₅₁₂ before
-    ``down``, RMS split, GPTQ W4 with act_order on IVL_BATCHES synthetic
-    batches of an IVL_IMAGE² image and 32 text tokens, RTN W8 ViT and mlp1,
-    static per-tensor int8 activations, ``realize_int``) plus an int8
-    lm_head (the head at N = 92553 on ``int8_gemv``'s word producer), into
-    a temporary artifact: stage seconds and peaks, no RTN fallback, GPTQ's
-    proxy loss no worse than round-to-nearest's, lossless realization. The
-    artifact served by ``build_runner_from_artifact``: one request (a 448²
-    image in a PREFILL-token prompt, ``gen_tokens`` greedy tokens), counted
-    (``down`` at K = 14335 on the TMA ``int8_gemm``, a call a layer), held
-    against the plain integer products (logits max |d| 0, tokens equal),
-    its graph decode loop against the eager loop; then a ServingEngine
-    burst of IVL_BURST id prompts, IVL_BURST_TOKENS tokens each, counted,
-    each greedy request equal to itself sent alone; last, ``quant_vlm
-    --model InternVL2-8B --tiny`` on the card (:func:`internvl_cli`).
-    Returns the launch
-    counts of the request and of the burst. ``cfg`` replaces the published
+    at the published widths (LLM depth IVL_DEPTH of 32 and ViT depth 24)
+    in :func:`headline_w4a8`'s configuration (the full
+    online Hadamard hadK₂₈ ⊗ H₅₁₂; the head at N = 92553 on
+    ``int8_gemv``'s word producer), served and checked by
+    :func:`family_phase`; last, ``quant_vlm --model InternVL2-8B --tiny``
+    on the card (:func:`family_cli`). Returns the launch counts of the
+    request and of the burst. ``cfg`` replaces the published
     configuration (a CPU rehearsal at small widths)."""
     import tempfile
 
     import torch
 
     from mquant_tpu_torch.models.internvl import InternVLConfig
-    from mquant_tpu_torch.pipeline import QuantizeConfig
 
-    cfg = cfg or InternVLConfig.internvl2_8b()
-    q = QuantizeConfig(rotate=True, online_llm_hadamard=True,
-                       online_had_mode="full", llm_split=True, llm_w_bits=4,
-                       act_order=True, visual_w_bits=8, llm_a_bits=8,
-                       visual_a_bits=8, lm_head_bits=8,
-                       calib_num=IVL_BATCHES * 16, nsamples=IVL_BATCHES,
-                       realize_int=True, seed=seed)
+    if cfg is None:
+        cfg = InternVLConfig.internvl2_8b()
+        cfg = dataclasses.replace(cfg, llm=dataclasses.replace(
+            cfg.llm, n_layers=IVL_DEPTH))
     gc.collect()
     torch.cuda.empty_cache()
     art = tempfile.mkdtemp(prefix="mquant_internvl_")
     try:
-        return _internvl_phase(card, seed, dev, gen_tokens, cfg, q, art)
+        counts = family_phase("internvl", "InternVL2-8B", card, seed, dev,
+                              gen_tokens, cfg, headline_w4a8(seed), art)
+        family_cli("InternVL2-8B", card, art, dev, visual_sites=15)
+        return counts
     finally:
         shutil.rmtree(art)
 
 
-def _internvl_phase(card, seed, dev, gen_tokens, cfg, q, art):
+def run_glm4v_phase(card: str, seed: int, dev: str = "cuda",
+                    gen_tokens: int = GEN_TOKENS, cfg=None) -> list:
+    """Phase 4, GLM-4V-9B: the port's ``run_pipeline("GLM-4V-9B")`` at the
+    published widths (the EVA2CLIP tower, 63 layers × 1792, neither fused
+    nor rotated; the GLU projector; ChatGLM at depth 40, MQA 32 / 2 heads,
+    half-width interleaved rotary, intermediate 13696 padded to 13824 =
+    108 · 128 by the full online Hadamard, vocabulary 151552) in
+    :func:`headline_w4a8`'s
+    configuration (``down`` split at K = 13823; the head at N = 151552),
+    served and checked by :func:`family_phase`, whose decode steps must
+    run ``attn_decode`` at G = 16, a call a layer; last, ``quant_vlm
+    --model GLM-4V-9B --tiny`` on the card. Returns the launch counts of
+    the request and of the burst. ``cfg`` replaces the published
+    configuration (a CPU rehearsal at small widths)."""
+    import tempfile
+
+    import torch
+
+    from mquant_tpu_torch.models.glm4v import GLM4VConfig
+
+    cfg = cfg or GLM4VConfig.glm4v_9b()
+    gc.collect()
+    torch.cuda.empty_cache()
+    art = tempfile.mkdtemp(prefix="mquant_glm4v_")
+    try:
+        counts = family_phase("glm4v", "GLM-4V-9B", card, seed, dev,
+                              gen_tokens, cfg, headline_w4a8(seed), art)
+        family_cli("GLM-4V-9B", card, art, dev, visual_sites=18)
+        return counts
+    finally:
+        shutil.rmtree(art)
+
+
+def _leaves_of(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves_of(v)
+    elif tree is not None:
+        yield tree
+
+
+def _draw_on_card(tag, model, cfg, seed, dev, card) -> dict:
+    """The family's seeded random bf16 params drawn on the card. Call it
+    in ``run_pipeline``'s argument list: the pipeline then holds the only
+    reference, and fuse + rotate frees the drawn tree."""
+    import torch
+
+    from mquant_tpu_torch.models.registry import get_family
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed + 29)
+    params = get_family(model).init_fn(cfg, gen, device=dev)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves_of(params))
+    log(f"{tag}: seeded random weights drawn on the card: {n} values "
+        f"({n * 2 / 1e9:.2f} GB in bf16) in {time.perf_counter() - t0:.2f} "
+        f"s; card {card}")
+    return params
+
+
+def family_phase(tag, model, card, seed, dev, gen_tokens, cfg, q, art):
+    """A model family quantized at ``cfg``'s widths by ``run_pipeline`` on
+    seeded random bf16 weights drawn on the card (:func:`_draw_on_card`),
+    into the temporary artifact ``art``: stage seconds and peaks, no RTN
+    fallback, GPTQ's proxy loss no worse than
+    round-to-nearest's, lossless realization. The artifact served by
+    ``build_runner_from_artifact``: one request (a 448² image in a
+    PREFILL-token prompt, ``gen_tokens`` greedy tokens), counted (``down``
+    at K = inter_eff − 1 on the TMA ``int8_gemm``, a call a layer;
+    ``int8_gemv`` for ``down`` and the head, and ``attn_decode``, a call a
+    layer, every decode step; the launches a decode step printed), held
+    against the plain integer products (logits max |d| 0, tokens equal),
+    its graph decode loop against the eager loop; then a ServingEngine
+    burst (:func:`family_burst`). Returns the launch counts of the request
+    and of the burst."""
     import torch
 
     from mquant_tpu_torch.pipeline import run_pipeline
     from mquant_tpu_torch.serve.server import build_runner_from_artifact
 
-    calib = (f"{IVL_BATCHES} calibration batches of a {IVL_IMAGE}² image, "
-             "1/16 of the reference's 128")
+    calib = (f"{FAMILY_BATCHES} calibration batches of a {FAMILY_IMAGE}² "
+             "image, 1/16 of the reference's 128")
     depth = cfg.llm.n_layers
     proxies, realized = [], []
     with torch.no_grad(), gptq_proxies(proxies), realize_lossless(realized):
-        _, params, _, specs, info = run_pipeline(
-            "InternVL2-8B", q, cfg=cfg, artifact_dir=art,
-            image_size=IVL_IMAGE, device=dev)
+        cfg, params, _, specs, info = run_pipeline(
+            model, q, cfg=cfg,
+            params=_draw_on_card(tag, model, cfg, seed, dev, card),
+            artifact_dir=art, image_size=FAMILY_IMAGE, device=dev)
     del params
     gc.collect()
     torch.cuda.empty_cache()
     if specs["llm.down"].online_had != "full" or not specs["llm.down"].split:
-        raise AssertionError(f"internvl: llm.down {specs['llm.down']}")
+        raise AssertionError(f"{tag}: llm.down {specs['llm.down']}")
     pad = info["llm"].down_pad
+    if pad != cfg.llm.intermediate_pad or cfg.llm.inter_eff != (
+            pad or cfg.llm.intermediate):
+        raise AssertionError(f"{tag}: down_pad {pad}, config {cfg.llm}")
     for name, st in info["stages"].items():
         peak = ("not measured" if st["peak_bytes"] is None
                 else f"{st['peak_bytes'] / 2**30:.2f} GiB")
-        log(f"internvl: stage {name}: {st['seconds']:.2f} s, peak {peak} "
+        log(f"{tag}: stage {name}: {st['seconds']:.2f} s, peak {peak} "
             f"({calib}); card {card}")
     rep = info["gptq"]
     sec = rep["seconds"]
-    log(f"internvl: GPTQ {rep['sites']} sites at depth {depth}: stage "
+    log(f"{tag}: GPTQ {rep['sites']} sites at depth {depth}: stage "
         f"replays + Hessians {sec['hessian']:.2f} s, factorizations "
         f"{sec['factor']:.2f} s, walks {sec['walk']:.2f} s ({calib}); RTN "
         f"fallbacks {len(rep['fallbacks'])}; full online Hadamard over "
-        f"{cfg.llm.intermediate} (pad {pad}); artifact "
+        f"{cfg.llm.intermediate} (padded to {cfg.llm.inter_eff}); artifact "
         f"{info['artifact_bytes']} bytes "
         f"({info['artifact_bytes'] / 2**30:.2f} GiB); card {card}")
     if rep["fallbacks"] or any(fb for *_, fb in proxies[1:]):
-        raise AssertionError(f"internvl: RTN fallbacks {rep['fallbacks']}")
+        raise AssertionError(f"{tag}: RTN fallbacks {rep['fallbacks']}")
     if rep["sites"] != 7 * depth or len(proxies) - 1 != rep["sites"]:
-        raise AssertionError(f"internvl: {rep['sites']} GPTQ sites, "
+        raise AssertionError(f"{tag}: {rep['sites']} GPTQ sites, "
                              f"{len(proxies) - 1} proxies, depth {depth}")
     worse = [(i, p) for i, p in enumerate(proxies[1:]) if p[1] > p[2]]
     if worse:
-        raise AssertionError(f"internvl: GPTQ worse than RTN at {worse}")
+        raise AssertionError(f"{tag}: GPTQ worse than RTN at {worse}")
     if sum(n for _, n in realized) != rep["sites"]:
-        raise AssertionError(f"internvl: realized {realized}, GPTQ sites "
+        raise AssertionError(f"{tag}: realized {realized}, GPTQ sites "
                              f"{rep['sites']}")
     sums = {}
     for site, pg, pr, _ in proxies[1:]:
         g, r = sums.get(site, (0.0, 0.0))
         sums[site] = (g + pg, r + pr)
-    log("internvl: GPTQ proxy loss tr(dW^T H dW) summed over layers, GPTQ "
+    log(f"{tag}: GPTQ proxy loss tr(dW^T H dW) summed over layers, GPTQ "
         "vs round-to-nearest: " + ", ".join(
             f"{s} {g:.4g} vs {r:.4g} ({g / r:.3f})"
             for s, (g, r) in sums.items()) + f"; realization lossless on "
@@ -4617,13 +4738,14 @@ def _internvl_phase(card, seed, dev, gen_tokens, cfg, q, art):
         tokenizer=id_tokenizer(), max_len=PREFILL + gen_tokens)
     torch.cuda.synchronize()
     t_load = time.perf_counter() - t0
-    if runner.fam.name != "internvl" or runner.mode != "real":
-        raise AssertionError(f"internvl: runner {runner.fam.name}, "
+    if runner.fam.name != tag or runner.mode != "real":
+        raise AssertionError(f"{tag}: runner {runner.fam.name}, "
                              f"{runner.mode}")
     gen = runner.gen
-    K = cfg.llm.intermediate - 1
+    K = cfg.llm.inter_eff - 1
     single, _ = artifact_prompts(runner, seed)
     n_prompt = runner.build_inputs(single)[0].shape[1]
+    steps = gen_tokens - 1
     with torch.no_grad():
         runner.generate(single, max_new_tokens=4)  # warm-up; not counted
         torch.cuda.synchronize()
@@ -4632,57 +4754,63 @@ def _internvl_phase(card, seed, dev, gen_tokens, cfg, q, art):
         with gemm_depths(depths):
             out, t_req, ttft = timed(lambda mark: runner.generate(
                 single, max_new_tokens=gen_tokens, on_first_token=mark))
-        launches = read_launches("internvl", IVL_KERNELS)
-        check_tokens("internvl", [out], gen_tokens, cfg.llm.vocab)
+        launches = read_launches(tag, FAMILY_KERNELS)
+        check_tokens(tag, [out], gen_tokens, cfg.llm.vocab)
         # the prefill's `down` on the TMA GEMM, a call a layer
         down = sum(1 for n, d, moved in depths
                    if n == "int8_gemm" and d == K and moved == (n,))
         if down != depth or launches["int8_gemm_ragged"]:
-            raise AssertionError(f"internvl: {down} int8_gemm calls at K = "
+            raise AssertionError(f"{tag}: {down} int8_gemm calls at K = "
                                  f"{K}, expected {depth}; int8_gemm_ragged "
                                  f"{launches['int8_gemm_ragged']}")
-        # the int8 GEMV: `down` a layer and the head a decode step, and the
-        # head of the prefill's last row
-        want = (depth + 1) * (gen_tokens - 1) + 1
-        if launches["int8_gemv"] != want:
-            raise AssertionError(f"internvl: int8_gemv launched "
-                                 f"{launches['int8_gemv']} times, expected "
-                                 f"{want}")
-        log(f"internvl: the artifact's request ({n_prompt}-token prompt "
+        # a decode step: `down` a layer and the head on the int8 GEMV (and
+        # the head of the prefill's last row), attention a layer on
+        # attn_decode (none on the einsum)
+        want = {"int8_gemv": (depth + 1) * steps + 1,
+                "attn_decode": depth * steps}
+        for k, n in want.items():
+            if launches[k] != n:
+                raise AssertionError(f"{tag}: {k} launched {launches[k]} "
+                                     f"times, expected {n}")
+        per_step = {k: launches[k] / steps for k in ("w4a8_gemv",
+                                                     "int8_gemv",
+                                                     "attn_decode")}
+        G = cfg.llm.n_heads // cfg.llm.n_kv_heads
+        log(f"{tag}: the artifact's request ({n_prompt}-token prompt "
             f"with a 448² image, {gen_tokens} tokens) {t_req:.3f} s; TTFT "
-            f"{ttft * 1e3:.1f} ms; decode "
-            f"{(gen_tokens - 1) / (t_req - ttft):.1f} tok/s; "
-            f"build_runner_from_artifact {t_load:.1f} s; launches "
+            f"{ttft * 1e3:.1f} ms; decode {steps / (t_req - ttft):.1f} "
+            f"tok/s; build_runner_from_artifact {t_load:.1f} s; launches "
             + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
-            + f" ({down} int8_gemm at K = {K}; int8_gemv: `down` at K = "
-            f"{K} and the head at N = {cfg.llm.vocab}); card {card}")
+            + f" ({down} int8_gemm at K = {K}); a decode step: "
+            + ", ".join(f"{k} {v:g}" for k, v in per_step.items())
+            + f" (int8_gemv: `down` at K = {K} and the head at N = "
+            f"{cfg.llm.vocab}; attn_decode at G = {G}); card {card}")
         (emb,), (pos,) = runner_inputs(runner, [single])
         if pos is not None:
-            raise AssertionError("internvl: M-RoPE positions on a 1-D "
-                                 "RoPE family")
-        against_plain("internvl", gen, lambda: gen.prefill(emb[None]),
-                      exact=True)
+            raise AssertionError(f"{tag}: M-RoPE positions on a 1-D RoPE "
+                                 "family")
+        against_plain(tag, gen, lambda: gen.prefill(emb[None]), exact=True)
         gen.ensure_capacity(n_prompt + GEN_TOKENS)
         g = torch.Generator(device=dev).manual_seed(seed + 19)
-        step_ms = graph_decode("internvl", gen, emb[None],
-                               {"g": g, "dev": dev}, card)
-        burst = internvl_burst(runner, card, seed, dev)
-    log(f"internvl: graph step {step_ms:.3f} ms; card {card}")
+        step_ms = graph_decode(tag, gen, emb[None], {"g": g, "dev": dev},
+                               card)
+        burst = family_burst(tag, runner, card, seed)
+    log(f"{tag}: graph step {step_ms:.3f} ms; card {card}")
     del gen, runner
     gc.collect()
     torch.cuda.empty_cache()
-    internvl_cli(card, art, dev)
     return [launches, burst]
 
 
-def internvl_cli(card: str, root: str, dev: str) -> None:
-    """``python -m mquant_tpu_torch.quant_vlm --model InternVL2-8B --tiny``
-    on ``dev`` with the headline flags and visual GPTQ (patch embed, ViT,
-    mlp1), an artifact under ``root``: exit 0, no RTN fallback, 14 + 15
-    GPTQ sites."""
+def family_cli(model: str, card: str, root: str, dev: str,
+               visual_sites: int) -> None:
+    """``python -m mquant_tpu_torch.quant_vlm --model MODEL --tiny`` on
+    ``dev`` with the headline flags and visual GPTQ (patch embed, ViT,
+    projector), an artifact under ``root``: exit 0, no RTN fallback, 14 +
+    ``visual_sites`` GPTQ sites."""
     out = os.path.join(root, "tiny_cli")
     cmd = [sys.executable, "-m", "mquant_tpu_torch.quant_vlm", "--model",
-           "InternVL2-8B", "--tiny", "--device", dev, "--rotate",
+           model, "--tiny", "--device", dev, "--rotate",
            "--online_llm_hadamard", "--llm_split", "--act_order",
            "--visual_w_gptq", "--calib_num", "32", "--nsamples", "8",
            "--realize_int", "--artifact", out]
@@ -4690,23 +4818,23 @@ def internvl_cli(card: str, root: str, dev: str) -> None:
     res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
     dt = time.perf_counter() - t0
     if res.returncode != 0:
-        raise AssertionError(f"quant_vlm --model InternVL2-8B: exit "
+        raise AssertionError(f"quant_vlm --model {model}: exit "
                              f"{res.returncode}: {res.stderr[-3000:]}")
     summary = json.loads(res.stdout.strip().splitlines()[-1])
     if (summary["gptq_fallbacks"] or summary["visual_gptq_fallbacks"]
             or summary["gptq_sites"] != 14
-            or summary["visual_gptq_sites"] != 15):
-        raise AssertionError(f"quant_vlm --model InternVL2-8B: {summary}")
-    log(f"quant_vlm CLI on {summary['device']}: --model InternVL2-8B --tiny "
+            or summary["visual_gptq_sites"] != visual_sites):
+        raise AssertionError(f"quant_vlm --model {model}: {summary}")
+    log(f"quant_vlm CLI on {summary['device']}: --model {model} --tiny "
         f"{' '.join(cmd[8:-2])}: exit 0 in {dt:.1f} s (the process's start "
         f"included), GPTQ {summary['gptq_sites']} + visual "
         f"{summary['visual_gptq_sites']} sites, no RTN fallback; card {card}")
 
 
-def internvl_burst(runner, card: str, seed: int, dev: str) -> dict:
-    """The ServingEngine over the runner's decoder: the IVL_BURST id
-    prompts at once (IVL_BURST_TOKENS greedy tokens each), counted, then
-    each prompt alone on the same engine; tokens equal. Returns the
+def family_burst(tag: str, runner, card: str, seed: int) -> dict:
+    """The ServingEngine over the runner's decoder: the FAMILY_BURST id
+    prompts at once (FAMILY_BURST_TOKENS greedy tokens each), counted,
+    then each prompt alone on the same engine; tokens equal. Returns the
     burst's launch counts."""
     import numpy as np
     import torch
@@ -4715,37 +4843,38 @@ def internvl_burst(runner, card: str, seed: int, dev: str) -> dict:
 
     rng = np.random.default_rng(seed + 23)
     vocab = runner.cfg.llm.vocab
-    prompts = [rng.integers(1, vocab, n) for n in IVL_BURST]
+    prompts = [rng.integers(1, vocab, n) for n in FAMILY_BURST]
     eng = runner.new_engine(len(prompts), bucket_len(
-        bucket_len(max(IVL_BURST), 16) + IVL_BURST_TOKENS))
+        bucket_len(max(FAMILY_BURST), 16) + FAMILY_BURST_TOKENS))
     # warm: the admissions' and the block's graphs are made outside the
     # counted burst
-    eng.warmup(prompt_lens=IVL_BURST)
+    eng.warmup(prompt_lens=FAMILY_BURST)
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
-    rids = [eng.submit(p, max_new_tokens=IVL_BURST_TOKENS) for p in prompts]
+    rids = [eng.submit(p, max_new_tokens=FAMILY_BURST_TOKENS)
+            for p in prompts]
     outs = eng.run()
     torch.cuda.synchronize()
     t_burst = time.perf_counter() - t0
-    launches = read_launches("internvl engine", IVL_KERNELS)
+    launches = read_launches(f"{tag} engine", FAMILY_KERNELS)
     toks = [list(outs[r]) for r in rids]
     for r in rids:
         eng.release(r)
     for i, (p, t) in enumerate(zip(prompts, toks)):
-        check_tokens(f"internvl engine request {i}", [t], IVL_BURST_TOKENS,
+        check_tokens(f"{tag} engine request {i}", [t], FAMILY_BURST_TOKENS,
                      vocab)
-        rid = eng.submit(p, max_new_tokens=IVL_BURST_TOKENS)
+        rid = eng.submit(p, max_new_tokens=FAMILY_BURST_TOKENS)
         alone = list(eng.run()[rid])
         eng.release(rid)
         if alone != t:
             d = next(j for j, (a, b) in enumerate(zip(alone, t)) if a != b)
-            raise AssertionError(f"internvl engine: request {i} "
+            raise AssertionError(f"{tag} engine: request {i} "
                                  f"({len(p)} ids) differs from itself alone "
                                  f"at token {d}")
-    n_tok = len(prompts) * IVL_BURST_TOKENS
-    log(f"internvl engine: {len(prompts)} id prompts of {IVL_BURST} ids, "
-        f"{IVL_BURST_TOKENS} greedy tokens each, in {t_burst:.3f} s "
+    n_tok = len(prompts) * FAMILY_BURST_TOKENS
+    log(f"{tag} engine: {len(prompts)} id prompts of {FAMILY_BURST} ids, "
+        f"{FAMILY_BURST_TOKENS} greedy tokens each, in {t_burst:.3f} s "
         f"({n_tok / t_burst:.1f} tok/s, admissions included); each equal to "
         f"itself sent alone; launches "
         + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
@@ -5205,6 +5334,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     counts += run_internvl_phase(card, args.seed)
     log(f"internvl phase: {time.perf_counter() - t0:.1f} s; card {card}")
+    # GLM-4V-9B at its published widths: quantized, then served
+    t0 = time.perf_counter()
+    counts += run_glm4v_phase(card, args.seed)
+    log(f"glm4v phase: {time.perf_counter() - t0:.1f} s; card {card}")
     # the offline pipeline from an HF checkpoint at CKPT_DEPTH, with the
     # evaluation phase on its runner
     t0 = time.perf_counter()

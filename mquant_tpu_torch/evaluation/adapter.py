@@ -1,12 +1,13 @@
 """Model → eval adapter (counterpart of ``mquant_tpu/evaluation/adapter.py``):
-a (quantized) Qwen2-VL or InternVL2 and a tokenizer behind
+a (quantized) Qwen2-VL, InternVL2 or GLM-4V and a tokenizer behind
 ``generate(prompt)`` → text.
 
 A request goes through the family's chat template, the aspect-ratio bucket
-of each image, one vision pass per image (ViT → merger, or ViT → pixel
-shuffle → mlp1) spliced into the token embeddings at the image tokens, the
-positions (Qwen2-VL's M-RoPE planes; InternVL2's 1-D arange, left to the
-decoder), and the prefill and greedy decode loop of
+of each image, one vision pass per image (ViT → merger, ViT → pixel
+shuffle → mlp1, or ViT → GLU projector with its boi / eoi rows) spliced
+into the token embeddings at the image tokens, the positions (Qwen2-VL's
+M-RoPE planes; InternVL2's and GLM-4V's 1-D arange, left to the decoder),
+and the prefill and greedy decode loop of
 ``serve.generate.Generator``, or the continuous-batching
 ``serve.engine.ServingEngine`` (``engine_request``, ``serve_engine``,
 ``engine_server``). The tokenizer is injectable;
@@ -20,7 +21,8 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from ..models.registry import ModelFamily, get_family
+from ..models.registry import (ModelFamily, get_family, grid_image_features,
+                               image_tokens)
 from ..serve.generate import Generator
 
 
@@ -38,10 +40,10 @@ class ByteTokenizer:
 
 
 class VLMRunner:
-    """Drives a (possibly quantized) Qwen2-VL or InternVL2 end to end. The
-    images are resized into ``bucket_spec``'s buckets (default: the 1×1,
-    1×2, 2×1 and 2×2 multiples of ``image_size``, itself 4 patches by
-    default). The Generator holds the LLM in its serving layout (W4 packed
+    """Drives a (possibly quantized) Qwen2-VL, InternVL2 or GLM-4V end to
+    end. The images are resized into ``bucket_spec``'s buckets (default:
+    the 1×1, 1×2, 2×1 and 2×2 multiples of ``image_size``, itself 4 patches
+    by default). The Generator holds the LLM in its serving layout (W4 packed
     in real mode); the runner keeps that copy and not the one it was
     given. Padding the
     patch sequences to one bucket (``pad_to_max``) is not ported (ROADMAP
@@ -86,8 +88,8 @@ class VLMRunner:
     def _encode_image(self, image: Optional[np.ndarray]):
         """image (H, W, 3 in [0, 1] or uint8) → (patches, extra,
         n_img_tokens): the bucket of the closest aspect ratio; ``extra``
-        holds Qwen2-VL's ``grid_hw`` and M-RoPE grid, or InternVL2's patch
-        ``grid`` (gh, gw)."""
+        holds Qwen2-VL's ``grid_hw`` and M-RoPE grid, or the patch ``grid``
+        (gh, gw) of InternVL2 and GLM-4V."""
         if image is None:
             return None, {}, 0
         from ..models.buckets import prepare_image
@@ -95,9 +97,10 @@ class VLMRunner:
 
         img, (gh, gw), _ = prepare_image(np.asarray(image), self.buckets)
         img = torch.from_numpy(img)[None].to(self.device)
-        if self.fam.name == "internvl":
+        if self.fam.name != "qwen2vl":
             patches, _ = patchify_2d(img, self.cfg.patch)
-            return patches, {"grid": (gh, gw)}, (gh // 2) * (gw // 2)
+            return patches, {"grid": (gh, gw)}, image_tokens(self.fam.name,
+                                                             gh, gw)
         patches, grid = patchify_qwen2vl(img, patch=self.cfg.patch)
         return patches, {"grid_hw": grid, "mrope_grid": (1, gh, gw)}, \
             gh * gw // 4
@@ -292,13 +295,13 @@ def _image_features(fam, cfg, params, patches, extra, specs, state, mode,
                     n_img=None):
     """One image's projected features (B, N_i, hidden), trimmed to its
     ``n_img`` image tokens (Qwen2-VL's ViT → merger, InternVL2's ViT →
-    pixel shuffle → mlp1; ``get_family`` refuses the other families)."""
+    pixel shuffle → mlp1, GLM-4V's ViT → GLU projector; ``get_family``
+    refuses the other families)."""
     from ..models.vision import merger_forward, vit_forward
 
     vmask = extra.get("vis_token_mask")
-    if fam.name == "internvl":
-        from ..models.internvl import image_features
-
+    image_features = grid_image_features(fam.name)
+    if image_features is not None:
         if vmask is not None:
             raise NotImplementedError("vision token masks (padded patch "
                                       "sequences) are not ported (ROADMAP "

@@ -30,7 +30,7 @@ import torch
 
 from ..models import layers as L
 from ..models.layers import SiteSpec, qlinear
-from ..models.llm import DecoderConfig, layer_views, rope_tables
+from ..models.llm import DecoderConfig, _apply_rope, layer_views, rope_tables
 from ..models.vision import VIT_SITES
 from . import core as C
 
@@ -62,8 +62,8 @@ def make_stage_fn(cfg: DecoderConfig, specs: Dict[str, SiteSpec],
         q = qlinear(x1, lp["q"], "llm.q", site("q"), None, "fake")
         k = qlinear(x1, lp["k"], "llm.k", site("k"), None, "fake")
         v = qlinear(x1, lp["v"], "llm.v", site("v"), None, "fake")
-        q, k = L.apply_rope(q.reshape(B, T, H, hd), k.reshape(B, T, KV, hd),
-                            cos, sin)
+        q, k = _apply_rope(cfg, q.reshape(B, T, H, hd),
+                           k.reshape(B, T, KV, hd), cos, sin)
         attn = L.attention(q, k, v.reshape(B, T, KV, hd), mask).reshape(
             B, T, H * hd)
         if stage == "o":

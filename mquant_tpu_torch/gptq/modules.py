@@ -1,5 +1,6 @@
 """GPTQ for the cross-modal modules (the Qwen2-VL merger, InternVL2's
-mlp1) and the patch embed (counterpart of ``mquant_tpu/gptq/modules.py``).
+mlp1, GLM-4V's GLU projector) and the patch embed (counterpart of
+``mquant_tpu/gptq/modules.py``).
 
 A module's inputs are captured by its own forward: a "capture spec" (weight
 bits off, activation bits set and static, no finalized state) makes every
@@ -8,8 +9,7 @@ bits off, activation bits set and static, no finalized state) makes every
 Stages run in dependency order, each capture re-running the forward with
 the stages before it already quantized. The patch embed is a linear over
 flattened patch pixels, so its Hessian is over the raw patches. The
-resampler and GLM-4V GLU projectors need the other families' forwards
-(ROADMAP A12b, A12c).
+resampler needs the Qwen-VL and MiniCPM-V forwards (ROADMAP A12c).
 """
 
 from __future__ import annotations
@@ -140,6 +140,29 @@ def gptq_quantize_mlp1(cfg, params: Dict,
     stages = [["proj.fc1"], ["proj.fc2"]]
     paths = {"proj.fc1": ("proj", "fc1"), "proj.fc2": ("proj", "fc2")}
     return gptq_quantize_module(params, cap, shuffled_batches, stages, paths,
+                                specs, gcfg, report)
+
+
+def gptq_quantize_glu(cfg, params: Dict, feat_batches: List[tuple],
+                      specs: Dict[str, SiteSpec], gcfg=GPTQConfig(),
+                      report=None) -> tuple:
+    """GLM-4V's GLU projector, [conv] → [linear_proj] → [gate, h_to_4h] →
+    [4h_to_h], on the quantized tower's features: ``feat_batches`` holds
+    (features, gh, gw) tuples."""
+    from ..models.projectors import GLU_SITES, glu_projector_forward
+
+    def cap(p, cspecs, b):
+        feats, gh, gw = b
+        _, st = glu_projector_forward(cfg.proj, p["proj"], feats, gh, gw,
+                                      specs=cspecs, mode="calib",
+                                      collect_stats=True,
+                                      collect_samples=True)
+        return _samples_from(st)
+
+    stages = [["proj.conv"], ["proj.linear_proj"],
+              ["proj.gate", "proj.h_to_4h"], ["proj.4h_to_h"]]
+    paths = {f"proj.{s}": ("proj", s) for s in GLU_SITES}
+    return gptq_quantize_module(params, cap, feat_batches, stages, paths,
                                 specs, gcfg, report)
 
 

@@ -24,7 +24,7 @@ import torch
 LAUNCHES: Dict[str, int] = {"attn_decode": 0}
 
 HEAD_DIM = 128  # the kernel's head width
-MAX_GROUP = 8  # query heads per KV head the kernel holds in registers
+MAX_GROUP = 16  # query heads per KV head: the rows of one m16 MMA tile
 _MIN_COLS = 16  # at least this many cache columns per block
 _MAX_SPLITS = 256  # the merge's shared-memory table
 # arrival counters of the kernel's last-block merge, one buffer per device
@@ -188,7 +188,7 @@ def attn_decode(q, k_new, v_new, k_cache, v_cache, pos, scale: float,
     but the caches are updated IN PLACE (row ``pos`` of each batch row) and
     the returned caches are the same tensors. Attention covers
     start ≤ col < pos of the cache and the new token; no other column is
-    read. On CUDA: bf16, hd == 128, H / KVH ≤ 8, contiguous operands."""
+    read. On CUDA: bf16, hd == 128, H / KVH ≤ 16, contiguous operands."""
     name = "attn_decode"
     B, H, hd, S, KVH = _check_shapes(q, k_new, v_new, k_cache, v_cache)
     if q.device.type == "cpu":

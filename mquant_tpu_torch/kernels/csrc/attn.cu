@@ -16,7 +16,7 @@
 //     With batch 1 and 4 KV heads there are only 4 (b, kv head) pairs for
 //     132 SMs, so the column range is split across blocks ("split-S"):
 //     grid (splits, KVH, B), one launch. The scores and P.V run on the
-//     tensor cores (mma.sync m16n8k16 bf16, f32 accumulation: the G <= 8
+//     tensor cores (mma.sync m16n8k16 bf16, f32 accumulation: the G <= 16
 //     query rows padded to 16) and the online softmax on the fragments in
 //     f32; the last block of each (b, kv head) to finish merges the
 //     splits' partials with the new-token term and writes the new row.
@@ -82,17 +82,21 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 //
 // Grid (splits, KVH, B): block `split` of (b, kv head) owns the columns
 // [lo, hi) of [start, pos), `chunk` = ceil((pos - start) / splits) each
-// (attn_decode._split_ranges is the same rule). 4 warps. The G <= 8 query
-// rows of the KV head are the A operand of mma.sync.m16n8k16 (rows g < G of
-// an m16 tile, the rest zero), held in registers. K / V tiles of 64 columns
-// x 128 dims come through a 2-stage cp.async ring into padded rows (272 B:
-// the fragment loads are free of bank conflicts); a column at or past hi is
-// zero-filled, never read. Warp w takes columns 16w .. 16w+15 of a tile:
-// S = q K^T (K rows are dim-contiguous: the col-major B operand, one 32-bit
-// load per register), the online softmax on the S fragment in the log2
-// domain (running max and sum per warp), P split into three bf16 terms
-// (hi + mid + lo carry its 24 bits) as the A fragments of P V, V's B
-// fragments by ldmatrix.trans. The 4 warps meet in
+// (attn_decode._split_ranges is the same rule). 4 warps. The G <= 16 query
+// rows of the KV head are the A operand of mma.sync.m16n8k16 (rows < G of
+// an m16 tile, the rest zero), held in registers: a thread's quad holds
+// rows g and g + 8 of the fragments (a0 / a2 and a1 / a3 of A, c0 / c1 and
+// c2 / c3 of S and O), so G > 8 (GLM-4V's 16) fills the tile's unused
+// half at the same tensor-core work, with softmax state for both rows a
+// thread (NH = 2 halves; G <= 8 compiles the one half it had). K / V
+// tiles of 64 columns x 128 dims come through a 2-stage cp.async ring into
+// padded rows (272 B: the fragment loads are free of bank conflicts); a
+// column at or past hi is zero-filled, never read. Warp w takes columns
+// 16w .. 16w+15 of a tile: S = q K^T (K rows are dim-contiguous: the
+// col-major B operand, one 32-bit load per register), the online softmax
+// on the S fragment in the log2 domain (running max and sum per warp), P
+// split into three bf16 terms (hi + mid + lo carry its 24 bits) as the A
+// fragments of P V, V's B fragments by ldmatrix.trans. The 4 warps meet in
 // shared memory and the block writes one (m, l, acc[128]) partial per query
 // row to `part`. Then it counts itself in counters[b, kv head] (after a
 // __threadfence); the block that arrives last merges the splits' partials
@@ -109,7 +113,7 @@ constexpr int DEC_TILE = 64;            // cache columns per tile, 16 a warp
 constexpr int DEC_LD = HD + 8;          // bf16 per padded smem row (272 B)
 constexpr int DEC_STAGES = 2;
 constexpr int DEC_SMEM = DEC_STAGES * 2 * DEC_TILE * DEC_LD * 2;  // 68 KB
-constexpr int MAXG = 8;                 // query rows per KV head
+constexpr int MAXG = 16;                // query rows per KV head
 constexpr int MAX_SPLITS = 256;         // the merge's weight table
 constexpr int PART = HD + 4;            // floats of a partial: m, l, -, -, acc
 constexpr float NEG_BIG = -1e30f;
@@ -188,18 +192,25 @@ __global__ void __launch_bounds__(DEC_THREADS)
   const int hi = min(p, lo + chunk);
   const int ntiles = hi > lo ? (hi - lo + DEC_TILE - 1) / DEC_TILE : 0;
 
-  // q rows as A fragments: a0 / a2 of row g (dims 16kk + 2t, + 8), rows g + 8
-  // (a1 / a3) and g >= G zero
-  uint32_t qa[HD / 16][2];
-  const __nv_bfloat16* qrow = q + ((long)b * H + kh * G + min(g, G - 1)) * HD;
+  // q rows as A fragments: half h holds row g + 8h, qa[kk][h] / [h + 2]
+  // its dims 16kk + 2t and + 8; rows >= G zero (with G <= 8 all of half 1)
+  constexpr int NH = G > 8 ? 2 : 1;
+  uint32_t qa[HD / 16][4];
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    qa[kk][0] = g < G ? *reinterpret_cast<const uint32_t*>(
-                            qrow + 16 * kk + 2 * t)
-                      : 0u;
-    qa[kk][1] = g < G ? *reinterpret_cast<const uint32_t*>(
-                            qrow + 16 * kk + 8 + 2 * t)
-                      : 0u;
+  for (int h = 0; h < 2; ++h) {
+    const int rq = g + 8 * h;
+    const bool live = h < NH && rq < G;
+    const __nv_bfloat16* qrow =
+        q + ((long)b * H + kh * G + min(rq, G - 1)) * HD;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      qa[kk][h] = live ? *reinterpret_cast<const uint32_t*>(
+                             qrow + 16 * kk + 2 * t)
+                       : 0u;
+      qa[kk][h + 2] = live ? *reinterpret_cast<const uint32_t*>(
+                                 qrow + 16 * kk + 8 + 2 * t)
+                           : 0u;
+    }
   }
 
   __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -219,7 +230,8 @@ __global__ void __launch_bounds__(DEC_THREADS)
     }
   };
 
-  float m2 = NEG_BIG, l = 0.f;  // row g: running max (log2 units), sum share
+  // rows g, g + 8: running max (log2 units), sum share
+  float m2[2] = {NEG_BIG, NEG_BIG}, l[2] = {0.f, 0.f};
   float o[HD / 8][4];
 #pragma unroll
   for (int i = 0; i < HD / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
@@ -242,7 +254,7 @@ __global__ void __launch_bounds__(DEC_THREADS)
       for (int j = 0; j < 2; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk) {
-        const uint32_t a[4] = {qa[kk][0], 0u, qa[kk][1], 0u};
+        const uint32_t a[4] = {qa[kk][0], qa[kk][1], qa[kk][2], qa[kk][3]};
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           const __nv_bfloat16* kr =
@@ -251,46 +263,43 @@ __global__ void __launch_bounds__(DEC_THREADS)
                    *reinterpret_cast<const uint32_t*>(kr + 8));
         }
       }
-      // row g's scores: s[j][e] at column col0 + 8j + 2t + e
-      float sv[2][2], mx = NEG_BIG;
+      // row g + 8h's scores: s[j][2h + e] at column col0 + 8j + 2t + e
+      uint32_t pa[3][4] = {};
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const bool live = col0 + 8 * j + 2 * t + e < hi;
-          sv[j][e] = live ? s[j][e] * c2 : NEG_BIG;
-          mx = fmaxf(mx, sv[j][e]);
-        }
-      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
-      const float mn = fmaxf(m2, mx);
-      const float alpha = exp2_approx(m2 - mn);
-      m2 = mn;
-      float pr[2][2], psum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          pr[j][e] = sv[j][e] > 0.5f * NEG_BIG ? exp2_approx(sv[j][e] - mn)
-                                               : 0.f;
-          psum += pr[j][e];
-        }
-      l = l * alpha + psum;
-#pragma unroll
-      for (int i = 0; i < HD / 8; ++i) {
-        o[i][0] *= alpha;
-        o[i][1] *= alpha;
-      }
-      // P as three bf16 terms (8 + 8 + 8 significant bits: P.V in f32
-      // precision, as the f32 probabilities of the earlier kernel), each the
-      // A fragment of one product, the smallest first
-      uint32_t pa[3][4];
-      {
-        float rem[2][2];
+      for (int h = 0; h < NH; ++h) {
+        float sv[2][2], mx = NEG_BIG;
 #pragma unroll
         for (int j = 0; j < 2; ++j)
 #pragma unroll
-          for (int e = 0; e < 2; ++e) rem[j][e] = pr[j][e];
+          for (int e = 0; e < 2; ++e) {
+            const bool live = col0 + 8 * j + 2 * t + e < hi;
+            sv[j][e] = live ? s[j][2 * h + e] * c2 : NEG_BIG;
+            mx = fmaxf(mx, sv[j][e]);
+          }
+        mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
+        const float mn = fmaxf(m2[h], mx);
+        const float alpha = exp2_approx(m2[h] - mn);
+        m2[h] = mn;
+        float pr[2][2], psum = 0.f;
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            pr[j][e] = sv[j][e] > 0.5f * NEG_BIG ? exp2_approx(sv[j][e] - mn)
+                                                 : 0.f;
+            psum += pr[j][e];
+          }
+        l[h] = l[h] * alpha + psum;
+#pragma unroll
+        for (int i = 0; i < HD / 8; ++i) {
+          o[i][2 * h] *= alpha;
+          o[i][2 * h + 1] *= alpha;
+        }
+        // P as three bf16 terms (8 + 8 + 8 significant bits: P.V in f32
+        // precision, as the f32 probabilities of the earlier kernel), each
+        // the A fragment of one product, the smallest first: row g + 8h's
+        // columns 2t in pa[k][h], 8 + 2t in pa[k][h + 2]
 #pragma unroll
         for (int k = 2; k >= 0; --k) {
           float part_[2][2];
@@ -298,13 +307,11 @@ __global__ void __launch_bounds__(DEC_THREADS)
           for (int j = 0; j < 2; ++j)
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
-              part_[j][e] = __bfloat162float(__float2bfloat16_rn(rem[j][e]));
-              rem[j][e] -= part_[j][e];
+              part_[j][e] = __bfloat162float(__float2bfloat16_rn(pr[j][e]));
+              pr[j][e] -= part_[j][e];
             }
-          pa[k][0] = pack_bf16(part_[0][0], part_[0][1]);
-          pa[k][1] = 0u;
-          pa[k][2] = pack_bf16(part_[1][0], part_[1][1]);
-          pa[k][3] = 0u;
+          pa[k][h] = pack_bf16(part_[0][0], part_[0][1]);
+          pa[k][h + 2] = pack_bf16(part_[1][0], part_[1][1]);
         }
       }
       const int mi = lane >> 3, r = lane & 7;
@@ -327,19 +334,23 @@ __global__ void __launch_bounds__(DEC_THREADS)
   cp_async_wait<0>();
   __syncthreads();
 
-  // the 4 warps meet over the drained ring: so[warp][g][d]
-  l += __shfl_xor_sync(FULL, l, 1);
-  l += __shfl_xor_sync(FULL, l, 2);
+  // the 4 warps meet over the drained ring: so[warp][row][d]
   float* so = reinterpret_cast<float*>(smem);
-  if (g < G) {
-    if (t == 0) {
-      sm_m[warp][g] = m2;
-      sm_l[warp][g] = l;
-    }
 #pragma unroll
-    for (int i = 0; i < HD / 8; ++i) {
-      so[(warp * MAXG + g) * HD + 8 * i + 2 * t] = o[i][0];
-      so[(warp * MAXG + g) * HD + 8 * i + 2 * t + 1] = o[i][1];
+  for (int h = 0; h < NH; ++h) {
+    l[h] += __shfl_xor_sync(FULL, l[h], 1);
+    l[h] += __shfl_xor_sync(FULL, l[h], 2);
+    const int rq = g + 8 * h;
+    if (rq < G) {
+      if (t == 0) {
+        sm_m[warp][rq] = m2[h];
+        sm_l[warp][rq] = l[h];
+      }
+#pragma unroll
+      for (int i = 0; i < HD / 8; ++i) {
+        so[(warp * MAXG + rq) * HD + 8 * i + 2 * t] = o[i][2 * h];
+        so[(warp * MAXG + rq) * HD + 8 * i + 2 * t + 1] = o[i][2 * h + 1];
+      }
     }
   }
   __syncthreads();
@@ -372,11 +383,12 @@ __global__ void __launch_bounds__(DEC_THREADS)
   __threadfence();
 
   // the last block of (b, kv head): merge the splits and the new token.
-  // Warp w takes query rows w, w + 4: the new score, every split's (m, l)
-  // in one load a lane, M, the split weights 2^(m_s - M) into wsm, and L.
-  // Then warp w sums the acc rows of splits w, w + 4, ... (4 dims a lane,
-  // 4 splits a round: 4 G 16-byte loads in flight a thread), and the 4
-  // warps meet in shared memory.
+  // Warp w takes query rows w, w + 4, ...: the new score, every split's
+  // (m, l) in one load a lane, M, the split weights 2^(m_s - M) into wsm,
+  // and L. Then warp w sums the acc rows of splits w, w + 4, ... (4 dims a
+  // lane, U splits a round: U G 16-byte loads in flight a thread, U = 4
+  // for G <= 8 and 1 above, to stay in registers), and the 4 warps meet
+  // in shared memory.
   float* wsm = so + (DEC_THREADS / 32) * MAXG * HD;  // [MAXG][MAX_SPLITS]
   const float* all = part + pair * splits * sstep;
   const __nv_bfloat16* knr = kn + pair * HD;
@@ -413,13 +425,14 @@ __global__ void __launch_bounds__(DEC_THREADS)
     }
   }
   __syncthreads();
+  constexpr int U = G > 8 ? 1 : 4;
   float4 a[G];
 #pragma unroll
   for (int gg = 0; gg < G; ++gg) a[gg] = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int s0 = warp; s0 < splits; s0 += 4 * (DEC_THREADS / 32)) {
-    float4 v[4][G];
+  for (int s0 = warp; s0 < splits; s0 += U * (DEC_THREADS / 32)) {
+    float4 v[U][G];
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
+    for (int u = 0; u < U; ++u) {
       const int sc = min(s0 + 4 * u, splits - 1);
 #pragma unroll
       for (int gg = 0; gg < G; ++gg)
@@ -427,7 +440,7 @@ __global__ void __launch_bounds__(DEC_THREADS)
                               all + sc * sstep + gg * PART + 4) + lane);
     }
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
+    for (int u = 0; u < U; ++u) {
       const int sn = s0 + 4 * u;
 #pragma unroll
       for (int gg = 0; gg < G; ++gg) {
@@ -726,7 +739,8 @@ extern "C" {
 // for one value of every row, passed by value in pos_all / start_all (a
 // decode step's host position: no copy or fill kernel per layer). part: f32
 // scratch of B * KVH * splits * G * 132; counters: B * KVH unsigned, zero
-// before the call and zero after it. One launch; H / KVH <= 8, splits <= 256.
+// before the call and zero after it. One launch; H / KVH <= 16,
+// splits <= 256.
 int mq_attn_decode(const void* q, const void* kn, const void* vn, void* kc,
                    void* vc, const void* pos, const void* start, void* out,
                    void* part, void* counters, int pos_all, int start_all,
@@ -743,7 +757,15 @@ int mq_attn_decode(const void* q, const void* kn, const void* vn, void* kc,
     case 5: return launch_decode<5>(q, kn, vn, kc, vc, pos, start, out, part, counters, pos_all, start_all, B, S, H, KVH, splits, scale, stream);
     case 6: return launch_decode<6>(q, kn, vn, kc, vc, pos, start, out, part, counters, pos_all, start_all, B, S, H, KVH, splits, scale, stream);
     case 7: return launch_decode<7>(q, kn, vn, kc, vc, pos, start, out, part, counters, pos_all, start_all, B, S, H, KVH, splits, scale, stream);
-    default: return launch_decode<8>(q, kn, vn, kc, vc, pos, start, out, part, counters, pos_all, start_all, B, S, H, KVH, splits, scale, stream);
+    case 8: return launch_decode<8>(q, kn, vn, kc, vc, pos, start, out, part, counters, pos_all, start_all, B, S, H, KVH, splits, scale, stream);
+    case 9: return launch_decode<9>(q, kn, vn, kc, vc, pos, start, out, part, counters, pos_all, start_all, B, S, H, KVH, splits, scale, stream);
+    case 10: return launch_decode<10>(q, kn, vn, kc, vc, pos, start, out, part, counters, pos_all, start_all, B, S, H, KVH, splits, scale, stream);
+    case 11: return launch_decode<11>(q, kn, vn, kc, vc, pos, start, out, part, counters, pos_all, start_all, B, S, H, KVH, splits, scale, stream);
+    case 12: return launch_decode<12>(q, kn, vn, kc, vc, pos, start, out, part, counters, pos_all, start_all, B, S, H, KVH, splits, scale, stream);
+    case 13: return launch_decode<13>(q, kn, vn, kc, vc, pos, start, out, part, counters, pos_all, start_all, B, S, H, KVH, splits, scale, stream);
+    case 14: return launch_decode<14>(q, kn, vn, kc, vc, pos, start, out, part, counters, pos_all, start_all, B, S, H, KVH, splits, scale, stream);
+    case 15: return launch_decode<15>(q, kn, vn, kc, vc, pos, start, out, part, counters, pos_all, start_all, B, S, H, KVH, splits, scale, stream);
+    default: return launch_decode<16>(q, kn, vn, kc, vc, pos, start, out, part, counters, pos_all, start_all, B, S, H, KVH, splits, scale, stream);
   }
 }
 

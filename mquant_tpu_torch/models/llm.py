@@ -61,6 +61,7 @@ class DecoderConfig:
     qkv_bias: bool = True  # Qwen1 / Qwen2 style
     o_bias: bool = False
     rope_partial: float = 1.0  # fraction of head_dim that RoPE rotates
+    rope_interleaved: bool = False  # ChatGLM's pairwise (re, im) rotary
     use_dynamic_ntk: bool = False  # Qwen-VL long-context NTK theta scaling
     ntk_seq_length: int = 2048  # training length the NTK ratio is taken over
 
@@ -182,14 +183,33 @@ def rope_tables(cfg: DecoderConfig, positions: torch.Tensor,
 
 
 def _apply_rope(cfg: DecoderConfig, q, k, cos, sin):
-    """Rotate-half RoPE over the first rd = head_dim · rope_partial
-    channels; the rest pass through."""
+    """RoPE over the first rd = head_dim · rope_partial channels (the rest
+    pass through): rotate-half, or ChatGLM's interleaved pairs with
+    ``rope_interleaved``."""
     rd = int(cfg.head_dim * cfg.rope_partial)
+    rope = _rope_interleaved if cfg.rope_interleaved else L.apply_rope
     if cfg.rope_partial < 1.0:
-        q_r, k_r = L.apply_rope(q[..., :rd], k[..., :rd], cos, sin)
+        q_r, k_r = rope(q[..., :rd], k[..., :rd], cos, sin)
         return (torch.cat([q_r, q[..., rd:]], -1),
                 torch.cat([k_r, k[..., rd:]], -1))
-    return L.apply_rope(q, k, cos, sin)
+    return rope(q, k, cos, sin)
+
+
+def _rope_interleaved(q, k, cos, sin):
+    """ChatGLM's rotary (JAX's ``_rope_core``): channels 2i, 2i + 1 are the
+    (re, im) parts of pair i, rotated by the angle at channel i of the
+    [freqs, freqs] table."""
+    half = q.shape[-1] // 2
+    cs = cos[..., :, None, :half]
+    sn = sin[..., :, None, :half]
+
+    def rot(v):
+        v2 = v.reshape(*v.shape[:-1], half, 2)
+        re, im = v2[..., 0], v2[..., 1]
+        return torch.stack([re * cs - im * sn, im * cs + re * sn],
+                           -1).reshape(v.shape).to(v.dtype)
+
+    return rot(q), rot(k)
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""HF checkpoint loading for Qwen2-VL and InternVL2 (counterpart of
+"""HF checkpoint loading for Qwen2-VL, InternVL2 and GLM-4V (counterpart of
 ``mquant_tpu/models/loader.py``): safetensors (sharded with an index, or
 one file) or ``pytorch_model.bin`` → the port's stacked parameter tree,
 with the JAX loader's weight surgery at load time.
@@ -15,14 +15,20 @@ group as (KV, G + 2, hd, hidden), split into contiguous q / k / v; the
 vision ``attn.qkv`` split into thirds; the conv patch embed (out, C, ph,
 pw) permuted to :func:`~mquant_tpu_torch.models.vision.patchify_2d`'s
 (ph, pw, C) order and flattened; the cls row of the position table
-dropped; ``mlp1`` = [LayerNorm, fc1, GELU, fc2].
+dropped; ``mlp1`` = [LayerNorm, fc1, GELU, fc2]. GLM-4V
+(:func:`load_glm4v`): ChatGLM's fused MQA ``query_key_value`` split into
+[q | k | v] (weights and biases), ``dense_h_to_4h`` into [gate | up]; the
+EVA2CLIP blocks' fused qkv into thirds; the patch conv and the projector's
+2 × 2 ``conv`` permuted to the merge order (kh, kw, C) and flattened; the
+cls row of the position table dropped; boi / eoi (1, 1, hidden) as (1,
+hidden) rows.
 
 Safetensors shards are read with the port's own reader
 (:mod:`mquant_tpu_torch.utils.safetensors`), a tensor at a time from a
 mapping of the file. Each leaf is cast to ``dtype`` as it is written into
 its stacked tensor on ``device`` (f32, the JAX loader's host dtype, when
 ``dtype`` is None), so no float32 copy of the whole model is ever made.
-The other families' loaders are not ported (ROADMAP A12b, A12c).
+The resampler families' loaders are not ported (ROADMAP A12c).
 :func:`save_qwen2vl_hf` is the inverse: a tree in the port's layout
 written as a sharded HF checkpoint (HF names, the fused ``attn.qkv``, the
 conv3d patch embed) with the port's writer.
@@ -320,6 +326,12 @@ def save_qwen2vl_hf(cfg, params: Dict, out_dir: str,
     return written
 
 
+def _conv_linear(conv: torch.Tensor) -> torch.Tensor:
+    """A conv kernel (out, C, kh, kw) whose stride is its size as the
+    linear (kh · kw · C, out) over patches merged in (kh, kw, C) order."""
+    return conv.permute(2, 3, 1, 0).reshape(-1, conv.shape[0])
+
+
 def load_internvl(cfg, model_dir: str, dtype=torch.float32,
                   device="cuda") -> Dict:
     """HF InternVL2 (InternViT + InternLM2) → params on ``device`` in
@@ -373,10 +385,9 @@ def load_internvl(cfg, model_dir: str, dtype=torch.float32,
             "fc2": ts.lin(b + "mlp.fc2"),
             "ls2": {"w": ts.get(b + "ls2")},
         })
-    conv = ts.get(vp + "embeddings.patch_embedding.weight")  # (out, C, p, p)
-    w_pe = conv.permute(2, 3, 1, 0).reshape(-1, conv.shape[0])
     vit = {"patch_embed": {
-               "w": leaf(w_pe),
+               "w": leaf(_conv_linear(ts.get(
+                   vp + "embeddings.patch_embedding.weight"))),
                "b": leaf(ts.get(vp + "embeddings.patch_embedding.bias"))},
            "pos_embed": {"w": leaf(ts.get(
                vp + "embeddings.position_embedding")[0, 1:])},
@@ -392,8 +403,92 @@ def load_internvl(cfg, model_dir: str, dtype=torch.float32,
     return {"llm": llm, "vit": vit, "proj": proj}
 
 
-LOADERS = {"qwen2vl": load_qwen2vl, "internvl": load_internvl}
-_UNPORTED = {"qwenvl": "A12c", "minicpmv": "A12c", "glm4v": "A12b"}
+def load_glm4v(cfg, model_dir: str, dtype=torch.float32,
+               device="cuda") -> Dict:
+    """HF GLM-4V (EVA2CLIP + GLU projector + ChatGLM) → params on
+    ``device`` in ``dtype``."""
+    ts = TensorStore(model_dir)
+    lcfg, vcfg = cfg.llm, cfg.vit
+    H, KV, hd = lcfg.n_heads, lcfg.n_kv_heads, lcfg.head_dim
+    leaf = lambda t: _leaf(t, dtype, device)  # noqa: E731
+
+    layers = []
+    for i in range(lcfg.n_layers):
+        b = f"transformer.encoder.layers.{i}."
+        sizes = [H * hd, KV * hd, KV * hd]
+        qw, kw, vw = _split_cols(
+            ts.get(b + "self_attention.query_key_value.weight"), sizes)
+        qb, kb, vb = torch.split(
+            ts.get(b + "self_attention.query_key_value.bias"), sizes)
+        gw, uw = _split_cols(ts.get(b + "mlp.dense_h_to_4h.weight"),
+                             [lcfg.intermediate] * 2)
+        layers.append({
+            "ln1": ts.norm(b + "input_layernorm"),
+            "q": {"w": qw, "b": qb}, "k": {"w": kw, "b": kb},
+            "v": {"w": vw, "b": vb},
+            "o": {"w": ts.get(b + "self_attention.dense.weight").T,
+                  "b": None},
+            "ln2": ts.norm(b + "post_attention_layernorm"),
+            "gate": {"w": gw, "b": None},
+            "up": {"w": uw, "b": None},
+            "down": {"w": ts.get(b + "mlp.dense_4h_to_h.weight").T,
+                     "b": None},
+        })
+    llm = {"embed": {"w": leaf(ts.get(
+               "transformer.embedding.word_embeddings.weight"))},
+           "layers": _stack(layers, dtype, device),
+           "ln_f": {k: leaf(v) for k, v in ts.norm(
+               "transformer.encoder.final_layernorm").items()},
+           "lm_head": {"w": leaf(ts.get("transformer.output_layer.weight").T),
+                       "b": None}}
+    del layers
+
+    vp = "transformer.vision."
+    blocks = []
+    for i in range(vcfg.n_layers):
+        b = f"{vp}transformer.layers.{i}."
+        qw, kw, vw = _split_cols(
+            ts.get(b + "attention.query_key_value.weight"), [vcfg.width] * 3)
+        qb, kb, vb = torch.chunk(
+            ts.get(b + "attention.query_key_value.bias"), 3)
+        blocks.append({
+            "ln1": ts.norm(b + "input_layernorm"),
+            "q": {"w": qw, "b": qb}, "k": {"w": kw, "b": kb},
+            "v": {"w": vw, "b": vb},
+            "o": ts.lin(b + "attention.dense"),
+            "ln2": ts.norm(b + "post_attention_layernorm"),
+            "fc1": ts.lin(b + "mlp.fc1"),
+            "fc2": ts.lin(b + "mlp.fc2"),
+        })
+    vit = {"patch_embed": {
+               "w": leaf(_conv_linear(ts.get(
+                   vp + "patch_embedding.proj.weight"))),
+               "b": leaf(ts.get(vp + "patch_embedding.proj.bias"))},
+           "pos_embed": {"w": leaf(ts.get(
+               vp + "patch_embedding.position_embedding.weight")[1:])},
+           "blocks": _stack(blocks, dtype, device)}
+    del blocks
+
+    def t_(name):
+        return leaf(ts.get(vp + name + ".weight").T)
+
+    proj = {"conv": {"w": leaf(_conv_linear(ts.get(vp + "conv.weight"))),
+                     "b": leaf(ts.get(vp + "conv.bias"))},
+            "linear_proj": {"w": t_("linear_proj.linear_proj"), "b": None},
+            "norm1": {k: leaf(v) for k, v in ts.norm(
+                vp + "linear_proj.norm1").items()},
+            "gate": {"w": t_("linear_proj.gate_proj"), "b": None},
+            "h_to_4h": {"w": t_("linear_proj.dense_h_to_4h"), "b": None},
+            "4h_to_h": {"w": t_("linear_proj.dense_4h_to_h"), "b": None},
+            "boi": {"w": leaf(ts.get(vp + "boi")[0])},
+            "eoi": {"w": leaf(ts.get(vp + "eoi")[0])}}
+    ts.close()
+    return {"llm": llm, "vit": vit, "proj": proj}
+
+
+LOADERS = {"qwen2vl": load_qwen2vl, "internvl": load_internvl,
+           "glm4v": load_glm4v}
+_UNPORTED = {"qwenvl": "A12c", "minicpmv": "A12c"}
 
 
 def load_model(family_name: str, cfg, model_dir: str, dtype=None,

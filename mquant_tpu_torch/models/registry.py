@@ -1,6 +1,6 @@
 """Model registry (counterpart of ``mquant_tpu/models/registry.py``): the
-Qwen2-VL and InternVL2 families. The JAX package's other families (GLM-4V:
-ROADMAP A12b; Qwen-VL and MiniCPM-V: A12c) are not ported yet and raise."""
+Qwen2-VL, InternVL2 and GLM-4V families. The JAX package's other families
+(Qwen-VL and MiniCPM-V: ROADMAP A12c) are not ported yet and raise."""
 
 from __future__ import annotations
 
@@ -23,7 +23,7 @@ class ModelFamily(NamedTuple):
 
 
 _UNPORTED = (("qwenvl", "qwenvl", "A12c"), ("qwen-vl", "qwenvl", "A12c"),
-             ("minicpm", "minicpmv", "A12c"), ("glm", "glm4v", "A12b"))
+             ("minicpm", "minicpmv", "A12c"))
 
 
 def get_family(name: str) -> ModelFamily:
@@ -48,6 +48,12 @@ def get_family(name: str) -> ModelFamily:
         return ModelFamily("internvl", InternVLConfig.internvl2_8b,
                            InternVLConfig.tiny, init_internvl_params,
                            internvl_forward, ("vis", "proj", "llm"))
+    if "glm" in key:
+        from .glm4v import GLM4VConfig, glm4v_forward, init_glm4v_params
+
+        return ModelFamily("glm4v", GLM4VConfig.glm4v_9b, GLM4VConfig.tiny,
+                           init_glm4v_params, glm4v_forward,
+                           ("vis", "proj", "llm"))
     for pat, fam, item in _UNPORTED:
         if pat in key:
             raise NotImplementedError(f"model family {fam} is not ported "
@@ -55,9 +61,36 @@ def get_family(name: str) -> ModelFamily:
     raise ValueError(f"unknown model family {name!r}")
 
 
+# the model names the port resolves: the JAX package's SUPPORTED_MODELS less
+# the families that still raise
+SUPPORTED_MODELS = ("Qwen2-VL-2B", "Qwen2-VL-7B", "Qwen2-VL-72B",
+                    "InternVL2-8B", "GLM-4V-9B")
+
+
 def family_of(cfg) -> ModelFamily:
     """The family of a model config, by its class."""
+    from .glm4v import GLM4VConfig
     from .internvl import InternVLConfig
 
+    if isinstance(cfg, GLM4VConfig):
+        return get_family("glm4v")
     return get_family("internvl" if isinstance(cfg, InternVLConfig)
                       else "qwen2vl")
+
+
+def image_tokens(name: str, gh: int, gw: int) -> int:
+    """Image tokens a (gh, gw) patch grid takes in the family's prompt:
+    one per 2 × 2 patches, and GLM-4V's boi and eoi."""
+    return (gh // 2) * (gw // 2) + (2 if name == "glm4v" else 0)
+
+
+def grid_image_features(name: str):
+    """The ``image_features`` of a family whose batches carry the patch
+    ``grid`` (InternVL2, GLM-4V), or None (Qwen2-VL: ``grid_hw``)."""
+    if name == "internvl":
+        from .internvl import image_features
+    elif name == "glm4v":
+        from .glm4v import image_features
+    else:
+        return None
+    return image_features

@@ -1,10 +1,10 @@
-"""The offline PTQ pipeline, Qwen2-VL and InternVL2 (counterpart of
+"""The offline PTQ pipeline, Qwen2-VL, InternVL2 and GLM-4V (counterpart of
 ``mquant_tpu/pipeline.py``): an HF checkpoint, random or given weights →
 SmoothQuant migration → the online-Hadamard gate → fuse / rotate → the
 lm_head width gate → sensitivity-based mixed bits → weight quantization
-(LLM GPTQ or RTN, vision tower, patch embed and merger / mlp1 GPTQ or RTN,
-head RTN) → static activation calibration (MSQ) → integer realization →
-artifact (``utils.checkpoint.save_artifact``), which
+(LLM GPTQ or RTN, vision tower, patch embed and merger / mlp1 / GLU
+projector GPTQ or RTN, head RTN) → static activation calibration (MSQ) →
+integer realization → artifact (``utils.checkpoint.save_artifact``), which
 ``serve.server.build_runner_from_artifact`` serves.
 
 One structured :class:`QuantizeConfig` with the JAX package's fields.
@@ -28,7 +28,8 @@ import torch
 
 from .models.layers import SiteSpec
 from .models.llm import LLM_SITES
-from .models.registry import family_of, get_family
+from .models.registry import (family_of, get_family, grid_image_features,
+                              image_tokens)
 from .models.vision import VIT_SITES
 
 log = logging.getLogger("mquant_tpu_torch.pipeline")
@@ -97,17 +98,17 @@ class QuantizeConfig:
 
 def check_ported(q: QuantizeConfig, family: str = "qwen2vl"):
     """Raise for a value of ``q`` this port does not implement: visual
-    GPTQ of the other families' projectors (the resampler, GLM-4V's GLU)
-    needs their forwards (ROADMAP A12)."""
+    GPTQ of the resampler needs the Qwen-VL and MiniCPM-V forwards
+    (ROADMAP A12c)."""
     if q.lm_head_bits not in (0, 4, 8, "auto"):
         raise ValueError(f"lm_head_bits={q.lm_head_bits!r}: 0, 4, 8 or "
                          "'auto'")
     if q.online_had_mode not in ("full", "block", "auto"):
         raise ValueError(f"online_had_mode={q.online_had_mode!r}")
-    if family not in ("qwen2vl", "internvl") and not q.visual_w_rtn:
+    if family not in ("qwen2vl", "internvl", "glm4v") and not q.visual_w_rtn:
         raise NotImplementedError(
-            f"visual GPTQ of the {family} projector (gptq_quantize_resampler"
-            " / _glu) is not ported (ROADMAP A12)")
+            f"visual GPTQ of the {family} projector (gptq_quantize_resampler)"
+            " is not ported (ROADMAP A12c)")
 
 
 def build_specs(q: QuantizeConfig,
@@ -165,21 +166,21 @@ def synthetic_calib_batches(cfg, n_batches: int, gen: torch.Generator,
                             ) -> List[dict]:
     """Random multimodal calibration batches of the right shapes, drawn
     from ``gen``: a normal image (batch, image_size², 3) patchified, its
-    image tokens (one per 2 × 2 patches) at positions 2.., then
-    text_len − 2 random ids below min(vocab, 1000), the rest token 11.
-    The batch's extras are the family's: Qwen2-VL's ``grid_hw``,
-    InternVL2's ``grid`` (gh, gw)."""
+    image tokens (one per 2 × 2 patches, GLM-4V's boi and eoi too) at
+    positions 2.., then text_len − 2 random ids below min(vocab, 1000), the
+    rest token 11. The batch's extras are the family's: Qwen2-VL's
+    ``grid_hw``, InternVL2's and GLM-4V's ``grid`` (gh, gw)."""
     from .models.vision import patchify_2d, patchify_qwen2vl
 
-    internvl = family_of(cfg).name == "internvl"
+    name = family_of(cfg).name
     out = []
     for _ in range(n_batches):
         images = torch.randn((batch, image_size, image_size, 3),
                              generator=gen, device=gen.device).to(device)
-        if internvl:
+        if name != "qwen2vl":
             patches, _ = patchify_2d(images, cfg.patch)
             gh = gw = image_size // cfg.patch
-            n_img = (gh // 2) * (gw // 2)
+            n_img = image_tokens(name, gh, gw)
             extra = {"grid": (gh, gw)}
         else:
             patches, grid = patchify_qwen2vl(images, patch=cfg.patch)
@@ -228,8 +229,8 @@ def _bound_nsamples(batches: List[dict], nsamples: int) -> List[dict]:
 
 def embed_batch(cfg, params: Dict, batch: dict) -> torch.Tensor:
     """Decoder-input embeddings of one batch: the embedding, the float
-    ViT and projector (the merger, or pixel shuffle + mlp1), the
-    splice."""
+    ViT and projector (the merger, pixel shuffle + mlp1 or the GLU
+    projector), the splice."""
     from .models.qwen2vl import splice_image_embeds
     from .models.vision import merger_forward, vit_forward
 
@@ -237,10 +238,9 @@ def embed_batch(cfg, params: Dict, batch: dict) -> torch.Tensor:
     embeds = params["llm"]["embed"]["w"][toks].to(cfg.llm.dtype)
     if batch.get("patches") is None:
         return embeds
-    if family_of(cfg).name == "internvl":
-        from .models.internvl import image_features
-
-        img, _ = image_features(cfg, params, batch["patches"], batch["grid"])
+    features = grid_image_features(family_of(cfg).name)
+    if features is not None:
+        img, _ = features(cfg, params, batch["patches"], batch["grid"])
     else:
         feats, _ = vit_forward(cfg.vit, params["vit"], batch["patches"],
                                grid_hw=batch.get("grid_hw"))
@@ -296,9 +296,9 @@ def _gptq_visual(cfg, params: Dict, specs: Dict[str, SiteSpec],
                  report: Dict) -> tuple:
     """Visual GPTQ, stage by stage: the patch embed on the raw patches,
     the ViT blocks on the quantized patch embed's output, the merger (or
-    mlp1, on the pixel-shuffled features) on the quantized tower's
-    features. Returns (params, the GPTQ'd site names); ``report`` gets
-    "fallbacks" and "sites"."""
+    mlp1, on the pixel-shuffled features, or the GLU projector) on the
+    quantized tower's features. Returns (params, the GPTQ'd site names);
+    ``report`` gets "fallbacks" and "sites"."""
     from .gptq import modules as GM
     from .gptq.driver import GPTQConfig, gptq_quantize_vit
     from .models.vision import vit_forward, vit_preamble
@@ -328,11 +328,20 @@ def _gptq_visual(cfg, params: Dict, specs: Dict[str, SiteSpec],
         report["sites"] += vrep["sites"]
         done |= {f"vis.{s}" for s in VIT_SITES}
     del feats
-    group = "proj" if family_of(cfg).name == "internvl" else "merger"
+    name = family_of(cfg).name
+    group = "merger" if name == "qwen2vl" else "proj"
     if group in params:
         tower = [vit_forward(cfg.vit, params["vit"], b["patches"],
                              grid_hw=b.get("grid_hw"))[0] for b in batches]
-        if group == "proj":  # mlp1 on the pixel-shuffled features
+        if name == "glm4v":
+            from .models.projectors import GLU_SITES
+
+            params, report = GM.gptq_quantize_glu(
+                cfg, params, [(t, *b["grid"]) for t, b in zip(tower,
+                                                              batches)],
+                specs, gcfg, report)
+            done |= {f"proj.{s}" for s in GLU_SITES}
+        elif name == "internvl":  # mlp1 on the pixel-shuffled features
             from .models.projectors import pixel_shuffle
 
             tower = [pixel_shuffle(t, *b["grid"])

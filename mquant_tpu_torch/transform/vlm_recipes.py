@@ -1,18 +1,21 @@
-"""Whole-VLM transform recipes, the Qwen2-VL and InternVL2 branches
+"""Whole-VLM transform recipes, the Qwen2-VL, InternVL2 and GLM-4V branches
 (counterpart of ``mquant_tpu/transform/vlm_recipes.py``): the ViT tower's
 LayerScale fold, LN → RMSNorm fusion and rotation, the merger's ln_q fold
 and mlp1's ln fold with their block-diagonal input rotations, and
 :func:`prepare_vlm`, which runs them with the decoder's recipes and rotates
 the LLM stream into the projector's last linear (``merger.mlp2`` /
-``proj.fc2``).
+``proj.fc2`` / ``proj.4h_to_h``) and GLM-4V's boi / eoi rows. GLM-4V's
+EVA2CLIP tower is neither fused nor rotated: its stream feeds a conv, not a
+LayerNorm, so centering it would change the function (the JAX package's
+recipe, and the reference ships no GLM rotation).
 
 LN exactness: every producer of a LayerNorm'd stream is mean-centered, so
 LN ≡ affine · RMSNorm; the affine folds into the consumers and the norm
 keeps a unit weight (its bias dropped: the forwards pick LN or RMSNorm by
 the bias's presence). The ViT (a few GB in float64 at full size) is
 transformed as one stacked float64 tree, as in the JAX package; the
-decoder one layer at a time (``transform.recipes``). The other families'
-branches are not ported (ROADMAP A12b, A12c).
+decoder one layer at a time (``transform.recipes``). The resampler
+families' branches are not ported (ROADMAP A12c).
 """
 
 from __future__ import annotations
@@ -169,7 +172,8 @@ def fuse_mlp1(params: Dict) -> Dict:
 
 
 # the projector site that writes the LLM stream, per family
-_PRODUCER = {"qwen2vl": ("merger", "mlp2"), "internvl": ("proj", "fc2")}
+_PRODUCER = {"qwen2vl": ("merger", "mlp2"), "internvl": ("proj", "fc2"),
+             "glm4v": ("proj", "4h_to_h")}
 
 
 def prepare_vlm(family_name: str, cfg, params: Dict,
@@ -180,12 +184,14 @@ def prepare_vlm(family_name: str, cfg, params: Dict,
                 online_had_visual: bool = False, split_visual: bool = False,
                 rotations: Optional[Dict[str, torch.Tensor]] = None
                 ) -> tuple:
-    """The offline equivalent transforms of a Qwen2-VL or InternVL2 model:
-    fuse (LN → RMSNorm everywhere, LayerScale folded) → rotate the vision
-    stream (Q_v, into the merger's mlp0 / mlp1's fc1 block-diagonally) and
-    the LLM stream (Q_l, with the per-head OV rotation, the online Hadamard
-    fold into ``down`` and the projector's last linear's output) → the RMS
-    split. The rotations are drawn from ``gen`` (Q_v first)
+    """The offline equivalent transforms of a Qwen2-VL, InternVL2 or GLM-4V
+    model: fuse (LN → RMSNorm everywhere, LayerScale folded; GLM-4V's
+    decoder only) → rotate the vision stream (Q_v, into the merger's mlp0 /
+    mlp1's fc1 block-diagonally; never GLM-4V's, whatever
+    ``rotate_visual`` says) and the LLM stream (Q_l, with the per-head OV
+    rotation, the online Hadamard fold into ``down``, the projector's last
+    linear's output and GLM-4V's boi / eoi rows) → the RMS split. The
+    rotations are drawn from ``gen`` (Q_v first)
     unless ``rotations`` gives them as {"vit": Q_v, "llm": Q_l}. Returns
     (params, info)."""
     from .recipes import fuse_decoder, rotate_decoder, split_decoder_down
@@ -197,10 +203,13 @@ def prepare_vlm(family_name: str, cfg, params: Dict,
     p = dict(params)
     info: Dict = {"family": family_name}
     p["llm"] = fuse_decoder(cfg.llm, p["llm"])
-    p["vit"] = fuse_vit(cfg.vit, p["vit"])
+    if family_name == "glm4v":
+        rotate_visual = False  # the tower stays as it is (module docstring)
+    else:
+        p["vit"] = fuse_vit(cfg.vit, p["vit"])
     if family_name == "qwen2vl":
         p["merger"] = fuse_merger(cfg.merger, p["merger"])
-    else:
+    elif family_name == "internvl":
         p["proj"] = fuse_mlp1(p["proj"])
     if not rotate:
         return p, info
@@ -235,6 +244,15 @@ def prepare_vlm(family_name: str, cfg, params: Dict,
     lin = R.rotate_linear_output(_to_f64(p[grp][site]),
                                  Q_l.to(p[grp][site]["w"].device))
     p[grp] = {**p[grp], site: _cast_like(lin, params[grp][site])}
+    if family_name == "glm4v":
+        # the boi / eoi rows live in the rotated stream: E Q_l, with
+        # numpy's einsum on the host (the JAX recipe's own product)
+        for t in ("boi", "eoi"):
+            w = p["proj"][t]["w"]
+            v = np.einsum("vh,hj->vj", w.double().cpu().numpy(),
+                          Q_l.double().cpu().numpy())
+            p["proj"] = {**p["proj"], t: {"w": torch.from_numpy(v).to(
+                device=w.device, dtype=w.dtype)}}
     if split_down:
         p["llm"] = split_decoder_down(p["llm"])
         info["split"] = True

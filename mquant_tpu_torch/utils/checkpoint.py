@@ -125,7 +125,6 @@ def load_artifact(path: str, dtype: Optional[torch.dtype] = None,
 # Fields of the JAX package's configs that the port's dataclasses lack: the
 # one value the port implements, and the ROADMAP item that ports the rest
 _UNPORTED = {
-    "DecoderConfig": {"rope_interleaved": (False, "A12b")},
     "ViTConfig": {"qkv_bias": (True, "A12"), "pre_norm": (False, "A12c"),
                   "post_norm": (False, "A12c")},
 }
@@ -137,15 +136,17 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 
 def _config_classes() -> Dict[str, type]:
     from ..models.buckets import BucketSpec
+    from ..models.glm4v import GLM4VConfig
     from ..models.internvl import InternVLConfig
     from ..models.llm import DecoderConfig
-    from ..models.projectors import Mlp1Config
+    from ..models.projectors import GluProjectorConfig, Mlp1Config
     from ..models.qwen2vl import Qwen2VLConfig
     from ..models.vision import MergerConfig, ViTConfig
 
     return {c.__name__: c for c in (Qwen2VLConfig, InternVLConfig,
-                                    DecoderConfig, ViTConfig, MergerConfig,
-                                    Mlp1Config, BucketSpec)}
+                                    GLM4VConfig, DecoderConfig, ViTConfig,
+                                    MergerConfig, Mlp1Config,
+                                    GluProjectorConfig, BucketSpec)}
 
 
 def config_to_dict(cfg) -> Dict:

@@ -235,7 +235,8 @@ def test_config_round_trips_both_ways(preset):
 
 def _refusals():
     """(class, field, value) of every JAX config field the port does not
-    implement at that value."""
+    implement at that value, and ChatGLM's interleaved rotary, which it
+    now does."""
     out = [("DecoderConfig", "rope_interleaved", True),
            ("ViTConfig", "qkv_bias", False), ("ViTConfig", "pre_norm", True),
            ("ViTConfig", "post_norm", True),
@@ -250,6 +251,9 @@ def test_config_from_dict_refuses_unported_values(cls, field, value):
     cj = dataclasses.replace(cj, **{sub: dataclasses.replace(
         getattr(cj, sub), **{field: value})})
     d = json.loads(json.dumps(JC.config_to_dict(cj)))
+    if field == "rope_interleaved":  # ported with GLM-4V: read back
+        assert TC.config_from_dict(d).llm.rope_interleaved is True
+        return
     with pytest.raises(NotImplementedError, match=rf"{cls}\.{field}.*A\d+"):
         TC.config_from_dict(d)
     # at the value the port implements, the field is accepted
@@ -259,11 +263,12 @@ def test_config_from_dict_refuses_unported_values(cls, field, value):
 
 @pytest.mark.parametrize("field,value", [
     ("qkv_bias", False), ("o_bias", True), ("rope_partial", 0.5),
-    ("use_dynamic_ntk", True), ("ntk_seq_length", 8192)])
+    ("use_dynamic_ntk", True), ("ntk_seq_length", 8192),
+    ("rope_interleaved", True)])
 def test_config_from_dict_takes_decoder_flags(field, value):
-    """The decoder flags the port implements (dynamic NTK, partial RoPE,
-    the q/k/v and o biases) read from JAX's config dict and write back to
-    it."""
+    """The decoder flags the port implements (dynamic NTK, partial and
+    interleaved RoPE, the q/k/v and o biases) read from JAX's config dict
+    and write back to it."""
     cj = JQ2.Qwen2VLConfig.tiny()
     cj = dataclasses.replace(cj, llm=dataclasses.replace(cj.llm,
                                                          **{field: value}))
@@ -276,7 +281,16 @@ def test_config_from_dict_takes_decoder_flags(field, value):
 
 @pytest.mark.parametrize("family", ["qwenvl", "minicpmv", "glm4v"])
 def test_config_from_dict_refuses_other_families(family):
-    d = json.loads(json.dumps(JC.config_to_dict(j_family(family).tiny_fn())))
+    """The resampler families' configs raise A12; GLM-4V's is ported and
+    round-trips to JAX's."""
+    cj = j_family(family).tiny_fn()
+    d = json.loads(json.dumps(JC.config_to_dict(cj)))
+    if family == "glm4v":
+        back = TC.config_from_dict(d)
+        assert back.llm.rope_interleaved
+        assert JC.config_from_dict(json.loads(json.dumps(
+            TC.config_to_dict(back)))) == cj
+        return
     with pytest.raises(NotImplementedError, match="A12"):
         TC.config_from_dict(d)
 

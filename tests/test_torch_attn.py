@@ -64,13 +64,25 @@ def _poison(kc, vc, pos, start):
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("perrow", [True, False])
 def test_attn_decode_ref_matches_jax(dtype, perrow):
+    _ref_matches_jax(dtype, perrow, (37, 63), 40)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("perrow", [True, False])
+def test_attn_decode_ref_matches_jax_g16(dtype, perrow):
+    """GLM-4V's group: 32 query heads on 2 KV heads (G = 16), the kernel's
+    widest."""
+    _ref_matches_jax(dtype, perrow, (37, 90), 80, H=32, KVH=2, S=96)
+
+
+def _ref_matches_jax(dtype, perrow, row_pos, shared_pos, **shape):
     rng = np.random.default_rng(11)
-    q, kn, vn, kc, vc = _decode_inputs(rng, dtype)
+    q, kn, vn, kc, vc = _decode_inputs(rng, dtype, **shape)
     B = q.shape[0]
     if perrow:
-        pos, start = np.array([37, 63], np.int32), np.array([5, 20], np.int32)
+        pos, start = np.array(row_pos, np.int32), np.array([5, 20], np.int32)
     else:
-        pos, start = np.int32(40), None
+        pos, start = np.int32(shared_pos), None
     pos_b = np.broadcast_to(pos, (B,))
     start_b = np.zeros((B,), np.int32) if start is None else start
     kc, vc = _poison(kc, vc, pos_b, start_b)
@@ -97,7 +109,7 @@ def test_attn_decode_ref_matches_jax(dtype, perrow):
                                    atol=1e-2 * np.abs(oj).max())
     # the poison never reaches the output: the clean cache gives the same
     q2, kn2, vn2, kc_c, vc_c = _decode_inputs(np.random.default_rng(11),
-                                              dtype)
+                                              dtype, **shape)
     clean, _, _ = TA.attn_decode_ref(_t(q2), _t(kn2), _t(vn2), _t(kc_c),
                                      _t(vc_c), pos_t, scale, start=start_t)
     np.testing.assert_array_equal(ot.float().numpy(), clean.float().numpy())

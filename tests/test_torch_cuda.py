@@ -642,6 +642,11 @@ def _decode_operands(dev, B, S, H, KVH, pos, start, seed=0):
     (2, 64, 4, 2, 40, [0, 5]),
     (3, 96, 8, 8, [5, 37, 95], [0, 10, 33]),
     (1, 8192, 28, 4, 40, 5),  # host ints: by value, every column weighs
+    # GLM-4V's G = 16 (32 / 2 heads): the CPU test's shape, one request's
+    # decode and the engine's 8 rows per row
+    (2, 96, 32, 2, [37, 90], [5, 20]),
+    (1, 1280, 32, 2, 1200, None),
+    (8, 1280, 32, 2, [1200, 77, 300, 513, 1000, 1279, 1, 640], None),
 ])
 def test_attn_decode(cuda, B, S, H, KVH, pos, start):
     q, kn, vn, kc, vc = _decode_operands(cuda, B, S, H, KVH, pos, start)
@@ -682,7 +687,7 @@ def test_flash_attn_causal(cuda, B, T, H, KVH):
 
 
 # the contract's edges of the one-launch kernel, with the columns outside
-# [start, pos) poisoned: G = 1, 4, 7, 8; a per-row pos with an empty row
+# [start, pos) poisoned: G = 1, 4, 7, 8, 9, 12; a per-row pos with an empty row
 # (pos == start, pos == 0) and a row of pos 1; device indices (33 splits a
 # row on the cache length) with a short row, so most of its splits are empty
 @pytest.mark.parametrize("B,S,H,KVH,pos,start", [
@@ -692,6 +697,8 @@ def test_flash_attn_causal(cuda, B, T, H, KVH):
     (3, 256, 16, 2, [200, 0, 255], [10, 0, 3]),
     (1, 8192, 28, 4, [10], [0]),
     (2, 2048, 28, 4, [2047, 3], [1000, 3]),
+    (2, 512, 18, 2, [300, 5], [0, 5]),
+    (1, 1024, 24, 2, 700, 3),
 ])
 def test_attn_decode_edges(cuda, B, S, H, KVH, pos, start):
     test_attn_decode(cuda, B, S, H, KVH, pos, start)
@@ -741,10 +748,10 @@ def test_attention_wrappers_raise_on_unsupported(cuda):
         TA.attn_decode(q[..., :64].contiguous(), kn[..., :64].contiguous(),
                        vn[..., :64].contiguous(), kc[..., :64].contiguous(),
                        vc[..., :64].contiguous(), 10, 0.1)
-    q16, kn16, vn16, kc16, vc16 = _decode_operands(cuda, 1, 64, 32, 2, 10,
+    q17, kn17, vn17, kc17, vc17 = _decode_operands(cuda, 1, 64, 34, 2, 10,
                                                    None)
-    with pytest.raises(ValueError):  # G = 16 (GLM-4V's 32 / 2 heads)
-        TA.attn_decode(q16, kn16, vn16, kc16, vc16, 10, 0.1)
+    with pytest.raises(ValueError):  # G = 17: beyond one m16 tile
+        TA.attn_decode(q17, kn17, vn17, kc17, vc17, 10, 0.1)
     x = torch.zeros((1, 128, 2, 64), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError):  # head_dim != 128
         TF.flash_attention_causal(x, x, x, 0.1)

@@ -190,12 +190,18 @@ def test_vision_and_merger_match_hf(ckpts):
 
 
 def test_other_families_raise_a12(tmp_path):
-    for fam in ("qwenvl", "minicpmv", "glm4v"):
+    """The resampler families' loaders raise A12c; Qwen2-VL's, InternVL2's
+    and GLM-4V's are ported, and a directory without a checkpoint raises
+    FileNotFoundError."""
+    for fam in ("qwenvl", "minicpmv"):
         with pytest.raises(NotImplementedError, match="A12"):
             TL.load_model(fam, None, str(tmp_path), device="cpu")
-    with pytest.raises(FileNotFoundError):
-        TL.load_model("qwen2vl", _cfgs(jnp.float32, torch.float32)[1],
-                      str(tmp_path), device="cpu")
+    from mquant_tpu_torch.models.glm4v import GLM4VConfig
+
+    for fam, cfg in (("qwen2vl", _cfgs(jnp.float32, torch.float32)[1]),
+                     ("glm4v", GLM4VConfig.tiny())):
+        with pytest.raises(FileNotFoundError):
+            TL.load_model(fam, cfg, str(tmp_path), device="cpu")
 
 
 def test_save_hf_round_trip(ckpts, tmp_path):

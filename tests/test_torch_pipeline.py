@@ -213,8 +213,9 @@ def test_unported_options_raise(kw, tmp_path, monkeypatch):
     pipeline options these parameters name are ported for Qwen2-VL
     (``check_ported`` passes them; ``tests/test_torch_gates.py`` and
     ``tests/test_torch_pipeline_options.py`` hold them against JAX) and
-    InternVL2 (``tests/test_torch_internvl_pipeline.py``), and each still
-    raises A12 for another family (GLM-4V). ``model_dir`` is ported: a
+    InternVL2 and GLM-4V (``tests/test_torch_internvl_pipeline.py``,
+    ``tests/test_torch_glm4v_pipeline.py``), and each still raises A12 for
+    a resampler family (Qwen-VL). ``model_dir`` is ported: a
     directory without a checkpoint raises FileNotFoundError naming it.
     ``calib_dataset`` is ported (A13): a dataset that is not there raises
     FileNotFoundError naming where it was looked for
@@ -235,10 +236,11 @@ def test_unported_options_raise(kw, tmp_path, monkeypatch):
         TP.check_ported(q)  # ported for Qwen2-VL
         if not q.visual_w_rtn:
             TP.check_ported(q, "internvl")  # mlp1's GPTQ: ported
+            TP.check_ported(q, "glm4v")  # the GLU projector's: ported
             with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-                TP.check_ported(q, "glm4v")
+                TP.check_ported(q, "qwenvl")
     with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        TP.run_pipeline("GLM-4V-9B", q, tiny=True, device="cpu")
+        TP.run_pipeline("Qwen-VL-Chat", q, tiny=True, device="cpu")
 
 
 def test_cli_tiny_serves(tmp_path):

@@ -39,7 +39,8 @@ def on_card(monkeypatch):
 @pytest.mark.parametrize("hd,G,dtype,ok", [
     (128, 7, BF16, True),     # Qwen2-VL-7B: 28 / 4 heads
     (128, 8, BF16, True), (128, 1, BF16, True),
-    (128, 16, BF16, False),   # GLM-4V: 32 / 2 heads
+    (128, 16, BF16, True),    # GLM-4V: 32 / 2 heads
+    (128, 17, BF16, False),   # beyond one m16 tile
     (64, 4, BF16, False), (256, 4, BF16, False),
     (128, 7, F32, False), (128, 7, F16, False)])
 def test_attn_decode_supports(hd, G, dtype, ok):
@@ -292,8 +293,9 @@ def _decode_route(H, KVH, hd, dtype):
 
 
 # (heads, kv heads, hd, cache dtype): the 7B configuration, then those
-# outside the kernel's contract that JAX's own gate lets through
-_DECODE_OUT = [(32, 2, 128, BF16), (4, 2, 256, BF16), (4, 2, 128, F32),
+# outside the kernel's contract that JAX's own gate lets through (G = 17:
+# beyond one m16 tile; GLM-4V's G = 16 is inside it)
+_DECODE_OUT = [(34, 2, 128, BF16), (4, 2, 256, BF16), (4, 2, 128, F32),
                (4, 2, 128, F16)]
 
 
@@ -310,8 +312,9 @@ def test_decode_router_on_cpu_keeps_jax_route():
 
 
 def test_declined_decode_step_takes_the_einsum(on_card, monkeypatch):
-    """G = 16 on the card: the decode step runs the einsum path, and its
-    logits are those of the fused plain version on the CPU."""
+    """An f32 cache on the card (outside the kernel's bf16 contract): the
+    decode step runs the einsum path, and its logits are those of the
+    fused plain version on the CPU."""
     cfg = _dcfg(32, 2, 128, F32)
     rng = np.random.default_rng(0)
     w = lambda *s: torch.from_numpy(  # noqa: E731

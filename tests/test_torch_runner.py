@@ -320,7 +320,7 @@ def test_runner_refusals(artifacts):
     for kvq in (True, 4):  # quantized KV caches: ported
         assert VLMRunner("qwen2vl", cfg, pt, kv_quant=kvq).gen.kv_quant == kvq
     with pytest.raises(NotImplementedError, match="A12"):
-        VLMRunner("glm4v", cfg, pt)
+        VLMRunner("minicpmv", cfg, pt)
 
 
 # ---------------------------------------------------------------------------
@@ -369,8 +369,13 @@ def test_registry_matches_jax(name):
 @pytest.mark.parametrize("name", ["Qwen-VL-Chat", "MiniCPM-V-2_6",
                                   "GLM-4V-9B"])
 def test_registry_refuses_other_families(name):
+    """The resampler families raise A12c; GLM-4V's name is ported and
+    picks JAX's family."""
     assert j_family(name).name
-    with pytest.raises(NotImplementedError, match="A12"):
-        t_family(name)
+    if name == "GLM-4V-9B":
+        assert t_family(name).name == j_family(name).name == "glm4v"
+    else:
+        with pytest.raises(NotImplementedError, match="A12"):
+            t_family(name)
     with pytest.raises(ValueError):
         t_family("llama")

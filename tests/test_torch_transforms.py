@@ -282,8 +282,11 @@ def test_prepare_vlm_invariance(vlm):
 
 
 def test_other_families_raise(vlm):
+    """The resampler families' branches are not ported (A12c); GLM-4V's
+    is (``tests/test_torch_glm4v.py``)."""
     with pytest.raises(NotImplementedError, match="A12"):
-        TVR.prepare_vlm("glm4v", vlm["cfg_t"], vlm["pt"])
+        TVR.prepare_vlm("minicpmv", vlm["cfg_t"], vlm["pt"])
+    assert "glm4v" in TVR._PRODUCER
 
 
 def test_random_rotations_orthogonal():
