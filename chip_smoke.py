@@ -29,7 +29,11 @@ Phases, in order (any failed check raises and the script exits non-zero):
    prefill, the ViT's and mlp1's W8 products) and its decode attention at
    G = 4, summed apart; GLM-4V-9B's decode attention at G = 16 (one
    request's first and last steps and the engine's 8 rows over a 1280-row
-   cache whose columns ≥ pos are NaN), summed apart; the document path's
+   cache whose columns ≥ pos are NaN), summed apart; Qwen-VL-Chat's
+   products (the W4 GEMV at 1 and 8 rows, the split ``down`` at K = 11007
+   on the int8 GEMV and GEMM, the int8 head at N = 151936, the T = 1024
+   prefill) and its decode attention at G = 1 (32 KV heads), summed
+   apart; the document path's
    4096-row products; the prefill probe's W8 products; the W4 GEMV at 1, 4, 8
    and 32 token rows; the int8 GEMV at the engine's 8 rows of path S's `down`
    (main path), at 32 rows, the int8 lm_head at 8 rows, the decode
@@ -232,15 +236,25 @@ Phases, in order (any failed check raises and the script exits non-zero):
    with the headline flags and visual GPTQ (exit 0, no RTN fallback).
    Then GLM-4V-9B (``run_glm4v_phase``) the same way (``family_phase``):
    the published widths (the EVA2CLIP tower, 63 layers × 1792, neither
-   fused nor rotated; the GLU projector with boi / eoi; ChatGLM at depth
-   40, MQA 32 / 2 heads, half-width interleaved rotary, intermediate 13696
-   padded to 13824 = 108 · 128 by the full online Hadamard, vocabulary
-   151552), 13.9 B seeded random bf16 weights drawn on the card; the
-   request's decode steps must launch ``attn_decode`` at G = 16 a layer
-   (40 a step, none on the einsum), ``int8_gemv`` for ``down`` at
-   K = 13823 and the head at N = 151552; the launches a decode step
-   printed; ``quant_vlm --model GLM-4V-9B --tiny`` on the card with
-   visual GPTQ (the GLU projector's five sites included).
+   fused nor rotated; the GLU projector with boi / eoi; ChatGLM cut to
+   GLM_DEPTH = 8 of its 40 layers since the Qwen-VL phase came, MQA 32 / 2
+   heads, half-width interleaved rotary, intermediate 13696 padded to
+   13824 = 108 · 128 by the full online Hadamard, vocabulary 151552),
+   seeded random bf16 weights drawn on the card; the request's decode
+   steps must launch ``attn_decode`` at G = 16 a layer (none on the
+   einsum), ``int8_gemv`` for ``down`` at K = 13823 and the head at
+   N = 151552; the launches a decode step printed; ``quant_vlm --model
+   GLM-4V-9B --tiny`` on the card with visual GPTQ (the GLU projector's
+   five sites included). Then Qwen-VL-Chat (``run_qwenvl_phase``) the
+   same way: the published widths (the CLIP-style tower, 48 layers ×
+   1664 with ln_pre, ``fc_sub_mean`` and ln_post; the attn_pool
+   resampler, 256 queries, width 4096; the Qwen decoder cut to QVL_DEPTH
+   = 8 of its 32 layers, 32 / 32 heads, intermediate 11008 = 172 · 64
+   under the full online Hadamard's order-172 block, vocabulary 151936);
+   its decode steps must launch ``attn_decode`` at G = 1 a layer,
+   ``int8_gemv`` for ``down`` at K = 11007 and the head at N = 151936;
+   ``quant_vlm --model Qwen-VL-Chat --tiny`` on the card with visual
+   GPTQ (the resampler's six sites included).
    Then the offline pipeline from an HF checkpoint
    (``run_checkpoint_phase``), at depth CKPT_DEPTH = 4 (28 until the
    InternVL phase came, 14 until the GLM-4V phase did): seeded random
@@ -294,7 +308,8 @@ Phases, in order (any failed check raises and the script exits non-zero):
    own.
 
 Last line of stdout: {"ok": true, "device": {...}}. Usage:
-``python3 chip_smoke.py [--seed 0]``.
+``python3 chip_smoke.py [--seed 0]``; ``--qwenvl_alone`` builds the
+kernels and runs only the Qwen-VL phase with its LLM uncut (32 layers).
 """
 
 from __future__ import annotations
@@ -444,6 +459,25 @@ IVL_SHAPES = [
     ("int8_gemm", "IVL vit fc2", 1024, 4096, 1024, False),
     ("int8_gemm", "IVL mlp1 fc1 / fc2", 256, 4096, 4096, False),
 ]
+# Qwen-VL-Chat's shapes (hidden 4096, 32 / 32 heads, intermediate 11008 =
+# 172 · 64, vocab 151936): the W4 decode products at 1 and 8 rows, the
+# split `down` at K = 11007 and the int8 head on the int8 GEMV, the
+# prefill products at T = 1024 (the split `down`'s x in rows padded to 16
+# bytes). Held and timed in phase 3, summed apart like IVL_SHAPES
+QVL_SHAPES = [
+    *[(k, f"QVL {site}, {m} rows", m, kk, n, packed)
+      for m in (1, 8)
+      for k, site, kk, n, packed in (
+          ("w4a8_gemv", "decode q|k|v", 4096, 12288, True),
+          ("w4a8_gemv", "decode o", 4096, 4096, True),
+          ("w4a8_gemv", "decode gate|up", 4096, 22016, True),
+          ("int8_gemv", "S decode down", 11007, 4096, False))],
+    ("int8_gemv", "QVL lm_head, 1 rows", 1, 4096, 151936, False),
+    ("int8_gemm", "QVL prefill q|k|v", 1024, 4096, 12288, True),
+    ("int8_gemm", "QVL prefill o", 1024, 4096, 4096, True),
+    ("int8_gemm", "QVL prefill gate|up", 1024, 4096, 22016, True),
+    ("int8_gemm", "QVL S prefill down", 1024, 11007, 4096, False),
+]
 REPLACES = {
     "w4a8_gemv": "mquant_tpu/kernels/qmm.py:869",
     "int8_gemv": "mquant_tpu/kernels/qmm.py:637",
@@ -524,11 +558,13 @@ def check_kernels(seed: int) -> dict:
     summary = {k: new_summary() for k in ("w4a8_gemv", "int8_gemv",
                                           "int8_gemm", "int8_gemm_ragged")}
     rows_sum = new_summary()
-    ivl_sum = {k: new_summary() for k in summary}
+    # the families' shapes, summed apart by the label's first word
+    apart = {fam: {k: new_summary() for k in summary}
+             for fam in ("IVL", "QVL")}
     for name, label, M, K, N, packed in (KERNEL_SHAPES + DOC_GEMM_SHAPES
                                          + ROWS_SHAPES + EDGE_SHAPES
                                          + I8_GEMV_SHAPES + RAGGED_SHAPES
-                                         + IVL_SHAPES):
+                                         + IVL_SHAPES + QVL_SHAPES):
         main = (name, label, M, K, N, packed) in KERNEL_SHAPES + RAGGED_SHAPES
         rows = K // 2 if packed else K
         x = torch.randint(-127, 128, (M, K), generator=g, device=dev,
@@ -593,7 +629,7 @@ def check_kernels(seed: int) -> dict:
         # which leaves the int32 sums as they are, and the output sliced);
         # no single call computes the packed-W4 product
         lms = None
-        if not packed and (main or label.startswith("doc")):
+        if not packed and (main or label.startswith(("doc", "QVL"))):
             kp, np_ = -K % 8, -N % 8
             xl = torch.nn.functional.pad(
                 x, (0, kp, 0, 32 - M if M <= 16 else 0))
@@ -644,18 +680,23 @@ def check_kernels(seed: int) -> dict:
             add_main(s, ms, pms, bms, by, lms)
         elif (name, label, M, K, N, packed) in ROWS_SHAPES:
             add_main(rows_sum, ms, pms, bms, by, lms)
-        elif label.startswith("IVL"):
-            add_main(ivl_sum[name], ms, pms, bms, by, lms)
+        elif label.split()[0] in apart:
+            add_main(apart[label.split()[0]][name], ms, pms, bms, by, lms)
         del x, xk, w, ws_cold, acc_k, y_k
         torch.cuda.empty_cache()
     log(f"kernel w4a8_gemv at 4 / 8 / 32 rows (gate|up, down): {rows_sum['ms']:.4f} "
         f"ms summed, plain {rows_sum['plain_ms']:.4f} ms, bound "
         f"{rows_sum['bound_ms']:.4f} ms")
-    for name, s in ivl_sum.items():
-        if s["shapes"]:
-            log(f"kernel {name} at InternVL2-8B's {s['shapes']} shapes: "
-                f"{s['ms']:.4f} ms summed, plain {s['plain_ms']:.4f} ms, "
-                f"bound {s['bound_ms']:.4f} ms")
+    for fam, model in (("IVL", "InternVL2-8B"), ("QVL", "Qwen-VL-Chat")):
+        for name, s in apart[fam].items():
+            if s["shapes"]:
+                lib = ("" if not s["lib_shapes"] else
+                       f", library {s['library_ms']:.4f} ms over "
+                       f"{s['lib_shapes']} of them (the kernel "
+                       f"{s['lib_kernel_ms']:.4f} ms over the same)")
+                log(f"kernel {name} at {model}'s {s['shapes']} shapes: "
+                    f"{s['ms']:.4f} ms summed, plain {s['plain_ms']:.4f} ms, "
+                    f"bound {s['bound_ms']:.4f} ms{lib}")
     for name, s in summary.items():
         if 0 < s["lib_shapes"] < s["shapes"]:
             log(f"kernel {name}: library {s['library_ms']:.4f} ms summed over "
@@ -851,8 +892,17 @@ GLM_DECODE_SHAPES = [
     ("GLM engine 8 slots, G 16", 8, 1280,
      [1127, 78, 301, 514, 1001, 300, 590, 1200], None, False, True),
 ]
+# Qwen-VL-Chat's (32 query heads over 32 KV heads, G = 1): the request's
+# first and last steps over its 1280-row bucket and the engine burst's 4
+# slots at their own positions, every column ≥ pos NaN
+QVL_DECODE_SHAPES = [
+    ("QVL decode pos 1024, G 1", 1, 1280, 1024, None, False, True),
+    ("QVL decode pos 1151, G 1", 1, 1280, 1151, None, False, True),
+    ("QVL engine 4 slots, G 1", 4, 1280, [92, 315, 528, 1015], None, False,
+     True),
+]
 # (query heads, KV heads) of the shapes a label's first word names
-ATTN_HEADS = {"IVL": (32, 8), "GLM": (32, 2)}
+ATTN_HEADS = {"IVL": (32, 8), "GLM": (32, 2), "QVL": (32, 32)}
 # causal flash prefill (label, T, main path)
 FLASH_SHAPES = [("prefill T 1024", 1024, False),
                 ("prefill T 2048", 2048, False),
@@ -898,7 +948,8 @@ def check_attention(seed: int) -> dict:
     apart = {k: new_summary() for k in ATTN_HEADS}  # summed apart
     scale = HD**-0.5
     for label, B, S, pos, start, main, nan_tail in (
-            DECODE_SHAPES + IVL_DECODE_SHAPES + GLM_DECODE_SHAPES):
+            DECODE_SHAPES + IVL_DECODE_SHAPES + GLM_DECODE_SHAPES
+            + QVL_DECODE_SHAPES):
         heads, kvh = ATTN_HEADS.get(label.split()[0], (HEADS, KVH))
         q, kn, vn = r(B, 1, heads, HD), r(B, 1, kvh, HD), r(B, 1, kvh, HD)
         kc, vc = r(B, S, kvh, HD), r(B, S, kvh, HD)
@@ -969,7 +1020,8 @@ def check_attention(seed: int) -> dict:
         elif label.split()[0] in apart:
             add_main(apart[label.split()[0]], ms, pms, bms, by, lms)
         del q, kn, vn, kc, vc, kc_p, vc_p, caches, out, ref
-    for key, model in (("IVL", "InternVL2-8B"), ("GLM", "GLM-4V-9B")):
+    for key, model in (("IVL", "InternVL2-8B"), ("GLM", "GLM-4V-9B"),
+                       ("QVL", "Qwen-VL-Chat")):
         a = apart[key]
         heads, kvh = ATTN_HEADS[key]
         log(f"kernel attn_decode at {model}'s {a['shapes']} shapes (G = "
@@ -4545,6 +4597,10 @@ FAMILY_BURST = (77, 300, 513, 1000)  # the engine burst's id prompts
 FAMILY_BURST_TOKENS = 16
 IVL_DEPTH = 8  # InternVL2-8B's LLM layers: 32 (uncut) until the GLM-4V
 # phase took its time
+GLM_DEPTH = 8  # GLM-4V-9B's ChatGLM layers: 40 (uncut) until the Qwen-VL
+# phase took its time
+QVL_DEPTH = 8  # Qwen-VL-Chat's LLM layers in the whole script (32 uncut:
+# run_qwenvl_phase's default depth when it is called alone)
 
 
 def headline_w4a8(seed: int):
@@ -4601,7 +4657,8 @@ def run_glm4v_phase(card: str, seed: int, dev: str = "cuda",
                     gen_tokens: int = GEN_TOKENS, cfg=None) -> list:
     """Phase 4, GLM-4V-9B: the port's ``run_pipeline("GLM-4V-9B")`` at the
     published widths (the EVA2CLIP tower, 63 layers × 1792, neither fused
-    nor rotated; the GLU projector; ChatGLM at depth 40, MQA 32 / 2 heads,
+    nor rotated; the GLU projector; ChatGLM at depth GLM_DEPTH of 40, MQA
+    32 / 2 heads,
     half-width interleaved rotary, intermediate 13696 padded to 13824 =
     108 · 128 by the full online Hadamard, vocabulary 151552) in
     :func:`headline_w4a8`'s
@@ -4617,7 +4674,10 @@ def run_glm4v_phase(card: str, seed: int, dev: str = "cuda",
 
     from mquant_tpu_torch.models.glm4v import GLM4VConfig
 
-    cfg = cfg or GLM4VConfig.glm4v_9b()
+    if cfg is None:
+        cfg = GLM4VConfig.glm4v_9b()
+        cfg = dataclasses.replace(cfg, llm=dataclasses.replace(
+            cfg.llm, n_layers=GLM_DEPTH))
     gc.collect()
     torch.cuda.empty_cache()
     art = tempfile.mkdtemp(prefix="mquant_glm4v_")
@@ -4625,6 +4685,45 @@ def run_glm4v_phase(card: str, seed: int, dev: str = "cuda",
         counts = family_phase("glm4v", "GLM-4V-9B", card, seed, dev,
                               gen_tokens, cfg, headline_w4a8(seed), art)
         family_cli("GLM-4V-9B", card, art, dev, visual_sites=18)
+        return counts
+    finally:
+        shutil.rmtree(art)
+
+
+def run_qwenvl_phase(card: str, seed: int, dev: str = "cuda",
+                     gen_tokens: int = GEN_TOKENS, cfg=None,
+                     depth: int = 32) -> list:
+    """Phase 4, Qwen-VL-Chat: the port's ``run_pipeline("Qwen-VL-Chat")``
+    at the published widths (the CLIP-style tower, 48 layers × 1664 with
+    ln_pre, ``fc_sub_mean`` and ln_post; the attn_pool resampler, 256
+    queries over 1024 keys, width 4096; the Qwen decoder at ``depth`` of
+    32 layers, 32 / 32 heads (G = 1), intermediate 11008 = 172 · 64, whose
+    full online Hadamard is the seeded order-172 block ⊗ H₆₄, vocabulary
+    151936, dynamic NTK over 2048) in :func:`headline_w4a8`'s
+    configuration (``down`` split at K = 11007; the head at N = 151936),
+    served and checked by :func:`family_phase`, whose decode steps must
+    run ``attn_decode`` at G = 1, a call a layer; last, ``quant_vlm
+    --model Qwen-VL-Chat --tiny`` on the card with visual GPTQ (the
+    resampler's six sites included). Returns the launch counts of the
+    request and of the burst. ``cfg`` replaces the published
+    configuration (a CPU rehearsal at small widths)."""
+    import tempfile
+
+    import torch
+
+    from mquant_tpu_torch.models.qwenvl import QwenVLConfig
+
+    if cfg is None:
+        cfg = QwenVLConfig.qwenvl_chat()
+        cfg = dataclasses.replace(cfg, llm=dataclasses.replace(
+            cfg.llm, n_layers=depth))
+    gc.collect()
+    torch.cuda.empty_cache()
+    art = tempfile.mkdtemp(prefix="mquant_qwenvl_")
+    try:
+        counts = family_phase("qwenvl", "Qwen-VL-Chat", card, seed, dev,
+                              gen_tokens, cfg, headline_w4a8(seed), art)
+        family_cli("Qwen-VL-Chat", card, art, dev, visual_sites=19)
         return counts
     finally:
         shutil.rmtree(art)
@@ -5269,6 +5368,9 @@ def profile_phases(phases, card: str):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--qwenvl_alone", action="store_true",
+                    help="build the kernels and run only the Qwen-VL phase, "
+                         "its LLM uncut at 32 layers")
     args = ap.parse_args(argv)
 
     import torch
@@ -5294,6 +5396,12 @@ def main(argv=None) -> int:
     sass_hopper_kernels(funcs)
     sass_unpack_variants(funcs)
     sass_w8_bf16(funcs)
+    if args.qwenvl_alone:
+        t0 = time.perf_counter()
+        run_qwenvl_phase(card, args.seed)
+        log(f"qwenvl phase alone (depth 32): {time.perf_counter() - t0:.1f} "
+            f"s; card {card}")
+        return 0
 
     # phase 3: kernels vs plain
     summary = check_kernels(args.seed)
@@ -5338,6 +5446,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     counts += run_glm4v_phase(card, args.seed)
     log(f"glm4v phase: {time.perf_counter() - t0:.1f} s; card {card}")
+    # Qwen-VL-Chat at its published widths, its LLM at QVL_DEPTH
+    t0 = time.perf_counter()
+    counts += run_qwenvl_phase(card, args.seed, depth=QVL_DEPTH)
+    log(f"qwenvl phase: {time.perf_counter() - t0:.1f} s; card {card}")
     # the offline pipeline from an HF checkpoint at CKPT_DEPTH, with the
     # evaluation phase on its runner
     t0 = time.perf_counter()

@@ -1,12 +1,13 @@
 """Model → eval adapter (counterpart of ``mquant_tpu/evaluation/adapter.py``):
-a (quantized) Qwen2-VL, InternVL2 or GLM-4V and a tokenizer behind
-``generate(prompt)`` → text.
+a (quantized) Qwen2-VL, Qwen-VL, InternVL2 or GLM-4V and a tokenizer
+behind ``generate(prompt)`` → text.
 
 A request goes through the family's chat template, the aspect-ratio bucket
-of each image, one vision pass per image (ViT → merger, ViT → pixel
-shuffle → mlp1, or ViT → GLU projector with its boi / eoi rows) spliced
-into the token embeddings at the image tokens, the positions (Qwen2-VL's
-M-RoPE planes; InternVL2's and GLM-4V's 1-D arange, left to the decoder),
+of each image, one vision pass per image (ViT → merger, ViT → the
+resampler's 256 pooled rows, ViT → pixel shuffle → mlp1, or ViT → GLU
+projector with its boi / eoi rows) spliced into the token embeddings at
+the image tokens, the positions (Qwen2-VL's M-RoPE planes; the others' 1-D
+arange, left to the decoder),
 and the prefill and greedy decode loop of
 ``serve.generate.Generator``, or the continuous-batching
 ``serve.engine.ServingEngine`` (``engine_request``, ``serve_engine``,
@@ -40,8 +41,8 @@ class ByteTokenizer:
 
 
 class VLMRunner:
-    """Drives a (possibly quantized) Qwen2-VL, InternVL2 or GLM-4V end to
-    end. The images are resized into ``bucket_spec``'s buckets (default:
+    """Drives a (possibly quantized) Qwen2-VL, Qwen-VL, InternVL2 or GLM-4V
+    end to end. The images are resized into ``bucket_spec``'s buckets (default:
     the 1×1, 1×2, 2×1 and 2×2 multiples of ``image_size``, itself 4 patches
     by default). The Generator holds the LLM in its serving layout (W4 packed
     in real mode); the runner keeps that copy and not the one it was
@@ -89,7 +90,7 @@ class VLMRunner:
         """image (H, W, 3 in [0, 1] or uint8) → (patches, extra,
         n_img_tokens): the bucket of the closest aspect ratio; ``extra``
         holds Qwen2-VL's ``grid_hw`` and M-RoPE grid, or the patch ``grid``
-        (gh, gw) of InternVL2 and GLM-4V."""
+        (gh, gw) of the other families."""
         if image is None:
             return None, {}, 0
         from ..models.buckets import prepare_image
@@ -99,8 +100,8 @@ class VLMRunner:
         img = torch.from_numpy(img)[None].to(self.device)
         if self.fam.name != "qwen2vl":
             patches, _ = patchify_2d(img, self.cfg.patch)
-            return patches, {"grid": (gh, gw)}, image_tokens(self.fam.name,
-                                                             gh, gw)
+            return patches, {"grid": (gh, gw)}, image_tokens(self.cfg, gh,
+                                                             gw)
         patches, grid = patchify_qwen2vl(img, patch=self.cfg.patch)
         return patches, {"grid_hw": grid, "mrope_grid": (1, gh, gw)}, \
             gh * gw // 4
@@ -294,9 +295,9 @@ def _embed_with_quant(fam, cfg, params, batch, specs, state, mode):
 def _image_features(fam, cfg, params, patches, extra, specs, state, mode,
                     n_img=None):
     """One image's projected features (B, N_i, hidden), trimmed to its
-    ``n_img`` image tokens (Qwen2-VL's ViT → merger, InternVL2's ViT →
-    pixel shuffle → mlp1, GLM-4V's ViT → GLU projector; ``get_family``
-    refuses the other families)."""
+    ``n_img`` image tokens (Qwen2-VL's ViT → merger, Qwen-VL's ViT →
+    resampler, InternVL2's ViT → pixel shuffle → mlp1, GLM-4V's ViT → GLU
+    projector; ``get_family`` refuses MiniCPM-V)."""
     from ..models.vision import merger_forward, vit_forward
 
     vmask = extra.get("vis_token_mask")

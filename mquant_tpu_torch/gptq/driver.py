@@ -369,7 +369,8 @@ def gptq_quantize_vit(cfg, vit_params: Dict, feat_batches: List[torch.Tensor],
                       gcfg: GPTQConfig = GPTQConfig(), prefix: str = "vis"
                       ) -> tuple:
     """GPTQ the vision tower's blocks. ``feat_batches``: the first block's
-    inputs (the patch embed's output) per batch; ``grids`` their (B, T, 2)
+    inputs per batch (``vision.vit_preamble``'s output: the patch embed's,
+    after a CLIP tower's ln_pre and ``fc_sub_mean``); ``grids`` their (B, T, 2)
     patch coordinates for a rotary tower. Returns (vit_params, report)
     with the decoder driver's "fallbacks" and "sites"."""
     from ..models.vision import rot2d_tables

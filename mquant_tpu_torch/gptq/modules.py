@@ -1,6 +1,6 @@
-"""GPTQ for the cross-modal modules (the Qwen2-VL merger, InternVL2's
-mlp1, GLM-4V's GLU projector) and the patch embed (counterpart of
-``mquant_tpu/gptq/modules.py``).
+"""GPTQ for the cross-modal modules (the Qwen2-VL merger, Qwen-VL's
+resampler, InternVL2's mlp1, GLM-4V's GLU projector) and the patch embed
+(counterpart of ``mquant_tpu/gptq/modules.py``).
 
 A module's inputs are captured by its own forward: a "capture spec" (weight
 bits off, activation bits set and static, no finalized state) makes every
@@ -8,8 +8,7 @@ bits off, activation bits set and static, no finalized state) makes every
 (after the online Hadamard and the RMS split) while quantizing nothing.
 Stages run in dependency order, each capture re-running the forward with
 the stages before it already quantized. The patch embed is a linear over
-flattened patch pixels, so its Hessian is over the raw patches. The
-resampler needs the Qwen-VL and MiniCPM-V forwards (ROADMAP A12c).
+flattened patch pixels, so its Hessian is over the raw patches.
 """
 
 from __future__ import annotations
@@ -119,6 +118,27 @@ def gptq_quantize_merger(cfg, params: Dict, feat_batches: List[torch.Tensor],
     stages = [["merger.mlp0"], ["merger.mlp2"]]
     paths = {"merger.mlp0": ("merger", "mlp0"),
              "merger.mlp2": ("merger", "mlp2")}
+    return gptq_quantize_module(params, cap, feat_batches, stages, paths,
+                                specs, gcfg, report)
+
+
+def gptq_quantize_resampler(cfg, params: Dict,
+                            feat_batches: List[torch.Tensor],
+                            specs: Dict[str, SiteSpec], gcfg=GPTQConfig(),
+                            report=None) -> tuple:
+    """Qwen-VL's resampler (``attn_pool``), [kv_proj] → [k, v, q] → [out]
+    → [proj_fc], on the quantized tower's features."""
+    from ..models.resampler import RES_SITES, resampler_forward
+
+    def cap(p, cspecs, feats):
+        _, st = resampler_forward(cfg.resampler, p["res"], feats,
+                                  specs=cspecs, mode="calib",
+                                  collect_stats=True, collect_samples=True)
+        return _samples_from(st)
+
+    stages = [["res.kv_proj"], ["res.k", "res.v", "res.q"], ["res.out"],
+              ["res.proj_fc"]]
+    paths = {f"res.{s}": ("res", s) for s in RES_SITES}
     return gptq_quantize_module(params, cap, feat_batches, stages, paths,
                                 specs, gcfg, report)
 

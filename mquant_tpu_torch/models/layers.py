@@ -18,6 +18,7 @@ fp, ``w_col0``) → activation quantize → GEMM → f32 col0 correction → bia
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 from typing import Any, Dict, Optional
 
@@ -370,6 +371,15 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     # √½ rounded to x's dtype, as a host scalar (no copy in a graph capture)
     sqrt_half = float(torch.tensor(0.5 ** 0.5).to(x.dtype))
     return 0.5 * x * torch.special.erfc(-x * sqrt_half)
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """The tanh GELU as ``jax.nn.gelu(x, approximate=True)`` computes it:
+    x · (0.5 · (1 + tanh(√(2/π) · (x + 0.044715 · x³)))), each op
+    rounded to x's dtype (√(2/π) and 0.044715 too)."""
+    c, k = (float(torch.tensor(v).to(x.dtype))
+            for v in ((2 / math.pi) ** 0.5, 0.044715))
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x)))))
 
 
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:

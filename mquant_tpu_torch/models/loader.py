@@ -1,7 +1,7 @@
-"""HF checkpoint loading for Qwen2-VL, InternVL2 and GLM-4V (counterpart of
-``mquant_tpu/models/loader.py``): safetensors (sharded with an index, or
-one file) or ``pytorch_model.bin`` → the port's stacked parameter tree,
-with the JAX loader's weight surgery at load time.
+"""HF checkpoint loading for Qwen2-VL, Qwen-VL, InternVL2 and GLM-4V
+(counterpart of ``mquant_tpu/models/loader.py``): safetensors (sharded
+with an index, or one file) or ``pytorch_model.bin`` → the port's stacked
+parameter tree, with the JAX loader's weight surgery at load time.
 
 HF linears store (out, in); the tree stores (in, out), so weights are
 transposed. Surgery (the JAX loader's, exactly): the three LLM prefixes
@@ -28,7 +28,16 @@ Safetensors shards are read with the port's own reader
 mapping of the file. Each leaf is cast to ``dtype`` as it is written into
 its stacked tensor on ``device`` (f32, the JAX loader's host dtype, when
 ``dtype`` is None), so no float32 copy of the whole model is ever made.
-The resampler families' loaders are not ported (ROADMAP A12c).
+Qwen-VL-Chat (:func:`load_qwenvl`): Qwen's fused ``c_attn`` split into
+thirds, its MLP's ``w2`` / ``w1`` as gate / up; the visual ``in_proj``
+de-interleaved per head into q / k / v; the conv patch embed (no bias) as
+a linear; ``attn_pool``'s ``in_proj`` into thirds, the matrix ``proj`` as
+``res.proj_fc`` with a zero bias, the visual ln_post (output_dim wide,
+after the pool) as the resampler's ``ln_post``, and the exact
+``fc_sub_mean``. The tower gets no ``ln_post``: HF's tower has no norm
+after its blocks, and the JAX loader's copy of the pool's norm there does
+not fit the tower's width (ROADMAP C-w25). MiniCPM-V's loader is not
+ported (ROADMAP A12c).
 :func:`save_qwen2vl_hf` is the inverse: a tree in the port's layout
 written as a sharded HF checkpoint (HF names, the fused ``attn.qkv``, the
 conv3d patch embed) with the port's writer.
@@ -486,9 +495,96 @@ def load_glm4v(cfg, model_dir: str, dtype=torch.float32,
     return {"llm": llm, "vit": vit, "proj": proj}
 
 
-LOADERS = {"qwen2vl": load_qwen2vl, "internvl": load_internvl,
-           "glm4v": load_glm4v}
-_UNPORTED = {"qwenvl": "A12c", "minicpmv": "A12c"}
+def load_qwenvl(cfg, model_dir: str, dtype=torch.float32,
+                device="cuda") -> Dict:
+    """HF Qwen-VL-Chat → params on ``device`` in ``dtype``."""
+    from ..transform.fuse import sub_mean_matrix
+
+    ts = TensorStore(model_dir)
+    lcfg, vcfg, rcfg = cfg.llm, cfg.vit, cfg.resampler
+    leaf = lambda t: _leaf(t, dtype, device)  # noqa: E731
+
+    layers = []
+    for i in range(lcfg.n_layers):
+        b = f"transformer.h.{i}."
+        qw, kw, vw = _split_cols(ts.get(b + "attn.c_attn.weight"),
+                                 [lcfg.hidden] * 3)
+        qb, kb, vb = torch.chunk(ts.get(b + "attn.c_attn.bias"), 3)
+        layers.append({
+            "ln1": ts.norm(b + "ln_1"),
+            "q": {"w": qw, "b": qb}, "k": {"w": kw, "b": kb},
+            "v": {"w": vw, "b": vb},
+            "o": {"w": ts.get(b + "attn.c_proj.weight").T, "b": None},
+            "ln2": ts.norm(b + "ln_2"),
+            # Qwen's MLP: c_proj(w1(x) · silu(w2(x))): gate = w2, up = w1
+            "gate": {"w": ts.get(b + "mlp.w2.weight").T, "b": None},
+            "up": {"w": ts.get(b + "mlp.w1.weight").T, "b": None},
+            "down": {"w": ts.get(b + "mlp.c_proj.weight").T, "b": None},
+        })
+    llm = {"embed": {"w": leaf(ts.get("transformer.wte.weight"))},
+           "layers": _stack(layers, dtype, device),
+           "ln_f": {k: leaf(v) for k, v in ts.norm(
+               "transformer.ln_f").items()},
+           "lm_head": {"w": leaf(ts.get("lm_head.weight").T), "b": None}}
+    del layers
+
+    vp = "transformer.visual."
+    W, H = vcfg.width, vcfg.n_heads
+    hd = W // H
+    blocks = []
+    for i in range(vcfg.n_layers):
+        b = f"{vp}transformer.resblocks.{i}."
+        # in_proj interleaved per head, [q_h0, k_h0, v_h0, q_h1, …] →
+        # contiguous q, k, v
+        w3 = ts.get(b + "attn.in_proj.weight").reshape(H, 3, hd, W)
+        b3 = ts.get(b + "attn.in_proj.bias").reshape(H, 3, hd)
+        blocks.append({
+            "ln1": ts.norm(b + "ln_1"),
+            **{s: {"w": w3[:, j].reshape(W, W).T, "b": b3[:, j].reshape(-1)}
+               for j, s in enumerate("qkv")},
+            "o": ts.lin(b + "attn.out_proj"),
+            "ln2": ts.norm(b + "ln_2"),
+            "fc1": ts.lin(b + "mlp.c_fc"),
+            "fc2": ts.lin(b + "mlp.c_proj"),
+        })
+
+    def norm(name):
+        return {k: leaf(v) for k, v in ts.norm(name).items()}
+
+    vit = {"patch_embed": {"w": leaf(_conv_linear(ts.get(
+               vp + "conv1.weight"))), "b": None},
+           "pos_embed": {"w": leaf(ts.get(vp + "positional_embedding"))},
+           "ln_pre": norm(vp + "ln_pre"),
+           "fc_sub_mean": {"w": leaf(sub_mean_matrix(W)), "b": None},
+           "blocks": _stack(blocks, dtype, device)}
+    del blocks
+
+    # attn_pool: the MultiheadAttention's in_proj → q / k / v; the
+    # matrix ``proj`` → the proj_fc linear with a zero bias
+    ap = vp + "attn_pool."
+    qw, kw, vw = _split_cols(ts.get(ap + "attn.in_proj_weight"),
+                             [rcfg.width] * 3)
+    qb, kb, vb = torch.chunk(ts.get(ap + "attn.in_proj_bias"), 3)
+    proj = ts.get(vp + "proj")
+    out = ts.lin(ap + "attn.out_proj")
+    res = {"query": {"w": leaf(ts.get(ap + "query"))},
+           "ln_q": norm(ap + "ln_q"), "ln_kv": norm(ap + "ln_kv"),
+           "kv_proj": {"w": leaf(ts.get(ap + "kv_proj.weight").T),
+                       "b": None},
+           **{s: {"w": leaf(w), "b": leaf(bb)}
+              for s, w, bb in (("q", qw, qb), ("k", kw, kb), ("v", vw, vb))},
+           "out": {"w": leaf(out["w"]), "b": leaf(out["b"])},
+           "ln_post": norm(vp + "ln_post"),
+           "pos_embed_kv": {"w": leaf(ts.get(ap + "pos_embed"))},
+           "proj_fc": {"w": leaf(proj), "b": leaf(torch.zeros(
+               proj.shape[1]))}}
+    ts.close()
+    return {"llm": llm, "vit": vit, "res": res}
+
+
+LOADERS = {"qwen2vl": load_qwen2vl, "qwenvl": load_qwenvl,
+           "internvl": load_internvl, "glm4v": load_glm4v}
+_UNPORTED = {"minicpmv": "A12c"}
 
 
 def load_model(family_name: str, cfg, model_dir: str, dtype=None,

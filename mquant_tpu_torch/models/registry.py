@@ -1,6 +1,6 @@
 """Model registry (counterpart of ``mquant_tpu/models/registry.py``): the
-Qwen2-VL, InternVL2 and GLM-4V families. The JAX package's other families
-(Qwen-VL and MiniCPM-V: ROADMAP A12c) are not ported yet and raise."""
+Qwen2-VL, Qwen-VL, InternVL2 and GLM-4V families. The JAX package's other
+family (MiniCPM-V: ROADMAP A12c) is not ported yet and raises."""
 
 from __future__ import annotations
 
@@ -22,8 +22,7 @@ class ModelFamily(NamedTuple):
     subsystems: tuple  # site prefixes, the LLM's last
 
 
-_UNPORTED = (("qwenvl", "qwenvl", "A12c"), ("qwen-vl", "qwenvl", "A12c"),
-             ("minicpm", "minicpmv", "A12c"))
+_UNPORTED = (("minicpm", "minicpmv", "A12c"),)
 
 
 def get_family(name: str) -> ModelFamily:
@@ -41,6 +40,12 @@ def get_family(name: str) -> ModelFamily:
                            presets.get(key, Qwen2VLConfig.qwen2vl_7b),
                            Qwen2VLConfig.tiny, init_qwen2vl_params,
                            qwen2vl_forward, ("vis", "merger", "llm"))
+    if "qwenvl" in key:
+        from .qwenvl import QwenVLConfig, init_qwenvl_params, qwenvl_forward
+
+        return ModelFamily("qwenvl", QwenVLConfig.qwenvl_chat,
+                           QwenVLConfig.tiny, init_qwenvl_params,
+                           qwenvl_forward, ("vis", "res", "llm"))
     if "internvl" in key:
         from .internvl import (InternVLConfig, init_internvl_params,
                                internvl_forward)
@@ -63,34 +68,43 @@ def get_family(name: str) -> ModelFamily:
 
 # the model names the port resolves: the JAX package's SUPPORTED_MODELS less
 # the families that still raise
-SUPPORTED_MODELS = ("Qwen2-VL-2B", "Qwen2-VL-7B", "Qwen2-VL-72B",
-                    "InternVL2-8B", "GLM-4V-9B")
+SUPPORTED_MODELS = ("Qwen-VL-Chat", "Qwen2-VL-2B", "Qwen2-VL-7B",
+                    "Qwen2-VL-72B", "InternVL2-8B", "GLM-4V-9B")
 
 
 def family_of(cfg) -> ModelFamily:
     """The family of a model config, by its class."""
     from .glm4v import GLM4VConfig
     from .internvl import InternVLConfig
+    from .qwenvl import QwenVLConfig
 
-    if isinstance(cfg, GLM4VConfig):
-        return get_family("glm4v")
-    return get_family("internvl" if isinstance(cfg, InternVLConfig)
-                      else "qwen2vl")
+    for cls, name in ((GLM4VConfig, "glm4v"), (InternVLConfig, "internvl"),
+                      (QwenVLConfig, "qwenvl")):
+        if isinstance(cfg, cls):
+            return get_family(name)
+    return get_family("qwen2vl")
 
 
-def image_tokens(name: str, gh: int, gw: int) -> int:
-    """Image tokens a (gh, gw) patch grid takes in the family's prompt:
-    one per 2 × 2 patches, and GLM-4V's boi and eoi."""
+def image_tokens(cfg, gh: int, gw: int) -> int:
+    """Image tokens a (gh, gw) patch grid takes in the prompt of ``cfg``'s
+    family: one per 2 × 2 patches, and GLM-4V's boi and eoi; Qwen-VL's
+    resampler queries whatever the grid."""
+    name = family_of(cfg).name
+    if name == "qwenvl":
+        return cfg.resampler.n_queries
     return (gh // 2) * (gw // 2) + (2 if name == "glm4v" else 0)
 
 
 def grid_image_features(name: str):
-    """The ``image_features`` of a family whose batches carry the patch
-    ``grid`` (InternVL2, GLM-4V), or None (Qwen2-VL: ``grid_hw``)."""
+    """The ``image_features`` of a family whose runner batches carry the
+    patch ``grid`` (InternVL2, GLM-4V; Qwen-VL, which does not read it),
+    or None (Qwen2-VL: ``grid_hw``)."""
     if name == "internvl":
         from .internvl import image_features
     elif name == "glm4v":
         from .glm4v import image_features
+    elif name == "qwenvl":
+        from .qwenvl import image_features
     else:
         return None
     return image_features

@@ -1,6 +1,8 @@
 """Vision transformer tower + Qwen2-VL merger (counterpart of
-``mquant_tpu/models/vision.py``): Qwen2-VL's ViT (2-D rotary) and
-InternViT (learned position embeddings, LayerScale).
+``mquant_tpu/models/vision.py``): Qwen2-VL's ViT (2-D rotary), InternViT
+(learned position embeddings, LayerScale) and Qwen-VL's CLIP-style tower
+(``pre_norm``: ln_pre and the float ``fc_sub_mean`` centering after the
+patch embed; ``post_norm``: ln_post after the blocks).
 
 Blocks are stacked (L, ...) like the decoder and walked with per-layer views.
 The patch-embed "conv" (kernel == stride) is a linear over flattened patch
@@ -9,9 +11,9 @@ pixels (:func:`patchify_qwen2vl` / :func:`patchify_2d` + ``qlinear``, the
 ports: realized int8 storage in "real" mode, float weights with
 fake-quantized activations in "fake" mode (or in "real" mode where the
 pipeline realized the LLM alone), ``vis.fc2`` with its online Hadamard
-over the MLP width and its RMS split where the specs set them. Validity masks of padded patch sequences
-(``token_mask``) are not ported (ROADMAP A6), nor the resampler families'
-``ln_pre`` / ``ln_post`` (ROADMAP A12c).
+over the MLP width and its RMS split where the specs set them. Validity
+masks of padded patch sequences (``token_mask``) are not ported (ROADMAP
+A6).
 """
 
 from __future__ import annotations
@@ -37,11 +39,13 @@ class ViTConfig:
     patch_dim: int  # flattened patch pixel count (e.g. 2*14*14*3)
     n_pos: int = 0  # learned position embeddings (0 = none)
     norm_kind: str = "ln"  # "ln" pre-fusion, "rmsn" post-fusion
-    act: str = "gelu"  # gelu | quick_gelu
+    act: str = "gelu"  # gelu | quick_gelu | gelu_tanh
     rotary_2d: bool = False  # Qwen2-VL vision rotary
     layerscale: bool = False  # InternViT ls1 / ls2 (folded away by fusion)
     norm_eps: float = 1e-6
     head_dim: int = 0
+    pre_norm: bool = False  # CLIP-style ln_pre before the blocks
+    post_norm: bool = False  # ln_post after the blocks
     dtype: Any = torch.bfloat16
 
     def __post_init__(self):
@@ -52,11 +56,12 @@ class ViTConfig:
 def init_vit_params(cfg: ViTConfig, gen: torch.Generator, dtype=None,
                     device="cuda") -> Dict:
     """Random ViT params in the JAX package's stacked layout (its
-    ``init_vit_params`` for a config without ln_pre / ln_post, with q/k/v
-    biases): N(0, 1/fan_in) weights drawn on ``gen``'s device
-    (``models.layers.normal_init``), zero biases, unit norms (with a zero
-    bias for LayerNorm); with ``layerscale`` ls1 / ls2 of 0.1, with
-    ``n_pos`` N(0, 0.02²) position embeddings drawn after the blocks."""
+    ``init_vit_params`` with q/k/v biases): N(0, 1/fan_in) weights drawn on
+    ``gen``'s device (``models.layers.normal_init``), zero biases, unit
+    norms (with a zero bias for LayerNorm); with ``layerscale`` ls1 / ls2
+    of 0.1, with ``n_pos`` N(0, 0.02²) position embeddings drawn after the
+    blocks, with ``pre_norm`` / ``post_norm`` an unbatched ln_pre /
+    ln_post."""
     dtype = dtype or cfg.dtype
     Lx, W, M = cfg.n_layers, cfg.width, cfg.mlp_width
     hd, H = cfg.head_dim, cfg.n_heads
@@ -66,17 +71,17 @@ def init_vit_params(cfg: ViTConfig, gen: torch.Generator, dtype=None,
         return {"w": L.normal_init(gen, (Lx, din, dout), **kw),
                 "b": torch.zeros((Lx, dout), **kw)}
 
-    def norm():
-        d = {"w": torch.ones((Lx, W), **kw)}
+    def norm(*lead):
+        d = {"w": torch.ones((*lead, W), **kw)}
         if cfg.norm_kind == "ln":
-            d["b"] = torch.zeros((Lx, W), **kw)
+            d["b"] = torch.zeros((*lead, W), **kw)
         return d
 
     patch = {"w": L.normal_init(gen, (cfg.patch_dim, W), **kw),
              "b": torch.zeros((W,), **kw)}
-    blocks = {"ln1": norm()}
+    blocks = {"ln1": norm(Lx)}
     blocks.update(q=site(W, H * hd), k=site(W, H * hd), v=site(W, H * hd),
-                  o=site(H * hd, W), ln2=norm(), fc1=site(W, M),
+                  o=site(H * hd, W), ln2=norm(Lx), fc1=site(W, M),
                   fc2=site(M, W))
     p = {"patch_embed": patch, "blocks": blocks}
     if cfg.layerscale:
@@ -84,6 +89,10 @@ def init_vit_params(cfg: ViTConfig, gen: torch.Generator, dtype=None,
         blocks["ls2"] = {"w": torch.full((Lx, W), 0.1, **kw)}
     if cfg.n_pos:
         p["pos_embed"] = {"w": L.normal_init(gen, (cfg.n_pos, W), 0.02, **kw)}
+    if cfg.pre_norm:
+        p["ln_pre"] = norm()
+    if cfg.post_norm:
+        p["ln_post"] = norm()
     return p
 
 
@@ -98,6 +107,8 @@ def _norm(cfg: ViTConfig, x, nparams):
 def _act(cfg: ViTConfig, x):
     if cfg.act == "gelu":
         return L.gelu(x)
+    if cfg.act == "gelu_tanh":
+        return L.gelu_tanh(x)
     if cfg.act == "quick_gelu":
         return x * L.sigmoid(1.702 * x)
     raise ValueError(cfg.act)
@@ -120,14 +131,21 @@ def rot2d_tables(grid_hw: torch.Tensor, head_dim: int, theta: float = 10000.0):
 def vit_preamble(cfg: ViTConfig, params: Dict, patches: torch.Tensor,
                  specs=None, state=None, mode: str = "fp", tape=None,
                  prefix: str = "vis") -> torch.Tensor:
-    """The patch-embed linear, plus the first T learned position
-    embeddings where the tower has them."""
+    """Everything before the blocks (the GPTQ driver's block-0 inputs):
+    the patch-embed linear, plus the first T learned position embeddings
+    where the tower has them, then a CLIP-style tower's ln_pre and its
+    ``fc_sub_mean`` (a float linear, never quantized)."""
     specs = specs or {}
     h = qlinear(patches.to(cfg.dtype), params["patch_embed"],
                 f"{prefix}.patch_embed", specs.get(f"{prefix}.patch_embed"),
                 state, mode, tape)
     if cfg.n_pos and "pos_embed" in params:
         h = h + params["pos_embed"]["w"][None, :h.shape[1]].to(h.dtype)
+    if cfg.pre_norm and "ln_pre" in params:
+        h = _norm(cfg, h, params["ln_pre"])
+        if "fc_sub_mean" in params:
+            h = qlinear(h, params["fc_sub_mean"], f"{prefix}.fc_sub_mean",
+                        None, None, "fp")
     return h
 
 
@@ -198,6 +216,8 @@ def vit_forward(cfg: ViTConfig, params: Dict, patches: torch.Tensor,
         if cfg.layerscale and "ls2" in bp:
             x = x * bp["ls2"]["w"].to(x.dtype)
         h = h + x
+    if cfg.post_norm and "ln_post" in params:
+        h = _norm(cfg, h, params["ln_post"])
     if not collect_stats:
         return h, None
     stats, samples = L.stack_tapes(tapes) or ({}, {})

@@ -1,10 +1,11 @@
-"""The offline PTQ pipeline, Qwen2-VL, InternVL2 and GLM-4V (counterpart of
-``mquant_tpu/pipeline.py``): an HF checkpoint, random or given weights →
-SmoothQuant migration → the online-Hadamard gate → fuse / rotate → the
-lm_head width gate → sensitivity-based mixed bits → weight quantization
-(LLM GPTQ or RTN, vision tower, patch embed and merger / mlp1 / GLU
-projector GPTQ or RTN, head RTN) → static activation calibration (MSQ) →
-integer realization → artifact (``utils.checkpoint.save_artifact``), which
+"""The offline PTQ pipeline, Qwen2-VL, Qwen-VL, InternVL2 and GLM-4V
+(counterpart of ``mquant_tpu/pipeline.py``): an HF checkpoint, random or
+given weights → SmoothQuant migration → the online-Hadamard gate → fuse /
+rotate → the lm_head width gate → sensitivity-based mixed bits → weight
+quantization (LLM GPTQ or RTN, vision tower, patch embed and merger /
+resampler / mlp1 / GLU projector GPTQ or RTN, head RTN) → static
+activation calibration (MSQ) → integer realization → artifact
+(``utils.checkpoint.save_artifact``), which
 ``serve.server.build_runner_from_artifact`` serves.
 
 One structured :class:`QuantizeConfig` with the JAX package's fields.
@@ -12,8 +13,8 @@ Everything runs on the card unless the caller passes ``device="cpu"``;
 ``run_pipeline``'s ``info`` records each stage's seconds and, on the card,
 its peak memory. The stages take the family from the model config
 (``models.registry.family_of``) and run its forward on a batch's
-{"tokens", "patches", extras} (:func:`batch_forward`). The other model
-families raise naming ROADMAP A12 (``models.registry.get_family``).
+{"tokens", "patches", extras} (:func:`batch_forward`). MiniCPM-V raises
+naming ROADMAP A12 (``models.registry.get_family``).
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from .models.layers import SiteSpec
 from .models.llm import LLM_SITES
 from .models.registry import (family_of, get_family, grid_image_features,
                               image_tokens)
+from .models.resampler import RES_SITES
 from .models.vision import VIT_SITES
 
 log = logging.getLogger("mquant_tpu_torch.pipeline")
@@ -39,6 +41,7 @@ log = logging.getLogger("mquant_tpu_torch.pipeline")
 SUBSYSTEM_SITES = {
     "vis": VIT_SITES + ("patch_embed",),
     "merger": ("mlp0", "mlp2"),
+    "res": RES_SITES,
     "proj": ("fc1", "fc2", "conv", "linear_proj", "gate", "h_to_4h",
              "4h_to_h"),
     "llm": LLM_SITES,
@@ -97,18 +100,18 @@ class QuantizeConfig:
 
 
 def check_ported(q: QuantizeConfig, family: str = "qwen2vl"):
-    """Raise for a value of ``q`` this port does not implement: visual
-    GPTQ of the resampler needs the Qwen-VL and MiniCPM-V forwards
-    (ROADMAP A12c)."""
+    """Raise ValueError for a value of ``q`` that names no option, and
+    NotImplementedError for visual GPTQ of MiniCPM-V's resampler, whose
+    family is not ported (ROADMAP A12c)."""
     if q.lm_head_bits not in (0, 4, 8, "auto"):
         raise ValueError(f"lm_head_bits={q.lm_head_bits!r}: 0, 4, 8 or "
                          "'auto'")
     if q.online_had_mode not in ("full", "block", "auto"):
         raise ValueError(f"online_had_mode={q.online_had_mode!r}")
-    if family not in ("qwen2vl", "internvl", "glm4v") and not q.visual_w_rtn:
+    if family == "minicpmv" and not q.visual_w_rtn:
         raise NotImplementedError(
-            f"visual GPTQ of the {family} projector (gptq_quantize_resampler)"
-            " is not ported (ROADMAP A12c)")
+            "visual GPTQ of the minicpmv resampler is not ported (ROADMAP "
+            "A12c)")
 
 
 def build_specs(q: QuantizeConfig,
@@ -168,8 +171,9 @@ def synthetic_calib_batches(cfg, n_batches: int, gen: torch.Generator,
     from ``gen``: a normal image (batch, image_size², 3) patchified, its
     image tokens (one per 2 × 2 patches, GLM-4V's boi and eoi too) at
     positions 2.., then text_len − 2 random ids below min(vocab, 1000), the
-    rest token 11. The batch's extras are the family's: Qwen2-VL's
-    ``grid_hw``, InternVL2's and GLM-4V's ``grid`` (gh, gw)."""
+    rest token 11 (Qwen-VL: its resampler's n_queries image tokens). The
+    batch's extras are the family's: Qwen2-VL's ``grid_hw``, InternVL2's
+    and GLM-4V's ``grid`` (gh, gw), none for Qwen-VL."""
     from .models.vision import patchify_2d, patchify_qwen2vl
 
     name = family_of(cfg).name
@@ -180,8 +184,8 @@ def synthetic_calib_batches(cfg, n_batches: int, gen: torch.Generator,
         if name != "qwen2vl":
             patches, _ = patchify_2d(images, cfg.patch)
             gh = gw = image_size // cfg.patch
-            n_img = image_tokens(name, gh, gw)
-            extra = {"grid": (gh, gw)}
+            n_img = image_tokens(cfg, gh, gw)
+            extra = {} if name == "qwenvl" else {"grid": (gh, gw)}
         else:
             patches, grid = patchify_qwen2vl(images, patch=cfg.patch)
             n_img = patches.shape[1] // 4
@@ -229,8 +233,8 @@ def _bound_nsamples(batches: List[dict], nsamples: int) -> List[dict]:
 
 def embed_batch(cfg, params: Dict, batch: dict) -> torch.Tensor:
     """Decoder-input embeddings of one batch: the embedding, the float
-    ViT and projector (the merger, pixel shuffle + mlp1 or the GLU
-    projector), the splice."""
+    ViT and projector (the merger, the resampler, pixel shuffle + mlp1 or
+    the GLU projector), the splice."""
     from .models.qwen2vl import splice_image_embeds
     from .models.vision import merger_forward, vit_forward
 
@@ -240,7 +244,7 @@ def embed_batch(cfg, params: Dict, batch: dict) -> torch.Tensor:
         return embeds
     features = grid_image_features(family_of(cfg).name)
     if features is not None:
-        img, _ = features(cfg, params, batch["patches"], batch["grid"])
+        img, _ = features(cfg, params, batch["patches"], batch.get("grid"))
     else:
         feats, _ = vit_forward(cfg.vit, params["vit"], batch["patches"],
                                grid_hw=batch.get("grid_hw"))
@@ -266,7 +270,8 @@ def _rtn_visual(params: Dict, specs: Dict[str, SiteSpec], q: QuantizeConfig,
     weight bits that is not in ``done`` (the GPTQ'd sites)."""
     from .core import quant as Q
 
-    group_of = {"vis": "vit", "merger": "merger", "proj": "proj"}
+    group_of = {"vis": "vit", "merger": "merger", "res": "res",
+                "proj": "proj"}
     for name, spec in specs.items():
         prefix, site = name.split(".", 1)
         if prefix == "llm" or spec.w_bits is None or name in done:
@@ -295,8 +300,9 @@ def _gptq_visual(cfg, params: Dict, specs: Dict[str, SiteSpec],
                  q: QuantizeConfig, calib_batches: List[dict],
                  report: Dict) -> tuple:
     """Visual GPTQ, stage by stage: the patch embed on the raw patches,
-    the ViT blocks on the quantized patch embed's output, the merger (or
-    mlp1, on the pixel-shuffled features, or the GLU projector) on the
+    the ViT blocks on the quantized patch embed's output (after a CLIP
+    tower's ln_pre and ``fc_sub_mean``), the merger (or the resampler, or
+    mlp1 on the pixel-shuffled features, or the GLU projector) on the
     quantized tower's features. Returns (params, the GPTQ'd site names);
     ``report`` gets "fallbacks" and "sites"."""
     from .gptq import modules as GM
@@ -329,7 +335,7 @@ def _gptq_visual(cfg, params: Dict, specs: Dict[str, SiteSpec],
         done |= {f"vis.{s}" for s in VIT_SITES}
     del feats
     name = family_of(cfg).name
-    group = "merger" if name == "qwen2vl" else "proj"
+    group = {"qwen2vl": "merger", "qwenvl": "res"}.get(name, "proj")
     if group in params:
         tower = [vit_forward(cfg.vit, params["vit"], b["patches"],
                              grid_hw=b.get("grid_hw"))[0] for b in batches]
@@ -341,6 +347,10 @@ def _gptq_visual(cfg, params: Dict, specs: Dict[str, SiteSpec],
                                                               batches)],
                 specs, gcfg, report)
             done |= {f"proj.{s}" for s in GLU_SITES}
+        elif name == "qwenvl":
+            params, report = GM.gptq_quantize_resampler(cfg, params, tower,
+                                                        specs, gcfg, report)
+            done |= {f"res.{s}" for s in RES_SITES}
         elif name == "internvl":  # mlp1 on the pixel-shuffled features
             from .models.projectors import pixel_shuffle
 

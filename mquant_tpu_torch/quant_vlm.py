@@ -1,5 +1,6 @@
-"""Quantize a Qwen2-VL, InternVL2 or GLM-4V model with the port's pipeline,
-write its artifact and evaluate it (counterpart of ``exam/quant_vlm.py``).
+"""Quantize a Qwen2-VL, Qwen-VL, InternVL2 or GLM-4V model with the port's
+pipeline, write its artifact and evaluate it (counterpart of
+``exam/quant_vlm.py``).
 
 On the card unless ``--device cpu``. Without checkpoints the weights are
 random, drawn from ``--seed``, and the calibration data synthetic:
@@ -13,10 +14,13 @@ headline W4A8 configuration on Qwen2-VL-7B:
       --calib_num 512 --nsamples 32 --calib_image_size 448 \\
       --realize_int --artifact out/qwen2vl7b_w4a8
 
-and on InternVL2-8B (``--model InternVL2-8B``: InternViT, pixel shuffle +
-mlp1, the InternLM2 decoder) or GLM-4V-9B (``--model GLM-4V-9B``: the
-EVA2CLIP tower, the GLU projector, ChatGLM; ``--visual_w_gptq`` runs the
-GLU projector's GPTQ) with the same flags.
+and on Qwen-VL-Chat (``--model Qwen-VL-Chat``: the CLIP-style tower with
+``fc_sub_mean``, the attn_pool resampler, the Qwen decoder;
+``--visual_w_gptq`` runs the resampler's GPTQ), InternVL2-8B (``--model
+InternVL2-8B``: InternViT, pixel shuffle + mlp1, the InternLM2 decoder) or
+GLM-4V-9B (``--model GLM-4V-9B``: the EVA2CLIP tower, the GLU projector,
+ChatGLM; ``--visual_w_gptq`` runs the GLU projector's GPTQ) with the same
+flags.
 
 ``--calib_dataset NAME_OR_TSV`` calibrates on the first ``--calib_num``
 rows of an eval dataset instead (through the serving input construction).
@@ -37,7 +41,8 @@ CLI's (``--w_asym``, ``--w_groupsize``, ``--a_asym``, ``--a_groupsize``,
 ``--a_clip_ratio``, ``--act_per_tensor``, plus ``--act_per_channel`` to turn
 it off), and ``--k_bits`` / ``--v_bits`` 8 or 4 give the evaluation's runner
 an int8 / int4 KV cache. So are the pipeline's options: ``--model_dir`` (an
-HF Qwen2-VL, InternVL2 or GLM-4V checkpoint: sharded or single safetensors, or
+HF Qwen2-VL, Qwen-VL, InternVL2 or GLM-4V checkpoint: sharded or single
+safetensors, or
 ``pytorch_model.bin``; its tokenizer through ``transformers`` where that is
 installed, else the byte tokenizer), ``--smooth_alpha``,
 ``--online_had_mode auto``, ``--lm_head_bits auto`` with
@@ -70,7 +75,8 @@ import sys
 def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--model", default="Qwen2-VL-7B",
-                   help="Qwen2-VL-{2B,7B,72B}, InternVL2-8B or GLM-4V-9B")
+                   help="Qwen2-VL-{2B,7B,72B}, Qwen-VL-Chat, InternVL2-8B "
+                        "or GLM-4V-9B")
     p.add_argument("--tiny", action="store_true", help="tiny config")
     p.add_argument("--model_dir", default=None,
                    help="HF checkpoint dir (omitted: random weights)")

@@ -23,7 +23,8 @@ Endpoints (JSON bodies, stdlib only):
 
 ``python -m mquant_tpu_torch.serve.server --artifact DIR`` serves an
 artifact of the JAX pipeline or of the port's (``--tiny`` a random-weight
-Qwen2-VL); on the card unless ``--device`` says otherwise.
+tiny model of ``--model``'s family); on the card unless ``--device`` says
+otherwise.
 """
 
 from __future__ import annotations
@@ -788,7 +789,7 @@ def _load_tokenizer(path: str):
 def main(argv=None):
     """CLI: ``python -m mquant_tpu_torch.serve.server --artifact DIR --port
     8000`` (or ``--tiny`` for a random-weight tiny model of ``--model``'s
-    family: qwen2vl, internvl or glm4v)."""
+    family: qwen2vl, qwenvl, internvl or glm4v)."""
     import argparse
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -796,8 +797,8 @@ def main(argv=None):
                    help="quantization artifact dir (run_pipeline's, or "
                         "python -m mquant_tpu_torch.quant_vlm --artifact)")
     p.add_argument("--model", default="qwen2vl",
-                   help="family for --tiny demo mode (qwen2vl, internvl, "
-                        "glm4v)")
+                   help="family for --tiny demo mode (qwen2vl, qwenvl, "
+                        "internvl, glm4v)")
     p.add_argument("--tiny", action="store_true",
                    help="serve a tiny random-weight model (smoke/demo)")
     p.add_argument("--mode", default=None, choices=["fp", "fake", "real"])

@@ -75,3 +75,11 @@ def center_embedding(embed_w: torch.Tensor) -> torch.Tensor:
     centered stream keeps it zero-mean."""
     e = _f64(embed_w)
     return e - e.mean(dim=-1, keepdim=True)
+
+
+def sub_mean_matrix(n: int, device="cpu") -> torch.Tensor:
+    """The (I − 11ᵀ/n) centering projection as an explicit float64 matrix,
+    for a site where centering cannot be folded upstream (Qwen-VL's ln_pre
+    → ``fc_sub_mean``)."""
+    return (torch.eye(n, dtype=torch.float64, device=device)
+            - torch.ones((n, n), dtype=torch.float64, device=device) / n)

@@ -1,10 +1,13 @@
-"""Whole-VLM transform recipes, the Qwen2-VL, InternVL2 and GLM-4V branches
-(counterpart of ``mquant_tpu/transform/vlm_recipes.py``): the ViT tower's
-LayerScale fold, LN → RMSNorm fusion and rotation, the merger's ln_q fold
-and mlp1's ln fold with their block-diagonal input rotations, and
-:func:`prepare_vlm`, which runs them with the decoder's recipes and rotates
-the LLM stream into the projector's last linear (``merger.mlp2`` /
-``proj.fc2`` / ``proj.4h_to_h``) and GLM-4V's boi / eoi rows. GLM-4V's
+"""Whole-VLM transform recipes, the Qwen2-VL, Qwen-VL, InternVL2 and GLM-4V
+branches (counterpart of ``mquant_tpu/transform/vlm_recipes.py``): the ViT
+tower's LayerScale fold, LN → RMSNorm fusion and rotation (a CLIP-style
+tower's rotation entering through ``fc_sub_mean``'s output), the merger's
+ln_q fold and mlp1's ln fold with their block-diagonal input rotations,
+the resampler's norm folds and its cross-attention rotations Q_kv / Q_q /
+Q_o, and :func:`prepare_vlm`, which runs them with the decoder's recipes
+and rotates the LLM stream into the projector's last linear
+(``merger.mlp2`` / ``res.proj_fc`` / ``proj.fc2`` / ``proj.4h_to_h``) and
+GLM-4V's boi / eoi rows. GLM-4V's
 EVA2CLIP tower is neither fused nor rotated: its stream feeds a conv, not a
 LayerNorm, so centering it would change the function (the JAX package's
 recipe, and the reference ships no GLM rotation).
@@ -14,8 +17,13 @@ LN ≡ affine · RMSNorm; the affine folds into the consumers and the norm
 keeps a unit weight (its bias dropped: the forwards pick LN or RMSNorm by
 the bias's presence). The ViT (a few GB in float64 at full size) is
 transformed as one stacked float64 tree, as in the JAX package; the
-decoder one layer at a time (``transform.recipes``). The resampler
-families' branches are not ported (ROADMAP A12c).
+decoder one layer at a time (``transform.recipes``). The float leaves
+that stay float in an artifact and hold rows centered to a rounding
+residue (a ViT's position table, the resampler's queries,
+``fc_sub_mean``) are centered and rotated with numpy on the host, the JAX
+recipe's own arithmetic, so the artifact's bytes are JAX's (the residue
+otherwise rounds to other f32 bits). MiniCPM-V's branch is not ported
+(ROADMAP A12c).
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..models.resampler import ResamplerConfig
 from ..models.vision import MergerConfig, ViTConfig
 from . import fuse as F
 from . import hadamard as H
@@ -36,11 +45,23 @@ def _drop_bias(norm: dict) -> dict:
     return {"w": torch.ones_like(norm["w"].to(torch.float64))}
 
 
+def _np_rotate(w: torch.Tensor, Q: torch.Tensor,
+               subscripts: str = "...io,oj->...ij") -> torch.Tensor:
+    """w · Q in float64 by numpy's einsum on the host with the JAX recipe's
+    subscripts (its ``rotate_linear_output``'s by default, "vh,hj->vj" for
+    its ``rotate_embedding``), back on w's device."""
+    out = np.einsum(subscripts, w.double().cpu().numpy(),
+                    Q.double().cpu().numpy())
+    return torch.from_numpy(out).to(w.device)
+
+
 def fuse_vit(cfg: ViTConfig, params: Dict) -> Dict:
     """LN → RMSNorm fusion of a residual ViT tower (exact): fold LayerScale
     ls1 / ls2 into o / fc2 (left as unit weights), center the stream's
-    producers (the patch embed and its position table, o, fc2), fold ln1
-    into q, k, v and ln2 into fc1."""
+    producers (the patch embed and its position table, unless a CLIP
+    tower's ln_pre and ``fc_sub_mean`` start the stream; o, fc2), fold ln1
+    into q, k, v and ln2 into fc1. ln_pre stays a LayerNorm; ln_post is
+    folded into the consumer by :func:`fold_ln_post_into`."""
     p = _to_f64(params)
     blocks = p["blocks"]
     if "ls1" in blocks:
@@ -48,9 +69,10 @@ def fuse_vit(cfg: ViTConfig, params: Dict) -> Dict:
         blocks["fc2"] = _fold_ls(blocks["fc2"], blocks["ls2"]["w"])
         blocks["ls1"] = {"w": torch.ones_like(blocks["ls1"]["w"])}
         blocks["ls2"] = {"w": torch.ones_like(blocks["ls2"]["w"])}
-    p["patch_embed"] = F.center_linear_output(p["patch_embed"])
-    if "pos_embed" in p:
-        p["pos_embed"] = {"w": F.center_embedding(p["pos_embed"]["w"])}
+    if not cfg.pre_norm:
+        p["patch_embed"] = F.center_linear_output(p["patch_embed"])
+        if "pos_embed" in p:
+            p["pos_embed"] = {"w": F.center_embedding(p["pos_embed"]["w"])}
     blocks["o"] = F.center_linear_output(blocks["o"])
     blocks["fc2"] = F.center_linear_output(blocks["fc2"])
     _, _, qkv = F.fold_norm_into_linears(
@@ -73,6 +95,20 @@ def _fold_ls(linear: dict, g: torch.Tensor) -> dict:
     return new
 
 
+def fold_ln_post_into(vit_params: Dict, consumers: list) -> tuple:
+    """Fold the tower's ln_post affine into the linears that read the
+    tower's output (the resampler's ``kv_proj``); ln_post is left a unit
+    RMSNorm, exact on the centered stream. Returns (vit params, the new
+    consumers)."""
+    vp = _to_f64(vit_params)
+    ln = vp["ln_post"]
+    _, _, new = F.fold_norm_into_linears(ln["w"], ln.get("b"),
+                                         [_to_f64(c) for c in consumers])
+    vp["ln_post"] = _drop_bias(ln)
+    return (_cast_like(vp, vit_params),
+            [_cast_like(n, c) for n, c in zip(new, consumers)])
+
+
 def rotate_vit(cfg: ViTConfig, params: Dict,
                gen: Optional[torch.Generator] = None,
                mode: str = "hadamard", rotate_ov: bool = True,
@@ -80,23 +116,28 @@ def rotate_vit(cfg: ViTConfig, params: Dict,
                online_had_fc2: bool = False) -> tuple:
     """Rotate the (fused) ViT residual stream by Q (drawn from ``gen``
     unless given). Returns (params, Q, fc2_pad): the stream's consumer (the
-    merger) must be input-rotated by the same Q. ``online_had_fc2`` pads
-    the MLP width to a Hadamard-constructible size and folds the exact
-    Hadamard into fc2's input."""
+    merger, mlp1, the resampler's kv_proj) must be input-rotated by the
+    same Q. A CLIP-style tower's stream starts at ln_pre's output, which no
+    rotation passes: Q enters through ``fc_sub_mean``'s output, and the
+    patch embed and its position table stay as they are.
+    ``online_had_fc2`` pads the MLP width to a Hadamard-constructible size
+    and folds the exact Hadamard into fc2's input."""
     p = _to_f64(params)
     blocks = p["blocks"]
     dev = blocks["q"]["w"].device
     if Q is None:
         Q = H.get_orthogonal_matrix(cfg.width, mode, gen, device=dev)
     Q = Q.to(device=dev, dtype=torch.float64)
-    p["patch_embed"] = R.rotate_linear_output(p["patch_embed"], Q)
-    if "pos_embed" in p:
-        # on the host with numpy's einsum, the JAX recipe's own product:
-        # each centered row's component along the Hadamard's constant
-        # column is a rounding residue, which then rounds as JAX's does
-        e = p["pos_embed"]["w"]
-        p["pos_embed"] = {"w": torch.from_numpy(np.einsum(
-            "vh,hj->vj", e.cpu().numpy(), Q.cpu().numpy())).to(e.device)}
+    if cfg.pre_norm:
+        if "fc_sub_mean" not in p:
+            raise ValueError("rotating a pre_norm tower needs fc_sub_mean")
+        p["fc_sub_mean"] = {**p["fc_sub_mean"], "w": _np_rotate(
+            p["fc_sub_mean"]["w"], Q)}
+    else:
+        p["patch_embed"] = R.rotate_linear_output(p["patch_embed"], Q)
+        if "pos_embed" in p:
+            p["pos_embed"] = {"w": _np_rotate(p["pos_embed"]["w"], Q,
+                                              "vh,hj->vj")}
     for s in ("q", "k", "v", "fc1"):
         blocks[s] = R.rotate_linear_input(blocks[s], Q)
     for s in ("o", "fc2"):
@@ -171,9 +212,79 @@ def fuse_mlp1(params: Dict) -> Dict:
     return _cast_like(p, params)
 
 
+def fuse_resampler(cfg: ResamplerConfig, params: Dict) -> Dict:
+    """Fold the resampler's norms into their consumers: ln_kv into k and v
+    (the key position table divided by ln_kv's γ), ln_q into q, ln_post
+    into proj_fc; their producers (kv_proj, the queries, out) centered so
+    that each LayerNorm is a unit RMSNorm."""
+    p = _to_f64(params)
+    if cfg.has_kv_proj and "kv_proj" in p:
+        p["kv_proj"] = F.center_linear_output(p["kv_proj"])
+    e = p["query"]["w"].cpu().numpy()
+    p["query"] = {"w": torch.from_numpy(e - e.mean(axis=-1, keepdims=True))
+                  .to(p["query"]["w"].device)}
+    p["out"] = F.center_linear_output(p["out"])
+    g_kv = p["ln_kv"]["w"]
+    _, _, (p["k"], p["v"]) = F.fold_norm_into_linears(
+        g_kv, p["ln_kv"].get("b"), [p["k"], p["v"]])
+    if "pos_embed_kv" in p:
+        # k reads ln_kv(x) + pos: with γ folded into k, pos is divided by γ
+        p["pos_embed_kv"] = {"w": p["pos_embed_kv"]["w"] / g_kv}
+    p["ln_kv"] = _drop_bias(p["ln_kv"])
+    _, _, (p["q"],) = F.fold_norm_into_linears(
+        p["ln_q"]["w"], p["ln_q"].get("b"), [p["q"]])
+    p["ln_q"] = _drop_bias(p["ln_q"])
+    if "proj_fc" in p:
+        _, _, (p["proj_fc"],) = F.fold_norm_into_linears(
+            p["ln_post"]["w"], p["ln_post"].get("b"), [p["proj_fc"]])
+        p["ln_post"] = _drop_bias(p["ln_post"])
+    return _cast_like(p, params)
+
+
+def rotate_resampler(cfg: ResamplerConfig, params: Dict,
+                     gen: Optional[torch.Generator] = None,
+                     mode: str = "hadamard",
+                     Q_vit: Optional[torch.Tensor] = None,
+                     rotations: Optional[Dict[str, torch.Tensor]] = None
+                     ) -> Dict:
+    """The cross-attention's own rotations, drawn from ``gen`` in the order
+    Q_kv, Q_q, Q_o unless ``rotations`` gives them ("res_kv", "res_q",
+    "res_o"): Q_vit (the tower's) into kv_proj's input; Q_kv on kv_proj's
+    output, k's and v's inputs and the key position table; Q_q on the
+    queries and q's input; Q_o on out's output and proj_fc's input."""
+    rotations = rotations or {}
+    p = _to_f64(params)
+    dev = p["q"]["w"].device
+
+    def draw(name):
+        Q = rotations.get(name)
+        if Q is None:
+            Q = H.get_orthogonal_matrix(cfg.width, mode, gen, device=dev)
+        return Q.to(device=dev, dtype=torch.float64)
+
+    if Q_vit is not None and "kv_proj" in p:
+        p["kv_proj"] = R.rotate_linear_input(p["kv_proj"], Q_vit.to(dev))
+    Q = draw("res_kv")
+    if "kv_proj" in p:
+        p["kv_proj"] = R.rotate_linear_output(p["kv_proj"], Q)
+        p["k"] = R.rotate_linear_input(p["k"], Q)
+        p["v"] = R.rotate_linear_input(p["v"], Q)
+        if "pos_embed_kv" in p:
+            p["pos_embed_kv"] = {"w": R.rotate_embedding(
+                p["pos_embed_kv"]["w"], Q)}
+    Q = draw("res_q")
+    p["query"] = {"w": _np_rotate(p["query"]["w"], Q, "vh,hj->vj")}
+    p["q"] = R.rotate_linear_input(p["q"], Q)
+    if "proj_fc" in p:
+        Q = draw("res_o")
+        p["out"] = R.rotate_linear_output(p["out"], Q)
+        p["proj_fc"] = R.rotate_linear_input(p["proj_fc"], Q)
+    return _cast_like(p, params)
+
+
 # the projector site that writes the LLM stream, per family
-_PRODUCER = {"qwen2vl": ("merger", "mlp2"), "internvl": ("proj", "fc2"),
-             "glm4v": ("proj", "4h_to_h")}
+_PRODUCER = {"qwen2vl": ("merger", "mlp2"), "qwenvl": ("res", "proj_fc"),
+             "internvl": ("proj", "fc2"), "glm4v": ("proj", "4h_to_h")}
 
 
 def prepare_vlm(family_name: str, cfg, params: Dict,
@@ -184,16 +295,18 @@ def prepare_vlm(family_name: str, cfg, params: Dict,
                 online_had_visual: bool = False, split_visual: bool = False,
                 rotations: Optional[Dict[str, torch.Tensor]] = None
                 ) -> tuple:
-    """The offline equivalent transforms of a Qwen2-VL, InternVL2 or GLM-4V
-    model: fuse (LN → RMSNorm everywhere, LayerScale folded; GLM-4V's
-    decoder only) → rotate the vision stream (Q_v, into the merger's mlp0 /
-    mlp1's fc1 block-diagonally; never GLM-4V's, whatever
-    ``rotate_visual`` says) and the LLM stream (Q_l, with the per-head OV
-    rotation, the online Hadamard fold into ``down``, the projector's last
-    linear's output and GLM-4V's boi / eoi rows) → the RMS split. The
-    rotations are drawn from ``gen`` (Q_v first)
-    unless ``rotations`` gives them as {"vit": Q_v, "llm": Q_l}. Returns
-    (params, info)."""
+    """The offline equivalent transforms of a Qwen2-VL, Qwen-VL, InternVL2
+    or GLM-4V model: fuse (LN → RMSNorm everywhere, LayerScale folded,
+    Qwen-VL's ln_post into the resampler's kv_proj and the resampler's own
+    norms; GLM-4V's decoder only) → rotate the vision stream (Q_v, into the
+    merger's mlp0 / mlp1's fc1 block-diagonally, or the resampler's
+    kv_proj; never GLM-4V's, whatever ``rotate_visual`` says), the
+    resampler's cross-attention (Q_kv, Q_q, Q_o) and the LLM stream (Q_l,
+    with the per-head OV rotation, the online Hadamard fold into ``down``,
+    the projector's last linear's output and GLM-4V's boi / eoi rows) →
+    the RMS split. The rotations are drawn from ``gen`` in that order
+    unless ``rotations`` gives them as {"vit": Q_v, "res_kv": Q_kv,
+    "res_q": Q_q, "res_o": Q_o, "llm": Q_l}. Returns (params, info)."""
     from .recipes import fuse_decoder, rotate_decoder, split_decoder_down
 
     if family_name not in _PRODUCER:
@@ -202,15 +315,23 @@ def prepare_vlm(family_name: str, cfg, params: Dict,
     rotations = rotations or {}
     p = dict(params)
     info: Dict = {"family": family_name}
-    p["llm"] = fuse_decoder(cfg.llm, p["llm"])
+    # the towers' float64 work first, while one copy of the decoder is
+    # resident (the fusions draw nothing: the order does not change them)
     if family_name == "glm4v":
         rotate_visual = False  # the tower stays as it is (module docstring)
     else:
         p["vit"] = fuse_vit(cfg.vit, p["vit"])
     if family_name == "qwen2vl":
         p["merger"] = fuse_merger(cfg.merger, p["merger"])
+    elif family_name == "qwenvl":
+        if cfg.vit.post_norm and "ln_post" in p["vit"]:
+            p["vit"], (kvp,) = fold_ln_post_into(p["vit"],
+                                                 [p["res"]["kv_proj"]])
+            p["res"] = {**p["res"], "kv_proj": kvp}
+        p["res"] = fuse_resampler(cfg.resampler, p["res"])
     elif family_name == "internvl":
         p["proj"] = fuse_mlp1(p["proj"])
+    p["llm"] = fuse_decoder(cfg.llm, p["llm"])
     if not rotate:
         return p, info
 
@@ -225,11 +346,17 @@ def prepare_vlm(family_name: str, cfg, params: Dict,
         if split_visual:
             p["vit"] = split_vit_fc2(p["vit"])
             info["vis_split"] = True
-        grp, site, repeats = (("merger", "mlp0", cfg.merger.merge ** 2)
-                              if family_name == "qwen2vl"
-                              else ("proj", "fc1", cfg.mlp1.downsample ** 2))
-        lin = rotate_consumer_blockdiag(p[grp][site], Q_v, repeats)
-        p[grp] = {**p[grp], site: _cast_like(lin, params[grp][site])}
+        if family_name == "qwenvl":  # Q_v enters kv_proj's input
+            p["res"] = rotate_resampler(cfg.resampler, p["res"], gen, mode,
+                                        Q_vit=Q_v, rotations=rotations)
+            info["resampler_rotated"] = True
+        else:
+            grp, site, repeats = (
+                ("merger", "mlp0", cfg.merger.merge ** 2)
+                if family_name == "qwen2vl"
+                else ("proj", "fc1", cfg.mlp1.downsample ** 2))
+            lin = rotate_consumer_blockdiag(p[grp][site], Q_v, repeats)
+            p[grp] = {**p[grp], site: _cast_like(lin, params[grp][site])}
 
     if not rotate_llm:
         return p, info

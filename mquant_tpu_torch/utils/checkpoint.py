@@ -125,11 +125,11 @@ def load_artifact(path: str, dtype: Optional[torch.dtype] = None,
 # Fields of the JAX package's configs that the port's dataclasses lack: the
 # one value the port implements, and the ROADMAP item that ports the rest
 _UNPORTED = {
-    "ViTConfig": {"qkv_bias": (True, "A12"), "pre_norm": (False, "A12c"),
-                  "post_norm": (False, "A12c")},
+    "ViTConfig": {"qkv_bias": (True, "A12")},
 }
 # fields the port's dataclasses have, with the values the port implements
-_PORTED_VALUES = {("ViTConfig", "act"): (("gelu", "quick_gelu"), "A12c")}
+_PORTED_VALUES = {("ViTConfig", "act"): (("gelu", "quick_gelu", "gelu_tanh"),
+                                         "A12")}
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
 
@@ -141,11 +141,14 @@ def _config_classes() -> Dict[str, type]:
     from ..models.llm import DecoderConfig
     from ..models.projectors import GluProjectorConfig, Mlp1Config
     from ..models.qwen2vl import Qwen2VLConfig
+    from ..models.qwenvl import QwenVLConfig
+    from ..models.resampler import ResamplerConfig
     from ..models.vision import MergerConfig, ViTConfig
 
-    return {c.__name__: c for c in (Qwen2VLConfig, InternVLConfig,
-                                    GLM4VConfig, DecoderConfig, ViTConfig,
-                                    MergerConfig, Mlp1Config,
+    return {c.__name__: c for c in (Qwen2VLConfig, QwenVLConfig,
+                                    InternVLConfig, GLM4VConfig,
+                                    DecoderConfig, ViTConfig, MergerConfig,
+                                    ResamplerConfig, Mlp1Config,
                                     GluProjectorConfig, BucketSpec)}
 
 

@@ -235,8 +235,8 @@ def test_config_round_trips_both_ways(preset):
 
 def _refusals():
     """(class, field, value) of every JAX config field the port does not
-    implement at that value, and ChatGLM's interleaved rotary, which it
-    now does."""
+    implement at that value, and the values it now does: ChatGLM's
+    interleaved rotary, Qwen-VL's CLIP tower flags and the tanh GELU."""
     out = [("DecoderConfig", "rope_interleaved", True),
            ("ViTConfig", "qkv_bias", False), ("ViTConfig", "pre_norm", True),
            ("ViTConfig", "post_norm", True),
@@ -253,6 +253,12 @@ def test_config_from_dict_refuses_unported_values(cls, field, value):
     d = json.loads(json.dumps(JC.config_to_dict(cj)))
     if field == "rope_interleaved":  # ported with GLM-4V: read back
         assert TC.config_from_dict(d).llm.rope_interleaved is True
+        return
+    if field in ("pre_norm", "post_norm", "act"):  # ported with Qwen-VL
+        back = TC.config_from_dict(d)
+        assert getattr(back.vit, field) == value
+        assert JC.config_from_dict(json.loads(json.dumps(
+            TC.config_to_dict(back)))) == cj
         return
     with pytest.raises(NotImplementedError, match=rf"{cls}\.{field}.*A\d+"):
         TC.config_from_dict(d)
@@ -281,13 +287,16 @@ def test_config_from_dict_takes_decoder_flags(field, value):
 
 @pytest.mark.parametrize("family", ["qwenvl", "minicpmv", "glm4v"])
 def test_config_from_dict_refuses_other_families(family):
-    """The resampler families' configs raise A12; GLM-4V's is ported and
-    round-trips to JAX's."""
+    """MiniCPM-V's config raises A12; GLM-4V's and Qwen-VL's are ported
+    and round-trip to JAX's (Qwen-VL's resampler and CLIP tower flags
+    included)."""
     cj = j_family(family).tiny_fn()
     d = json.loads(json.dumps(JC.config_to_dict(cj)))
-    if family == "glm4v":
+    if family != "minicpmv":
         back = TC.config_from_dict(d)
-        assert back.llm.rope_interleaved
+        assert back.llm.rope_interleaved == (family == "glm4v")
+        if family == "qwenvl":
+            assert back.vit.pre_norm and back.resampler.n_queries == 4
         assert JC.config_from_dict(json.loads(json.dumps(
             TC.config_to_dict(back)))) == cj
         return

@@ -148,7 +148,8 @@ def test_w4a8_gemv_raises_outside_contract(cuda):
 # pool step, 32: the contract's last n8 tile); the int8 lm_head at 1 and 8
 # rows; the published lm_heads of InternVL2-8B (N = 92553, odd) and
 # MiniCPM-V-2.6 (N = 151666 = 2 mod 16), whose rows no TMA box or 8-byte
-# copy addresses; other ragged K tails, N % 16 = 8 and N odd
+# copy addresses; Qwen-VL-Chat's split `down` (K = 11007) and its head
+# (N = 151936); other ragged K tails, N % 16 = 8 and N odd
 @pytest.mark.parametrize("M,K,N", [(1, 3584, 152064), (7, 384, 2048),
                                    (1, 18943, 3584), (3, 18943, 3584),
                                    (5, 1001, 2048), (2, 6, 16),
@@ -156,7 +157,9 @@ def test_w4a8_gemv_raises_outside_contract(cuda):
                                    (8, 3584, 152064), (1, 4096, 92553),
                                    (8, 4096, 92553), (1, 3584, 151666),
                                    (8, 3584, 151666), (3, 1001, 1000),
-                                   (5, 1001, 1003), (5, 3584, 1024)])
+                                   (5, 1001, 1003), (5, 3584, 1024),
+                                   (1, 11007, 4096), (8, 11007, 4096),
+                                   (1, 4096, 151936)])
 def test_int8_gemv(cuda, M, K, N):
     _check("int8_gemv", cuda, M, K, N, False)
 
@@ -647,6 +650,10 @@ def _decode_operands(dev, B, S, H, KVH, pos, start, seed=0):
     (2, 96, 32, 2, [37, 90], [5, 20]),
     (1, 1280, 32, 2, 1200, None),
     (8, 1280, 32, 2, [1200, 77, 300, 513, 1000, 1279, 1, 640], None),
+    # Qwen-VL-Chat's G = 1 (32 / 32 heads): one request's last decode
+    # step and the engine burst's 4 rows
+    (1, 1280, 32, 32, 1151, None),
+    (4, 1280, 32, 32, [92, 315, 528, 1015], None),
 ])
 def test_attn_decode(cuda, B, S, H, KVH, pos, start):
     q, kn, vn, kc, vc = _decode_operands(cuda, B, S, H, KVH, pos, start)

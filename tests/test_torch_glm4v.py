@@ -132,8 +132,8 @@ def test_config_round_trips_both_ways(preset):
 @pytest.mark.parametrize("name", ["GLM-4V-9B", "glm4v", "glm_4v"])
 def test_registry_matches_jax(name):
     """The family a name picks, its presets, subsystems and the config's
-    own family; the port's supported names all resolve, and the Qwen-VL /
-    MiniCPM-V families still raise naming A12c."""
+    own family; the port's supported names all resolve (Qwen-VL-Chat's
+    too), and the MiniCPM-V family still raises naming A12c."""
     fj, ft = j_family(name), t_family(name)
     assert ft.name == fj.name == "glm4v"
     assert ft.subsystems == fj.subsystems == ("vis", "proj", "llm")
@@ -144,7 +144,8 @@ def test_registry_matches_jax(name):
     assert "GLM-4V-9B" in SUPPORTED_MODELS
     assert [t_family(n).name for n in SUPPORTED_MODELS] == [
         j_family(n).name for n in SUPPORTED_MODELS]
-    for other in ("Qwen-VL-Chat", "MiniCPM-V-2_6"):
+    assert t_family("Qwen-VL-Chat").name == "qwenvl"
+    for other in ("MiniCPM-V-2_6", "minicpm_v"):
         with pytest.raises(NotImplementedError, match="A12c"):
             t_family(other)
 

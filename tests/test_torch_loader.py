@@ -190,16 +190,18 @@ def test_vision_and_merger_match_hf(ckpts):
 
 
 def test_other_families_raise_a12(tmp_path):
-    """The resampler families' loaders raise A12c; Qwen2-VL's, InternVL2's
+    """MiniCPM-V's loader raises A12c; Qwen2-VL's, Qwen-VL's, InternVL2's
     and GLM-4V's are ported, and a directory without a checkpoint raises
     FileNotFoundError."""
-    for fam in ("qwenvl", "minicpmv"):
+    for fam in ("minicpmv",):
         with pytest.raises(NotImplementedError, match="A12"):
             TL.load_model(fam, None, str(tmp_path), device="cpu")
     from mquant_tpu_torch.models.glm4v import GLM4VConfig
+    from mquant_tpu_torch.models.qwenvl import QwenVLConfig
 
     for fam, cfg in (("qwen2vl", _cfgs(jnp.float32, torch.float32)[1]),
-                     ("glm4v", GLM4VConfig.tiny())):
+                     ("glm4v", GLM4VConfig.tiny()),
+                     ("qwenvl", QwenVLConfig.tiny())):
         with pytest.raises(FileNotFoundError):
             TL.load_model(fam, cfg, str(tmp_path), device="cpu")
 

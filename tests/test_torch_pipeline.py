@@ -213,9 +213,10 @@ def test_unported_options_raise(kw, tmp_path, monkeypatch):
     pipeline options these parameters name are ported for Qwen2-VL
     (``check_ported`` passes them; ``tests/test_torch_gates.py`` and
     ``tests/test_torch_pipeline_options.py`` hold them against JAX) and
-    InternVL2 and GLM-4V (``tests/test_torch_internvl_pipeline.py``,
-    ``tests/test_torch_glm4v_pipeline.py``), and each still raises A12 for
-    a resampler family (Qwen-VL). ``model_dir`` is ported: a
+    InternVL2, GLM-4V and Qwen-VL (``tests/test_torch_internvl_pipeline.
+    py``, ``tests/test_torch_glm4v_pipeline.py``,
+    ``tests/test_torch_qwenvl_pipeline.py``), and each still raises A12 for
+    MiniCPM-V, the resampler family left. ``model_dir`` is ported: a
     directory without a checkpoint raises FileNotFoundError naming it.
     ``calib_dataset`` is ported (A13): a dataset that is not there raises
     FileNotFoundError naming where it was looked for
@@ -237,10 +238,12 @@ def test_unported_options_raise(kw, tmp_path, monkeypatch):
         if not q.visual_w_rtn:
             TP.check_ported(q, "internvl")  # mlp1's GPTQ: ported
             TP.check_ported(q, "glm4v")  # the GLU projector's: ported
+            TP.check_ported(q, "qwenvl")  # the resampler's: ported
             with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-                TP.check_ported(q, "qwenvl")
+                TP.check_ported(q, "minicpmv")
+    assert TP.get_family("Qwen-VL-Chat").name == "qwenvl"
     with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        TP.run_pipeline("Qwen-VL-Chat", q, tiny=True, device="cpu")
+        TP.run_pipeline("MiniCPM-V-2_6", q, tiny=True, device="cpu")
 
 
 def test_cli_tiny_serves(tmp_path):

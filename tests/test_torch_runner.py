@@ -369,11 +369,12 @@ def test_registry_matches_jax(name):
 @pytest.mark.parametrize("name", ["Qwen-VL-Chat", "MiniCPM-V-2_6",
                                   "GLM-4V-9B"])
 def test_registry_refuses_other_families(name):
-    """The resampler families raise A12c; GLM-4V's name is ported and
-    picks JAX's family."""
+    """MiniCPM-V raises A12c; GLM-4V's and Qwen-VL's names are ported and
+    pick JAX's family."""
     assert j_family(name).name
-    if name == "GLM-4V-9B":
-        assert t_family(name).name == j_family(name).name == "glm4v"
+    if name != "MiniCPM-V-2_6":
+        assert t_family(name).name == j_family(name).name
+        assert t_family(name).name in ("glm4v", "qwenvl")
     else:
         with pytest.raises(NotImplementedError, match="A12"):
             t_family(name)
