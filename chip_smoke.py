@@ -118,18 +118,21 @@ Phases, in order (any failed check raises and the script exits non-zero):
    decode loop: one greedy step captured in a CUDA graph and replayed
    once a token; the launch counts grow by the captured step's launches a
    replay (``serve.generate.Graphed``), so they count what ran.
-   Then, on the same weights, the full online Hadamard before ``down``
+   Then, on the same weights cut to their first FS_DEPTH = 4 layers (28
+   until the tp phase came, which holds both routes sharded), the full
+   online Hadamard before ``down``
    (hadK ⊗ H₁₂₈ over 18944): path F serves the full-VLM request and a
    77-token text request of two tokens on the default route (the unfused
    chain, JAX's default: no tail launch), then the request's 1024-token
-   prefill with ``MQUANT_FUSED_TAIL=1`` (the fused tail kernel, 28
-   launches, each call held against its plain version);
+   prefill with ``MQUANT_FUSED_TAIL=1`` (the fused tail kernel, one launch
+   a layer, each call held against its plain version);
    path S adds the RMS first-column split (``down`` as 18943 int8 rows +
    an f32 ``w_col0``: ``int8_gemm`` / ``int8_gemv`` at K = 18943) and
-   serves the full-VLM request; its prefill's 28 ``down`` calls must launch
-   the TMA kernel (``int8_gemm``) and ``int8_gemm_ragged`` none, an eager
-   decode step's 28 ``int8_gemv``, and the request 29 ``int8_gemv`` a step
-   and one for the prefill's head; then the same prefill with ``down``
+   serves the full-VLM request; its prefill's ``down`` calls (one a layer)
+   must launch the TMA kernel (``int8_gemm``) and ``int8_gemm_ragged``
+   none, an eager decode step's one ``int8_gemv`` a layer, and the request
+   one more a step for the head and one for the prefill's head; then the
+   same prefill with ``down``
    forced onto ``int8_gemm_ragged`` (28 launches) is held against plain as
    below.
    Then the artifact (``run_artifact``): path S's weights in the JAX
@@ -339,8 +342,10 @@ Phases, in order (any failed check raises and the script exits non-zero):
    post-hoc realization, lower device peaks; and ``python -m
    mquant_tpu_torch.quant_vlm --tiny`` on the card with every flag of
    those options, ``--model_dir`` (a tiny checkpoint the phase writes) and
-   ``--export_safetensors`` (``run_cli_check``). Each directory is deleted
-   as soon as it has been read.
+   ``--export_safetensors`` (``cli_check``, a child process started
+   beside the evaluation phase and collected after the stream check; each
+   family phase's ``quant_vlm --tiny`` likewise runs beside its phase).
+   Each directory is deleted as soon as it has been read.
 5. profile: wall time (best of 3) and, under ``torch.profiler``, device
    busy time, idle share and the largest device items of the vision tower,
    the 1024-token prefill and a decode step (block Hadamard, then path F's,
@@ -357,11 +362,30 @@ Phases, in order (any failed check raises and the script exits non-zero):
    LLM and full-VLM requests, the rooflines; best of BENCH_ITERS = 2, 3
    until the long context phase came), its JSON on a line of its own.
 
+The tp phase (``run_tp_phase``, right after phase 3): tensor parallelism
+(``mquant_tpu_torch.parallel``) at tp = 2, two ranks spawned on this card
+(gloo over a file store: NCCL refuses two ranks on one device), each
+drawing the same seeded Qwen2-VL-7B (published widths, TP_DEPTH = 4 of 28
+decoder layers, TP_VIT_DEPTH = 4 of 32 ViT blocks, block-path W4A8 with the
+int8 head, W8A8 tower and merger) and serving its shard; rank 0 also
+serves the whole model. Holds: (a) the full-VLM request's 32 tokens equal
+and its last-step logits within one bf16 ulp (and a 2048-id text
+prefill through the flash kernel at 14 heads), (b) paths F and S, one
+1024-token prefill and 8 steps each, (c) a four-prompt engine burst (77,
+300, 513 and 1000 ids, 16 tokens each) equal to the whole model's engine,
+(d) ``gptq_matrix_sharded`` on one 7B ``down`` (18944 × 3584, 256
+calibration rows a rank through ``hessian_dp``): codes, scales and the
+act_order permutation bit-equal to the single-rank walk on the same H.
+Each rank's launch counts and the shapes its kernels ran at are printed,
+with wall times of two ranks time-sharing one card (not tensor-parallel
+speed); decode steps run eagerly under the mesh. Both ranks' counts join
+the kernel table's.
+
 Last line of stdout: {"ok": true, "device": {...}}. Usage:
 ``python3 chip_smoke.py [--seed 0]``; ``--phase NAME`` builds the
 kernels and runs only the phase NAME (pipeline, internvl, glm4v, qwenvl,
-minicpmv, checkpoint, longctx or golden) with its LLM uncut, and prints no
-result line.
+minicpmv, checkpoint, longctx or golden with its LLM uncut; tp as in the
+whole script), and prints no result line.
 """
 
 from __future__ import annotations
@@ -384,7 +408,13 @@ import time
 from mquant_tpu_torch.scripts.timing import card_line, cuda_ms
 
 
+_BESIDE: list = []  # the Child processes whose with block is open
+
+
 def log(*a):
+    if _BESIDE:  # a time in this line shared the card with the child
+        a = (*a, f"[shared card: {len(_BESIDE)} quant_vlm child process "
+                 "beside this phase]")
     print(*a, flush=True)
 
 
@@ -1907,6 +1937,8 @@ SLICE_KERNELS = ("w4a8_gemv", "int8_gemv", "int8_gemm", "attn_decode")
 DOC_KERNELS = SLICE_KERNELS + ("flash_attn_causal",)
 BATCH_KERNELS = SLICE_KERNELS
 FULL_KERNELS = SLICE_KERNELS + ("fused_swiglu_had_quant",)
+FS_DEPTH = 4  # paths F and S: the block model's first layers (28 until the
+# tp phase, which holds both routes at tp = 2, made room for itself)
 # path S: its K = 18943 `down` runs on the TMA GEMM (int8_gemm) since the K
 # tail; int8_gemm_ragged must launch no time there (run_split checks both)
 SPLIT_KERNELS = SLICE_KERNELS
@@ -2441,7 +2473,7 @@ def run_full(m: dict, card: str) -> dict:
     from mquant_tpu_torch.kernels import fwht
     from mquant_tpu_torch.serve.generate import Generator
 
-    base = m["gen"]
+    base = depth_cut(m["gen"], FS_DEPTH)
     cfg = base.cfg
     gen = Generator(cfg, base.params, specs=R.llm_specs("full"),
                     state=base.state, mode="real",
@@ -2522,11 +2554,15 @@ def run_split(m: dict, card: str) -> dict:
     from mquant_tpu_torch.kernels import qmm
     from mquant_tpu_torch.serve.generate import Generator
 
-    base = m["gen"]
+    # the artifact phase serves the whole depth's split down; this phase
+    # runs its first FS_DEPTH layers
+    m["split_down"] = R.init_split_down(m["gen"].cfg, m["g"], m["dev"])
+    base = depth_cut(m["gen"], FS_DEPTH)
     cfg = base.cfg
-    m["split_down"] = R.init_split_down(cfg, m["g"], m["dev"])
+    down = {k: v[:FS_DEPTH] if isinstance(v, torch.Tensor) else v
+            for k, v in m["split_down"].items()}
     params = {**base.params, "layers": {**base.params["layers"],
-                                        "down": m["split_down"]}}
+                                        "down": down}}
     gen = Generator(cfg, params, specs=R.llm_specs("full", split=True),
                     state=base.state, mode="real",
                     max_len=PREFILL + GEN_TOKENS)
@@ -2574,7 +2610,7 @@ def run_split(m: dict, card: str) -> dict:
                                  f"{launches['int8_gemm_ragged']}, expected 0")
         check_tokens("split", out, GEN_TOKENS, cfg.vocab)
         against_plain("split", gen, lambda: gen.prefill(emb))
-        # the one depth-28 path through the ragged kernel: `down` forced
+        # the one decoder path through the ragged kernel: `down` forced
         # onto it, held against plain in the same way
         before = qmm.LAUNCHES["int8_gemm_ragged"]
         with ragged_route():
@@ -2876,7 +2912,8 @@ def serve_artifact(m: dict, card: str, seed: int, art: str) -> dict:
     log(f"artifact: request ({n_prompt}-token prompt with a 448² image, "
         f"{GEN_TOKENS} tokens) {t_req:.3f} s; TTFT {ttft * 1e3:.1f} ms; "
         f"decode {(GEN_TOKENS - 1) / (t_req - ttft):.1f} tok/s; beside path "
-        f"S's request in this run: {s_req:.3f} s, TTFT {s_ttft * 1e3:.1f} "
+        f"S's request in this run (its decoder at {FS_DEPTH} layers, the "
+        f"artifact's at 28): {s_req:.3f} s, TTFT {s_ttft * 1e3:.1f} "
         f"ms, {s_tps:.1f} tok/s; generate_batch {len(batch)} prompts, "
         f"{ART_BATCH_TOKENS} tokens each: {t_b:.3f} s, "
         f"{len(batch) * ART_BATCH_TOKENS / t_b:.1f} tok/s; peak "
@@ -3364,7 +3401,7 @@ def run_engine_phase(art: str, card: str, seed: int, dev: str = "cuda"
             f"admissions and the block warmed in {t_setup:.1f} s "
             f"(attn_decode captured with pos of shape {seen[:1]})")
         pendings = []  # every request's _Pending, for its timestamps
-        submit, lazy = worker.submit, worker.submit_lazy
+        submit, vlm = worker.submit, worker.submit_vlm
 
         def recorded(fn):
             def wrap(*a, **k):
@@ -3373,7 +3410,7 @@ def run_engine_phase(art: str, card: str, seed: int, dev: str = "cuda"
                 return p
             return wrap
 
-        worker.submit, worker.submit_lazy = recorded(submit), recorded(lazy)
+        worker.submit, worker.submit_vlm = recorded(submit), recorded(vlm)
         occ, stop = [], threading.Event()
 
         def watch():
@@ -3407,7 +3444,7 @@ def run_engine_phase(art: str, card: str, seed: int, dev: str = "cuda"
         t_burst = time.perf_counter() - t0
         stop.set()
         mon.join(10)
-        worker.submit, worker.submit_lazy = submit, lazy
+        worker.submit, worker.submit_vlm = submit, vlm
         launches = read_launches("engine", ENGINE_KERNELS)
         peak = torch.cuda.max_memory_allocated() / 2**30
         met = _metrics(srv.port)
@@ -4734,14 +4771,15 @@ def _checkpoint_phase(card, seed, cfg, q, root, ckpt, drawn, digest, dev,
         f" tok/s; launches " + ", ".join(
             f"{k} {launches[k]}" for k in sorted(needed)) + f"; card {card}")
     del gen
-    t0 = time.perf_counter()
-    eval_launches = run_eval_phase(runner, card, seed, info, dev)
-    log(f"eval phase: {time.perf_counter() - t0:.1f} s; card {card}")
-    del runner
-    gc.collect()
-    torch.cuda.empty_cache()
-    run_stream_check(card, seed, dev)
-    run_cli_check(card, root, dev)
+    with cli_check(root, dev) as cli:
+        t0 = time.perf_counter()
+        eval_launches = run_eval_phase(runner, card, seed, info, dev)
+        log(f"eval phase: {time.perf_counter() - t0:.1f} s; card {card}")
+        del runner
+        gc.collect()
+        torch.cuda.empty_cache()
+        run_stream_check(card, seed, dev)
+        cli_check_result(cli, card, root, dev)
     return [launches, eval_launches]
 
 
@@ -4754,19 +4792,17 @@ CLI_FLAGS = ("--rotate", "--online_llm_hadamard", "--llm_split",
              "--realize_int")
 
 
-def run_cli_check(card: str, root: str, dev: str = "cuda") -> None:
+def cli_check(root: str, dev: str = "cuda") -> Child:
     """``python -m mquant_tpu_torch.quant_vlm`` on ``dev`` with every flag
     of the pipeline's options (CLI_FLAGS), ``--model_dir`` a tiny HF
     checkpoint written by ``save_qwen2vl_hf``, ``--tiny``, an artifact,
-    ``--export_safetensors`` and ``--log_file``: exit 0, no RTN fallback,
-    the gates' picks in the summary, the export read back onto the card by
-    ``import_safetensors``."""
+    ``--export_safetensors`` and ``--log_file``, started beside the
+    evaluation phase (:func:`cli_check_result` collects it)."""
     import torch
 
     from mquant_tpu_torch.models.loader import save_qwen2vl_hf
     from mquant_tpu_torch.models.qwen2vl import (Qwen2VLConfig,
                                                  init_qwen2vl_params)
-    from mquant_tpu_torch.utils.checkpoint import import_safetensors
 
     cfg = Qwen2VLConfig.tiny()
     ckpt, exp = os.path.join(root, "tiny_hf"), os.path.join(root, "tiny_exp")
@@ -4777,13 +4813,22 @@ def run_cli_check(card: str, root: str, dev: str = "cuda") -> None:
            "--device", dev, "--model_dir", ckpt, *CLI_FLAGS, "--artifact",
            os.path.join(root, "tiny_art"), "--export_safetensors", exp,
            "--log_file", log_file]
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    dt = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise AssertionError(f"quant_vlm CLI: exit {res.returncode}: "
-                             f"{res.stderr[-3000:]}")
-    summary = json.loads(res.stdout.strip().splitlines()[-1])
+    return Child(cmd, root, "tiny_cli")
+
+
+def cli_check_result(cli: Child, card: str, root: str, dev: str = "cuda"
+                     ) -> None:
+    """:func:`cli_check`'s run: exit 0, no RTN fallback, the gates' picks in
+    the summary, the export read back onto the card by
+    ``import_safetensors``."""
+    from mquant_tpu_torch.utils.checkpoint import import_safetensors
+
+    exp = os.path.join(root, "tiny_exp")
+    log_file = os.path.join(root, "tiny_log", "quant_vlm.log")
+    rc, stdout, stderr, dt = cli.result()
+    if rc != 0:
+        raise AssertionError(f"quant_vlm CLI: exit {rc}: {stderr[-3000:]}")
+    summary = json.loads(stdout.strip().splitlines()[-1])
     params, md = import_safetensors(os.path.join(exp, "params.safetensors"),
                                     device=dev)
     if (summary["gptq_fallbacks"] or summary["visual_gptq_fallbacks"]
@@ -4795,7 +4840,7 @@ def run_cli_check(card: str, root: str, dev: str = "cuda") -> None:
     log(f"quant_vlm CLI on {summary['device']}: --tiny --model_dir (an HF "
         f"checkpoint of save_qwen2vl_hf) with {' '.join(CLI_FLAGS)} "
         f"--export_safetensors: exit 0 in {dt:.1f} s (the process's start "
-        f"included); Hadamard pick {summary['online_had_auto']['picked']}, "
+        f"included; beside the evaluation phase); Hadamard pick {summary['online_had_auto']['picked']}, "
         f"head W{summary['lm_head_bits']}, {len(summary['autobits'])} sites "
         f"allocated, GPTQ {summary['gptq_sites']} + visual "
         f"{summary['visual_gptq_sites']} sites, no RTN fallback; the export "
@@ -5074,9 +5119,10 @@ def run_internvl_phase(card: str, seed: int, dev: str = "cuda",
     torch.cuda.empty_cache()
     art = tempfile.mkdtemp(prefix="mquant_internvl_")
     try:
-        counts = family_phase("internvl", "InternVL2-8B", card, seed, dev,
-                              gen_tokens, cfg, headline_w4a8(seed), art)
-        family_cli("InternVL2-8B", card, art, dev, visual_sites=15)
+        with family_cli("InternVL2-8B", art, dev) as cli:
+            counts = family_phase("internvl", "InternVL2-8B", card, seed, dev,
+                                  gen_tokens, cfg, headline_w4a8(seed), art)
+            family_cli_check(cli, "InternVL2-8B", card, visual_sites=15)
         return counts
     finally:
         shutil.rmtree(art)
@@ -5113,9 +5159,10 @@ def run_glm4v_phase(card: str, seed: int, dev: str = "cuda",
     torch.cuda.empty_cache()
     art = tempfile.mkdtemp(prefix="mquant_glm4v_")
     try:
-        counts = family_phase("glm4v", "GLM-4V-9B", card, seed, dev,
-                              gen_tokens, cfg, headline_w4a8(seed), art)
-        family_cli("GLM-4V-9B", card, art, dev, visual_sites=18)
+        with family_cli("GLM-4V-9B", art, dev) as cli:
+            counts = family_phase("glm4v", "GLM-4V-9B", card, seed, dev,
+                                  gen_tokens, cfg, headline_w4a8(seed), art)
+            family_cli_check(cli, "GLM-4V-9B", card, visual_sites=18)
         return counts
     finally:
         shutil.rmtree(art)
@@ -5152,9 +5199,10 @@ def run_qwenvl_phase(card: str, seed: int, dev: str = "cuda",
     torch.cuda.empty_cache()
     art = tempfile.mkdtemp(prefix="mquant_qwenvl_")
     try:
-        counts = family_phase("qwenvl", "Qwen-VL-Chat", card, seed, dev,
-                              gen_tokens, cfg, headline_w4a8(seed), art)
-        family_cli("Qwen-VL-Chat", card, art, dev, visual_sites=19)
+        with family_cli("Qwen-VL-Chat", art, dev) as cli:
+            counts = family_phase("qwenvl", "Qwen-VL-Chat", card, seed, dev,
+                                  gen_tokens, cfg, headline_w4a8(seed), art)
+            family_cli_check(cli, "Qwen-VL-Chat", card, visual_sites=19)
         return counts
     finally:
         shutil.rmtree(art)
@@ -5193,10 +5241,11 @@ def run_minicpmv_phase(card: str, seed: int, dev: str = "cuda",
     torch.cuda.empty_cache()
     art = tempfile.mkdtemp(prefix="mquant_minicpmv_")
     try:
-        counts = family_phase("minicpmv", "MiniCPM-V-2_6", card, seed, dev,
-                              gen_tokens, cfg, headline_w4a8(seed), art)
-        counts.append(run_pad_check("minicpmv", art, card, seed, dev))
-        family_cli("MiniCPM-V-2_6", card, art, dev, visual_sites=19)
+        with family_cli("MiniCPM-V-2_6", art, dev) as cli:
+            counts = family_phase("minicpmv", "MiniCPM-V-2_6", card, seed, dev,
+                                  gen_tokens, cfg, headline_w4a8(seed), art)
+            counts.append(run_pad_check("minicpmv", art, card, seed, dev))
+            family_cli_check(cli, "MiniCPM-V-2_6", card, visual_sites=19)
         return counts
     finally:
         shutil.rmtree(art)
@@ -5511,32 +5560,76 @@ def family_phase(tag, model, card, seed, dev, gen_tokens, cfg, q, art):
     return [launches, burst]
 
 
-def family_cli(model: str, card: str, root: str, dev: str,
-               visual_sites: int) -> None:
+class Child:
+    """A command started now and collected later (:meth:`result`), beside
+    the parent's own work; its output goes to files under ``root``. Leaving
+    the ``with`` block stops it if it still runs. Every line :func:`log`
+    prints inside the block says that the card was shared: a time taken
+    there is not one of the card alone."""
+
+    def __init__(self, cmd: list, root: str, name: str):
+        self.cmd = cmd
+        self.files = [open(os.path.join(root, f"{name}.{k}"), "w+")
+                      for k in ("out", "err")]
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(cmd, stdout=self.files[0],
+                                     stderr=self.files[1], text=True)
+
+    def result(self, timeout: float = 600):
+        """(returncode, stdout, stderr, seconds since the start)."""
+        rc = self.proc.wait(timeout)
+        dt = time.perf_counter() - self.t0
+        out = []
+        for f in self.files:
+            f.seek(0)
+            out.append(f.read())
+        return rc, out[0], out[1], dt
+
+    def __enter__(self):
+        _BESIDE.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        _BESIDE.remove(self)
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        for f in self.files:
+            f.close()
+
+
+def family_cli(model: str, root: str, dev: str) -> Child:
     """``python -m mquant_tpu_torch.quant_vlm --model MODEL --tiny`` on
     ``dev`` with the headline flags and visual GPTQ (patch embed, ViT,
-    projector), an artifact under ``root``: exit 0, no RTN fallback, 14 +
-    ``visual_sites`` GPTQ sites."""
+    projector), an artifact under ``root``, started beside the family's
+    phase (:func:`family_cli_check` collects it)."""
     out = os.path.join(root, "tiny_cli")
     cmd = [sys.executable, "-m", "mquant_tpu_torch.quant_vlm", "--model",
            model, "--tiny", "--device", dev, "--rotate",
            "--online_llm_hadamard", "--llm_split", "--act_order",
            "--visual_w_gptq", "--calib_num", "32", "--nsamples", "8",
            "--realize_int", "--artifact", out]
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    dt = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise AssertionError(f"quant_vlm --model {model}: exit "
-                             f"{res.returncode}: {res.stderr[-3000:]}")
-    summary = json.loads(res.stdout.strip().splitlines()[-1])
+    return Child(cmd, root, "tiny_cli")
+
+
+def family_cli_check(cli: Child, model: str, card: str,
+                     visual_sites: int) -> None:
+    """:func:`family_cli`'s run: exit 0, no RTN fallback, 14 +
+    ``visual_sites`` GPTQ sites."""
+    cmd = cli.cmd
+    rc, stdout, stderr, dt = cli.result()
+    if rc != 0:
+        raise AssertionError(f"quant_vlm --model {model}: exit {rc}: "
+                             f"{stderr[-3000:]}")
+    summary = json.loads(stdout.strip().splitlines()[-1])
     if (summary["gptq_fallbacks"] or summary["visual_gptq_fallbacks"]
             or summary["gptq_sites"] != 14
             or summary["visual_gptq_sites"] != visual_sites):
         raise AssertionError(f"quant_vlm --model {model}: {summary}")
     log(f"quant_vlm CLI on {summary['device']}: --model {model} --tiny "
         f"{' '.join(cmd[8:-2])}: exit 0 in {dt:.1f} s (the process's start "
-        f"included), GPTQ {summary['gptq_sites']} + visual "
+        f"included; beside the family's phase), GPTQ "
+        f"{summary['gptq_sites']} + visual "
         f"{summary['visual_gptq_sites']} sites, no RTN fallback; card {card}")
 
 
@@ -5989,10 +6082,358 @@ def run_longctx_alone(card: str, seed: int) -> list:
     return [run_longctx(build_model(seed), card)]
 
 
+# ---------------------------------------------------------------------------
+# the tp phase: tensor parallelism at tp = 2, two ranks sharing the card
+# ---------------------------------------------------------------------------
+
+TP_RANKS = 2  # ranks on cuda:0 (gloo: NCCL refuses two ranks on one device)
+TP_DEPTH = 4  # Qwen2-VL-7B's decoder layers (28 uncut) in the tp phase
+TP_VIT_DEPTH = 4  # its ViT blocks (32 uncut)
+TP_TOKENS = 32  # greedy tokens of the full-VLM request
+TP_PATH_STEPS = 8  # paths F and S: one 1024-token prefill and 8 steps
+TP_LONG = 2048  # a text prefill at the flash kernel's threshold
+TP_BURST = (77, 300, 513, 1000)  # the engine burst's id prompts
+TP_BURST_TOKENS = 16
+TP_GPTQ_ROWS = 256  # synthetic calibration rows a rank (hessian_dp)
+TP_KERNELS = ("w4a8_gemv", "int8_gemv", "int8_gemm", "attn_decode",
+              "flash_attn_causal")
+
+
+@contextlib.contextmanager
+def kernel_shapes(store: dict):
+    """Counts each kernel wrapper's calls by the shapes of its tensor
+    arguments into ``store[(name, shapes)]``."""
+    import torch
+
+    mods = kernel_modules()
+    saved = [dict(m.KERNELS) for m in mods]
+
+    def wrap(name, fn):
+        def call(*a, **kw):
+            key = (name, tuple(tuple(t.shape) for t in a[:4]
+                               if isinstance(t, torch.Tensor)))
+            store[key] = store.get(key, 0) + 1
+            return fn(*a, **kw)
+        return call
+
+    for m in mods:
+        m.KERNELS.update({k: wrap(k, f) for k, f in m.KERNELS.items()})
+    try:
+        yield
+    finally:
+        for m, sv in zip(mods, saved):
+            m.KERNELS.update(sv)
+
+
+def _launch_snapshot() -> dict:
+    return {k: n for m in kernel_modules() for k, n in m.LAUNCHES.items()}
+
+
+def _tp_model(seed: int, dev: str, cfg=None):
+    """The tp phase's Qwen2-VL-7B at published widths (or ``cfg``), its
+    decoder cut to TP_DEPTH and its ViT to TP_VIT_DEPTH: the block path's
+    seeded W4A8 decoder with the int8 head, path S's split ``down``, the
+    W8A8 tower and merger, the request's inputs, the burst's ids and the
+    GPTQ problem, all drawn on ``dev`` from one generator in one order (so
+    every rank draws the same)."""
+    import torch
+
+    from mquant_tpu_torch import random_init as R
+    from mquant_tpu_torch.models.qwen2vl import Qwen2VLConfig
+
+    dev = torch.device(dev)
+    v7 = cfg or Qwen2VLConfig.qwen2vl_7b()
+    vcfg = dataclasses.replace(
+        v7, llm=dataclasses.replace(v7.llm, n_layers=TP_DEPTH),
+        vit=dataclasses.replace(v7.vit, n_layers=TP_VIT_DEPTH))
+    cfg = vcfg.llm
+    g = torch.Generator(device=dev).manual_seed(seed)
+    params, state = R.init_w4a8(cfg, g, dev)
+    vp, mp, vstate = R.init_vision_w8a8(vcfg.vit, vcfg.merger, g, dev)
+    split_down = R.init_split_down(cfg, g, dev)
+    patches, grid, toks = R.vlm_inputs(vcfg.image_token_id,
+                                       vcfg.vit.patch_dim, PREFILL, g, dev)
+    hi = min(1000, cfg.vocab)
+    long_ids = torch.randint(1, hi, (1, TP_LONG), generator=g, device=dev)
+    burst = [torch.randint(1, hi, (n,), generator=g, device=dev).cpu()
+             .numpy() for n in TP_BURST]
+    n_in, n_out = cfg.intermediate, cfg.hidden
+    X = torch.randn((TP_RANKS * TP_GPTQ_ROWS, n_in), generator=g, device=dev)
+    W = torch.randn((n_in, n_out), generator=g, device=dev) * 0.02
+    return dict(vcfg=vcfg, params=params, state=state, vp=vp, mp=mp,
+                vstate=vstate, split_down=split_down, patches=patches,
+                grid=grid, toks=toks, long_ids=long_ids, burst=burst, X=X,
+                W=W, dev=dev)
+
+
+def _tp_embeds(m: dict, vcfg, vp, mp, embed):
+    """The full-VLM request's spliced prompt embeddings through the (local
+    or whole) tower and merger."""
+    from mquant_tpu_torch import random_init as R
+    from mquant_tpu_torch.models.qwen2vl import splice_image_embeds
+    from mquant_tpu_torch.models.vision import merger_forward, vit_forward
+
+    specs = R.vision_specs()
+    feats, _ = vit_forward(vcfg.vit, vp, m["patches"], specs, m["vstate"],
+                           "real", grid_hw=m["grid"])
+    merged, _ = merger_forward(vcfg.merger, mp, feats, specs, m["vstate"],
+                               "real")
+    return splice_image_embeds(embed[m["toks"]], m["toks"], merged,
+                               vcfg.image_token_id)
+
+
+def _tp_holds(m: dict, vcfg, llm, vp, mp, n_path: int = TP_PATH_STEPS
+              ) -> dict:
+    """Holds (a)-(c) on one model (the rank's shard under its mesh, or the
+    whole model): the full-VLM request's tokens and last-step logits, a
+    2048-id text prefill's last logits, paths F and S (one prefill and
+    ``n_path`` steps each), the engine burst's tokens; with each hold's
+    wall seconds."""
+    import torch
+
+    from mquant_tpu_torch import random_init as R
+    from mquant_tpu_torch.serve.engine import ServingEngine
+    from mquant_tpu_torch.serve.generate import Generator
+
+    cfg, out, secs = vcfg.llm, {}, {}
+
+    def steps(gen, x, n):
+        last = []
+        toks = gen.generate_on_device(x, max_new_tokens=n,
+                                      on_step=lambda lg: last.append(
+                                          lg.float().clone()))
+        return toks.cpu(), last[-1].cpu()
+
+    def timed_hold(name, fn):
+        _tp_sync(m["dev"])
+        t0 = time.perf_counter()
+        out[name] = fn()
+        _tp_sync(m["dev"])
+        secs[name] = time.perf_counter() - t0
+
+    with torch.no_grad():
+        block = Generator(cfg, llm, specs=R.llm_specs(), state=m["state"],
+                          mode="real", max_len=TP_LONG + 32)
+        timed_hold("a", lambda: steps(
+            block, _tp_embeds(m, vcfg, vp, mp, block.params["embed"]["w"]),
+            TP_TOKENS))
+        timed_hold("long", lambda: block.prefill(m["long_ids"])[0].float()
+                   .cpu())
+        emb = _tp_embeds(m, vcfg, vp, mp, block.params["embed"]["w"])
+        full = Generator(cfg, block.params, specs=R.llm_specs("full"),
+                         state=m["state"], mode="real",
+                         max_len=PREFILL + 32)
+        timed_hold("F", lambda: steps(full, emb, n_path + 1))
+        del full
+        lay = {**block.params["layers"], "down": m["down_S"]}
+        split = Generator(cfg, {**block.params, "layers": lay},
+                          specs=R.llm_specs("full", split=True),
+                          state=m["state"], mode="real",
+                          max_len=PREFILL + 32)
+        timed_hold("S", lambda: steps(split, emb, n_path + 1))
+        del split
+        eng = ServingEngine(cfg, block.params, specs=R.llm_specs(),
+                            state=m["state"], mode="real", slots=4,
+                            max_len=1024 + 2 * TP_BURST_TOKENS,
+                            steps_per_block=8)
+
+        def burst():
+            rids = [eng.submit(p, max_new_tokens=TP_BURST_TOKENS)
+                    for p in m["burst"]]
+            res = eng.run()
+            return [res[r] for r in rids]
+
+        timed_hold("c", burst)
+    return out, secs
+
+
+def _tp_sync(dev) -> None:
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _tp_rank(rank: int, store: str, seed: int, res_dir: str, dev: str,
+             cfg):
+    """One rank of the tp phase: the process group (gloo over a file store,
+    both ranks on cuda:0), the same draw, this rank's shard, the holds under
+    the mesh; then rank 0 runs the whole model and holds the shard's
+    outputs against it, and both ranks run the sharded GPTQ walk (rank 0
+    also the single-rank walk). Writes its launch counts, shapes, wall
+    seconds and comparisons to ``res_dir``."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from mquant_tpu_torch.gptq import core as GC
+    from mquant_tpu_torch.gptq import sharded as GS
+    from mquant_tpu_torch.kernels import _build
+    from mquant_tpu_torch.parallel import sharding as PS
+
+    if dev == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    else:
+        torch.set_num_threads(2)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=TP_RANKS)
+    try:
+        t_start = time.perf_counter()
+        if dev == "cuda":
+            _build.load()
+        m = _tp_model(seed, dev, cfg)
+        mesh, dp_mesh = PS.make_mesh(), PS.make_mesh(tp=1)
+        vcfg = m["vcfg"]
+        lcfg = PS.local_config(vcfg, mesh)
+        whole = {"llm": m["params"], "vit": m["vp"], "merger": m["mp"]}
+        sp = PS.shard_params(whole, mesh, cfg=vcfg)
+        down_S = PS.shard_params(
+            {"layers": {"down": m["split_down"]}}, mesh,
+            cfg=vcfg.llm)["layers"]["down"]
+        res = {"rank": rank, "setup_s": time.perf_counter() - t_start}
+        shapes = {}
+        before = _launch_snapshot()
+        with PS.set_mesh(mesh), kernel_shapes(shapes):
+            tp_out, res["secs"] = _tp_holds({**m, "down_S": down_S}, lcfg,
+                                            sp["llm"], sp["vit"],
+                                            sp["merger"])
+        after = _launch_snapshot()
+        res["launches"] = {k: after[k] - before[k] for k in after}
+        res["shapes"] = shapes
+        # (d) the sharded GPTQ walk on one 7B down site
+        X, W = m["X"], m["W"]
+        t0 = time.perf_counter()
+        H = GS.hessian_dp(PS.shard_batch(X, dp_mesh), dp_mesh)
+        shd = GS.gptq_matrix_sharded(W, H, mesh, bits=4, act_order=True)
+        _tp_sync(dev)
+        res["secs"]["d"] = time.perf_counter() - t0
+        if rank == 0:
+            del sp
+            if dev == "cuda":
+                torch.cuda.empty_cache()
+            ref, res["ref_secs"] = _tp_holds({**m, "down_S": {
+                **m["split_down"]}}, vcfg, m["params"], m["vp"], m["mp"])
+            res["cmp"] = _tp_compare(tp_out, ref)
+            t0 = time.perf_counter()
+            solo = GC.gptq_quantize_matrix(W, H, bits=4, act_order=True)
+            _tp_sync(dev)
+            res["ref_secs"]["d"] = time.perf_counter() - t0
+            H1 = GC.accumulate_hessian(None, X)
+            res["gptq"] = {
+                "H_rel": float((H - H1).abs().max() / H1.abs().max()),
+                "w": torch.equal(shd.w, solo.w),
+                "scale": torch.equal(shd.scale, solo.scale),
+                "perm": torch.equal(shd.perm, solo.perm),
+                "fallback": bool(shd.used_fallback),
+                "w_diff": int((shd.w != solo.w).sum()),
+                "site": tuple(W.shape)}
+        res["total_s"] = time.perf_counter() - t_start
+        with open(os.path.join(res_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _tp_compare(tp_out: dict, ref: dict) -> dict:
+    """Per hold: tokens equal, logits max |d| and in bf16 ulps."""
+    import torch
+
+    cmp = {}
+    for k in ("a", "F", "S"):
+        (tt, lt), (tr, lr) = tp_out[k], ref[k]
+        d, ulps = bf16_ulp_err(lt, lr)
+        cmp[k] = {"tokens": bool(torch.equal(tt, tr)), "max_d": d,
+                  "ulps": ulps, "n": int(tt.shape[-1])}
+    d, ulps = bf16_ulp_err(tp_out["long"], ref["long"])
+    cmp["long"] = {"tokens": bool(torch.equal(tp_out["long"].argmax(-1),
+                                              ref["long"].argmax(-1))),
+                   "max_d": d, "ulps": ulps, "n": 1}
+    cmp["c"] = {"tokens": tp_out["c"] == ref["c"], "max_d": 0.0,
+                "ulps": 0.0, "n": sum(len(t) for t in ref["c"])}
+    return cmp
+
+
+def run_tp_phase(card: str, seed: int, dev: str = "cuda", cfg=None
+                 ) -> list:
+    """The tp phase: two ranks on cuda:0 (``torch.multiprocessing``, spawn,
+    gloo over a file store; NCCL refuses two ranks on one device), each
+    drawing the same seeded Qwen2-VL-7B (TP_DEPTH decoder layers,
+    TP_VIT_DEPTH ViT blocks) and holding its shard (``parallel.sharding``:
+    14 of 28 query heads, 2 of 4 KV heads, 9472 of 18944 intermediate
+    columns, 76032 of 152064 vocabulary columns, 8 of 16 ViT heads). Holds,
+    against the whole model on rank 0: (a) the full-VLM request's 32
+    tokens and last-step logits (and a 2048-id text prefill, the flash
+    kernel at 14 heads), (b) paths F and S (one 1024-token prefill and 8
+    steps each), (c) the engine's four-prompt burst, (d) the sharded GPTQ
+    walk on one 7B ``down`` (18944 × 3584) against the single-rank walk on
+    the same H. Decode steps run eagerly under the mesh (gloo's
+    collectives cannot be captured in a CUDA graph). Wall times are two
+    ranks time-sharing one card, not tensor-parallel speed. Returns both
+    ranks' launch counts of the sharded holds. ``dev`` / ``cfg``: a
+    rehearsal on the CPU at a small config."""
+    import pickle
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        mp.start_processes(_tp_rank, args=(os.path.join(d, "store"), seed,
+                                           d, dev, cfg),
+                           nprocs=TP_RANKS, start_method="spawn")
+        ranks = []
+        for r in range(TP_RANKS):
+            with open(os.path.join(d, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    log("tp: decode steps ran eagerly under the mesh (gloo collectives are "
+        "not captured in CUDA graphs); times below are two ranks "
+        "time-sharing one card, not tensor-parallel speed")
+    for res in ranks:
+        counts = {k: n for k, n in res["launches"].items() if n}
+        log(f"tp rank {res['rank']}: setup {res['setup_s']:.1f} s, holds "
+            + ", ".join(f"{k} {v:.2f} s" for k, v in res["secs"].items())
+            + f", total {res['total_s']:.1f} s; launches {counts}")
+        by_kernel = {}
+        for (name, shp), n in sorted(res["shapes"].items()):
+            if name in TP_KERNELS:
+                by_kernel.setdefault(name, []).append(f"{shp} x{n}")
+        for name, lst in by_kernel.items():
+            log(f"tp rank {res['rank']}: {name} at " + "; ".join(lst))
+    log("tp: the whole model on rank 0: " + ", ".join(
+        f"{k} {v:.2f} s" for k, v in r0["ref_secs"].items()))
+    failed = []
+    for k, c in r0["cmp"].items():
+        log(f"tp hold {k}: tokens equal {c['tokens']} ({c['n']}), logits "
+            f"max |d| {c['max_d']:.6g} ({c['ulps']:.3g} bf16 ulp)")
+        if not c["tokens"] or c["ulps"] > 1.0:
+            failed.append(k)
+    g = r0["gptq"]
+    log(f"tp hold d: GPTQ on {g['site']} over {TP_RANKS} ranks, on the H "
+        f"of hessian_dp (against one rank's 2XᵀX of all rows: rel "
+        f"{g['H_rel']:.3g}): codes equal "
+        f"{g['w']} ({g['w_diff']} differ), scales {g['scale']}, perm "
+        f"{g['perm']}, fallback {g['fallback']}")
+    if not (g["w"] and g["scale"] and g["perm"]) or g["fallback"]:
+        failed.append("d")
+    missing = [k for k in TP_KERNELS
+               if any(res["launches"][k] <= 0 for res in ranks)]
+    if failed or missing:
+        raise AssertionError(f"tp: holds failed {failed}; kernels never "
+                             f"launched on a rank {missing}")
+    log(f"tp phase: {wall:.1f} s (spawn, draws, holds, the whole model on "
+        f"rank 0); card {card}")
+    return [res["launches"] for res in ranks]
+
+
 PHASES = {"pipeline": lambda card, seed: run_pipeline_phase(card, seed, 28),
           "longctx": run_longctx_alone,
           "golden": lambda card, seed: [run_golden(card)],
           "internvl": run_internvl_phase, "glm4v": run_glm4v_phase,
+          "tp": run_tp_phase,
           "qwenvl": run_qwenvl_phase, "minicpmv": run_minicpmv_phase,
           "checkpoint": lambda card, seed: run_checkpoint_phase(card, seed,
                                                                 28)}
@@ -6032,7 +6473,8 @@ def main(argv=None) -> int:
     if args.phase:
         t0 = time.perf_counter()
         counts = PHASES[args.phase](card, args.seed)
-        log(f"{args.phase} phase alone, its LLM uncut: "
+        log(f"{args.phase} phase alone"
+            + ("" if args.phase == "tp" else ", its LLM uncut") + ": "
             f"{time.perf_counter() - t0:.1f} s; launches "
             + ", ".join(f"{k} {sum(c[k] for c in counts)}" for k in REPLACES
                         if sum(c[k] for c in counts)) + f"; card {card}")
@@ -6049,10 +6491,13 @@ def main(argv=None) -> int:
     summary.update(check_group_epilogue(args.seed))
     log(f"phase 3: {time.perf_counter() - t0:.1f} s; card {card}")
 
+    # the tp phase: tensor parallelism at tp = 2, two ranks on this card
+    counts = run_tp_phase(card, args.seed)
+
     # the prefill probe and the int8 rate probe, counted as one path; the
     # three decode-rate probes, another
     t0 = time.perf_counter()
-    counts = [run_probe(args.seed, card), run_decode_probes(args.seed, card)]
+    counts += [run_probe(args.seed, card), run_decode_probes(args.seed, card)]
     log(f"probes: {time.perf_counter() - t0:.1f} s; card {card}")
 
     # the golden: the JAX package's tokens at 7B widths, held on the card

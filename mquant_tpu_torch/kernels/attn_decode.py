@@ -73,8 +73,9 @@ def _check_shapes(q, k_new, v_new, k_cache, v_cache):
 
 
 def attn_decode_ref(q, k_new, v_new, k_cache, v_cache, pos, scale: float,
-                    start=None):
-    """Plain version of :func:`attn_decode`, with the JAX kernel's math: f32
+                    start=None, plan_kvh=None):
+    """Plain version of :func:`attn_decode` (``plan_kvh``, the kernel's
+    split plan, changes nothing here), with the JAX kernel's math: f32
     scores over columns start ≤ col < pos, the new token as a separate
     softmax term, probabilities rounded to the cache dtype before P·V, f32
     accumulation; no value outside the columns read reaches the output. Returns (attn (B, 1, H, hd), k_cache, v_cache) with the
@@ -176,7 +177,7 @@ def _counters(device, n: int) -> torch.Tensor:
 
 
 def attn_decode(q, k_new, v_new, k_cache, v_cache, pos, scale: float,
-                start=None):
+                start=None, plan_kvh=None):
     """One-token GQA decode attention with the cache write, in one launch
     (CUDA kernel ``mq_attn_decode``).
 
@@ -188,7 +189,12 @@ def attn_decode(q, k_new, v_new, k_cache, v_cache, pos, scale: float,
     but the caches are updated IN PLACE (row ``pos`` of each batch row) and
     the returned caches are the same tensors. Attention covers
     start ≤ col < pos of the cache and the new token; no other column is
-    read. On CUDA: bf16, hd == 128, H / KVH ≤ 16, contiguous operands."""
+    read. On CUDA: bf16, hd == 128, H / KVH ≤ 16, contiguous operands.
+    ``plan_kvh``: the KV heads the column splits are planned for (default
+    KVH). A tensor-parallel rank passes the whole model's, so each head's
+    columns split, and its partials merge, as on one rank (bit-equal): the
+    plan fills the SMs by B · KVH, and a rank's fewer heads would take more
+    splits."""
     name = "attn_decode"
     B, H, hd, S, KVH = _check_shapes(q, k_new, v_new, k_cache, v_cache)
     if q.device.type == "cpu":
@@ -203,7 +209,7 @@ def attn_decode(q, k_new, v_new, k_cache, v_cache, pos, scale: float,
     start_t, start_v = _per_row(0 if start is None else start, B, q.device)
     # host ints bound the columns read; device indices may reach row S
     n_cols = S if pos_t is not None or start_t is not None else pos_v - start_v
-    splits = _plan(B, KVH, n_cols, _sm_count(q.device.index))
+    splits = _plan(B, plan_kvh or KVH, n_cols, _sm_count(q.device.index))
     G = H // KVH
     counters = _counters(q.device, B * KVH)
     out = torch.empty((B, 1, H, hd), dtype=q.dtype, device=q.device)

@@ -238,7 +238,8 @@ def pack_w4_sites(layer_params: Dict[str, Any], specs, in_dims: Dict[str, int],
     concatenated along the output axis into ONE packed matrix: each member
     gets ``w_q_fused``/``w_scale_fused`` (the same tensor) and drops its own
     ``w_q``; ``qlinear_group`` then runs one GEMM per group. Already-packed
-    and split (odd-row) sites pass through untouched."""
+    and split sites (``w_col0``: odd rows, or a tensor-parallel rank's even
+    share of them) pass through untouched."""
 
     def packable(name, site):
         spec = specs.get(prefix + name) if specs else None
@@ -250,7 +251,7 @@ def pack_w4_sites(layer_params: Dict[str, Any], specs, in_dims: Dict[str, int],
             return False
         expected = in_dims.get(name)
         return (expected is not None and wq.shape[-2] == expected
-                and expected % 2 == 0)
+                and expected % 2 == 0 and "w_col0" not in site)
 
     def group_servable(group):
         sps = [specs.get(prefix + n) for n in group]
@@ -304,6 +305,21 @@ def _epilogue(acc: torch.Tensor, x_scale: torch.Tensor, w_scale: torch.Tensor,
         return acc
     y = (acc.float() * x_scale.reshape(-1, 1)) * w_scale.float().reshape(1, -1)
     return y.to(out_dtype)
+
+
+def dequant_acc(acc: torch.Tensor, x_scale, w_scale: torch.Tensor,
+                out_dtype: torch.dtype) -> torch.Tensor:
+    """The kernels' fused epilogue on its own: int32 acc (…, N) with the
+    per-token (…,) or per-tensor ``x_scale`` and the per-channel (N,)
+    ``w_scale`` → :func:`_epilogue`'s ((acc · x_scale) · w_scale) in f32,
+    then ``out_dtype``. A row-parallel site (``models.layers``) applies it
+    once to the accumulators summed across its ranks."""
+    N = acc.shape[-1]
+    a2 = acc.reshape(-1, N)
+    M = a2.shape[0]
+    xs = torch.as_tensor(x_scale, dtype=torch.float32, device=acc.device)
+    xs = xs.reshape(-1).expand(M) if xs.numel() == 1 else xs.reshape(M)
+    return _epilogue(a2, xs, w_scale, out_dtype).reshape(acc.shape)
 
 
 def _exact_dot(xq: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

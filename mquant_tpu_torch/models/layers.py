@@ -117,16 +117,20 @@ def _check_servable(p: Dict[str, Any], spec: SiteSpec, mode: str):
                                   "the fp column cannot rejoin int codes")
 
 
-def _quantize_act(x: torch.Tensor, spec: SiteSpec, site_state
-                  ) -> torch.Tensor:
+def _quantize_act(x: torch.Tensor, spec: SiteSpec, site_state,
+                  mesh=None) -> torch.Tensor:
     """The fake and calib paths' activation quantizer: the site's static
     QuantParams (x unchanged while the site has none: calibration not
-    finalized yet), else dynamic scales."""
+    finalized yet), else dynamic scales; with ``mesh`` x is a row-parallel
+    rank's columns, and the scales are the whole row's
+    (:func:`_tp_act_qparams`)."""
+    fmt = get_format(spec.a_bits, signed=spec.a_symmetric)
     if spec.a_static:
         if site_state is None or site_state.get("act") is None:
             return x
-        return fake_quantize(x, site_state["act"],
-                             get_format(spec.a_bits, signed=spec.a_symmetric))
+        return fake_quantize(x, site_state["act"], fmt)
+    if mesh is not None:
+        return fake_quantize(x, _tp_act_qparams(x, spec, mesh), fmt)
     return dynamic_fake_quant(x, bits=spec.a_bits, per_token=spec.a_per_token,
                               symmetric=spec.a_symmetric,
                               clip_ratio=spec.a_clip_ratio,
@@ -152,7 +156,38 @@ def qlinear(x: torch.Tensor, p: Dict[str, Any], name: str,
             state: Optional[Dict[str, Any]] = None,
             mode: str = "fp", tape: Optional[Tape] = None,
             verify: bool = False) -> torch.Tensor:
-    """y = x @ w + b through the site's transform / quant pipeline. Split
+    """y = x @ w + b through the site's transform / quant pipeline, or this
+    rank's part of it under a tensor-parallel mesh (``parallel.sharding``):
+    a row-parallel site reduces across the tp row (:func:`_qlinear`),
+    a column-parallel site runs on its columns and the sites of
+    ``sharding.GATHERED_SITES`` gather their output (calibration, and the
+    group-blocked epilogue of path A, raise under a mesh)."""
+    from ..parallel import sharding as PS
+
+    mesh = PS.tp_mesh()
+    if mesh is None:
+        return _qlinear(x, p, name, spec, state, mode, tape, verify)
+    if mode == "calib" or tape is not None:
+        PS.refuse_under_mesh("calibration", "A14c")
+    _refuse_path_a([p], [spec], mode)
+    kind = PS.site_kind(name)
+    if kind == "row":
+        return _qlinear(x, p, name, spec, state, mode, None, verify, mesh)
+    y = _qlinear(x, p, name, spec, state, mode, tape, verify)
+    if kind == "col" and name in PS.GATHERED_SITES:
+        from ..parallel import collectives as PC
+
+        y = PC.gather_last(y, mesh)
+    return y
+
+
+def _qlinear(x: torch.Tensor, p: Dict[str, Any], name: str,
+             spec: Optional[SiteSpec] = None,
+             state: Optional[Dict[str, Any]] = None,
+             mode: str = "fp", tape: Optional[Tape] = None,
+             verify: bool = False, row=None) -> torch.Tensor:
+    """y = x @ w + b on one rank's whole site, or with ``row`` (a mesh)
+    this rank's part of a row-parallel site. Split
     storage (``w_col0`` (…, 1, out) and ``w`` / ``w_q`` over input rows
     1..n−1): with ``spec.split`` channel 0 of the (rotated) input skips the
     quantizer and adds (x0 · w_col0) in f32 after the GEMM; otherwise (fp
@@ -163,36 +198,90 @@ def qlinear(x: torch.Tensor, p: Dict[str, Any], name: str,
     the split column's) run on each step's rows apart (:func:`per_step`),
     the integer product on the whole window (exact). With ``spec.out_bits``
     the output is fake-quantized by the site's static ``"out"`` params (or,
-    calibrating, recorded as the ``name#out`` site)."""
-    from ..kernels.qmm import quantized_matmul
+    calibrating, recorded as the ``name#out`` site).
 
+    A row-parallel site holds its input columns x (…, K / tp) and weight
+    rows (``sharding.row_bounds``) and reduces across the tp row: in real
+    mode the kernels' int32 accumulators (:func:`_row_int_matmul`), exact,
+    bit-equal to the single rank; in fp and fake mode the float partial
+    products summed in f32, as GSPMD reduces them. Dynamic activation
+    scales take the whole row's min / max (:func:`_tp_act_qparams`). The
+    full online Hadamard mixes every channel, and an act_order ``a_perm``
+    indexes the whole input: those sites gather x first, rotate and
+    quantize it whole, and take their rows' columns. A block or head
+    Hadamard is local (its block divides the local width). The RMS split's
+    channel 0 and a rejoined ``w_col0`` lie on rank 0: every rank takes x0
+    from the gather, or from rank 0's broadcast, and adds x0 · w_col0 once,
+    after the reduce."""
+    from ..kernels.qmm import quantized_matmul
+    from ..parallel import collectives as PC
+
+    rank0 = row is None or row.tp_index == 0
     if spec is None or mode == "fp":
         w = p["w"]
-        if "w_col0" in p:  # split storage in fp mode: recombine
+        if "w_col0" in p and rank0:  # split storage in fp mode: recombine
             w = torch.cat([p["w_col0"], w], dim=-2)
         w = w.to(x.dtype)
         y = per_step(lambda t: t @ w, x, verify)
-        return y + p["b"].to(x.dtype) if p.get("b") is not None else y
+        if row is not None:
+            y = PC.all_reduce_f32(y, row)
+        return y + p["b"].to(y.dtype) if p.get("b") is not None else y
     _check_servable(p, spec, mode)
+    whole = row is not None and (spec.online_had == "full"
+                                 or p.get("a_perm") is not None)
+    if whole:
+        from ..parallel.sharding import row_bounds
+
+        x = PC.gather_last(x.contiguous(), row)
+        cols = row_bounds(x.shape[-1], row.tp, row.tp_index,
+                          "w_col0" in p and spec.split)
     if spec.online_had is not None:
+        if row is not None and not whole and x.shape[-1] % spec.head_dim:
+            raise ValueError(f"{name}: the local width {x.shape[-1]} is no "
+                             f"multiple of the Hadamard block "
+                             f"{spec.head_dim}")
         x = per_step(lambda t: _online_hadamard(t, spec), x, verify)
     x0 = None
     if "w_col0" in p and spec.split:  # RMS split: channel 0 stays fp
-        x0, x = x[..., :1], x[..., 1:]
+        if row is None or whole or rank0:
+            x0, x = x[..., :1], x[..., 1:]
+        if row is not None and not whole:
+            if not rank0:
+                x0 = x.new_empty((*x.shape[:-1], 1))
+            x0 = PC.broadcast(x0.contiguous(), row)
     elif "w_col0" in p:  # split storage, spec without the split: rejoin
-        p = {**p, "w": torch.cat([p["w_col0"], p["w"]], dim=-2)}
+        p = {**p, "w": (torch.cat([p["w_col0"], p["w"]], dim=-2) if rank0
+                        else p["w"])}
     if tape is not None and spec.a_bits is not None and spec.a_static:
         tape.record(name, x, spec)
     site_state = None if state is None else state.get(name)
+    local = None if whole else row  # a row's mesh where x is its columns
+    act = None if site_state is None else site_state.get("act")
+    if local is not None and spec.a_static and act is not None and \
+            torch.as_tensor(act.scale).numel() > 1:
+        from ..parallel.sharding import refuse_under_mesh
+
+        # the calibrated state holds the whole row's channel scales
+        refuse_under_mesh("per-channel static activation scales at a "
+                          "row-parallel site", "A14b")
     if mode == "real" and "w_q" in p:
-        y = quantized_matmul(x, p, spec, site_state)
+        if row is None:
+            y = quantized_matmul(x, p, spec, site_state)
+        else:
+            y = _row_int_matmul(x, p, spec, site_state, row, local,
+                                cols if whole else None)
     else:
         if "w" not in p:
             raise ValueError(f"{name}: mode {mode!r} needs float weights "
                              "'w' (integer storage is served in real mode)")
-        xq = x if spec.a_bits is None else _quantize_act(x, spec, site_state)
+        xq = x if spec.a_bits is None else _quantize_act(x, spec, site_state,
+                                                         local)
+        if whole:
+            xq = xq[..., cols[0]:cols[1]]
         w = p["w"].to(xq.dtype)
         y = per_step(lambda t: t @ w, xq, verify)
+        if row is not None:
+            y = PC.all_reduce_f32(y, row)
     if x0 is not None:
         c0 = p["w_col0"].float()
         y = y + per_step(lambda t: t.float() @ c0, x0, verify).to(y.dtype)
@@ -205,6 +294,76 @@ def qlinear(x: torch.Tensor, p: Dict[str, Any], name: str,
     elif tape is not None and spec.out_bits is not None:
         tape.record(name + "#out", y, spec)
     return y
+
+
+def _refuse_path_a(ps: list, specs: list, mode: str) -> None:
+    """Raise under a tensor-parallel mesh for a real-mode site on the
+    group-blocked epilogue (path A's storage)."""
+    from ..kernels.qmm import grouped_route
+    from ..parallel.sharding import refuse_under_mesh, tp_mesh
+
+    if mode == "real" and tp_mesh() is not None and any(
+            s is not None and "w_q" in p and grouped_route(p, s)
+            for p, s in zip(ps, specs)):
+        refuse_under_mesh("grouped storage (path A)", "A14b")
+
+
+def _tp_act_qparams(x: torch.Tensor, spec: SiteSpec, mesh):
+    """Dynamic activation params of a row-parallel site's local columns as
+    the whole row gives them (``core.quant.dynamic_qparams``): the local
+    min / max per token (or per tensor) maximized across the tp row, one
+    ``all_reduce(MAX)``, before the scale is formed."""
+    from ..core.quant import scales_from_minmax
+    from ..parallel import collectives as PC
+
+    if spec.a_groupsize:
+        from ..parallel.sharding import refuse_under_mesh
+
+        refuse_under_mesh("per-group activation scales", "A14b")
+    xf = x.float()
+    if spec.a_per_token:
+        mn, mx = xf.amin(-1, keepdim=True), xf.amax(-1, keepdim=True)
+    else:
+        mn, mx = xf.min(), xf.max()
+    both = PC.all_reduce(torch.stack([mx, -mn]), mesh, "max")
+    fmt = get_format(spec.a_bits, signed=spec.a_symmetric)
+    return scales_from_minmax(-both[1] * spec.a_clip_ratio,
+                              both[0] * spec.a_clip_ratio, fmt,
+                              spec.a_symmetric)
+
+
+def _row_int_matmul(x: torch.Tensor, p: Dict[str, Any], spec: SiteSpec,
+                    site_state, mesh, local, cols) -> torch.Tensor:
+    """The real-mode product of a row-parallel site: the activation
+    quantized with the site's scale (static: elementwise; dynamic on local
+    columns: :func:`_tp_act_qparams`), the kernels' int32 accumulators
+    (``out_dtype=torch.int32``) over this rank's rows (``cols`` of a
+    gathered x), one ``all_reduce(SUM)`` of them (exact), then the dequant
+    epilogue once (``kernels.qmm.dequant_acc``, the fused epilogue's
+    rounding) and ``a_corr``: bit-equal to the single rank."""
+    from ..core.formats import INT8
+    from ..core.quant import quantize
+    from ..kernels import qmm
+    from ..parallel import collectives as PC
+
+    if spec.a_bits is not None and not spec.a_static and local is not None:
+        qp = _tp_act_qparams(x, spec, local)
+        aq = qmm.ActQ(quantize(x, qp, INT8, qmm._codes_out(x)), qp.scale,
+                      qp.zero_point)
+    else:
+        aq = qmm._act_int8(x, spec, site_state, p)
+    q = aq.q
+    ap = p.get("a_perm")
+    if ap is not None:
+        q = q.index_select(-1, ap.to(device=q.device, dtype=torch.long))
+    if cols is not None:
+        q = q[..., cols[0]:cols[1]]
+    pl = {k: v for k, v in p.items() if k in ("w_q", "w_scale")}
+    acc = qmm.quantized_matmul_pre(q, aq.scale, pl, torch.int32,
+                                   x_zp=aq.zp, a_groupsize=aq.groupsize)
+    PC.all_reduce(acc, mesh)
+    y = qmm.dequant_acc(acc, aq.scale, p["w_scale"], x.dtype)
+    return y + p["a_corr"].to(y.dtype) if "a_corr" in p else y
 
 
 def qlinear_group(x: torch.Tensor, ps: list, names: list,
@@ -220,6 +379,7 @@ def qlinear_group(x: torch.Tensor, ps: list, names: list,
     from ..kernels.qmm import _act_int8, quantized_matmul_pre
 
     sp = [specs.get(n) for n in names]
+    _refuse_path_a(ps, sp, mode)
     s0 = sp[0]
     base_ok = (mode == "real" and s0 is not None
                and all(s == s0 for s in sp) and s0.a_bits == 8

@@ -241,10 +241,13 @@ def _use_fused_tail(dspec, mode: str, T: int, dp: Dict, act,
     card here; with the flag on a CPU tensor takes the kernel's plain
     version. For a gate ``g`` on the card, also the kernel's row contract
     (``fwht.tail_supports``: n and bf16); a row outside it takes the chain,
-    as JAX's default does."""
+    as JAX's default does. Under a tensor-parallel mesh the chain: a rank's
+    g · u holds its own columns, and the full Hadamard mixes all of them
+    (``layers.qlinear``'s row-parallel site gathers them first)."""
     from ..kernels import fwht
+    from ..parallel.sharding import tp_mesh
 
-    if os.environ.get("MQUANT_FUSED_TAIL", "0") != "1":
+    if os.environ.get("MQUANT_FUSED_TAIL", "0") != "1" or tp_mesh():
         return False
     if g is not None and L._on_card(g) and not fwht.tail_supports(
             g.shape[-1], g.dtype):
@@ -418,10 +421,14 @@ def _attend(cfg: DecoderConfig, q, k, v, cache_kv, cache_pos,
     causal = cache_kv is None and attn_mask is None
     if fused_decode:
         from ..kernels import attn_decode
+        from ..parallel.sharding import tp_mesh, whole_kv_heads
 
+        # a tensor-parallel rank plans its splits for the whole model's heads
+        kw = {} if tp_mesh() is None else {
+            "plan_kvh": whole_kv_heads(cfg, tp_mesh())}
         attn, _, _ = attn_decode.KERNELS["attn_decode"](
             q, k, v.contiguous(), cache_kv["k"], cache_kv["v"], cache_pos,
-            cfg.head_dim**-0.5, start=attn_start)
+            cfg.head_dim**-0.5, start=attn_start, **kw)
         return attn
     if cache_kv is None:
         return L.attention(q, k, v, mask, causal=causal)
@@ -567,7 +574,19 @@ def decoder_forward(cfg: DecoderConfig, params: Dict,
     derives it from T for a prefill (no cache, or ``prefill_fresh``) and
     takes 1.0 for a decode step (decode callers pass the prefill's).
     The cache (if given; float, int8 or int4, :func:`init_cache`) is updated
-    in place and returned with ``pos`` advanced by T."""
+    in place and returned with ``pos`` advanced by T.
+
+    Under a tensor-parallel mesh (``parallel.sharding.set_mesh``) ``cfg``
+    and ``params`` are this rank's (``sharding.local_config``,
+    ``sharding.shard_params``), the cache holds its KV heads, and the
+    logits come back whole on every rank (the vocabulary gathered, its
+    padding dropped). Calibration and int8 / int4 KV raise there."""
+    from ..parallel.sharding import refuse_under_mesh
+
+    if collect_stats:
+        refuse_under_mesh("calibration", "A14c")
+    if cache is not None and kv_kind(cache):
+        refuse_under_mesh("int8 / int4 KV (paths K8 / K4)", "A14b")
     specs = specs or {}
     if tokens_or_embeds.ndim == 2:
         h = params["embed"]["w"][tokens_or_embeds].to(cfg.dtype)
@@ -629,6 +648,8 @@ def decoder_forward(cfg: DecoderConfig, params: Dict,
     else:
         logits = qlinear(h, params["lm_head"], "llm.lm_head",
                          specs.get("llm.lm_head"), state, mode, verify=verify)
+        if logits.shape[-1] > cfg.vocab:  # a gathered, padded vocabulary
+            logits = logits[..., :cfg.vocab]
     if cache is not None:
         cache = dict(cache)
         cache["pos"] = pos0 + T
@@ -647,7 +668,13 @@ def init_cache(cfg: DecoderConfig, batch: int, max_len: int, dtype=None,
     per-token-per-head symmetric scales ``k_scale`` / ``v_scale`` (half the
     bytes); nibble-packed uint4 codes (two per byte along hd) with f32
     per-token-per-head asymmetric scales and zero points ``k_zp`` / ``v_zp``
-    (a quarter). The dtype of "k" tells them apart (:func:`kv_kind`)."""
+    (a quarter). The dtype of "k" tells them apart (:func:`kv_kind`).
+    Under a tensor-parallel mesh ``cfg`` is the rank's local config (its KV
+    heads) and the quantized caches raise."""
+    if quantized:
+        from ..parallel.sharding import refuse_under_mesh
+
+        refuse_under_mesh("int8 / int4 KV (paths K8 / K4)", "A14b")
     dtype = dtype or cfg.dtype
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     kw = dict(device=device)

@@ -27,6 +27,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from ..parallel.sharding import tp_mesh
 from . import layers as L
 from .layers import SiteSpec, qlinear
 
@@ -151,12 +152,16 @@ def resampler_forward(cfg: ResamplerConfig, params: Dict,
     q = qlin(q_in, "q", masked=False)
     k = qlin(k_in, "k", masked=True)
     v = qlin(kv, "v", masked=True)
-    H, hd = cfg.n_heads, cfg.head_dim
+    hd = cfg.head_dim  # the heads: all of them, or a tp rank's share
     mask = None if key_mask is None else key_mask[:, None, None, :] > 0
-    attn = L.attention(q.reshape(B, cfg.n_queries, H, hd),
-                       k.reshape(B, S, H, hd), v.reshape(B, S, H, hd), mask)
-    out = qlin(attn.reshape(B, cfg.n_queries, H * hd), "out", masked=False)
+    attn = L.attention(q.reshape(B, cfg.n_queries, -1, hd),
+                       k.reshape(B, S, -1, hd), v.reshape(B, S, -1, hd), mask)
+    out = qlin(attn.reshape(B, cfg.n_queries, -1), "out", masked=False)
     out = nrm(out, params["ln_post"])
     if "proj_fc" in params:
+        mesh = tp_mesh()
+        if mesh is not None:  # row-parallel on a whole input: its columns
+            n = out.shape[-1] // mesh.tp
+            out = out[..., mesh.tp_index * n:(mesh.tp_index + 1) * n]
         out = qlin(out, "proj_fc", masked=False)
     return out, None if tape is None else (tape.stats, tape.samples)

@@ -114,7 +114,8 @@ class _Block:
     outputs come back through ``buf`` (2, B, n) int32: tokens, and logprobs
     as f32 bit patterns; ``logits`` holds the last step's (B, V) logits.
     Built with every row inactive, so the eager step the capture needs
-    writes only cache columns ≥ pos and the outputs."""
+    writes only cache columns ≥ pos and the outputs. Under a
+    tensor-parallel mesh the step runs eagerly (``generate.Graphed``)."""
 
     def __init__(self, eng: "ServingEngine", width: int, spec: bool):
         B, dev = eng.slots, eng.device
@@ -233,6 +234,13 @@ class ServingEngine:
     >>> ra = eng.submit(prompt_a, max_new_tokens=32)
     >>> rb = eng.submit(prompt_b, max_new_tokens=8)
     >>> outs = eng.run()          # {rid: [tok, ...]}, continuous batching
+
+    Tensor parallel (SPMD): every rank of the mesh builds the engine on its
+    local config and params (``parallel.sharding``) and, under
+    ``set_mesh``, makes the same calls in the same order (submissions,
+    prefixes, ticks). The logits come back whole on every rank and the
+    sampling noise is keyed by each request's seed, so every rank admits,
+    samples and retires alike (``serve.server`` keeps its ranks in step).
     """
 
     def __init__(self, cfg: DecoderConfig, params, specs=None, state=None,

@@ -38,7 +38,11 @@ def bucket_len(n: int, minimum: int = 32) -> int:
 def prepare_w4_resident(cfg: DecoderConfig, params, specs, mode: str):
     """Serving residency of W4 weights: ONE copy, split-half packed bytes,
     with the shared-input groups (q|k|v, gate|up) fused into one matrix each
-    (the JAX package's ``packed`` mode under the W4 GEMV). Sites on the
+    (the JAX package's ``packed`` mode under the W4 GEMV). A tensor-parallel
+    rank packs its own tree (``cfg`` its local config): its q|k|v and
+    gate|up are whole groups of its heads and columns, so the fusion stays
+    (JAX turns it off under a mesh, where a concat boundary falls
+    mid-shard). Sites on the
     group-blocked epilogue (``kernels.qmm.grouped_route``) keep their int8
     codes: that route multiplies unpacked codes, so packed bytes would be
     unpacked at every call. Returns params unchanged unless real-mode W4
@@ -87,13 +91,17 @@ class Graphed:
     library handles, cached factors) and is then captured in a CUDA graph;
     a call replays it ``times`` times. The kernel wrappers count their
     launches where they run, which in a capture is no launch: the capture's
-    counts are taken back and each replay adds them. On the CPU a call runs
+    counts are taken back and each replay adds them. On the CPU, and under
+    a tensor-parallel mesh (``parallel.sharding``: gloo's collectives cannot
+    be captured; capturing the step with NCCL is ROADMAP A14d), a call runs
     ``fn`` eagerly ``times`` times."""
 
     def __init__(self, fn: Callable[[], object], device):
+        from ..parallel.sharding import tp_mesh
+
         self.fn = fn
         self.graph = None
-        if torch.device(device).type != "cuda":
+        if torch.device(device).type != "cuda" or tp_mesh() is not None:
             return
         side = torch.cuda.Stream(device=device)
         side.wait_stream(torch.cuda.current_stream(device))
@@ -131,7 +139,8 @@ class DecodeLoop:
     (or anything): no step reads them. ``logits`` holds the last step's
     (B, vocab) logits. An int8 / int4 cache's buffers (``kv`` a dict, the
     cache's tensors but ``pos``) are captured with the step: the new rows'
-    quantization runs in the graph, with no host copy."""
+    quantization runs in the graph, with no host copy. Under a
+    tensor-parallel mesh the step runs eagerly (:class:`Graphed`)."""
 
     def __init__(self, gen: "Generator", kv, eos_id: Optional[int],
                  ragged: bool):
@@ -260,7 +269,11 @@ class DecodeLoop:
 
 
 class Generator:
-    """Prefill / decode for one (cfg, specs, state, mode). The KV cache is
+    """Prefill / decode for one (cfg, specs, state, mode). Under a
+    tensor-parallel mesh (``parallel.sharding.set_mesh`` around its calls)
+    ``cfg`` and ``params`` are the rank's local ones and every rank makes
+    the same calls: the logits come back whole, so every rank picks the
+    same tokens. The KV cache is
     bf16 (or the model's dtype), or with ``kv_quant`` True / 8 int8 and 4
     nibble-packed int4 (``models.llm.init_cache``). With the config's
     dynamic NTK a prefill takes alpha from its true length and the decode

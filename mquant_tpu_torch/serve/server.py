@@ -25,6 +25,25 @@ Endpoints (JSON bodies, stdlib only):
 artifact of the JAX pipeline or of the port's (``--tiny`` a random-weight
 tiny model of ``--model``'s family); on the card unless ``--device`` says
 otherwise.
+
+Tensor parallel (``mesh=``, ``parallel.sharding``): every rank holds its
+shard of the model and its own engine; rank 0 (tp index 0) runs HTTP and
+the scheduler thread, which enters the mesh. At each block boundary it
+broadcasts what its handlers received (token ids, image arrays, sampling
+parameters and seeds, cancellations) as one tick, and every rank makes the
+same engine calls from it: the other ranks run :func:`serve_follower`, which
+serves no HTTP. Launch with ``--tp N``: the command spawns N ranks
+(``torch.multiprocessing``, spawn), each calling ``init_process_group``
+over a file store with gloo on the CPU, NCCL on the card (one card a rank,
+``cuda:<rank>``); under ``torchrun --nproc_per_node N`` (RANK, WORLD_SIZE
+and MASTER_ADDR set) each process joins from the environment instead. Two
+ranks sharing one card take gloo (NCCL refuses two ranks on one device):
+``chip_smoke.py --phase tp``. The NCCL launch, a card a rank, has not yet
+run on a machine with several cards (ROADMAP A14a).
+
+A crash of rank 0's scheduler fails its waiters and sends the other ranks
+the stop tick, so they return; the HTTP front answers errors from then on,
+as without a mesh.
 """
 
 from __future__ import annotations
@@ -32,6 +51,7 @@ from __future__ import annotations
 import base64
 import binascii
 import json
+import os
 import queue
 import threading
 import time
@@ -45,15 +65,13 @@ from .engine import ServingEngine
 
 
 class _Pending:
-    """One in-flight request as seen by an HTTP handler thread.
+    """One in-flight request as seen by an HTTP handler thread. ``op`` is
+    what the scheduler thread applies to the engine (:func:`_apply_op`):
+    ("submit", kwargs), ("vlm", prompt, kwargs), whose vision pass and
+    splice run there, off the handler threads, or ("call", fn)."""
 
-    ``submit_kwargs`` may instead be a zero-arg callable returning the
-    kwargs — the worker invokes it on the scheduler thread, so preparation
-    that touches device state (VLM vision encode + splice) stays off the
-    handler threads."""
-
-    def __init__(self, submit_kwargs):
-        self.submit_kwargs = submit_kwargs
+    def __init__(self, op: tuple):
+        self.op = op
         self.rid: Optional[int] = None
         self.done = threading.Event()
         self.tokens: List[int] = []
@@ -68,14 +86,18 @@ class _Pending:
         self.t_submit = time.time()
         self.t_first: Optional[float] = None  # first token visible (TTFT)
         self.t_done: Optional[float] = None
-        self.is_call = False  # EngineWorker.call: fn(engine), no request
-        self.result: Any = None
+        self.result: Any = None  # a call's return value
         self.exc: Optional[BaseException] = None
 
     def cancel(self):
         """Handler-side: request abort (e.g. the streaming client hung up).
         The worker thread performs the actual engine cancellation."""
         self.cancelled = True
+
+    def fail(self, msg: str, exc: Optional[BaseException] = None):
+        self.error, self.exc = msg, exc or RuntimeError(msg)
+        self.deltas.put(None)
+        self.done.set()
 
     def push_progress(self, out: List[int], final: bool):
         if out and self.t_first is None:
@@ -101,15 +123,26 @@ class EngineWorker:
     """
 
     def __init__(self, engine: ServingEngine, poll_s: float = 0.005,
-                 decode=None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError("tensor-parallel serving is not ported "
-                                      "(ROADMAP A14)")
+                 decode=None, mesh=None, runner=None):
+        # under a tensor-parallel mesh the scheduler thread enters it and
+        # keeps the other ranks (serve_follower) in step, tick by tick
+        from ..parallel.sharding import Mesh
+
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.sharding.Mesh, got "
+                            f"{type(mesh).__name__}")
+        if mesh is not None and mesh.tp > 1 and not mesh.tp_ranks:
+            raise ValueError("a tensor-parallel mesh needs its process "
+                             "groups: make it with parallel.sharding."
+                             "make_mesh")
+        self.mesh = mesh if mesh is not None and mesh.tp > 1 else None
+        self.runner = runner  # the VLMRunner of ("vlm", ...) requests
         self.engine = engine
         self.poll_s = poll_s
         self.decode = decode  # tokens → text, needed for stop strings
         self._inbox: "queue.Queue[_Pending]" = queue.Queue()
         self._inflight: Dict[int, _Pending] = {}
+        self._ticking: List[_Pending] = []  # the current tick's waiters
         self._wake = threading.Event()
         self._stop = False
         self.requests_total = 0
@@ -128,46 +161,36 @@ class EngineWorker:
 
     # -- handler-thread API --------------------------------------------------
 
-    def submit(self, tokens_or_embeds, max_new_tokens: int = 32,
-               stop: Optional[List[str]] = None, **kw) -> _Pending:
-        p = _Pending(dict(tokens_or_embeds=tokens_or_embeds,
-                          max_new_tokens=max_new_tokens, **kw))
+    def _put(self, op: tuple, stop: Optional[List[str]] = None) -> _Pending:
+        p = _Pending(op)
         p.stop = stop or []
         if self.crashed:
-            p.error = self.crashed
-            p.deltas.put(None)
-            p.done.set()
+            p.fail(self.crashed)
             return p
         self._inbox.put(p)
         self._wake.set()
         return p
 
-    def submit_lazy(self, make_kwargs,
-                    stop: Optional[List[str]] = None) -> _Pending:
-        """Queue a request whose submit kwargs are built ON the scheduler
-        thread (for preparation that runs device code, e.g. the VLM vision
-        tower)."""
-        p = _Pending(make_kwargs)
-        p.stop = stop or []
-        if self.crashed:
-            p.error = self.crashed
-            p.deltas.put(None)
-            p.done.set()
-            return p
-        self._inbox.put(p)
-        self._wake.set()
-        return p
+    def submit(self, tokens_or_embeds, max_new_tokens: int = 32,
+               stop: Optional[List[str]] = None, **kw) -> _Pending:
+        return self._put(("submit", dict(tokens_or_embeds=tokens_or_embeds,
+                                         max_new_tokens=max_new_tokens,
+                                         **kw)), stop)
+
+    def submit_vlm(self, prompt, stop: Optional[List[str]] = None,
+                   **kw) -> _Pending:
+        """Queue an image prompt: the runner's vision pass and splice
+        (``engine_request``) run on the scheduler thread, then the engine
+        admits it with ``kw`` (max_new_tokens, sampling, seed)."""
+        return self._put(("vlm", prompt, kw), stop)
 
     def call(self, fn, timeout: Optional[float] = None):
         """Run ``fn(engine)`` on the scheduler thread between two ticks and
         return its result (or raise its exception): how another thread
-        touches the engine (registering a prefix, reading its tensors)."""
-        p = _Pending(fn)
-        p.is_call = True
-        if self.crashed:
-            raise RuntimeError(self.crashed)
-        self._inbox.put(p)
-        self._wake.set()
+        touches the engine (registering a prefix, reading its tensors).
+        Under a mesh every rank runs ``fn``, so it must pickle (a module
+        function or a ``functools.partial``)."""
+        p = self._put(("call", fn))
         if not p.done.wait(timeout):
             raise TimeoutError("engine worker call timed out")
         if p.error is not None:
@@ -220,85 +243,170 @@ class EngineWorker:
 
     # -- the scheduler thread -------------------------------------------------
 
-    def _drain_inbox(self):
-        while True:
-            try:
-                p = self._inbox.get_nowait()
-            except queue.Empty:
-                return
-            if p.is_call:
-                try:
-                    p.result = p.submit_kwargs(self.engine)
-                except Exception as e:  # noqa: BLE001 — re-raised by call()
-                    p.error, p.exc = str(e), e
-                p.done.set()
-                continue
-            try:
-                kw = (p.submit_kwargs() if callable(p.submit_kwargs)
-                      else p.submit_kwargs)
-                p.rid = self.engine.submit(**kw)
-            except Exception as e:  # noqa: BLE001 — surfaced as HTTP 400
-                p.error = str(e)
-                p.deltas.put(None)
-                p.done.set()
-                continue
-            self._inflight[p.rid] = p
-            self.requests_total += 1
-
     def _loop(self):
+        from ..parallel.sharding import set_mesh
+
         try:
-            with torch.no_grad():
-                return self._loop_inner()
+            with torch.no_grad(), set_mesh(self.mesh):
+                while self._tick():
+                    pass
+            msg = "engine worker stopped"
         except Exception as e:  # noqa: BLE001 — fail every waiter, not hang
             import traceback
 
             traceback.print_exc()
-            msg = f"engine worker crashed: {e}"
-            for p in list(self._inflight.values()):
-                p.error = msg
-                p.deltas.put(None)
-                p.done.set()
-            self._inflight.clear()
-            while True:
-                try:
-                    p = self._inbox.get_nowait()
-                except queue.Empty:
-                    break
-                p.error = msg
-                p.deltas.put(None)
-                p.done.set()
-            self.crashed = msg
+            msg = self.crashed = f"engine worker crashed: {e}"
+        waiters = self._ticking + list(self._inflight.values())
+        self._inflight.clear()
+        while True:
+            try:
+                waiters.append(self._inbox.get_nowait())
+            except queue.Empty:
+                break
+        for p in waiters:
+            if not p.done.is_set():
+                p.fail(msg)
+        if self.crashed and self.mesh is not None:
+            self._stop_followers()
 
-    def _loop_inner(self):
-        while not self._stop:
-            self._drain_inbox()
-            if not self._inflight:
-                self._wake.wait(timeout=0.25)
-                self._wake.clear()
-                continue
-            # handler-requested cancellations (client disconnects) and stop-
-            # string hits first, so the freed slots admit queued work this
-            # very tick
-            for rid, p in list(self._inflight.items()):
-                stop_hit = bool(p.stop) and self._check_stop(p)
-                if not (p.cancelled or stop_hit):
-                    continue
-                if p.cancelled:
-                    self.cancelled_total += 1
-                self.engine.cancel(rid)
-                self._inflight.pop(rid)
-                self._finish(p, self.engine.partial_output(rid))
-                self.engine.release(rid)
-            finished = self.engine.step_block()
-            for rid, toks in finished.items():
-                p = self._inflight.pop(rid, None)
-                if p is not None:
-                    self._finish(p, toks)
-                self.engine.release(rid)
-            for rid, p in self._inflight.items():
-                p.push_progress(self.engine.partial_output(rid), final=False)
+    def _tick(self) -> bool:
+        """One scheduler tick. Gather what the handlers queued, the
+        cancellations and the stop-string hits as ops; broadcast them (under
+        a mesh: the other ranks apply the same ops, :func:`serve_follower`);
+        apply them and step one block (:func:`_run_tick`); then answer the
+        waiters, which only this rank has. False once stopped."""
+        from ..parallel.collectives import broadcast_object
+
+        if not self._stop and not self._inflight and self._inbox.empty():
+            self._wake.wait(timeout=0.25)
+            self._wake.clear()
+        stop = self._stop
+        ops: List[tuple] = []
+        self._ticking = []
+        while not stop:
+            try:
+                p = self._inbox.get_nowait()
+            except queue.Empty:
+                break
+            ops.append(p.op)
+            self._ticking.append(p)
+        # handler-requested cancellations (client disconnects) and stop-
+        # string hits, so the freed slots admit queued work this very tick
+        for rid, p in ([] if stop else list(self._inflight.items())):
+            if p.cancelled or (bool(p.stop) and self._check_stop(p)):
+                ops.append(("cancel", rid))
+                self._ticking.append(p)
+        step = not stop and (bool(self._inflight)
+                             or any(o[0] != "call" for o in ops))
+        tick = broadcast_object({"ops": ops, "step": step, "stop": stop},
+                                self.mesh)
+        results, finished = _run_tick(self.engine, self.runner, tick)
+        # from here on this rank's own bookkeeping: the other ranks of a
+        # mesh already wait at the next tick's broadcast
+        for op, p, res in zip(ops, self._ticking, results):
+            self._resolve(op, p, res)
+        self._ticking = []
+        for rid, toks in finished.items():
+            p = self._inflight.pop(rid, None)
+            if p is not None:
+                self._finish(p, toks)
+            self.engine.release(rid)
+        for rid, p in self._inflight.items():
+            p.push_progress(self.engine.partial_output(rid), final=False)
+        if step:
             # a tiny yield so handler threads get the GIL between blocks
             time.sleep(self.poll_s)
+        return not stop
+
+    def _resolve(self, op, p: "_Pending", res):
+        """The waiter's side of one applied op."""
+        if op[0] == "cancel":
+            rid = op[1]
+            if p.cancelled:
+                self.cancelled_total += 1
+            self._inflight.pop(rid, None)
+            self._finish(p, self.engine.partial_output(rid))
+            self.engine.release(rid)
+        elif isinstance(res, Exception):  # surfaced as HTTP 400 / re-raised
+            p.fail(str(res), res)
+        elif op[0] == "call":
+            p.result = res
+            p.done.set()
+        else:
+            p.rid = res
+            self._inflight[res] = p
+            self.requests_total += 1
+
+    def _stop_followers(self):
+        """After a crash, the stop tick, so that the other ranks return from
+        :func:`serve_follower`. A crash in this rank's own bookkeeping finds
+        them waiting at the next tick's broadcast; a fault inside the
+        engine's step on this rank alone leaves them in a collective of the
+        forward, which the stop tick cannot reach (they wait for the
+        collective's timeout)."""
+        from ..parallel.collectives import broadcast_object
+
+        try:
+            broadcast_object({"ops": [], "step": False, "stop": True},
+                             self.mesh)
+        except Exception:  # noqa: BLE001 — the waiters already failed
+            import traceback
+
+            traceback.print_exc()
+
+
+def _apply_op(engine: ServingEngine, runner, op):
+    """One op of a tick on this rank's engine: ("submit", kwargs), ("vlm",
+    prompt, kwargs) (the runner's vision pass and splice on this rank, then
+    submit), ("call", fn) or ("cancel", rid). Returns the submission's rid
+    or the call's result."""
+    kind = op[0]
+    if kind == "submit":
+        return engine.submit(**op[1])
+    if kind == "vlm":
+        kw = runner.engine_request(op[1])
+        kw.update(op[2])
+        return engine.submit(**kw)
+    if kind == "call":
+        return op[1](engine)
+    if kind == "cancel":
+        return engine.cancel(op[1])
+    raise ValueError(f"unknown tick op {kind!r}")
+
+
+def _run_tick(engine: ServingEngine, runner, tick) -> tuple:
+    """Every rank's share of one tick: the ops in order, an op's exception
+    being its result (every rank meets the same one: the same inputs on the
+    same code), then one block if the tick steps. Returns (the ops'
+    results, the requests that finished)."""
+    results = []
+    for op in tick["ops"]:
+        try:
+            results.append(_apply_op(engine, runner, op))
+        except Exception as e:  # noqa: BLE001 — the waiter's error
+            results.append(e)
+    return results, (engine.step_block() if tick["step"] else {})
+
+
+@torch.no_grad()
+def serve_follower(engine: ServingEngine, mesh, runner=None) -> None:
+    """A tensor-parallel rank other than 0: receive rank 0's ticks and make
+    the same engine calls (the vision passes through ``runner``), until the
+    tick that says stop. Serves no HTTP."""
+    from ..parallel.collectives import broadcast_object
+    from ..parallel.sharding import set_mesh
+
+    with set_mesh(mesh):
+        while True:
+            tick = broadcast_object(None, mesh)
+            _, finished = _run_tick(engine, runner, tick)
+            for op in tick["ops"]:
+                if op[0] == "cancel":
+                    engine.release(op[1])
+            for rid in finished:
+                engine.release(rid)
+            if tick["stop"]:
+                return
 
 
 # ---------------------------------------------------------------------------
@@ -331,6 +439,8 @@ class InferenceServer:
                  chat_family: str = "qwen2vl", model_name: str = "mquant-tpu",
                  host: str = "127.0.0.1", port: int = 0, vlm_runner=None,
                  mesh=None):
+        """``mesh``: this rank's tensor-parallel mesh (tp index 0: the
+        other ranks run :func:`serve_follower` on their engines)."""
         self.tokenizer = tokenizer
         # a VLMRunner enables OpenAI-vision-style image parts in chat
         # messages: the handler thread decodes base64 → array (CPU), the
@@ -342,7 +452,7 @@ class InferenceServer:
         self.worker = EngineWorker(
             engine, decode=(self.tokenizer.decode
                             if self.tokenizer is not None else None),
-            mesh=mesh)
+            mesh=mesh, runner=vlm_runner)
         self.chat_family = chat_family
         self.model_name = model_name
         server = self
@@ -419,30 +529,15 @@ class InferenceServer:
                 try:
                     if chat and server._has_image(req):
                         prompt = server._vlm_prompt(req)
-                        runner = server.vlm_runner
-
-                        def make_kwargs(prompt=prompt):
-                            # n > 1 re-runs the vision tower per copy —
-                            # simple and correct; the tower is a small
-                            # fraction of an n-way sampled decode
-                            kw = runner.engine_request(prompt)
-                            kw["max_new_tokens"] = max_tokens
-                            kw.update(sample_kw)
-                            return kw
-
-                        def kwargs_i(i):
-                            # n copies under an explicit seed get seed+i —
-                            # identical noise would defeat n > 1
-                            def make(i=i):
-                                kw = make_kwargs()
-                                if req_seed is not None:
-                                    kw["seed"] = int(req_seed) + i
-                                return kw
-                            return make
-
-                        pendings = [server.worker.submit_lazy(kwargs_i(i),
-                                                              stop=stop)
-                                    for i in range(n)]
+                        # n > 1 re-runs the vision tower per copy — simple
+                        # and correct; the tower is a small fraction of an
+                        # n-way sampled decode. n copies under an explicit
+                        # seed get seed+i: identical noise would defeat n > 1
+                        pendings = [server.worker.submit_vlm(
+                            prompt, stop=stop, max_new_tokens=max_tokens,
+                            **(dict(sample_kw, seed=int(req_seed) + i)
+                               if req_seed is not None else sample_kw))
+                            for i in range(n)]
                     else:
                         ids = server._prompt_ids(req, chat)
                         pendings = [server.worker.submit(
@@ -519,15 +614,16 @@ class InferenceServer:
     @classmethod
     def for_vlm(cls, runner, slots: int = 4, max_len: int = 512,
                 model_name: str = "mquant-tpu", host: str = "127.0.0.1",
-                port: int = 0, **engine_kw):
+                port: int = 0, mesh=None, **engine_kw):
         """Build a server around a :class:`VLMRunner`: the engine inherits
         the runner's quantization state (specs/state/mode), text requests
         tokenize through the runner's tokenizer, and image requests go
-        through its vision tower."""
+        through its vision tower. ``mesh``: as in :class:`InferenceServer`
+        (the runner holds this rank's shard)."""
         return cls(runner.new_engine(slots, max_len, **engine_kw),
                    tokenizer=runner.tok, chat_family=runner.fam.name,
                    model_name=model_name, host=host, port=port,
-                   vlm_runner=runner)
+                   vlm_runner=runner, mesh=mesh)
 
     # -- request/response shaping --------------------------------------------
 
@@ -738,13 +834,14 @@ def build_runner_from_artifact(artifact_dir: str, mode: Optional[str] = None,
                                tokenizer=None, max_len: int = 512,
                                device="cuda",
                                image_size: Optional[int] = None,
-                               pad_to_max: bool = False):
+                               pad_to_max: bool = False, mesh=None):
     """Artifact → ``VLMRunner`` on ``device`` (the card unless the caller
     asks for another). ``mode`` defaults to "real" where the pipeline
     realized int storage (its ``quantize_config.realize_int``), else
     "fake". ``image_size`` is the runner's base bucket side (default 4
     patches); ``pad_to_max`` pads every image's patch sequence to the
-    largest bucket's, with its validity mask."""
+    largest bucket's, with its validity mask. ``mesh``: the runner holds
+    this tensor-parallel rank's shard (``parallel.sharding``)."""
     from ..evaluation.adapter import VLMRunner
     from ..utils.checkpoint import config_from_dict, load_artifact
 
@@ -753,6 +850,8 @@ def build_runner_from_artifact(artifact_dir: str, mode: Optional[str] = None,
         raise ValueError(f"artifact at {artifact_dir} predates config_dict "
                          "meta; re-export with run_pipeline")
     cfg = config_from_dict(meta["config_dict"])
+    if mesh is not None:
+        cfg, params = _shard(cfg, params, mesh)
     if mode is None:
         mode = ("real" if (meta.get("quantize_config") or {}).get(
             "realize_int") else "fake")
@@ -776,6 +875,13 @@ def build_server_from_artifact(artifact_dir: str, mode: Optional[str] = None,
     return InferenceServer.for_vlm(
         runner, slots=slots, max_len=max_len, host=host, port=port,
         model_name=runner.fam.name, **engine_kw)
+
+
+def _shard(cfg, params, mesh):
+    """(local config, this rank's params) of a family's model."""
+    from ..parallel.sharding import local_config, shard_params
+
+    return local_config(cfg, mesh), shard_params(params, mesh, cfg=cfg)
 
 
 def _load_tokenizer(path: str):
@@ -822,12 +928,34 @@ def main(argv=None):
                    help="top-k cap for sampled requests (0 = greedy-only "
                         "engine; mutually exclusive with --spec_k)")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel ranks: spawned here (gloo on the "
+                        "CPU, NCCL with one card a rank), or the torchrun "
+                        "world when RANK / WORLD_SIZE are set")
     args = p.parse_args(argv)
     if args.spec_k:
         # sampling and speculation are mutually exclusive, as in the JAX
         # engine (ServingEngine raises on both)
         args.sample_top_k = 0
+    if not (args.artifact or args.tiny):
+        raise SystemExit("--artifact or --tiny required")
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:  # under torchrun
+        return _serve_rank(int(os.environ["RANK"]), args, None)
+    if args.tp > 1:
+        import tempfile
 
+        import torch.multiprocessing as mp
+
+        with tempfile.TemporaryDirectory() as store:
+            mp.start_processes(_serve_rank, args=(args, store),
+                               nprocs=args.tp, start_method="spawn")
+        return
+    _serve(args, args.device, None)
+
+
+def _serve(args, device, mesh):
+    """Build this rank's runner and engine and serve: HTTP on tp index 0
+    (or without a mesh), :func:`serve_follower` on the other ranks."""
     tokenizer = (_load_tokenizer(args.tokenizer_dir) if args.tokenizer_dir
                  else None)
     engine_kw = dict(spec_k=args.spec_k,
@@ -835,32 +963,64 @@ def main(argv=None):
                      kv_quant=args.kv_bits or False,
                      sample_top_k=args.sample_top_k, seed=args.seed)
     if args.artifact:
-        srv = build_server_from_artifact(
+        runner = build_runner_from_artifact(
             args.artifact, mode=args.mode, tokenizer=tokenizer,
-            slots=args.slots, max_len=args.max_len, host=args.host,
-            port=args.port, device=args.device, **engine_kw)
+            max_len=args.max_len, device=device, mesh=mesh)
     else:
-        if not args.tiny:
-            raise SystemExit("--artifact or --tiny required")
         from ..evaluation.adapter import VLMRunner
         from ..models.registry import get_family
 
         fam = get_family(args.model)
         cfg = fam.tiny_fn()
         params = fam.init_fn(cfg, torch.Generator().manual_seed(0),
-                             device=args.device)
+                             device=device)
+        if mesh is not None:
+            cfg, params = _shard(cfg, params, mesh)
         runner = VLMRunner(fam.name, cfg, params, tokenizer=tokenizer,
                            max_len=args.max_len, mode=args.mode or "fp")
-        srv = InferenceServer.for_vlm(runner, slots=args.slots,
-                                      max_len=args.max_len, host=args.host,
-                                      port=args.port, **engine_kw)
+    if mesh is not None and mesh.tp_index != 0:
+        serve_follower(runner.new_engine(args.slots, args.max_len,
+                                         **engine_kw), mesh, runner)
+        return
+    srv = InferenceServer.for_vlm(runner, slots=args.slots,
+                                  max_len=args.max_len, host=args.host,
+                                  port=args.port,
+                                  model_name=(runner.fam.name if args.artifact
+                                              else "mquant-tpu"),
+                                  mesh=mesh, **engine_kw)
     print(f"serving {srv.model_name} on http://{args.host}:{srv.port} "
-          f"(slots={args.slots}, max_len={args.max_len}, "
-          f"device={args.device})", flush=True)
+          f"(slots={args.slots}, max_len={args.max_len}, device={device}"
+          f"{f', tp={mesh.tp}' if mesh else ''})", flush=True)
     try:
         srv._http_thread.join()
     except KeyboardInterrupt:
         srv.shutdown()
+
+
+def _serve_rank(rank: int, args, store: Optional[str]):
+    """One tensor-parallel rank of ``--tp``: its process group (a file
+    store under ``store``, or torchrun's environment), its device, the
+    mesh, then :func:`_serve`."""
+    import torch.distributed as dist
+
+    from ..parallel.sharding import make_mesh
+
+    world = args.tp if store else int(os.environ["WORLD_SIZE"])
+    backend = "gloo" if args.device == "cpu" else "nccl"
+    device = args.device
+    if backend == "nccl":
+        local = int(os.environ.get("LOCAL_RANK", rank))
+        device = f"cuda:{local}"
+        torch.cuda.set_device(device)
+    if store:
+        dist.init_process_group(backend, init_method=f"file://{store}/pg",
+                                rank=rank, world_size=world)
+    else:
+        dist.init_process_group(backend)
+    try:
+        _serve(args, device, make_mesh())
+    finally:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

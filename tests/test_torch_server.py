@@ -387,9 +387,15 @@ def test_releases_bookkeeping_and_worker_call(model):
 
 
 def test_mesh_raises(model):
+    """``mesh=`` serves tensor parallel (tests/test_torch_sharding_serving.py)
+    but takes only a mesh with its process groups."""
+    from mquant_tpu_torch.parallel.sharding import slice_mesh
+
     eng = TEngine(model.tc, model.pt, slots=1, max_len=64)
-    with pytest.raises(NotImplementedError, match="A14"):
+    with pytest.raises(TypeError, match="Mesh"):
         InferenceServer(eng, port=0, mesh=object())
+    with pytest.raises(ValueError, match="make_mesh"):
+        InferenceServer(eng, port=0, mesh=slice_mesh(0, 2))
 
 
 # -- VLM: a realized artifact of the port's pipeline, both packages ----------
